@@ -1,0 +1,363 @@
+"""Decoder transformer core, the Llama-family path.
+
+Port of ``k8s_distributed_deeplearning_tpu/models/transformer.py``: the
+same architecture and the same rounding points, as ``nn.Module``s. Weight
+names follow the flax modules (``q_proj``, ``attn_norm``, ``tok_embed``
+…) so :mod:`models.convert` maps one tree onto the other leaf for leaf.
+Weights are stored in the compute dtype (flax keeps f32 params and casts
+them to the compute dtype at every use, which rounds identically); norm
+scales stay f32, as flax multiplies by them in f32.
+
+Two attention paths exist in this slice:
+
+- the plain forward (``decode=False``): causal einsum attention with
+  optional packed ``segment_ids``;
+- the PAGED decode branch (``decode=True`` with ``block_tables``): the
+  serving engine's path. K/V live in one pool of pages per layer,
+  ``[num_pages, page_tokens, kv·hd]``; each token of the chunk is written
+  at ``(table[pos // page_tokens], pos % page_tokens)`` and the chunk's
+  queries attend the row's pages through
+  :func:`ops.paged_attn.paged_decode_attention`.
+
+The dense (non-paged) decode cache is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from k8s_distributed_deeplearning_torch.ops import attention as attention_ops
+from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Architecture knobs, as in the JAX package (the training-only knobs
+    — remat, scan, dropout, serving TP, KV quantization — are not here)."""
+
+    vocab_size: int = 32000
+    dim: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int | None = None       # < n_heads => GQA
+    head_dim: int | None = None         # default dim // n_heads
+    mlp_dim: int | None = None          # default 4*dim
+    max_seq_len: int = 2048
+    causal: bool = True
+    activation: str = "swiglu"
+    norm: str = "rmsnorm"
+    position: str = "rope"              # "rope" | "none"
+    rope_theta: float = 500000.0
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16  # compute and weight dtype
+    attention_impl: str = "auto"        # "auto": the paged decode branch
+                                        # calls the paged-attention kernel
+                                        # wrapper (kernel on CUDA tensors,
+                                        # plain version on CPU tensors);
+                                        # "xla": the plain version always,
+                                        # the reference path of a
+                                        # kernel-vs-reference comparison
+
+    def __post_init__(self):
+        if self.activation != "swiglu":
+            raise NotImplementedError(
+                f"activation={self.activation!r}: the port has the SwiGLU "
+                "MLP only so far")
+        if self.norm != "rmsnorm":
+            raise NotImplementedError(
+                f"norm={self.norm!r}: the port has RMSNorm only so far")
+        if self.position not in ("rope", "none"):
+            raise NotImplementedError(
+                f"position={self.position!r}: the port has RoPE or none")
+        if self.attention_impl not in ("auto", "xla", "flash"):
+            raise ValueError(
+                f"attention_impl must be 'auto', 'xla' or 'flash', got "
+                f"{self.attention_impl!r}")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.dim // self.n_heads
+
+    @property
+    def resolved_kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def resolved_mlp_dim(self) -> int:
+        return self.mlp_dim or 4 * self.dim
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm: variance in f32, times the f32 scale, then
+    cast to the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
+
+
+def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-document positions for packed rows: positions restart at 0 at
+    each document start."""
+    b, s = segment_ids.shape
+    idx = torch.arange(s, device=segment_ids.device)[None, :].expand(b, s)
+    is_start = torch.ones_like(segment_ids, dtype=torch.bool)
+    is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    doc_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return idx - doc_start
+
+
+def rope_frequencies(head_dim: int, max_seq_len: int, theta: float,
+                     device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE cos/sin tables, shape [max_seq_len, head_dim/2], f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(max_seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _rope_at(cos, sin, positions, s):
+    """cos/sin rows for a [B, S] (or None => 0..S-1) position grid, shaped
+    [B|1, S, 1, D/2]. Positions past the table are clamped to its last row,
+    as the JAX gather clamps: only right-pad tokens reach them, and their
+    outputs are never read."""
+    if positions is None:
+        cos_p, sin_p = cos[:s][None], sin[:s][None]
+    else:
+        idx = positions.long().clamp(0, cos.shape[0] - 1)
+        cos_p, sin_p = cos[idx], sin[idx]
+    return cos_p[:, :, None, :], sin_p[:, :, None, :]
+
+
+def _rotate(x, cos_p, sin_p):
+    xf = x.float()
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    r1 = x1 * cos_p - x2 * sin_p
+    r2 = x2 * cos_p + x1 * sin_p
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotate INTERLEAVED pairs (x[..., ::2], x[..., 1::2]) by
+    position-dependent angles. x: [B, S, H, D]; cos/sin: [max_seq, D/2];
+    positions: [B, S] or None (0..S-1). Rotation in f32, cast back."""
+    return _rotate(x, *_rope_at(cos, sin, positions, x.shape[1]))
+
+
+@dataclasses.dataclass
+class PagedWrite:
+    """Per-forward paged-pool addressing, shared by every layer: each
+    chunk token's absolute position, and the (page, offset) cell it writes.
+    Tokens whose block lies past the table's end write to scratch page 0."""
+
+    tables: torch.Tensor     # [B, n_blocks] int32, contiguous
+    positions: torch.Tensor  # [B, sq] int32, contiguous
+    page: torch.Tensor       # [B, sq] int64
+    offset: torch.Tensor     # [B, sq] int64
+
+    @classmethod
+    def build(cls, block_tables: torch.Tensor, positions: torch.Tensor,
+              page_tokens: int) -> "PagedWrite":
+        tables = block_tables.to(torch.int32).contiguous()
+        wpos = positions.to(torch.int32).contiguous()
+        n_blocks = tables.shape[1]
+        blk = wpos.long() // page_tokens
+        pg = torch.gather(tables, 1, blk.clamp_max(n_blocks - 1)).long()
+        pg = torch.where(blk >= n_blocks, 0, pg)          # scratch page
+        return cls(tables, wpos, pg, wpos.long() % page_tokens)
+
+
+class Attention(nn.Module):
+    """Multi-head / grouped-query attention with RoPE. Projection weights
+    are ``nn.Linear`` ``[out, in]``: flax's ``[D, H, hd]`` q/k/v kernels
+    and ``[H, hd, D]`` o_proj kernel, flattened and transposed."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        hd, kv = cfg.resolved_head_dim, cfg.resolved_kv_heads
+        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        self.q_proj = nn.Linear(cfg.dim, cfg.n_heads * hd, **kw)
+        self.k_proj = nn.Linear(cfg.dim, kv * hd, **kw)
+        self.v_proj = nn.Linear(cfg.dim, kv * hd, **kw)
+        self.o_proj = nn.Linear(cfg.n_heads * hd, cfg.dim, **kw)
+
+    def forward(self, x: torch.Tensor, *, rope, mask=None, segment_ids=None,
+                cache=None, paged: PagedWrite | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd, kv = cfg.resolved_head_dim, cfg.resolved_kv_heads
+        q = self.q_proj(x).view(b, s, cfg.n_heads, hd)
+        k = self.k_proj(x).view(b, s, kv, hd)
+        v = self.v_proj(x).view(b, s, kv, hd)
+        if rope is not None:
+            q = _rotate(q, *rope)
+            k = _rotate(k, *rope)
+        if paged is not None:
+            pool_k, pool_v = cache
+            # In place: the JAX serving programs donate the pool and get
+            # it back updated; here the engine's pool tensors are written
+            # directly. Every token owns its (page, offset) cell, except
+            # pads redirected to the scratch page, which nothing attends.
+            idx = (paged.page, paged.offset)
+            pool_k.index_put_(idx, k.reshape(b, s, kv * hd).to(pool_k.dtype))
+            pool_v.index_put_(idx, v.reshape(b, s, kv * hd).to(pool_v.dtype))
+            attend = (paged_attn.paged_decode_attention_reference
+                      if cfg.attention_impl == "xla"
+                      else paged_attn.paged_decode_attention)
+            out = attend(q, pool_k, pool_v, paged.tables, paged.positions)
+        else:
+            out = attention_ops.multi_head_attention(
+                q, k, v, causal=cfg.causal, mask=mask,
+                segment_ids=segment_ids, impl=cfg.attention_impl)
+        return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+
+
+class MLP(nn.Module):
+    """SwiGLU feed-forward."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        m = cfg.resolved_mlp_dim
+        self.gate_proj = nn.Linear(cfg.dim, m, **kw)
+        self.up_proj = nn.Linear(cfg.dim, m, **kw)
+        self.down_proj = nn.Linear(m, cfg.dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x))."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        self.attn = Attention(cfg, device=device)
+        self.mlp_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+    def forward(self, x, **attn_kw):
+        x = x + self.attn(self.attn_norm(x), **attn_kw)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Transformer(nn.Module):
+    """Tokens in, final-normed hidden states out.
+
+    ``decode=True`` with ``block_tables`` ([B, n_blocks] int32) and
+    ``cache`` (one ``(pool_k, pool_v)`` pair per layer, written in place)
+    selects the paged serving branch. Its write positions are
+    ``positions`` ([B, S]) or, for slot decode, ``cache_positions[:, None]
+    + arange(S)`` ([B] cursors)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.dim,
+                                      device=device, dtype=cfg.dtype)
+        self.blocks = nn.ModuleList(
+            [Block(cfg, device=device) for _ in range(cfg.n_layers)])
+        self.final_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        if cfg.position == "rope":
+            cos, sin = rope_frequencies(cfg.resolved_head_dim,
+                                        cfg.max_seq_len, cfg.rope_theta,
+                                        device=device)
+            self.register_buffer("rope_cos", cos, persistent=False)
+            self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, tokens: torch.Tensor, *,
+                mask: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None,
+                segment_ids: torch.Tensor | None = None,
+                decode: bool = False,
+                cache: list | None = None,
+                cache_positions: torch.Tensor | None = None,
+                block_tables: torch.Tensor | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        b, s = tokens.shape
+        paged = None
+        if decode:
+            if block_tables is None:
+                raise NotImplementedError(
+                    "decode without block_tables needs the dense KV cache, "
+                    "which the PyTorch port does not have yet")
+            if cache is None or len(cache) != cfg.n_layers:
+                raise ValueError(
+                    "paged decode requires the engine's page pool: one "
+                    "(pool_k, pool_v) pair per layer")
+            if mask is not None or segment_ids is not None:
+                raise NotImplementedError(
+                    "paged decode isolates rows by block tables and builds "
+                    "its own cursor mask; mask/segment_ids have no meaning")
+            if positions is None:
+                if cache_positions is None:
+                    raise ValueError(
+                        "paged chunk prefill requires explicit positions; "
+                        "only slot decode derives them from cache_positions")
+                positions = (cache_positions.long()[:, None]
+                             + torch.arange(s, device=tokens.device)[None])
+            paged = PagedWrite.build(block_tables, positions,
+                                     cache[0][0].shape[-2])
+        elif cache_positions is not None or block_tables is not None:
+            raise ValueError("cache_positions/block_tables require decode")
+        rope = None
+        if cfg.position == "rope":
+            rope = _rope_at(self.rope_cos, self.rope_sin, positions, s)
+        x = self.tok_embed(tokens)
+        for i, block in enumerate(self.blocks):
+            x = block(x, rope=rope, mask=mask, segment_ids=segment_ids,
+                      cache=cache[i] if paged is not None else None,
+                      paged=paged)
+        return self.final_norm(x)
+
+
+class LMHead(nn.Module):
+    """Hidden states -> f32 vocab logits. Untied: the matmul runs in the
+    compute dtype and the result is cast to f32, as in the JAX head. Tied:
+    f32 accumulation against the input embedding."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
+                                     device=device, dtype=cfg.dtype)
+
+    def forward(self, x: torch.Tensor,
+                embedding: torch.Tensor | None = None) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            if embedding is None:
+                raise ValueError("tie_embeddings requires the embedding table")
+            return F.linear(x.float(), embedding.float())
+        return self.lm_head(x).float()
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``, with the JAX package's families:
+    Glorot-uniform projections, N(0, 0.02) embeddings, unit norm scales."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            limit = math.sqrt(6.0 / (m.in_features + m.out_features))
+            m.weight.uniform_(-limit, limit, generator=generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, RMSNorm):
+            m.scale.fill_(1.0)

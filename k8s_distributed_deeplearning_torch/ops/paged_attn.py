@@ -1,0 +1,189 @@
+"""Paged grouped-query attention straight off the KV page pool.
+
+Port of ``k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py``
+(fp branch). The serving engine keeps K/V as one pool of fixed-size pages
+per layer, ``[num_pages, page_tokens, kv·head_dim]``, and each batch row
+maps its virtual sequence onto pool pages through a block table. Query
+``i`` of row ``b`` attends virtual columns ``<= positions[b, i]``: stale
+K/V beyond a row's cursor and the scratch page (table entries 0) are never
+read into the result.
+
+- :func:`paged_decode_attention` launches the hand-written CUDA kernel
+  (``csrc/paged_attn.cu``) on CUDA tensors, and takes the plain version on
+  CPU tensors. There is no fallback from one to the other: a CUDA tensor
+  the kernel cannot take raises.
+- :func:`paged_decode_attention_reference` is the plain version: gather the
+  row's pages, mask, softmax, the same arithmetic as the XLA gather path in
+  the JAX model (``models/transformer.py`` paged branch), except that a
+  row with no visible column gives exactly 0, as the kernel does.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from k8s_distributed_deeplearning_torch.ops import _build
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HEAD_DIM = 256
+
+
+def _check_shapes(q, pool_k, pool_v, block_tables, positions):
+    """The Pallas wrapper's validation (pallas_paged_attn.py:167-188).
+    Returns (b, sq, h, hd, page_tokens, hkv)."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, sq, H, hd], got {tuple(q.shape)}")
+    if pool_k.ndim != 3 or pool_k.shape != pool_v.shape:
+        raise ValueError(
+            f"pool_k/pool_v must be identical [num_pages, page_tokens, "
+            f"kv*hd], got {tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
+    b, sq, h, hd = q.shape
+    _, page_tokens, kvhd = pool_k.shape
+    if kvhd % hd:
+        raise ValueError(
+            f"pool lane dim {kvhd} is not a multiple of head_dim {hd}")
+    hkv = kvhd // hd
+    if h % hkv:
+        raise ValueError(f"{h} q heads not divisible by {hkv} kv heads")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b:
+        raise ValueError(
+            f"block_tables must be [B={b}, n_blocks], "
+            f"got {tuple(block_tables.shape)}")
+    if tuple(positions.shape) != (b, sq):
+        raise ValueError(
+            f"positions must be [B={b}, sq={sq}], "
+            f"got {tuple(positions.shape)}")
+    devices = {t.device for t in (q, pool_k, pool_v, block_tables,
+                                  positions)}
+    if len(devices) != 1:
+        raise ValueError(f"all operands must be on one device, got {devices}")
+    return b, sq, h, hd, page_tokens, hkv
+
+
+def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
+                                     pool_v: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     positions: torch.Tensor, *,
+                                     softmax_scale: float | None = None
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`paged_decode_attention`: gather each
+    row's pages into its ``[n_blocks·page_tokens]`` virtual sequence, mask
+    ``col > positions``, softmax in f32, probabilities cast to the value
+    dtype for P·V (accumulated in f32), output in q's dtype."""
+    b, sq, h, hd, page_tokens, hkv = _check_shapes(
+        q, pool_k, pool_v, block_tables, positions)
+    group = h // hkv
+    s_virt = block_tables.shape[1] * page_tokens
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    tables = block_tables.long()
+    k_all = pool_k[tables].reshape(b, s_virt, hkv, hd)
+    v_all = pool_v[tables].reshape(b, s_virt, hkv, hd)
+    qg = q.reshape(b, sq, hkv, group, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k_all.float()) * scale
+    col = torch.arange(s_virt, device=q.device)
+    allow = col[None, None, :] <= positions.long()[:, :, None]  # [B, sq, S]
+    scores = scores.masked_fill(~allow[:, None, None], float("-inf"))
+    # exp(s - max) / sum, with a row that sees no column giving 0 (the
+    # kernel's p = 0 guard and max(l, 1e-30) floor) instead of NaN.
+    m = scores.amax(-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(scores - m)
+    probs = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_all.dtype).float(),
+                       v_all.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, block_tables: torch.Tensor,
+                           positions: torch.Tensor, *,
+                           softmax_scale: float | None = None
+                           ) -> torch.Tensor:
+    """Grouped-query attention straight off the page pool.
+
+    q: ``[B, sq, H, hd]`` (``sq`` = 1 for decode, the chunk width for a
+    prefill chunk); pool_k/pool_v: ``[num_pages, page_tokens, kv·hd]``,
+    written BEFORE this call so a chunk's tokens see each other;
+    block_tables: ``[B, n_blocks]`` int32 (0 = the never-attended scratch
+    page); positions: ``[B, sq]`` int32, query ``i`` of row ``b`` attends
+    virtual columns ``<= positions[b, i]``. Returns ``[B, sq, H, hd]`` in
+    q's dtype.
+
+    CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
+    tensors launch the kernel, which takes float32 or bfloat16 q with
+    pools of the same dtype, int32 tables and positions, all contiguous,
+    and a ``head_dim`` that is a multiple of 8 up to 256; anything else
+    raises. Each launch adds one to
+    ``paged_decode_attention.launches``.
+    """
+    b, sq, h, hd, page_tokens, hkv = _check_shapes(
+        q, pool_k, pool_v, block_tables, positions)
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, pool_k, pool_v, block_tables, positions,
+            softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention for device {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32 or bfloat16 q, got {q.dtype}")
+    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise TypeError(
+            f"pools must share q's dtype {q.dtype}, got {pool_k.dtype} / "
+            f"{pool_v.dtype}")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise TypeError(
+            f"block_tables/positions must be int32, got "
+            f"{block_tables.dtype} / {positions.dtype}")
+    if hd > _MAX_HEAD_DIM or hd % 8:
+        raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and a "
+                         f"multiple of 8, got {hd}")
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                    ("block_tables", block_tables),
+                    ("positions", positions)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    lib = _library()
+    n_blocks = block_tables.shape[1]
+    n_splits = lib.paged_attn_num_splits(b, sq, h, hkv, hd, page_tokens,
+                                         n_blocks, _num_sms(q.device))
+    out = torch.empty_like(q)
+    # Decode splits its key range across blocks; the partial softmax
+    # states (max, sum, unnormalized output per query row) go here.
+    ws = (torch.empty(b * n_splits * h * sq * (hd + 2), dtype=torch.float32,
+                      device=q.device) if n_splits > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_attn_fwd(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, sq, h, hkv, hd,
+            page_tokens, n_blocks, n_splits, _DTYPE_CODE[q.dtype], scale,
+            stream)
+    if rc:
+        raise RuntimeError(f"paged_attn_fwd launch failed: CUDA error {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _library():
+    lib = _build.load("paged_attn")
+    if lib.paged_attn_fwd.argtypes is None:
+        lib.paged_attn_num_splits.argtypes = [ctypes.c_int] * 8
+        lib.paged_attn_num_splits.restype = ctypes.c_int
+        lib.paged_attn_fwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_attn_fwd.restype = ctypes.c_int
+    return lib
