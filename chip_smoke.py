@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from ``csrc/`` with nvcc,
-then runs three phases; any failure exits non-zero.
+Builds every CUDA kernel of the port from ``csrc/`` with nvcc (one nvcc
+per source, all started together), then runs six phases; any failure
+exits non-zero.
 
 A. Each kernel against its plain PyTorch version on the card, at the
    Llama-3 8B attention shapes (32 q heads, 8 KV heads, head_dim 128,
@@ -26,6 +27,36 @@ B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
 C. The same workload in f32 at 8B width and 4 layers, greedy, through the
    kernel path and through the plain path (``attention_impl="xla"``):
    the first 16 tokens of every request agree.
+D. The three flash-attention kernels (forward, dQ, dK/dV) against their
+   plain PyTorch versions on the card, in bf16 and f32, at B 2, S 2048,
+   32 q heads, 8 KV heads, head_dim 128: causal, non-causal, 512 queries
+   against 2048 keys (causal, offset 1536), and three packed documents by
+   segment ids (causal). Each output is held element by element to a
+   limit of atol x the RMS of its row (never below the output's RMS) +
+   rtol x the element, and the log-sum-exp to an absolute limit. Reports
+   each kernel's error, time, the plain version's, the bound (the larger
+   of the bytes it must move over
+   3.35 TB/s and its matmul FLOPs on the visible pairs over the dtype's
+   peak) and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention`` (forward alone for the forward kernel,
+   forward and backward through autograd for the backward ones).
+E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
+   max_seq_len=2048)``: bf16 compute, f32 params, remat "dots"), chunked
+   CE, AdamW with global-norm clip 1.0, 4 x 2048 tokens per step, through
+   ``make_train_step`` over NCCL at world size 1 and ``fit`` over a
+   ``TokenBatcher`` of ``synthetic_tokens``. Eight steps on one fixed
+   batch bring the loss down by the stated margin; then a timed window of
+   steps gives tokens/s, step ms, peak memory and the model-FLOPs share,
+   the kernel launches per step are checked exactly (forward 2 x layers
+   with the remat recompute, dQ and dK/dV once per layer), and one
+   profiled step gives device time by class and the busy share.
+F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
+   from the same weights, through the kernels (``attention_impl="auto"``)
+   and through the plain einsum path (``"xla"``): the losses agree, and
+   for every parameter tensor on its own the first step's gradient and
+   the parameters after the 3 steps agree, within the stated tolerances.
+   Logs the element whose parameter differs most, with its gradient and
+   Adam moments on both paths.
 
 Prints the card's name and power limit, the build time, one JSON line per
 phase, a ``{"kernels": [...]}`` line, and last
@@ -35,6 +66,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,6 +85,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 # probabilities, and both round the output to bf16.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 H, KV, HD, PAGE = 32, 8, 128, 32
+# Phase D tolerances (atol, rtol), held per element and per output (o, dq,
+# dk, dv): |kernel - plain| <= atol x scale + rtol x |plain|. rtol covers
+# the output rounding: bf16 keeps 8 significant bits, so two results that
+# differ in their last f32 bits can round one bf16 ulp (<= 2^-7 of the
+# value) apart. atol covers the rest: in bf16 the rounding of p (forward,
+# at the running max in the kernel and at the final max in the plain
+# version) or of dS (backward) at different points, in f32 the order of
+# the sums. Their effect grows with the size of each row (the head_dim
+# vector of one position and head: a row over 2 keys is a mean of 2 values
+# of V, one over 2000 keys a far smaller one), so the scale is the row's
+# RMS, but never below the whole output's RMS: a dQ row that cancels to
+# about 0 (a query that sees one key) still carries its dS rounding. The
+# log-sum-exp is f32 in both dtypes and is held to LSE_ATOL absolute.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4),
+             torch.bfloat16: (2 ** -5, 2 ** -6)}
+LSE_ATOL = 1e-3
+# Phase E: the loss after 8 steps on one fixed batch is below this share
+# of the first step's loss.
+FIXED_BATCH_MARGIN = 0.9
+# Phase F: relative loss agreement; then, for every parameter tensor on its
+# own, the L2 norm of the kernel path's first-step gradient minus the plain
+# path's over the plain one's, and the L2 norm of the difference of the
+# parameters after the 3 steps over the change the 3 steps made.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PARAM_TOL = 1e-3
 
 
 def log(obj) -> None:
@@ -290,11 +348,38 @@ def phase_b(dev):
 
 
 def _kernel_class(name: str) -> str:
-    if "paged_attn" in name:
-        return "paged_attn"
+    for key, cls in (("paged_attn", "paged_attn"),
+                     ("flash_fwd_kernel", "flash_fwd"),
+                     ("flash_dq_kernel", "flash_dq"),
+                     ("flash_dkv_kernel", "flash_dkv")):
+        if key in name:
+            return cls
     if any(s in name for s in ("gemm", "gemv", "cutlass", "nvjet", "sm90")):
         return "matmul"
     return "other"
+
+
+def _device_ms_by_kernel(prof, steps: int):
+    """(name, launches, device ms per step) for every CUDA kernel in a
+    ``torch.profiler`` run of ``steps`` steps, longest first."""
+    from torch.autograd import DeviceType
+
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels.append((e.key, e.count, us / 1e3 / steps))
+    kernels.sort(key=lambda k: -k[2])
+    return kernels
+
+
+def _by_class(kernels) -> dict:
+    out: dict[str, float] = {}
+    for name, _, ms in kernels:
+        out[_kernel_class(name)] = out.get(_kernel_class(name), 0.0) + ms
+    return out
 
 
 def decode_profile(eng, vocab, steps: int = 16):
@@ -302,7 +387,6 @@ def decode_profile(eng, vocab, steps: int = 16):
     clock over ``steps`` iterations, then device time by kernel over
     ``steps`` more under ``torch.profiler``. The busy share divides the
     profiled device time by the unprofiled host time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from k8s_distributed_deeplearning_torch.serve import Request
@@ -328,19 +412,9 @@ def decode_profile(eng, vocab, steps: int = 16):
     check(eng.occupied_slots() == eng.num_slots,
           "a slot emptied inside the profiled decode window")
     eng.run()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            kernels.append((e.key, e.count, us / 1e3 / steps))
-    kernels.sort(key=lambda k: -k[2])
+    kernels = _device_ms_by_kernel(prof, steps)
     device_ms = sum(k[2] for k in kernels)
-    by_class: dict[str, float] = {}
-    for name, _, ms in kernels:
-        by_class[_kernel_class(name)] = by_class.get(_kernel_class(name),
-                                                     0.0) + ms
+    by_class = _by_class(kernels)
     log({"phase": "B", "case": "decode_profile", "slots": eng.num_slots,
          "steps": steps, "step_ms": step_ms,
          "device_ms_per_step": device_ms,
@@ -381,12 +455,472 @@ def phase_c(dev):
     return result
 
 
+# ------------------------------------------------------------- phase D
+
+FLASH_CASES = {                   # name: (sq, causal, segment lengths)
+    "causal": (2048, True, None),
+    "noncausal": (2048, False, None),
+    "sq512_sk2048_causal": (512, True, None),
+    "three_docs_causal": (2048, True, (700, 800, 548)),
+}
+FLASH_B, FLASH_SK = 2, 2048
+FLASH_REPLACES = {
+    "flash_fwd": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:148",
+    "flash_bwd_dq": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:396",
+    "flash_bwd_dkv":
+        "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:520",
+}
+
+
+def _flash_case(dev, dtype, sq, seg_lens, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    q = rnd(FLASH_B, sq, H, HD)
+    k, v = rnd(FLASH_B, FLASH_SK, KV, HD), rnd(FLASH_B, FLASH_SK, KV, HD)
+    do = rnd(FLASH_B, sq, H, HD)
+    segq = segk = None
+    if seg_lens is not None:
+        ids = torch.repeat_interleave(
+            torch.arange(1, len(seg_lens) + 1, device=dev),
+            torch.tensor(seg_lens, device=dev)).to(torch.int32)
+        segk = ids[None].expand(FLASH_B, FLASH_SK).contiguous()
+        segq = segk[:, FLASH_SK - sq:].contiguous()
+    return q, k, v, do, segq, segk
+
+
+def _visible_pairs(dev, sq, causal, segq, segk):
+    """(query, key) pairs the mask lets through, summed over the batch."""
+    row = torch.arange(sq, device=dev)[:, None]
+    col = torch.arange(FLASH_SK, device=dev)[None, :]
+    allow = torch.ones(1, sq, FLASH_SK, dtype=torch.bool, device=dev)
+    if causal:
+        allow = allow & (row + (FLASH_SK - sq) >= col)[None]
+    if segq is not None:
+        allow = allow & (segq[:, :, None] == segk[:, None, :])
+    return int(allow.sum()) * (FLASH_B if allow.shape[0] == 1 else 1)
+
+
+def _flash_bound(kind, dtype, sq, pairs):
+    """Least time on an H100 SXM: the larger of each input read once and
+    each output written once over 3.35 TB/s, and the kernel's matmul FLOPs
+    on the visible pairs over the dtype's peak (forward 2 products, dQ 3,
+    dK/dV 4, each 2 * head_dim FLOPs per pair and query head)."""
+    item = torch.finfo(dtype).bits // 8
+    qo = FLASH_B * sq * H * HD * item              # q, o, do or dq
+    kv = FLASH_B * FLASH_SK * KV * HD * item       # k or v (dk or dv)
+    stat = FLASH_B * H * sq * 4                    # lse or delta, f32
+    nbytes, mm = {"flash_fwd": (2 * qo + 2 * kv + stat, 2),
+                  "flash_bwd_dq": (3 * qo + 2 * kv + 2 * stat, 3),
+                  "flash_bwd_dkv": (2 * qo + 4 * kv + 2 * stat, 4)}[kind]
+    flops = mm * 2 * HD * H * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations")
+
+
+def _flash_err(outputs: dict, tol) -> dict:
+    """Kernel outputs against the plain ones, ``{name: (got, ref)}``. Each
+    element's scale is the larger of its row's RMS (the head_dim vector of
+    one position and head) and the whole output's RMS. Returns the largest
+    |got - ref|, the largest |got - ref| over its scale, and the largest
+    share of the limit atol x scale + rtol x |ref| used (the check: <= 1),
+    each the worst over the outputs."""
+    atol, rtol = tol
+    worst = {"max_abs_err": 0.0, "err_over_scale": 0.0, "tol_share": 0.0}
+    for got, ref in outputs.values():
+        r = ref.float()
+        d = (got.float() - r).abs()
+        scale = r.square().mean(-1, keepdim=True).sqrt().clamp_min(
+            float(r.square().mean().sqrt()))
+        reading = {
+            "max_abs_err": float(d.max()),
+            "err_over_scale": float((d / scale).max()),
+            "tol_share": float((d / (atol * scale + rtol * r.abs())).max())}
+        worst = {k: max(worst[k], reading[k]) for k in worst}
+    return worst
+
+
+def _sdpa_fns(q, k, v, do, causal, segq, segk):
+    """scaled_dot_product_attention on the same inputs (heads-first views,
+    GQA), forward alone and forward + backward: a yardstick only."""
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[1], k.shape[1]
+    mask, is_causal = None, causal and sq == sk and segq is None
+    if (causal and not is_causal) or segq is not None:
+        row = torch.arange(sq, device=q.device)[:, None]
+        col = torch.arange(sk, device=q.device)[None, :]
+        mask = torch.ones(1, 1, sq, sk, dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (row + (sk - sq) >= col)
+        if segq is not None:
+            mask = mask & (segq[:, None, :, None] == segk[:, None, None, :])
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    return fwd, fwd_bwd
+
+
+def phase_d(dev, flush):
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+
+    rows = {name: [] for name in FLASH_REPLACES}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[dtype]
+        for ci, (case, (sq, causal, seg_lens)) in enumerate(
+                FLASH_CASES.items()):
+            q, k, v, do, segq, segk = _flash_case(dev, dtype, sq, seg_lens,
+                                                  ci)
+            scale = HD ** -0.5
+            o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+            ref_o, ref_lse = fa.flash_attention_reference(
+                q, k, v, causal=causal, q_segment_ids=segq,
+                kv_segment_ids=segk)
+            delta = (do.float() * ref_o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, segq, segk,
+                                 causal, scale)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, segq,
+                                      segk, causal, scale)
+            want = fa.flash_attention_bwd_reference(
+                q, k, v, ref_o, ref_lse, do, causal=causal,
+                q_segment_ids=segq, kv_segment_ids=segk)
+            torch.cuda.synchronize()
+            for got in (o, lse, dq, dk, dv):
+                check(bool(torch.isfinite(got).all()),
+                      f"{case}/{dname}: non-finite kernel output")
+            seen = ref_lse > -1e29
+            check(torch.equal(lse <= -1e29, ~seen),
+                  f"{case}/{dname}: rows that see no key differ")
+            lse_err = float((lse[seen] - ref_lse[seen]).abs().max())
+            check(lse_err <= LSE_ATOL,
+                  f"flash_fwd {case}/{dname}: lse error {lse_err} > "
+                  f"{LSE_ATOL}")
+            errs = {"flash_fwd": _flash_err({"o": (o, ref_o)}, tol),
+                    "flash_bwd_dq": _flash_err({"dq": (dq, want[0])}, tol),
+                    "flash_bwd_dkv": _flash_err({"dk": (dk, want[1]),
+                                                 "dv": (dv, want[2])}, tol)}
+            errs["flash_fwd"]["lse_max_abs_err"] = lse_err
+            for name, e in errs.items():
+                check(e["tol_share"] <= 1.0,
+                      f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
+                      f"<= {tol[0]} x rms + {tol[1]} x |plain|")
+            pairs = _visible_pairs(dev, sq, causal, segq, segk)
+            sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, causal, segq,
+                                               segk)
+            plain_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, ref_o, ref_lse, do, causal=causal,
+                q_segment_ids=segq, kv_segment_ids=segk), flush, 10)
+            times = {
+                "flash_fwd": (
+                    time_ms(lambda: fa.flash_fwd(q, k, v, segq, segk, causal,
+                                                 scale), flush, 10),
+                    time_ms(lambda: fa.flash_attention_reference(
+                        q, k, v, causal=causal, q_segment_ids=segq,
+                        kv_segment_ids=segk), flush, 10),
+                    time_ms(sdpa_fwd, flush, 10)),
+                "flash_bwd_dq": (
+                    time_ms(lambda: fa.flash_bwd_dq(
+                        q, k, v, do, ref_lse, delta, segq, segk, causal,
+                        scale), flush, 10), plain_bwd_ms, None),
+                "flash_bwd_dkv": (
+                    time_ms(lambda: fa.flash_bwd_dkv(
+                        q, k, v, do, ref_lse, delta, segq, segk, causal,
+                        scale), flush, 10), plain_bwd_ms, None)}
+            lib_bwd = time_ms(sdpa_fwd_bwd, flush, 10)
+            for name, (ms, plain_ms, lib_ms) in times.items():
+                bound, by = _flash_bound(name, dtype, sq, pairs)
+                rows[name].append({
+                    "case": case, "dtype": dname, "shape": {
+                        "B": FLASH_B, "sq": sq, "sk": FLASH_SK, "H": H,
+                        "kv": KV, "hd": HD, "causal": causal,
+                        "segments": seg_lens},
+                    "visible_pairs": pairs, **errs[name],
+                    "tol": {"atol_rms": tol[0], "rtol": tol[1]},
+                    "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms if lib_ms is not None else lib_bwd,
+                    "bound_ms": bound, "bound_by": by})
+                log({"phase": "D", "kernel": name, **rows[name][-1]})
+            del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, want
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------- phase E/F
+
+
+def _train_setup(cfg, dev, lr, chunked=True):
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import optim
+
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    params = dict(model.named_parameters())
+    optimizer = optim.make_optimizer("adamw", lr, grad_clip=1.0)
+
+    def loss(batch, gen):
+        return llama.loss_fn(model, batch, gen, chunked=chunked)
+
+    return model, optimizer, dp.init_state(params, optimizer), \
+        dp.make_train_step(loss, optimizer)
+
+
+def phase_e(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import loop
+
+    cfg = llama.config_llama3_8b(n_layers=4, max_seq_len=2048,
+                                 param_dtype=torch.float32)
+    batch_size, seq = 4, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, optimizer, state, step_fn = _train_setup(cfg, dev, lr=3e-4)
+    tokens = data_lib.synthetic_tokens(1 << 17, vocab_size=cfg.vocab_size,
+                                       seed=0)
+    batcher = data_lib.TokenBatcher(tokens, batch_size, seq, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.values())
+
+    fixed = batcher.batch_at(0)
+    losses = []
+    for i in range(8):
+        state, loss, _ = step_fn(state, fixed, i)
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"non-finite loss on the fixed batch: "
+          f"{losses}")
+    check(losses[-1] < FIXED_BATCH_MARGIN * losses[0],
+          f"8 steps on one fixed batch: loss {losses[0]} -> {losses[-1]}, "
+          f"not below {FIXED_BATCH_MARGIN} x the first")
+    log({"phase": "E", "case": "fixed_batch", "steps": 8,
+         "losses": losses, "margin": FIXED_BATCH_MARGIN})
+
+    warm, timed = 2, 6
+    state = loop.fit(step_fn, state, batcher.iter_from, state.step + warm,
+                     rng=1, log_every=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state = loop.fit(step_fn, state, batcher.iter_from, state.step + timed,
+                     rng=1, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    want = {"flash_fwd": 2 * cfg.n_layers * timed,
+            "flash_bwd_dq": cfg.n_layers * timed,
+            "flash_bwd_dkv": cfg.n_layers * timed}
+    check(launches == want, f"flash launches {launches} != {want} over "
+          f"{timed} steps (forward 2 x layers with the remat recompute)")
+    step_ms = wall / timed * 1e3
+    tok_s = timed * batch_size * seq / wall
+    flops_tok = llama.flops_per_token(cfg, seq_len=seq)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # The optimizer's share of the profiled step, between CUDA events.
+    opt_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    apply = optimizer.apply
+
+    def timed_apply(*args):
+        opt_events[0].record()
+        out = apply(*args)
+        opt_events[1].record()
+        return out
+
+    optimizer.apply = timed_apply
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, loss, _ = step_fn(state, batcher.batch_at(state.step),
+                                 state.step)
+        torch.cuda.synchronize()
+    optimizer.apply = apply
+    check(bool(torch.isfinite(loss)), "non-finite loss in the profiled step")
+    kernels = _device_ms_by_kernel(prof, 1)
+    device_ms = sum(k[2] for k in kernels)
+    result = {
+        "phase": "E", "model": "llama3-8b width", "layers": cfg.n_layers,
+        "params": n_params, "dtype": "bfloat16", "param_dtype": "float32",
+        "remat_policy": cfg.remat_policy, "chunked_ce": True,
+        "batch": batch_size, "seq_len": seq, "world_size": 1,
+        "backend": "nccl", "setup_s": setup_s, "timed_steps": timed,
+        "step_ms": step_ms, "tokens_per_s": tok_s,
+        "flops_per_token": flops_tok,
+        "model_flops_share": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "launches_per_step": {k: v / timed for k, v in launches.items()},
+        "profiled_step": {
+            "device_ms": device_ms,
+            "device_busy_share": device_ms / step_ms,
+            "device_ms_by_class": _by_class(kernels),
+            "optimizer_ms": opt_events[0].elapsed_time(opt_events[1]),
+            "top_kernels": [{"name": n[:90], "launches": c, "ms": ms}
+                            for n, c, ms in kernels[:10]]}}
+    log(result)
+    del model, optimizer, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _phase_f_run(impl, seq, dev, lr, batcher, steps, keep_on):
+    """One path of phase F: ``steps`` AdamW steps in f32 from the seeded
+    weights. Returns the losses, and on ``keep_on`` the initial weights,
+    the first step's gradients, and the parameters and Adam moments after
+    the steps."""
+    from k8s_distributed_deeplearning_torch.models import llama
+
+    cfg = llama.config_llama3_8b(n_layers=2, max_seq_len=seq,
+                                 dtype=torch.float32,
+                                 param_dtype=torch.float32,
+                                 attention_impl=impl)
+    _, optimizer, state, step_fn = _train_setup(cfg, dev, lr=lr)
+    init = {n: p.detach().to(keep_on, copy=True)
+            for n, p in state.params.items()}
+    first_grads, apply = {}, optimizer.apply
+
+    def keep_first(params, grads, opt_state):
+        if not first_grads:
+            first_grads.update({n: g.to(keep_on, copy=True)
+                                for n, g in grads.items()})
+        return apply(params, grads, opt_state)
+
+    optimizer.apply = keep_first
+    losses = []
+    for i in range(steps):
+        state, loss, _ = step_fn(state, batcher.batch_at(i), i)
+        losses.append(float(loss))
+    return {"losses": losses, "init": init, "grads": first_grads,
+            "params": {n: p.detach().to(keep_on)
+                       for n, p in state.params.items()},
+            **{k: {n: t.to(keep_on) for n, t in state.opt_state[k].items()}
+               for k in ("mu", "nu")}}
+
+
+def phase_f(dev):
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps, batch_size, seq = 1e-4, 3, 2, 1024
+    tokens = data_lib.synthetic_tokens(1 << 15, vocab_size=128256, seed=3)
+    batcher = data_lib.TokenBatcher(tokens, batch_size, seq, seed=3)
+    # The kernel path's record waits in host memory while the plain path
+    # runs: two runs' weights, gradients and moments do not fit the card.
+    ka = _phase_f_run("auto", seq, dev, lr, batcher, steps,
+                      torch.device("cpu"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kx = _phase_f_run("xla", seq, dev, lr, batcher, steps, dev)
+    la, lx = ka["losses"], kx["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lx))
+
+    def l2(x):
+        return float(x.double().square().sum().sqrt())
+
+    # Per parameter tensor, so that a fault confined to the attention
+    # projections cannot hide behind the 1.05 B embedding and head values.
+    grad_rel, param_rel, name, idx, worst_diff = {}, {}, None, 0, -1.0
+    for n, px in kx["params"].items():
+        gx = kx["grads"][n]
+        grad_rel[n] = l2(ka["grads"][n].to(dev) - gx) / l2(gx)
+        diff = ka["params"][n].to(dev) - px
+        param_rel[n] = l2(diff) / l2(px - kx["init"][n])
+        if float(diff.abs().max()) > worst_diff:
+            worst_diff = float(diff.abs().max())
+            name, idx = n, int(diff.abs().argmax())
+        del diff
+
+    # The element whose parameter differs most, with what Adam saw there.
+    def at(t):
+        return float(t.reshape(-1)[idx])
+
+    fields = ("params", "grads", "mu", "nu")
+    worst = {"param": name, "index": idx, "abs_diff": worst_diff,
+             "init": at(kx["init"][name]),
+             "kernel": {k: at(ka[k][name]) for k in fields},
+             "plain": {k: at(kx[k][name]) for k in fields},
+             "leaf_grad_rms": l2(kx["grads"][name])
+             / math.sqrt(kx["grads"][name].numel()), "adam_eps": 1e-8}
+    result = {"phase": "F", "model": "llama3-8b width, 2 layers",
+              "dtype": "float32", "tf32": False, "batch": batch_size,
+              "seq_len": seq, "steps": steps, "lr": lr,
+              "losses_kernel": la, "losses_plain": lx,
+              "loss_max_rel_diff": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+              "grad_rel_diff_worst": max(grad_rel.values()),
+              "grad_rel_diff_worst_param": max(grad_rel, key=grad_rel.get),
+              "grad_rtol": TRAIN_GRAD_TOL,
+              "param_rel_diff_worst": max(param_rel.values()),
+              "param_rel_diff_worst_param": max(param_rel,
+                                                key=param_rel.get),
+              "param_rtol": TRAIN_PARAM_TOL,
+              "grad_rel_diff": grad_rel, "param_rel_diff": param_rel,
+              "max_abs_diff_element": worst}
+    log(result)
+    del ka, kx
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(la + lx)), "non-finite loss in phase F")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"kernel-path and plain-path losses differ by {loss_rel}")
+    check(max(grad_rel.values()) <= TRAIN_GRAD_TOL,
+          f"first-step gradients: worst parameter "
+          f"{result['grad_rel_diff_worst_param']} differs by "
+          f"{max(grad_rel.values())} > {TRAIN_GRAD_TOL} of its L2 norm")
+    check(max(param_rel.values()) <= TRAIN_PARAM_TOL,
+          f"params after {steps} steps: worst parameter "
+          f"{result['param_rel_diff_worst_param']} differs by "
+          f"{max(param_rel.values())} > {TRAIN_PARAM_TOL} x its change")
+    return result
+
+
+def _flash_entries(rows, e_result):
+    """Kernel-line entries of the flash kernels: the representative case
+    is the training path's (causal, bf16)."""
+    out = []
+    for name, cases in rows.items():
+        rep = next(c for c in cases
+                   if c["case"] == "causal" and c["dtype"] == "bfloat16")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "k8s_distributed_deeplearning_torch/csrc/flash_attn.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": e_result["launches"][name],
+            **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",
+                                          "tol_share", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")} for c in cases]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     from k8s_distributed_deeplearning_torch.ops import _build
+    from k8s_distributed_deeplearning_torch.parallel import distributed
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -409,6 +943,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_c(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flash_rows = phase_d(dev, flush)
+    del flush
+    distributed.initialize_single("cuda")
+    try:
+        e = phase_e(dev)
+        phase_f(dev)
+    finally:
+        distributed.shutdown()
     rep = next(c for c in cases
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
     log({"kernels": [{
@@ -422,7 +967,8 @@ def main() -> int:
         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
         "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")} for c in cases]}]})
+                                      "library_ms")} for c in cases]}]
+        + _flash_entries(flash_rows, e)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

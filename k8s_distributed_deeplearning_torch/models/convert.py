@@ -47,11 +47,12 @@ def _block_trees(cfg: TransformerConfig,
 def from_flax_params(cfg: TransformerConfig,
                      params: Mapping) -> dict[str, torch.Tensor]:
     """State dict for ``LlamaLM(cfg)`` from a flax ``LlamaLM`` ``params``
-    tree (the ``"params"`` collection). Weights are cast to ``cfg.dtype``;
-    norm scales stay f32."""
+    tree (the ``"params"`` collection). Weights are written at the port
+    model's parameter dtype (``cfg.resolved_param_dtype``: f32 JAX params
+    stay f32 for training); norm scales stay f32."""
     hd = cfg.resolved_head_dim
 
-    def t(x, dtype=cfg.dtype):
+    def t(x, dtype=cfg.resolved_param_dtype):
         return torch.from_numpy(np.array(_leaf(x), order="C")).to(dtype)
 
     def qkv(kernel):                       # [D, H, hd] -> [H*hd, D]

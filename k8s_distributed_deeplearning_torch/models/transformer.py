@@ -4,14 +4,18 @@ Port of ``k8s_distributed_deeplearning_tpu/models/transformer.py``: the
 same architecture and the same rounding points, as ``nn.Module``s. Weight
 names follow the flax modules (``q_proj``, ``attn_norm``, ``tok_embed``
 …) so :mod:`models.convert` maps one tree onto the other leaf for leaf.
-Weights are stored in the compute dtype (flax keeps f32 params and casts
-them to the compute dtype at every use, which rounds identically); norm
-scales stay f32, as flax multiplies by them in f32.
+Weights are stored at ``param_dtype`` and cast to the compute dtype
+``dtype`` at every use, as flax does; norm scales stay f32, as flax
+multiplies by them in f32. Training keeps f32 params (``param_dtype=
+torch.float32``); serving's default stores weights in the compute dtype,
+which rounds identically and halves the weight memory.
 
-Two attention paths exist in this slice:
+Two attention paths exist:
 
-- the plain forward (``decode=False``): causal einsum attention with
-  optional packed ``segment_ids``;
+- the plain forward (``decode=False``): :func:`ops.attention
+  .multi_head_attention` with ``cfg.attention_impl``, optional packed
+  ``segment_ids``. ``"auto"`` runs the flash-attention kernels on the card
+  at S >= 1024 and the einsum path elsewhere;
 - the PAGED decode branch (``decode=True`` with ``block_tables``): the
   serving engine's path. K/V live in one pool of pages per layer,
   ``[num_pages, page_tokens, kv·hd]``; each token of the chunk is written
@@ -19,25 +23,70 @@ Two attention paths exist in this slice:
   queries attend the row's pages through
   :func:`ops.paged_attn.paged_decode_attention`.
 
+``remat`` checkpoints each block in the plain forward
+(``torch.utils.checkpoint``), with the JAX package's policies: ``"dots"``
+saves the outputs of the projection matmuls and recomputes everything
+else (the flash forward included), ``"dots_attn"`` also saves the
+attention output, ``"nothing"`` saves nothing.
+
 The dense (non-paged) decode cache is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from k8s_distributed_deeplearning_torch.ops import attention as attention_ops
+from k8s_distributed_deeplearning_torch.ops import flash_attn  # noqa: F401
 from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+
+@torch.library.custom_op("k8s_ddl_torch::attn_out", mutates_args=())
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """The attention output, tagged for the ``"dots_attn"`` remat policy
+    (JAX ``checkpoint_name(out, "attn_out")``): an operator of its own so
+    the checkpoint policy can save exactly this tensor."""
+    return x.clone()
+
+
+attn_out.register_autograd(lambda ctx, grad: grad)
+
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default)
+# Operators whose outputs each policy saves through remat. "dots" is JAX's
+# dots_with_no_batch_dims_saveable: the projection matmuls (aten.mm), not
+# the batched attention products (aten.bmm). "dots_attn" adds the tagged
+# attention output and the flash forward, whose rerun it exists to skip.
+# "nothing" is plain checkpointing.
+REMAT_POLICIES = {
+    "dots": _DOTS,
+    "dots_attn": _DOTS + (torch.ops.k8s_ddl_torch.attn_out.default,
+                          torch.ops.k8s_ddl_torch.flash_fwd.default),
+    "nothing": (),
+}
+
+
+def _remat_context(saved: tuple):
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture knobs, as in the JAX package (the training-only knobs
-    — remat, scan, dropout, serving TP, KV quantization — are not here)."""
+    """Architecture knobs, as in the JAX package (scan, dropout, serving
+    TP and KV quantization are not here)."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -53,14 +102,21 @@ class TransformerConfig:
     position: str = "rope"              # "rope" | "none"
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
-    dtype: torch.dtype = torch.bfloat16  # compute and weight dtype
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    param_dtype: torch.dtype | None = None  # weight storage; None = dtype
+                                        # (serving); training keeps f32
     attention_impl: str = "auto"        # "auto": the paged decode branch
                                         # calls the paged-attention kernel
                                         # wrapper (kernel on CUDA tensors,
                                         # plain version on CPU tensors);
                                         # "xla": the plain version always,
                                         # the reference path of a
-                                        # kernel-vs-reference comparison
+                                        # kernel-vs-reference comparison.
+                                        # The plain forward: "auto" picks
+                                        # flash on the card at S >= 1024
+                                        # (ops.attention.default_impl)
+    remat: bool = False                 # checkpoint each block
+    remat_policy: str = "dots"          # "dots" | "dots_attn" | "nothing"
 
     def __post_init__(self):
         if self.activation != "swiglu":
@@ -77,6 +133,14 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_impl must be 'auto', 'xla' or 'flash', got "
                 f"{self.attention_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                f"got {self.remat_policy!r}")
+
+    @property
+    def resolved_param_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @property
     def resolved_head_dim(self) -> int:
@@ -109,6 +173,39 @@ class RMSNorm(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
 
 
+class Dense(nn.Linear):
+    """Bias-free ``nn.Linear`` whose weight is stored at ``param_dtype``
+    and cast, with the input, to the compute ``dtype`` at every use (flax
+    ``Dense(dtype=..., param_dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype, param_dtype: torch.dtype, device=None):
+        super().__init__(in_features, out_features, bias=False,
+                         device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Dtype checks in Python, not no-op .to() calls: serving's decode
+        # step is host-bound, and stores weights in the compute dtype.
+        w, dt = self.weight, self.compute_dtype
+        return F.linear(x if x.dtype == dt else x.to(dt),
+                        w if w.dtype == dt else w.to(dt))
+
+
+class Embed(nn.Embedding):
+    """Token embedding stored at ``param_dtype``; the gathered rows are
+    cast to the compute ``dtype`` (flax ``Embed``)."""
+
+    def __init__(self, num: int, dim: int, *, dtype: torch.dtype,
+                 param_dtype: torch.dtype, device=None):
+        super().__init__(num, dim, device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = super().forward(tokens)
+        return x if x.dtype == self.compute_dtype else x.to(self.compute_dtype)
+
+
 def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     """Per-document positions for packed rows: positions restart at 0 at
     each document start."""
@@ -118,6 +215,27 @@ def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
     doc_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
     return idx - doc_start
+
+
+def lm_batch_views(batch) -> tuple:
+    """Next-token-LM batch preamble (JAX ``lm_batch_views``): shift tokens
+    (position i predicts i+1), slice packed segment ids, derive
+    per-document positions, and build the loss mask (optional caller
+    "mask" times the cross-document boundary-pair exclusion). Returns
+    (inputs, targets, seg_in, positions, mask); seg_in/positions are None
+    for unpacked batches."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    seg = batch.get("segment_ids")
+    seg_in = None if seg is None else seg[:, :-1]
+    positions = None if seg_in is None else packed_positions(seg_in)
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=tokens.device)
+            if mask is None else mask[:, 1:].float())
+    if seg is not None:
+        mask = mask * (seg[:, :-1] == seg[:, 1:]).float()
+    return inputs, targets, seg_in, positions, mask
 
 
 def rope_frequencies(head_dim: int, max_seq_len: int, theta: float,
@@ -191,11 +309,12 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd, kv = cfg.resolved_head_dim, cfg.resolved_kv_heads
-        kw = dict(bias=False, device=device, dtype=cfg.dtype)
-        self.q_proj = nn.Linear(cfg.dim, cfg.n_heads * hd, **kw)
-        self.k_proj = nn.Linear(cfg.dim, kv * hd, **kw)
-        self.v_proj = nn.Linear(cfg.dim, kv * hd, **kw)
-        self.o_proj = nn.Linear(cfg.n_heads * hd, cfg.dim, **kw)
+        kw = dict(device=device, dtype=cfg.dtype,
+                  param_dtype=cfg.resolved_param_dtype)
+        self.q_proj = Dense(cfg.dim, cfg.n_heads * hd, **kw)
+        self.k_proj = Dense(cfg.dim, kv * hd, **kw)
+        self.v_proj = Dense(cfg.dim, kv * hd, **kw)
+        self.o_proj = Dense(cfg.n_heads * hd, cfg.dim, **kw)
 
     def forward(self, x: torch.Tensor, *, rope, mask=None, segment_ids=None,
                 cache=None, paged: PagedWrite | None = None) -> torch.Tensor:
@@ -225,6 +344,8 @@ class Attention(nn.Module):
             out = attention_ops.multi_head_attention(
                 q, k, v, causal=cfg.causal, mask=mask,
                 segment_ids=segment_ids, impl=cfg.attention_impl)
+            if cfg.remat and cfg.remat_policy == "dots_attn":
+                out = attn_out(out)
         return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
 
 
@@ -233,11 +354,12 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        kw = dict(device=device, dtype=cfg.dtype,
+                  param_dtype=cfg.resolved_param_dtype)
         m = cfg.resolved_mlp_dim
-        self.gate_proj = nn.Linear(cfg.dim, m, **kw)
-        self.up_proj = nn.Linear(cfg.dim, m, **kw)
-        self.down_proj = nn.Linear(m, cfg.dim, **kw)
+        self.gate_proj = Dense(cfg.dim, m, **kw)
+        self.up_proj = Dense(cfg.dim, m, **kw)
+        self.down_proj = Dense(m, cfg.dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -270,8 +392,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.dim,
-                                      device=device, dtype=cfg.dtype)
+        self.tok_embed = Embed(cfg.vocab_size, cfg.dim, device=device,
+                               dtype=cfg.dtype,
+                               param_dtype=cfg.resolved_param_dtype)
         self.blocks = nn.ModuleList(
             [Block(cfg, device=device) for _ in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
@@ -321,31 +444,64 @@ class Transformer(nn.Module):
         if cfg.position == "rope":
             rope = _rope_at(self.rope_cos, self.rope_sin, positions, s)
         x = self.tok_embed(tokens)
+        remat = (cfg.remat and paged is None and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):
-            x = block(x, rope=rope, mask=mask, segment_ids=segment_ids,
+            kw = dict(rope=rope, mask=mask, segment_ids=segment_ids,
                       cache=cache[i] if paged is not None else None,
                       paged=paged)
+            if remat:
+                saved = REMAT_POLICIES[cfg.remat_policy]
+                if saved:
+                    kw["context_fn"] = functools.partial(_remat_context,
+                                                         saved)
+                x = torch_checkpoint.checkpoint(block, x, use_reentrant=False,
+                                                **kw)
+            else:
+                x = block(x, **kw)
         return self.final_norm(x)
+
+
+def flops_per_token(cfg: TransformerConfig, *, seq_len: int | None = None,
+                    include_vocab: bool = True) -> float:
+    """Approximate fwd+bwd FLOPs per token for MFU accounting (6N +
+    attention), as the JAX package counts them: QKV/O projections, the MLP
+    matmuls (3 for SwiGLU), the S^2 score and P·V term at the actual
+    sequence length (full S^2, so causal MFU is conservative), and the
+    unembedding matmul."""
+    hd = cfg.resolved_head_dim
+    s = seq_len or cfg.max_seq_len
+    n_mlp_matmuls = 3 if cfg.activation == "swiglu" else 2
+    per_layer = (
+        2 * cfg.dim * cfg.n_heads * hd                    # q proj
+        + 2 * 2 * cfg.dim * cfg.resolved_kv_heads * hd    # k, v proj
+        + 2 * cfg.n_heads * hd * cfg.dim                  # o proj
+        + n_mlp_matmuls * 2 * cfg.dim * cfg.resolved_mlp_dim
+        + 2 * 2 * cfg.n_heads * hd * s                    # scores + PV
+    )
+    vocab = 2 * cfg.dim * cfg.vocab_size if include_vocab else 0
+    return 3.0 * (cfg.n_layers * per_layer + vocab)
 
 
 class LMHead(nn.Module):
     """Hidden states -> f32 vocab logits. Untied: the matmul runs in the
     compute dtype and the result is cast to f32, as in the JAX head. Tied:
-    f32 accumulation against the input embedding."""
+    f32 accumulation against the input embedding cast to the compute
+    dtype."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
-                                     device=device, dtype=cfg.dtype)
+            self.lm_head = Dense(cfg.dim, cfg.vocab_size, device=device,
+                                 dtype=cfg.dtype,
+                                 param_dtype=cfg.resolved_param_dtype)
 
     def forward(self, x: torch.Tensor,
                 embedding: torch.Tensor | None = None) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             if embedding is None:
                 raise ValueError("tie_embeddings requires the embedding table")
-            return F.linear(x.float(), embedding.float())
+            return F.linear(x.float(), embedding.to(self.cfg.dtype).float())
         return self.lm_head(x).float()
 
 

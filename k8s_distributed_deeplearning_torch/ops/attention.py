@@ -1,15 +1,39 @@
-"""Multi-head attention ops: the plain einsum path.
+"""Multi-head attention ops: the einsum path and the flash kernels.
 
 Port of ``k8s_distributed_deeplearning_tpu/ops/attention.py``. Layout is
 ``[batch, seq, heads, head_dim]``, as in the JAX package; grouped-query
-attention takes fewer KV heads than Q heads. Only the einsum path
-(``impl="xla"`` in the JAX package) exists here: the flash-attention
-kernel (``ops/pallas_flash.py``) has not been ported yet, so
-``impl="flash"`` raises and ``impl="auto"`` resolves to the einsum path.
+attention takes fewer KV heads than Q heads. Two implementations share one
+signature:
+
+- ``impl="xla"``: einsum softmax attention, the plain path, everywhere;
+- ``impl="flash"``: :func:`ops.flash_attn.flash_attention`, the
+  hand-written CUDA kernels on CUDA tensors (their plain versions on CPU
+  tensors).
+
+``impl="auto"`` resolves through :func:`default_impl`.
 """
 from __future__ import annotations
 
 import torch
+
+from k8s_distributed_deeplearning_torch.ops import flash_attn
+
+
+def default_impl(seq_len: int, kv_seq_len: int | None = None,
+                 platform: str | None = None) -> str:
+    """The ``impl="auto"`` rule (JAX ``default_impl`` with ``cuda`` in the
+    place of the TPU): the flash kernels on the card when both sequence
+    lengths tile well (>= 1024 and 128-aligned), the einsum path otherwise
+    and on the CPU, where flash would run its plain version. ``platform``
+    is a device type (``"cuda"``, ``"cpu"``); None means the default
+    device."""
+    if platform is None:
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
+    kv = seq_len if kv_seq_len is None else kv_seq_len
+    well_tiled = all(s >= 1024 and s % 128 == 0 for s in (seq_len, kv))
+    if platform == "cuda" and well_tiled:
+        return "flash"
+    return "xla"
 
 
 def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
@@ -68,15 +92,26 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          segment_ids: torch.Tensor | None = None,
                          softmax_scale: float | None = None,
                          impl: str = "xla") -> torch.Tensor:
-    """Dispatch on ``impl`` (``"auto"`` is the einsum path until the flash
-    kernel is ported). ``segment_ids`` ([B, S], self-attention) is the
-    packed-sequence mask: attend within equal ids."""
-    if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' needs the flash-attention kernel, which the "
-            "PyTorch port does not have yet; use impl='xla' or 'auto'")
-    if impl not in ("auto", "xla"):
+    """Dispatch between the einsum path and the flash kernels.
+    ``segment_ids`` ([B, S], self-attention) is the packed-sequence mask:
+    attend within equal ids; the flash path takes it natively, the einsum
+    path expands it to a boolean mask. The flash kernels take no general
+    ``mask``: ``impl="auto"`` with one resolves to the einsum path,
+    ``impl="flash"`` with one raises. Otherwise ``impl="auto"`` resolves
+    per :func:`default_impl` on q's device."""
+    if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "auto":
+        impl = ("xla" if mask is not None
+                else default_impl(q.shape[1], k.shape[1], q.device.type))
+    if impl == "flash":
+        if mask is not None:
+            raise ValueError(
+                "impl='flash' takes causal and segment_ids masking only, "
+                "not a general mask; use impl='xla' (or 'auto') with a mask")
+        return flash_attn.flash_attention(
+            q, k, v, causal=causal, softmax_scale=softmax_scale,
+            q_segment_ids=segment_ids, kv_segment_ids=segment_ids)
     if segment_ids is not None:
         seg = segment_mask(segment_ids, segment_ids)
         if mask is None:

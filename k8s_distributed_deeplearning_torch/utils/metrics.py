@@ -1,9 +1,10 @@
-"""Structured serving metrics.
+"""Structured serving and training metrics.
 
 Port of the parts of ``k8s_distributed_deeplearning_tpu/utils/metrics.py``
-the serving engine and CLI use: :class:`ServingStats` (the methods the
-engine calls, and a ``summary()`` with the JAX package's serving fields)
-and a JSON-lines :class:`MetricsLogger`.
+the serving engine, the training loop and the CLIs use:
+:class:`ServingStats` (the methods the engine calls, and a ``summary()``
+with the JAX package's serving fields), a JSON-lines :class:`MetricsLogger`
+with its ``train_step`` event, and :func:`mfu`.
 """
 from __future__ import annotations
 
@@ -17,13 +18,17 @@ class MetricsLogger:
     """Emit one JSON object per event to stdout and optionally a file."""
 
     def __init__(self, stream: IO[str] | None = None,
-                 path: str | None = None, job: str = "serve"):
+                 path: str | None = None, job: str = "serve",
+                 enabled: bool = True):
+        self.enabled = enabled             # False on non-primary processes
         self.stream = stream if stream is not None else sys.stdout
         self.job = job
-        self._file = open(path, "a") if path else None
+        self._file = open(path, "a") if (path and enabled) else None
         self._t0 = time.monotonic()
 
     def emit(self, event: str, **fields: Any) -> None:
+        if not self.enabled:
+            return
         rec = {"event": event, "job": self.job,
                "elapsed_s": round(time.monotonic() - self._t0, 3), **fields}
         line = json.dumps(rec, default=repr)
@@ -32,10 +37,33 @@ class MetricsLogger:
             self._file.write(line + "\n")
             self._file.flush()
 
+    def train_step(self, step: int, loss: float, step_time_ms: float,
+                   examples_per_sec: float, per_device: float,
+                   mfu: float | None = None, **extra: Any) -> None:
+        self.emit("train_step", step=step, loss=loss,
+                  step_time_ms=step_time_ms,
+                  examples_per_sec=examples_per_sec,
+                  examples_per_sec_per_device=per_device,
+                  **({"mfu": mfu} if mfu is not None else {}), **extra)
+
     def close(self) -> None:
         if self._file:
             self._file.close()
             self._file = None
+
+
+def mfu(flops_per_example: float, examples_per_sec: float, num_devices: int,
+        peak_flops_per_device: float) -> float:
+    """Model FLOPs utilization: achieved model FLOP/s over peak FLOP/s."""
+    if peak_flops_per_device <= 0 or num_devices <= 0:
+        return 0.0
+    return (flops_per_example * examples_per_sec
+            / (peak_flops_per_device * num_devices))
+
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet), by compute
+# dtype: bf16 on the tensor cores, f32 outside them.
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 class ServingStats:

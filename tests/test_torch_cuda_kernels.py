@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from k8s_distributed_deeplearning_torch.ops import _build
+from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 from k8s_distributed_deeplearning_torch.ops.paged_attn import (
     paged_decode_attention, paged_decode_attention_reference)
 
@@ -152,3 +153,120 @@ def test_library_name_tracks_the_source():
     a = _build.library_path("paged_attn")
     assert a == _build.library_path("paged_attn")
     assert a.name.startswith("libpaged_attn-") and a.suffix == ".so"
+
+
+# Flash attention: (b, sq, sk, h, hkv, head_dim, causal, segments). The JAX
+# kernel tests' shapes (GQA 4/2, MQA 4/1, 12/4; sq != sk both ways;
+# segments), ragged lengths that cut the 64-row and 64-key tiles, then
+# Llama-3 8B's heads at training length.
+FLASH_SHAPES = [
+    (2, 64, 64, 2, 2, 16, False, False),
+    (2, 64, 64, 4, 2, 16, True, False),
+    (2, 32, 32, 4, 1, 32, True, False),
+    (2, 32, 32, 12, 4, 16, True, True),
+    (2, 32, 128, 4, 2, 64, True, False),
+    (2, 128, 32, 4, 2, 64, True, False),
+    (3, 100, 77, 6, 2, 64, False, True),
+    (1, 77, 100, 8, 8, 128, True, True),
+    (1, 2048, 2048, 32, 8, 128, True, False),
+    (1, 512, 2048, 32, 8, 128, True, False),
+]
+# (atol, rtol), held per element: |kernel - plain| <= atol * scale +
+# rtol * |plain|, the scale being the larger of the RMS of the element's
+# row (one position's and head's head_dim vector) and the output's RMS, as
+# chip_smoke.py's phase D holds them. rtol covers one bf16 rounding step of
+# the output (<= 2^-7 of the value); atol the rounding of p (forward) or dS
+# (backward) to bf16 at different points in the kernel and the plain
+# version, or in f32 the order of the sums.
+FLASH_DTYPES = [(torch.float32, (1e-4, 1e-4)),
+                (torch.bfloat16, (2 ** -5, 2 ** -6))]
+
+
+def _flash_inputs(dev, dtype, shape, seed):
+    b, sq, sk, h, hkv, d, causal, seg = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((b, sq, h, d), (b, sk, hkv, d),
+                                         (b, sk, hkv, d)))
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(
+        np.float32)).to(dev, dtype)
+    segq = segk = None
+    if seg:
+        segk = np.sort(rng.integers(0, 3, (b, sk)), axis=1).astype(np.int32)
+        segq = np.sort(rng.integers(0, 3, (b, sq)), axis=1).astype(np.int32)
+        segq, segk = (torch.from_numpy(x).to(dev) for x in (segq, segk))
+    return q, k, v, do, segq, segk, causal
+
+
+def _close(got, want, tol, what):
+    atol, rtol = tol
+    ref = want.float()
+    err = (got.float() - ref).abs()
+    scale = ref.square().mean(-1, keepdim=True).sqrt().clamp_min(
+        float(ref.square().mean().sqrt()))
+    share = float((err / (atol * scale + rtol * ref.abs())).max())
+    assert share <= 1.0, (
+        f"{what}: |kernel - plain| reaches {share} of the limit {atol} x "
+        f"max(rms(row), rms) + {rtol} x |plain| (max err "
+        f"{float(err.max())})")
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernels_match_reference(hopper, dtype, tol, shape):
+    """Forward (o and lse) and both backward kernels against the plain
+    versions on the same inputs; each wrapper launches once."""
+    q, k, v, do, segq, segk, causal = _flash_inputs(hopper, dtype, shape,
+                                                    sum(shape[:6]))
+    scale = q.shape[-1] ** -0.5
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    _close(o, ref_o, tol, "o")
+    seen = ref_lse > -1e29                   # rows that see some key
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    assert torch.equal(lse <= -1e29, ~seen)
+    dq, dk, dv = fa.flash_backward(q, k, v, ref_o, ref_lse, do, segq, segk,
+                                   causal, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(
+        q, k, v, ref_o, ref_lse, do, causal=causal, q_segment_ids=segq,
+        kv_segment_ids=segk)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _close(got, ref, tol, name)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+def test_flash_fully_masked_rows_are_zero(hopper):
+    """A query whose segment id no key carries, and causal rows with
+    sq > sk that see no column, give exactly 0 in O and in every grad."""
+    q, k, v, do, segq, segk, _ = _flash_inputs(
+        hopper, torch.float32, (2, 48, 32, 4, 2, 64, True, True), 9)
+    segq[0, 20:25] = 7
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    o = fa.flash_attention(q, k, v, causal=True, q_segment_ids=segq,
+                           kv_segment_ids=segk)
+    o.backward(do)
+    for rows in (slice(0, 16), slice(20, 25)):   # 0..15: sq - sk = 16
+        assert torch.all(o[0, rows] == 0)
+        assert torch.all(q.grad[0, rows] == 0)
+    assert torch.isfinite(o).all() and torch.isfinite(k.grad).all()
+
+
+def test_flash_rejects_what_the_kernels_cannot_take(hopper):
+    q, k, v, _, _, _, _ = _flash_inputs(
+        hopper, torch.float32, (1, 16, 16, 2, 2, 64, True, False), 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)

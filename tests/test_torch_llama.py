@@ -131,9 +131,61 @@ def test_rmsnorm_matches_jax():
 
 
 def test_flash_impl_is_not_ported_yet():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="flash"):
-        t_attention.multi_head_attention(q, q, q, impl="flash")
+    """The flash kernels are ported now: impl="flash" no longer raises. On
+    CPU tensors it runs their plain versions, which agree with the einsum
+    path (the kernels themselves are held to the Pallas kernels in
+    tests/test_torch_flash_attn.py and on the card)."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 2, 8)).astype(np.float32))
+    out = t_attention.multi_head_attention(q, q, q, causal=True, impl="flash")
+    ref = t_attention.multi_head_attention(q, q, q, causal=True, impl="xla")
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+def test_serving_stores_weights_in_the_compute_dtype():
+    """The param-dtype split keeps serving's storage: a default config
+    stores its projection, embedding and head weights in the compute dtype
+    (bf16), with f32 norm scales; param_dtype=float32 stores f32."""
+    bf16 = t_llama.LlamaLM(t_llama.config_tiny(), device="cpu")
+    f32 = t_llama.LlamaLM(t_llama.config_tiny(param_dtype=torch.float32),
+                          device="cpu")
+    for name, p in bf16.named_parameters():
+        want = torch.float32 if name.endswith("scale") else torch.bfloat16
+        assert p.dtype == want, name
+    assert all(p.dtype == torch.float32 for p in f32.parameters())
+
+
+@pytest.mark.parametrize("scan_layers", [True, False],
+                         ids=["scanned", "unrolled"])
+def test_f32_params_give_the_same_logits(scanned, scan_layers):
+    """f32 params at f32 compute give exactly the logits of the model with
+    the default storage; with bf16 compute they are cast at each use and
+    agree with the JAX model (bf16 compute, f32 params) to bf16 rounding."""
+    jmodel, params, tmodel = scanned
+    cfg = t_llama.config_tiny(dtype=torch.float32, param_dtype=torch.float32,
+                              **ENTRY)
+    f32 = t_llama.LlamaLM(cfg, device="cpu")
+    f32.load_state_dict(t_convert.from_flax_params(cfg, params))
+    toks = torch.from_numpy(_tokens(8, 2, 24))
+    with torch.no_grad():
+        assert torch.equal(f32(toks), tmodel(toks))
+    jcfg = j_llama.config_tiny(dtype=jnp.bfloat16, scan_layers=scan_layers,
+                               **ENTRY)
+    jparams = params
+    if not scan_layers:
+        jparams = j_llama.LlamaLM(jcfg).init(
+            jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    want = np.asarray(j_llama.LlamaLM(jcfg).apply({"params": jparams},
+                                                  jnp.asarray(toks.numpy())))
+    bcfg = t_llama.config_tiny(param_dtype=torch.float32, **ENTRY)
+    mixed = t_llama.LlamaLM(bcfg, device="cpu")
+    mixed.load_state_dict(t_convert.from_flax_params(bcfg, jparams))
+    assert mixed.transformer.tok_embed.weight.dtype == torch.float32
+    with torch.no_grad():
+        got = mixed(toks).numpy()
+    # bf16 compute on both sides, rounded at the same points: logits of
+    # O(1) agree to a few bf16 ulps (eps 2^-8).
+    np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
 
 
 def _jax_pool(cfg, pages, bt):

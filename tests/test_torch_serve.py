@@ -215,6 +215,12 @@ def _port_files():
     return files + [REPO / "chip_smoke.py"]
 
 
+def test_import_scan_covers_every_subpackage():
+    """The scan reaches the training slice's subpackages too."""
+    dirs = {p.parent.name for p in _port_files()}
+    assert {"models", "ops", "serve", "utils", "train", "parallel"} <= dirs
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: p.relative_to(REPO).as_posix())
 def test_port_imports_nothing_of_jax(path):
