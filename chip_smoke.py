@@ -57,6 +57,33 @@ F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
    the parameters after the 3 steps agree, within the stated tolerances.
    Logs the element whose parameter differs most, with its gradient and
    Adam moments on both paths.
+G. The grouped-matmul kernels (``gmm_kernel``: the forward and, reading the
+   weight transposed in place, the input gradient; ``tgmm_kernel``: the
+   weight gradient) against their plain versions, 8 experts and 16,384
+   routed rows: the MoE slice's shapes (K 768 -> N 2048 and K 2048 ->
+   N 768, group sizes from a seeded top-2 router) in bf16 and f32, and
+   Mixtral-8x7B-class expert shapes (K 4096 -> N 14336 and K 14336 ->
+   N 4096) in bf16, balanced and skewed (one expert 40 %, one empty).
+   Every element within atol x the output's RMS + rtol x |plain|, rows of
+   dead blocks exactly 0, an empty expert's weight gradient exactly 0.
+   Reports each kernel's time, the plain version's, the bound, and
+   ``torch._grouped_mm`` on the same spans as a yardstick (the port never
+   calls it; null with the reason where this torch refuses the case).
+H. Dropless MoE training at the slice's configuration: the Llama-small
+   backbone (dim 768, 12 layers, 12/4 heads, head_dim 64, MLP 2048, vocab
+   32000), 8 experts top-2 ``dispatch="ragged"``, bf16 compute, f32 params,
+   remat "dots", AdamW, 8 x 1024 tokens a step, through
+   ``make_train_step`` over NCCL at world size 1 and ``fit``: the fixed
+   batch's loss falls by phase E's margin in 8 steps; a timed window gives
+   tokens/s, step ms, peak memory and the model-FLOPs share
+   (``moe.flops_per_token``); the launches a step are checked exactly (gmm
+   6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ and dK/dV
+   once a layer); one profiled step gives device time by class.
+I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
+   steps from the same weights through the kernels (``dispatch="ragged"``,
+   flash attention) and through an independent plain path
+   (``dispatch="index"`` at a capacity that drops nothing, the einsum
+   attention), compared as in phase F.
 
 Prints the card's name and power limit, the build time, one JSON line per
 phase, a ``{"kernels": [...]}`` line, and last
@@ -111,6 +138,22 @@ FIXED_BATCH_MARGIN = 0.9
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_PARAM_TOL = 1e-3
+# Phase G tolerances (atol, rtol), held per element: |kernel - plain| <=
+# atol x RMS of the plain output + rtol x |plain|. Both versions sum exact
+# products in f32, in different orders. f32: the order's effect, about
+# 1e-6 of the RMS at these depths. bf16: both round their f32 sums to bf16
+# once, and sums on either side of a rounding boundary land one bf16 step
+# (at most 2^-7 of the value) apart.
+GMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -10, 2 ** -7)}
+GMM_E, GMM_ROWS = 8, 16384
+GMM_REPLACES = {
+    "gmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:159",
+    "tgmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:209",
+}
+# The MoE slice's model: the JAX package's ragged MoE benchmark row
+# (Llama-small backbone, 8 experts, top-2, dispatch="ragged").
+MOE_BACKBONE = dict(vocab_size=32000, dim=768, n_layers=12, n_heads=12,
+                    n_kv_heads=4, mlp_dim=2048)
 
 
 def log(obj) -> None:
@@ -351,7 +394,8 @@ def _kernel_class(name: str) -> str:
     for key, cls in (("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
                      ("flash_dq_kernel", "flash_dq"),
-                     ("flash_dkv_kernel", "flash_dkv")):
+                     ("flash_dkv_kernel", "flash_dkv"),
+                     ("gmm_kernel", "gmm")):        # gmm_ and tgmm_kernel
         if key in name:
             return cls
     if any(s in name for s in ("gemm", "gemv", "cutlass", "nvjet", "sm90")):
@@ -660,40 +704,272 @@ def phase_d(dev, flush):
     return rows
 
 
+# ------------------------------------------------------------- phase G
+
+# (case, group sizes, K, N, dtypes): the MoE slice's expert products (gate
+# and up: d 768 -> mlp 2048; down: 2048 -> 768) and Mixtral-8x7B-class
+# ones (4096 -> 14336, 14336 -> 4096), 8 experts and 16,384 routed rows.
+GMM_CASES = [
+    ("slice_gate_up", "router", 768, 2048, (torch.bfloat16, torch.float32)),
+    ("slice_down", "router", 2048, 768, (torch.bfloat16, torch.float32)),
+    ("mixtral_gate_up_balanced", "balanced", 4096, 14336, (torch.bfloat16,)),
+    ("mixtral_down_balanced", "balanced", 14336, 4096, (torch.bfloat16,)),
+    ("mixtral_gate_up_skewed", "skewed", 4096, 14336, (torch.bfloat16,)),
+    ("mixtral_down_skewed", "skewed", 14336, 4096, (torch.bfloat16,)),
+]
+
+
+def _gmm_sizes(kind: str) -> list[int]:
+    """Rows of each expert, 16,384 in all: from a seeded top-2 router over
+    8,192 tokens, even, or skewed (one expert 40 %, one empty)."""
+    if kind == "router":
+        logits = np.random.default_rng(5).standard_normal(
+            (GMM_ROWS // 2, GMM_E))
+        top2 = np.argsort(-logits, axis=1)[:, :2]
+        return np.bincount(top2.ravel(), minlength=GMM_E).tolist()
+    if kind == "balanced":
+        return [GMM_ROWS // GMM_E] * GMM_E
+    big = int(0.4 * GMM_ROWS)
+    rest = GMM_ROWS - big
+    sizes = [big, 0] + [rest // 6] * 6
+    sizes[2] += rest - sum(sizes[2:])
+    return sizes
+
+
+def _gmm_inputs(dev, dtype, sizes, k, n, seed):
+    """The layout, lhs [M_pad, K], rhs [E, K, N] and an output gradient
+    [M_pad, N]; rows that hold no token are 0 in lhs and in the gradient,
+    as in the MoE layer."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+
+    lay = gmm_ops.grouped_layout(
+        torch.tensor(sizes, dtype=torch.int32, device=dev), GMM_ROWS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    live = gmm_ops.live_rows(lay)[:, None]
+    lhs = (torch.randn(lay.m_pad, k, generator=gen, device=dev)
+           * live).to(dtype)
+    rhs = (torch.randn(GMM_E, k, n, generator=gen, device=dev)
+           * k ** -0.5).to(dtype)
+    dout = (torch.randn(lay.m_pad, n, generator=gen, device=dev)
+            * live).to(dtype)
+    return lay, lhs, rhs, dout
+
+
+def _grouped_mm_fns(lay, lhs, rhs, dout) -> dict:
+    """``torch._grouped_mm`` over the layout's spans for each function, a
+    yardstick the port never calls: name -> (fn, None), or (None, reason)
+    where this torch refuses every operand layout tried."""
+    gm = getattr(torch, "_grouped_mm", None)
+    names = ("gmm", "gmm_dlhs", "tgmm")
+    if gm is None:
+        return {k: (None, "this torch has no torch._grouped_mm")
+                for k in names}
+    spans = ((lay.group_sizes + lay.block_m - 1) // lay.block_m).clamp_min(
+        1) * lay.block_m
+    offs = (lay.row_offset + spans).to(torch.int32)
+    col = rhs.transpose(1, 2)                  # [E, N, K] view of rhs
+    options = {
+        "gmm": [(lhs, rhs), (lhs, col.contiguous().transpose(1, 2))],
+        "gmm_dlhs": [(dout, col), (dout, col.contiguous())],
+        "tgmm": [(lhs.t(), dout), (lhs.t().contiguous(), dout),
+                 (lhs.t().contiguous(), dout.t().contiguous().t())]}
+    out = {}
+    for name in names:
+        reasons = []
+        for a, b in options[name]:
+            try:
+                gm(a, b, offs=offs)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError) as exc:
+                reasons.append(f"{type(exc).__name__}: {str(exc)[:200]}")
+                continue
+            out[name] = ((lambda a=a, b=b: gm(a, b, offs=offs)), None)
+            break
+        else:
+            out[name] = (None, " | ".join(reasons))
+    return out
+
+
+def _gmm_bound(flops, nbytes, dtype):
+    """Least time on an H100 SXM: the larger of the FLOPs over the dtype's
+    peak and the bytes (each input read once, each output written once)
+    over 3.35 TB/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations")
+
+
+def phase_g(dev, flush):
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {"gmm": [], "tgmm": []}
+    for ci, (case, kind, k, n, dtypes) in enumerate(GMM_CASES):
+        sizes = _gmm_sizes(kind)
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[-1]
+            tol = GMM_TOL[dtype]
+            lay, lhs, rhs, dout = _gmm_inputs(dev, dtype, sizes, k, n, ci)
+            fns = {
+                "gmm": (lambda: gmm_ops.gmm_forward(lhs, rhs, lay),
+                        lambda: gmm_ops.gmm_reference(lhs, rhs, lay),
+                        (lhs, rhs), (lay.m_pad, n)),
+                "gmm_dlhs": (
+                    lambda: gmm_ops.gmm_forward(dout, rhs, lay,
+                                                transpose_rhs=True),
+                    lambda: gmm_ops.gmm_reference(dout, rhs, lay,
+                                                  transpose_rhs=True),
+                    (dout, rhs), (lay.m_pad, k)),
+                "tgmm": (lambda: gmm_ops.tgmm(lhs, dout, GMM_E, lay),
+                         lambda: gmm_ops.tgmm_reference(lhs, dout, GMM_E,
+                                                        lay),
+                         (lhs, dout), (GMM_E, k, n))}
+            library = _grouped_mm_fns(lay, lhs, rhs, dout)
+            dead = ~gmm_ops.live_rows(lay)
+            for fn_name, (kern, plain, ins, out_shape) in fns.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                check(tuple(got.shape) == out_shape and got.dtype == dtype,
+                      f"{fn_name} {case}/{dname}: {got.dtype} "
+                      f"{tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{fn_name} {case}/{dname}: non-finite output")
+                ref = want.float()
+                err = (got.float() - ref).abs()
+                rms = float(ref.square().mean().sqrt())
+                share = float((err / (tol[0] * rms + tol[1]
+                                      * ref.abs())).max())
+                check(share <= 1.0,
+                      f"{fn_name} {case}/{dname}: |kernel - plain| uses "
+                      f"{share} of the limit {tol[0]} x rms + {tol[1]} x "
+                      f"|plain|")
+                if fn_name == "tgmm":
+                    empty = [e for e, s in enumerate(sizes) if s == 0]
+                    zeros = all(bool((got[e] == 0).all()) for e in empty)
+                    check(zeros, f"tgmm {case}/{dname}: an empty expert's "
+                          "gradient is not 0")
+                else:
+                    zeros = bool((got[dead] == 0).all())
+                    check(zeros, f"{fn_name} {case}/{dname}: rows that hold "
+                          "no token are not 0")
+                lib_fn, lib_reason = library[fn_name]
+                lib_err = None
+                if lib_fn is not None:
+                    lib_out = lib_fn().float()
+                    lib_err = float(((lib_out - ref).abs() if fn_name == "tgmm"
+                                     else (lib_out - ref)[~dead].abs()).max())
+                    del lib_out
+                nbytes = (sum(t.numel() for t in ins) + math.prod(out_shape)
+                          ) * lhs.element_size()
+                bound, by = _gmm_bound(2 * GMM_ROWS * k * n, nbytes, dtype)
+                row = {"fn": fn_name, "case": case, "dtype": dname,
+                       "shape": {"E": GMM_E, "rows": GMM_ROWS,
+                                 "m_pad": lay.m_pad, "K": k, "N": n,
+                                 "block_m": lay.block_m, "sizes": sizes},
+                       "max_abs_err": float(err.max()),
+                       "err_over_rms": float(err.max()) / rms,
+                       "tol_share": share,
+                       "tol": {"atol_rms": tol[0], "rtol": tol[1]},
+                       "zeros_exact": zeros,
+                       "ms": time_ms(kern, flush),
+                       "plain_ms": time_ms(plain, flush, 5),
+                       "library_ms": (time_ms(lib_fn, flush)
+                                      if lib_fn is not None else None),
+                       "library_max_abs_err": lib_err,
+                       "bound_ms": bound, "bound_by": by}
+                if lib_reason is not None:
+                    row["library_null_reason"] = lib_reason
+                del got, want, ref, err
+                kernel = "tgmm" if fn_name == "tgmm" else "gmm"
+                rows[kernel].append(row)
+                log({"phase": "G", "kernel": kernel, **row})
+            del lay, lhs, rhs, dout, fns, library, dead
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _gmm_entries(rows, h_result):
+    """Kernel-line entries of the grouped-matmul kernels: the
+    representative case is the MoE slice's gate/up product in bf16."""
+    out = []
+    for name, cases in rows.items():
+        rep = next(c for c in cases if c["case"] == "slice_gate_up"
+                   and c["dtype"] == "bfloat16"
+                   and c["fn"] in ("gmm", "tgmm"))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "k8s_distributed_deeplearning_torch/csrc/gmm.cu",
+            "replaces": GMM_REPLACES[name],
+            "launches": h_result["launches"][name],
+            **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "cases": [{k: c.get(k) for k in (
+                "case", "fn", "dtype", "max_abs_err", "tol_share", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for c in cases]})
+    return out
+
+
 # ------------------------------------------------------------- phase E/F
 
 
-def _train_setup(cfg, dev, lr, chunked=True):
-    from k8s_distributed_deeplearning_torch.models import llama
+def _train_setup(cfg, dev, lr, chunked=True, moe_cfg=None):
+    """A seeded ``LlamaLM`` (or ``MoELM`` with ``moe_cfg``), AdamW with
+    global-norm clip 1.0, its state and the data-parallel train step."""
+    from k8s_distributed_deeplearning_torch.models import llama, moe
     from k8s_distributed_deeplearning_torch.parallel import (
         data_parallel as dp)
     from k8s_distributed_deeplearning_torch.train import optim
 
-    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    if moe_cfg is None:
+        model = llama.LlamaLM(cfg, device=dev, seed=0)
+
+        def loss(batch, gen):
+            return llama.loss_fn(model, batch, gen, chunked=chunked)
+    else:
+        model = moe.MoELM(cfg, moe_cfg, device=dev, seed=0)
+
+        def loss(batch, gen):
+            return moe.loss_fn(model, moe_cfg, batch, gen, chunked=chunked)
+
     params = dict(model.named_parameters())
     optimizer = optim.make_optimizer("adamw", lr, grad_clip=1.0)
-
-    def loss(batch, gen):
-        return llama.loss_fn(model, batch, gen, chunked=chunked)
-
     return model, optimizer, dp.init_state(params, optimizer), \
         dp.make_train_step(loss, optimizer)
 
 
-def phase_e(dev):
+def _kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its kernel-line name."""
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    return {"paged_decode_attention": paged_attn.paged_decode_attention,
+            "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "gmm": gmm_ops.gmm_forward, "tgmm": gmm_ops.tgmm}
+
+
+def _train_phase(phase, dev, info, cfg, *, batch_size, seq, lr, chunked,
+                 flops_tok, per_step, moe_cfg=None):
+    """Phases E and H: train ``cfg`` (an ``MoELM`` with ``moe_cfg``) through
+    ``make_train_step`` and ``fit``. Eight steps on one fixed batch must
+    bring the loss below the margin; then a timed window of steps, with
+    every kernel's launch count set to 0 before it and held exactly to
+    ``per_step`` (launches a step by kernel) after it; then one profiled
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from k8s_distributed_deeplearning_torch.models import llama
-    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
     from k8s_distributed_deeplearning_torch.train import data as data_lib
     from k8s_distributed_deeplearning_torch.train import loop
 
-    cfg = llama.config_llama3_8b(n_layers=4, max_seq_len=2048,
-                                 param_dtype=torch.float32)
-    batch_size, seq = 4, 2048
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, optimizer, state, step_fn = _train_setup(cfg, dev, lr=3e-4)
+    model, optimizer, state, step_fn = _train_setup(
+        cfg, dev, lr=lr, chunked=chunked, moe_cfg=moe_cfg)
     tokens = data_lib.synthetic_tokens(1 << 17, vocab_size=cfg.vocab_size,
                                        seed=0)
     batcher = data_lib.TokenBatcher(tokens, batch_size, seq, seed=0)
@@ -711,7 +987,7 @@ def phase_e(dev):
     check(losses[-1] < FIXED_BATCH_MARGIN * losses[0],
           f"8 steps on one fixed batch: loss {losses[0]} -> {losses[-1]}, "
           f"not below {FIXED_BATCH_MARGIN} x the first")
-    log({"phase": "E", "case": "fixed_batch", "steps": 8,
+    log({"phase": phase, "case": "fixed_batch", "steps": 8, "lr": lr,
          "losses": losses, "margin": FIXED_BATCH_MARGIN})
 
     warm, timed = 2, 6
@@ -719,24 +995,28 @@ def phase_e(dev):
                      rng=1, log_every=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     state = loop.fit(step_fn, state, batcher.iter_from, state.step + timed,
                      rng=1, log_every=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
-    want = {"flash_fwd": 2 * cfg.n_layers * timed,
-            "flash_bwd_dq": cfg.n_layers * timed,
-            "flash_bwd_dkv": cfg.n_layers * timed}
-    check(launches == want, f"flash launches {launches} != {want} over "
-          f"{timed} steps (forward 2 x layers with the remat recompute)")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    want = {n: per_step.get(n, 0) * timed for n in wrappers}
+    check(launches == want, f"kernel launches {launches} != {want} over "
+          f"{timed} steps")
     step_ms = wall / timed * 1e3
     tok_s = timed * batch_size * seq / wall
-    flops_tok = llama.flops_per_token(cfg, seq_len=seq)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # One more step: the host's time to enqueue it against its time to
+    # finish; near equal means the host, not the card, sets the pace.
+    t0 = time.perf_counter()
+    state, loss, _ = step_fn(state, batcher.batch_at(state.step), state.step)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    host_step_ms = (time.perf_counter() - t0) * 1e3
     # The optimizer's share of the profiled step, between CUDA events.
     opt_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     apply = optimizer.apply
@@ -758,19 +1038,23 @@ def phase_e(dev):
     kernels = _device_ms_by_kernel(prof, 1)
     device_ms = sum(k[2] for k in kernels)
     result = {
-        "phase": "E", "model": "llama3-8b width", "layers": cfg.n_layers,
-        "params": n_params, "dtype": "bfloat16", "param_dtype": "float32",
-        "remat_policy": cfg.remat_policy, "chunked_ce": True,
-        "batch": batch_size, "seq_len": seq, "world_size": 1,
-        "backend": "nccl", "setup_s": setup_s, "timed_steps": timed,
-        "step_ms": step_ms, "tokens_per_s": tok_s,
+        "phase": phase, **info, "layers": cfg.n_layers,
+        "params": n_params, "dtype": str(cfg.dtype).split(".")[-1],
+        "param_dtype": "float32", "remat_policy": cfg.remat_policy,
+        "chunked_ce": chunked, "batch": batch_size, "seq_len": seq,
+        "world_size": 1, "backend": "nccl", "lr": lr, "setup_s": setup_s,
+        "timed_steps": timed, "step_ms": step_ms, "tokens_per_s": tok_s,
         "flops_per_token": flops_tok,
         "model_flops_share": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
-        "peak_memory_gb": peak_gb, "launches": launches,
-        "launches_per_step": {k: v / timed for k, v in launches.items()},
+        "peak_memory_gb": peak_gb,
+        "host_enqueue_ms": enqueue_ms, "host_step_ms": host_step_ms,
+        "launches": {n: v for n, v in launches.items() if v},
+        "launches_per_step": {n: v / timed for n, v in launches.items()
+                              if v},
         "profiled_step": {
             "device_ms": device_ms,
             "device_busy_share": device_ms / step_ms,
+            "kernel_launches": sum(k[1] for k in kernels),
             "device_ms_by_class": _by_class(kernels),
             "optimizer_ms": opt_events[0].elapsed_time(opt_events[1]),
             "top_kernels": [{"name": n[:90], "launches": c, "ms": ms}
@@ -782,18 +1066,51 @@ def phase_e(dev):
     return result
 
 
-def _phase_f_run(impl, seq, dev, lr, batcher, steps, keep_on):
-    """One path of phase F: ``steps`` AdamW steps in f32 from the seeded
-    weights. Returns the losses, and on ``keep_on`` the initial weights,
-    the first step's gradients, and the parameters and Adam moments after
-    the steps."""
+def phase_e(dev):
     from k8s_distributed_deeplearning_torch.models import llama
 
-    cfg = llama.config_llama3_8b(n_layers=2, max_seq_len=seq,
-                                 dtype=torch.float32,
-                                 param_dtype=torch.float32,
-                                 attention_impl=impl)
-    _, optimizer, state, step_fn = _train_setup(cfg, dev, lr=lr)
+    cfg = llama.config_llama3_8b(n_layers=4, max_seq_len=2048,
+                                 param_dtype=torch.float32)
+    n = cfg.n_layers
+    return _train_phase(
+        "E", dev, {"model": "llama3-8b width"}, cfg, batch_size=4, seq=2048,
+        lr=3e-4, chunked=True,
+        flops_tok=llama.flops_per_token(cfg, seq_len=2048),
+        # Forward 2 x layers: remat "dots" recomputes the flash forward.
+        per_step={"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n})
+
+
+def phase_h(dev):
+    from k8s_distributed_deeplearning_torch.models import llama, moe
+
+    seq = 1024
+    cfg = llama.config_tiny(**MOE_BACKBONE, max_seq_len=seq,
+                            dtype=torch.bfloat16, param_dtype=torch.float32,
+                            remat=True, remat_policy="dots")
+    mcfg = moe.MoEConfig(num_experts=8, top_k=2, dispatch="ragged")
+    n = cfg.n_layers
+    return _train_phase(
+        "H", dev, {"model": "llama-small MoE 8e top-2 ragged",
+                   "experts": mcfg.num_experts, "top_k": mcfg.top_k,
+                   "dispatch": mcfg.dispatch,
+                   "ragged_block_m": mcfg.ragged_block_m},
+        cfg, batch_size=8, seq=seq, lr=1e-3, chunked=False,
+        flops_tok=moe.flops_per_token(cfg, mcfg, seq_len=seq),
+        # Under remat "dots" the gmm outputs are saved, not recomputed:
+        # 3 forward products and 3 input gradients a layer, 3 weight
+        # gradients; the flash forward runs again in the recompute.
+        per_step={"gmm": 6 * n, "tgmm": 3 * n, "flash_fwd": 2 * n,
+                  "flash_bwd_dq": n, "flash_bwd_dkv": n},
+        moe_cfg=mcfg)
+
+
+def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
+    """One path of phases F and I: ``steps`` AdamW steps in f32 from the
+    seeded weights. Returns the losses, and on ``keep_on`` the initial
+    weights, the first step's gradients, and the parameters and Adam
+    moments after the steps."""
+    _, optimizer, state, step_fn = _train_setup(cfg, dev, lr=lr,
+                                                moe_cfg=moe_cfg)
     init = {n: p.detach().to(keep_on, copy=True)
             for n, p in state.params.items()}
     first_grads, apply = {}, optimizer.apply
@@ -817,6 +1134,7 @@ def _phase_f_run(impl, seq, dev, lr, batcher, steps, keep_on):
 
 
 def phase_f(dev):
+    from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.train import data as data_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -824,13 +1142,75 @@ def phase_f(dev):
     lr, steps, batch_size, seq = 1e-4, 3, 2, 1024
     tokens = data_lib.synthetic_tokens(1 << 15, vocab_size=128256, seed=3)
     batcher = data_lib.TokenBatcher(tokens, batch_size, seq, seed=3)
+
+    def run(impl, keep_on):
+        cfg = llama.config_llama3_8b(n_layers=2, max_seq_len=seq,
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32,
+                                     attention_impl=impl)
+        return _agreement_run(cfg, dev, lr, batcher, steps, keep_on)
+
     # The kernel path's record waits in host memory while the plain path
     # runs: two runs' weights, gradients and moments do not fit the card.
-    ka = _phase_f_run("auto", seq, dev, lr, batcher, steps,
-                      torch.device("cpu"))
+    ka = run("auto", torch.device("cpu"))
     gc.collect()
     torch.cuda.empty_cache()
-    kx = _phase_f_run("xla", seq, dev, lr, batcher, steps, dev)
+    kx = run("xla", dev)
+    return _agreement("F", {"model": "llama3-8b width, 2 layers",
+                            "batch": batch_size, "seq_len": seq,
+                            "steps": steps, "lr": lr}, ka, kx, dev)
+
+
+def phase_i(dev):
+    from k8s_distributed_deeplearning_torch.models import llama, moe
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps, batch_size, seq = 1e-4, 3, 2, 1024
+    tokens = data_lib.synthetic_tokens(
+        1 << 15, vocab_size=MOE_BACKBONE["vocab_size"], seed=4)
+    batcher = data_lib.TokenBatcher(tokens, batch_size, seq, seed=4)
+    ragged = moe.MoEConfig(num_experts=8, top_k=2, dispatch="ragged")
+    # capacity_factor E / k makes the capacity every token (clamped to T):
+    # the index path then drops nothing and routes as the ragged one.
+    index = moe.MoEConfig(num_experts=8, top_k=2, dispatch="index",
+                          capacity_factor=8 / 2)
+    wrappers = _kernel_wrappers()
+
+    def run(impl, mcfg, keep_on):
+        cfg = llama.config_tiny(**{**MOE_BACKBONE, "n_layers": 2},
+                                max_seq_len=seq, dtype=torch.float32,
+                                param_dtype=torch.float32, remat=True,
+                                attention_impl=impl)
+        for w in wrappers.values():
+            w.launches = 0
+        out = _agreement_run(cfg, dev, lr, batcher, steps, keep_on,
+                             moe_cfg=mcfg)
+        return out, {n: w.launches for n, w in wrappers.items()}
+
+    ka, kernel_launches = run("auto", ragged, torch.device("cpu"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kx, plain_launches = run("xla", index, dev)
+    check(kernel_launches["gmm"] > 0 and kernel_launches["tgmm"] > 0
+          and kernel_launches["flash_fwd"] > 0,
+          f"phase I kernel path launched {kernel_launches}")
+    check(not any(plain_launches.values()),
+          f"phase I plain path launched kernels: {plain_launches}")
+    return _agreement("I", {"model": "llama-small MoE width, 2 layers",
+                            "kernel_path": "ragged + flash",
+                            "plain_path": "index at capacity T + einsum",
+                            "kernel_path_launches": kernel_launches,
+                            "batch": batch_size, "seq_len": seq,
+                            "steps": steps, "lr": lr}, ka, kx, dev)
+
+
+def _agreement(phase, info, ka, kx, dev):
+    """Phases F and I: the kernel path's run ``ka`` (held on the host)
+    against the plain path's ``kx``: losses, then per parameter tensor the
+    first step's gradient and the parameters after the steps."""
+    steps = info["steps"]
     la, lx = ka["losses"], kx["losses"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lx))
 
@@ -861,9 +1241,7 @@ def phase_f(dev):
              "plain": {k: at(kx[k][name]) for k in fields},
              "leaf_grad_rms": l2(kx["grads"][name])
              / math.sqrt(kx["grads"][name].numel()), "adam_eps": 1e-8}
-    result = {"phase": "F", "model": "llama3-8b width, 2 layers",
-              "dtype": "float32", "tf32": False, "batch": batch_size,
-              "seq_len": seq, "steps": steps, "lr": lr,
+    result = {"phase": phase, **info, "dtype": "float32", "tf32": False,
               "losses_kernel": la, "losses_plain": lx,
               "loss_max_rel_diff": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
               "grad_rel_diff_worst": max(grad_rel.values()),
@@ -879,7 +1257,7 @@ def phase_f(dev):
     del ka, kx
     gc.collect()
     torch.cuda.empty_cache()
-    check(all(np.isfinite(la + lx)), "non-finite loss in phase F")
+    check(all(np.isfinite(la + lx)), f"non-finite loss in phase {phase}")
     check(loss_rel <= TRAIN_LOSS_RTOL,
           f"kernel-path and plain-path losses differ by {loss_rel}")
     check(max(grad_rel.values()) <= TRAIN_GRAD_TOL,
@@ -936,22 +1314,30 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib.stem}: {line.strip()}")
+    started = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log({"phase_done": name, "s": time.perf_counter() - t,
+             "since_start_s": time.perf_counter() - started})
+        return out
+
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    cases = phase_a(dev, flush)
-    del flush
-    b = phase_b(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_c(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    flash_rows = phase_d(dev, flush)
+    cases = timed("A", phase_a, dev, flush)
+    b = timed("B", phase_b, dev)
+    timed("C", phase_c, dev)
+    flash_rows = timed("D", phase_d, dev, flush)
+    gmm_rows = timed("G", phase_g, dev, flush)
     del flush
     distributed.initialize_single("cuda")
     try:
-        e = phase_e(dev)
-        phase_f(dev)
+        e = timed("E", phase_e, dev)
+        timed("F", phase_f, dev)
+        h = timed("H", phase_h, dev)
+        timed("I", phase_i, dev)
     finally:
         distributed.shutdown()
     rep = next(c for c in cases
@@ -968,7 +1354,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")} for c in cases]}]
-        + _flash_entries(flash_rows, e)})
+        + _flash_entries(flash_rows, e) + _gmm_entries(gmm_rows, h)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

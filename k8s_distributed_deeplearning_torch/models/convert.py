@@ -1,6 +1,7 @@
-"""Flax Llama parameters -> the port's state dict.
+"""Flax Llama and MoE parameters -> the port's state dict.
 
-The JAX ``LlamaLM`` parameter tree comes in two layouts: the layer-scanned
+The JAX ``LlamaLM`` and ``MoELM`` parameter trees come in two layouts: the
+layer-scanned
 stack (``scan_layers=True``: one ``transformer/blocks`` subtree whose every
 leaf carries a leading layer axis) and the unrolled one
 (``transformer/block_{i}``). Both map onto the same ``nn.Module`` names.
@@ -10,7 +11,9 @@ boxed partitioned leaves with an ``unbox()`` method).
 Kernel layouts: flax ``DenseGeneral`` q/k/v kernels are ``[D, H, hd]``,
 o_proj ``[H, hd, D]``, the MLP and head kernels ``[in, out]``;
 ``nn.Linear`` weights are ``[out, in]``. The embedding is ``[V, D]`` in
-both.
+both. An MoE block's ``mlp`` holds ``router`` [D, E], ``w_gate`` and
+``w_up`` [E, D, M] and ``w_down`` [E, M, D]; the port keeps that layout
+(the grouped matmul takes ``rhs`` [E, K, N] as it is), the router in f32.
 """
 from __future__ import annotations
 
@@ -46,10 +49,11 @@ def _block_trees(cfg: TransformerConfig,
 
 def from_flax_params(cfg: TransformerConfig,
                      params: Mapping) -> dict[str, torch.Tensor]:
-    """State dict for ``LlamaLM(cfg)`` from a flax ``LlamaLM`` ``params``
-    tree (the ``"params"`` collection). Weights are written at the port
-    model's parameter dtype (``cfg.resolved_param_dtype``: f32 JAX params
-    stay f32 for training); norm scales stay f32."""
+    """State dict for ``LlamaLM(cfg)`` or ``MoELM(cfg, ...)`` from the
+    matching flax model's ``params`` tree (the ``"params"`` collection).
+    Weights are written at the port model's parameter dtype
+    (``cfg.resolved_param_dtype``: f32 JAX params stay f32 for training);
+    norm scales and MoE routers stay f32."""
     hd = cfg.resolved_head_dim
 
     def t(x, dtype=cfg.resolved_param_dtype):
@@ -76,12 +80,14 @@ def from_flax_params(cfg: TransformerConfig,
             p + "attn.k_proj.weight": qkv(attn["k_proj"]["kernel"]),
             p + "attn.v_proj.weight": qkv(attn["v_proj"]["kernel"]),
             p + "attn.o_proj.weight": t(o.reshape(-1, o.shape[-1]).T),
-            p + "mlp.gate_proj.weight": t(_leaf(
-                mlp["gate_proj"]["kernel"]).T),
-            p + "mlp.up_proj.weight": t(_leaf(mlp["up_proj"]["kernel"]).T),
-            p + "mlp.down_proj.weight": t(_leaf(
-                mlp["down_proj"]["kernel"]).T),
         })
+        if "router" in mlp:
+            sd.update({p + "mlp.router": t(mlp["router"], torch.float32),
+                       **{p + f"mlp.{w}": t(mlp[w])
+                          for w in ("w_gate", "w_up", "w_down")}})
+        else:
+            sd.update({p + f"mlp.{w}.weight": t(_leaf(mlp[w]["kernel"]).T)
+                       for w in ("gate_proj", "up_proj", "down_proj")})
         if o.shape[:2] != (cfg.n_heads, hd):
             raise ValueError(
                 f"o_proj kernel {o.shape} does not match n_heads="

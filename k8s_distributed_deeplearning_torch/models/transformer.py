@@ -25,9 +25,14 @@ Two attention paths exist:
 
 ``remat`` checkpoints each block in the plain forward
 (``torch.utils.checkpoint``), with the JAX package's policies: ``"dots"``
-saves the outputs of the projection matmuls and recomputes everything
-else (the flash forward included), ``"dots_attn"`` also saves the
-attention output, ``"nothing"`` saves nothing.
+saves the outputs of the projection matmuls and of the MoE grouped matmul
+(``k8s_ddl_torch::gmm``) and recomputes everything else (the flash forward
+included), ``"dots_attn"`` also saves the attention output, ``"nothing"``
+saves nothing.
+
+``Block`` and ``Transformer`` take an ``mlp_factory`` that swaps the dense
+MLP (the MoE layer of ``models/moe.py``); the factory's module is called
+with ``decode`` and with the ``aux`` collector the caller passes down.
 
 The dense (non-paged) decode cache is not ported yet.
 """
@@ -44,6 +49,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from k8s_distributed_deeplearning_torch.ops import attention as attention_ops
 from k8s_distributed_deeplearning_torch.ops import flash_attn  # noqa: F401
+from k8s_distributed_deeplearning_torch.ops import gmm  # noqa: F401
 from k8s_distributed_deeplearning_torch.ops import paged_attn
 
 
@@ -58,10 +64,13 @@ def attn_out(x: torch.Tensor) -> torch.Tensor:
 attn_out.register_autograd(lambda ctx, grad: grad)
 
 _aten = torch.ops.aten
-_DOTS = (_aten.mm.default, _aten.addmm.default)
+_DOTS = (_aten.mm.default, _aten.addmm.default,
+         torch.ops.k8s_ddl_torch.gmm.default)
 # Operators whose outputs each policy saves through remat. "dots" is JAX's
 # dots_with_no_batch_dims_saveable: the projection matmuls (aten.mm), not
-# the batched attention products (aten.bmm). "dots_attn" adds the tagged
+# the batched attention products (aten.bmm), plus the MoE grouped matmul,
+# as JAX's policy saves the outputs tagged "gmm_out": without it remat
+# replays all three grouped GEMMs of a layer. "dots_attn" adds the tagged
 # attention output and the flash forward, whose rerun it exists to skip.
 # "nothing" is plain checkpointing.
 REMAT_POLICIES = {
@@ -366,18 +375,29 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x))."""
+    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)).
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    ``mlp_factory(cfg, device=...)`` swaps the feed-forward module (the MoE
+    layer) while the norms and residuals stay shared. Its module is called
+    with ``decode`` and ``aux`` (the caller's collector of per-layer
+    auxiliary losses, or None); the plain :class:`MLP` takes neither."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 mlp_factory=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
-        self.mlp = MLP(cfg, device=device)
+        self.custom_mlp = mlp_factory is not None
+        self.mlp = (mlp_factory(cfg, device=device) if self.custom_mlp
+                    else MLP(cfg, device=device))
 
-    def forward(self, x, **attn_kw):
+    def forward(self, x, *, decode: bool = False, aux=None, **attn_kw):
         x = x + self.attn(self.attn_norm(x), **attn_kw)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if self.custom_mlp:
+            return x + self.mlp(h, decode=decode, aux=aux)
+        return x + self.mlp(h)
 
 
 class Transformer(nn.Module):
@@ -387,16 +407,19 @@ class Transformer(nn.Module):
     ``cache`` (one ``(pool_k, pool_v)`` pair per layer, written in place)
     selects the paged serving branch. Its write positions are
     ``positions`` ([B, S]) or, for slot decode, ``cache_positions[:, None]
-    + arange(S)`` ([B] cursors)."""
+    + arange(S)`` ([B] cursors). ``mlp_factory`` reaches every block;
+    ``aux`` is handed to each block's factory MLP."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 mlp_factory=None):
         super().__init__()
         self.cfg = cfg
         self.tok_embed = Embed(cfg.vocab_size, cfg.dim, device=device,
                                dtype=cfg.dtype,
                                param_dtype=cfg.resolved_param_dtype)
         self.blocks = nn.ModuleList(
-            [Block(cfg, device=device) for _ in range(cfg.n_layers)])
+            [Block(cfg, device=device, mlp_factory=mlp_factory)
+             for _ in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
         if cfg.position == "rope":
             cos, sin = rope_frequencies(cfg.resolved_head_dim,
@@ -412,7 +435,8 @@ class Transformer(nn.Module):
                 decode: bool = False,
                 cache: list | None = None,
                 cache_positions: torch.Tensor | None = None,
-                block_tables: torch.Tensor | None = None) -> torch.Tensor:
+                block_tables: torch.Tensor | None = None,
+                aux=None) -> torch.Tensor:
         cfg = self.cfg
         b, s = tokens.shape
         paged = None
@@ -448,7 +472,7 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.blocks):
             kw = dict(rope=rope, mask=mask, segment_ids=segment_ids,
                       cache=cache[i] if paged is not None else None,
-                      paged=paged)
+                      paged=paged, decode=decode, aux=aux)
             if remat:
                 saved = REMAT_POLICIES[cfg.remat_policy]
                 if saved:
@@ -506,14 +530,28 @@ class LMHead(nn.Module):
 
 
 @torch.no_grad()
+def glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax ``xavier_uniform`` on a kernel laid out ``[..., in, out]``:
+    the leading axes fold into both fans (fan_in = in x rest, fan_out =
+    out x rest), so a 3-D expert tensor [E, d, m] draws from
+    +-sqrt(6 / ((d + m) E))."""
+    rest = w.numel() // (w.shape[-2] * w.shape[-1])
+    limit = math.sqrt(6.0 / ((w.shape[-2] + w.shape[-1]) * rest))
+    w.uniform_(-limit, limit, generator=generator)
+
+
+@torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, with the JAX package's families:
-    Glorot-uniform projections, N(0, 0.02) embeddings, unit norm scales."""
+    Glorot-uniform projections, N(0, 0.02) embeddings, unit norm scales.
+    A module with a ``reset_from(generator)`` method (the MoE layer) draws
+    its own."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
-            limit = math.sqrt(6.0 / (m.in_features + m.out_features))
-            m.weight.uniform_(-limit, limit, generator=generator)
+            glorot_uniform_(m.weight, generator)
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, RMSNorm):
             m.scale.fill_(1.0)
+        elif hasattr(m, "reset_from"):
+            m.reset_from(generator)

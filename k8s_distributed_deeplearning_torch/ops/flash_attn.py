@@ -235,10 +235,6 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
-def reset_launches() -> None:
-    flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
-
-
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   segq: torch.Tensor | None, segk: torch.Tensor | None,

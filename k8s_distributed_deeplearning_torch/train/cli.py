@@ -3,15 +3,21 @@
 
     python -m k8s_distributed_deeplearning_torch.train --preset tiny \\
         --device cpu --num-steps 20
+    python -m k8s_distributed_deeplearning_torch.train --preset small \\
+        --moe-experts 8 --moe-dispatch ragged
 
 One process per data-parallel replica: a multi-process world is formed
 from the ``TPUJOB_*`` env contract (``parallel/distributed.py``), a
 single process forms a world of one, and the step always allreduces its
 gradients through ``torch.distributed`` (NCCL on the card, gloo on the
 CPU). The model runs on the card unless ``--device cpu`` is asked for;
-there the kernels' plain versions run. Sharded and pipelined training
-(``--fsdp``, ``--tp``, ``--sp``, ``--pp``), MoE (``--moe-experts``),
-checkpoints and the profiler are not ported yet and raise.
+there the kernels' plain versions run. ``--moe-experts N`` swaps every MLP
+for a mixture-of-experts layer (``models/moe.py`` ``MoELM``, the loss
+``moe.loss_fn``, MFU from ``moe.flops_per_token``); ``--moe-dispatch
+ragged`` runs the experts as grouped matmuls on the CUDA kernels. Sharded,
+expert-parallel and pipelined training (``--fsdp``, ``--tp``, ``--sp``,
+``--ep``, ``--pp``), checkpoints and the profiler are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from k8s_distributed_deeplearning_torch import config as cfg_lib
 from k8s_distributed_deeplearning_torch.models import llama
+from k8s_distributed_deeplearning_torch.models import moe as moe_lib
 from k8s_distributed_deeplearning_torch.parallel import distributed
 from k8s_distributed_deeplearning_torch.parallel import data_parallel as dp
 from k8s_distributed_deeplearning_torch.train import data as data_lib
@@ -62,14 +69,13 @@ def build_config(args) -> llama.TransformerConfig:
 
 def _unported(args) -> None:
     for flag, value in (("--fsdp", args.fsdp), ("--tp", args.tp),
-                        ("--sp", args.sp), ("--pp", args.pp)):
+                        ("--sp", args.sp), ("--pp", args.pp),
+                        ("--ep", args.ep)):
         if value > 1:
             raise NotImplementedError(
-                f"{flag} {value}: sharded, context-parallel and pipelined "
-                "training are not ported to PyTorch yet (ROADMAP.md)")
-    if args.moe_experts:
-        raise NotImplementedError("--moe-experts: MoE is not ported to "
-                                  "PyTorch yet (ROADMAP.md)")
+                f"{flag} {value}: sharded, context-parallel, "
+                "expert-parallel and pipelined training are not ported to "
+                "PyTorch yet (ROADMAP.md)")
     if args.checkpoint_dir is not None or args.checkpoint_every is not None:
         raise NotImplementedError("checkpoints are not ported to PyTorch "
                                   "yet (ROADMAP.md)")
@@ -91,7 +97,20 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--sp", type=int, default=1)
     parser.add_argument("--pp", type=int, default=1)
-    parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="swap every MLP for a mixture-of-experts layer "
+                        "with N experts (models/moe.py MoELM; 0 = dense)")
+    parser.add_argument("--moe-top-k", type=int, default=2)
+    parser.add_argument("--moe-capacity-factor", type=float, default=1.25)
+    parser.add_argument("--moe-dispatch", default="index",
+                        choices=["index", "einsum", "ragged"],
+                        help="expert dispatch: capacity index scatter "
+                        "(default), dense one-hot einsums, or the dropless "
+                        "grouped-GEMM path (the CUDA gmm/tgmm kernels on the "
+                        "card; no capacity, no overflow drops)")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert parallelism: not ported yet, raises "
+                        "above 1")
     parser.add_argument("--attention", choices=["auto", "xla", "flash"],
                         default="auto",
                         help="auto = the flash kernels on the card at "
@@ -153,7 +172,16 @@ def _train(args, conf, device) -> dict:
     per_host = conf.batch_size // world
     model_cfg = build_config(args)
     seq_len = args.seq_len or min(model_cfg.max_seq_len, 512)
-    model = llama.LlamaLM(model_cfg, device=device, seed=conf.seed)
+    moe_cfg = None
+    if args.moe_experts:
+        moe_cfg = moe_lib.MoEConfig(
+            num_experts=args.moe_experts, top_k=args.moe_top_k,
+            capacity_factor=args.moe_capacity_factor,
+            dispatch=args.moe_dispatch)
+        model = moe_lib.MoELM(model_cfg, moe_cfg, device=device,
+                              seed=conf.seed)
+    else:
+        model = llama.LlamaLM(model_cfg, device=device, seed=conf.seed)
     params = dp.broadcast_params(dict(model.named_parameters()))
     chunked = (args.chunked_ce if args.chunked_ce is not None
                else args.preset == "8b")
@@ -164,6 +192,9 @@ def _train(args, conf, device) -> dict:
         grad_clip=args.grad_clip or None, moment_dtype=args.moment_dtype)
 
     def loss(batch, gen):
+        if moe_cfg is not None:
+            return moe_lib.loss_fn(model, moe_cfg, batch, gen,
+                                   chunked=chunked)
         return llama.loss_fn(model, batch, gen, chunked=chunked)
 
     state = dp.init_state(params, optimizer)
@@ -213,11 +244,19 @@ def _train(args, conf, device) -> dict:
                          "batch per process")
     metrics = MetricsLogger(job="llama", enabled=distributed.is_primary())
     n_params = sum(p.numel() for p in params.values())
+    if moe_cfg is not None:
+        extra["moe"] = {"experts": moe_cfg.num_experts,
+                        "top_k": moe_cfg.top_k,
+                        "capacity_factor": moe_cfg.capacity_factor,
+                        "dispatch": moe_cfg.dispatch}
+        flops = moe_lib.flops_per_token(model_cfg, moe_cfg,
+                                        seq_len=seq_len) * seq_len
+    else:
+        flops = llama.flops_per_token(model_cfg, seq_len=seq_len) * seq_len
     metrics.emit("start", world_size=world, num_steps=conf.num_steps,
                  preset=args.preset, params=n_params, seq_len=seq_len,
                  attention=args.attention, chunked_ce=chunked,
                  device=str(device), dtype=args.dtype, **extra)
-    flops = llama.flops_per_token(model_cfg, seq_len=seq_len) * seq_len
     try:
         state = loop.fit(
             step_fn, state, batcher.iter_from, conf.num_steps, conf.seed,

@@ -270,3 +270,126 @@ def test_flash_rejects_what_the_kernels_cannot_take(hopper):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)
+
+
+# Grouped matmul: (group sizes, K, N, block_m). The JAX kernel tests'
+# layouts (an empty group, everything in one expert), contraction and
+# column sizes that cut the 32-deep and 128-wide tiles, a block_m of two
+# row tiles, and the MoE training shapes (8 experts, 16,384 routed rows,
+# K 768 -> N 2048).
+GMM_SHAPES = [
+    ((100, 0, 300, 57), 128, 256, 128),
+    ((0, 0, 0, 512), 128, 256, 128),
+    ((37, 290, 1, 0, 200), 72, 200, 128),
+    ((500, 3, 260, 129), 64, 136, 256),
+    ((1800, 2500, 1900, 2200, 2000, 1700, 2300, 1984), 768, 2048, 128),
+]
+# (atol, rtol), held per element: |kernel - plain| <= atol * rms(plain) +
+# rtol * |plain|. Both sum f32 products; f32: the order of the sums over
+# up to a few thousand terms. bf16: both round their f32 sums to bf16, one
+# bf16 step (2^-8 of the value) apart where the sums straddle a rounding
+# boundary.
+GMM_DTYPES = [(torch.float32, (1e-5, 1e-5)),
+              (torch.bfloat16, (2 ** -10, 2 ** -7))]
+
+
+def _gmm_inputs(dev, dtype, sizes, k, n, bm, seed):
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    rng = np.random.default_rng(seed)
+    lay = g.grouped_layout(torch.tensor(sizes, dtype=torch.int32, device=dev),
+                           int(sum(sizes)), block_m=bm)
+    lhs = np.zeros((lay.m_pad, k), np.float32)
+    off = lay.row_offset.cpu().numpy()
+    for i, s in enumerate(sizes):
+        lhs[off[i]:off[i] + s] = rng.standard_normal((s, k))
+    rhs = rng.standard_normal((len(sizes), k, n)).astype(np.float32)
+    cot = np.zeros((lay.m_pad, n), np.float32)
+    live = g.live_rows(lay).cpu().numpy()
+    cot[live] = rng.standard_normal((int(live.sum()), n))
+    return lay, *(torch.from_numpy(x).to(dev, dtype) for x in (lhs, rhs, cot))
+
+
+def _within(got, want, tol, what):
+    atol, rtol = tol
+    ref = want.float()
+    err = (got.float() - ref).abs()
+    scale = float(ref.square().mean().sqrt())
+    share = float((err / (atol * scale + rtol * ref.abs())).max())
+    assert share <= 1.0, (
+        f"{what}: |kernel - plain| reaches {share} of the limit {atol} x "
+        f"rms + {rtol} x |plain| (max err {float(err.max())})")
+
+
+@pytest.mark.parametrize("dtype,tol", GMM_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GMM_SHAPES,
+                         ids=lambda s: f"E{len(s[0])}-K{s[1]}-N{s[2]}-"
+                         f"bm{s[3]}")
+def test_gmm_kernels_match_reference(hopper, dtype, tol, shape):
+    """gmm (and its transposed-weight form, the backward's dlhs) and tgmm
+    against their plain versions; dead blocks exactly 0; one launch each."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes, k, n, bm = shape
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, dtype, sizes, k, n, bm,
+                                     sum(sizes) + k)
+    before = (g.gmm_forward.launches, g.tgmm.launches)
+    out = g.gmm_forward(lhs, rhs, lay)
+    dlhs = g.gmm_forward(cot, rhs, lay, transpose_rhs=True)
+    drhs = g.tgmm(lhs, cot, len(sizes), lay)
+    torch.cuda.synchronize()
+    assert (g.gmm_forward.launches, g.tgmm.launches) == (before[0] + 2,
+                                                         before[1] + 1)
+    for name, got, want in (
+            ("out", out, g.gmm_reference(lhs, rhs, lay)),
+            ("dlhs", dlhs, g.gmm_reference(cot, rhs, lay,
+                                           transpose_rhs=True)),
+            ("drhs", drhs, g.tgmm_reference(lhs, cot, len(sizes), lay))):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.isfinite(got).all(), name
+        _within(got, want, tol, name)
+    dead = ~g.live_rows(lay)
+    assert torch.all(out[dead] == 0) and torch.all(dlhs[dead] == 0)
+    for e, s in enumerate(sizes):
+        if s == 0:
+            assert torch.all(drhs[e] == 0)
+
+
+def test_gmm_autograd_runs_the_kernels(hopper):
+    """Through GroupedMatmul on the card: the forward and dlhs launch
+    gmm_kernel, drhs tgmm_kernel; gradients in the primal dtypes."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.bfloat16, (70, 0, 190),
+                                     64, 128, 128, 3)
+    lhs.requires_grad_(), rhs.requires_grad_()
+    before = (g.gmm_forward.launches, g.tgmm.launches)
+    (g.gmm(lhs, rhs, lay).float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (g.gmm_forward.launches, g.tgmm.launches) == (before[0] + 2,
+                                                         before[1] + 1)
+    assert lhs.grad.dtype == rhs.grad.dtype == torch.bfloat16
+    _within(rhs.grad, g.tgmm_reference(lhs.detach(), cot, 3, lay),
+            GMM_DTYPES[1][1], "drhs")
+
+
+def test_gmm_rejects_what_the_kernels_cannot_take(hopper):
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.float32, (30, 9), 64, 64,
+                                     128, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        g.gmm_forward(lhs.half(), rhs.half(), lay)
+    with pytest.raises(TypeError, match="rhs must be"):
+        g.gmm_forward(lhs, rhs.bfloat16(), lay)
+    with pytest.raises(ValueError, match="contiguous"):
+        g.gmm_forward(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2),
+                      lay)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        g.gmm_forward(lhs[:, :60].contiguous(), rhs[:, :60].contiguous(),
+                      lay)
+    small = g.grouped_layout(lay.group_sizes, 39, block_m=64)
+    with pytest.raises(ValueError, match="row tile"):
+        g.tgmm(torch.zeros(small.m_pad, 64, device=hopper),
+               torch.zeros(small.m_pad, 64, device=hopper), 2, small)
