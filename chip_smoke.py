@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``csrc/`` with nvcc (one nvcc
-per source, all started together), then runs six phases; any failure
+per source, all started together), then runs its phases; any failure
 exits non-zero.
 
 A. Each kernel against its plain PyTorch version on the card, at the
@@ -15,7 +15,12 @@ A. Each kernel against its plain PyTorch version on the card, at the
    kernel's time, the plain version's, the bound (the larger of bytes over
    3.35 TB/s and FLOPs over the dtype's peak), and the time of
    ``scaled_dot_product_attention`` on the pre-gathered K/V with the
-   boolean mask as a yardstick (the port never calls it).
+   boolean mask as a yardstick (the port never calls it). The same decode
+   and prefill cases again through the kernel's int8 branch: int8 pools
+   quantized from random ones by the model's quantize-on-write, bf16 and
+   f32 q, held to the int8 plain version, stale int8 cells and their
+   scales past each cursor and scratch-page garbage changing no bit; the
+   yardstick then runs on K/V gathered and dequantized beforehand.
 B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
    random weights from a seed): 4 slots, 512-token prefill chunks, 8
    requests of 100-1500 prompt tokens and 32 new tokens (6 greedy, 2
@@ -84,6 +89,18 @@ I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    flash attention) and through an independent plain path
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
    attention), compared as in phase F.
+J. Quantized serving: phase B's engine and workload with
+   ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
+   and depth, bf16 random weights from seed 0, quantized in place). The
+   same checks, every pool int8 with f32 scale siblings, the int8 branch
+   launched exactly n_layers x (decode iterations + prefill chunks) times
+   and the fp branch never. Reports phase B's metrics, the peak memory of
+   construction and of serving apart, bytes per page fp and int8, the
+   bytes saved, the decode profile, and, as a reading only, the share of
+   greedy tokens equal to phase B's.
+K. Phase C with kv and weight int8: f32 at 8B width and 4 layers, the int8
+   kernel path against the plain path; the first 16 greedy tokens of all
+   8 requests agree.
 
 Prints the card's name and power limit, the build time, one JSON line per
 phase, a ``{"kernels": [...]}`` line, and last
@@ -111,7 +128,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 # P.V (as the Pallas kernel does), the plain version the normalized
 # probabilities, and both round the output to bf16.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The int8 branch in bf16, per element: |kernel - plain| <= 2^-10 x the
+# output's RMS + 2^-7 x |plain|. Both dequantize to the same f32 values and
+# keep p in f32, so only the order of the f32 sums and the final bf16
+# rounding differ: one bf16 step (at most 2^-7 of the value), plus a
+# little near 0. f32 is held to TOL.
+INT8_TOL_BF16 = (2 ** -10, 2 ** -7)
 H, KV, HD, PAGE = 32, 8, 128, 32
+PAGED_REPLACES = ("k8s_distributed_deeplearning_tpu/ops/"
+                  "pallas_paged_attn.py:66")
 # Phase D tolerances (atol, rtol), held per element and per output (o, dq,
 # dk, dv): |kernel - plain| <= atol x scale + rtol x |plain|. rtol covers
 # the output rounding: bf16 keeps 8 significant bits, so two results that
@@ -206,11 +231,16 @@ def _attn_case(rng, dev, dtype, lengths, sq, n_blocks, pages):
 
 
 def _bound(args, dtype):
-    q, pk, _, tables, pos = args
+    """Bytes: K and V of the live tokens once (int8 pools, ``args`` with
+    their scales: one byte an element plus an f32 scale a token and head),
+    q in, out, tables and positions; operations: 4 x H x hd per visible
+    (query, key) pair. The larger time over the card's rates."""
+    q, pk, _, tables, pos = args[:5]
     item = q.element_size()
     live = (pos.max(dim=1).values.long() + 1).clamp_max(
         tables.shape[1] * PAGE)
-    nbytes = (2 * int(live.sum()) * KV * HD * item      # K and V, once
+    per_token = KV * (HD * pk.element_size() + (4 if len(args) > 5 else 0))
+    nbytes = (2 * int(live.sum()) * per_token         # K and V, once
               + 2 * q.numel() * item                   # q in, out
               + 4 * (tables.numel() + pos.numel()))
     flops = 4 * H * HD * int((pos.long() + 1).sum())
@@ -289,6 +319,114 @@ def phase_a(dev, flush):
     return cases
 
 
+def _quantized(args):
+    """The case's pools quantized per token and KV head by the model's
+    quantize-on-write: (q, int8 K, int8 V, tables, positions, K scales,
+    V scales)."""
+    from k8s_distributed_deeplearning_torch.models.transformer import (
+        quantize_kv)
+
+    q, pk, pv, tables, pos = args
+    (kq, ks), (vq, vs) = (quantize_kv(p.view(p.shape[0], PAGE, KV, HD))
+                          for p in (pk, pv))
+    return (q, kq.view(pk.shape), vq.view(pv.shape), tables, pos, ks, vs)
+
+
+def _int8_err(out, ref, dtype):
+    """max |kernel - plain| and the largest share of the limit any element
+    uses (f32: TOL; bf16: INT8_TOL_BF16)."""
+    d = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        limit = torch.full_like(d, TOL[dtype])
+    else:
+        r = ref.float()
+        limit = (INT8_TOL_BF16[0] * float(r.square().mean().sqrt())
+                 + INT8_TOL_BF16[1] * r.abs())
+    return float(d.max()), float((d / limit).max())
+
+
+def phase_a_int8(dev, flush):
+    """Phase A's cases through the kernel's int8 branch."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    rng = np.random.default_rng(10)
+    torch.manual_seed(10)
+    attn = paged_attn.paged_decode_attention
+    plain = paged_attn.paged_decode_attention_reference
+    decode_lens = rng.integers(100, 2001, 4)
+    cases = []
+
+    def kern(q, kq, vq, tables, pos, ks, vs):
+        return attn(q, kq, vq, tables, pos, k_scale=ks, v_scale=vs)
+
+    def ref(q, kq, vq, tables, pos, ks, vs):
+        return plain(q, kq, vq, tables, pos, k_scale=ks, v_scale=vs)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        shapes = {"decode": (decode_lens, 1, 64, 4 * 64 + 1),
+                  "prefill512": ([1024 + 512], 512, 64, 64)}
+        for name, (lens, sq, nb, pages) in shapes.items():
+            args = _quantized(_attn_case(rng, dev, torch.float32, lens, sq,
+                                         nb, pages))
+            args = (args[0].to(dtype),) + args[1:]
+            before = attn.launches_int8
+            out = kern(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            check(attn.launches_int8 == before + 1,
+                  f"int8 {name}/{dname}: the int8 branch did not launch")
+            check(out.dtype == dtype and bool(torch.isfinite(out).all()),
+                  f"int8 {name}/{dname}: {out.dtype} or non-finite")
+            err, share = _int8_err(out, want, dtype)
+            check(share <= 1.0, f"int8 {name}/{dname}: max err {err} uses "
+                  f"{share} of its limit")
+            q, kq, vq, tables, pos, ks, vs = args
+
+            def deq(x, s):
+                return (x.view(-1, PAGE, KV, HD).float() * s[..., None]).to(
+                    dtype).view(x.shape)
+
+            bound, by = _bound(args, dtype)
+            cases.append({
+                "case": name, "dtype": dname, "branch": "int8", "shape": {
+                    "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
+                    "page_tokens": PAGE, "n_blocks": nb,
+                    "live": [int(n) for n in lens]},
+                "max_abs_err": err, "tol_share": share,
+                "tol": (TOL[dtype] if dtype == torch.float32 else
+                        {"atol_rms": INT8_TOL_BF16[0],
+                         "rtol": INT8_TOL_BF16[1]}),
+                "ms": time_ms(lambda: kern(*args), flush),
+                "plain_ms": time_ms(lambda: ref(*args), flush),
+                "library_ms": time_ms(_sdpa_fn(
+                    (q, deq(kq, ks), deq(vq, vs), tables, pos)), flush),
+                "bound_ms": bound, "bound_by": by})
+            log({"phase": "A", **cases[-1]})
+        # Stale int8 cells past each cursor (127, scale 1e4) and garbage in
+        # the scratch page and its scale page change no output bit.
+        args = _quantized(_attn_case(rng, dev, torch.float32, decode_lens, 1,
+                                     64, 4 * 64 + 1))
+        q, kq, vq, tables, pos, ks, vs = (args[0].to(dtype),) + args[1:]
+        base = kern(q, kq, vq, tables, pos, ks, vs)
+        kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+        for i, n in enumerate(decode_lens):
+            last = int(tables[i, (int(n) - 1) // PAGE])
+            tail = slice((int(n) - 1) % PAGE + 1, None)
+            kq2[last, tail], vq2[last, tail] = 127, 127
+            ks2[last, tail], vs2[last, tail] = 1e4, 1e4
+        kq2[0], vq2[0], ks2[0], vs2[0] = 127, 127, 1e4, 1e4
+        same = torch.equal(kern(q, kq2, vq2, tables, pos, ks2, vs2), base)
+        check(same, f"int8 stale/scratch cells changed the output ({dname})")
+        err, share = _int8_err(base, ref(q, kq2, vq2, tables, pos, ks2, vs2),
+                               dtype)
+        check(share <= 1.0, f"int8 stale/scratch vs plain: {err}")
+        log({"phase": "A", "case": "stale_kv+scratch_page", "dtype": dname,
+             "branch": "int8", "bitwise_unchanged": same,
+             "max_abs_err": err, "tol_share": share})
+    return cases
+
+
 # ------------------------------------------------------------- phase B/C
 
 
@@ -330,30 +468,46 @@ def _timed(engine, name, acc):
     setattr(engine, name, wrapper)
 
 
-def phase_b(dev):
+def _serve_phase(phase, dev, quant: bool):
+    """Phases B and J: ``ServeEngine`` at full Llama-3 8B width and depth,
+    bf16 random weights from seed 0, serving ``_requests``; J with int8 KV
+    pages and int8 weights. Checks the outputs, the pool, and the paged
+    kernel's launches by branch; returns the result and the streams."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
+    from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
 
     cfg = llama.config_llama3_8b(max_seq_len=2048)
+    kw = dict(kv_quant="int8", weight_quant="int8") if quant else {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = llama.LlamaLM(cfg, device=dev, seed=0)
     eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
-                      device=dev)
+                      device=dev, **kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    per_layer = ((torch.int8, torch.int8, torch.float32, torch.float32)
+                 if quant else (cfg.dtype, cfg.dtype))
+    check(all(tuple(t.dtype for t in layer) == per_layer
+              for layer in eng._cache), f"pool dtypes are not {per_layer}")
+    check(quant_lib.is_quantized(model) == quant,
+          f"weights quantized: {quant_lib.is_quantized(model)}")
+    torch.cuda.reset_peak_memory_stats()
     acc = {"_prefill": 0.0, "_decode_step": 0.0}
     for name in acc:
         _timed(eng, name, acc)
     reqs = _requests(cfg.vocab_size, 32, sampled=True)
     free0 = eng.pool.available()
-    paged_attn.paged_decode_attention.launches = 0
+    attn = paged_attn.paged_decode_attention
+    attn.launches = attn.launches_int8 = 0
     t0 = time.perf_counter()
     outs = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_attn.paged_decode_attention.launches
+    launches = {"fp": attn.launches, "int8": attn.launches_int8}
     check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
     for o in outs:
         check(o.finish_reason == "length" and len(o.tokens) == 32,
@@ -365,16 +519,18 @@ def phase_b(dev):
     summ = eng.stats.summary()
     chunks = sum(o.prefill_chunks for o in outs)
     want = cfg.n_layers * (summ["decode_steps"] + chunks)
-    check(launches == want,
-          f"kernel launches {launches} != n_layers x (decode iterations "
-          f"{summ['decode_steps']} + prefill chunks {chunks}) = {want}")
+    branch = "int8" if quant else "fp"
+    check(launches == {"fp": 0, "int8": 0, branch: want},
+          f"kernel launches {launches}: want {want} = n_layers x (decode "
+          f"iterations {summ['decode_steps']} + prefill chunks {chunks}) "
+          f"of the {branch} branch and none of the other")
     result = {
-        "phase": "B", "model": "llama3-8b", "layers": cfg.n_layers,
-        "dtype": "bfloat16", "slots": 4, "prefill_chunk_tokens": 512,
+        "phase": phase, "model": "llama3-8b", "layers": cfg.n_layers,
+        "dtype": "bfloat16", **kw, "slots": 4, "prefill_chunk_tokens": 512,
         "requests": 8, "prompt_tokens": summ["prompt_tokens"],
         "new_tokens": sum(len(o.tokens) for o in outs),
         "decode_iterations": summ["decode_steps"], "prefill_chunks": chunks,
-        "kernel_launches": launches,
+        "kernel_launches": launches[branch],
         "prefill_tokens_per_s": summ["prompt_tokens"] / acc["_prefill"],
         "decode_tokens_per_s": eng.stats.decode_tokens / acc["_decode_step"],
         "prefill_s": acc["_prefill"], "decode_s": acc["_decode_step"],
@@ -384,9 +540,42 @@ def phase_b(dev):
         "ttft_p50_ms": summ["ttft_p50_ms"],
         "latency_p50_ms": summ["latency_p50_ms"],
         "mean_slot_occupancy": summ["mean_slot_occupancy"],
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        "setup_peak_memory_gb": setup_peak,
+        "resident_after_setup_gb": resident,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "bytes_per_page": {m or "fp": eng._block_nbytes(PAGE, kv_quant=m)
+                           for m in (None, "int8")},
+        **{k: summ[k] for k in ("kv_quant_bytes_saved",
+                                "weight_quant_bytes_saved")}}
+    streams = {o.request_id: o.tokens for o in outs}
+    return result, streams, eng
+
+
+def phase_b(dev):
+    result, streams, eng = _serve_phase("B", dev, quant=False)
     log(result)
-    decode_profile(eng, cfg.vocab_size)
+    decode_profile("B", eng, result["layers"])
+    return result, streams
+
+
+def phase_j(dev, b_streams):
+    result, streams, eng = _serve_phase("J", dev, quant=True)
+    # A reading, not a gate: with random weights, near-ties of the greedy
+    # argmax flip under int8 noise, and a flip changes the rest of that
+    # stream.
+    greedy = [rid for rid in sorted(streams) if rid not in ("r2", "r5")]
+    same = sum(a == b for rid in greedy
+               for a, b in zip(streams[rid], b_streams[rid]))
+    total = sum(len(b_streams[rid]) for rid in greedy)
+    first_diff = {rid: next((i for i, (a, b) in enumerate(
+        zip(streams[rid], b_streams[rid])) if a != b), None)
+        for rid in greedy}
+    result.update({"greedy_tokens_equal_to_phase_b": same,
+                   "greedy_tokens_compared": total,
+                   "greedy_agreement_share": same / total,
+                   "first_differing_token": first_diff})
+    log(result)
+    decode_profile("J", eng, result["layers"])
     return result
 
 
@@ -426,7 +615,7 @@ def _by_class(kernels) -> dict:
     return out
 
 
-def decode_profile(eng, vocab, steps: int = 16):
+def decode_profile(phase, eng, n_layers, steps: int = 16):
     """Where a decode iteration's time goes, with every slot busy: the host
     clock over ``steps`` iterations, then device time by kernel over
     ``steps`` more under ``torch.profiler``. The busy share divides the
@@ -435,6 +624,7 @@ def decode_profile(eng, vocab, steps: int = 16):
 
     from k8s_distributed_deeplearning_torch.serve import Request
 
+    vocab = eng.model.cfg.vocab_size
     rng = np.random.default_rng(2)
     for i in range(eng.num_slots):
         eng.submit(Request(prompt=rng.integers(0, vocab, 512).astype(np.int32),
@@ -459,44 +649,70 @@ def decode_profile(eng, vocab, steps: int = 16):
     kernels = _device_ms_by_kernel(prof, steps)
     device_ms = sum(k[2] for k in kernels)
     by_class = _by_class(kernels)
-    log({"phase": "B", "case": "decode_profile", "slots": eng.num_slots,
+    launches = sum(k[1] for k in kernels) / steps
+    log({"phase": phase, "case": "decode_profile", "slots": eng.num_slots,
          "steps": steps, "step_ms": step_ms,
          "device_ms_per_step": device_ms,
          "device_busy_share": device_ms / step_ms,
          "device_ms_per_step_by_class": by_class,
-         "launches_per_step": sum(k[1] for k in kernels) / steps,
+         "launches_per_step": launches,
+         "launches_per_step_per_layer": launches / n_layers,
          "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
                           "ms_per_step": ms} for n, c, ms in kernels[:8]]})
 
 
-def phase_c(dev):
+def _paths_phase(phase, dev, quant: bool):
+    """Phases C and K: f32 at 8B width and 4 layers, greedy, the kernel
+    path (``attention_impl="auto"``) against the plain path (``"xla"``); K
+    with int8 KV pages and int8 weights. The first 16 tokens of every
+    request agree, and only the kernel path launches the kernel."""
     from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    streams = {}
+    kw = dict(kv_quant="int8", weight_quant="int8") if quant else {}
+    attn = paged_attn.paged_decode_attention
+    streams, launches = {}, {}
     for impl in ("auto", "xla"):
         cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
                                      dtype=torch.float32,
                                      attention_impl=impl)
         model = llama.LlamaLM(cfg, device=dev, seed=0)
         eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
-                          device=dev)
+                          device=dev, **kw)
+        attn.launches = attn.launches_int8 = 0
         outs = eng.run(_requests(cfg.vocab_size, 16, sampled=False))
+        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8}
         streams[impl] = {o.request_id: o.tokens for o in outs}
         del model, eng
         gc.collect()
         torch.cuda.empty_cache()
     agree = {rid: streams["auto"][rid] == streams["xla"][rid]
              for rid in sorted(streams["auto"])}
-    result = {"phase": "C", "model": "llama3-8b width, 4 layers",
-              "dtype": "float32", "requests": len(agree),
-              "tokens_compared": 16, "streams_agree": agree}
+    result = {"phase": phase, "model": "llama3-8b width, 4 layers",
+              "dtype": "float32", **kw, "requests": len(agree),
+              "tokens_compared": 16, "launches": launches,
+              "streams_agree": agree}
     log(result)
     check(len(agree) == 8 and all(agree.values()),
           "kernel-path and plain-path greedy streams differ")
+    branch = "int8" if quant else "fp"
+    check(launches["auto"][branch] > 0 and not any(
+        launches["xla"].values()) and not launches["auto"][
+            "fp" if quant else "int8"],
+          f"launches by path {launches}: the {branch} branch on the kernel "
+          "path only")
     return result
+
+
+def phase_c(dev):
+    return _paths_phase("C", dev, quant=False)
+
+
+def phase_k(dev):
+    return _paths_phase("K", dev, quant=True)
 
 
 # ------------------------------------------------------------- phase D
@@ -1271,6 +1487,30 @@ def _agreement(phase, info, ka, kx, dev):
     return result
 
 
+def _paged_entries(fp_cases, b_result, int8_cases, j_result):
+    """Kernel-line entries of the paged kernel's two branches: the
+    representative case is decode in bf16, the launches those of phases B
+    (fp) and J (int8)."""
+    out = []
+    for name, branch, cases, served in (
+            ("paged_decode_attention", "fp", fp_cases, b_result),
+            ("paged_decode_attention_int8", "quant=True", int8_cases,
+             j_result)):
+        rep = next(c for c in cases
+                   if c["case"] == "decode" and c["dtype"] == "bfloat16")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "k8s_distributed_deeplearning_torch/csrc/paged_attn.cu",
+            "replaces": PAGED_REPLACES, "branch": branch,
+            "launches": served["kernel_launches"],
+            **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")} for c in cases]})
+    return out
+
+
 def _flash_entries(rows, e_result):
     """Kernel-line entries of the flash kernels: the representative case
     is the training path's (causal, bf16)."""
@@ -1327,8 +1567,11 @@ def main() -> int:
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     cases = timed("A", phase_a, dev, flush)
-    b = timed("B", phase_b, dev)
+    int8_cases = timed("A_int8", phase_a_int8, dev, flush)
+    b, b_streams = timed("B", phase_b, dev)
+    j = timed("J", phase_j, dev, b_streams)
     timed("C", phase_c, dev)
+    timed("K", phase_k, dev)
     flash_rows = timed("D", phase_d, dev, flush)
     gmm_rows = timed("G", phase_g, dev, flush)
     del flush
@@ -1340,21 +1583,8 @@ def main() -> int:
         timed("I", phase_i, dev)
     finally:
         distributed.shutdown()
-    rep = next(c for c in cases
-               if c["case"] == "decode" and c["dtype"] == "bfloat16")
-    log({"kernels": [{
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "k8s_distributed_deeplearning_torch/csrc/paged_attn.cu",
-        "replaces": "k8s_distributed_deeplearning_tpu/ops/"
-                    "pallas_paged_attn.py:66",
-        "launches": b["kernel_launches"],
-        "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-        "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-        "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-        "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")} for c in cases]}]
-        + _flash_entries(flash_rows, e) + _gmm_entries(gmm_rows, h)})
+    log({"kernels": _paged_entries(cases, b, int8_cases, j)
+         + _flash_entries(flash_rows, e) + _gmm_entries(gmm_rows, h)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

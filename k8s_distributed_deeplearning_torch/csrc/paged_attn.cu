@@ -1,22 +1,28 @@
 // Paged grouped-query attention straight off the KV page pool, for Hopper.
 //
 // Replaces: k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py,
-// `_kernel` (launched by `paged_decode_attention`), fp branch. The int8
-// branch (`quant=True`) is not ported here.
+// `_kernel` (launched by `paged_decode_attention`), both branches: fp
+// pools, and int8 pools with per-token-per-head scales (`quant=True`).
 //
-// Contract (identical to the Pallas kernel's fp branch):
+// Contract (identical to the Pallas kernel's):
 //   q          [B, sq, H, hd]                   float32 or bfloat16
-//   pool_k/v   [num_pages, page_tokens, kv*hd]  same dtype as q
+//   pool_k/v   [num_pages, page_tokens, kv*hd]  q's dtype, or int8
+//   k/v_scale  [num_pages, page_tokens, kv]     float32, int8 pools only
 //   tables     [B, n_blocks] int32  (virtual block -> pool page, 0 = scratch)
 //   positions  [B, sq] int32        (query i of row b attends col <= pos[b,i])
 //   out        [B, sq, H, hd]       q's dtype
 // q head h attends KV head h / (H/kv). Scores are masked with NEG_INF =
 // -1e30; a masked score contributes exactly 0 (p = 0 where s <= NEG_INF/2),
 // and a fully masked row emits 0 through the max(l, 1e-30) floor.
+// Rounding, as in the Pallas kernel: the fp branch rounds p to the value
+// dtype for P.V; the int8 branch dequantizes each element as
+// f32(int8) * scale (the scale of its token and KV head) when the tile is
+// read, and keeps p in f32, since the dequantized V is f32.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense):
 //   decode (sq = 1):  bytes.  K and V of the live pages, once each:
-//                     sum_b live_b * kv * hd * 2 * itemsize / 3.35 TB/s.
+//                     sum_b live_b * kv * hd * 2 * itemsize / 3.35 TB/s,
+//                     plus, for int8, the two f32 scales per token and head.
 //   prefill (sq = C): max(FLOPs / 989 TF/s, bytes / 3.35 TB/s), with
 //                     FLOPs = 4 * H * hd * sum_{b,i} (pos[b,i] + 1).
 // What the design does about it:
@@ -32,7 +38,9 @@
 //   run unsplit.
 // - 32-key tiles of K and V are copied page by page into shared memory
 //   with cp.async, double-buffered, so the next tile's loads are in flight
-//   while the current one is computed.
+//   while the current one is computed. An int8 tile is half a bf16 one;
+//   its 32 f32 scales per pool ride the same cp.async group, and 16-byte
+//   copies of a head's int8 slice need head_dim % 16 == 0.
 // - Scores and P.V run in f32 on the CUDA cores (each lane owns one key
 //   for the scores and hd/32 output dims for P.V; the online softmax lives
 //   in registers), not on the tensor cores: prefill chunks stay far from
@@ -64,12 +72,39 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Four int8 values packed in a 32-bit word, lowest byte first, as floats.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* o) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    o[k] = static_cast<float>(static_cast<int>(w << (24 - 8 * k)) >> 24);
+}
+
 // N consecutive elements of T starting at p, as floats. p is aligned to
 // min(N * sizeof(T), 16) bytes.
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float* out) {
   constexpr int BYTES = N * (int)sizeof(T);
-  if constexpr (BYTES % 16 == 0) {
+  if constexpr (sizeof(T) == 1) {
+    if constexpr (N % 16 == 0) {
+#pragma unroll
+      for (int c = 0; c < N / 16; ++c) {
+        const uint4 raw = reinterpret_cast<const uint4*>(p)[c];
+        s8x4_to_f32(raw.x, out + 16 * c);
+        s8x4_to_f32(raw.y, out + 16 * c + 4);
+        s8x4_to_f32(raw.z, out + 16 * c + 8);
+        s8x4_to_f32(raw.w, out + 16 * c + 12);
+      }
+    } else if constexpr (N == 8) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p);
+      s8x4_to_f32(raw.x, out);
+      s8x4_to_f32(raw.y, out + 4);
+    } else if constexpr (N == 4) {
+      s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), out);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = static_cast<float>(p[i]);
+    }
+  } else if constexpr (BYTES % 16 == 0) {
 #pragma unroll
     for (int c = 0; c < BYTES / 16; ++c) {
       const uint4 raw = reinterpret_cast<const uint4*>(p)[c];
@@ -114,6 +149,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4 bytes, through L1 (cp.async.cg takes only 16); zero-filled when
+// !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(n));
+}
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
@@ -134,7 +179,8 @@ struct Plan {
   size_t smem;
 };
 
-template <typename T>
+// S: the pools' element type (float, bf16 or int8).
+template <typename S>
 Plan make_plan(int batch, int sq, int n_heads, int n_kv, int hd,
                int page_tokens, int n_blocks, int n_splits) {
   Plan p;
@@ -147,10 +193,12 @@ Plan make_plan(int batch, int sq, int n_heads, int n_kv, int hd,
   p.n_splits = n_splits;
   p.tiles_per_split = (tiles_total + n_splits - 1) / n_splits;
   p.tab_cap = (p.tiles_per_split * KT + page_tokens - 1) / page_tokens + 2;
-  const int vec = 16 / (int)sizeof(T);
+  const int vec = 16 / (int)sizeof(S);
+  const size_t scales = sizeof(S) == 1 ? sizeof(float) * 4 * KT : 0;
   p.smem = sizeof(float) * (size_t)p.rows * hd +
-           sizeof(T) * (size_t)2 * KT * (hd + vec) +
-           sizeof(T) * (size_t)2 * KT * hd + sizeof(int) * (size_t)p.tab_cap;
+           sizeof(S) * (size_t)2 * KT * (hd + vec) +
+           sizeof(S) * (size_t)2 * KT * hd + scales +
+           sizeof(int) * (size_t)p.tab_cap;
   return p;
 }
 
@@ -158,16 +206,20 @@ Plan make_plan(int batch, int sq, int n_heads, int n_kv, int hd,
 // head) is query position r / group of q head kvh * group + r % group;
 // a row tile is NWARPS * rpw consecutive rows, rpw per warp. Split s
 // covers key tiles [s * tiles_per_split, (s + 1) * tiles_per_split).
-template <typename T, int DPL>
+// T: q and out; S: the pools, T itself or int8 (then with the scales).
+template <typename T, typename S, int DPL>
 __global__ void __launch_bounds__(NT)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                  const T* __restrict__ pool_v,
+paged_attn_kernel(const T* __restrict__ q, const S* __restrict__ pool_k,
+                  const S* __restrict__ pool_v,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ positions, T* __restrict__ out,
                   float* __restrict__ ws, int sq, int n_heads, int n_kv,
                   int hd, int page_tokens, int n_blocks, int rpw,
                   int n_splits, int tiles_per_split, float scale) {
-  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr bool QUANT = sizeof(S) == 1;
+  constexpr int VEC = 16 / (int)sizeof(S);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int pos_s[NWARPS * RPW_MAX];
   __shared__ int kmax_s;
@@ -185,9 +237,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int kstr = hd + VEC;   // padded K row: 16-byte chunks hit 32 banks
 
   float* q_s = reinterpret_cast<float*>(smem_raw);       // [rows][hd]
-  T* k_s = reinterpret_cast<T*>(q_s + rows * hd);         // [2][KT][kstr]
-  T* v_s = k_s + 2 * KT * kstr;                           // [2][KT][hd]
-  int* tab_s = reinterpret_cast<int*>(v_s + 2 * KT * hd);
+  S* k_s = reinterpret_cast<S*>(q_s + rows * hd);         // [2][KT][kstr]
+  S* v_s = k_s + 2 * KT * kstr;                           // [2][KT][hd]
+  // int8 only: K scales [2][KT], then V scales [2][KT].
+  float* sc_s = reinterpret_cast<float*>(v_s + 2 * KT * hd);
+  int* tab_s = reinterpret_cast<int*>(sc_s + (QUANT ? 4 * KT : 0));
 
   for (int idx = tid; idx < rows * hd; idx += NT) {
     const int r = idx / hd, d = idx - r * hd;
@@ -226,8 +280,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int chunks = hd / VEC;   // 16-byte chunks per K/V row
   auto issue = [&](int t, int buf) {
     const int c0 = c_begin + t * KT;
-    T* kb = k_s + buf * KT * kstr;
-    T* vb = v_s + buf * KT * hd;
+    S* kb = k_s + buf * KT * kstr;
+    S* vb = v_s + buf * KT * hd;
     for (int idx = tid; idx < KT * chunks; idx += NT) {
       const int j = idx / chunks, ch = idx - j * chunks;
       const int c = c0 + j;
@@ -240,6 +294,18 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       }
       cp_async16(kb + j * kstr + ch * VEC, pool_k + off, valid);
       cp_async16(vb + j * hd + ch * VEC, pool_v + off, valid);
+    }
+    if constexpr (QUANT) {
+      if (tid < KT) {           // scale of (token c, this KV head)
+        const int c = c0 + tid;
+        const bool valid = c < c_end;
+        size_t off = 0;
+        if (valid)
+          off = ((size_t)tab_s[c / page_tokens - blk0] * page_tokens +
+                 c % page_tokens) * n_kv + kvh;
+        cp_async4(sc_s + buf * KT + tid, k_scale + off, valid);
+        cp_async4(sc_s + 2 * KT + buf * KT + tid, v_scale + off, valid);
+      }
     }
     cp_async_commit();
   };
@@ -269,15 +335,21 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int r = 0; r < RPW_MAX; ++r)
       if (r < rpw) live |= pos_s[warp * rpw + r] >= c0;
     if (live) {
-      const T* kb = k_s + (t & 1) * KT * kstr;
-      const T* vb = v_s + (t & 1) * KT * hd;
+      const S* kb = k_s + (t & 1) * KT * kstr;
+      const S* vb = v_s + (t & 1) * KT * hd;
+      const float* vsc = sc_s + 2 * KT + (t & 1) * KT;
       float s[RPW_MAX];
 #pragma unroll
       for (int r = 0; r < RPW_MAX; ++r) s[r] = 0.f;
-      const T* kr = kb + lane * kstr;
+      const S* kr = kb + lane * kstr;
+      const float ksc = QUANT ? sc_s[(t & 1) * KT + lane] : 1.f;
       for (int d = 0; d < hd; d += VEC) {
         float kx[VEC];
-        load_f32<T, VEC>(kr + d, kx);
+        load_f32<S, VEC>(kr + d, kx);
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kx[e] *= ksc;   // dequant
+        }
 #pragma unroll
         for (int r = 0; r < RPW_MAX; ++r) {
           if (r >= rpw) break;
@@ -309,13 +381,21 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         m_r[r] = m_new;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-        // P.V takes p in the value dtype, as the Pallas kernel does.
-        p[r] = to_f32(from_f32<T>(pr));
+        // P.V takes p in the value dtype, as the Pallas kernel does: the
+        // pool's for fp, f32 for int8 (V is dequantized to f32).
+        if constexpr (QUANT)
+          p[r] = pr;
+        else
+          p[r] = to_f32(from_f32<S>(pr));
       }
       for (int j = 0; j < KT; ++j) {
         float vx[DPL];
         if (d0 < hd) {
-          load_f32<T, DPL>(vb + j * hd + d0, vx);
+          load_f32<S, DPL>(vb + j * hd + d0, vx);
+          if constexpr (QUANT) {
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) vx[i] *= vsc[j];     // dequant
+          }
         } else {
 #pragma unroll
           for (int i = 0; i < DPL; ++i) vx[i] = 0.f;
@@ -393,25 +473,27 @@ paged_attn_combine(const float* __restrict__ ws, T* __restrict__ out,
       from_f32<T>(o / fmaxf(l, 1e-30f));
 }
 
-template <typename T, int DPL>
+template <typename T, typename S, int DPL>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
-                   const void* tables, const void* positions, void* out,
-                   void* ws, int batch, int sq, int n_heads, int n_kv,
-                   int hd, int page_tokens, int n_blocks, int n_splits,
-                   float scale, cudaStream_t stream) {
-  const Plan p = make_plan<T>(batch, sq, n_heads, n_kv, hd, page_tokens,
+                   const void* ks, const void* vs, const void* tables,
+                   const void* positions, void* out, void* ws, int batch,
+                   int sq, int n_heads, int n_kv, int hd, int page_tokens,
+                   int n_blocks, int n_splits, float scale,
+                   cudaStream_t stream) {
+  const Plan p = make_plan<S>(batch, sq, n_heads, n_kv, hd, page_tokens,
                               n_blocks, n_splits);
   // The static arrays share the default 48 KB with the dynamic part.
   if (p.smem > 47 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, DPL>,
+        paged_attn_kernel<T, S, DPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(p.row_tiles, n_kv, batch * n_splits);
-  paged_attn_kernel<T, DPL><<<grid, NT, p.smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const int32_t*>(tables),
+  paged_attn_kernel<T, S, DPL><<<grid, NT, p.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(pk),
+      static_cast<const S*>(pv), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(positions), static_cast<T*>(out),
       static_cast<float*>(ws), sq, n_heads, n_kv, hd, page_tokens, n_blocks,
       p.rpw, n_splits, p.tiles_per_split, scale);
@@ -424,18 +506,19 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t dispatch(const void* q, const void* pk, const void* pv,
-                     const void* tables, const void* positions, void* out,
-                     void* ws, int batch, int sq, int n_heads, int n_kv,
-                     int hd, int page_tokens, int n_blocks, int n_splits,
-                     float scale, cudaStream_t stream) {
+                     const void* ks, const void* vs, const void* tables,
+                     const void* positions, void* out, void* ws, int batch,
+                     int sq, int n_heads, int n_kv, int hd, int page_tokens,
+                     int n_blocks, int n_splits, float scale,
+                     cudaStream_t stream) {
   const int dpl = (hd + 31) / 32;
 #define PAGED_ATTN_CASE(N)                                                   \
   if (dpl <= N)                                                              \
-    return launch<T, N>(q, pk, pv, tables, positions, out, ws, batch, sq,   \
-                        n_heads, n_kv, hd, page_tokens, n_blocks, n_splits,  \
-                        scale, stream);
+    return launch<T, S, N>(q, pk, pv, ks, vs, tables, positions, out, ws,   \
+                           batch, sq, n_heads, n_kv, hd, page_tokens,        \
+                           n_blocks, n_splits, scale, stream);
   PAGED_ATTN_CASE(1)
   PAGED_ATTN_CASE(2)
   PAGED_ATTN_CASE(4)
@@ -474,30 +557,39 @@ extern "C" int paged_attn_num_splits(int batch, int sq, int n_heads,
   return s < 1 ? 1 : (int)s;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. ws: float32 workspace sized as
+// dtype: 0 = float32, 1 = bfloat16 (q, out, and fp pools). k_scale and
+// v_scale: both null for fp pools of q's dtype, or both given for int8
+// pools (then head_dim % 16 == 0). ws: float32 workspace sized as
 // paged_attn_num_splits says (unused when n_splits == 1). Returns
 // cudaGetLastError() after the launches (cudaSuccess = 0), or
-// cudaErrorInvalidValue for shapes the kernel does not take; the Python
+// cudaErrorInvalidValue for arguments the kernel does not take; the Python
 // wrapper checks those first and raises on any nonzero return.
 extern "C" int paged_attn_fwd(const void* q, const void* pool_k,
-                              const void* pool_v, const void* tables,
+                              const void* pool_v, const void* k_scale,
+                              const void* v_scale, const void* tables,
                               const void* positions, void* out, void* ws,
                               int batch, int sq, int n_heads, int n_kv,
                               int hd, int page_tokens, int n_blocks,
                               int n_splits, int dtype, float scale,
                               void* stream) {
+  const bool quant = k_scale != nullptr;
   if (bad_shape(batch, sq, n_heads, n_kv, hd, page_tokens, n_blocks) ||
-      n_splits < 1 || (n_splits > 1 && ws == nullptr))
+      n_splits < 1 || (n_splits > 1 && ws == nullptr) ||
+      quant != (v_scale != nullptr) || (quant && hd % 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(q, pool_k, pool_v, tables, positions, out, ws,
-                                batch, sq, n_heads, n_kv, hd, page_tokens,
-                                n_blocks, n_splits, scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, pool_k, pool_v, tables, positions,
-                                        out, ws, batch, sq, n_heads, n_kv, hd,
-                                        page_tokens, n_blocks, n_splits,
-                                        scale, s);
+#define PAGED_ATTN_DISPATCH(T, S)                                            \
+  return (int)dispatch<T, S>(q, pool_k, pool_v, k_scale, v_scale, tables,    \
+                             positions, out, ws, batch, sq, n_heads, n_kv,   \
+                             hd, page_tokens, n_blocks, n_splits, scale, s)
+  if (dtype == 0) {
+    if (quant) PAGED_ATTN_DISPATCH(float, int8_t);
+    PAGED_ATTN_DISPATCH(float, float);
+  }
+  if (dtype == 1) {
+    if (quant) PAGED_ATTN_DISPATCH(__nv_bfloat16, int8_t);
+    PAGED_ATTN_DISPATCH(__nv_bfloat16, __nv_bfloat16);
+  }
+#undef PAGED_ATTN_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

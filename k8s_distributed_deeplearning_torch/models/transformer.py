@@ -21,7 +21,12 @@ Two attention paths exist:
   ``[num_pages, page_tokens, kv·hd]``; each token of the chunk is written
   at ``(table[pos // page_tokens], pos % page_tokens)`` and the chunk's
   queries attend the row's pages through
-  :func:`ops.paged_attn.paged_decode_attention`.
+  :func:`ops.paged_attn.paged_decode_attention`. Under ``kv_quant="int8"``
+  the pools are int8 with f32 scale siblings ``[num_pages, page_tokens,
+  kv]``, written by :func:`quantize_kv` (quantize on write).
+
+A :class:`Dense` may hold an int8 weight and its f32 scales instead of its
+weight (``serve/quant.py``); it then dequantizes at every use.
 
 ``remat`` checkpoints each block in the plain forward
 (``torch.utils.checkpoint``), with the JAX package's policies: ``"dots"``
@@ -94,8 +99,8 @@ def _remat_context(saved: tuple):
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture knobs, as in the JAX package (scan, dropout, serving
-    TP and KV quantization are not here)."""
+    """Architecture knobs, as in the JAX package (scan, dropout and
+    serving TP are not here)."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -126,6 +131,11 @@ class TransformerConfig:
                                         # (ops.attention.default_impl)
     remat: bool = False                 # checkpoint each block
     remat_policy: str = "dots"          # "dots" | "dots_attn" | "nothing"
+    kv_quant: str | None = None         # "int8": the paged pools hold int8
+                                        # K/V plus per-token-per-head f32
+                                        # scales, quantized on write and
+                                        # dequantized on read. None: pools
+                                        # of the compute dtype
 
     def __post_init__(self):
         if self.activation != "swiglu":
@@ -146,6 +156,9 @@ class TransformerConfig:
             raise ValueError(
                 f"remat_policy must be one of {sorted(REMAT_POLICIES)}, "
                 f"got {self.remat_policy!r}")
+        if self.kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {self.kv_quant!r}")
 
     @property
     def resolved_param_dtype(self) -> torch.dtype:
@@ -185,18 +198,39 @@ class RMSNorm(nn.Module):
 class Dense(nn.Linear):
     """Bias-free ``nn.Linear`` whose weight is stored at ``param_dtype``
     and cast, with the input, to the compute ``dtype`` at every use (flax
-    ``Dense(dtype=..., param_dtype=...)``)."""
+    ``Dense(dtype=..., param_dtype=...)``).
+
+    After :meth:`set_int8` the weight is int8 and ``weight_scale`` holds
+    ``c`` f32 scales, ``c`` dividing ``out_features``: row ``r`` uses
+    ``weight_scale[r % c]``. Each use then computes the weight as
+    ``(f32(int8) * scale).to(dtype)``, what the JAX engine feeds flax after
+    dequantizing its params."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, param_dtype: torch.dtype, device=None):
         super().__init__(in_features, out_features, bias=False,
                          device=device, dtype=param_dtype)
         self.compute_dtype = dtype
+        self.register_buffer("weight_scale", None)
+
+    def set_int8(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the weight by ``q`` (int8, ``[out, in]``) and its scales
+        (f32 ``[c]``); the old weight is released."""
+        self.weight = nn.Parameter(q, requires_grad=False)
+        self.weight_scale = scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Dtype checks in Python, not no-op .to() calls: serving's decode
         # step is host-bound, and stores weights in the compute dtype.
         w, dt = self.weight, self.compute_dtype
+        if w.dtype == torch.int8:
+            # One op: int8 x f32 promotes to f32, rounded once to dt.
+            s = self.weight_scale
+            g = w.shape[0] // s.shape[0]
+            deq = torch.empty((g, s.shape[0], w.shape[1]), dtype=dt,
+                              device=w.device)
+            torch.mul(w.view(g, s.shape[0], -1), s[None, :, None], out=deq)
+            w = deq.view(w.shape)
         return F.linear(x if x.dtype == dt else x.to(dt),
                         w if w.dtype == dt else w.to(dt))
 
@@ -286,6 +320,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return _rotate(x, *_rope_at(cos, sin, positions, x.shape[1]))
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize on write (JAX ``transformer.py:486-499``): per token and
+    head, symmetric absmax over the last (head_dim) axis. Returns the int8
+    values and the f32 scales ``absmax / 127`` (shape ``x.shape[:-1]``)."""
+    w = x.float()
+    scale = w.abs().amax(-1) / 127.0
+    q = torch.round(w / torch.where(scale > 0.0, scale, 1.0)[..., None])
+    return q.clamp_(-127, 127).to(torch.int8), scale
+
+
 @dataclasses.dataclass
 class PagedWrite:
     """Per-forward paged-pool addressing, shared by every layer: each
@@ -337,18 +381,7 @@ class Attention(nn.Module):
             q = _rotate(q, *rope)
             k = _rotate(k, *rope)
         if paged is not None:
-            pool_k, pool_v = cache
-            # In place: the JAX serving programs donate the pool and get
-            # it back updated; here the engine's pool tensors are written
-            # directly. Every token owns its (page, offset) cell, except
-            # pads redirected to the scratch page, which nothing attends.
-            idx = (paged.page, paged.offset)
-            pool_k.index_put_(idx, k.reshape(b, s, kv * hd).to(pool_k.dtype))
-            pool_v.index_put_(idx, v.reshape(b, s, kv * hd).to(pool_v.dtype))
-            attend = (paged_attn.paged_decode_attention_reference
-                      if cfg.attention_impl == "xla"
-                      else paged_attn.paged_decode_attention)
-            out = attend(q, pool_k, pool_v, paged.tables, paged.positions)
+            out = self._paged(q, k, v, cache, paged)
         else:
             out = attention_ops.multi_head_attention(
                 q, k, v, causal=cfg.causal, mask=mask,
@@ -356,6 +389,51 @@ class Attention(nn.Module):
             if cfg.remat and cfg.remat_policy == "dots_attn":
                 out = attn_out(out)
         return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+
+    def _paged(self, q, k, v, cache, paged: PagedWrite) -> torch.Tensor:
+        """Write the chunk's K/V into the pool, then attend the rows' pages.
+        In place: the JAX serving programs donate the pool and get it back
+        updated; here the engine's pool tensors are written directly. Every
+        token owns its (page, offset) cell and, under int8, its scale cell,
+        except pads redirected to the scratch page, which nothing
+        attends."""
+        cfg = self.cfg
+        b, s, kv, hd = k.shape
+        idx = (paged.page, paged.offset)
+        xla = cfg.attention_impl == "xla"
+        if cfg.kv_quant != "int8":
+            pool_k, pool_v = cache
+            pool_k.index_put_(idx, k.reshape(b, s, kv * hd).to(pool_k.dtype))
+            pool_v.index_put_(idx, v.reshape(b, s, kv * hd).to(pool_v.dtype))
+            attend = (paged_attn.paged_decode_attention_reference if xla
+                      else paged_attn.paged_decode_attention)
+            return attend(q, pool_k, pool_v, paged.tables, paged.positions)
+        pool_k, pool_v, k_scale, v_scale = cache
+        for pool, scales, x in ((pool_k, k_scale, k), (pool_v, v_scale, v)):
+            xq, xs = quantize_kv(x)
+            pool.index_put_(idx, xq.reshape(b, s, kv * hd))
+            scales.index_put_(idx, xs)
+        if not xla:
+            return paged_attn.paged_decode_attention(
+                q, pool_k, pool_v, paged.tables, paged.positions,
+                k_scale=k_scale, v_scale=v_scale)
+        # The JAX XLA branch: gather the rows' pages, dequantize them to the
+        # compute dtype, then fp attention over the gathered pages (a pool
+        # of B x n_blocks pages addressed in order).
+        tables = paged.tables.long()
+        n_pages = tables.numel()
+        shape = (n_pages,) + tuple(pool_k.shape[1:])
+
+        def gathered(pool, scales):
+            x = pool[tables].float().reshape(n_pages, -1, kv, hd)
+            x = x * scales[tables].reshape(n_pages, -1, kv, 1)
+            return x.to(cfg.dtype).reshape(shape)
+
+        order = torch.arange(n_pages, dtype=torch.int32,
+                             device=tables.device).view(tables.shape)
+        return paged_attn.paged_decode_attention_reference(
+            q, gathered(pool_k, k_scale), gathered(pool_v, v_scale), order,
+            paged.positions)
 
 
 class MLP(nn.Module):
@@ -445,10 +523,13 @@ class Transformer(nn.Module):
                 raise NotImplementedError(
                     "decode without block_tables needs the dense KV cache, "
                     "which the PyTorch port does not have yet")
-            if cache is None or len(cache) != cfg.n_layers:
+            per_layer = 4 if cfg.kv_quant == "int8" else 2
+            if (cache is None or len(cache) != cfg.n_layers
+                    or any(len(c) != per_layer for c in cache)):
                 raise ValueError(
                     "paged decode requires the engine's page pool: one "
-                    "(pool_k, pool_v) pair per layer")
+                    "(pool_k, pool_v) pair per layer, or under "
+                    "kv_quant='int8' (pool_k, pool_v, k_scale, v_scale)")
             if mask is not None or segment_ids is not None:
                 raise NotImplementedError(
                     "paged decode isolates rows by block tables and builds "

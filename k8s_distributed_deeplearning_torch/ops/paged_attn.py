@@ -1,12 +1,15 @@
 """Paged grouped-query attention straight off the KV page pool.
 
-Port of ``k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py``
-(fp branch). The serving engine keeps K/V as one pool of fixed-size pages
+Port of ``k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py``,
+both branches. The serving engine keeps K/V as one pool of fixed-size pages
 per layer, ``[num_pages, page_tokens, kv·head_dim]``, and each batch row
 maps its virtual sequence onto pool pages through a block table. Query
 ``i`` of row ``b`` attends virtual columns ``<= positions[b, i]``: stale
 K/V beyond a row's cursor and the scratch page (table entries 0) are never
-read into the result.
+read into the result. Under int8 KV (``k_scale``/``v_scale`` given) the
+pools are int8 and each token has one f32 scale per KV head,
+``[num_pages, page_tokens, kv]``; K and V are dequantized as
+``f32(int8) * scale``.
 
 - :func:`paged_decode_attention` launches the hand-written CUDA kernel
   (``csrc/paged_attn.cu``) on CUDA tensors, and takes the plain version on
@@ -15,7 +18,10 @@ read into the result.
 - :func:`paged_decode_attention_reference` is the plain version: gather the
   row's pages, mask, softmax, the same arithmetic as the XLA gather path in
   the JAX model (``models/transformer.py`` paged branch), except that a
-  row with no visible column gives exactly 0, as the kernel does.
+  row with no visible column gives exactly 0, as the kernel does. Under
+  int8 it follows the Pallas kernel's int8 arithmetic, not the XLA
+  path's: K and V are dequantized to f32, and the probabilities stay f32
+  for P·V.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 
 
-def _check_shapes(q, pool_k, pool_v, block_tables, positions):
-    """The Pallas wrapper's validation (pallas_paged_attn.py:167-188).
+def _check_shapes(q, pool_k, pool_v, block_tables, positions,
+                  k_scale=None, v_scale=None):
+    """The Pallas wrapper's validation (pallas_paged_attn.py:167-197).
     Returns (b, sq, h, hd, page_tokens, hkv)."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, sq, H, hd], got {tuple(q.shape)}")
@@ -56,8 +63,22 @@ def _check_shapes(q, pool_k, pool_v, block_tables, positions):
         raise ValueError(
             f"positions must be [B={b}, sq={sq}], "
             f"got {tuple(positions.shape)}")
+    scales = ()
+    if k_scale is not None or v_scale is not None:
+        if k_scale is None or v_scale is None:
+            raise ValueError("k_scale and v_scale must be passed together")
+        want = tuple(pool_k.shape[:2]) + (hkv,)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(
+                f"k_scale/v_scale must be {want} (per-token-per-head), "
+                f"got {tuple(k_scale.shape)} / {tuple(v_scale.shape)}")
+        if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+            raise TypeError(
+                f"k_scale/v_scale come with int8 pools, got "
+                f"{pool_k.dtype} / {pool_v.dtype}")
+        scales = (k_scale, v_scale)
     devices = {t.device for t in (q, pool_k, pool_v, block_tables,
-                                  positions)}
+                                  positions, *scales)}
     if len(devices) != 1:
         raise ValueError(f"all operands must be on one device, got {devices}")
     return b, sq, h, hd, page_tokens, hkv
@@ -67,20 +88,27 @@ def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
                                      pool_v: torch.Tensor,
                                      block_tables: torch.Tensor,
                                      positions: torch.Tensor, *,
+                                     k_scale: torch.Tensor | None = None,
+                                     v_scale: torch.Tensor | None = None,
                                      softmax_scale: float | None = None
                                      ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_decode_attention`: gather each
     row's pages into its ``[n_blocks·page_tokens]`` virtual sequence, mask
     ``col > positions``, softmax in f32, probabilities cast to the value
-    dtype for P·V (accumulated in f32), output in q's dtype."""
+    dtype for P·V (accumulated in f32), output in q's dtype. Int8 pools are
+    dequantized to f32 (``f32(int8) * scale``), so their probabilities
+    stay f32, as in the Pallas kernel's int8 branch."""
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
-        q, pool_k, pool_v, block_tables, positions)
+        q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
     group = h // hkv
     s_virt = block_tables.shape[1] * page_tokens
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     tables = block_tables.long()
     k_all = pool_k[tables].reshape(b, s_virt, hkv, hd)
     v_all = pool_v[tables].reshape(b, s_virt, hkv, hd)
+    if k_scale is not None:
+        k_all = k_all.float() * k_scale[tables].reshape(b, s_virt, hkv, 1)
+        v_all = v_all.float() * v_scale[tables].reshape(b, s_virt, hkv, 1)
     qg = q.reshape(b, sq, hkv, group, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                           k_all.float()) * scale
@@ -100,6 +128,8 @@ def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_tables: torch.Tensor,
                            positions: torch.Tensor, *,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
                            softmax_scale: float | None = None
                            ) -> torch.Tensor:
     """Grouped-query attention straight off the page pool.
@@ -110,26 +140,34 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     block_tables: ``[B, n_blocks]`` int32 (0 = the never-attended scratch
     page); positions: ``[B, sq]`` int32, query ``i`` of row ``b`` attends
     virtual columns ``<= positions[b, i]``. Returns ``[B, sq, H, hd]`` in
-    q's dtype.
+    q's dtype. ``k_scale``/``v_scale`` (both or neither), each
+    ``[num_pages, page_tokens, kv]`` f32, select the int8 branch: the pools
+    are int8 and are dequantized in the kernel.
 
     CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
-    tensors launch the kernel, which takes float32 or bfloat16 q with
-    pools of the same dtype, int32 tables and positions, all contiguous,
-    and a ``head_dim`` that is a multiple of 8 up to 256; anything else
-    raises. Each launch adds one to
-    ``paged_decode_attention.launches``.
+    tensors launch the kernel, which takes float32 or bfloat16 q, pools of
+    q's dtype (or int8 with f32 scales), int32 tables and positions, all
+    contiguous and the pools 16-byte aligned, and a ``head_dim`` that is a
+    multiple of 8 (of 16 for int8 pools) up to 256; anything else raises.
+    Each launch adds one to ``paged_decode_attention.launches`` (fp pools)
+    or to ``paged_decode_attention.launches_int8`` (int8 pools).
     """
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
-        q, pool_k, pool_v, block_tables, positions)
+        q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, pool_k, pool_v, block_tables, positions,
-            softmax_scale=softmax_scale)
+            q, pool_k, pool_v, block_tables, positions, k_scale=k_scale,
+            v_scale=v_scale, softmax_scale=softmax_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 q, got {q.dtype}")
-    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+    quant = k_scale is not None
+    if quant:
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError(f"k_scale/v_scale must be float32, got "
+                            f"{k_scale.dtype} / {v_scale.dtype}")
+    elif pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise TypeError(
             f"pools must share q's dtype {q.dtype}, got {pool_k.dtype} / "
             f"{pool_v.dtype}")
@@ -140,11 +178,17 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if hd > _MAX_HEAD_DIM or hd % 8:
         raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and a "
                          f"multiple of 8, got {hd}")
+    if quant and hd % 16:
+        raise ValueError(f"the int8 kernel takes a head_dim that is a "
+                         f"multiple of 16 (16-byte copies), got {hd}")
     for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("block_tables", block_tables),
-                    ("positions", positions)):
+                    ("block_tables", block_tables), ("positions", positions),
+                    *((("k_scale", k_scale), ("v_scale", v_scale))
+                      if quant else ())):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("pool_k/pool_v must start 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     lib = _library()
     n_blocks = block_tables.shape[1]
@@ -159,17 +203,23 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_attn_fwd(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), b, sq, h, hkv, hd,
             page_tokens, n_blocks, n_splits, _DTYPE_CODE[q.dtype], scale,
             stream)
     if rc:
         raise RuntimeError(f"paged_attn_fwd launch failed: CUDA error {rc}")
-    paged_decode_attention.launches += 1
+    if quant:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,7 +233,7 @@ def _library():
         lib.paged_attn_num_splits.argtypes = [ctypes.c_int] * 8
         lib.paged_attn_num_splits.restype = ctypes.c_int
         lib.paged_attn_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_attn_fwd.restype = ctypes.c_int
     return lib

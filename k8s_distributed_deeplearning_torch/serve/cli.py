@@ -7,13 +7,15 @@ serve/cli.py``::
         --slots 4 --requests 16 --device cuda
 
 Emits one ``serve_request`` JSON line per finished request and a final
-``serve_summary`` line with the JAX CLI's serving fields. Weights are
-random, drawn from ``--seed``, as in the JAX CLI's presets. Runs on the
-GPU unless ``--device cpu`` is given.
+``serve_summary`` line with the JAX CLI's serving fields (and, with
+``--kv-quant``/``--weight-quant``, a ``quant_summary`` line before it).
+Weights are random, drawn from ``--seed``, as in the JAX CLI's presets.
+Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -36,6 +38,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="usable KV pages (0 = num_slots * max_blocks)")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=0,
                     help="per-iteration prefill token budget (0 = off)")
+    ap.add_argument("--kv-quant", choices=["int8"],
+                    default=os.environ.get("TPUJOB_KV_QUANT") or None,
+                    help="int8 KV pool pages with per-token-per-head f32 "
+                         "scales, dequantized inside the paged-attention "
+                         "kernel. Defaults from $TPUJOB_KV_QUANT")
+    ap.add_argument("--weight-quant", choices=["int8"],
+                    default=os.environ.get("TPUJOB_WEIGHT_QUANT") or None,
+                    help="per-output-channel int8 matmul weights, "
+                         "dequantized at use (embeddings, norms and the LM "
+                         "head stay fp). Defaults from $TPUJOB_WEIGHT_QUANT")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -77,7 +89,8 @@ def main(argv: list[str] | None = None) -> int:
         max_queue=args.max_queue or args.requests, eos_id=args.eos_id,
         prefill_chunk_tokens=args.prefill_chunk_tokens or None,
         kv_pool_pages=args.kv_pool_pages or None, stats=stats,
-        device=args.device)
+        device=args.device, kv_quant=args.kv_quant,
+        weight_quant=args.weight_quant)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     rng = np.random.default_rng(args.seed)
@@ -98,7 +111,13 @@ def main(argv: list[str] | None = None) -> int:
                     ttft_ms=(round(out.ttft_s * 1e3, 3)
                              if out.ttft_s is not None else None),
                     latency_ms=round(out.latency_s * 1e3, 3))
+    summ = stats.summary()
+    if args.kv_quant or args.weight_quant:
+        logger.emit("quant_summary", kv_quant=args.kv_quant,
+                    weight_quant=args.weight_quant,
+                    kv_quant_bytes_saved=summ["kv_quant_bytes_saved"],
+                    weight_quant_bytes_saved=summ["weight_quant_bytes_saved"])
     logger.emit("serve_summary", num_slots=args.slots, preset=args.preset,
-                replicas=1, device=str(engine.device), **stats.summary())
+                replicas=1, device=str(engine.device), **summ)
     logger.close()
     return 0

@@ -26,12 +26,18 @@ JAX engine runs its three compiled programs.
   draws from its own ``torch.Generator`` seeded with ``Request.seed``, so
   its stream depends only on the request, not on its slot.
 
+- Quantized serving (``kv_quant="int8"``, ``weight_quant="int8"``): int8
+  KV pages with per-token-per-head f32 scales, read by the int8 branch of
+  the paged-attention kernel; per-channel int8 matmul weights
+  (``serve/quant.py``), dequantized at use.
+
 Not ported yet: the prefix cache, the multi-tenant scheduler, speculative
-decoding, KV/weight quantization, tensor parallelism, KV export/import,
-drain/cancel, the flight recorder and fault sites.
+decoding, tensor parallelism, KV export/import, drain/cancel, the flight
+recorder and fault sites.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from typing import Iterable
@@ -40,12 +46,22 @@ import numpy as np
 import torch
 
 from k8s_distributed_deeplearning_torch.models import generate
+from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
 from k8s_distributed_deeplearning_torch.serve.page_pool import PagePool
 from k8s_distributed_deeplearning_torch.serve.request import (
     QueueFull, Request, RequestOutput)
 from k8s_distributed_deeplearning_torch.serve.scheduler import RequestQueue
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
 from k8s_distributed_deeplearning_torch.utils.metrics import ServingStats
+
+
+def _set_cfg(model, cfg) -> None:
+    """Point ``model`` and each submodule that shares its config at
+    ``cfg``."""
+    old = model.cfg
+    for m in model.modules():
+        if getattr(m, "cfg", None) is old:
+            m.cfg = cfg
 
 
 def _sample_slots(logits: torch.Tensor, temps: np.ndarray,
@@ -122,6 +138,15 @@ class ServeEngine:
     bounds each iteration's prefill work and must be a positive multiple
     of ``min_bucket``; ``prefix_block_tokens`` (default ``min_bucket``) is
     the page size.
+
+    ``kv_quant="int8"`` makes every layer's pool int8 ``(pool_k, pool_v,
+    k_scale, v_scale)``, the scales ``[num_pages, page_tokens, kv]`` f32,
+    and sets ``kv_quant`` on ``model.cfg``. ``weight_quant="int8"``
+    quantizes ``model``'s matmul weights IN PLACE
+    (:func:`serve.quant.quantize_model`, one scale per channel shared
+    across layers, as the JAX engine's scanned params): the model's fp
+    weights are gone afterwards. Both modes change ``model`` itself, where
+    the JAX engine clones its model and keeps its params.
     """
 
     def __init__(self, model, *, num_slots: int = 8, max_queue: int = 256,
@@ -131,10 +156,17 @@ class ServeEngine:
                  prefix_block_tokens: int | None = None,
                  kv_pool_pages: int | None = None,
                  stats: ServingStats | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 kv_quant: str | None = None,
+                 weight_quant: str | None = None):
         dev = resolve_device(device)
         if num_slots < 2:
             raise ValueError(f"num_slots must be >= 2, got {num_slots}")
+        for what, mode in (("kv_quant", kv_quant),
+                           ("weight_quant", weight_quant)):
+            if mode not in (None, "int8"):
+                raise ValueError(
+                    f"{what} must be None or 'int8', got {mode!r}")
         param_dev = next(model.parameters()).device
         if param_dev.type != dev.type or (
                 dev.index is not None and param_dev.index != dev.index):
@@ -157,6 +189,8 @@ class ServeEngine:
         self.min_bucket = min_bucket
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.stats = stats if stats is not None else ServingStats()
+        self.kv_quant = kv_quant
+        self.weight_quant = weight_quant
         self.queue = RequestQueue(max_queue)
         bt = (prefix_block_tokens if prefix_block_tokens is not None
               else min_bucket)
@@ -173,12 +207,30 @@ class ServeEngine:
                 f"kv_pool_pages must be >= 1, got {kv_pool_pages}")
         # +1: page 0 is the scratch page.
         self.pool = PagePool(usable + 1, self.page_tokens)
-        lanes = cfg.resolved_kv_heads * cfg.resolved_head_dim
-        shape = (self.pool.num_pages, self.page_tokens, lanes)
-        self._cache = [
-            (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-             torch.zeros(shape, dtype=cfg.dtype, device=self.device))
-            for _ in range(cfg.n_layers)]
+        # The arguments hold: now change the model for the modes.
+        if kv_quant is not None and cfg.kv_quant != kv_quant:
+            _set_cfg(model, dataclasses.replace(cfg, kv_quant=kv_quant))
+        weight_saved = 0
+        if weight_quant == "int8":
+            fp_nbytes = quant_lib.params_nbytes(model)
+            quant_lib.quantize_model(model)
+            weight_saved = fp_nbytes - quant_lib.quantized_nbytes(model)
+        kv = cfg.resolved_kv_heads
+        shape = (self.pool.num_pages, self.page_tokens,
+                 kv * cfg.resolved_head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if kv_quant == "int8":
+            self._cache = [
+                (zeros(shape, torch.int8), zeros(shape, torch.int8),
+                 zeros(shape[:2] + (kv,), torch.float32),
+                 zeros(shape[:2] + (kv,), torch.float32))
+                for _ in range(cfg.n_layers)]
+        else:
+            self._cache = [(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype))
+                           for _ in range(cfg.n_layers)]
         # Host register file; kv_lens doubles as the next write position,
         # table rows default to all-scratch (page 0).
         self._tokens = np.full(num_slots, pad_id, np.int32)
@@ -193,6 +245,37 @@ class ServeEngine:
         self.last_step_prefill_tokens = 0
         self._step_prefill_budget: int | None = None
         self._record_pool_gauges()
+        self.stats.record_quant(kv_quant, weight_quant,
+                                kv_bytes_saved=self._kv_bytes_saved(),
+                                weight_bytes_saved=weight_saved)
+
+    def _kv_bytes_saved(self) -> int:
+        """Device bytes the int8 pools save against the fp pools they
+        replace (the JAX formula): each int8 lane would have cost the
+        compute dtype's itemsize, less the f32 scales."""
+        if self.kv_quant != "int8":
+            return 0
+        fp_item = torch.finfo(self.model.cfg.dtype).bits // 8
+        saved = 0
+        for layer in self._cache:
+            for t in layer:
+                saved += (-4 * t.numel() if t.dtype == torch.float32
+                          else (fp_item - 1) * t.numel())
+        return max(0, saved)
+
+    def _block_nbytes(self, block_tokens: int, *,
+                      kv_quant: str | None = "unset") -> int:
+        """KV bytes of ``block_tokens`` positions over every layer, K and
+        V: under int8 one byte per lane plus a 4-byte scale per KV head,
+        else the compute dtype's itemsize per lane (``kv_quant`` overrides
+        the engine's mode)."""
+        cfg = self.model.cfg
+        mode = self.kv_quant if kv_quant == "unset" else kv_quant
+        hd = cfg.resolved_head_dim
+        lanes = cfg.resolved_kv_heads * hd
+        per_token = (lanes + (lanes // hd) * 4 if mode == "int8"
+                     else lanes * (torch.finfo(cfg.dtype).bits // 8))
+        return 2 * cfg.n_layers * block_tokens * per_token
 
     def _need_pages(self, req: Request) -> int:
         """Worst-case pages: prompt [0, n) plus decode growth

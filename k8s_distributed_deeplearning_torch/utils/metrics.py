@@ -89,6 +89,13 @@ class ServingStats:
         self.kv_pages_total = 0
         self.kv_pages_used = 0
         self.kv_pages_shared = 0
+        # Quantized serving: the modes (None = fp) and the device bytes the
+        # int8 pools and weights save against fp. Gauges, set once when
+        # the engine is built.
+        self.kv_quant: str | None = None
+        self.weight_quant: str | None = None
+        self.kv_quant_bytes_saved = 0
+        self.weight_quant_bytes_saved = 0
 
     def _tick(self) -> None:
         now = time.perf_counter()
@@ -119,6 +126,15 @@ class ServingStats:
         self.kv_pages_total = int(pages_total)
         self.kv_pages_used = int(pages_used)
         self.kv_pages_shared = int(pages_shared)
+
+    def record_quant(self, kv_quant: str | None, weight_quant: str | None,
+                     kv_bytes_saved: int, weight_bytes_saved: int) -> None:
+        """The engine's quantization modes and bytes saved; set at
+        construction, which is not serving activity: no tick."""
+        self.kv_quant = kv_quant
+        self.weight_quant = weight_quant
+        self.kv_quant_bytes_saved = int(kv_bytes_saved)
+        self.weight_quant_bytes_saved = int(weight_bytes_saved)
 
     def record_completion(self, latency_s: float, n_tokens: int,
                           reason: str) -> None:
@@ -164,6 +180,10 @@ class ServingStats:
             "kv_pages_total": self.kv_pages_total,
             "kv_pages_used": self.kv_pages_used,
             "kv_pages_shared": self.kv_pages_shared,
+            "kv_quant": self.kv_quant,
+            "weight_quant": self.weight_quant,
+            "kv_quant_bytes_saved": self.kv_quant_bytes_saved,
+            "weight_quant_bytes_saved": self.weight_quant_bytes_saved,
         }
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_distributed_deeplearning_torch.models.transformer import quantize_kv
 from k8s_distributed_deeplearning_torch.ops import _build
 from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 from k8s_distributed_deeplearning_torch.ops.paged_attn import (
@@ -136,6 +137,102 @@ def test_paged_attn_rejects_what_the_kernel_cannot_take(hopper):
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(torch.cat([q, q], -1)[..., :q.shape[-1]],
                                pk, pv, tables, pos)
+
+
+def _int8_on(dev, dtype, q, pk, pv, tables, pos):
+    """The case's pools quantized by the model's quantize-on-write, on the
+    card: (q, int8 K, int8 V, tables, positions, K scales, V scales)."""
+    hd = q.shape[-1]
+    out = [torch.from_numpy(q).to(dev, dtype)]
+    scales = []
+    for p in (pk, pv):
+        x, s = quantize_kv(torch.from_numpy(p).view(*p.shape[:2], -1, hd))
+        out.append(x.view(p.shape).to(dev))
+        scales.append(s.to(dev))
+    return (*out, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(pos).to(dev), *scales)
+
+
+# (b, sq, h, hkv, pages, page_tokens, n_blocks, head_dim): Llama-3 8B's
+# heads at decode and at a prefill chunk, 12/4 heads at head_dim 64 with
+# pages of 32 and of 16 tokens, and the JAX verify-window case at head_dim
+# 16, the smallest the int8 branch takes.
+INT8_SHAPES = [
+    (4, 1, 32, 8, 80, 32, 16, 128),
+    (2, 128, 32, 8, 80, 32, 16, 128),
+    (4, 1, 12, 4, 80, 32, 16, 64),
+    (2, 64, 12, 4, 80, 16, 20, 64),
+    (3, 5, 4, 4, 32, 16, 3, 16),
+]
+# Per element, |kernel - plain| <= atol * RMS of the plain output + rtol *
+# |plain|. Both dequantize to the same f32 values and keep p in f32; they
+# differ in the order of the f32 sums (f32) and then in the one rounding of
+# the output to bf16, one bf16 step at most (2^-7 of the value).
+INT8_DTYPES = [(torch.float32, (2e-5, 2e-5)),
+               (torch.bfloat16, (2 ** -10, 2 ** -7))]
+
+
+@pytest.mark.parametrize("dtype,tol", INT8_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", INT8_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_paged_attn_int8_matches_reference(hopper, dtype, tol, shape):
+    rng = np.random.default_rng(sum(shape) + 1)
+    q, kq, vq, tables, pos, ks, vs = _int8_on(hopper, dtype,
+                                              *_case(rng, *shape))
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_int8)
+    out = paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks,
+                                 v_scale=vs)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (before[0],
+                                                      before[1] + 1)
+    ref = paged_decode_attention_reference(q, kq, vq, tables, pos,
+                                           k_scale=ks, v_scale=vs).float()
+    assert out.dtype == dtype and out.shape == ref.shape
+    limit = tol[0] * float(ref.square().mean().sqrt()) + tol[1] * ref.abs()
+    err = (out.float() - ref).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def test_paged_attn_int8_stale_cells_and_scratch_are_inert(hopper):
+    """int8 cells past each row's cursor set to 127 with scales 1e4, and
+    the same garbage in the scratch page and its scales, change no bit."""
+    rng = np.random.default_rng(13)
+    q, kq, vq, tables, pos, ks, vs = _int8_on(
+        hopper, torch.bfloat16, *_case(rng, 3, 2, 8, 2, 64, 16, 6, 64))
+    base = paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks,
+                                  v_scale=vs)
+    kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+    bt = kq.shape[1]
+    for bi in range(tables.shape[0]):
+        cursor = int(pos[bi].max())
+        for blk in range(tables.shape[1]):
+            for t in range(bt):
+                if blk * bt + t > cursor:
+                    page = int(tables[bi, blk])
+                    kq2[page, t], vq2[page, t] = 127, 127
+                    ks2[page, t], vs2[page, t] = 1e4, 1e4
+    kq2[0], vq2[0], ks2[0], vs2[0] = 127, 127, 1e4, 1e4
+    out = paged_decode_attention(q, kq2, vq2, tables, pos, k_scale=ks2,
+                                 v_scale=vs2)
+    assert torch.equal(out, base)
+
+
+def test_paged_attn_int8_rejects_what_the_kernel_cannot_take(hopper):
+    """int8 pools on the card never reach the plain version: a head_dim
+    that is not a multiple of 16 and f64 scales raise."""
+    rng = np.random.default_rng(17)
+    q, kq, vq, tables, pos, ks, vs = _int8_on(
+        hopper, torch.float32, *_case(rng, 2, 1, 4, 2, 16, 8, 4, 8))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks,
+                               v_scale=vs)
+    q, kq, vq, tables, pos, ks, vs = _int8_on(
+        hopper, torch.float32, *_case(rng, 2, 1, 4, 2, 16, 8, 4, 16))
+    with pytest.raises(TypeError, match="float32"):
+        paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks.double(),
+                               v_scale=vs.double())
 
 
 def test_build_directory_is_ignored_by_git():
