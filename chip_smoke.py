@@ -7,31 +7,44 @@ Builds every CUDA kernel of the port from ``csrc/`` with nvcc (one nvcc
 per source, all started together), then runs its phases; any failure
 exits non-zero.
 
-A. Each kernel against its plain PyTorch version on the card, at the
-   Llama-3 8B attention shapes (32 q heads, 8 KV heads, head_dim 128,
-   32-token pages), in bf16 and f32: decode (B=4, one query each, live
-   lengths 100-2000), a 512-query prefill chunk at an offset, stale K/V
-   past the cursor, and scratch-page garbage. Reports the error, the
-   kernel's time, the plain version's, the bound (the larger of bytes over
-   3.35 TB/s and FLOPs over the dtype's peak), and the time of
-   ``scaled_dot_product_attention`` on the pre-gathered K/V with the
-   boolean mask as a yardstick (the port never calls it). The same decode
-   and prefill cases again through the kernel's int8 branch: int8 pools
-   quantized from random ones by the model's quantize-on-write, bf16 and
-   f32 q, held to the int8 plain version, stale int8 cells and their
-   scales past each cursor and scratch-page garbage changing no bit; the
-   yardstick then runs on K/V gathered and dequantized beforehand.
+A. The paged-attention kernels against their plain PyTorch version on
+   the card, at the Llama-3 8B attention shapes (32 q heads, 8 KV heads,
+   head_dim 128, 32-token pages), by the route ``_route`` picks: decode
+   (B=4, one query each, live lengths 100-2000) on the split kernel in
+   bf16 and f32; query chunks (512 queries at offset 1024, 512 at 0, a
+   32-query final bucket at offset 1480) on the tensor-core prefill kernel
+   in bf16, the 512 @ 1024 chunk on the split kernel in f32; stale K/V
+   past each cursor and scratch-page garbage changing no bit on both
+   routes. Reports the error, the kernel's time, the plain version's, the
+   bound (the larger of bytes over 3.35 TB/s and FLOPs over the dtype's
+   peak), and the time of ``scaled_dot_product_attention`` on the
+   pre-gathered K/V with the boolean mask as a yardstick (the port never
+   calls it); for a chunk on the prefill route, also the split kernel's
+   error and time on the same inputs and the prefill kernel's time at
+   64- and 128-row tiles. The same cases again through the int8 branch:
+   int8 pools quantized from random ones by the model's quantize-on-write,
+   bf16 and f32 q, held to the int8 plain version, stale int8 cells and
+   their scales past each cursor and scratch-page garbage changing no
+   bit; the yardstick then runs on K/V gathered and dequantized
+   beforehand.
 B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
    random weights from a seed): 4 slots, 512-token prefill chunks, 8
    requests of 100-1500 prompt tokens and 32 new tokens (6 greedy, 2
    sampled). Every request finishes with in-vocabulary tokens, no pool
-   page leaks, and the kernel launches exactly n_layers x (decode
-   iterations + prefill chunks) times. Reports prefill and decode tokens/s,
-   TTFT p50 and peak device memory; then, with every slot busy, a decode
-   iteration's host time and its device time by kernel (``torch.profiler``).
+   page leaks, and the paged kernels launch exactly n_layers x prefill
+   chunks times on the prefill route and n_layers x decode iterations on
+   the split route. Reports prefill and decode tokens/s, TTFT p50 and
+   peak device memory; then, with every slot busy, a decode iteration's
+   host time and its device time by kernel (``torch.profiler``); then a
+   512-token prefill chunk at offset 1024: host time, device time by
+   kernel class and the busy share.
 C. The same workload in f32 at 8B width and 4 layers, greedy, through the
    kernel path and through the plain path (``attention_impl="xla"``):
-   the first 16 tokens of every request agree.
+   the first 16 tokens of every request agree. Then, in bf16 (which the
+   prefill route takes), every prompt prefilled in 512-token chunks
+   through both paths: the last position's logits agree within
+   ``BF16_LOGIT_RTOL`` and the first greedy token is equal wherever the
+   plain path's top-2 margin exceeds twice the largest logit difference.
 D. The three flash-attention kernels (forward, dQ, dK/dV) against their
    plain PyTorch versions on the card, in bf16 and f32, at B 2, S 2048,
    32 q heads, 8 KV heads, head_dim 128: causal, non-causal, 512 queries
@@ -93,14 +106,14 @@ J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
    same checks, every pool int8 with f32 scale siblings, the int8 branch
-   launched exactly n_layers x (decode iterations + prefill chunks) times
-   and the fp branch never. Reports phase B's metrics, the peak memory of
-   construction and of serving apart, bytes per page fp and int8, the
-   bytes saved, the decode profile, and, as a reading only, the share of
+   launched exactly as phase B's fp branch by route, and the fp branch
+   never. Reports phase B's metrics, the peak memory of construction and
+   of serving apart, bytes per page fp and int8, the bytes saved, the
+   decode and prefill profiles, and, as a reading only, the share of
    greedy tokens equal to phase B's.
 K. Phase C with kv and weight int8: f32 at 8B width and 4 layers, the int8
    kernel path against the plain path; the first 16 greedy tokens of all
-   8 requests agree.
+   8 requests agree; then the bf16 prefill check of phase C.
 
 Prints the card's name and power limit, the build time, one JSON line per
 phase, a ``{"kernels": [...]}`` line, and last
@@ -111,6 +124,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -128,12 +142,28 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 # P.V (as the Pallas kernel does), the plain version the normalized
 # probabilities, and both round the output to bf16.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The query chunks phase A added with the prefill route (512 queries at
+# offset 0, 32 at offset 1480), bf16: every element within TOL + 2^-7 x
+# |plain|. Rows near position 0 average a few rows of V, so outputs reach
+# |x| ~ 4, where the one bf16 step by which two roundings of the output can
+# differ is 2^-6 > TOL. The decode and 512 @ 1024 cases keep TOL alone.
+CHUNK_RTOL_BF16 = 2 ** -7
 # The int8 branch in bf16, per element: |kernel - plain| <= 2^-10 x the
 # output's RMS + 2^-7 x |plain|. Both dequantize to the same f32 values and
 # keep p in f32, so only the order of the f32 sums and the final bf16
 # rounding differ: one bf16 step (at most 2^-7 of the value), plus a
 # little near 0. f32 is held to TOL.
 INT8_TOL_BF16 = (2 ** -10, 2 ** -7)
+# Phases C and K, bf16 prefill: the last position's logits of each request,
+# kernel path against plain path, relative L2. The two attentions differ
+# in where bf16 rounds (fp: p at the running max or normalized; int8: f32
+# K, V and p against K, V and p rounded to bf16), up to one bf16 step
+# (2^-8) of an attention output. Each of the 4 layers adds such a
+# difference to the residual stream, and the layers after it, with random
+# weights, can grow what they are given (attention and MLP gains above 1):
+# 4 steps x a growth of 4 = 2^-4. A wrong mask or a lost key tile moves an
+# attention output by a large share of its size, far above that.
+BF16_LOGIT_RTOL = 2 ** -4
 H, KV, HD, PAGE = 32, 8, 128, 32
 PAGED_REPLACES = ("k8s_distributed_deeplearning_tpu/ops/"
                   "pallas_paged_attn.py:66")
@@ -264,6 +294,60 @@ def _sdpa_fn(args):
         qt, k, v, attn_mask=mask, enable_gqa=True)
 
 
+# Phase A's query chunks (live lengths, sq, n_blocks, pages): 512 queries
+# at offset 1024, the first 512-token chunk, and a final 32-query bucket
+# at offset 1480. bf16 chunks take the prefill route, f32 the split one.
+PREFILL_CASES = {"prefill512": ([1024 + 512], 512, 64, 64),
+                 "prefill512_at0": ([512], 512, 64, 64),
+                 "prefill32_at1480": ([1480 + 32], 32, 64, 64)}
+# The bitwise stale-cell check through the prefill route: two rows of 64
+# queries at live lengths 700 and 1000.
+STALE_PREFILL = ([700, 1000], 64, 64, 2 * 64 + 1)
+
+
+def _shapes(dtype, decode_lens):
+    """Phase A's cases for ``dtype``: decode, then the prefill chunks (f32:
+    the 512 @ 1024 chunk alone)."""
+    chunks = (PREFILL_CASES if dtype == torch.bfloat16 else
+              {"prefill512": PREFILL_CASES["prefill512"]})
+    return {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks}
+
+
+def _route_timings(args, kw, ref, err_of, flush) -> dict:
+    """For a case on the prefill route: the split kernel on the same inputs
+    (its error and time) and the prefill kernel at each row tile."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    def launch(route, rows=0):
+        return lambda: paged_attn._launch(*args, **kw, route=route,
+                                          tile_rows=rows)
+
+    split = launch("split")()
+    torch.cuda.synchronize()
+    return {"split_max_abs_err": err_of(split, ref),
+            "split_ms": time_ms(launch("split"), flush),
+            "ms_tile64": time_ms(launch("prefill", 64), flush),
+            "ms_tile128": time_ms(launch("prefill", 128), flush)}
+
+
+def _stale(args, lens, quant):
+    """The case's pools with every cell past each row's live length, and
+    the scratch page, overwritten (fp: +-1e4; int8: 127 with scales 1e4).
+    The blocks past each live length already map to the scratch page."""
+    q, pk, pv, tables = args[:4]
+    out = [t.clone() for t in (pk, pv) + tuple(args[5:])]
+    for i, n in enumerate(lens):
+        last = int(tables[i, (int(n) - 1) // PAGE])
+        tail = slice((int(n) - 1) % PAGE + 1, None)
+        for j, t in enumerate(out):
+            t[last, tail] = (1e4 if j > 1 else 127) if quant else (
+                1e4 if j == 0 else -1e4)
+    for j, t in enumerate(out):
+        t[0] = (1e4 if j > 1 else 127) if quant else (1e4 if j == 0
+                                                      else -1e4)
+    return (q, out[0], out[1], tables, args[4], *out[2:])
+
+
 def phase_a(dev, flush):
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
@@ -273,49 +357,72 @@ def phase_a(dev, flush):
     plain = paged_attn.paged_decode_attention_reference
     decode_lens = rng.integers(100, 2001, 4)
     cases = []
+
+    def err_of(out, ref):
+        return float((out.float() - ref.float()).abs().max())
+
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        shapes = {"decode": (decode_lens, 1, 64, 4 * 64 + 1),
-                  "prefill512": ([1024 + 512], 512, 64, 64)}
-        for name, (lens, sq, nb, pages) in shapes.items():
+        for name, (lens, sq, nb, pages) in _shapes(dtype,
+                                                   decode_lens).items():
             args = _attn_case(rng, dev, dtype, lens, sq, nb, pages)
+            route = paged_attn._route(sq, H // KV, HD, dtype, False)
+            before = kern.launches_prefill
             out = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
+            check(kern.launches_prefill - before == (route == "prefill"),
+                  f"{name}/{dname}: the {route} route did not launch")
+            err = err_of(out, ref)
+            rtol = (CHUNK_RTOL_BF16 if dtype == torch.bfloat16
+                    and name not in ("decode", "prefill512") else 0.0)
+
+            def share_of(x, ref=ref, rtol=rtol, dtype=dtype):
+                return float(((x.float() - ref.float()).abs()
+                              / (TOL[dtype] + rtol * ref.float().abs()))
+                             .max())
+
+            share = share_of(out)
             check(bool(torch.isfinite(out).all()), f"{name}/{dname}: nan")
-            check(err <= TOL[dtype],
-                  f"{name}/{dname}: max err {err} > {TOL[dtype]}")
+            check(share <= 1.0, f"{name}/{dname}: max err {err} uses "
+                  f"{share} of its limit (atol {TOL[dtype]}, rtol {rtol})")
             bound, by = _bound(args, dtype)
             cases.append({
-                "case": name, "dtype": dname, "shape": {
+                "case": name, "dtype": dname, "route": route, "shape": {
                     "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
                     "page_tokens": PAGE, "n_blocks": nb,
                     "live": [int(n) for n in lens]},
-                "max_abs_err": err, "tol": TOL[dtype],
+                "max_abs_err": err, "tol_share": share,
+                "tol": {"atol": TOL[dtype], "rtol": rtol},
                 "ms": time_ms(lambda: kern(*args), flush),
                 "plain_ms": time_ms(lambda: plain(*args), flush),
                 "library_ms": time_ms(_sdpa_fn(args), flush),
                 "bound_ms": bound, "bound_by": by})
+            if route == "prefill":
+                cases[-1].update(_route_timings(args, {}, ref, err_of, flush))
+                cases[-1]["split_tol_share"] = share_of(
+                    paged_attn._launch(*args, route="split"))
             log({"phase": "A", **cases[-1]})
         # Stale K/V past each cursor and garbage in the scratch page (the
-        # blocks past the live length map to it) change no output bit.
-        q, pk, pv, tables, pos = _attn_case(rng, dev, dtype, decode_lens, 1,
-                                            64, 4 * 64 + 1)
-        base = kern(q, pk, pv, tables, pos)
-        pk2, pv2 = pk.clone(), pv.clone()
-        for i, n in enumerate(decode_lens):
-            last = int(tables[i, (int(n) - 1) // PAGE])
-            pk2[last, (int(n) - 1) % PAGE + 1:] = 1e4
-            pv2[last, (int(n) - 1) % PAGE + 1:] = -1e4
-        pk2[0], pv2[0] = 1e4, -1e4
-        same = torch.equal(kern(q, pk2, pv2, tables, pos), base)
-        check(same, f"stale/scratch K/V changed the output ({dname})")
-        err = float((base.float() - plain(q, pk2, pv2, tables, pos)
-                     .float()).abs().max())
-        check(err <= TOL[dtype], f"stale/scratch vs plain: {err}")
-        log({"phase": "A", "case": "stale_kv+scratch_page", "dtype": dname,
-             "bitwise_unchanged": same, "max_abs_err": err})
+        # blocks past the live length map to it) change no output bit, on
+        # the split route (decode) and, in bf16, the prefill route.
+        stale = [("split", decode_lens, 1, 64, 4 * 64 + 1)]
+        if dtype == torch.bfloat16:
+            stale.append(("prefill", *STALE_PREFILL))
+        for route, lens, sq, nb, pages in stale:
+            args = _attn_case(rng, dev, dtype, lens, sq, nb, pages)
+            check(paged_attn._route(sq, H // KV, HD, dtype, False) == route,
+                  f"stale case is not on the {route} route")
+            base = kern(*args)
+            args2 = _stale(args, lens, quant=False)
+            same = torch.equal(kern(*args2), base)
+            check(same, f"stale/scratch K/V changed the output ({dname}, "
+                  f"{route})")
+            err = err_of(base, plain(*args2))
+            check(err <= TOL[dtype], f"stale/scratch vs plain: {err}")
+            log({"phase": "A", "case": "stale_kv+scratch_page",
+                 "dtype": dname, "route": route, "bitwise_unchanged": same,
+                 "max_abs_err": err})
     return cases
 
 
@@ -346,7 +453,7 @@ def _int8_err(out, ref, dtype):
 
 
 def phase_a_int8(dev, flush):
-    """Phase A's cases through the kernel's int8 branch."""
+    """Phase A's cases through the kernels' int8 branch."""
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
     rng = np.random.default_rng(10)
@@ -356,26 +463,30 @@ def phase_a_int8(dev, flush):
     decode_lens = rng.integers(100, 2001, 4)
     cases = []
 
-    def kern(q, kq, vq, tables, pos, ks, vs):
-        return attn(q, kq, vq, tables, pos, k_scale=ks, v_scale=vs)
-
-    def ref(q, kq, vq, tables, pos, ks, vs):
-        return plain(q, kq, vq, tables, pos, k_scale=ks, v_scale=vs)
+    def scales(args):
+        return dict(k_scale=args[5], v_scale=args[6])
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        shapes = {"decode": (decode_lens, 1, 64, 4 * 64 + 1),
-                  "prefill512": ([1024 + 512], 512, 64, 64)}
-        for name, (lens, sq, nb, pages) in shapes.items():
+
+        def err_of(out, ref):
+            return _int8_err(out, ref, dtype)[0]
+
+        for name, (lens, sq, nb, pages) in _shapes(dtype,
+                                                   decode_lens).items():
             args = _quantized(_attn_case(rng, dev, torch.float32, lens, sq,
                                          nb, pages))
             args = (args[0].to(dtype),) + args[1:]
-            before = attn.launches_int8
-            out = kern(*args)
-            want = ref(*args)
+            base5, kw = args[:5], scales(args)
+            route = paged_attn._route(sq, H // KV, HD, dtype, True)
+            before = (attn.launches_int8, attn.launches_prefill_int8)
+            out = attn(*base5, **kw)
+            want = plain(*base5, **kw)
             torch.cuda.synchronize()
-            check(attn.launches_int8 == before + 1,
-                  f"int8 {name}/{dname}: the int8 branch did not launch")
+            check((attn.launches_int8 - before[0],
+                   attn.launches_prefill_int8 - before[1])
+                  == (1, int(route == "prefill")),
+                  f"int8 {name}/{dname}: the {route} route did not launch")
             check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                   f"int8 {name}/{dname}: {out.dtype} or non-finite")
             err, share = _int8_err(out, want, dtype)
@@ -389,7 +500,8 @@ def phase_a_int8(dev, flush):
 
             bound, by = _bound(args, dtype)
             cases.append({
-                "case": name, "dtype": dname, "branch": "int8", "shape": {
+                "case": name, "dtype": dname, "branch": "int8",
+                "route": route, "shape": {
                     "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
                     "page_tokens": PAGE, "n_blocks": nb,
                     "live": [int(n) for n in lens]},
@@ -397,33 +509,42 @@ def phase_a_int8(dev, flush):
                 "tol": (TOL[dtype] if dtype == torch.float32 else
                         {"atol_rms": INT8_TOL_BF16[0],
                          "rtol": INT8_TOL_BF16[1]}),
-                "ms": time_ms(lambda: kern(*args), flush),
-                "plain_ms": time_ms(lambda: ref(*args), flush),
+                "ms": time_ms(lambda: attn(*base5, **kw), flush),
+                "plain_ms": time_ms(lambda: plain(*base5, **kw), flush),
                 "library_ms": time_ms(_sdpa_fn(
                     (q, deq(kq, ks), deq(vq, vs), tables, pos)), flush),
                 "bound_ms": bound, "bound_by": by})
+            if route == "prefill":
+                cases[-1].update(_route_timings(base5, kw, want, err_of,
+                                                flush))
+                cases[-1]["split_tol_share"] = _int8_err(
+                    paged_attn._launch(*base5, **kw, route="split"), want,
+                    dtype)[1]
             log({"phase": "A", **cases[-1]})
         # Stale int8 cells past each cursor (127, scale 1e4) and garbage in
-        # the scratch page and its scale page change no output bit.
-        args = _quantized(_attn_case(rng, dev, torch.float32, decode_lens, 1,
-                                     64, 4 * 64 + 1))
-        q, kq, vq, tables, pos, ks, vs = (args[0].to(dtype),) + args[1:]
-        base = kern(q, kq, vq, tables, pos, ks, vs)
-        kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
-        for i, n in enumerate(decode_lens):
-            last = int(tables[i, (int(n) - 1) // PAGE])
-            tail = slice((int(n) - 1) % PAGE + 1, None)
-            kq2[last, tail], vq2[last, tail] = 127, 127
-            ks2[last, tail], vs2[last, tail] = 1e4, 1e4
-        kq2[0], vq2[0], ks2[0], vs2[0] = 127, 127, 1e4, 1e4
-        same = torch.equal(kern(q, kq2, vq2, tables, pos, ks2, vs2), base)
-        check(same, f"int8 stale/scratch cells changed the output ({dname})")
-        err, share = _int8_err(base, ref(q, kq2, vq2, tables, pos, ks2, vs2),
-                               dtype)
-        check(share <= 1.0, f"int8 stale/scratch vs plain: {err}")
-        log({"phase": "A", "case": "stale_kv+scratch_page", "dtype": dname,
-             "branch": "int8", "bitwise_unchanged": same,
-             "max_abs_err": err, "tol_share": share})
+        # the scratch page and its scale page change no output bit, on the
+        # split route and, in bf16, the prefill route.
+        stale = [("split", decode_lens, 1, 64, 4 * 64 + 1)]
+        if dtype == torch.bfloat16:
+            stale.append(("prefill", *STALE_PREFILL))
+        for route, lens, sq, nb, pages in stale:
+            args = _quantized(_attn_case(rng, dev, torch.float32, lens, sq,
+                                         nb, pages))
+            args = (args[0].to(dtype),) + args[1:]
+            check(paged_attn._route(sq, H // KV, HD, dtype, True) == route,
+                  f"int8 stale case is not on the {route} route")
+            base = attn(*args[:5], **scales(args))
+            args2 = _stale(args, lens, quant=True)
+            same = torch.equal(attn(*args2[:5], **scales(args2)), base)
+            check(same, f"int8 stale/scratch cells changed the output "
+                  f"({dname}, {route})")
+            err, share = _int8_err(base, plain(*args2[:5], **scales(args2)),
+                                   dtype)
+            check(share <= 1.0, f"int8 stale/scratch vs plain: {err}")
+            log({"phase": "A", "case": "stale_kv+scratch_page",
+                 "dtype": dname, "branch": "int8", "route": route,
+                 "bitwise_unchanged": same, "max_abs_err": err,
+                 "tol_share": share})
     return cases
 
 
@@ -502,12 +623,14 @@ def _serve_phase(phase, dev, quant: bool):
     reqs = _requests(cfg.vocab_size, 32, sampled=True)
     free0 = eng.pool.available()
     attn = paged_attn.paged_decode_attention
-    attn.launches = attn.launches_int8 = 0
+    _zero_counts(attn)
     t0 = time.perf_counter()
     outs = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fp": attn.launches, "int8": attn.launches_int8}
+    prefill_route = {"fp": attn.launches_prefill,
+                     "int8": attn.launches_prefill_int8}
     check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
     for o in outs:
         check(o.finish_reason == "length" and len(o.tokens) == 32,
@@ -524,13 +647,21 @@ def _serve_phase(phase, dev, quant: bool):
           f"kernel launches {launches}: want {want} = n_layers x (decode "
           f"iterations {summ['decode_steps']} + prefill chunks {chunks}) "
           f"of the {branch} branch and none of the other")
+    routes = {"prefill": prefill_route[branch],
+              "split": launches[branch] - prefill_route[branch]}
+    check(routes == {"prefill": cfg.n_layers * chunks,
+                     "split": cfg.n_layers * summ["decode_steps"]}
+          and sum(prefill_route.values()) == routes["prefill"],
+          f"launches by route {routes}: want n_layers x prefill chunks "
+          f"{chunks} on the prefill route and n_layers x decode iterations "
+          f"{summ['decode_steps']} on the split route")
     result = {
         "phase": phase, "model": "llama3-8b", "layers": cfg.n_layers,
         "dtype": "bfloat16", **kw, "slots": 4, "prefill_chunk_tokens": 512,
         "requests": 8, "prompt_tokens": summ["prompt_tokens"],
         "new_tokens": sum(len(o.tokens) for o in outs),
         "decode_iterations": summ["decode_steps"], "prefill_chunks": chunks,
-        "kernel_launches": launches[branch],
+        "kernel_launches": launches[branch], "route_launches": routes,
         "prefill_tokens_per_s": summ["prompt_tokens"] / acc["_prefill"],
         "decode_tokens_per_s": eng.stats.decode_tokens / acc["_decode_step"],
         "prefill_s": acc["_prefill"], "decode_s": acc["_decode_step"],
@@ -551,10 +682,16 @@ def _serve_phase(phase, dev, quant: bool):
     return result, streams, eng
 
 
+def _zero_counts(attn) -> None:
+    attn.launches = attn.launches_int8 = 0
+    attn.launches_prefill = attn.launches_prefill_int8 = 0
+
+
 def phase_b(dev):
     result, streams, eng = _serve_phase("B", dev, quant=False)
     log(result)
     decode_profile("B", eng, result["layers"])
+    result["prefill_profile"] = prefill_profile("B", eng, result["layers"])
     return result, streams
 
 
@@ -576,11 +713,13 @@ def phase_j(dev, b_streams):
                    "first_differing_token": first_diff})
     log(result)
     decode_profile("J", eng, result["layers"])
+    result["prefill_profile"] = prefill_profile("J", eng, result["layers"])
     return result
 
 
 def _kernel_class(name: str) -> str:
-    for key, cls in (("paged_attn", "paged_attn"),
+    for key, cls in (("paged_prefill", "paged_prefill"),
+                     ("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
                      ("flash_dq_kernel", "flash_dq"),
                      ("flash_dkv_kernel", "flash_dkv"),
@@ -661,6 +800,91 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
                           "ms_per_step": ms} for n, c, ms in kernels[:8]]})
 
 
+def _table(eng, n_tokens: int):
+    """Fresh pool pages for ``n_tokens`` and a one-row block table over
+    them (the rest on the scratch page)."""
+    pages = eng.pool.alloc(-(-n_tokens // eng.page_tokens))
+    table = np.zeros((1, eng.max_blocks), np.int32)
+    table[0, :len(pages)] = pages
+    return pages, table
+
+
+def prefill_profile(phase, eng, n_layers, offset: int = 1024,
+                    chunk: int = 512, reps: int = 4):
+    """Where a prefill chunk's time goes: a 512-token chunk at offset 1024
+    of a random prompt (the chunks before it written first), the host
+    clock over ``reps`` runs of it, then device time by kernel class over
+    ``reps`` more under ``torch.profiler``; the busy share divides the
+    profiled device time by the unprofiled host time. Then the same again
+    with the split kernel forced in place of the prefill route, on the
+    same card in the same run: the before and after of the route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    vocab = eng.model.cfg.vocab_size
+    prompt = np.random.default_rng(3).integers(
+        0, vocab, offset + chunk).astype(np.int32)
+    pages, table = _table(eng, offset + chunk)
+
+    def run(start):
+        eng._prefill(prompt[None, start:start + chunk], table, start, None)
+
+    for start in range(0, offset + 1, chunk):
+        run(start)
+    result = {"phase": phase, "case": "prefill_profile", "offset": offset,
+              "chunk_tokens": chunk, "reps": reps}
+    routed = paged_attn._route
+    try:
+        for route in ("prefill", "split"):
+            paged_attn._route = lambda *a, route=route: route
+            run(offset)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run(offset)
+            torch.cuda.synchronize()
+            chunk_ms = (time.perf_counter() - t0) / reps * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    run(offset)
+                torch.cuda.synchronize()
+            kernels = _device_ms_by_kernel(prof, reps)
+            device_ms = sum(k[2] for k in kernels)
+            by_class = _by_class(kernels)
+            launches = {cls: sum(c for n, c, _ in kernels
+                                 if _kernel_class(n) == cls) / reps
+                        for cls in by_class}
+            result[route] = {
+                "chunk_ms": chunk_ms, "device_ms_per_chunk": device_ms,
+                "device_busy_share": device_ms / chunk_ms,
+                "device_ms_per_chunk_by_class": by_class,
+                "launches_per_chunk_by_class": launches,
+                "top_kernels": [{"name": n[:90],
+                                 "launches_per_chunk": c / reps,
+                                 "ms_per_chunk": ms}
+                                for n, c, ms in kernels[:6]]}
+    finally:
+        paged_attn._route = routed
+        for page in pages:
+            eng.pool.deref(page)
+    got = {route: result[route]["launches_per_chunk_by_class"]
+           for route in ("prefill", "split")}
+    check(got["prefill"].get("paged_prefill") == n_layers
+          and "paged_attn" not in got["prefill"]
+          and got["split"].get("paged_attn", 0) >= n_layers
+          and "paged_prefill" not in got["split"],
+          f"prefill chunk launches by class {got}: want {n_layers} of the "
+          "prefill kernel on its route and none of the split kernel, and "
+          "the reverse with the split kernel forced")
+    result["device_ms_saved_per_chunk"] = (
+        result["split"]["device_ms_per_chunk"]
+        - result["prefill"]["device_ms_per_chunk"])
+    log(result)
+    return result
+
+
 def _paths_phase(phase, dev, quant: bool):
     """Phases C and K: f32 at 8B width and 4 layers, greedy, the kernel
     path (``attention_impl="auto"``) against the plain path (``"xla"``); K
@@ -682,7 +906,7 @@ def _paths_phase(phase, dev, quant: bool):
         model = llama.LlamaLM(cfg, device=dev, seed=0)
         eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
                           device=dev, **kw)
-        attn.launches = attn.launches_int8 = 0
+        _zero_counts(attn)
         outs = eng.run(_requests(cfg.vocab_size, 16, sampled=False))
         launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8}
         streams[impl] = {o.request_id: o.tokens for o in outs}
@@ -707,12 +931,97 @@ def _paths_phase(phase, dev, quant: bool):
     return result
 
 
+def _bf16_prefill_logits(phase, dev, quant: bool):
+    """The prefill route on the model path, in bf16 (phases C and K run in
+    f32, which never reaches it): at 8B width and 4 layers, every
+    request's prompt prefilled in 512-token chunks (the final one bucketed
+    as the engine does) through the kernel path and the plain path
+    (``"xla"``), with the same weights. The last position's logits agree
+    within BF16_LOGIT_RTOL (relative L2 per request), and the first greedy
+    token is equal wherever the plain path's top-2 margin exceeds twice
+    that request's largest logit difference."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+
+    kw = dict(kv_quant="int8", weight_quant="int8") if quant else {}
+    attn = paged_attn.paged_decode_attention
+    logits, launches, chunks = {}, {}, 0
+    for impl in ("auto", "xla"):
+        cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
+                                     dtype=torch.bfloat16,
+                                     attention_impl=impl)
+        model = llama.LlamaLM(cfg, device=dev, seed=0)
+        eng = ServeEngine(model, num_slots=2, prefill_chunk_tokens=512,
+                          device=dev, **kw)
+        _zero_counts(attn)
+        rows, chunks = [], 0
+        for req in _requests(cfg.vocab_size, 16, sampled=False):
+            n = len(req.prompt)
+            pages, table = _table(eng, n)
+            start = 0
+            while n - start > 512:
+                eng._prefill(req.prompt[None, start:start + 512], table,
+                             start, None)
+                start += 512
+                chunks += 1
+            rem = n - start
+            last = np.full((1, eng._bucket(rem)), eng.pad_id, np.int32)
+            last[0, :rem] = req.prompt[start:]
+            rows.append(eng._prefill(last, table, start, rem - 1).float())
+            chunks += 1
+            for page in pages:
+                eng.pool.deref(page)
+        logits[impl] = torch.cat(rows)
+        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8,
+                          "prefill_fp": attn.launches_prefill,
+                          "prefill_int8": attn.launches_prefill_int8}
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    branch = "int8" if quant else "fp"
+    want = {k: 0 for k in launches["auto"]}
+    want.update({branch: cfg.n_layers * chunks,
+                 f"prefill_{branch}": cfg.n_layers * chunks})
+    check(launches["auto"] == want and not any(launches["xla"].values()),
+          f"bf16 prefill launches by path {launches}: want {want} on the "
+          "kernel path, none on the plain path")
+    kern, ref = logits["auto"], logits["xla"]
+    diff = (kern - ref).abs()
+    rel = ((kern - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+    largest = diff.max(dim=-1).values
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * largest
+    same = kern.argmax(-1) == ref.argmax(-1)
+    result = {"phase": phase, "case": "bf16_prefill_logits",
+              "model": "llama3-8b width, 4 layers", "dtype": "bfloat16",
+              **kw, "requests": len(rel), "prefill_chunks": chunks,
+              "launches": launches, "logit_rel_l2": rel,
+              "rtol": BF16_LOGIT_RTOL,
+              "max_abs_diff_over_rms": float(diff.max()
+                                             / ref.square().mean().sqrt()),
+              "first_token_decided": decided.tolist(),
+              "first_token_equal": same.tolist()}
+    log(result)
+    check(all(np.isfinite(rel)) and max(rel) <= BF16_LOGIT_RTOL,
+          f"bf16 prefill logits: relative L2 {max(rel)} > {BF16_LOGIT_RTOL}")
+    check(bool(same[decided].all()),
+          "bf16 prefill: a first greedy token differs where the plain "
+          "path's top-2 margin exceeds twice the largest logit difference")
+    return result
+
+
 def phase_c(dev):
-    return _paths_phase("C", dev, quant=False)
+    result = _paths_phase("C", dev, quant=False)
+    result["bf16_prefill"] = _bf16_prefill_logits("C", dev, quant=False)
+    return result
 
 
 def phase_k(dev):
-    return _paths_phase("K", dev, quant=True)
+    result = _paths_phase("K", dev, quant=True)
+    result["bf16_prefill"] = _bf16_prefill_logits("K", dev, quant=True)
+    return result
 
 
 # ------------------------------------------------------------- phase D
@@ -1488,26 +1797,32 @@ def _agreement(phase, info, ka, kx, dev):
 
 
 def _paged_entries(fp_cases, b_result, int8_cases, j_result):
-    """Kernel-line entries of the paged kernel's two branches: the
-    representative case is decode in bf16, the launches those of phases B
-    (fp) and J (int8)."""
+    """Kernel-line entries of the paged kernels, by route and branch: the
+    split kernel's representative case is decode in bf16, the prefill
+    kernel's 512 queries at offset 1024 in bf16; the launches are those
+    of phases B (fp) and J (int8) on each route."""
     out = []
-    for name, branch, cases, served in (
-            ("paged_decode_attention", "fp", fp_cases, b_result),
-            ("paged_decode_attention_int8", "quant=True", int8_cases,
-             j_result)):
-        rep = next(c for c in cases
-                   if c["case"] == "decode" and c["dtype"] == "bfloat16")
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "k8s_distributed_deeplearning_torch/csrc/paged_attn.cu",
-            "replaces": PAGED_REPLACES, "branch": branch,
-            "launches": served["kernel_launches"],
-            **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
-            "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
-                                          "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")} for c in cases]})
+    keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    extra = ("split_ms", "split_max_abs_err", "ms_tile64", "ms_tile128")
+    for name, route, source, rep_case in (
+            ("paged_decode_attention", "split", "paged_attn.cu", "decode"),
+            ("paged_prefill_attention", "prefill", "paged_prefill.cu",
+             "prefill512")):
+        for branch, cases, served in (("fp", fp_cases, b_result),
+                                      ("quant=True", int8_cases, j_result)):
+            mine = [c for c in cases if c["route"] == route]
+            rep = next(c for c in mine
+                       if c["case"] == rep_case and c["dtype"] == "bfloat16")
+            out.append({
+                "name": name + ("_int8" if branch != "fp" else ""),
+                "route": "cuda",
+                "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
+                "replaces": PAGED_REPLACES, "branch": branch,
+                "launches": served["route_launches"][route],
+                **{k: rep[k] for k in keys[2:]},
+                "cases": [{k: c[k] for k in keys + extra + ("tol_share",)
+                           if k in c} for c in mine]})
     return out
 
 
@@ -1551,9 +1866,14 @@ def main() -> int:
     log({"build_s": time.perf_counter() - t0,
          "kernels": sorted(libs)})
     for lib in libs.values():
+        entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
+            found = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
+                              r"kernel\w*?)(I\w*?)?EvP", line)
+            if found:
+                entry = "".join(g or "" for g in found.groups())
             if "registers" in line or "spill" in line:
-                log(f"ptxas {lib.stem}: {line.strip()}")
+                log(f"ptxas {lib.stem} {entry}: {line.strip()}")
     started = time.perf_counter()
 
     def timed(name, fn, *args):

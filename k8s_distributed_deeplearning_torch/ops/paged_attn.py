@@ -11,10 +11,15 @@ pools are int8 and each token has one f32 scale per KV head,
 ``[num_pages, page_tokens, kv]``; K and V are dequantized as
 ``f32(int8) * scale``.
 
-- :func:`paged_decode_attention` launches the hand-written CUDA kernel
-  (``csrc/paged_attn.cu``) on CUDA tensors, and takes the plain version on
-  CPU tensors. There is no fallback from one to the other: a CUDA tensor
-  the kernel cannot take raises.
+- :func:`paged_decode_attention` launches a hand-written CUDA kernel on
+  CUDA tensors, and takes the plain version on CPU tensors. Two kernels
+  share the contract, and :func:`_route` picks one by shape alone: bf16
+  query chunks with ``sq x group >= 64`` rows per KV head and head_dim 64
+  or 128 go to the tensor-core prefill kernel (``csrc/paged_prefill.cu``,
+  route ``"prefill"``); decode, f32 and every other shape to the split
+  kernel (``csrc/paged_attn.cu``, route ``"split"``). There is no
+  fallback from one to another: a CUDA tensor the chosen kernel cannot
+  take, or a failed build or launch, raises.
 - :func:`paged_decode_attention_reference` is the plain version: gather the
   row's pages, mask, softmax, the same arithmetic as the XLA gather path in
   the JAX model (``models/transformer.py`` paged branch), except that a
@@ -35,6 +40,10 @@ from k8s_distributed_deeplearning_torch.ops import _build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
+# The prefill route: bf16 q, at least one 64-row wgmma tile of flattened
+# (position, group head) rows per KV head, head_dim 64 or 128.
+_PREFILL_MIN_ROWS = 64
+_PREFILL_HEAD_DIMS = (64, 128)
 
 
 def _check_shapes(q, pool_k, pool_v, block_tables, positions,
@@ -125,6 +134,21 @@ def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _route(sq: int, group: int, head_dim: int, q_dtype: torch.dtype,
+           quant: bool) -> str:
+    """Which kernel takes a CUDA call: ``"prefill"`` (tensor cores) for
+    bf16 q with at least one 64-row wgmma tile of flattened (position,
+    group head) rows per KV head, ``sq * group >= 64``, at head_dim 64 or
+    128, with fp or int8 (``quant``) pools alike; ``"split"`` otherwise:
+    decode (``sq = 1`` at every group size the port serves), f32 q, other
+    head dims."""
+    del quant                     # both branches take both routes
+    if (q_dtype == torch.bfloat16 and sq * group >= _PREFILL_MIN_ROWS
+            and head_dim in _PREFILL_HEAD_DIMS):
+        return "prefill"
+    return "split"
+
+
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_tables: torch.Tensor,
                            positions: torch.Tensor, *,
@@ -145,12 +169,17 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     are int8 and are dequantized in the kernel.
 
     CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
-    tensors launch the kernel, which takes float32 or bfloat16 q, pools of
-    q's dtype (or int8 with f32 scales), int32 tables and positions, all
-    contiguous and the pools 16-byte aligned, and a ``head_dim`` that is a
+    tensors launch the kernel :func:`_route` names from the shape: bf16 q
+    with ``sq * (H / kv) >= 64`` and head_dim 64 or 128 runs the
+    tensor-core prefill kernel, everything else the split kernel. Both take
+    pools of q's dtype (or int8 with f32 scales), int32 tables and
+    positions, all contiguous and the pools 16-byte aligned; the split
+    kernel takes float32 or bfloat16 q and a ``head_dim`` that is a
     multiple of 8 (of 16 for int8 pools) up to 256; anything else raises.
     Each launch adds one to ``paged_decode_attention.launches`` (fp pools)
-    or to ``paged_decode_attention.launches_int8`` (int8 pools).
+    or ``.launches_int8`` (int8 pools), whichever the route; a launch of
+    the prefill route also adds one to ``.launches_prefill`` or
+    ``.launches_prefill_int8``.
     """
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
@@ -158,8 +187,32 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
         return paged_decode_attention_reference(
             q, pool_k, pool_v, block_tables, positions, k_scale=k_scale,
             v_scale=v_scale, softmax_scale=softmax_scale)
+    route = _route(sq, h // hkv, hd, q.dtype, k_scale is not None)
+    return _launch(q, pool_k, pool_v, block_tables, positions,
+                   k_scale=k_scale, v_scale=v_scale,
+                   softmax_scale=softmax_scale, route=route)
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0
+paged_decode_attention.launches_prefill = 0
+paged_decode_attention.launches_prefill_int8 = 0
+
+
+def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
+            v_scale=None, softmax_scale=None, route: str,
+            tile_rows: int = 0) -> torch.Tensor:
+    """Launch the kernel of ``route`` on CUDA tensors, counting the launch
+    on :func:`paged_decode_attention`. :func:`paged_decode_attention`
+    calls it with :func:`_route`'s choice; naming the route here lets a
+    caller time both kernels on the same inputs. ``tile_rows`` (prefill
+    route: 64 or 128, 0 = the kernel's own choice) fixes the row tile."""
+    b, sq, h, hd, page_tokens, hkv = _check_shapes(
+        q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
     if q.device.type != "cuda":
-        raise ValueError(f"no paged attention for device {q.device}")
+        raise ValueError(f"no paged attention kernel for device {q.device}")
+    if route not in ("prefill", "split"):
+        raise ValueError(f"route must be 'prefill' or 'split', got {route!r}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 q, got {q.dtype}")
     quant = k_scale is not None
@@ -175,12 +228,23 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
         raise TypeError(
             f"block_tables/positions must be int32, got "
             f"{block_tables.dtype} / {positions.dtype}")
-    if hd > _MAX_HEAD_DIM or hd % 8:
-        raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and a "
-                         f"multiple of 8, got {hd}")
-    if quant and hd % 16:
-        raise ValueError(f"the int8 kernel takes a head_dim that is a "
-                         f"multiple of 16 (16-byte copies), got {hd}")
+    if route == "prefill":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the prefill kernel takes bfloat16 q, got "
+                            f"{q.dtype}")
+        if hd not in _PREFILL_HEAD_DIMS:
+            raise ValueError(f"the prefill kernel takes head_dim "
+                             f"{_PREFILL_HEAD_DIMS}, got {hd}")
+        if tile_rows not in (0, 64, 128):
+            raise ValueError(f"tile_rows must be 0, 64 or 128, got "
+                             f"{tile_rows}")
+    else:
+        if hd > _MAX_HEAD_DIM or hd % 8:
+            raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and "
+                             f"a multiple of 8, got {hd}")
+        if quant and hd % 16:
+            raise ValueError(f"the int8 kernel takes a head_dim that is a "
+                             f"multiple of 16 (16-byte copies), got {hd}")
     for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
                     ("block_tables", block_tables), ("positions", positions),
                     *((("k_scale", k_scale), ("v_scale", v_scale))
@@ -189,37 +253,49 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("pool_k/pool_v must start 16-byte aligned")
+    if route == "prefill" and q.data_ptr() % 16:
+        raise ValueError("the prefill kernel takes q 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    lib = _library()
     n_blocks = block_tables.shape[1]
-    n_splits = lib.paged_attn_num_splits(b, sq, h, hkv, hd, page_tokens,
-                                         n_blocks, _num_sms(q.device))
     out = torch.empty_like(q)
-    # Decode splits its key range across blocks; the partial softmax
-    # states (max, sum, unnormalized output per query row) go here.
-    ws = (torch.empty(b * n_splits * h * sq * (hd + 2), dtype=torch.float32,
-                      device=q.device) if n_splits > 1 else None)
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quant
+              else (None, None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_attn_fwd(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), b, sq, h, hkv, hd,
-            page_tokens, n_blocks, n_splits, _DTYPE_CODE[q.dtype], scale,
-            stream)
+        if route == "prefill":
+            rc = _library("paged_prefill").paged_prefill_fwd(
+                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+                block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), b, sq, h, hkv, hd, page_tokens, n_blocks,
+                _DTYPE_CODE[q.dtype], scale, tile_rows, stream)
+        else:
+            lib = _library("paged_attn")
+            n_splits = lib.paged_attn_num_splits(
+                b, sq, h, hkv, hd, page_tokens, n_blocks,
+                _num_sms(q.device))
+            # Decode splits its key range across blocks; the partial
+            # softmax states (max, sum, unnormalized output per query row)
+            # go here.
+            ws = (torch.empty(b * n_splits * h * sq * (hd + 2),
+                              dtype=torch.float32, device=q.device)
+                  if n_splits > 1 else None)
+            rc = lib.paged_attn_fwd(
+                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+                block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), b, sq,
+                h, hkv, hd, page_tokens, n_blocks, n_splits,
+                _DTYPE_CODE[q.dtype], scale, stream)
     if rc:
-        raise RuntimeError(f"paged_attn_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{route} paged attention launch failed: CUDA "
+                           f"error {rc}")
+    fn = paged_decode_attention
     if quant:
-        paged_decode_attention.launches_int8 += 1
+        fn.launches_int8 += 1
+        fn.launches_prefill_int8 += route == "prefill"
     else:
-        paged_decode_attention.launches += 1
+        fn.launches += 1
+        fn.launches_prefill += route == "prefill"
     return out
-
-
-paged_decode_attention.launches = 0
-paged_decode_attention.launches_int8 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,13 +303,25 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _library():
-    lib = _build.load("paged_attn")
-    if lib.paged_attn_fwd.argtypes is None:
-        lib.paged_attn_num_splits.argtypes = [ctypes.c_int] * 8
-        lib.paged_attn_num_splits.restype = ctypes.c_int
-        lib.paged_attn_fwd.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.paged_attn_fwd.restype = ctypes.c_int
+# The C entry points of each kernel library: argument and result types.
+_SIGNATURES = {
+    "paged_attn": {
+        "paged_attn_num_splits": ([ctypes.c_int] * 8, ctypes.c_int),
+        "paged_attn_fwd": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    },
+    "paged_prefill": {
+        "paged_prefill_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                              + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p], ctypes.c_int),
+    },
+}
+
+
+def _library(name: str):
+    lib = _build.load(name)
+    for fn, (args, result) in _SIGNATURES[name].items():
+        entry = getattr(lib, fn)
+        if entry.argtypes is None:
+            entry.argtypes, entry.restype = args, result
     return lib

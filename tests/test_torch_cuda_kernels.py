@@ -17,6 +17,7 @@ import torch
 from k8s_distributed_deeplearning_torch.models.transformer import quantize_kv
 from k8s_distributed_deeplearning_torch.ops import _build
 from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+from k8s_distributed_deeplearning_torch.ops import paged_attn
 from k8s_distributed_deeplearning_torch.ops.paged_attn import (
     paged_decode_attention, paged_decode_attention_reference)
 
@@ -233,6 +234,173 @@ def test_paged_attn_int8_rejects_what_the_kernel_cannot_take(hopper):
     with pytest.raises(TypeError, match="float32"):
         paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks.double(),
                                v_scale=vs.double())
+
+
+# The prefill route (csrc/paged_prefill.cu): (b, sq, h, hkv, pages,
+# page_tokens, n_blocks, head_dim). Llama-3 8B's heads at pages of 8, 16,
+# 32 and 64 tokens and of 24 (not a power of two), sq 16 (one 64-row
+# tile), 64 and 512, B 1-3 with live lengths drawn across the table (rarely
+# a multiple of the 64-key tile); then head_dim 64 with groups of 3 and 8.
+PREFILL_SHAPES = [
+    (1, 16, 32, 8, 80, 8, 64, 128),
+    (2, 64, 32, 8, 100, 16, 40, 128),
+    (3, 64, 32, 8, 120, 32, 24, 128),
+    (1, 512, 32, 8, 40, 64, 30, 128),
+    (2, 512, 32, 8, 100, 32, 48, 128),
+    (2, 64, 32, 8, 100, 24, 30, 128),
+    (2, 64, 12, 4, 80, 16, 20, 64),
+    (3, 16, 16, 2, 100, 8, 30, 64),
+]
+
+
+def _prefill_args(dev, shape, quant, seed):
+    rng = np.random.default_rng(seed)
+    arrays = _case(rng, *shape)
+    if quant:
+        q, kq, vq, tables, pos, ks, vs = _int8_on(dev, torch.bfloat16,
+                                                  *arrays)
+        return (q, kq, vq, tables, pos), dict(k_scale=ks, v_scale=vs)
+    return _on(dev, torch.bfloat16, *arrays), {}
+
+
+def _counts():
+    f = paged_decode_attention
+    return (f.launches, f.launches_int8, f.launches_prefill,
+            f.launches_prefill_int8)
+
+
+def _assert_prefill_close(out, ref, quant):
+    """fp: 2e-2, as the split kernel (p rounded to bf16 at the running max
+    against normalized probabilities, O(1) outputs rounded to bf16). int8:
+    per element INT8_DTYPES' bf16 limit; the kernel's split of p x v_scale
+    into two bf16 halves keeps about 2^-16 of it, far inside one bf16
+    step of the output."""
+    ref = ref.float()
+    if not quant:
+        torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+        return
+    atol, rtol = INT8_DTYPES[1][1]
+    limit = atol * float(ref.square().mean().sqrt()) + rtol * ref.abs()
+    err = (out.float() - ref).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_paged_prefill_matches_reference(hopper, quant, shape):
+    b, sq, h, hkv, _, _, _, hd = shape
+    assert paged_attn._route(sq, h // hkv, hd, torch.bfloat16,
+                             quant) == "prefill"
+    args, kw = _prefill_args(hopper, shape, quant, sum(shape) + quant)
+    before = _counts()
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_counts(), before)]
+    assert moved == ([0, 1, 0, 1] if quant else [1, 0, 1, 0])
+    ref = paged_decode_attention_reference(*args, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    _assert_prefill_close(out, ref, quant)
+    # Both row tiles give the same bits: a row's arithmetic does not
+    # depend on the rows it shares a CTA with.
+    for rows in (64, 128):
+        again = paged_attn._launch(*args, **kw, route="prefill",
+                                   tile_rows=rows)
+        assert torch.equal(again, out), rows
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_prefill_long_table_slides_the_window(hopper, quant):
+    """A table of 1,500 two-token blocks is longer than the 1,024 entries
+    the kernel caches: cursors near its end make it slide the window."""
+    shape = (2, 64, 8, 2, 3100, 2, 1500, 64)
+    args, kw = _prefill_args(hopper, shape, quant, 43)
+    q, pk, pv, tables, pos = args
+    pos.copy_(torch.tensor([2950, 2500], dtype=torch.int32,
+                           device=pos.device)[:, None]
+              - torch.arange(63, -1, -1, dtype=torch.int32,
+                             device=pos.device))
+    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    _assert_prefill_close(out, paged_decode_attention_reference(
+        q, pk, pv, tables, pos, **kw), quant)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_prefill_stale_cells_and_scratch_are_inert(hopper, quant):
+    """Every cell past each row's cursor (fp: +-1e4; int8: 127 with scales
+    1e4), the blocks past the live length pointed at the scratch page, and
+    garbage in the scratch page change no output bit of the prefill
+    route."""
+    shape = (3, 64, 32, 8, 120, 16, 24, 128)
+    args, kw = _prefill_args(hopper, shape, quant, 29)
+    q, pk, pv, tables, pos = args
+    before = _counts()[2:]
+    base = paged_decode_attention(*args, **kw)
+    pk2, pv2, t2 = pk.clone(), pv.clone(), tables.clone()
+    kw2 = {k: v.clone() for k, v in kw.items()}
+    bt = pk.shape[1]
+    for bi in range(tables.shape[0]):
+        cursor = int(pos[bi].max())
+        for blk in range(tables.shape[1]):
+            page = int(tables[bi, blk])
+            for t in range(bt):
+                if blk * bt + t > cursor:
+                    pk2[page, t] = 127 if quant else 1e4
+                    pv2[page, t] = 127 if quant else -1e4
+                    for v in kw2.values():
+                        v[page, t] = 1e4
+            if blk * bt > cursor:
+                t2[bi, blk] = 0
+    pk2[0], pv2[0] = (127, 127) if quant else (1e4, -1e4)
+    for v in kw2.values():
+        v[0] = 1e4
+    out = paged_decode_attention(q, pk2, pv2, t2, pos, **kw2)
+    assert torch.equal(out, base)
+    assert [a - b for a, b in zip(_counts()[2:], before)] == (
+        [0, 2] if quant else [2, 0])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_prefill_fully_masked_row_is_zero(hopper, quant):
+    args, kw = _prefill_args(hopper, (2, 16, 32, 8, 80, 16, 20, 128),
+                             quant, 31)
+    q, pk, pv, tables, pos = args
+    pos[0, 3] = -1
+    pos[1] = -1                       # a whole batch row sees nothing
+    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert torch.all(out[0, 3] == 0) and torch.all(out[1] == 0)
+    assert torch.isfinite(out).all()
+    _assert_prefill_close(out, paged_decode_attention_reference(
+        q, pk, pv, tables, pos, **kw), quant)
+
+
+def test_paged_prefill_refuses_and_does_not_fall_back(hopper):
+    """What the prefill kernel does not take raises, from the public
+    function and from the private launcher, and nothing launches: no
+    other kernel and no plain version takes over."""
+    args, _ = _prefill_args(hopper, (1, 64, 32, 8, 40, 16, 20, 128),
+                            False, 37)
+    q, pk, pv, tables, pos = args
+    before = _counts()
+    raw = torch.empty(q.numel() + 4, dtype=q.dtype, device=q.device)
+    q_off = raw[4:].view(q.shape)     # contiguous, 8 bytes off alignment
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q_off, pk, pv, tables, pos)
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_attn._launch(q.float(), pk.float(), pv.float(), tables, pos,
+                           route="prefill")
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attn._launch(q[..., :80].contiguous(),
+                           pk.view(40, 16, 8, 128)[..., :80].reshape(
+                               40, 16, 640).contiguous(),
+                           pv.view(40, 16, 8, 128)[..., :80].reshape(
+                               40, 16, 640).contiguous(), tables, pos,
+                           route="prefill")
+    with pytest.raises(ValueError, match="tile_rows"):
+        paged_attn._launch(*args, route="prefill", tile_rows=32)
+    torch.cuda.synchronize()
+    assert _counts() == before
 
 
 def test_build_directory_is_ignored_by_git():

@@ -212,7 +212,7 @@ def test_entry_points_default_to_cuda(models):
 def _port_files():
     files = sorted((REPO / "k8s_distributed_deeplearning_torch").rglob(
         "*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "prefill_breakdown.py"]
 
 
 def test_import_scan_covers_every_subpackage():
