@@ -45,19 +45,26 @@ C. The same workload in f32 at 8B width and 4 layers, greedy, through the
    through both paths: the last position's logits agree within
    ``BF16_LOGIT_RTOL`` and the first greedy token is equal wherever the
    plain path's top-2 margin exceeds twice the largest logit difference.
-D. The three flash-attention kernels (forward, dQ, dK/dV) against their
-   plain PyTorch versions on the card, in bf16 and f32, at B 2, S 2048,
-   32 q heads, 8 KV heads, head_dim 128: causal, non-causal, 512 queries
-   against 2048 keys (causal, offset 1536), and three packed documents by
-   segment ids (causal). Each output is held element by element to a
-   limit of atol x the RMS of its row (never below the output's RMS) +
-   rtol x the element, and the log-sum-exp to an absolute limit. Reports
-   each kernel's error, time, the plain version's, the bound (the larger
-   of the bytes it must move over
-   3.35 TB/s and its matmul FLOPs on the visible pairs over the dtype's
-   peak) and, as a yardstick the port never calls,
-   ``scaled_dot_product_attention`` (forward alone for the forward kernel,
-   forward and backward through autograd for the backward ones).
+D. The flash-attention kernels against their plain PyTorch versions on
+   the card, in bf16 and f32, at B 2, S 2048, 32 q heads, 8 KV heads,
+   head_dim 128: causal, non-causal, 512 queries against 2048 keys
+   (causal, offset 1536), and three packed documents by segment ids
+   (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
+   head_dim 64, causal). The forward, and the backward on both routes:
+   in bf16 the tensor-core kernels of ``csrc/flash_bwd.cu`` (``"wgmma"``,
+   the route bf16 takes) and the mma.sync kernels of ``flash_attn.cu``
+   forced on the same inputs; f32 takes the mma route alone. Each output
+   is held element by element to a limit of atol x the RMS of its row
+   (never below the output's RMS) + rtol x the element, and the
+   log-sum-exp to an absolute limit; two wgmma launches on the same inputs
+   give the same bits.
+   Reports each kernel's error, time, the plain version's, the bound (the
+   larger of the bytes it must move over 3.35 TB/s and its matmul FLOPs on
+   the visible pairs over the dtype's peak) and, as a yardstick the port
+   never calls, ``scaled_dot_product_attention`` (forward alone for the
+   forward kernel; for the backward ones forward and backward through
+   autograd less the forward), timed on the device alone: autograd's host
+   side outlasts the card's work at these sizes.
 E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
    max_seq_len=2048)``: bf16 compute, f32 params, remat "dots"), chunked
    CE, AdamW with global-norm clip 1.0, 4 x 2048 tokens per step, through
@@ -66,15 +73,21 @@ E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
    batch bring the loss down by the stated margin; then a timed window of
    steps gives tokens/s, step ms, peak memory and the model-FLOPs share,
    the kernel launches per step are checked exactly (forward 2 x layers
-   with the remat recompute, dQ and dK/dV once per layer), and one
-   profiled step gives device time by class and the busy share.
+   with the remat recompute, dQ and dK/dV once per layer, all on the
+   wgmma route), and one profiled step gives device time by class and the
+   busy share.
 F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
    from the same weights, through the kernels (``attention_impl="auto"``)
    and through the plain einsum path (``"xla"``): the losses agree, and
    for every parameter tensor on its own the first step's gradient and
    the parameters after the 3 steps agree, within the stated tolerances.
    Logs the element whose parameter differs most, with its gradient and
-   Adam moments on both paths.
+   Adam moments on both paths. The f32 backward runs on the mma route
+   alone (checked). Then the same model and first batch in bf16 compute:
+   one step's gradients on the wgmma route and on the mma route (forced),
+   each against the f32 plain path per parameter tensor; the wgmma
+   route's relative L2 distance is at most ``BF16_STEP_RATIO`` x the mma
+   route's + ``BF16_STEP_FLOOR``.
 G. The grouped-matmul kernels (``gmm_kernel``: the forward and, reading the
    weight transposed in place, the input gradient; ``tgmm_kernel``: the
    weight gradient) against their plain versions, 8 experts and 16,384
@@ -96,7 +109,8 @@ H. Dropless MoE training at the slice's configuration: the Llama-small
    tokens/s, step ms, peak memory and the model-FLOPs share
    (``moe.flops_per_token``); the launches a step are checked exactly (gmm
    6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ and dK/dV
-   once a layer); one profiled step gives device time by class.
+   once a layer on the wgmma route); one profiled step gives device time
+   by class.
 I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    steps from the same weights through the kernels (``dispatch="ragged"``,
    flash attention) and through an independent plain path
@@ -193,6 +207,18 @@ FIXED_BATCH_MARGIN = 0.9
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_PARAM_TOL = 1e-3
+# Phase F in bf16: per parameter tensor, the relative L2 distance of one
+# step's gradient from the f32 plain path's, on the wgmma route, must be at
+# most BF16_STEP_RATIO x the mma route's + BF16_STEP_FLOOR. Both routes
+# round P and dS to bf16 at the same points, so their distances from f32
+# are set by the bf16 model around them and should agree to a few per
+# cent; the ratio leaves room for the two kernels' other sum orders. The
+# floor covers a tensor whose distance is near 0 on both routes, where a
+# ratio says nothing: 2^-10 is a quarter of one bf16 step (2^-8) of
+# relative error, far below what a wrong mask or a lost tile does to the
+# attention weights' gradients (a large share of their norm).
+BF16_STEP_RATIO = 1.25
+BF16_STEP_FLOOR = 2 ** -10
 # Phase G tolerances (atol, rtol), held per element: |kernel - plain| <=
 # atol x RMS of the plain output + rtol x |plain|. Both versions sum exact
 # products in f32, in different orders. f32: the order's effect, about
@@ -220,13 +246,25 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
+# Cycles of the sleep kernel that ``time_ms(..., host_ahead=True)`` runs
+# first: ~0.1 s at the H100's clock, time for the host to enqueue every
+# timed launch of a call that issues a few dozen kernels.
+HOST_AHEAD_CYCLES = 200_000_000
+
+
+def time_ms(fn, flush: torch.Tensor, iters: int = 20,
+            host_ahead: bool = False) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each with a
-    cold L2 (a 256 MB buffer is rewritten before every launch)."""
+    cold L2 (a 256 MB buffer is rewritten before every launch). With
+    ``host_ahead`` the card first runs a sleep kernel while the host
+    enqueues every timed launch, so that a call whose host side outlasts
+    its device side (autograd's backward) is timed on the device alone."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    if host_ahead:
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()
@@ -723,6 +761,8 @@ def _kernel_class(name: str) -> str:
                      ("flash_fwd_kernel", "flash_fwd"),
                      ("flash_dq_kernel", "flash_dq"),
                      ("flash_dkv_kernel", "flash_dkv"),
+                     ("flash_dq_wgmma", "flash_dq_wgmma"),
+                     ("flash_dkv_wgmma", "flash_dkv_wgmma"),
                      ("gmm_kernel", "gmm")):        # gmm_ and tgmm_kernel
         if key in name:
             return cls
@@ -733,12 +773,15 @@ def _kernel_class(name: str) -> str:
 
 def _device_ms_by_kernel(prof, steps: int):
     """(name, launches, device ms per step) for every CUDA kernel in a
-    ``torch.profiler`` run of ``steps`` steps, longest first."""
+    ``torch.profiler`` run of ``steps`` steps, longest first. The
+    ``ProfilerStep#n`` ranges that a schedule marks on the device span a
+    step's kernels and are not counted."""
     from torch.autograd import DeviceType
 
     kernels = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
@@ -754,13 +797,29 @@ def _by_class(kernels) -> dict:
     return out
 
 
+def _profile_reps(fn, reps: int):
+    """``torch.profiler`` over ``reps`` calls of ``fn``, after one warm-up
+    call with the profiler already tracing: kernels launched as tracing
+    starts can be missing from its record, and the launch counts read from
+    it are checked exactly."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        for i in range(reps + 1):
+            fn()
+            if i == reps:
+                torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def decode_profile(phase, eng, n_layers, steps: int = 16):
     """Where a decode iteration's time goes, with every slot busy: the host
     clock over ``steps`` iterations, then device time by kernel over
     ``steps`` more under ``torch.profiler``. The busy share divides the
     profiled device time by the unprofiled host time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from k8s_distributed_deeplearning_torch.serve import Request
 
     vocab = eng.model.cfg.vocab_size
@@ -777,11 +836,7 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
+    prof = _profile_reps(eng.step, steps)
     check(eng.occupied_slots() == eng.num_slots,
           "a slot emptied inside the profiled decode window")
     eng.run()
@@ -818,8 +873,6 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
     profiled device time by the unprofiled host time. Then the same again
     with the split kernel forced in place of the prefill route, on the
     same card in the same run: the before and after of the route."""
-    from torch.profiler import ProfilerActivity, profile
-
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
     vocab = eng.model.cfg.vocab_size
@@ -845,11 +898,7 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
                 run(offset)
             torch.cuda.synchronize()
             chunk_ms = (time.perf_counter() - t0) / reps * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    run(offset)
-                torch.cuda.synchronize()
+            prof = _profile_reps(lambda: run(offset), reps)
             kernels = _device_ms_by_kernel(prof, reps)
             device_ms = sum(k[2] for k in kernels)
             by_class = _by_class(kernels)
@@ -1026,66 +1075,85 @@ def phase_k(dev):
 
 # ------------------------------------------------------------- phase D
 
-FLASH_CASES = {                   # name: (sq, causal, segment lengths)
-    "causal": (2048, True, None),
-    "noncausal": (2048, False, None),
-    "sq512_sk2048_causal": (512, True, None),
-    "three_docs_causal": (2048, True, (700, 800, 548)),
+# name: (B, sq, sk, H, KV, head_dim, causal, segment lengths). Llama-3
+# 8B's attention at training length, then MoE H's (the Llama-small
+# backbone's 12/4 heads at head_dim 64, 8 x 1024 tokens).
+FLASH_CASES = {
+    "causal": (2, 2048, 2048, H, KV, HD, True, None),
+    "noncausal": (2, 2048, 2048, H, KV, HD, False, None),
+    "sq512_sk2048_causal": (2, 512, 2048, H, KV, HD, True, None),
+    "three_docs_causal": (2, 2048, 2048, H, KV, HD, True, (700, 800, 548)),
+    "moe_h_causal": (8, 1024, 1024, 12, 4, 64, True, None),
 }
-FLASH_B, FLASH_SK = 2, 2048
 FLASH_REPLACES = {
     "flash_fwd": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:148",
     "flash_bwd_dq": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:396",
     "flash_bwd_dkv":
         "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:520",
 }
+# Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
+# kernel by wrapper. The backward wrappers launch the kernels of either
+# route: the wgmma lines are their "wgmma" route (bf16, head_dim 64/128),
+# the others the mma.sync kernels of flash_attn.cu ("mma": f32 on the
+# training path, forced in bf16 here).
+FLASH_KERNELS = {
+    "flash_fwd": ("flash_attn.cu", "flash_fwd"),
+    "flash_bwd_dq": ("flash_attn.cu", "flash_bwd_dq"),
+    "flash_bwd_dkv": ("flash_attn.cu", "flash_bwd_dkv"),
+    "flash_bwd_dq_wgmma": ("flash_bwd.cu", "flash_bwd_dq"),
+    "flash_bwd_dkv_wgmma": ("flash_bwd.cu", "flash_bwd_dkv"),
+}
 
 
-def _flash_case(dev, dtype, sq, seg_lens, seed):
+def _flash_case(dev, dtype, shape, seed):
+    b, sq, sk, h, kv, hd, _, seg_lens = shape
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(dtype)
 
-    q = rnd(FLASH_B, sq, H, HD)
-    k, v = rnd(FLASH_B, FLASH_SK, KV, HD), rnd(FLASH_B, FLASH_SK, KV, HD)
-    do = rnd(FLASH_B, sq, H, HD)
+    q = rnd(b, sq, h, hd)
+    k, v = rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
+    do = rnd(b, sq, h, hd)
     segq = segk = None
     if seg_lens is not None:
         ids = torch.repeat_interleave(
             torch.arange(1, len(seg_lens) + 1, device=dev),
             torch.tensor(seg_lens, device=dev)).to(torch.int32)
-        segk = ids[None].expand(FLASH_B, FLASH_SK).contiguous()
-        segq = segk[:, FLASH_SK - sq:].contiguous()
+        segk = ids[None].expand(b, sk).contiguous()
+        segq = segk[:, sk - sq:].contiguous()
     return q, k, v, do, segq, segk
 
 
-def _visible_pairs(dev, sq, causal, segq, segk):
+def _visible_pairs(dev, shape, segq, segk):
     """(query, key) pairs the mask lets through, summed over the batch."""
+    b, sq, sk, _, _, _, causal, _ = shape
     row = torch.arange(sq, device=dev)[:, None]
-    col = torch.arange(FLASH_SK, device=dev)[None, :]
-    allow = torch.ones(1, sq, FLASH_SK, dtype=torch.bool, device=dev)
+    col = torch.arange(sk, device=dev)[None, :]
+    allow = torch.ones(1, sq, sk, dtype=torch.bool, device=dev)
     if causal:
-        allow = allow & (row + (FLASH_SK - sq) >= col)[None]
+        allow = allow & (row + (sk - sq) >= col)[None]
     if segq is not None:
         allow = allow & (segq[:, :, None] == segk[:, None, :])
-    return int(allow.sum()) * (FLASH_B if allow.shape[0] == 1 else 1)
+    return int(allow.sum()) * (b if allow.shape[0] == 1 else 1)
 
 
-def _flash_bound(kind, dtype, sq, pairs):
+def _flash_bound(kind, dtype, shape, pairs):
     """Least time on an H100 SXM: the larger of each input read once and
     each output written once over 3.35 TB/s, and the kernel's matmul FLOPs
     on the visible pairs over the dtype's peak (forward 2 products, dQ 3,
     dK/dV 4, each 2 * head_dim FLOPs per pair and query head)."""
+    b, sq, sk, h, kv, hd, _, _ = shape
     item = torch.finfo(dtype).bits // 8
-    qo = FLASH_B * sq * H * HD * item              # q, o, do or dq
-    kv = FLASH_B * FLASH_SK * KV * HD * item       # k or v (dk or dv)
-    stat = FLASH_B * H * sq * 4                    # lse or delta, f32
-    nbytes, mm = {"flash_fwd": (2 * qo + 2 * kv + stat, 2),
-                  "flash_bwd_dq": (3 * qo + 2 * kv + 2 * stat, 3),
-                  "flash_bwd_dkv": (2 * qo + 4 * kv + 2 * stat, 4)}[kind]
-    flops = mm * 2 * HD * H * pairs
+    qo = b * sq * h * hd * item                    # q, o, do or dq
+    kvb = b * sk * kv * hd * item                  # k or v (dk or dv)
+    stat = b * h * sq * 4                          # lse or delta, f32
+    kind = kind.removesuffix("_wgmma")
+    nbytes, mm = {"flash_fwd": (2 * qo + 2 * kvb + stat, 2),
+                  "flash_bwd_dq": (3 * qo + 2 * kvb + 2 * stat, 3),
+                  "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4)}[kind]
+    flops = mm * 2 * hd * h * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
@@ -1144,33 +1212,42 @@ def _sdpa_fns(q, k, v, do, causal, segq, segk):
 
 
 def phase_d(dev, flush):
+    """The flash kernels against their plain versions, case by case; in
+    bf16 the backward on both routes (the wgmma kernels, and the mma.sync
+    kernels forced) on the same inputs, and the wgmma kernels
+    launched twice for bitwise equality."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
-    rows = {name: [] for name in FLASH_REPLACES}
+    rows = {name: [] for name in FLASH_KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         tol = FLASH_TOL[dtype]
-        for ci, (case, (sq, causal, seg_lens)) in enumerate(
-                FLASH_CASES.items()):
-            q, k, v, do, segq, segk = _flash_case(dev, dtype, sq, seg_lens,
-                                                  ci)
-            scale = HD ** -0.5
+        for ci, (case, shape) in enumerate(FLASH_CASES.items()):
+            causal, hd = shape[6], shape[5]
+            q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, ci)
+            scale = hd ** -0.5
             o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
             ref_o, ref_lse = fa.flash_attention_reference(
                 q, k, v, causal=causal, q_segment_ids=segq,
                 kv_segment_ids=segk)
             delta = (do.float() * ref_o.float()).sum(-1).transpose(
                 1, 2).contiguous()
-            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, segq, segk,
-                                 causal, scale)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, segq,
-                                      segk, causal, scale)
+            bwd_args = (q, k, v, do, ref_lse, delta, segq, segk, causal,
+                        scale)
             want = fa.flash_attention_bwd_reference(
                 q, k, v, ref_o, ref_lse, do, causal=causal,
                 q_segment_ids=segq, kv_segment_ids=segk)
+            routes = {"mma": ("flash_bwd_dq", "flash_bwd_dkv")}
+            if fa._bwd_route(dtype, hd) == "wgmma":
+                routes["wgmma"] = ("flash_bwd_dq_wgmma",
+                                   "flash_bwd_dkv_wgmma")
+            got = {route: (fa.flash_bwd_dq(*bwd_args, route=route),
+                           fa.flash_bwd_dkv(*bwd_args, route=route))
+                   for route in routes}
             torch.cuda.synchronize()
-            for got in (o, lse, dq, dk, dv):
-                check(bool(torch.isfinite(got).all()),
+            for out in [o, lse] + [x for dq, (dk, dv) in got.values()
+                                   for x in (dq, dk, dv)]:
+                check(bool(torch.isfinite(out).all()),
                       f"{case}/{dname}: non-finite kernel output")
             seen = ref_lse > -1e29
             check(torch.equal(lse <= -1e29, ~seen),
@@ -1179,52 +1256,60 @@ def phase_d(dev, flush):
             check(lse_err <= LSE_ATOL,
                   f"flash_fwd {case}/{dname}: lse error {lse_err} > "
                   f"{LSE_ATOL}")
-            errs = {"flash_fwd": _flash_err({"o": (o, ref_o)}, tol),
-                    "flash_bwd_dq": _flash_err({"dq": (dq, want[0])}, tol),
-                    "flash_bwd_dkv": _flash_err({"dk": (dk, want[1]),
-                                                 "dv": (dv, want[2])}, tol)}
+            errs = {"flash_fwd": _flash_err({"o": (o, ref_o)}, tol)}
             errs["flash_fwd"]["lse_max_abs_err"] = lse_err
+            for route, (dq_name, dkv_name) in routes.items():
+                dq, (dk, dv) = got[route]
+                errs[dq_name] = _flash_err({"dq": (dq, want[0])}, tol)
+                errs[dkv_name] = _flash_err({"dk": (dk, want[1]),
+                                             "dv": (dv, want[2])}, tol)
             for name, e in errs.items():
                 check(e["tol_share"] <= 1.0,
                       f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
                       f"<= {tol[0]} x rms + {tol[1]} x |plain|")
-            pairs = _visible_pairs(dev, sq, causal, segq, segk)
+            if "wgmma" in got:            # two launches, the same bits
+                dq, (dk, dv) = got["wgmma"]
+                dq2 = fa.flash_bwd_dq(*bwd_args)
+                dk2, dv2 = fa.flash_bwd_dkv(*bwd_args)
+                check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                      and torch.equal(dv, dv2),
+                      f"{case}/{dname}: two wgmma launches differ")
+            del got
+            pairs = _visible_pairs(dev, shape, segq, segk)
             sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, causal, segq,
                                                segk)
             plain_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, ref_o, ref_lse, do, causal=causal,
                 q_segment_ids=segq, kv_segment_ids=segk), flush, 10)
-            times = {
-                "flash_fwd": (
-                    time_ms(lambda: fa.flash_fwd(q, k, v, segq, segk, causal,
-                                                 scale), flush, 10),
-                    time_ms(lambda: fa.flash_attention_reference(
-                        q, k, v, causal=causal, q_segment_ids=segq,
-                        kv_segment_ids=segk), flush, 10),
-                    time_ms(sdpa_fwd, flush, 10)),
-                "flash_bwd_dq": (
-                    time_ms(lambda: fa.flash_bwd_dq(
-                        q, k, v, do, ref_lse, delta, segq, segk, causal,
-                        scale), flush, 10), plain_bwd_ms, None),
-                "flash_bwd_dkv": (
-                    time_ms(lambda: fa.flash_bwd_dkv(
-                        q, k, v, do, ref_lse, delta, segq, segk, causal,
-                        scale), flush, 10), plain_bwd_ms, None)}
-            lib_bwd = time_ms(sdpa_fwd_bwd, flush, 10)
+            lib_fwd = time_ms(sdpa_fwd, flush, 10, host_ahead=True)
+            lib_fwd_bwd = time_ms(sdpa_fwd_bwd, flush, 10, host_ahead=True)
+            times = {"flash_fwd": (
+                time_ms(lambda: fa.flash_fwd(q, k, v, segq, segk, causal,
+                                             scale), flush, 10),
+                time_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, causal=causal, q_segment_ids=segq,
+                    kv_segment_ids=segk), flush, 10), lib_fwd)}
+            for route, (dq_name, dkv_name) in routes.items():
+                times[dq_name] = (time_ms(lambda: fa.flash_bwd_dq(
+                    *bwd_args, route=route), flush, 10), plain_bwd_ms,
+                    lib_fwd_bwd - lib_fwd)
+                times[dkv_name] = (time_ms(lambda: fa.flash_bwd_dkv(
+                    *bwd_args, route=route), flush, 10), plain_bwd_ms,
+                    lib_fwd_bwd - lib_fwd)
+            b, sq, sk, h, kv, _, _, seg_lens = shape
             for name, (ms, plain_ms, lib_ms) in times.items():
-                bound, by = _flash_bound(name, dtype, sq, pairs)
+                bound, by = _flash_bound(name, dtype, shape, pairs)
                 rows[name].append({
                     "case": case, "dtype": dname, "shape": {
-                        "B": FLASH_B, "sq": sq, "sk": FLASH_SK, "H": H,
-                        "kv": KV, "hd": HD, "causal": causal,
-                        "segments": seg_lens},
+                        "B": b, "sq": sq, "sk": sk, "H": h, "kv": kv,
+                        "hd": hd, "causal": causal, "segments": seg_lens},
                     "visible_pairs": pairs, **errs[name],
                     "tol": {"atol_rms": tol[0], "rtol": tol[1]},
-                    "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms if lib_ms is not None else lib_bwd,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_fwd_bwd_ms": lib_fwd_bwd,
                     "bound_ms": bound, "bound_by": by})
                 log({"phase": "D", "kernel": name, **rows[name][-1]})
-            del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, want
+            del q, k, v, do, o, lse, ref_o, ref_lse, want, delta, bwd_args
             torch.cuda.empty_cache()
     return rows
 
@@ -1478,14 +1563,32 @@ def _kernel_wrappers() -> dict:
             "gmm": gmm_ops.gmm_forward, "tgmm": gmm_ops.tgmm}
 
 
+def _zero_launches() -> None:
+    for w in _kernel_wrappers().values():
+        w.launches = 0
+        if hasattr(w, "launches_wgmma"):
+            w.launches_wgmma = 0
+
+
+def _launch_counts() -> dict:
+    """Every wrapper's launches by its kernel-line name; the backward
+    wrappers' wgmma-route launches under their own lines."""
+    wrappers = _kernel_wrappers()
+    out = {n: w.launches for n, w in wrappers.items()}
+    for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+        out[n + "_wgmma"] = wrappers[n].launches_wgmma
+    return out
+
+
 def _train_phase(phase, dev, info, cfg, *, batch_size, seq, lr, chunked,
                  flops_tok, per_step, moe_cfg=None):
     """Phases E and H: train ``cfg`` (an ``MoELM`` with ``moe_cfg``) through
     ``make_train_step`` and ``fit``. Eight steps on one fixed batch must
     bring the loss below the margin; then a timed window of steps, with
     every kernel's launch count set to 0 before it and held exactly to
-    ``per_step`` (launches a step by kernel) after it; then one profiled
-    step."""
+    ``per_step`` (launches a step by kernel-line name, the backward
+    wrappers' wgmma-route launches under their own) after it; then one
+    profiled step."""
     from torch.profiler import ProfilerActivity, profile
 
     from k8s_distributed_deeplearning_torch.train import data as data_lib
@@ -1520,16 +1623,14 @@ def _train_phase(phase, dev, info, cfg, *, batch_size, seq, lr, chunked,
                      rng=1, log_every=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = _kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     state = loop.fit(step_fn, state, batcher.iter_from, state.step + timed,
                      rng=1, log_every=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: w.launches for n, w in wrappers.items()}
-    want = {n: per_step.get(n, 0) * timed for n in wrappers}
+    launches = _launch_counts()
+    want = {n: per_step.get(n, 0) * timed for n in launches}
     check(launches == want, f"kernel launches {launches} != {want} over "
           f"{timed} steps")
     step_ms = wall / timed * 1e3
@@ -1602,7 +1703,9 @@ def phase_e(dev):
         lr=3e-4, chunked=True,
         flops_tok=llama.flops_per_token(cfg, seq_len=2048),
         # Forward 2 x layers: remat "dots" recomputes the flash forward.
-        per_step={"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n})
+        # The bf16 backward at head_dim 128 takes the wgmma route.
+        per_step={"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                  "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n})
 
 
 def phase_h(dev):
@@ -1625,7 +1728,8 @@ def phase_h(dev):
         # 3 forward products and 3 input gradients a layer, 3 weight
         # gradients; the flash forward runs again in the recompute.
         per_step={"gmm": 6 * n, "tgmm": 3 * n, "flash_fwd": 2 * n,
-                  "flash_bwd_dq": n, "flash_bwd_dkv": n},
+                  "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                  "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n},
         moe_cfg=mcfg)
 
 
@@ -1677,13 +1781,100 @@ def phase_f(dev):
 
     # The kernel path's record waits in host memory while the plain path
     # runs: two runs' weights, gradients and moments do not fit the card.
+    _zero_launches()
     ka = run("auto", torch.device("cpu"))
+    launches = _launch_counts()
+    # f32 keeps the backward on the mma.sync kernels, never wgmma.
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 2 * steps
+          and launches["flash_bwd_dq_wgmma"] == 0
+          and launches["flash_bwd_dkv_wgmma"] == 0,
+          f"phase F (f32) backward launches {launches}: want 2 a step on "
+          f"the mma route and none on the wgmma route")
     gc.collect()
     torch.cuda.empty_cache()
     kx = run("xla", dev)
     return _agreement("F", {"model": "llama3-8b width, 2 layers",
                             "batch": batch_size, "seq_len": seq,
-                            "steps": steps, "lr": lr}, ka, kx, dev)
+                            "steps": steps, "lr": lr,
+                            "kernel_path_launches": {
+                                n: c for n, c in launches.items() if c}},
+                      ka, kx, dev)
+
+
+def phase_f_bf16(dev):
+    """Phase F's model and first batch in bf16 compute (f32 params): one
+    step's gradients through the flash kernels on the wgmma route and on
+    the mma route (forced), each held per parameter tensor to the f32
+    plain path's (``attention_impl="xla"``), from the same weights."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch_size, seq = 2, 1024
+    tokens = data_lib.synthetic_tokens(1 << 15, vocab_size=128256, seed=3)
+    batch = data_lib.TokenBatcher(tokens, batch_size, seq, seed=3).batch_at(0)
+
+    def model_of(dtype, impl):
+        cfg = llama.config_llama3_8b(n_layers=2, max_seq_len=seq,
+                                     dtype=dtype, param_dtype=torch.float32,
+                                     attention_impl=impl)
+        return llama.LlamaLM(cfg, device=dev, seed=0)
+
+    def grads(model):
+        params = dict(model.named_parameters())
+        loss, _ = llama.loss_fn(model, dp.to_device(batch, dev), chunked=True)
+        return float(loss.detach()), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    plain = model_of(torch.float32, "xla")
+    loss_ref, ref = grads(plain)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = model_of(torch.bfloat16, "auto")
+    errs, losses, launches = {}, {}, {}
+    route_of = fa._bwd_route
+    try:
+        for route in ("wgmma", "mma"):
+            fa._bwd_route = lambda dtype, head_dim, r=route: r
+            _zero_launches()
+            losses[route], g = grads(model)
+            launches[route] = {n: c for n, c in _launch_counts().items() if c}
+            errs[route] = {n: float((g[n] - ref[n]).double().norm()
+                                    / ref[n].double().norm()) for n in ref}
+            del g
+    finally:
+        fa._bwd_route = route_of
+    worst = {n: errs["wgmma"][n] / (BF16_STEP_RATIO * errs["mma"][n]
+                                    + BF16_STEP_FLOOR) for n in ref}
+    result = {"phase": "F", "case": "bf16_step_routes",
+              "model": "llama3-8b width, 2 layers", "batch": batch_size,
+              "seq_len": seq, "loss_f32_plain": loss_ref,
+              "loss_bf16": losses, "launches": launches,
+              "grad_rel_l2_vs_f32_plain": errs,
+              "ratio": BF16_STEP_RATIO, "floor": BF16_STEP_FLOOR,
+              "worst_share": max(worst.values()),
+              "worst_param": max(worst, key=worst.get)}
+    log(result)
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(launches["wgmma"].get("flash_bwd_dq_wgmma") == 2
+          and launches["wgmma"].get("flash_bwd_dkv_wgmma") == 2
+          and "flash_bwd_dq_wgmma" not in launches["mma"]
+          and launches["mma"].get("flash_bwd_dq") == 2,
+          f"bf16 step launches by route: {launches}")
+    name = result["worst_param"]
+    check(max(worst.values()) <= 1.0,
+          f"bf16 step: {name}'s gradient on the wgmma route is further from "
+          f"the f32 plain path than {BF16_STEP_RATIO} x the mma route's + "
+          f"{BF16_STEP_FLOOR}: {errs['wgmma'][name]} against "
+          f"{errs['mma'][name]}")
+    return result
 
 
 def phase_i(dev):
@@ -1826,18 +2017,25 @@ def _paged_entries(fp_cases, b_result, int8_cases, j_result):
     return out
 
 
-def _flash_entries(rows, e_result):
+def _flash_entries(rows, e_result, f_result):
     """Kernel-line entries of the flash kernels: the representative case
-    is the training path's (causal, bf16)."""
+    is the training path's (causal, bf16). The launches are phase E's (the
+    bf16 step: the forward and the wgmma backward), and for the mma
+    backward kernels phase F's kernel path (f32), the path that runs them."""
     out = []
     for name, cases in rows.items():
         rep = next(c for c in cases
                    if c["case"] == "causal" and c["dtype"] == "bfloat16")
+        source, wrapper = FLASH_KERNELS[name]
+        mma_bwd = name in ("flash_bwd_dq", "flash_bwd_dkv")
+        launched = (f_result["kernel_path_launches"] if mma_bwd
+                    else e_result["launches"])
         out.append({
             "name": name, "route": "cuda",
-            "source": "k8s_distributed_deeplearning_torch/csrc/flash_attn.cu",
-            "replaces": FLASH_REPLACES[name],
-            "launches": e_result["launches"][name],
+            "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
+            "replaces": FLASH_REPLACES[wrapper],
+            "launches": launched.get(name, 0),
+            "launches_in": "F (f32)" if mma_bwd else "E",
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",
@@ -1869,7 +2067,7 @@ def main() -> int:
         entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
             found = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
-                              r"kernel\w*?)(I\w*?)?EvP", line)
+                              r"(?:kernel|wgmma)\w*?)(I\w*?)?EvP", line)
             if found:
                 entry = "".join(g or "" for g in found.groups())
             if "registers" in line or "spill" in line:
@@ -1898,13 +2096,14 @@ def main() -> int:
     distributed.initialize_single("cuda")
     try:
         e = timed("E", phase_e, dev)
-        timed("F", phase_f, dev)
+        f = timed("F", phase_f, dev)
+        timed("F_bf16", phase_f_bf16, dev)
         h = timed("H", phase_h, dev)
         timed("I", phase_i, dev)
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, int8_cases, j)
-         + _flash_entries(flash_rows, e) + _gmm_entries(gmm_rows, h)})
+         + _flash_entries(flash_rows, e, f) + _gmm_entries(gmm_rows, h)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -11,15 +11,19 @@ restricting attention to equal ids.
   its forward launches ``flash_fwd_kernel`` and its backward computes
   ``delta = rowsum(dO * O)`` with a PyTorch reduction, as the JAX wrapper
   does outside its kernels, then launches the dQ kernel and the dK/dV
-  kernel (``csrc/flash_attn.cu``). On CPU tensors the same function takes
-  the plain versions. A CUDA tensor the kernels cannot take raises; there
-  is no fallback from one to the other.
+  kernel of the route :func:`_bwd_route` names: ``"wgmma"``
+  (``csrc/flash_bwd.cu``, tensor cores through wgmma) for bf16 at head_dim
+  64 or 128, ``"mma"`` (``csrc/flash_attn.cu``, mma.sync) otherwise. On
+  CPU tensors the same function takes the plain versions. A CUDA tensor
+  the kernels cannot take raises; there is no fallback from one kernel to
+  another or to the plain version.
 - :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
-  kernel wrappers; each adds one to its ``launches`` where it launches.
+  kernel wrappers; each adds one to its ``launches`` where it launches, and
+  the backward ones also to ``launches_wgmma`` on the ``"wgmma"`` route.
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -37,6 +41,7 @@ from k8s_distributed_deeplearning_torch.ops import _build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _shapes(q, k, v, segq, segk):
@@ -189,50 +194,86 @@ def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float):
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, causal: bool,
-                 scale: float):
-    """dQ on the card (``flash_dq_kernel``); adds one to
-    ``flash_bwd_dq.launches``. CUDA tensors only."""
+def _bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernels take a CUDA call: ``"wgmma"`` (the tensor-core
+    kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128;
+    ``"mma"`` (``flash_dq_kernel`` and ``flash_dkv_kernel`` of
+    ``csrc/flash_attn.cu``) for float32 and head_dim 16 or 32."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
+
+
+def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
+                scale, route):
+    """Launch the backward kernel ``which`` ("dq" or "dkv") of ``route`` on
+    CUDA tensors, writing ``outs``; returns the route launched. ``route``
+    None takes :func:`_bwd_route`'s choice; naming it lets a caller time
+    both routes on the same inputs."""
     b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention backward kernel for device "
+                         f"{q.device}")
     _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse,
                  "delta": delta}, segq, segk)
-    dq = torch.empty_like(q)
+    route = _bwd_route(q.dtype, d) if route is None else route
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+            raise TypeError(f"the wgmma route takes bfloat16 at head_dim "
+                            f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
+        lib = _bwd_library()
+        fn = lib.flash_bwd_dq_wgmma if which == "dq" else \
+            lib.flash_bwd_dkv_wgmma
+    elif route == "mma":
+        lib = _library()
+        fn = lib.flash_attn_bwd_dq if which == "dq" else \
+            lib.flash_attn_bwd_dkv
+    else:
+        raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
     with torch.cuda.device(q.device):
-        rc = _library().flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segk),
-            dq.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-            _DTYPE_CODE[q.dtype], scale, _stream(q.device))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segk),
+                *(t.data_ptr() for t in outs), b, sq, sk, h, hkv, d,
+                int(causal), _DTYPE_CODE[q.dtype], scale, _stream(q.device))
     if rc:
-        raise RuntimeError(f"flash_attn_bwd_dq launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash backward {which} ({route} route) launch "
+                           f"failed: CUDA error {rc}")
+    return route
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, causal: bool,
+                 scale: float, *, route: str | None = None):
+    """dQ on the card: ``flash_dq_wgmma`` on the ``"wgmma"`` route,
+    ``flash_dq_kernel`` on ``"mma"`` (default: :func:`_bwd_route`'s
+    choice). Adds one to ``flash_bwd_dq.launches``, and on the wgmma route
+    to ``.launches_wgmma``. CUDA tensors only."""
+    dq = torch.empty_like(q)
+    if _bwd_launch("dq", q, k, v, do, lse, delta, segq, segk, (dq,), causal,
+                   scale, route) == "wgmma":
+        flash_bwd_dq.launches_wgmma += 1
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
-                  scale: float):
-    """dK and dV on the card (``flash_dkv_kernel``), the query-head group
-    summed; adds one to ``flash_bwd_dkv.launches``. CUDA tensors only."""
-    b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
-    _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                 "delta": delta}, segq, segk)
+                  scale: float, *, route: str | None = None):
+    """dK and dV on the card, the query-head group summed:
+    ``flash_dkv_wgmma`` on the ``"wgmma"`` route, ``flash_dkv_kernel`` on
+    ``"mma"``. Adds one to ``flash_bwd_dkv.launches``, and on the wgmma
+    route to ``.launches_wgmma``. CUDA tensors only."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        rc = _library().flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segk),
-            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-            _DTYPE_CODE[q.dtype], scale, _stream(q.device))
-    if rc:
-        raise RuntimeError(
-            f"flash_attn_bwd_dkv launch failed: CUDA error {rc}")
+    if _bwd_launch("dkv", q, k, v, do, lse, delta, segq, segk, (dk, dv),
+                   causal, scale, route) == "wgmma":
+        flash_bwd_dkv.launches_wgmma += 1
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_wgmma = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_wgmma = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
@@ -247,7 +288,7 @@ def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
                    scale: float):
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
     delta = rowsum(dO·O) (a PyTorch reduction), then the dQ kernel, then
-    the dK/dV kernel."""
+    the dK/dV kernel, both of :func:`_bwd_route`'s route."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, softmax_scale=scale,
@@ -306,5 +347,16 @@ def _library():
         lib.flash_attn_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
         for fn in (lib.flash_attn_fwd, lib.flash_attn_bwd_dq,
                    lib.flash_attn_bwd_dkv):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library():
+    lib = _build.load("flash_bwd")
+    if lib.flash_bwd_dq_wgmma.argtypes is None:
+        tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_dq_wgmma.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.flash_bwd_dkv_wgmma.argtypes = [ctypes.c_void_p] * 10 + tail
+        for fn in (lib.flash_bwd_dq_wgmma, lib.flash_bwd_dkv_wgmma):
             fn.restype = ctypes.c_int
     return lib

@@ -537,6 +537,140 @@ def test_flash_rejects_what_the_kernels_cannot_take(hopper):
                            k, v)
 
 
+# The tensor-core backward (csrc/flash_bwd.cu, the "wgmma" route): bf16 at
+# head_dim 64 and 128. (b, sq, sk, h, hkv, head_dim, causal, segments):
+# groups 1, 3 and 4, causal and not, sq < sk, sq > sk (rows that see no
+# key), segment ids, lengths that cut the 64-row and 64-key tiles, then
+# MoE H's attention (12/4 heads at 64) and Llama-3 8B's at training length.
+FLASH_BWD_SHAPES = [
+    (2, 128, 128, 4, 4, 64, True, False),
+    (1, 128, 128, 8, 2, 128, False, False),
+    (1, 64, 192, 8, 2, 128, True, False),
+    (1, 200, 100, 8, 2, 128, True, False),
+    (1, 160, 160, 6, 2, 64, True, True),
+    (2, 96, 96, 4, 1, 128, True, True),
+    (1, 96, 96, 3, 3, 128, False, False),
+    (2, 1024, 1024, 12, 4, 64, True, False),
+    (1, 2048, 2048, 32, 8, 128, True, False),
+    (1, 512, 2048, 32, 8, 128, True, True),
+]
+
+
+def _flash_bwd_case(dev, shape, seed):
+    """bf16 inputs, the plain forward's o and lse, delta, and the plain
+    backward: (args of the backward wrappers, (dq, dk, dv) wanted)."""
+    q, k, v, do, segq, segk, causal = _flash_inputs(
+        dev, torch.bfloat16, shape, seed)
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    want = fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=causal, q_segment_ids=segq,
+        kv_segment_ids=segk)
+    return (q, k, v, do, lse, delta, segq, segk, causal, scale), want
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_bwd_wgmma_matches_reference(hopper, shape):
+    """dQ and dK/dV on the wgmma route against the plain backward, held as
+    phase D holds them."""
+    args, want = _flash_bwd_case(hopper, shape, sum(shape[:6]))
+    dq = fa.flash_bwd_dq(*args, route="wgmma")
+    dk, dv = fa.flash_bwd_dkv(*args, route="wgmma")
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all(), name
+        _close(got, ref, FLASH_DTYPES[1][1], name)
+
+
+def test_flash_bwd_wgmma_launches_give_the_same_bits(hopper):
+    """Three launches give the same bits: every sum runs in one fixed
+    order, with no atomics."""
+    args, _ = _flash_bwd_case(hopper, (2, 1024, 1024, 12, 4, 64, True, True),
+                              5)
+    outs = [(fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_flash_bwd_wgmma_fully_masked_rows_are_zero(hopper):
+    """A query whose segment id no key carries, and causal rows with
+    sq > sk that see no key, give exactly 0 in dQ; keys no query sees give
+    exactly 0 in dK and dV."""
+    q, k, v, do, segq, segk, _ = _flash_inputs(
+        hopper, torch.bfloat16, (2, 96, 64, 8, 2, 128, True, True), 9)
+    segq[0, 40:45] = 7
+    segk[1, 10:20] = 8
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_attention_reference(
+        q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, segq, segk, True, scale)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 32), slice(40, 45)):    # 0..31: sq - sk = 32
+        assert torch.all(dq[0, rows] == 0)
+    assert torch.all(dk[1, 10:20] == 0) and torch.all(dv[1, 10:20] == 0)
+    assert torch.isfinite(dk.float()).all() and torch.isfinite(dq.float()).all()
+
+
+def test_flash_bwd_launches_wgmma_counts_by_route(hopper):
+    """bf16 at head_dim 64/128 counts on launches and launches_wgmma; f32,
+    head_dim 32 and a forced "mma" route count on launches alone; the
+    autograd backward takes the wgmma route."""
+    def counts():
+        return (fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_wgmma,
+                fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.launches_wgmma)
+
+    args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 64, True, False), 2)
+    for kw, step in (({}, (1, 1, 1, 1)), ({"route": "mma"}, (1, 0, 1, 0))):
+        before = counts()
+        fa.flash_bwd_dq(*args, **kw)
+        fa.flash_bwd_dkv(*args, **kw)
+        assert counts() == tuple(a + b for a, b in zip(before, step))
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v, do, _, _, _ = _flash_inputs(
+            hopper, dtype, (1, 64, 64, 4, 2, d, True, False), 3)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = counts()
+        fa.flash_attention(q, k, v, causal=True).backward(do)
+        assert counts() == tuple(a + b for a, b in zip(before, (1, 0, 1, 0)))
+    q, k, v, do, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 4, 2, 128, True, False), 4)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = counts()
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(a + b for a, b in zip(before, (1, 1, 1, 1)))
+
+
+def test_flash_bwd_refuses_and_does_not_fall_back(hopper):
+    """A non-contiguous input, mixed dtypes and a forced wgmma route in
+    f32 raise before any launch: no path gives way to the mma kernels or
+    to the plain version."""
+    args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 128, True, False), 6)
+    q, k, v, do, lse, delta, segq, segk, causal, scale = args
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(strided, k, v, do, lse, delta, segq, segk, causal, scale)
+        with pytest.raises(TypeError, match="must be torch.bfloat16"):
+            fn(q, k.float(), v, do, lse, delta, segq, segk, causal, scale)
+        with pytest.raises(TypeError, match="wgmma route takes bfloat16"):
+            fn(q.float(), k.float(), v.float(), do.float(), lse, delta,
+               segq, segk, causal, scale, route="wgmma")
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
 # Grouped matmul: (group sizes, K, N, block_m). The JAX kernel tests'
 # layouts (an empty group, everything in one expert), contraction and
 # column sizes that cut the 32-deep and 128-wide tiles, a block_m of two
