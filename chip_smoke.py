@@ -50,14 +50,15 @@ D. The flash-attention kernels against their plain PyTorch versions on
    head_dim 128: causal, non-causal, 512 queries against 2048 keys
    (causal, offset 1536), and three packed documents by segment ids
    (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
-   head_dim 64, causal). The forward, and the backward on both routes:
-   in bf16 the tensor-core kernels of ``csrc/flash_bwd.cu`` (``"wgmma"``,
-   the route bf16 takes) and the mma.sync kernels of ``flash_attn.cu``
-   forced on the same inputs; f32 takes the mma route alone. Each output
-   is held element by element to a limit of atol x the RMS of its row
-   (never below the output's RMS) + rtol x the element, and the
-   log-sum-exp to an absolute limit; two wgmma launches on the same inputs
-   give the same bits.
+   head_dim 64, causal). The forward and the backward on both routes:
+   in bf16 the tensor-core kernels of ``csrc/flash_fwd.cu`` and
+   ``csrc/flash_bwd.cu`` (``"wgmma"``, the route bf16 takes) and the
+   mma.sync kernels of ``flash_attn.cu`` forced on the same inputs; f32
+   takes the mma route alone. Each output is held element by element to
+   a limit of atol x the RMS of its row (never below the output's RMS) +
+   rtol x the element, and the log-sum-exp to an absolute limit; rows
+   that see no key match the plain version exactly; two wgmma launches on
+   the same inputs give the same bits.
    Reports each kernel's error, time, the plain version's, the bound (the
    larger of the bytes it must move over 3.35 TB/s and its matmul FLOPs on
    the visible pairs over the dtype's peak) and, as a yardstick the port
@@ -82,8 +83,8 @@ F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
    for every parameter tensor on its own the first step's gradient and
    the parameters after the 3 steps agree, within the stated tolerances.
    Logs the element whose parameter differs most, with its gradient and
-   Adam moments on both paths. The f32 backward runs on the mma route
-   alone (checked). Then the same model and first batch in bf16 compute:
+   Adam moments on both paths. The f32 forward and backward run on the
+   mma route alone (checked). Then the same model and first batch in bf16 compute:
    one step's gradients on the wgmma route and on the mma route (forced),
    each against the f32 plain path per parameter tensor; the wgmma
    route's relative L2 distance is at most ``BF16_STEP_RATIO`` x the mma
@@ -109,8 +110,8 @@ H. Dropless MoE training at the slice's configuration: the Llama-small
    tokens/s, step ms, peak memory and the model-FLOPs share
    (``moe.flops_per_token``); the launches a step are checked exactly (gmm
    6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ and dK/dV
-   once a layer on the wgmma route); one profiled step gives device time
-   by class.
+   once a layer, all three on the wgmma route); one profiled step gives
+   device time by class.
 I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    steps from the same weights through the kernels (``dispatch="ragged"``,
    flash attention) and through an independent plain path
@@ -759,6 +760,7 @@ def _kernel_class(name: str) -> str:
     for key, cls in (("paged_prefill", "paged_prefill"),
                      ("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
+                     ("flash_fwd_wgmma", "flash_fwd_wgmma"),
                      ("flash_dq_kernel", "flash_dq"),
                      ("flash_dkv_kernel", "flash_dkv"),
                      ("flash_dq_wgmma", "flash_dq_wgmma"),
@@ -1092,12 +1094,13 @@ FLASH_REPLACES = {
         "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:520",
 }
 # Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
-# kernel by wrapper. The backward wrappers launch the kernels of either
-# route: the wgmma lines are their "wgmma" route (bf16, head_dim 64/128),
-# the others the mma.sync kernels of flash_attn.cu ("mma": f32 on the
-# training path, forced in bf16 here).
+# kernel by wrapper. Each wrapper launches the kernel of either route: the
+# wgmma lines are its "wgmma" route (bf16, head_dim 64/128), the others the
+# mma.sync kernels of flash_attn.cu ("mma": f32 on the training path,
+# forced in bf16 here).
 FLASH_KERNELS = {
     "flash_fwd": ("flash_attn.cu", "flash_fwd"),
+    "flash_fwd_wgmma": ("flash_fwd.cu", "flash_fwd"),
     "flash_bwd_dq": ("flash_attn.cu", "flash_bwd_dq"),
     "flash_bwd_dkv": ("flash_attn.cu", "flash_bwd_dkv"),
     "flash_bwd_dq_wgmma": ("flash_bwd.cu", "flash_bwd_dq"),
@@ -1213,9 +1216,9 @@ def _sdpa_fns(q, k, v, do, causal, segq, segk):
 
 def phase_d(dev, flush):
     """The flash kernels against their plain versions, case by case; in
-    bf16 the backward on both routes (the wgmma kernels, and the mma.sync
-    kernels forced) on the same inputs, and the wgmma kernels
-    launched twice for bitwise equality."""
+    bf16 the forward and the backward on both routes (the wgmma kernels,
+    and the mma.sync kernels forced) on the same inputs, and the wgmma
+    kernels launched twice for bitwise equality."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -1226,7 +1229,11 @@ def phase_d(dev, flush):
             causal, hd = shape[6], shape[5]
             q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, ci)
             scale = hd ** -0.5
-            o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+            fwd_routes = {"mma": "flash_fwd"}
+            if fa._fwd_route(dtype, hd) == "wgmma":
+                fwd_routes["wgmma"] = "flash_fwd_wgmma"
+            fwd = {route: fa.flash_fwd(q, k, v, segq, segk, causal, scale,
+                                       route=route) for route in fwd_routes}
             ref_o, ref_lse = fa.flash_attention_reference(
                 q, k, v, causal=causal, q_segment_ids=segq,
                 kv_segment_ids=segk)
@@ -1245,19 +1252,25 @@ def phase_d(dev, flush):
                            fa.flash_bwd_dkv(*bwd_args, route=route))
                    for route in routes}
             torch.cuda.synchronize()
-            for out in [o, lse] + [x for dq, (dk, dv) in got.values()
-                                   for x in (dq, dk, dv)]:
+            for out in [x for o_lse in fwd.values() for x in o_lse] + [
+                    x for dq, (dk, dv) in got.values() for x in (dq, dk, dv)]:
                 check(bool(torch.isfinite(out).all()),
                       f"{case}/{dname}: non-finite kernel output")
             seen = ref_lse > -1e29
-            check(torch.equal(lse <= -1e29, ~seen),
-                  f"{case}/{dname}: rows that see no key differ")
-            lse_err = float((lse[seen] - ref_lse[seen]).abs().max())
-            check(lse_err <= LSE_ATOL,
-                  f"flash_fwd {case}/{dname}: lse error {lse_err} > "
-                  f"{LSE_ATOL}")
-            errs = {"flash_fwd": _flash_err({"o": (o, ref_o)}, tol)}
-            errs["flash_fwd"]["lse_max_abs_err"] = lse_err
+            blind = ~seen.transpose(1, 2)            # [B, sq, H]
+            errs = {}
+            for route, name in fwd_routes.items():
+                o, lse = fwd[route]
+                check(torch.equal(lse <= -1e29, ~seen)
+                      and torch.equal(lse[~seen], ref_lse[~seen])
+                      and torch.equal(o[blind], ref_o[blind]),
+                      f"{name} {case}/{dname}: rows that see no key differ")
+                lse_err = float((lse[seen] - ref_lse[seen]).abs().max())
+                check(lse_err <= LSE_ATOL,
+                      f"{name} {case}/{dname}: lse error {lse_err} > "
+                      f"{LSE_ATOL}")
+                errs[name] = _flash_err({"o": (o, ref_o)}, tol)
+                errs[name]["lse_max_abs_err"] = lse_err
             for route, (dq_name, dkv_name) in routes.items():
                 dq, (dk, dv) = got[route]
                 errs[dq_name] = _flash_err({"dq": (dq, want[0])}, tol)
@@ -1271,10 +1284,14 @@ def phase_d(dev, flush):
                 dq, (dk, dv) = got["wgmma"]
                 dq2 = fa.flash_bwd_dq(*bwd_args)
                 dk2, dv2 = fa.flash_bwd_dkv(*bwd_args)
+                o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
                 check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                      and torch.equal(dv, dv2),
+                      and torch.equal(dv, dv2)
+                      and torch.equal(fwd["wgmma"][0], o2)
+                      and torch.equal(fwd["wgmma"][1], lse2),
                       f"{case}/{dname}: two wgmma launches differ")
-            del got
+                del dq2, dk2, dv2, o2, lse2
+            del got, fwd, o, lse
             pairs = _visible_pairs(dev, shape, segq, segk)
             sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, causal, segq,
                                                segk)
@@ -1283,12 +1300,12 @@ def phase_d(dev, flush):
                 q_segment_ids=segq, kv_segment_ids=segk), flush, 10)
             lib_fwd = time_ms(sdpa_fwd, flush, 10, host_ahead=True)
             lib_fwd_bwd = time_ms(sdpa_fwd_bwd, flush, 10, host_ahead=True)
-            times = {"flash_fwd": (
-                time_ms(lambda: fa.flash_fwd(q, k, v, segq, segk, causal,
-                                             scale), flush, 10),
-                time_ms(lambda: fa.flash_attention_reference(
-                    q, k, v, causal=causal, q_segment_ids=segq,
-                    kv_segment_ids=segk), flush, 10), lib_fwd)}
+            plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, causal=causal, q_segment_ids=segq,
+                kv_segment_ids=segk), flush, 10)
+            times = {name: (time_ms(lambda: fa.flash_fwd(
+                q, k, v, segq, segk, causal, scale, route=route), flush, 10),
+                plain_fwd_ms, lib_fwd) for route, name in fwd_routes.items()}
             for route, (dq_name, dkv_name) in routes.items():
                 times[dq_name] = (time_ms(lambda: fa.flash_bwd_dq(
                     *bwd_args, route=route), flush, 10), plain_bwd_ms,
@@ -1309,7 +1326,7 @@ def phase_d(dev, flush):
                     "library_fwd_bwd_ms": lib_fwd_bwd,
                     "bound_ms": bound, "bound_by": by})
                 log({"phase": "D", "kernel": name, **rows[name][-1]})
-            del q, k, v, do, o, lse, ref_o, ref_lse, want, delta, bwd_args
+            del q, k, v, do, ref_o, ref_lse, want, delta, bwd_args
             torch.cuda.empty_cache()
     return rows
 
@@ -1571,11 +1588,11 @@ def _zero_launches() -> None:
 
 
 def _launch_counts() -> dict:
-    """Every wrapper's launches by its kernel-line name; the backward
+    """Every wrapper's launches by its kernel-line name; the flash
     wrappers' wgmma-route launches under their own lines."""
     wrappers = _kernel_wrappers()
     out = {n: w.launches for n, w in wrappers.items()}
-    for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         out[n + "_wgmma"] = wrappers[n].launches_wgmma
     return out
 
@@ -1586,7 +1603,7 @@ def _train_phase(phase, dev, info, cfg, *, batch_size, seq, lr, chunked,
     ``make_train_step`` and ``fit``. Eight steps on one fixed batch must
     bring the loss below the margin; then a timed window of steps, with
     every kernel's launch count set to 0 before it and held exactly to
-    ``per_step`` (launches a step by kernel-line name, the backward
+    ``per_step`` (launches a step by kernel-line name, the flash
     wrappers' wgmma-route launches under their own) after it; then one
     profiled step."""
     from torch.profiler import ProfilerActivity, profile
@@ -1703,8 +1720,9 @@ def phase_e(dev):
         lr=3e-4, chunked=True,
         flops_tok=llama.flops_per_token(cfg, seq_len=2048),
         # Forward 2 x layers: remat "dots" recomputes the flash forward.
-        # The bf16 backward at head_dim 128 takes the wgmma route.
-        per_step={"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+        # bf16 at head_dim 128 takes the wgmma route throughout.
+        per_step={"flash_fwd": 2 * n, "flash_fwd_wgmma": 2 * n,
+                  "flash_bwd_dq": n, "flash_bwd_dkv": n,
                   "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n})
 
 
@@ -1728,6 +1746,7 @@ def phase_h(dev):
         # 3 forward products and 3 input gradients a layer, 3 weight
         # gradients; the flash forward runs again in the recompute.
         per_step={"gmm": 6 * n, "tgmm": 3 * n, "flash_fwd": 2 * n,
+                  "flash_fwd_wgmma": 2 * n,
                   "flash_bwd_dq": n, "flash_bwd_dkv": n,
                   "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n},
         moe_cfg=mcfg)
@@ -1784,12 +1803,16 @@ def phase_f(dev):
     _zero_launches()
     ka = run("auto", torch.device("cpu"))
     launches = _launch_counts()
-    # f32 keeps the backward on the mma.sync kernels, never wgmma.
+    # f32 keeps the forward and the backward on the mma.sync kernels,
+    # never wgmma.
     check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 2 * steps
+          and launches["flash_fwd"] >= 2 * steps
           and launches["flash_bwd_dq_wgmma"] == 0
-          and launches["flash_bwd_dkv_wgmma"] == 0,
-          f"phase F (f32) backward launches {launches}: want 2 a step on "
-          f"the mma route and none on the wgmma route")
+          and launches["flash_bwd_dkv_wgmma"] == 0
+          and launches["flash_fwd_wgmma"] == 0,
+          f"phase F (f32) flash launches {launches}: want 2 backward a "
+          f"step and at least as many forward on the mma route, none on "
+          f"the wgmma route")
     gc.collect()
     torch.cuda.empty_cache()
     kx = run("xla", dev)
@@ -2020,22 +2043,22 @@ def _paged_entries(fp_cases, b_result, int8_cases, j_result):
 def _flash_entries(rows, e_result, f_result):
     """Kernel-line entries of the flash kernels: the representative case
     is the training path's (causal, bf16). The launches are phase E's (the
-    bf16 step: the forward and the wgmma backward), and for the mma
-    backward kernels phase F's kernel path (f32), the path that runs them."""
+    bf16 step: the wgmma kernels), and for the mma kernels phase F's
+    kernel path (f32), the path that runs them."""
     out = []
     for name, cases in rows.items():
         rep = next(c for c in cases
                    if c["case"] == "causal" and c["dtype"] == "bfloat16")
         source, wrapper = FLASH_KERNELS[name]
-        mma_bwd = name in ("flash_bwd_dq", "flash_bwd_dkv")
-        launched = (f_result["kernel_path_launches"] if mma_bwd
+        mma = not name.endswith("_wgmma")
+        launched = (f_result["kernel_path_launches"] if mma
                     else e_result["launches"])
         out.append({
             "name": name, "route": "cuda",
             "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
             "replaces": FLASH_REPLACES[wrapper],
             "launches": launched.get(name, 0),
-            "launches_in": "F (f32)" if mma_bwd else "E",
+            "launches_in": "F (f32)" if mma else "E",
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/lib<name>-<hash>.so`` inside the package (listed in
-``.gitignore``), where ``<hash>`` covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+``.gitignore``), where ``<hash>`` covers the source, every ``csrc/*.cuh``
+header (the wgmma kernels share ``wgmma.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing
 here runs at import time: the CPU tests import every module of the port,
 and only a launch on a CUDA tensor reaches :func:`load`.
 """
@@ -42,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds: the name hashes the source, every
+    ``csrc/*.cuh`` in sorted order (names and contents), and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:

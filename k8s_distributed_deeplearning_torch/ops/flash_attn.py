@@ -8,22 +8,23 @@ masking aligned bottom-right (row ``i`` sees column ``j`` iff
 restricting attention to equal ids.
 
 - :func:`flash_attention` is a ``torch.autograd.Function``. On CUDA tensors
-  its forward launches ``flash_fwd_kernel`` and its backward computes
-  ``delta = rowsum(dO * O)`` with a PyTorch reduction, as the JAX wrapper
-  does outside its kernels, then launches the dQ kernel and the dK/dV
-  kernel of the route :func:`_bwd_route` names: ``"wgmma"``
-  (``csrc/flash_bwd.cu``, tensor cores through wgmma) for bf16 at head_dim
-  64 or 128, ``"mma"`` (``csrc/flash_attn.cu``, mma.sync) otherwise. On
-  CPU tensors the same function takes the plain versions. A CUDA tensor
-  the kernels cannot take raises; there is no fallback from one kernel to
-  another or to the plain version.
+  its forward launches the forward kernel of the route :func:`_fwd_route`
+  names, and its backward computes ``delta = rowsum(dO * O)`` with a
+  PyTorch reduction, as the JAX wrapper does outside its kernels, then
+  launches the dQ kernel and the dK/dV kernel of the route
+  :func:`_bwd_route` names. Both rules give ``"wgmma"`` (tensor cores
+  through wgmma: ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) for bf16 at
+  head_dim 64 or 128, ``"mma"`` (``csrc/flash_attn.cu``, mma.sync)
+  otherwise. On CPU tensors the same function takes the plain versions. A
+  CUDA tensor the kernels cannot take raises; there is no fallback from
+  one kernel to another or to the plain version.
 - :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
   kernel wrappers; each adds one to its ``launches`` where it launches, and
-  the backward ones also to ``launches_wgmma`` on the ``"wgmma"`` route.
+  also to ``launches_wgmma`` on the ``"wgmma"`` route.
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -169,27 +170,65 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float):
-    """The forward: ``(o, lse)``. CPU tensors take
-    :func:`flash_attention_reference`; CUDA tensors launch
-    ``flash_fwd_kernel`` and add one to ``flash_fwd.launches``."""
+def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel takes a CUDA call: ``"wgmma"``
+    (``flash_fwd_wgmma`` of ``csrc/flash_fwd.cu``, tensor cores) for bf16
+    at head_dim 64 or 128; ``"mma"`` (``flash_fwd_kernel`` of
+    ``csrc/flash_attn.cu``) for float32 and head_dim 16 or 32."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
+
+
+def _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale, route):
+    """Launch the forward kernel of ``route`` on CUDA tensors, writing
+    ``o`` and ``lse``; returns the route launched. ``route`` None takes
+    :func:`_fwd_route`'s choice."""
     b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention forward kernel for device "
+                         f"{q.device}")
+    _check_cuda({"q": q, "k": k, "v": v}, segq, segk)
+    route = _fwd_route(q.dtype, d) if route is None else route
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+            raise TypeError(f"the wgmma route takes bfloat16 at head_dim "
+                            f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
+        fn = _fwd_library().flash_attn_fwd_wgmma
+    elif route == "mma":
+        fn = _library().flash_attn_fwd
+    else:
+        raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segq),
+                _ptr(segk), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv,
+                d, int(causal), _DTYPE_CODE[q.dtype], scale,
+                _stream(q.device))
+    if rc:
+        raise RuntimeError(f"flash forward ({route} route) launch failed: "
+                           f"CUDA error {rc}")
+    return route
+
+
+def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float, *,
+              route: str | None = None):
+    """The forward: ``(o, lse)``. CPU tensors take
+    :func:`flash_attention_reference` (and refuse a named ``route``); CUDA
+    tensors launch ``flash_fwd_wgmma`` on the ``"wgmma"`` route or
+    ``flash_fwd_kernel`` on ``"mma"`` (default: :func:`_fwd_route`'s
+    choice; naming it lets a caller time both routes on the same inputs),
+    and add one to ``flash_fwd.launches``, and on the wgmma route to
+    ``.launches_wgmma``."""
+    b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
+    if q.device.type == "cpu" and route is None:
         return flash_attention_reference(
             q, k, v, causal=causal, softmax_scale=scale, q_segment_ids=segq,
             kv_segment_ids=segk)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
-    _check_cuda({"q": q, "k": k, "v": v}, segq, segk)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _library().flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segq), _ptr(segk),
-            o.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-            _DTYPE_CODE[q.dtype], scale, _stream(q.device))
-    if rc:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {rc}")
+    if _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale,
+                   route) == "wgmma":
+        flash_fwd.launches_wgmma += 1
     flash_fwd.launches += 1
     return o, lse
 
@@ -270,6 +309,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_wgmma = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dq.launches_wgmma = 0
 flash_bwd_dkv.launches = 0
@@ -348,6 +388,16 @@ def _library():
         for fn in (lib.flash_attn_fwd, lib.flash_attn_bwd_dq,
                    lib.flash_attn_bwd_dkv):
             fn.restype = ctypes.c_int
+    return lib
+
+
+def _fwd_library():
+    lib = _build.load("flash_fwd")
+    if lib.flash_attn_fwd_wgmma.argtypes is None:
+        lib.flash_attn_fwd_wgmma.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attn_fwd_wgmma.restype = ctypes.c_int
     return lib
 
 

@@ -3,6 +3,8 @@
 
     python3 kernel_breakdown.py prefill      # csrc/paged_prefill.cu
     python3 kernel_breakdown.py flash_bwd    # csrc/flash_bwd.cu
+    python3 kernel_breakdown.py flash_fwd    # csrc/flash_fwd.cu
+    python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
 and in variants that each leave one stage of its tile loop out (the
@@ -13,6 +15,12 @@ cost is the base time less the variant's. Prints the card's name and
 power limit, each variant's ptxas register counts (a variant whose count
 collapses has lost more than its stage), then one JSON line per (round,
 variant, launch).
+
+``--against DIR`` builds, instead of the variants, the same source from
+another checkout of the repo (``DIR``, e.g. a parent commit unpacked with
+``git archive``; its own ``csrc/`` headers), runs every launch once on
+each build, prints whether the outputs are bitwise equal, then times both
+builds as above.
 
 ``prefill``: Llama-3 8B's heads (32 q, 8 KV, head_dim 128, 32-token
 pages), a 512-query chunk at offset 1024, fp and int8 pools, 128-row
@@ -29,6 +37,16 @@ products: their fragments are folded into one accumulator element by
 integer XORs instead), ``no_loads`` (no copies after the first tiles),
 ``no_sync`` (no barrier a tile: the two warpgroups of a CTA run out of
 step).
+
+``flash_fwd``: the forward at phase D's causal bf16 case (B 2, S 2048,
+32/8 heads, head_dim 128) and at phase H's (B 8, S 1024, 12/4 heads,
+head_dim 64, causal). Variants: ``no_exp`` (p = x, no exponentials),
+``no_s`` (no S products), ``no_pv`` (no P.V products: P's fragments are
+folded into one accumulator element by integer XORs), ``no_loads`` (no
+copies after the first tiles), ``no_rescale`` (O is not rescaled),
+``no_sync`` (no barrier a tile), ``loads_only`` (no products and no
+exponentials: what the tile loop costs without its arithmetic),
+``skeleton`` (``loads_only`` without the copies).
 """
 from __future__ import annotations
 
@@ -105,6 +123,34 @@ FLASH_BWD_VARIANTS = {
          "tile t - 1 done\n", "", 2)],
 }
 
+FLASH_FWD_VARIANTS = {
+    "base": [],
+    "no_exp": [("float p = ex2(x - ((i & 2) ? mn1 : mn0));",
+                "float p = x;", 1)],
+    # s keeps the previous tile's p, plus one: a full-rate add (an int to
+    # float conversion would cost as much as an exponential).
+    "no_s": [("    wgmma_ss_rows<HD>(s, q_addr, ROWS, v_addr(t) - P::TILE);\n",
+              "    for (int i = 0; i < 32; ++i) s[i] += 1.f;\n", 1)],
+    "no_pv": [("      wgmma_rs<HD>(acc, pa[kk], desc(va + kk * 2048, "
+               "KT * 128, 1024));",
+               "      acc[kk] += __uint_as_float(pa[kk][0] ^ pa[kk][1] ^ "
+               "pa[kk][2] ^ pa[kk][3]);", 1)],
+    "no_loads": [("if (t + DIST < n_tiles) issue(t + DIST, "
+                  "(t + DIST) % STAGES);", "", 1)],
+    "no_rescale": [("for (int i = 0; i < HD / 2; ++i) acc[i] *= ",
+                    "for (int i = 0; i < 0; ++i) acc[i] *= ", 1)],
+    "no_sync": [("    __syncthreads();                 // ... for every thread; "
+                 "tile t - 3 done\n", "", 1)],
+}
+# What is left of a tile with no products and no exponentials: the copies,
+# the waits, the barrier, the mask and the bookkeeping; and that less the
+# copies.
+FLASH_FWD_VARIANTS["loads_only"] = [
+    *FLASH_FWD_VARIANTS["no_s"], *FLASH_FWD_VARIANTS["no_pv"],
+    *FLASH_FWD_VARIANTS["no_exp"]]
+FLASH_FWD_VARIANTS["skeleton"] = [*FLASH_FWD_VARIANTS["loads_only"],
+                                  *FLASH_FWD_VARIANTS["no_loads"]]
+
 
 def bind_prefill(lib: ctypes.CDLL) -> None:
     lib.paged_prefill_fwd.argtypes = (
@@ -121,7 +167,16 @@ def bind_flash_bwd(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-Launches = dict[str, Callable[[ctypes.CDLL], int]]
+def bind_flash_fwd(lib: ctypes.CDLL) -> None:
+    lib.flash_attn_fwd_wgmma.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attn_fwd_wgmma.restype = ctypes.c_int
+
+
+# label -> (launch on a library, the tensors that launch writes)
+Launches = dict[str, tuple[Callable[[ctypes.CDLL], int],
+                           tuple[torch.Tensor, ...]]]
 
 
 def prefill_case(dev: torch.device, stream: int) -> Launches:
@@ -148,10 +203,10 @@ def prefill_case(dev: torch.device, stream: int) -> Launches:
             pos.data_ptr(), out.data_ptr(), 1, sq, h, kv, hd, page,
             n_blocks, 1, hd ** -0.5, 128, stream)
 
-    return {"fp": launch(pools[0], pools[1], None, None),
-            "int8": launch(quant[0][0].view(pools[0].shape),
-                           quant[1][0].view(pools[1].shape), quant[0][1],
-                           quant[1][1])}
+    return {"fp": (launch(pools[0], pools[1], None, None), (out,)),
+            "int8": (launch(quant[0][0].view(pools[0].shape),
+                            quant[1][0].view(pools[1].shape), quant[0][1],
+                            quant[1][1]), (out,))}
 
 
 def flash_bwd_case(dev: torch.device, stream: int) -> Launches:
@@ -169,10 +224,31 @@ def flash_bwd_case(dev: torch.device, stream: int) -> Launches:
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     head = [x.data_ptr() for x in (q, k, v, do, lse, delta)] + [None, None]
     tail = [b, s, s, h, kv, hd, 1, 1, hd ** -0.5, stream]
-    return {"dq": lambda lib: lib.flash_bwd_dq_wgmma(
-                *head, dq.data_ptr(), *tail),
-            "dkv": lambda lib: lib.flash_bwd_dkv_wgmma(
-                *head, dk.data_ptr(), dv.data_ptr(), *tail)}
+    keep = (q, k, v, do, lse, delta)     # the launches hold raw pointers
+    return {"dq": (lambda lib, keep=keep: lib.flash_bwd_dq_wgmma(
+                *head, dq.data_ptr(), *tail), (dq,)),
+            "dkv": (lambda lib, keep=keep: lib.flash_bwd_dkv_wgmma(
+                *head, dk.data_ptr(), dv.data_ptr(), *tail), (dk, dv))}
+
+
+def flash_fwd_case(dev: torch.device, stream: int) -> Launches:
+    """The forward at phase D's causal bf16 case (head_dim 128) and at
+    phase H's attention (head_dim 64)."""
+    out = {}
+    for label, (b, s, h, kv, hd) in (("d_causal", (2, 2048, 32, 8, 128)),
+                                     ("h_causal", (8, 1024, 12, 4, 64))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(b, s, h, hd, device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn(b, s, kv, hd, device=dev,
+                            generator=gen).bfloat16() for _ in range(2))
+        o = torch.empty_like(q)
+        lse = torch.empty(b, h, s, device=dev)
+        args = ([x.data_ptr() for x in (q, k, v)] + [None, None]
+                + [o.data_ptr(), lse.data_ptr(), b, s, s, h, kv, hd, 1, 1,
+                   hd ** -0.5, stream])
+        out[label] = (lambda lib, args=args, keep=(q, k, v):    # pointers
+                      lib.flash_attn_fwd_wgmma(*args), (o, lse))
+    return out
 
 
 class Kernel(NamedTuple):
@@ -187,28 +263,43 @@ KERNELS = {
                       prefill_case),
     "flash_bwd": Kernel("flash_bwd.cu", FLASH_BWD_VARIANTS, bind_flash_bwd,
                         flash_bwd_case),
+    "flash_fwd": Kernel("flash_fwd.cu", FLASH_FWD_VARIANTS, bind_flash_fwd,
+                        flash_fwd_case),
 }
 
 
-def build(kernel: Kernel, out_dir: Path) -> dict[str, ctypes.CDLL]:
-    """Compile every variant, one nvcc each, all started together."""
+def build(kernel: Kernel, out_dir: Path,
+          against: Path | None = None) -> dict[str, ctypes.CDLL]:
+    """Compile every variant (or, with ``against``, the source as it is in
+    this checkout and in that one), one nvcc each, all started together.
+    Each source sees the headers of its own ``csrc/``."""
     from k8s_distributed_deeplearning_torch.ops import _build
 
-    src = (_build.CSRC_DIR / kernel.source).read_text()
+    csrc = _build.CSRC_DIR
+    src = (csrc / kernel.source).read_text()
+    if against is None:
+        sources = {}
+        for name, subs in kernel.variants.items():
+            text = src
+            for old, new, count in subs:
+                if text.count(old) != count:
+                    raise RuntimeError(f"variant {name}: the source no "
+                                       f"longer holds {old!r} {count} "
+                                       f"time(s)")
+                text = text.replace(old, new)
+            sources[name] = (text, csrc)
+    else:
+        other = against / csrc.relative_to(_build.PKG_DIR.parent)
+        sources = {"base": (src, csrc),
+                   "against": ((other / kernel.source).read_text(), other)}
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in kernel.variants.items():
-        text = src
-        for old, new, count in subs:
-            if text.count(old) != count:
-                raise RuntimeError(f"variant {name}: the source no longer "
-                                   f"holds {old!r} {count} time(s)")
-            text = text.replace(old, new)
+    for name, (text, include) in sources.items():
         cu = out_dir / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(out_dir / f"lib{name}.so"), str(cu)],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(include),
+             "-o", str(out_dir / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -224,9 +315,13 @@ def build(kernel: Kernel, out_dir: Path) -> dict[str, ctypes.CDLL]:
 
 
 def main(argv: list[str]) -> int:
+    against = None
+    if len(argv) == 3 and argv[1] == "--against":
+        against = Path(argv[2]).resolve()
+        argv = argv[:1]
     if len(argv) != 1 or argv[0] not in KERNELS:
-        print(f"usage: kernel_breakdown.py {{{','.join(KERNELS)}}}",
-              file=sys.stderr)
+        print(f"usage: kernel_breakdown.py {{{','.join(KERNELS)}}} "
+              f"[--against DIR]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_breakdown: no CUDA device is available",
@@ -240,7 +335,7 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     kernel = KERNELS[argv[0]]
-    libs = build(kernel, _build.BUILD_DIR / f"breakdown_{argv[0]}")
+    libs = build(kernel, _build.BUILD_DIR / f"breakdown_{argv[0]}", against)
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
     launches = kernel.case(dev, stream)
@@ -250,6 +345,21 @@ def main(argv: list[str]) -> int:
         rc = fn(lib)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    same = True
+    if against is not None:
+        for label, (fn, outs) in launches.items():
+            run(fn, libs["base"])
+            base = [x.clone() for x in outs]
+            run(fn, libs["against"])
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(base, outs))
+            same = same and equal
+            print(json.dumps({
+                "launch": label, "bitwise_equal": equal,
+                "max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                    for a, b in zip(base, outs))}),
+                flush=True)
 
     def time_ms(fn, lib, iters=30):
         for _ in range(3):
@@ -267,11 +377,11 @@ def main(argv: list[str]) -> int:
 
     for rnd in range(2):
         for name, lib in libs.items():
-            for label, fn in launches.items():
+            for label, (fn, _) in launches.items():
                 print(json.dumps({
                     "round": rnd, "variant": name, "launch": label,
                     "ms": time_ms(fn, lib)}), flush=True)
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

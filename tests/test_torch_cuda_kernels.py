@@ -420,6 +420,31 @@ def test_library_name_tracks_the_source():
     assert a.name.startswith("libpaged_attn-") and a.suffix == ".so"
 
 
+@pytest.mark.parametrize("edit", ["source", "header", "new_header"])
+def test_library_name_tracks_the_headers(tmp_path, monkeypatch, edit):
+    """In a copy of csrc/, editing a source, editing a header or adding
+    one changes the library name of a source that includes the shared
+    header (and, for a header, of every source), so no stale library is
+    loaded after an edit."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {n: _build.library_path(n) for n in ("flash_fwd", "gmm")}
+    if edit == "source":
+        path = csrc / "flash_fwd.cu"
+    elif edit == "header":
+        path = csrc / "wgmma.cuh"
+    else:
+        path = csrc / "extra.cuh"
+        path.write_text("")
+    path.write_text(path.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert (after["gmm"] != before["gmm"]) == (edit != "source")
+
+
 # Flash attention: (b, sq, sk, h, hkv, head_dim, causal, segments). The JAX
 # kernel tests' shapes (GQA 4/2, MQA 4/1, 12/4; sq != sk both ways;
 # segments), ragged lengths that cut the 64-row and 64-key tiles, then
@@ -669,6 +694,127 @@ def test_flash_bwd_refuses_and_does_not_fall_back(hopper):
                segq, segk, causal, scale, route="wgmma")
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
+# The tensor-core forward (csrc/flash_fwd.cu, the "wgmma" route): bf16 at
+# head_dim 64 and 128, over FLASH_SHAPES at those head dims and the
+# backward's shapes (groups 1, 3 and 4, sq > sk, MoE H's and Llama-3 8B's
+# attention).
+FLASH_FWD_SHAPES = [s for s in FLASH_SHAPES if s[5] in fa.WGMMA_HEAD_DIMS] \
+    + [s for s in FLASH_BWD_SHAPES if s not in FLASH_SHAPES]
+
+
+def _fwd_counts():
+    return fa.flash_fwd.launches, fa.flash_fwd.launches_wgmma
+
+
+@pytest.mark.parametrize("shape", FLASH_FWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_fwd_wgmma_matches_reference(hopper, shape):
+    """O and lse on the wgmma route against the plain forward, held as
+    phase D holds them; rows that see no key match exactly."""
+    q, k, v, _, segq, segk, causal = _flash_inputs(
+        hopper, torch.bfloat16, shape, sum(shape[:6]))
+    scale = q.shape[-1] ** -0.5
+    before = _fwd_counts()
+    o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="wgmma")
+    torch.cuda.synchronize()
+    assert _fwd_counts() == (before[0] + 1, before[1] + 1)
+    ref_o, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    assert o.dtype == torch.bfloat16 and o.shape == ref_o.shape
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    _close(o, ref_o, FLASH_DTYPES[1][1], "o")
+    seen = ref_lse > -1e29
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    assert torch.equal(lse[~seen], ref_lse[~seen])
+    blind = ~seen.transpose(1, 2)                  # [B, sq, H]
+    assert torch.all(o[blind] == 0)
+
+
+def test_flash_fwd_wgmma_fully_masked_rows_are_zero(hopper):
+    """A query whose segment id no key carries, and causal rows with
+    sq > sk that see no key, give exactly 0 in O and lse = -1e30, the
+    plain version's; the backward reading that lse gives 0 in dQ."""
+    q, k, v, do, segq, segk, _ = _flash_inputs(
+        hopper, torch.bfloat16, (2, 96, 64, 8, 2, 128, True, True), 9)
+    segq[0, 40:45] = 7
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, segq, segk, True, scale)
+    torch.cuda.synchronize()
+    _, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+    for rows in (slice(0, 32), slice(40, 45)):    # 0..31: sq - sk = 32
+        assert torch.all(o[0, rows] == 0)
+        assert torch.equal(lse[0, :, rows], ref_lse[0, :, rows])
+        assert torch.all(lse[0, :, rows] <= -1e29)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, True, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq.float()).all()
+    for rows in (slice(0, 32), slice(40, 45)):
+        assert torch.all(dq[0, rows] == 0)
+
+
+def test_flash_fwd_wgmma_launches_give_the_same_bits(hopper):
+    """Three launches give the same bits."""
+    q, k, v, _, segq, segk, _ = _flash_inputs(
+        hopper, torch.bfloat16, (2, 1024, 1024, 12, 4, 64, True, True), 5)
+    outs = [fa.flash_fwd(q, k, v, segq, segk, True, 0.125)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_flash_fwd_launches_wgmma_counts_by_route(hopper):
+    """bf16 at head_dim 64/128 counts on launches and launches_wgmma; f32,
+    head_dim 32 and a forced "mma" route count on launches alone; the
+    autograd forward takes the wgmma route."""
+    q, k, v, _, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 4, 2, 64, True, False), 2)
+    for kw, step in (({}, (1, 1)), ({"route": "mma"}, (1, 0))):
+        before = _fwd_counts()
+        fa.flash_fwd(q, k, v, None, None, True, 0.125, **kw)
+        assert _fwd_counts() == (before[0] + step[0], before[1] + step[1])
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v, _, _, _, _ = _flash_inputs(
+            hopper, dtype, (1, 64, 64, 4, 2, d, True, False), 3)
+        before = _fwd_counts()
+        fa.flash_attention(q, k, v, causal=True)
+        assert _fwd_counts() == (before[0] + 1, before[1])
+    q, k, v, _, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 4, 2, 128, True, False), 4)
+    before = _fwd_counts()
+    fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _fwd_counts() == (before[0] + 1, before[1] + 1)
+
+
+def test_flash_fwd_refuses_and_does_not_fall_back(hopper):
+    """A forced wgmma route in f32 or at head_dim 32, a non-contiguous
+    input and mixed dtypes raise before any launch: no path gives way to
+    the mma kernel or to the plain version."""
+    q, k, v, _, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 4, 2, 128, True, False), 6)
+    before = _fwd_counts()
+    with pytest.raises(TypeError, match="wgmma route takes bfloat16"):
+        fa.flash_fwd(q.float(), k.float(), v.float(), None, None, True,
+                     0.125, route="wgmma")
+    with pytest.raises(TypeError, match="wgmma route takes bfloat16"):
+        fa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                     v[..., :32].contiguous(), None, None, True, 0.125,
+                     route="wgmma")
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(strided, k, v, None, None, True, 0.125)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        fa.flash_fwd(q, k.float(), v, None, None, True, 0.125)
+    with pytest.raises(ValueError, match="route must be"):
+        fa.flash_fwd(q, k, v, None, None, True, 0.125, route="sdpa")
+    torch.cuda.synchronize()
+    assert _fwd_counts() == before
 
 
 # Grouped matmul: (group sizes, K, N, block_m). The JAX kernel tests'
