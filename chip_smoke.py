@@ -89,18 +89,23 @@ F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
    each against the f32 plain path per parameter tensor; the wgmma
    route's relative L2 distance is at most ``BF16_STEP_RATIO`` x the mma
    route's + ``BF16_STEP_FLOOR``.
-G. The grouped-matmul kernels (``gmm_kernel``: the forward and, reading the
-   weight transposed in place, the input gradient; ``tgmm_kernel``: the
-   weight gradient) against their plain versions, 8 experts and 16,384
-   routed rows: the MoE slice's shapes (K 768 -> N 2048 and K 2048 ->
-   N 768, group sizes from a seeded top-2 router) in bf16 and f32, and
-   Mixtral-8x7B-class expert shapes (K 4096 -> N 14336 and K 14336 ->
-   N 4096) in bf16, balanced and skewed (one expert 40 %, one empty).
-   Every element within atol x the output's RMS + rtol x |plain|, rows of
-   dead blocks exactly 0, an empty expert's weight gradient exactly 0.
-   Reports each kernel's time, the plain version's, the bound, and
-   ``torch._grouped_mm`` on the same spans as a yardstick (the port never
-   calls it; null with the reason where this torch refuses the case).
+G. The grouped-matmul kernels (the forward and, reading the weight
+   transposed in place, the input gradient; the weight gradient) against
+   their plain versions, 8 experts and 16,384 routed rows: the MoE slice's
+   shapes (K 768 -> N 2048 and K 2048 -> N 768, group sizes from a seeded
+   top-2 router) in bf16 and f32, and Mixtral-8x7B-class expert shapes
+   (K 4096 -> N 14336 and K 14336 -> N 4096) in bf16, balanced and skewed
+   (one expert 40 %, one empty). bf16 runs both routes on the same inputs
+   (``gmm_wgmma``/``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, and the
+   mma.sync ``gmm_kernel``/``tgmm_kernel`` of ``csrc/gmm.cu`` forced), f32
+   the mma route alone. Every
+   element within atol x the output's RMS + rtol x |plain|, rows that
+   hold no token exactly 0, an empty expert's weight gradient exactly 0;
+   two wgmma launches give the same bits. Reports each kernel's time, the
+   plain version's, the bound, and ``torch._grouped_mm`` on the same spans
+   as a yardstick (the port never calls it; null with the reason where
+   this torch refuses the case), the kernels and the yardstick timed on
+   the device alone.
 H. Dropless MoE training at the slice's configuration: the Llama-small
    backbone (dim 768, 12 layers, 12/4 heads, head_dim 64, MLP 2048, vocab
    32000), 8 experts top-2 ``dispatch="ragged"``, bf16 compute, f32 params,
@@ -110,13 +115,14 @@ H. Dropless MoE training at the slice's configuration: the Llama-small
    tokens/s, step ms, peak memory and the model-FLOPs share
    (``moe.flops_per_token``); the launches a step are checked exactly (gmm
    6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ and dK/dV
-   once a layer, all three on the wgmma route); one profiled step gives
+   once a layer, all five on the wgmma route); one profiled step gives
    device time by class.
 I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    steps from the same weights through the kernels (``dispatch="ragged"``,
    flash attention) and through an independent plain path
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
-   attention), compared as in phase F.
+   attention), compared as in phase F. The f32 kernel path runs the mma
+   routes alone (the wgmma counts stay 0, checked).
 J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
@@ -231,6 +237,15 @@ GMM_E, GMM_ROWS = 8, 16384
 GMM_REPLACES = {
     "gmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:159",
     "tgmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:209",
+}
+# Kernel-line name -> (source, wrapper): each wrapper launches the kernel
+# of either route, the wgmma lines its "wgmma" route (bf16), the others
+# the kernels of gmm.cu ("mma": f32 on the training path, forced in bf16
+# here).
+GMM_KERNELS = {
+    "gmm": ("gmm.cu", "gmm"), "tgmm": ("gmm.cu", "tgmm"),
+    "gmm_wgmma": ("gmm_wgmma.cu", "gmm"),
+    "tgmm_wgmma": ("gmm_wgmma.cu", "tgmm"),
 }
 # The MoE slice's model: the JAX package's ragged MoE benchmark row
 # (Llama-small backbone, 8 experts, top-2, dispatch="ragged").
@@ -765,7 +780,8 @@ def _kernel_class(name: str) -> str:
                      ("flash_dkv_kernel", "flash_dkv"),
                      ("flash_dq_wgmma", "flash_dq_wgmma"),
                      ("flash_dkv_wgmma", "flash_dkv_wgmma"),
-                     ("gmm_kernel", "gmm")):        # gmm_ and tgmm_kernel
+                     ("gmm_kernel", "gmm"),         # gmm_ and tgmm_kernel
+                     ("gmm_wgmma", "gmm_wgmma")):   # gmm_ and tgmm_wgmma
         if key in name:
             return cls
     if any(s in name for s in ("gemm", "gemv", "cutlass", "nvjet", "sm90")):
@@ -1429,10 +1445,14 @@ def _gmm_bound(flops, nbytes, dtype):
 
 
 def phase_g(dev, flush):
+    """The grouped-matmul kernels against their plain versions, case by
+    case; bf16 on both routes on the same inputs, the wgmma kernels
+    launched twice for bitwise equality; every kernel and the yardstick
+    timed on the device alone."""
     from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"gmm": [], "tgmm": []}
+    rows = {name: [] for name in GMM_KERNELS}
     for ci, (case, kind, k, n, dtypes) in enumerate(GMM_CASES):
         sizes = _gmm_sizes(kind)
         for dtype in dtypes:
@@ -1440,47 +1460,29 @@ def phase_g(dev, flush):
             tol = GMM_TOL[dtype]
             lay, lhs, rhs, dout = _gmm_inputs(dev, dtype, sizes, k, n, ci)
             fns = {
-                "gmm": (lambda: gmm_ops.gmm_forward(lhs, rhs, lay),
+                "gmm": (lambda route: gmm_ops.gmm_forward(
+                            lhs, rhs, lay, route=route),
                         lambda: gmm_ops.gmm_reference(lhs, rhs, lay),
                         (lhs, rhs), (lay.m_pad, n)),
                 "gmm_dlhs": (
-                    lambda: gmm_ops.gmm_forward(dout, rhs, lay,
-                                                transpose_rhs=True),
+                    lambda route: gmm_ops.gmm_forward(
+                        dout, rhs, lay, transpose_rhs=True, route=route),
                     lambda: gmm_ops.gmm_reference(dout, rhs, lay,
                                                   transpose_rhs=True),
                     (dout, rhs), (lay.m_pad, k)),
-                "tgmm": (lambda: gmm_ops.tgmm(lhs, dout, GMM_E, lay),
+                "tgmm": (lambda route: gmm_ops.tgmm(lhs, dout, GMM_E, lay,
+                                                    route=route),
                          lambda: gmm_ops.tgmm_reference(lhs, dout, GMM_E,
                                                         lay),
                          (lhs, dout), (GMM_E, k, n))}
+            routes = ["mma"] + (["wgmma"] if gmm_ops._gmm_route(dtype)
+                                == "wgmma" else [])
             library = _grouped_mm_fns(lay, lhs, rhs, dout)
             dead = ~gmm_ops.live_rows(lay)
             for fn_name, (kern, plain, ins, out_shape) in fns.items():
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                check(tuple(got.shape) == out_shape and got.dtype == dtype,
-                      f"{fn_name} {case}/{dname}: {got.dtype} "
-                      f"{tuple(got.shape)}")
-                check(bool(torch.isfinite(got).all()),
-                      f"{fn_name} {case}/{dname}: non-finite output")
+                want = plain()
                 ref = want.float()
-                err = (got.float() - ref).abs()
                 rms = float(ref.square().mean().sqrt())
-                share = float((err / (tol[0] * rms + tol[1]
-                                      * ref.abs())).max())
-                check(share <= 1.0,
-                      f"{fn_name} {case}/{dname}: |kernel - plain| uses "
-                      f"{share} of the limit {tol[0]} x rms + {tol[1]} x "
-                      f"|plain|")
-                if fn_name == "tgmm":
-                    empty = [e for e, s in enumerate(sizes) if s == 0]
-                    zeros = all(bool((got[e] == 0).all()) for e in empty)
-                    check(zeros, f"tgmm {case}/{dname}: an empty expert's "
-                          "gradient is not 0")
-                else:
-                    zeros = bool((got[dead] == 0).all())
-                    check(zeros, f"{fn_name} {case}/{dname}: rows that hold "
-                          "no token are not 0")
                 lib_fn, lib_reason = library[fn_name]
                 lib_err = None
                 if lib_fn is not None:
@@ -1491,46 +1493,89 @@ def phase_g(dev, flush):
                 nbytes = (sum(t.numel() for t in ins) + math.prod(out_shape)
                           ) * lhs.element_size()
                 bound, by = _gmm_bound(2 * GMM_ROWS * k * n, nbytes, dtype)
-                row = {"fn": fn_name, "case": case, "dtype": dname,
-                       "shape": {"E": GMM_E, "rows": GMM_ROWS,
-                                 "m_pad": lay.m_pad, "K": k, "N": n,
-                                 "block_m": lay.block_m, "sizes": sizes},
-                       "max_abs_err": float(err.max()),
-                       "err_over_rms": float(err.max()) / rms,
-                       "tol_share": share,
-                       "tol": {"atol_rms": tol[0], "rtol": tol[1]},
-                       "zeros_exact": zeros,
-                       "ms": time_ms(kern, flush),
-                       "plain_ms": time_ms(plain, flush, 5),
-                       "library_ms": (time_ms(lib_fn, flush)
-                                      if lib_fn is not None else None),
-                       "library_max_abs_err": lib_err,
-                       "bound_ms": bound, "bound_by": by}
-                if lib_reason is not None:
-                    row["library_null_reason"] = lib_reason
-                del got, want, ref, err
-                kernel = "tgmm" if fn_name == "tgmm" else "gmm"
-                rows[kernel].append(row)
-                log({"phase": "G", "kernel": kernel, **row})
+                plain_ms = time_ms(plain, flush, 5)
+                library_ms = (time_ms(lib_fn, flush, host_ahead=True)
+                              if lib_fn is not None else None)
+                for route in routes:
+                    what = f"{fn_name} {case}/{dname} ({route} route)"
+                    got = kern(route)
+                    torch.cuda.synchronize()
+                    check(tuple(got.shape) == out_shape
+                          and got.dtype == dtype,
+                          f"{what}: {got.dtype} {tuple(got.shape)}")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{what}: non-finite output")
+                    err = (got.float() - ref).abs()
+                    share = float((err / (tol[0] * rms + tol[1]
+                                          * ref.abs())).max())
+                    check(share <= 1.0,
+                          f"{what}: |kernel - plain| uses {share} of the "
+                          f"limit {tol[0]} x rms + {tol[1]} x |plain|")
+                    if fn_name == "tgmm":
+                        empty = [e for e, s in enumerate(sizes) if s == 0]
+                        zeros = all(bool((got[e] == 0).all())
+                                    for e in empty)
+                        check(zeros, f"{what}: an empty expert's gradient "
+                              "is not 0")
+                    else:
+                        zeros = bool((got[dead] == 0).all())
+                        check(zeros, f"{what}: rows that hold no token are "
+                              "not 0")
+                    same = None
+                    if route == "wgmma":     # two launches, the same bits
+                        same = torch.equal(got, kern(route))
+                        check(same, f"{what}: two launches differ")
+                    row = {"fn": fn_name, "case": case, "dtype": dname,
+                           "route": route,
+                           "shape": {"E": GMM_E, "rows": GMM_ROWS,
+                                     "m_pad": lay.m_pad, "K": k, "N": n,
+                                     "block_m": lay.block_m,
+                                     "sizes": sizes},
+                           "max_abs_err": float(err.max()),
+                           "err_over_rms": float(err.max()) / rms,
+                           "tol_share": share,
+                           "tol": {"atol_rms": tol[0], "rtol": tol[1]},
+                           "zeros_exact": zeros, "bitwise_repeat": same,
+                           "ms": time_ms(lambda: kern(route), flush,
+                                         host_ahead=True),
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           "library_max_abs_err": lib_err,
+                           "bound_ms": bound, "bound_by": by}
+                    if lib_reason is not None:
+                        row["library_null_reason"] = lib_reason
+                    del got, err
+                    kernel = ("tgmm" if fn_name == "tgmm" else "gmm") + (
+                        "_wgmma" if route == "wgmma" else "")
+                    rows[kernel].append(row)
+                    log({"phase": "G", "kernel": kernel, **row})
+                del want, ref
             del lay, lhs, rhs, dout, fns, library, dead
             gc.collect()
             torch.cuda.empty_cache()
     return rows
 
 
-def _gmm_entries(rows, h_result):
+def _gmm_entries(rows, h_result, i_result):
     """Kernel-line entries of the grouped-matmul kernels: the
-    representative case is the MoE slice's gate/up product in bf16."""
+    representative case is the MoE slice's gate/up product in bf16. The
+    launches are phase H's (the bf16 step: the wgmma kernels), and for the
+    kernels of gmm.cu phase I's kernel path (f32), the path that runs
+    them."""
     out = []
     for name, cases in rows.items():
         rep = next(c for c in cases if c["case"] == "slice_gate_up"
                    and c["dtype"] == "bfloat16"
                    and c["fn"] in ("gmm", "tgmm"))
+        source, wrapper = GMM_KERNELS[name]
+        mma = not name.endswith("_wgmma")
+        launched = (i_result["kernel_path_launches"] if mma
+                    else h_result["launches"])
         out.append({
             "name": name, "route": "cuda",
-            "source": "k8s_distributed_deeplearning_torch/csrc/gmm.cu",
-            "replaces": GMM_REPLACES[name],
-            "launches": h_result["launches"][name],
+            "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
+            "replaces": GMM_REPLACES[wrapper],
+            "launches": launched.get(name, 0),
+            "launches_in": "I (f32)" if mma else "H",
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: c.get(k) for k in (
@@ -1588,12 +1633,13 @@ def _zero_launches() -> None:
 
 
 def _launch_counts() -> dict:
-    """Every wrapper's launches by its kernel-line name; the flash
-    wrappers' wgmma-route launches under their own lines."""
+    """Every wrapper's launches by its kernel-line name; the flash and
+    grouped-matmul wrappers' wgmma-route launches under their own lines."""
     wrappers = _kernel_wrappers()
     out = {n: w.launches for n, w in wrappers.items()}
-    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        out[n + "_wgmma"] = wrappers[n].launches_wgmma
+    for n, w in wrappers.items():
+        if hasattr(w, "launches_wgmma"):
+            out[n + "_wgmma"] = w.launches_wgmma
     return out
 
 
@@ -1744,8 +1790,10 @@ def phase_h(dev):
         flops_tok=moe.flops_per_token(cfg, mcfg, seq_len=seq),
         # Under remat "dots" the gmm outputs are saved, not recomputed:
         # 3 forward products and 3 input gradients a layer, 3 weight
-        # gradients; the flash forward runs again in the recompute.
-        per_step={"gmm": 6 * n, "tgmm": 3 * n, "flash_fwd": 2 * n,
+        # gradients, all bf16 on the wgmma route; the flash forward runs
+        # again in the recompute.
+        per_step={"gmm": 6 * n, "tgmm": 3 * n, "gmm_wgmma": 6 * n,
+                  "tgmm_wgmma": 3 * n, "flash_fwd": 2 * n,
                   "flash_fwd_wgmma": 2 * n,
                   "flash_bwd_dq": n, "flash_bwd_dkv": n,
                   "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n},
@@ -1915,26 +1963,27 @@ def phase_i(dev):
     # the index path then drops nothing and routes as the ragged one.
     index = moe.MoEConfig(num_experts=8, top_k=2, dispatch="index",
                           capacity_factor=8 / 2)
-    wrappers = _kernel_wrappers()
 
     def run(impl, mcfg, keep_on):
         cfg = llama.config_tiny(**{**MOE_BACKBONE, "n_layers": 2},
                                 max_seq_len=seq, dtype=torch.float32,
                                 param_dtype=torch.float32, remat=True,
                                 attention_impl=impl)
-        for w in wrappers.values():
-            w.launches = 0
+        _zero_launches()
         out = _agreement_run(cfg, dev, lr, batcher, steps, keep_on,
                              moe_cfg=mcfg)
-        return out, {n: w.launches for n, w in wrappers.items()}
+        return out, _launch_counts()
 
     ka, kernel_launches = run("auto", ragged, torch.device("cpu"))
     gc.collect()
     torch.cuda.empty_cache()
     kx, plain_launches = run("xla", index, dev)
     check(kernel_launches["gmm"] > 0 and kernel_launches["tgmm"] > 0
-          and kernel_launches["flash_fwd"] > 0,
-          f"phase I kernel path launched {kernel_launches}")
+          and kernel_launches["flash_fwd"] > 0
+          and kernel_launches["gmm_wgmma"] == 0
+          and kernel_launches["tgmm_wgmma"] == 0,
+          f"phase I kernel path (f32: the gmm.cu kernels) launched "
+          f"{kernel_launches}")
     check(not any(plain_launches.values()),
           f"phase I plain path launched kernels: {plain_launches}")
     return _agreement("I", {"model": "llama-small MoE width, 2 layers",
@@ -2068,6 +2117,22 @@ def _flash_entries(rows, e_result, f_result):
     return out
 
 
+def _entry_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol: the
+    length-prefixed name ending in ``kernel`` or ``wgmma`` (a length may
+    follow hex digits of the namespace's hash, so every suffix of a digit
+    run is tried)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            end = run.end() + int(mangled[i:run.end()])
+            name = mangled[run.end():end]
+            if re.fullmatch(r"[a-z_]+(?:kernel|wgmma)", name) and \
+                    mangled[end:end + 1] in ("I", "E"):
+                args = re.match(r"(I\w*?)EvP", mangled[end:])
+                return name + (args.group(1) if args else "")
+    return mangled
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2089,10 +2154,9 @@ def main() -> int:
     for lib in libs.values():
         entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
-            found = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
-                              r"(?:kernel|wgmma)\w*?)(I\w*?)?EvP", line)
+            found = re.search(r"Compiling entry function '(\w+)'", line)
             if found:
-                entry = "".join(g or "" for g in found.groups())
+                entry = _entry_name(found.group(1))
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib.stem} {entry}: {line.strip()}")
     started = time.perf_counter()
@@ -2122,11 +2186,11 @@ def main() -> int:
         f = timed("F", phase_f, dev)
         timed("F_bf16", phase_f_bf16, dev)
         h = timed("H", phase_h, dev)
-        timed("I", phase_i, dev)
+        i = timed("I", phase_i, dev)
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, int8_cases, j)
-         + _flash_entries(flash_rows, e, f) + _gmm_entries(gmm_rows, h)})
+         + _flash_entries(flash_rows, e, f) + _gmm_entries(gmm_rows, h, i)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -16,10 +16,13 @@ multiplied by its own expert's weight.
   operator ``k8s_ddl_torch::gmm``, so that a remat policy
   (``models/transformer.py``) can save it.
 - :func:`gmm_forward` and :func:`tgmm` are the kernel wrappers: on CUDA
-  tensors they launch ``gmm_kernel`` and ``tgmm_kernel``
-  (``csrc/gmm.cu``) and add one to their ``launches``; on CPU tensors they
-  take the plain versions :func:`gmm_reference` and :func:`tgmm_reference`.
-  A CUDA tensor the kernels cannot take raises; there is no fallback.
+  tensors they launch the kernels of the route :func:`_gmm_route` names
+  (bf16: ``gmm_wgmma`` and ``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, on
+  wgmma tensor cores; f32: ``gmm_kernel`` and ``tgmm_kernel`` of
+  ``csrc/gmm.cu``) and add one to their ``launches``, and on the wgmma
+  route to ``launches_wgmma``; on CPU tensors they take the plain versions
+  :func:`gmm_reference` and :func:`tgmm_reference`. A CUDA tensor the
+  kernels cannot take raises; there is no fallback.
 
 Semantics, shared by the kernels and the plain versions, the Pallas
 kernels' block for block: a live row block (one holding a real row) of
@@ -39,9 +42,9 @@ import torch
 
 from k8s_distributed_deeplearning_torch.ops import _build
 
-# The CUDA kernels' row tile (csrc/gmm.cu BM). On the card a layout's
-# block_m must be a multiple of it; block_m = 128 itself keeps the round-up
-# slack per expert below 128 rows.
+# The CUDA kernels' row tile (BM of csrc/gmm.cu and csrc/gmm_wgmma.cu). On
+# the card a layout's block_m must be a multiple of it; block_m = 128
+# itself keeps the round-up slack per expert below 128 rows.
 KERNEL_BLOCK_M = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -196,12 +199,39 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _gmm_route(dtype: torch.dtype) -> str:
+    """Which kernels take a CUDA call: ``"wgmma"`` (``gmm_wgmma`` and
+    ``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, tensor cores) for bfloat16;
+    ``"mma"`` (``gmm_kernel`` and ``tgmm_kernel`` of ``csrc/gmm.cu``) for
+    float32, which wgmma cannot multiply in full precision."""
+    return "wgmma" if dtype == torch.bfloat16 else "mma"
+
+
+def _entry(which: str, dtype: torch.dtype, route: str | None):
+    """The C entry point of kernel ``which`` ("gmm" or "tgmm") on ``route``
+    (None: :func:`_gmm_route`'s choice), and the route."""
+    route = _gmm_route(dtype) if route is None else route
+    if route == "wgmma":
+        if dtype != torch.bfloat16:
+            raise TypeError(f"the wgmma route takes bfloat16, got {dtype}")
+        return getattr(_wgmma_library(), f"{which}_wgmma_launch"), route
+    if route == "mma":
+        return getattr(_library(), f"{which}_launch"), route
+    raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
+
+
 def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, layout: GroupedLayout,
-                *, transpose_rhs: bool = False) -> torch.Tensor:
+                *, transpose_rhs: bool = False,
+                route: str | None = None) -> torch.Tensor:
     """``out [M_pad, N]`` in lhs's dtype: each live row block times its
     expert's ``rhs`` [E, K, N] (``transpose_rhs``: [E, N, K], read
-    transposed in place), dead blocks 0. CPU tensors take :func:`gmm_reference`; CUDA tensors launch
-    ``gmm_kernel`` and add one to ``gmm_forward.launches``."""
+    transposed in place), dead blocks 0. CPU tensors take
+    :func:`gmm_reference` (and refuse a named ``route``); CUDA tensors
+    launch ``gmm_wgmma`` on the ``"wgmma"`` route or ``gmm_kernel`` on
+    ``"mma"`` (default: :func:`_gmm_route`'s choice; naming it lets a
+    caller time both routes on the same inputs), and add one to
+    ``gmm_forward.launches``, and on the wgmma route to
+    ``.launches_wgmma``."""
     if lhs.ndim != 2 or rhs.ndim != 3:
         raise ValueError(f"lhs must be [M, K] and rhs [E, K, N], got "
                          f"{tuple(lhs.shape)}, {tuple(rhs.shape)}")
@@ -210,61 +240,73 @@ def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, layout: GroupedLayout,
     if lhs.shape[1] != k:
         raise ValueError(f"lhs {tuple(lhs.shape)} does not contract with rhs "
                          f"{tuple(rhs.shape)} (transpose_rhs={transpose_rhs})")
-    if lhs.device.type == "cpu":
+    if lhs.device.type == "cpu" and route is None:
         return gmm_reference(lhs, rhs, layout, transpose_rhs=transpose_rhs)
     if lhs.device.type != "cuda":
-        raise ValueError(f"no grouped matmul for device {lhs.device}")
+        raise ValueError(f"no grouped matmul kernel for device {lhs.device}")
     _check_layout(lhs.shape[0], rhs.shape[0], layout)
     _check_cuda({"lhs": lhs, "rhs": rhs},
                 {"block_expert": layout.block_expert,
                  "block_live": layout.block_live}, layout)
+    launch, route = _entry("gmm", lhs.dtype, route)
     out = torch.empty(lhs.shape[0], n, dtype=lhs.dtype, device=lhs.device)
     with torch.cuda.device(lhs.device):
-        rc = _library().gmm_launch(
+        rc = launch(
             lhs.data_ptr(), rhs.data_ptr(), layout.block_expert.data_ptr(),
             layout.block_live.data_ptr(), out.data_ptr(), lhs.shape[0], k, n,
             rhs.shape[0], layout.block_m, int(transpose_rhs),
             _DTYPE_CODE[lhs.dtype], _stream(lhs.device))
     if rc:
-        raise RuntimeError(f"gmm_kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gmm ({route} route) launch failed: CUDA error "
+                           f"{rc}")
+    if route == "wgmma":
+        gmm_forward.launches_wgmma += 1
     gmm_forward.launches += 1
     return out
 
 
 def tgmm(lhs: torch.Tensor, dout: torch.Tensor, num_experts: int,
-         layout: GroupedLayout) -> torch.Tensor:
+         layout: GroupedLayout, *, route: str | None = None) -> torch.Tensor:
     """``drhs [E, K, N]`` in lhs's dtype: per expert, the f32 sum of
     ``lhs[r]ᵀ · dout[r]`` over the rows of its live blocks. CPU tensors take
-    :func:`tgmm_reference`; CUDA tensors launch ``tgmm_kernel`` and add one
-    to ``tgmm.launches``."""
+    :func:`tgmm_reference` (and refuse a named ``route``); CUDA tensors
+    launch ``tgmm_wgmma`` on the ``"wgmma"`` route or ``tgmm_kernel`` on
+    ``"mma"`` (default: :func:`_gmm_route`'s choice), and add one to
+    ``tgmm.launches``, and on the wgmma route to ``.launches_wgmma``."""
     if lhs.ndim != 2 or dout.ndim != 2 or dout.shape[0] != lhs.shape[0]:
         raise ValueError(f"lhs [M, K] and dout [M, N] must share M, got "
                          f"{tuple(lhs.shape)}, {tuple(dout.shape)}")
-    if lhs.device.type == "cpu":
+    if lhs.device.type == "cpu" and route is None:
         return tgmm_reference(lhs, dout, num_experts, layout)
     if lhs.device.type != "cuda":
-        raise ValueError(f"no grouped matmul for device {lhs.device}")
+        raise ValueError(f"no grouped matmul kernel for device {lhs.device}")
     _check_layout(lhs.shape[0], num_experts, layout)
     _check_cuda({"lhs": lhs, "dout": dout},
                 {"row_offset": layout.row_offset,
                  "group_sizes": layout.group_sizes}, layout)
+    launch, route = _entry("tgmm", lhs.dtype, route)
     m_pad, k = lhs.shape
     n = dout.shape[1]
     out = torch.empty(num_experts, k, n, dtype=lhs.dtype, device=lhs.device)
     with torch.cuda.device(lhs.device):
-        rc = _library().tgmm_launch(
+        rc = launch(
             lhs.data_ptr(), dout.data_ptr(), layout.row_offset.data_ptr(),
             layout.group_sizes.data_ptr(), out.data_ptr(), m_pad, k, n,
             num_experts, layout.block_m, _DTYPE_CODE[lhs.dtype],
             _stream(lhs.device))
     if rc:
-        raise RuntimeError(f"tgmm_kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"tgmm ({route} route) launch failed: CUDA error "
+                           f"{rc}")
+    if route == "wgmma":
+        tgmm.launches_wgmma += 1
     tgmm.launches += 1
     return out
 
 
 gmm_forward.launches = 0
+gmm_forward.launches_wgmma = 0
 tgmm.launches = 0
+tgmm.launches_wgmma = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::gmm", mutates_args=())
@@ -315,11 +357,23 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         layout.block_first, layout.group_sizes, layout.m_pad, layout.block_m)
 
 
-def _library():
-    lib = _build.load("gmm")
-    if lib.gmm_launch.argtypes is None:
+def _bind(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library with its ``<name>_launch`` and
+    ``t<name>_launch`` entry points typed (both sources take the same
+    arguments)."""
+    lib = _build.load(name)
+    gmm_fn, tgmm_fn = (getattr(lib, f"{p}{name}_launch") for p in ("", "t"))
+    if gmm_fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_launch.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
-        lib.tgmm_launch.argtypes = [ptr] * 5 + [i] * 6 + [ptr]
-        lib.gmm_launch.restype = lib.tgmm_launch.restype = ctypes.c_int
+        gmm_fn.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
+        tgmm_fn.argtypes = [ptr] * 5 + [i] * 6 + [ptr]
+        gmm_fn.restype = tgmm_fn.restype = ctypes.c_int
     return lib
+
+
+def _library():
+    return _bind("gmm")
+
+
+def _wgmma_library():
+    return _bind("gmm_wgmma")

@@ -4,6 +4,7 @@
     python3 kernel_breakdown.py prefill      # csrc/paged_prefill.cu
     python3 kernel_breakdown.py flash_bwd    # csrc/flash_bwd.cu
     python3 kernel_breakdown.py flash_fwd    # csrc/flash_fwd.cu
+    python3 kernel_breakdown.py gmm          # csrc/gmm_wgmma.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
@@ -47,6 +48,15 @@ copies after the first tiles), ``no_rescale`` (O is not rescaled),
 ``no_sync`` (no barrier a tile), ``loads_only`` (no products and no
 exponentials: what the tile loop costs without its arithmetic),
 ``skeleton`` (``loads_only`` without the copies).
+
+``gmm``: the grouped GEMMs' wgmma kernels at the MoE slice's gate/up
+product (8 experts, 16,384 rows from phase G's seeded top-2 router, K 768
+-> N 2048, bf16): the forward, dlhs (the weight read transposed, K 2048 ->
+N 768) and tgmm. Variants: ``no_mma`` (no products: the accumulator gets
+a constant added), ``no_loads`` (no copies after the first two
+stages), ``no_epilogue`` (the tile is not written), ``skeleton`` (none of
+the three: the ring's waits and barriers, the block lookup and the
+bookkeeping).
 """
 from __future__ import annotations
 
@@ -151,6 +161,22 @@ FLASH_FWD_VARIANTS["loads_only"] = [
 FLASH_FWD_VARIANTS["skeleton"] = [*FLASH_FWD_VARIANTS["loads_only"],
                                   *FLASH_FWD_VARIANTS["no_loads"]]
 
+GMM_VARIANTS = {
+    "base": [],
+    "no_mma": [("      wgmma_ss_n256<TA, TB>(acc, a_desc(st, kk), "
+                "b_desc(st, kk), 1);", "      acc[kk] += 1.f;", 1)],
+    "no_loads": [("    if (t + DIST < n_steps) issue(t + DIST, "
+                  "(t + DIST) % STAGES);\n", "", 1)],
+    # A guard no tile meets, uniform across the CTA (the epilogue has
+    # barriers), keeps the accumulators live.
+    "no_epilogue": [("  store_tile(acc, smem, ",
+                     "  if (__syncthreads_or(acc[0] == 1.2345f)) "
+                     "store_tile(acc, smem, ", 2)],
+}
+GMM_VARIANTS["skeleton"] = [*GMM_VARIANTS["no_mma"],
+                            *GMM_VARIANTS["no_loads"],
+                            *GMM_VARIANTS["no_epilogue"]]
+
 
 def bind_prefill(lib: ctypes.CDLL) -> None:
     lib.paged_prefill_fwd.argtypes = (
@@ -172,6 +198,13 @@ def bind_flash_fwd(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attn_fwd_wgmma.restype = ctypes.c_int
+
+
+def bind_gmm(lib: ctypes.CDLL) -> None:
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.gmm_wgmma_launch.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
+    lib.tgmm_wgmma_launch.argtypes = [ptr] * 5 + [i] * 6 + [ptr]
+    lib.gmm_wgmma_launch.restype = lib.tgmm_wgmma_launch.restype = i
 
 
 # label -> (launch on a library, the tensors that launch writes)
@@ -251,6 +284,43 @@ def flash_fwd_case(dev: torch.device, stream: int) -> Launches:
     return out
 
 
+def gmm_case(dev: torch.device, stream: int) -> Launches:
+    """The forward, dlhs and tgmm launches at the MoE slice's gate/up
+    product, with phase G's router group sizes."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+
+    e, rows, k, n = 8, 16384, 768, 2048
+    logits = np.random.default_rng(5).standard_normal((rows // 2, e))
+    sizes = np.bincount(np.argsort(-logits, axis=1)[:, :2].ravel(),
+                        minlength=e)
+    lay = gmm_ops.grouped_layout(
+        torch.tensor(sizes, dtype=torch.int32, device=dev), rows)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    live = gmm_ops.live_rows(lay)[:, None]
+    lhs = (torch.randn(lay.m_pad, k, device=dev, generator=gen)
+           * live).bfloat16()
+    rhs = (torch.randn(e, k, n, device=dev, generator=gen)
+           * k ** -0.5).bfloat16()
+    dout = (torch.randn(lay.m_pad, n, device=dev, generator=gen)
+            * live).bfloat16()
+    out = torch.empty(lay.m_pad, n, device=dev, dtype=torch.bfloat16)
+    dlhs = torch.empty_like(lhs)
+    drhs = torch.empty_like(rhs)
+    be, bl, ro, gs = (t.data_ptr() for t in (
+        lay.block_expert, lay.block_live, lay.row_offset, lay.group_sizes))
+    keep = (lhs, rhs, dout, lay)         # the launches hold raw pointers
+    return {
+        "fwd": (lambda lib, keep=keep: lib.gmm_wgmma_launch(
+            lhs.data_ptr(), rhs.data_ptr(), be, bl, out.data_ptr(),
+            lay.m_pad, k, n, e, lay.block_m, 0, 1, stream), (out,)),
+        "dlhs": (lambda lib, keep=keep: lib.gmm_wgmma_launch(
+            dout.data_ptr(), rhs.data_ptr(), be, bl, dlhs.data_ptr(),
+            lay.m_pad, n, k, e, lay.block_m, 1, 1, stream), (dlhs,)),
+        "tgmm": (lambda lib, keep=keep: lib.tgmm_wgmma_launch(
+            lhs.data_ptr(), dout.data_ptr(), ro, gs, drhs.data_ptr(),
+            lay.m_pad, k, n, e, lay.block_m, 1, stream), (drhs,))}
+
+
 class Kernel(NamedTuple):
     source: str
     variants: dict[str, list[tuple[str, str, int]]]
@@ -265,6 +335,7 @@ KERNELS = {
                         flash_bwd_case),
     "flash_fwd": Kernel("flash_fwd.cu", FLASH_FWD_VARIANTS, bind_flash_fwd,
                         flash_fwd_case),
+    "gmm": Kernel("gmm_wgmma.cu", GMM_VARIANTS, bind_gmm, gmm_case),
 }
 
 

@@ -938,3 +938,141 @@ def test_gmm_rejects_what_the_kernels_cannot_take(hopper):
     with pytest.raises(ValueError, match="row tile"):
         g.tgmm(torch.zeros(small.m_pad, 64, device=hopper),
                torch.zeros(small.m_pad, 64, device=hopper), 2, small)
+
+
+# The tensor-core grouped GEMMs (csrc/gmm_wgmma.cu, the "wgmma" route):
+# bf16 over GMM_SHAPES and the MoE slice's down product (K 2048 -> N 768).
+GMM_WGMMA_SHAPES = GMM_SHAPES + [(GMM_SHAPES[-1][0], 2048, 768, 128)]
+# A skewed layout at widths that cut the 64-deep stage and the 128-wide
+# tile: an empty expert, a one-row expert, one with 40 % of the rows.
+GMM_SKEWED = ((240, 0, 1, 200, 159), 136, 200, 128)
+
+
+def _gmm_counts():
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    return (g.gmm_forward.launches, g.gmm_forward.launches_wgmma,
+            g.tgmm.launches, g.tgmm.launches_wgmma)
+
+
+@pytest.mark.parametrize("shape", GMM_WGMMA_SHAPES,
+                         ids=lambda s: f"E{len(s[0])}-K{s[1]}-N{s[2]}-"
+                         f"bm{s[3]}")
+def test_gmm_wgmma_matches_reference(hopper, shape):
+    """Forward, dlhs and tgmm on the wgmma route against their plain
+    versions, held as phase G holds them; rows that hold no token and an
+    empty expert's gradient exactly 0."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes, k, n, bm = shape
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.bfloat16, sizes, k, n, bm,
+                                     sum(sizes) + k + 1)
+    before = _gmm_counts()
+    out = g.gmm_forward(lhs, rhs, lay, route="wgmma")
+    dlhs = g.gmm_forward(cot, rhs, lay, transpose_rhs=True, route="wgmma")
+    drhs = g.tgmm(lhs, cot, len(sizes), lay, route="wgmma")
+    torch.cuda.synchronize()
+    assert _gmm_counts() == (before[0] + 2, before[1] + 2, before[2] + 1,
+                             before[3] + 1)
+    for name, got, want in (
+            ("out", out, g.gmm_reference(lhs, rhs, lay)),
+            ("dlhs", dlhs, g.gmm_reference(cot, rhs, lay,
+                                           transpose_rhs=True)),
+            ("drhs", drhs, g.tgmm_reference(lhs, cot, len(sizes), lay))):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        assert torch.isfinite(got).all(), name
+        _within(got, want, GMM_DTYPES[1][1], name)
+    dead = ~g.live_rows(lay)
+    assert torch.all(out[dead] == 0) and torch.all(dlhs[dead] == 0)
+    for e, s in enumerate(sizes):
+        if s == 0:
+            assert torch.all(drhs[e] == 0)
+
+
+def test_gmm_wgmma_dead_blocks_and_empty_experts_are_zero(hopper):
+    """Whatever a dead block holds, gmm writes 0 over it and tgmm leaves it
+    out; an empty expert's gradient is 0 and the rows of live blocks count
+    as they are (the Pallas kernels' block semantics)."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes, k, n, bm = GMM_SKEWED
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.bfloat16, sizes, k, n, bm,
+                                     11)
+    dead_block = ~lay.block_live.bool().repeat_interleave(bm)
+    lhs[dead_block] = 5.0
+    cot[dead_block] = -3.0
+    out = g.gmm_forward(lhs, rhs, lay, route="wgmma")
+    dlhs = g.gmm_forward(cot, rhs, lay, transpose_rhs=True, route="wgmma")
+    drhs = g.tgmm(lhs, cot, len(sizes), lay, route="wgmma")
+    torch.cuda.synchronize()
+    assert torch.all(out[dead_block] == 0)
+    assert torch.all(dlhs[dead_block] == 0)
+    assert torch.all(drhs[1] == 0)
+    _within(drhs, g.tgmm_reference(lhs, cot, len(sizes), lay),
+            GMM_DTYPES[1][1], "drhs")
+
+
+def test_gmm_wgmma_launches_give_the_same_bits(hopper):
+    """No atomics and no split: two launches of each kernel are bitwise
+    equal."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes, k, n, bm = GMM_SKEWED
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.bfloat16, sizes, k, n, bm,
+                                     12)
+    for run in (lambda: g.gmm_forward(lhs, rhs, lay),
+                lambda: g.gmm_forward(cot, rhs, lay, transpose_rhs=True),
+                lambda: g.tgmm(lhs, cot, len(sizes), lay)):
+        assert torch.equal(run(), run())
+
+
+def test_gmm_launches_wgmma_counts_by_route(hopper):
+    """bf16 counts on launches and launches_wgmma; f32, or the mma route
+    named in bf16, on launches alone; autograd's bf16 forward and backward
+    take the wgmma route."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes, k, n, bm = GMM_SKEWED
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.bfloat16, sizes, k, n, bm,
+                                     13)
+    before = _gmm_counts()
+    g.gmm_forward(lhs, rhs, lay)
+    g.tgmm(lhs, cot, len(sizes), lay)
+    assert _gmm_counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                             before[3] + 1)
+    before = _gmm_counts()
+    g.gmm_forward(lhs, rhs, lay, route="mma")
+    g.tgmm(lhs, cot, len(sizes), lay, route="mma")
+    g.gmm_forward(lhs.float(), rhs.float(), lay)
+    g.tgmm(lhs.float(), cot.float(), len(sizes), lay)
+    assert _gmm_counts() == (before[0] + 2, before[1], before[2] + 2,
+                             before[3])
+    before = _gmm_counts()
+    lhs.requires_grad_(), rhs.requires_grad_()
+    (g.gmm(lhs, rhs, lay).float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert _gmm_counts() == (before[0] + 2, before[1] + 2, before[2] + 1,
+                             before[3] + 1)
+
+
+def test_gmm_wgmma_refuses_and_does_not_fall_back(hopper):
+    """A forced wgmma route in f32, an unknown route and a layout the
+    kernels cannot take raise, and nothing launches."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.float32, (30, 9), 64, 64,
+                                     128, 14)
+    before = _gmm_counts()
+    with pytest.raises(TypeError, match="wgmma route takes bfloat16"):
+        g.gmm_forward(lhs, rhs, lay, route="wgmma")
+    with pytest.raises(TypeError, match="wgmma route takes bfloat16"):
+        g.tgmm(lhs, cot, 2, lay, route="wgmma")
+    with pytest.raises(ValueError, match="route must be"):
+        g.gmm_forward(lhs.bfloat16(), rhs.bfloat16(), lay, route="cublas")
+    small = g.grouped_layout(lay.group_sizes, 39, block_m=64)
+    with pytest.raises(ValueError, match="row tile"):
+        g.tgmm(torch.zeros(small.m_pad, 64, device=hopper).bfloat16(),
+               torch.zeros(small.m_pad, 64, device=hopper).bfloat16(), 2,
+               small, route="wgmma")
+    torch.cuda.synchronize()
+    assert _gmm_counts() == before

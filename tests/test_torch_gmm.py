@@ -191,3 +191,107 @@ def test_remat_policies_save_the_gmm_operator():
     assert op in t_tr.REMAT_POLICIES["dots"]
     assert op in t_tr.REMAT_POLICIES["dots_attn"]
     assert op not in t_tr.REMAT_POLICIES["nothing"]
+
+
+def test_gmm_route_rule():
+    """bf16 takes the wgmma kernels (csrc/gmm_wgmma.cu), f32 the mma.sync
+    and CUDA-core kernels (csrc/gmm.cu): by dtype alone."""
+    assert t_gmm._gmm_route(torch.bfloat16) == "wgmma"
+    assert t_gmm._gmm_route(torch.float32) == "mma"
+
+
+def _counts():
+    return (t_gmm.gmm_forward.launches, t_gmm.gmm_forward.launches_wgmma,
+            t_gmm.tgmm.launches, t_gmm.tgmm.launches_wgmma)
+
+
+@pytest.mark.parametrize("fn", ["gmm", "tgmm"])
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_named_route_on_cpu_tensors_raises(fn, route):
+    """A named route asks for a kernel; CPU tensors have none, so it raises
+    rather than take the plain version, and counts nothing."""
+    lay, lhs, rhs, cot = _case(7, [5, 0, 9], 16, 24, 8)
+    lhs_t = torch.from_numpy(lhs).bfloat16()
+    before = _counts()
+    with pytest.raises(ValueError, match="no grouped matmul kernel"):
+        if fn == "gmm":
+            t_gmm.gmm_forward(lhs_t, torch.from_numpy(rhs).bfloat16(), lay,
+                              route=route)
+        else:
+            t_gmm.tgmm(lhs_t, torch.from_numpy(cot).bfloat16(), 3, lay,
+                       route=route)
+    assert _counts() == before
+
+
+def test_cpu_calls_count_no_launch_on_either_route():
+    """bf16 and f32 calls on CPU tensors, forward, dlhs, tgmm and autograd,
+    leave launches and launches_wgmma as they were."""
+    sizes = [4, 0, 7, 1]
+    lay, lhs, rhs, cot = _case(8, sizes, 16, 24, 8)
+    before = _counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        l = torch.from_numpy(lhs).to(dtype).requires_grad_()
+        r = torch.from_numpy(rhs).to(dtype).requires_grad_()
+        g = torch.from_numpy(cot).to(dtype)
+        t_gmm.gmm_forward(g, r.detach(), lay, transpose_rhs=True)
+        t_gmm.tgmm(l.detach(), g, 4, lay)
+        (t_gmm.gmm(l, r, lay).float() * g.float()).sum().backward()
+    assert _counts() == before
+
+
+# A ragged, skewed layout at widths that cut the wgmma kernels' 64-deep
+# stage and 128-wide tile (K 136, N 200), at the kernels' block_m of 128:
+# 600 rows, an empty expert, a one-row expert and one with 40 % of them.
+SKEWED_SIZES, SKEWED_K, SKEWED_N = [240, 0, 1, 200, 159], 136, 200
+# bf16, per element: |port - Pallas| <= 2^-10 x RMS + 2^-7 x |Pallas|
+# (phase G's GMM_TOL): both sum exact products of the bf16 operands in
+# f32, in different orders, and round once to bf16, so sums on either side
+# of a rounding boundary land one bf16 step (<= 2^-7 of the value) apart.
+BF16_TOL = (2 ** -10, 2 ** -7)
+
+
+def _bf16_close(got, want, what):
+    ref = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - ref)
+    limit = BF16_TOL[0] * np.sqrt(np.mean(ref ** 2)) + BF16_TOL[1] * np.abs(
+        ref)
+    assert np.all(err <= limit), (what, float((err / limit).max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_pallas_on_a_skewed_layout(dtype):
+    """The forward, dlhs and drhs that the wgmma kernels are held to on the
+    card (the plain versions, through the port's autograd) against the
+    Pallas kernels in interpret mode through their custom_vjp: f32 to
+    1e-5, bf16 within phase G's bf16 limit; rows that hold no token, dead
+    blocks of dlhs and the empty expert's gradient exactly 0."""
+    lay, lhs, rhs, cot = _case(9, SKEWED_SIZES, SKEWED_K, SKEWED_N,
+                               t_gmm.KERNEL_BLOCK_M)
+    jlay = _jax_layout(SKEWED_SIZES, t_gmm.KERNEL_BLOCK_M)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jl, jr = jnp.asarray(lhs, jdt), jnp.asarray(rhs, jdt)
+
+    def jloss(l, r):
+        out = j_gmm.gmm(l, r, jlay, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * cot), out
+
+    (_, jout), (jdl, jdr) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jl, jr)
+    tl = torch.from_numpy(lhs).to(tdt).requires_grad_()
+    tr = torch.from_numpy(rhs).to(tdt).requires_grad_()
+    out = t_gmm.gmm(tl, tr, lay)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    assert out.dtype == tl.grad.dtype == tr.grad.dtype == tdt
+    for what, got, want in (("out", out.detach(), jout),
+                            ("dlhs", tl.grad, jdl), ("drhs", tr.grad, jdr)):
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       err_msg=what, **TOL)
+        else:
+            _bf16_close(got, want.astype(jnp.float32), what)
+    # Rows that hold no token come out 0 (lhs's padding rows are 0), and
+    # dead blocks 0 in dlhs too, whatever the cotangent holds there.
+    assert torch.all(out.detach()[~t_gmm.live_rows(lay)] == 0)
+    dead_block = ~lay.block_live.bool().repeat_interleave(lay.block_m)
+    assert torch.all(tl.grad[dead_block] == 0)
+    assert torch.all(tr.grad[1] == 0)
