@@ -10,16 +10,21 @@ exits non-zero.
 A. The paged-attention kernels against their plain PyTorch version on
    the card, at the Llama-3 8B attention shapes (32 q heads, 8 KV heads,
    head_dim 128, 32-token pages), by the route ``_route`` picks: decode
-   (B=4, one query each, live lengths 100-2000) on the split kernel in
-   bf16 and f32; query chunks (512 queries at offset 1024, 512 at 0, a
-   32-query final bucket at offset 1480) on the tensor-core prefill kernel
-   in bf16, the 512 @ 1024 chunk on the split kernel in f32; stale K/V
-   past each cursor and scratch-page garbage changing no bit on both
-   routes. Reports the error, the kernel's time, the plain version's, the
-   bound (the larger of bytes over 3.35 TB/s and FLOPs over the dtype's
-   peak), and the time of ``scaled_dot_product_attention`` on the
-   pre-gathered K/V with the boolean mask as a yardstick (the port never
-   calls it); for a chunk on the prefill route, also the split kernel's
+   (B=4, one query each, live lengths 100-2000) on the tensor-core decode
+   kernel in bf16 and on the split kernel in f32; in bf16 also decode at
+   phase B's decode-profile shape (live 512-560 of 64 blocks) and at
+   Llama-3 8B's own 8,192-token context (live 7,000-8,000 of 256 blocks);
+   query chunks (512 queries at offset 1024, 512 at 0, a 32-query final
+   bucket at offset 1480) on the tensor-core prefill kernel in bf16, the
+   512 @ 1024 chunk on the split kernel in f32; stale K/V past each cursor
+   and scratch-page garbage changing no bit on every route. Reports the
+   error, the kernel's time, the plain version's, the bound (the larger of
+   bytes over 3.35 TB/s and FLOPs over the dtype's peak), and the time of
+   ``scaled_dot_product_attention`` on the pre-gathered K/V with the
+   boolean mask as a yardstick (the port never calls it); for a case on
+   the decode route, also the split kernel's error and time on the same
+   inputs, two decode launches bitwise equal, and every time on the
+   device alone; for a chunk on the prefill route, the split kernel's
    error and time on the same inputs and the prefill kernel's time at
    64- and 128-row tiles. The same cases again through the int8 branch:
    int8 pools quantized from random ones by the model's quantize-on-write,
@@ -32,10 +37,11 @@ B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
    requests of 100-1500 prompt tokens and 32 new tokens (6 greedy, 2
    sampled). Every request finishes with in-vocabulary tokens, no pool
    page leaks, and the paged kernels launch exactly n_layers x prefill
-   chunks times on the prefill route and n_layers x decode iterations on
-   the split route. Reports prefill and decode tokens/s, TTFT p50 and
-   peak device memory; then, with every slot busy, a decode iteration's
-   host time and its device time by kernel (``torch.profiler``); then a
+   chunks times on the prefill route, n_layers x decode iterations on
+   the decode route and never on the split route. Reports prefill and
+   decode tokens/s, TTFT p50 and peak device memory; then, with every
+   slot busy, a decode iteration's host time and its device time by
+   kernel (``torch.profiler``, the decode kernel once a layer); then a
    512-token prefill chunk at offset 1024: host time, device time by
    kernel class and the busy share.
 C. The same workload in f32 at 8B width and 4 layers, greedy, through the
@@ -163,6 +169,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 # P.V (as the Pallas kernel does), the plain version the normalized
 # probabilities, and both round the output to bf16.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Phase A's decode cases beside the one drawn from its seed, bf16 only
+# (live lengths, n_blocks, pages): phase B's decode-profile shape (4 slots
+# at 512-560 live tokens of a 2,048-token table) and Llama-3 8B's own
+# 8,192-token context (7,000-8,000 live of 256 blocks).
+DECODE_CASES = {"decode_b_profile": ([512, 528, 544, 560], 64, 4 * 18 + 1),
+                "decode_long": ([7000, 7333, 7667, 8000], 256, 4 * 250 + 1)}
 # The query chunks phase A added with the prefill route (512 queries at
 # offset 0, 32 at offset 1480), bf16: every element within TOL + 2^-7 x
 # |plain|. Rows near position 0 average a few rows of V, so outputs reach
@@ -360,11 +372,15 @@ STALE_PREFILL = ([700, 1000], 64, 64, 2 * 64 + 1)
 
 
 def _shapes(dtype, decode_lens):
-    """Phase A's cases for ``dtype``: decode, then the prefill chunks (f32:
-    the 512 @ 1024 chunk alone)."""
-    chunks = (PREFILL_CASES if dtype == torch.bfloat16 else
+    """Phase A's cases for ``dtype``: decode, the prefill chunks (f32: the
+    512 @ 1024 chunk alone), then bf16's other decode cases."""
+    bf16 = dtype == torch.bfloat16
+    chunks = (PREFILL_CASES if bf16 else
               {"prefill512": PREFILL_CASES["prefill512"]})
-    return {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks}
+    more = ({name: (lens, 1, nb, pages)
+             for name, (lens, nb, pages) in DECODE_CASES.items()}
+            if bf16 else {})
+    return {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks, **more}
 
 
 def _route_timings(args, kw, ref, err_of, flush) -> dict:
@@ -382,6 +398,23 @@ def _route_timings(args, kw, ref, err_of, flush) -> dict:
             "split_ms": time_ms(launch("split"), flush),
             "ms_tile64": time_ms(launch("prefill", 64), flush),
             "ms_tile128": time_ms(launch("prefill", 128), flush)}
+
+
+def _decode_timings(args, kw, out, ref, err_of, flush) -> dict:
+    """For a case on the decode route: a second launch bitwise equal to
+    the first, and the split kernel on the same inputs (its error, and its
+    time on the device alone)."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    def launch(route):
+        return lambda: paged_attn._launch(*args, **kw, route=route)
+
+    again = launch("decode")()
+    split = launch("split")()
+    torch.cuda.synchronize()
+    return {"repeat_bitwise": torch.equal(again, out),
+            "split_max_abs_err": err_of(split, ref), "split": split,
+            "split_ms": time_ms(launch("split"), flush, host_ahead=True)}
 
 
 def _stale(args, lens, quant):
@@ -421,11 +454,13 @@ def phase_a(dev, flush):
                                                    decode_lens).items():
             args = _attn_case(rng, dev, dtype, lens, sq, nb, pages)
             route = paged_attn._route(sq, H // KV, HD, dtype, False)
-            before = kern.launches_prefill
+            before = (kern.launches_prefill, kern.launches_decode)
             out = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
-            check(kern.launches_prefill - before == (route == "prefill"),
+            check((kern.launches_prefill - before[0],
+                   kern.launches_decode - before[1])
+                  == (route == "prefill", route == "decode"),
                   f"{name}/{dname}: the {route} route did not launch")
             err = err_of(out, ref)
             rtol = (CHUNK_RTOL_BF16 if dtype == torch.bfloat16
@@ -441,6 +476,7 @@ def phase_a(dev, flush):
             check(share <= 1.0, f"{name}/{dname}: max err {err} uses "
                   f"{share} of its limit (atol {TOL[dtype]}, rtol {rtol})")
             bound, by = _bound(args, dtype)
+            alone = route == "decode"      # time on the device alone
             cases.append({
                 "case": name, "dtype": dname, "route": route, "shape": {
                     "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
@@ -448,19 +484,29 @@ def phase_a(dev, flush):
                     "live": [int(n) for n in lens]},
                 "max_abs_err": err, "tol_share": share,
                 "tol": {"atol": TOL[dtype], "rtol": rtol},
-                "ms": time_ms(lambda: kern(*args), flush),
-                "plain_ms": time_ms(lambda: plain(*args), flush),
-                "library_ms": time_ms(_sdpa_fn(args), flush),
+                "ms": time_ms(lambda: kern(*args), flush, host_ahead=alone),
+                "plain_ms": time_ms(lambda: plain(*args), flush,
+                                    host_ahead=alone),
+                "library_ms": time_ms(_sdpa_fn(args), flush,
+                                      host_ahead=alone),
                 "bound_ms": bound, "bound_by": by})
             if route == "prefill":
                 cases[-1].update(_route_timings(args, {}, ref, err_of, flush))
                 cases[-1]["split_tol_share"] = share_of(
                     paged_attn._launch(*args, route="split"))
+            if route == "decode":
+                timed = _decode_timings(args, {}, out, ref, err_of, flush)
+                cases[-1]["split_tol_share"] = share_of(timed.pop("split"))
+                cases[-1].update(timed)
+                check(timed["repeat_bitwise"],
+                      f"{name}/{dname}: two decode launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale K/V past each cursor and garbage in the scratch page (the
         # blocks past the live length map to it) change no output bit, on
-        # the split route (decode) and, in bf16, the prefill route.
-        stale = [("split", decode_lens, 1, 64, 4 * 64 + 1)]
+        # the route decode takes (bf16: the decode route; f32: the split
+        # route) and, in bf16, the prefill route.
+        stale = [("decode" if dtype == torch.bfloat16 else "split",
+                  decode_lens, 1, 64, 4 * 64 + 1)]
         if dtype == torch.bfloat16:
             stale.append(("prefill", *STALE_PREFILL))
         for route, lens, sq, nb, pages in stale:
@@ -533,13 +579,15 @@ def phase_a_int8(dev, flush):
             args = (args[0].to(dtype),) + args[1:]
             base5, kw = args[:5], scales(args)
             route = paged_attn._route(sq, H // KV, HD, dtype, True)
-            before = (attn.launches_int8, attn.launches_prefill_int8)
+            before = (attn.launches_int8, attn.launches_prefill_int8,
+                      attn.launches_decode_int8)
             out = attn(*base5, **kw)
             want = plain(*base5, **kw)
             torch.cuda.synchronize()
             check((attn.launches_int8 - before[0],
-                   attn.launches_prefill_int8 - before[1])
-                  == (1, int(route == "prefill")),
+                   attn.launches_prefill_int8 - before[1],
+                   attn.launches_decode_int8 - before[2])
+                  == (1, int(route == "prefill"), int(route == "decode")),
                   f"int8 {name}/{dname}: the {route} route did not launch")
             check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                   f"int8 {name}/{dname}: {out.dtype} or non-finite")
@@ -553,6 +601,7 @@ def phase_a_int8(dev, flush):
                     dtype).view(x.shape)
 
             bound, by = _bound(args, dtype)
+            alone = route == "decode"      # time on the device alone
             cases.append({
                 "case": name, "dtype": dname, "branch": "int8",
                 "route": route, "shape": {
@@ -563,10 +612,13 @@ def phase_a_int8(dev, flush):
                 "tol": (TOL[dtype] if dtype == torch.float32 else
                         {"atol_rms": INT8_TOL_BF16[0],
                          "rtol": INT8_TOL_BF16[1]}),
-                "ms": time_ms(lambda: attn(*base5, **kw), flush),
-                "plain_ms": time_ms(lambda: plain(*base5, **kw), flush),
+                "ms": time_ms(lambda: attn(*base5, **kw), flush,
+                              host_ahead=alone),
+                "plain_ms": time_ms(lambda: plain(*base5, **kw), flush,
+                                    host_ahead=alone),
                 "library_ms": time_ms(_sdpa_fn(
-                    (q, deq(kq, ks), deq(vq, vs), tables, pos)), flush),
+                    (q, deq(kq, ks), deq(vq, vs), tables, pos)), flush,
+                    host_ahead=alone),
                 "bound_ms": bound, "bound_by": by})
             if route == "prefill":
                 cases[-1].update(_route_timings(base5, kw, want, err_of,
@@ -574,11 +626,19 @@ def phase_a_int8(dev, flush):
                 cases[-1]["split_tol_share"] = _int8_err(
                     paged_attn._launch(*base5, **kw, route="split"), want,
                     dtype)[1]
+            if route == "decode":
+                timed = _decode_timings(base5, kw, out, want, err_of, flush)
+                cases[-1]["split_tol_share"] = _int8_err(
+                    timed.pop("split"), want, dtype)[1]
+                cases[-1].update(timed)
+                check(timed["repeat_bitwise"],
+                      f"int8 {name}/{dname}: two decode launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale int8 cells past each cursor (127, scale 1e4) and garbage in
         # the scratch page and its scale page change no output bit, on the
-        # split route and, in bf16, the prefill route.
-        stale = [("split", decode_lens, 1, 64, 4 * 64 + 1)]
+        # route decode takes and, in bf16, the prefill route.
+        stale = [("decode" if dtype == torch.bfloat16 else "split",
+                  decode_lens, 1, 64, 4 * 64 + 1)]
         if dtype == torch.bfloat16:
             stale.append(("prefill", *STALE_PREFILL))
         for route, lens, sq, nb, pages in stale:
@@ -685,6 +745,8 @@ def _serve_phase(phase, dev, quant: bool):
     launches = {"fp": attn.launches, "int8": attn.launches_int8}
     prefill_route = {"fp": attn.launches_prefill,
                      "int8": attn.launches_prefill_int8}
+    decode_route = {"fp": attn.launches_decode,
+                    "int8": attn.launches_decode_int8}
     check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
     for o in outs:
         check(o.finish_reason == "length" and len(o.tokens) == 32,
@@ -701,14 +763,18 @@ def _serve_phase(phase, dev, quant: bool):
           f"kernel launches {launches}: want {want} = n_layers x (decode "
           f"iterations {summ['decode_steps']} + prefill chunks {chunks}) "
           f"of the {branch} branch and none of the other")
-    routes = {"prefill": prefill_route[branch],
-              "split": launches[branch] - prefill_route[branch]}
-    check(routes == {"prefill": cfg.n_layers * chunks,
-                     "split": cfg.n_layers * summ["decode_steps"]}
-          and sum(prefill_route.values()) == routes["prefill"],
-          f"launches by route {routes}: want n_layers x prefill chunks "
-          f"{chunks} on the prefill route and n_layers x decode iterations "
-          f"{summ['decode_steps']} on the split route")
+    routes = {"decode": decode_route[branch],
+              "prefill": prefill_route[branch],
+              "split": (launches[branch] - prefill_route[branch]
+                        - decode_route[branch])}
+    check(routes == {"decode": cfg.n_layers * summ["decode_steps"],
+                     "prefill": cfg.n_layers * chunks, "split": 0}
+          and sum(prefill_route.values()) == routes["prefill"]
+          and sum(decode_route.values()) == routes["decode"],
+          f"launches by route {routes}: want n_layers x decode iterations "
+          f"{summ['decode_steps']} on the decode route, n_layers x prefill "
+          f"chunks {chunks} on the prefill route and none on the split "
+          f"route")
     result = {
         "phase": phase, "model": "llama3-8b", "layers": cfg.n_layers,
         "dtype": "bfloat16", **kw, "slots": 4, "prefill_chunk_tokens": 512,
@@ -739,6 +805,7 @@ def _serve_phase(phase, dev, quant: bool):
 def _zero_counts(attn) -> None:
     attn.launches = attn.launches_int8 = 0
     attn.launches_prefill = attn.launches_prefill_int8 = 0
+    attn.launches_decode = attn.launches_decode_int8 = 0
 
 
 def phase_b(dev):
@@ -773,6 +840,7 @@ def phase_j(dev, b_streams):
 
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_prefill", "paged_prefill"),
+                     ("paged_decode", "paged_decode"),
                      ("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
                      ("flash_fwd_wgmma", "flash_fwd_wgmma"),
@@ -862,6 +930,12 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
     device_ms = sum(k[2] for k in kernels)
     by_class = _by_class(kernels)
     launches = sum(k[1] for k in kernels) / steps
+    paged = {cls: sum(c for n, c, _ in kernels
+                      if _kernel_class(n) == cls) / steps
+             for cls in ("paged_decode", "paged_attn")}
+    check(paged == {"paged_decode": n_layers, "paged_attn": 0},
+          f"decode profile launches a step by class {paged}: want "
+          f"{n_layers} of the decode kernel and none of the split kernel")
     log({"phase": phase, "case": "decode_profile", "slots": eng.num_slots,
          "steps": steps, "step_ms": step_ms,
          "device_ms_per_step": device_ms,
@@ -869,6 +943,7 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
          "device_ms_per_step_by_class": by_class,
          "launches_per_step": launches,
          "launches_per_step_per_layer": launches / n_layers,
+         "paged_launches_per_step_by_class": paged,
          "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
                           "ms_per_step": ms} for n, c, ms in kernels[:8]]})
 
@@ -2059,30 +2134,45 @@ def _agreement(phase, info, ka, kx, dev):
     return result
 
 
-def _paged_entries(fp_cases, b_result, int8_cases, j_result):
-    """Kernel-line entries of the paged kernels, by route and branch: the
-    split kernel's representative case is decode in bf16, the prefill
-    kernel's 512 queries at offset 1024 in bf16; the launches are those
-    of phases B (fp) and J (int8) on each route."""
+def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
+                   k_result):
+    """Kernel-line entries of the paged kernels, by route and branch. The
+    decode kernel's representative case is decode in bf16, the prefill
+    kernel's 512 queries at offset 1024 in bf16, with the launches of
+    phases B (fp) and J (int8) on each route; the split kernel's is decode
+    in f32, with the launches of the f32 kernel paths of phases C (fp) and
+    K (int8), the paths that run it."""
     out = []
     keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = ("split_ms", "split_max_abs_err", "ms_tile64", "ms_tile128")
-    for name, route, source, rep_case in (
-            ("paged_decode_attention", "split", "paged_attn.cu", "decode"),
+    extra = ("split_ms", "split_max_abs_err", "split_tol_share",
+             "repeat_bitwise", "ms_tile64", "ms_tile128")
+    for name, route, source, rep_case, rep_dtype in (
+            ("paged_decode", "decode", "paged_decode.cu", "decode",
+             "bfloat16"),
             ("paged_prefill_attention", "prefill", "paged_prefill.cu",
-             "prefill512")):
-        for branch, cases, served in (("fp", fp_cases, b_result),
-                                      ("quant=True", int8_cases, j_result)):
+             "prefill512", "bfloat16"),
+            ("paged_attn_split", "split", "paged_attn.cu", "decode",
+             "float32")):
+        for branch, cases, served, f32_path in (
+                ("fp", fp_cases, b_result, c_result),
+                ("quant=True", int8_cases, j_result, k_result)):
             mine = [c for c in cases if c["route"] == route]
             rep = next(c for c in mine
-                       if c["case"] == rep_case and c["dtype"] == "bfloat16")
+                       if c["case"] == rep_case and c["dtype"] == rep_dtype)
+            if route == "split":
+                launched = f32_path["launches"]["auto"][
+                    "fp" if branch == "fp" else "int8"]
+                where = f"{f32_path['phase']} (f32 kernel path)"
+            else:
+                launched = served["route_launches"][route]
+                where = served["phase"]
             out.append({
                 "name": name + ("_int8" if branch != "fp" else ""),
                 "route": "cuda",
                 "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
                 "replaces": PAGED_REPLACES, "branch": branch,
-                "launches": served["route_launches"][route],
+                "launches": launched, "launches_in": where,
                 **{k: rep[k] for k in keys[2:]},
                 "cases": [{k: c[k] for k in keys + extra + ("tol_share",)
                            if k in c} for c in mine]})
@@ -2175,8 +2265,8 @@ def main() -> int:
     int8_cases = timed("A_int8", phase_a_int8, dev, flush)
     b, b_streams = timed("B", phase_b, dev)
     j = timed("J", phase_j, dev, b_streams)
-    timed("C", phase_c, dev)
-    timed("K", phase_k, dev)
+    c = timed("C", phase_c, dev)
+    k = timed("K", phase_k, dev)
     flash_rows = timed("D", phase_d, dev, flush)
     gmm_rows = timed("G", phase_g, dev, flush)
     del flush
@@ -2189,7 +2279,7 @@ def main() -> int:
         i = timed("I", phase_i, dev)
     finally:
         distributed.shutdown()
-    log({"kernels": _paged_entries(cases, b, int8_cases, j)
+    log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k)
          + _flash_entries(flash_rows, e, f) + _gmm_entries(gmm_rows, h, i)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

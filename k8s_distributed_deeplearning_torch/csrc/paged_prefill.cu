@@ -105,24 +105,6 @@ struct Plan {
   static constexpr int BYTES = TAB_OFF + TAB_W * 4 + 1024;   // + alignment
 };
 
-// Eight int8 values (lowest byte first) as eight bf16, exactly, without
-// the quarter-rate integer conversion: byte u = x + 128 placed in the
-// mantissa of f32 bits 0x4B0000uu is 2^23 + u, and 2^23 + u - (2^23 + 128)
-// is x.
-__device__ __forceinline__ uint4 s8x8_to_bf16(uint2 w) {
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t u = (k < 2 ? w.x : w.y) ^ 0x80808080u;
-    const int b = (k & 1) * 2;                  // first byte of the pair
-    const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b));
-    const float hi =
-        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b + 1));
-    o[k] = pack_bf16(lo - 8388736.f, hi - 8388736.f);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
 // Grid: (n_kv * B, row tiles). CTA (x, y) serves KV head x % n_kv of batch
 // row x / n_kv and row tile (row tiles - 1 - y): flattened rows
 // [tile * ROWS, (tile + 1) * ROWS), row r being query position r / group

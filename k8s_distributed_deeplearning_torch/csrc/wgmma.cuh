@@ -1,10 +1,11 @@
-// Helpers shared by the port's wgmma kernels (paged_prefill.cu,
-// flash_bwd.cu, flash_fwd.cu, gmm_wgmma.cu): the 128-byte swizzled tile
-// layout and its wgmma descriptors, cp.async copies, the wgmma fences,
-// commits and waits, the m64n64k16 and m64n128k16 bf16 products, the
-// m64n256k16 one from shared memory with transpose flags (the grouped
-// GEMMs), and the register fences that keep the compiler from moving
-// accumulator reads across asynchronous products. Everything is
+// Helpers shared by the port's tensor-core kernels (paged_prefill.cu,
+// paged_decode.cu, flash_bwd.cu, flash_fwd.cu, gmm_wgmma.cu): the
+// 128-byte swizzled tile layout and its wgmma descriptors, cp.async
+// copies, the wgmma fences, commits and waits, the m64n64k16 and
+// m64n128k16 bf16 products, the m64n256k16 one from shared memory with
+// transpose flags (the grouped GEMMs), the register fences that keep the
+// compiler from moving accumulator reads across asynchronous products, and
+// the exact int8-to-bf16 conversion of the int8 KV pools. Everything is
 // device-inline; each source that includes this file builds into its own
 // library, and ops/_build.py hashes every csrc/*.cuh with the source, so
 // an edit here rebuilds them all.
@@ -275,6 +276,24 @@ __device__ __forceinline__ void wgmma_ss_rows(float (&d)[32], uint32_t addr,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Eight int8 values (lowest byte first) as eight bf16, exactly, without
+// the quarter-rate integer conversion: byte u = x + 128 placed in the
+// mantissa of f32 bits 0x4B0000uu is 2^23 + u, and 2^23 + u - (2^23 + 128)
+// is x.
+__device__ __forceinline__ uint4 s8x8_to_bf16(uint2 w) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t u = (k < 2 ? w.x : w.y) ^ 0x80808080u;
+    const int b = (k & 1) * 2;                  // first byte of the pair
+    const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b));
+    const float hi =
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b + 1));
+    o[k] = pack_bf16(lo - 8388736.f, hi - 8388736.f);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 }  // namespace

@@ -12,14 +12,18 @@ pools are int8 and each token has one f32 scale per KV head,
 ``f32(int8) * scale``.
 
 - :func:`paged_decode_attention` launches a hand-written CUDA kernel on
-  CUDA tensors, and takes the plain version on CPU tensors. Two kernels
-  share the contract, and :func:`_route` picks one by shape alone: bf16
-  query chunks with ``sq x group >= 64`` rows per KV head and head_dim 64
-  or 128 go to the tensor-core prefill kernel (``csrc/paged_prefill.cu``,
-  route ``"prefill"``); decode, f32 and every other shape to the split
-  kernel (``csrc/paged_attn.cu``, route ``"split"``). There is no
-  fallback from one to another: a CUDA tensor the chosen kernel cannot
-  take, or a failed build or launch, raises.
+  CUDA tensors, and takes the plain version on CPU tensors. Three kernels
+  share the contract, and :func:`_route` picks one by shape alone, for q
+  with ``sq`` positions and ``group = H / kv`` query heads a KV head:
+  bf16 decode and short verify windows (``sq x group <= 16``) at head_dim
+  64 or 128 go to the tensor-core decode kernel (``csrc/paged_decode.cu``,
+  route ``"decode"``); bf16 query chunks with ``sq x group >= 64`` at
+  head_dim 64 or 128 to the tensor-core prefill kernel
+  (``csrc/paged_prefill.cu``, route ``"prefill"``); f32 q, other head
+  dims and the windows in between to the split kernel
+  (``csrc/paged_attn.cu``, route ``"split"``). There is no fallback from
+  one to another: a CUDA tensor the chosen kernel cannot take, or a
+  failed build or launch, raises.
 - :func:`paged_decode_attention_reference` is the plain version: gather the
   row's pages, mask, softmax, the same arithmetic as the XLA gather path in
   the JAX model (``models/transformer.py`` paged branch), except that a
@@ -44,6 +48,13 @@ _MAX_HEAD_DIM = 256
 # (position, group head) rows per KV head, head_dim 64 or 128.
 _PREFILL_MIN_ROWS = 64
 _PREFILL_HEAD_DIMS = (64, 128)
+# The decode route: bf16 q, at most one 16-row mma tile of flattened rows
+# per KV head, head_dim 64 or 128. A (row, KV head) takes a cluster of up
+# to _DECODE_MAX_SPLITS CTAs, about _DECODE_CTAS_PER_SM an SM in all.
+_DECODE_MAX_ROWS = 16
+_DECODE_HEAD_DIMS = (64, 128)
+_DECODE_CTAS_PER_SM = 2
+_DECODE_MAX_SPLITS = 8
 
 
 def _check_shapes(q, pool_k, pool_v, block_tables, positions,
@@ -136,16 +147,21 @@ def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
 
 def _route(sq: int, group: int, head_dim: int, q_dtype: torch.dtype,
            quant: bool) -> str:
-    """Which kernel takes a CUDA call: ``"prefill"`` (tensor cores) for
-    bf16 q with at least one 64-row wgmma tile of flattened (position,
-    group head) rows per KV head, ``sq * group >= 64``, at head_dim 64 or
-    128, with fp or int8 (``quant``) pools alike; ``"split"`` otherwise:
-    decode (``sq = 1`` at every group size the port serves), f32 q, other
-    head dims."""
-    del quant                     # both branches take both routes
-    if (q_dtype == torch.bfloat16 and sq * group >= _PREFILL_MIN_ROWS
-            and head_dim in _PREFILL_HEAD_DIMS):
-        return "prefill"
+    """Which kernel takes a CUDA call, with fp or int8 (``quant``) pools
+    alike: for bf16 q at head_dim 64 or 128, ``"decode"`` (tensor cores)
+    when the flattened (position, group head) rows per KV head fit one
+    16-row tile, ``sq * group <= 16`` (decode at every group size the port
+    serves, and short verify windows), and ``"prefill"`` (tensor cores)
+    when they fill at least one 64-row wgmma tile, ``sq * group >= 64``;
+    ``"split"`` otherwise: f32 q, other head dims, and ``16 < sq * group
+    < 64``."""
+    del quant                     # both branches take every route
+    if q_dtype == torch.bfloat16:
+        if sq * group <= _DECODE_MAX_ROWS and head_dim in _DECODE_HEAD_DIMS:
+            return "decode"
+        if (sq * group >= _PREFILL_MIN_ROWS
+                and head_dim in _PREFILL_HEAD_DIMS):
+            return "prefill"
     return "split"
 
 
@@ -170,16 +186,19 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
     CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
     tensors launch the kernel :func:`_route` names from the shape: bf16 q
-    with ``sq * (H / kv) >= 64`` and head_dim 64 or 128 runs the
-    tensor-core prefill kernel, everything else the split kernel. Both take
-    pools of q's dtype (or int8 with f32 scales), int32 tables and
-    positions, all contiguous and the pools 16-byte aligned; the split
+    at head_dim 64 or 128 runs the tensor-core decode kernel when
+    ``sq * (H / kv) <= 16`` and the tensor-core prefill kernel when
+    ``sq * (H / kv) >= 64``; everything else runs the split kernel. All
+    three take pools of q's dtype (or int8 with f32 scales), int32 tables
+    and positions, all contiguous and the pools 16-byte aligned; the
+    decode and prefill kernels take bfloat16 q, 16-byte aligned; the split
     kernel takes float32 or bfloat16 q and a ``head_dim`` that is a
     multiple of 8 (of 16 for int8 pools) up to 256; anything else raises.
     Each launch adds one to ``paged_decode_attention.launches`` (fp pools)
     or ``.launches_int8`` (int8 pools), whichever the route; a launch of
-    the prefill route also adds one to ``.launches_prefill`` or
-    ``.launches_prefill_int8``.
+    the decode route also adds one to ``.launches_decode`` or
+    ``.launches_decode_int8``, one of the prefill route to
+    ``.launches_prefill`` or ``.launches_prefill_int8``.
     """
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
@@ -197,6 +216,8 @@ paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
 paged_decode_attention.launches_prefill = 0
 paged_decode_attention.launches_prefill_int8 = 0
+paged_decode_attention.launches_decode = 0
+paged_decode_attention.launches_decode_int8 = 0
 
 
 def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
@@ -205,14 +226,15 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
     """Launch the kernel of ``route`` on CUDA tensors, counting the launch
     on :func:`paged_decode_attention`. :func:`paged_decode_attention`
     calls it with :func:`_route`'s choice; naming the route here lets a
-    caller time both kernels on the same inputs. ``tile_rows`` (prefill
+    caller time two kernels on the same inputs. ``tile_rows`` (prefill
     route: 64 or 128, 0 = the kernel's own choice) fixes the row tile."""
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {q.device}")
-    if route not in ("prefill", "split"):
-        raise ValueError(f"route must be 'prefill' or 'split', got {route!r}")
+    if route not in ("decode", "prefill", "split"):
+        raise ValueError(f"route must be 'decode', 'prefill' or 'split', "
+                         f"got {route!r}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 q, got {q.dtype}")
     quant = k_scale is not None
@@ -238,6 +260,17 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
         if tile_rows not in (0, 64, 128):
             raise ValueError(f"tile_rows must be 0, 64 or 128, got "
                              f"{tile_rows}")
+    elif route == "decode":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the decode kernel takes bfloat16 q, got "
+                            f"{q.dtype}")
+        if hd not in _DECODE_HEAD_DIMS:
+            raise ValueError(f"the decode kernel takes head_dim "
+                             f"{_DECODE_HEAD_DIMS}, got {hd}")
+        if sq * (h // hkv) > _DECODE_MAX_ROWS:
+            raise ValueError(f"the decode kernel takes sq x group <= "
+                             f"{_DECODE_MAX_ROWS} rows per KV head, got "
+                             f"{sq} x {h // hkv}")
     else:
         if hd > _MAX_HEAD_DIM or hd % 8:
             raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and "
@@ -253,8 +286,8 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
             raise ValueError(f"{name} must be contiguous")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("pool_k/pool_v must start 16-byte aligned")
-    if route == "prefill" and q.data_ptr() % 16:
-        raise ValueError("the prefill kernel takes q 16-byte aligned")
+    if route in ("decode", "prefill") and q.data_ptr() % 16:
+        raise ValueError(f"the {route} kernel takes q 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     n_blocks = block_tables.shape[1]
     out = torch.empty_like(q)
@@ -262,7 +295,14 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
               else (None, None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "prefill":
+        if route == "decode":
+            rc = _library("paged_decode").paged_decode_fwd(
+                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+                block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), b, sq, h, hkv, hd, page_tokens, n_blocks,
+                _DTYPE_CODE[q.dtype], _decode_splits(b, hkv, _num_sms(
+                    q.device)), scale, stream)
+        elif route == "prefill":
             rc = _library("paged_prefill").paged_prefill_fwd(
                 q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
                 block_tables.data_ptr(), positions.data_ptr(),
@@ -292,9 +332,11 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
     if quant:
         fn.launches_int8 += 1
         fn.launches_prefill_int8 += route == "prefill"
+        fn.launches_decode_int8 += route == "decode"
     else:
         fn.launches += 1
         fn.launches_prefill += route == "prefill"
+        fn.launches_decode += route == "decode"
     return out
 
 
@@ -303,8 +345,21 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_splits(batch: int, n_kv: int, num_sms: int) -> int:
+    """CTAs per (row, KV head) of the decode kernel: _DECODE_CTAS_PER_SM
+    an SM over the batch rows and KV heads, 1 to _DECODE_MAX_SPLITS."""
+    want = -(-_DECODE_CTAS_PER_SM * num_sms // (batch * n_kv))
+    return max(1, min(want, _DECODE_MAX_SPLITS))
+
+
 # The C entry points of each kernel library: argument and result types.
 _SIGNATURES = {
+    "paged_decode": {
+        "paged_decode_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                             + [ctypes.c_float, ctypes.c_void_p],
+                             ctypes.c_int),
+    },
     "paged_attn": {
         "paged_attn_num_splits": ([ctypes.c_int] * 8, ctypes.c_int),
         "paged_attn_fwd": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9

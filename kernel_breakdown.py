@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where a tile's time goes in a tensor-core kernel of the port.
 
+    python3 kernel_breakdown.py decode       # csrc/paged_decode.cu
     python3 kernel_breakdown.py prefill      # csrc/paged_prefill.cu
     python3 kernel_breakdown.py flash_bwd    # csrc/flash_bwd.cu
     python3 kernel_breakdown.py flash_fwd    # csrc/flash_fwd.cu
@@ -22,6 +23,20 @@ another checkout of the repo (``DIR``, e.g. a parent commit unpacked with
 ``git archive``; its own ``csrc/`` headers), runs every launch once on
 each build, prints whether the outputs are bitwise equal, then times both
 builds as above.
+
+``decode``: Llama-3 8B's heads (32 q, 8 KV, head_dim 128, 32-token pages),
+one query a row, fp and int8 pools, at phase A's decode case (B 4, live
+lengths drawn as phase A draws them, 64-block tables) and at phase B's
+decode-profile shape (B 4, live 512-560 of 64 blocks), the CTA count the
+wrapper picks. Variants: ``no_loads`` (no copies after the first two
+tiles of a warp), ``no_s`` (no S products), ``no_pv`` (no P.V products:
+their fragments are folded into one accumulator element by integer
+XORs), ``no_exp`` (p = x, no exponentials), ``no_convert`` (int8: no
+int8-to-bf16 pass), ``no_merge`` (the cluster's CTA states are not
+merged), ``skeleton`` (none of these: the cursors, the Q and table loads,
+the waits, the masks, the warps' merge and the cluster barriers), and
+``three_slots`` (not a stage: a third ring slot a warp, two tiles ahead,
+at two CTAs an SM).
 
 ``prefill``: Llama-3 8B's heads (32 q, 8 KV, head_dim 128, 32-token
 pages), a 512-query chunk at offset 1024, fp and int8 pools, 128-row
@@ -88,6 +103,40 @@ PREFILL_VARIANTS = {
     "no_convert": [("for (int k = 0; k < 2 * KT / JC; ++k)",
                     "for (int k = 0; k < 0; ++k)", 1)],
 }
+
+DECODE_VARIANTS = {
+    "base": [],
+    "no_loads": [("    if (k + RING - 1 < my_n) issue(next, (k + RING - 1) "
+                  "% RING);\n", "", 1)],
+    "no_s": [("      mma16816(s[0], qa[kk], kf[0], kf[1]);\n"
+              "      mma16816(s[1], qa[kk], kf[2], kf[3]);\n",
+              "      s[0][kk & 3] += __uint_as_float(qa[kk][0] ^ kf[0] ^ "
+              "kf[1]);\n      s[1][kk & 3] += __uint_as_float(qa[kk][1] ^ "
+              "kf[2] ^ kf[3]);\n", 1)],
+    "no_pv": [("      mma16816(o[2 * np], pa, vf[0], vf[1]);\n"
+               "      mma16816(o[2 * np + 1], pa, vf[2], vf[3]);\n"
+               "      if constexpr (QUANT) {\n"
+               "        mma16816(o[2 * np], pl, vf[0], vf[1]);\n"
+               "        mma16816(o[2 * np + 1], pl, vf[2], vf[3]);\n"
+               "      }\n",
+               "      o[2 * np][0] += __uint_as_float(pa[0] ^ pl[0] ^ vf[0] "
+               "^ vf[1]);\n      o[2 * np + 1][0] += __uint_as_float(pa[1] "
+               "^ pl[1] ^ vf[2] ^ vf[3]);\n", 1)],
+    "no_exp": [("float p = ex2(x - ((e & 2) ? mn1 : mn0));",
+                "float p = x;", 1)],
+    "no_convert": [("for (int i = 0; i < 2 * KT * UPK / 32; ++i) {",
+                    "for (int i = 0; i < 0; ++i) {", 1)],
+    "no_merge": [("it < rows * D4; it += n_split * NT) {",
+                  "it < 0; it += n_split * NT) {", 1)],
+}
+# The design point beside this one: three ring slots a warp (two tiles
+# ahead), at two CTAs an SM.
+DECODE_VARIANTS["three_slots"] = [
+    ("constexpr int RING = 2;", "constexpr int RING = 3;", 1),
+    ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 2)", 1)]
+DECODE_VARIANTS["skeleton"] = [
+    sub for name in ("no_loads", "no_s", "no_pv", "no_exp", "no_convert",
+                     "no_merge") for sub in DECODE_VARIANTS[name]]
 
 FLASH_BWD_VARIANTS = {
     "base": [],
@@ -178,6 +227,13 @@ GMM_VARIANTS["skeleton"] = [*GMM_VARIANTS["no_mma"],
                             *GMM_VARIANTS["no_epilogue"]]
 
 
+def bind_decode(lib: ctypes.CDLL) -> None:
+    lib.paged_decode_fwd.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_decode_fwd.restype = ctypes.c_int
+
+
 def bind_prefill(lib: ctypes.CDLL) -> None:
     lib.paged_prefill_fwd.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
@@ -210,6 +266,52 @@ def bind_gmm(lib: ctypes.CDLL) -> None:
 # label -> (launch on a library, the tensors that launch writes)
 Launches = dict[str, tuple[Callable[[ctypes.CDLL], int],
                            tuple[torch.Tensor, ...]]]
+
+
+def decode_case(dev: torch.device, stream: int) -> Launches:
+    """The fp and int8 launches at phase A's decode case and at phase B's
+    decode-profile shape."""
+    from k8s_distributed_deeplearning_torch.models.transformer import (
+        quantize_kv)
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    h, kv, hd, page, n_blocks = 32, 8, 128, 32, 64
+    cases = {"a": [int(n) for n in
+                   np.random.default_rng(0).integers(100, 2001, 4)],
+             "b_profile": [512, 528, 544, 560]}
+    splits = paged_attn._decode_splits(4, kv, paged_attn._num_sms(dev))
+
+    def launch(q, pk, pv, scales, tables, pos, o):
+        return lambda lib: lib.paged_decode_fwd(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+            *(s.data_ptr() if s is not None else None for s in scales),
+            tables.data_ptr(), pos.data_ptr(), o.data_ptr(), 4, 1, h, kv,
+            hd, page, n_blocks, 1, splits, hd ** -0.5, stream)
+
+    out = {}
+    for name, lens in cases.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pages = sum(-(-n // page) for n in lens) + 1
+        q = torch.randn(4, 1, h, hd, device=dev, generator=gen).bfloat16()
+        pools = [torch.randn(pages, page, kv * hd, device=dev,
+                             generator=gen).bfloat16() for _ in range(2)]
+        tables = torch.zeros(4, n_blocks, dtype=torch.int32, device=dev)
+        perm = torch.randperm(pages - 1, device=dev, generator=gen) + 1
+        used = 0
+        for i, n in enumerate(lens):
+            nb = -(-n // page)
+            tables[i, :nb] = perm[used:used + nb]
+            used += nb
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)[:, None] - 1
+        (kq, ks), (vq, vs) = (quantize_kv(p.float().view(pages, page, kv,
+                                                          hd)) for p in pools)
+        o = torch.empty_like(q)
+        out[f"{name}_fp"] = (launch(q, *pools, (None, None), tables, pos,
+                                    o), (o,))
+        out[f"{name}_int8"] = (launch(
+            q, kq.view(pools[0].shape), vq.view(pools[1].shape), (ks, vs),
+            tables, pos, o), (o,))
+    return out
 
 
 def prefill_case(dev: torch.device, stream: int) -> Launches:
@@ -329,6 +431,8 @@ class Kernel(NamedTuple):
 
 
 KERNELS = {
+    "decode": Kernel("paged_decode.cu", DECODE_VARIANTS, bind_decode,
+                     decode_case),
     "prefill": Kernel("paged_prefill.cu", PREFILL_VARIANTS, bind_prefill,
                       prefill_case),
     "flash_bwd": Kernel("flash_bwd.cu", FLASH_BWD_VARIANTS, bind_flash_bwd,

@@ -57,7 +57,8 @@ def _on(dev, dtype, q, pk, pv, tables, pos):
 # and at prefill chunks (the larger one has enough row tiles to run with
 # an unsplit key range, the others split it across blocks), with pages
 # smaller and larger than the 32-key tile and a row tile that straddles
-# query positions (group 3).
+# query positions (group 3). Each case also runs on the split kernel
+# forced, where its route is another one.
 SHAPES = [
     (2, 1, 4, 2, 16, 8, 4, 8),
     (3, 5, 4, 4, 32, 16, 3, 8),
@@ -87,6 +88,9 @@ def test_paged_attn_matches_reference(hopper, dtype, tol, shape):
     ref = paged_decode_attention_reference(*args)
     assert out.dtype == dtype and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    split = paged_attn._launch(*args, route="split")
+    torch.testing.assert_close(split.float(), ref.float(), atol=tol,
+                               rtol=tol)
 
 
 def test_paged_attn_stale_kv_and_scratch_are_inert(hopper):
@@ -157,7 +161,8 @@ def _int8_on(dev, dtype, q, pk, pv, tables, pos):
 # (b, sq, h, hkv, pages, page_tokens, n_blocks, head_dim): Llama-3 8B's
 # heads at decode and at a prefill chunk, 12/4 heads at head_dim 64 with
 # pages of 32 and of 16 tokens, and the JAX verify-window case at head_dim
-# 16, the smallest the int8 branch takes.
+# 16, the smallest the int8 branch takes. Each case also runs on the
+# split kernel forced.
 INT8_SHAPES = [
     (4, 1, 32, 8, 80, 32, 16, 128),
     (2, 128, 32, 8, 80, 32, 16, 128),
@@ -192,18 +197,23 @@ def test_paged_attn_int8_matches_reference(hopper, dtype, tol, shape):
                                            k_scale=ks, v_scale=vs).float()
     assert out.dtype == dtype and out.shape == ref.shape
     limit = tol[0] * float(ref.square().mean().sqrt()) + tol[1] * ref.abs()
-    err = (out.float() - ref).abs()
-    assert bool((err <= limit).all()), float((err / limit).max())
+    split = paged_attn._launch(q, kq, vq, tables, pos, k_scale=ks,
+                               v_scale=vs, route="split")
+    for got in (out, split):
+        err = (got.float() - ref).abs()
+        assert bool((err <= limit).all()), float((err / limit).max())
 
 
 def test_paged_attn_int8_stale_cells_and_scratch_are_inert(hopper):
     """int8 cells past each row's cursor set to 127 with scales 1e4, and
-    the same garbage in the scratch page and its scales, change no bit."""
+    the same garbage in the scratch page and its scales, change no bit of
+    the split kernel (this bf16 shape routes to the decode kernel, whose
+    own test is test_paged_decode_stale_cells_and_scratch_are_inert)."""
     rng = np.random.default_rng(13)
     q, kq, vq, tables, pos, ks, vs = _int8_on(
         hopper, torch.bfloat16, *_case(rng, 3, 2, 8, 2, 64, 16, 6, 64))
-    base = paged_decode_attention(q, kq, vq, tables, pos, k_scale=ks,
-                                  v_scale=vs)
+    base = paged_attn._launch(q, kq, vq, tables, pos, k_scale=ks,
+                              v_scale=vs, route="split")
     kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
     bt = kq.shape[1]
     for bi in range(tables.shape[0]):
@@ -215,8 +225,8 @@ def test_paged_attn_int8_stale_cells_and_scratch_are_inert(hopper):
                     kq2[page, t], vq2[page, t] = 127, 127
                     ks2[page, t], vs2[page, t] = 1e4, 1e4
     kq2[0], vq2[0], ks2[0], vs2[0] = 127, 127, 1e4, 1e4
-    out = paged_decode_attention(q, kq2, vq2, tables, pos, k_scale=ks2,
-                                 v_scale=vs2)
+    out = paged_attn._launch(q, kq2, vq2, tables, pos, k_scale=ks2,
+                             v_scale=vs2, route="split")
     assert torch.equal(out, base)
 
 
@@ -401,6 +411,187 @@ def test_paged_prefill_refuses_and_does_not_fall_back(hopper):
         paged_attn._launch(*args, route="prefill", tile_rows=32)
     torch.cuda.synchronize()
     assert _counts() == before
+
+
+# The decode route (csrc/paged_decode.cu): (b, sq, h, hkv, pages,
+# page_tokens, n_blocks, head_dim, live lengths or None for random ones).
+# Groups 1, 3, 4 and 8 at head_dim 64 and 128; verify windows of 2 and 4
+# (8 and 16 rows a KV head); pages of 2, 16, 24 (not a power of two) and
+# 32 tokens; live lengths from 1 to 8,000, a page and a page and one.
+DECODE_SHAPES = [
+    (4, 1, 32, 8, 300, 32, 64, 128, None),
+    (3, 1, 12, 4, 80, 16, 20, 64, None),
+    (2, 1, 16, 16, 60, 16, 25, 128, None),
+    (2, 2, 64, 8, 80, 32, 16, 128, None),
+    (2, 1, 64, 8, 40, 32, 16, 64, None),
+    (1, 4, 16, 4, 60, 24, 20, 128, None),
+    (2, 1, 32, 8, 3100, 2, 1500, 128, None),
+    (3, 1, 32, 8, 80, 32, 16, 128, [1, 32, 33]),
+    (4, 1, 32, 8, 1100, 32, 256, 128, [1, 33, 4000, 8000]),
+    (1, 1, 12, 4, 20, 32, 16, 64, [1]),
+]
+
+
+def _lens_case(rng, b, sq, h, hkv, pages, bt, nb, hd, lens):
+    """_case with the live lengths given: row i queries the last ``sq``
+    positions of its ``lens[i]`` tokens, its blocks on distinct pages."""
+    q, pk, pv, _, _ = _case(rng, b, sq, h, hkv, pages, bt, nb, hd)
+    tables = np.zeros((b, nb), np.int32)
+    free = rng.permutation(np.arange(1, pages))
+    used = 0
+    for i, n in enumerate(lens):
+        k = -(-n // bt)
+        tables[i, :k] = free[used:used + k]
+        used += k
+    pos = (np.asarray(lens)[:, None] - sq + np.arange(sq)[None, :]).astype(
+        np.int32)
+    return q, pk, pv, tables, pos
+
+
+def _decode_args(dev, shape, quant, seed):
+    rng = np.random.default_rng(seed)
+    *dims, lens = shape
+    arrays = (_case(rng, *dims) if lens is None
+              else _lens_case(rng, *dims, lens))
+    if quant:
+        q, kq, vq, tables, pos, ks, vs = _int8_on(dev, torch.bfloat16,
+                                                  *arrays)
+        return (q, kq, vq, tables, pos), dict(k_scale=ks, v_scale=vs)
+    return _on(dev, torch.bfloat16, *arrays), {}
+
+
+def _decode_counts():
+    f = paged_decode_attention
+    return (f.launches, f.launches_int8, f.launches_decode,
+            f.launches_decode_int8)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_paged_decode_matches_reference(hopper, quant, shape):
+    """The decode kernel against the plain version (fp: 2e-2, as the split
+    kernel; int8: INT8_DTYPES' bf16 limit), one launch counted on its
+    route, and a second launch bitwise equal."""
+    b, sq, h, hkv, _, _, _, hd, _ = shape
+    assert paged_attn._route(sq, h // hkv, hd, torch.bfloat16,
+                             quant) == "decode"
+    args, kw = _decode_args(hopper, shape, quant, sum(shape[:8]) + quant)
+    before = _decode_counts()
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_decode_counts(), before)]
+    assert moved == ([0, 1, 0, 1] if quant else [1, 0, 1, 0])
+    ref = paged_decode_attention_reference(*args, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    _assert_prefill_close(out, ref, quant)
+    again = paged_attn._launch(*args, **kw, route="decode")
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_decode_stale_cells_and_scratch_are_inert(hopper, quant):
+    """Every cell past each row's cursor (fp: +-1e4; int8: 127 with scales
+    1e4), the blocks past the live length pointed at the scratch page, and
+    garbage in the scratch page change no output bit of the decode route,
+    at a verify window of 2 (cursors that differ within a row)."""
+    shape = (3, 2, 32, 8, 120, 16, 24, 128, [350, 300, 17])
+    args, kw = _decode_args(hopper, shape, quant, 29)
+    q, pk, pv, tables, pos = args
+    before = _decode_counts()[2:]
+    base = paged_decode_attention(*args, **kw)
+    pk2, pv2, t2 = pk.clone(), pv.clone(), tables.clone()
+    kw2 = {k: v.clone() for k, v in kw.items()}
+    bt = pk.shape[1]
+    for bi in range(tables.shape[0]):
+        cursor = int(pos[bi].max())
+        for blk in range(tables.shape[1]):
+            page = int(tables[bi, blk])
+            for t in range(bt):
+                if blk * bt + t > cursor:
+                    pk2[page, t] = 127 if quant else 1e4
+                    pv2[page, t] = 127 if quant else -1e4
+                    for v in kw2.values():
+                        v[page, t] = 1e4
+            if blk * bt > cursor:
+                t2[bi, blk] = 0
+    pk2[0], pv2[0] = (127, 127) if quant else (1e4, -1e4)
+    for v in kw2.values():
+        v[0] = 1e4
+    out = paged_decode_attention(q, pk2, pv2, t2, pos, **kw2)
+    assert torch.equal(out, base)
+    assert [a - b for a, b in zip(_decode_counts()[2:], before)] == (
+        [0, 2] if quant else [2, 0])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_decode_fully_masked_row_is_zero(hopper, quant):
+    args, kw = _decode_args(hopper, (3, 2, 32, 8, 80, 16, 20, 128, None),
+                            quant, 31)
+    q, pk, pv, tables, pos = args
+    pos[0, 1] = -1
+    pos[1] = -1                       # a whole batch row sees nothing
+    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert torch.all(out[0, 1] == 0) and torch.all(out[1] == 0)
+    assert torch.isfinite(out).all()
+    _assert_prefill_close(out, paged_decode_attention_reference(
+        q, pk, pv, tables, pos, **kw), quant)
+
+
+def test_paged_decode_launches_count_by_route(hopper):
+    """A decode-shaped bf16 call counts on the decode route; the same
+    inputs through the split kernel forced, and an f32 call, count on the
+    branch alone."""
+    shape = (2, 1, 32, 8, 80, 32, 16, 128, None)
+    for quant in (False, True):
+        args, kw = _decode_args(hopper, shape, quant, 41)
+        branch = [0, 1] if quant else [1, 0]
+        for call, on_decode in (
+                (lambda: paged_decode_attention(*args, **kw), True),
+                (lambda: paged_attn._launch(*args, **kw, route="split"),
+                 False),
+                (lambda: paged_decode_attention(
+                    args[0].float(), *args[1:], **kw) if quant else
+                 paged_decode_attention(args[0].float(), args[1].float(),
+                                        args[2].float(), *args[3:]),
+                 False)):
+            before = _decode_counts()
+            call()
+            moved = [a - b for a, b in zip(_decode_counts(), before)]
+            assert moved == branch + ([x * on_decode for x in branch])
+
+
+def test_paged_decode_refuses_and_does_not_fall_back(hopper):
+    """What the decode kernel does not take raises, from the public
+    function and from the private launcher, and nothing launches."""
+    args, _ = _decode_args(hopper, (2, 1, 32, 8, 48, 16, 20, 128, None),
+                           False, 37)
+    q, pk, pv, tables, pos = args
+    before = _decode_counts()
+    raw = torch.empty(q.numel() + 4, dtype=q.dtype, device=q.device)
+    q_off = raw[4:].view(q.shape)     # contiguous, 8 bytes off alignment
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q_off, pk, pv, tables, pos)
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_attn._launch(q.float(), pk.float(), pv.float(), tables, pos,
+                           route="decode")
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attn._launch(q[..., :80].contiguous(),
+                           pk.view(48, 16, 8, 128)[..., :80].reshape(
+                               48, 16, 640).contiguous(),
+                           pv.view(48, 16, 8, 128)[..., :80].reshape(
+                               48, 16, 640).contiguous(), tables, pos,
+                           route="decode")
+    wide = q.expand(2, 5, 32, 128).contiguous()      # 5 x 4 = 20 rows
+    with pytest.raises(ValueError, match="sq x group"):
+        paged_attn._launch(wide, pk, pv, tables, pos.expand(2, 5).contiguous(),
+                           route="decode")
+    with pytest.raises(ValueError, match="route"):
+        paged_attn._launch(*args, route="flash")
+    torch.cuda.synchronize()
+    assert _decode_counts() == before
 
 
 def test_build_directory_is_ignored_by_git():
