@@ -101,7 +101,9 @@ G. The grouped-matmul kernels (the forward and, reading the weight
    shapes (K 768 -> N 2048 and K 2048 -> N 768, group sizes from a seeded
    top-2 router) in bf16 and f32, and Mixtral-8x7B-class expert shapes
    (K 4096 -> N 14336 and K 14336 -> N 4096) in bf16, balanced and skewed
-   (one expert 40 %, one empty). bf16 runs both routes on the same inputs
+   (one expert 40 %, one empty); then the slice's shapes at phase M's
+   prefill (4,096 rows from a seeded top-2 router, block 512) in bf16.
+   bf16 runs both routes on the same inputs
    (``gmm_wgmma``/``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, and the
    mma.sync ``gmm_kernel``/``tgmm_kernel`` of ``csrc/gmm.cu`` forced), f32
    the mma route alone. Every
@@ -141,6 +143,34 @@ J. Quantized serving: phase B's engine and workload with
 K. Phase C with kv and weight int8: f32 at 8B width and 4 layers, the int8
    kernel path against the plain path; the first 16 greedy tokens of all
    8 requests agree; then the bf16 prefill check of phase C.
+L. One-shot ``generate`` on the dense KV cache at Llama-3 8B, full width
+   and depth, bf16, random weights from seed 0: 4 left-padded prompts of
+   100-1,500 real tokens (1,500 columns, a 1,536-column cache window) and
+   32 new tokens, greedy, then sampled (T 0.8, top-k 50, top-p 0.9) twice
+   from one seed. Tokens in the vocabulary, the cache at the window's
+   width, the two sampled runs equal, and no paged, flash or grouped-
+   matmul kernel launched (the dense path's attention is the einsum path,
+   as JAX's is XLA attention). Reports prefill ms, decode tokens/s, peak
+   memory, one decode step's host ms, device ms by kernel class and busy
+   share (``torch.profiler``), and, as a reading, the greedy tokens equal
+   to each row generated alone. Then in f32 (TF32 off) at 8B width and 4
+   layers, one set of weights: each of phase C's 8 requests generated
+   alone equals the ``ServeEngine`` greedy stream (split paged kernel)
+   for 16 tokens, and each row of a left-padded batch of 4 equals that
+   row alone.
+M. ``generate`` on the ragged MoE (phase H's backbone, 8 experts top-2,
+   block 512, bf16, random weights): 4 left-padded prompts to 512 columns
+   (2,048 tokens, so the prefill takes the grouped GEMMs) and 32 new
+   tokens, greedy. The wgmma grouped GEMM launches exactly 3 x layers
+   times in the prefill and the decode steps (4 tokens, the index path)
+   add none; no other kernel runs. Reports prefill ms and its device time
+   by class, decode tokens/s, peak memory. The logits of every real
+   prefill position, ragged against ``dispatch="index"`` on the same
+   weights, within ``MOE_BF16_LOGIT_RTOL`` (one bf16 step, relative L2),
+   and a row block planted on the wrong expert above it; the first greedy
+   token equal where decided; in f32 at 2 layers the two give the same 16
+   greedy tokens and prefill logits within 1e-4 relative, the ragged
+   path on the mma route (3 x layers launches).
 
 Prints the card's name and power limit, the build time, one JSON line per
 phase, a ``{"kernels": [...]}`` line, and last
@@ -901,11 +931,35 @@ def _profile_reps(fn, reps: int):
     return prof
 
 
+def _profile(fn, reps: int) -> dict:
+    """Where one call of ``fn`` goes, per call: the host clock over
+    ``reps`` calls, then device time by kernel over ``reps`` more under
+    ``torch.profiler``; the busy share divides the profiled device time by
+    the unprofiled host time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels = _device_ms_by_kernel(_profile_reps(fn, reps), reps)
+    device_ms = sum(k[2] for k in kernels)
+    launches: dict[str, float] = {}
+    for name, count, _ in kernels:
+        cls = _kernel_class(name)
+        launches[cls] = launches.get(cls, 0) + count / reps
+    return {"reps": reps, "host_ms": host_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / host_ms,
+            "device_ms_by_class": _by_class(kernels),
+            "launches": sum(launches.values()),
+            "launches_by_class": launches,
+            "top_kernels": [{"name": n[:90], "launches": c / reps,
+                             "ms": ms} for n, c, ms in kernels[:10]]}
+
+
 def decode_profile(phase, eng, n_layers, steps: int = 16):
-    """Where a decode iteration's time goes, with every slot busy: the host
-    clock over ``steps`` iterations, then device time by kernel over
-    ``steps`` more under ``torch.profiler``. The busy share divides the
-    profiled device time by the unprofiled host time."""
+    """Where a decode iteration's time goes, with every slot busy
+    (:func:`_profile` over ``steps`` iterations)."""
     from k8s_distributed_deeplearning_torch.serve import Request
 
     vocab = eng.model.cfg.vocab_size
@@ -916,36 +970,17 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
                            request_id=f"p{i}"))
     while eng.occupied_slots() < eng.num_slots:
         eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    prof = _profile_reps(eng.step, steps)
+    prof = _profile(eng.step, steps)
     check(eng.occupied_slots() == eng.num_slots,
           "a slot emptied inside the profiled decode window")
     eng.run()
-    kernels = _device_ms_by_kernel(prof, steps)
-    device_ms = sum(k[2] for k in kernels)
-    by_class = _by_class(kernels)
-    launches = sum(k[1] for k in kernels) / steps
-    paged = {cls: sum(c for n, c, _ in kernels
-                      if _kernel_class(n) == cls) / steps
+    paged = {cls: prof["launches_by_class"].get(cls, 0)
              for cls in ("paged_decode", "paged_attn")}
     check(paged == {"paged_decode": n_layers, "paged_attn": 0},
           f"decode profile launches a step by class {paged}: want "
           f"{n_layers} of the decode kernel and none of the split kernel")
     log({"phase": phase, "case": "decode_profile", "slots": eng.num_slots,
-         "steps": steps, "step_ms": step_ms,
-         "device_ms_per_step": device_ms,
-         "device_busy_share": device_ms / step_ms,
-         "device_ms_per_step_by_class": by_class,
-         "launches_per_step": launches,
-         "launches_per_step_per_layer": launches / n_layers,
-         "paged_launches_per_step_by_class": paged,
-         "top_kernels": [{"name": n[:90], "launches_per_step": c / steps,
-                          "ms_per_step": ms} for n, c, ms in kernels[:8]]})
+         **prof, "launches_per_layer": prof["launches"] / n_layers})
 
 
 def _table(eng, n_tokens: int):
@@ -959,13 +994,11 @@ def _table(eng, n_tokens: int):
 
 def prefill_profile(phase, eng, n_layers, offset: int = 1024,
                     chunk: int = 512, reps: int = 4):
-    """Where a prefill chunk's time goes: a 512-token chunk at offset 1024
-    of a random prompt (the chunks before it written first), the host
-    clock over ``reps`` runs of it, then device time by kernel class over
-    ``reps`` more under ``torch.profiler``; the busy share divides the
-    profiled device time by the unprofiled host time. Then the same again
-    with the split kernel forced in place of the prefill route, on the
-    same card in the same run: the before and after of the route."""
+    """Where a prefill chunk's time goes (:func:`_profile`): a 512-token
+    chunk at offset 1024 of a random prompt (the chunks before it written
+    first). Then the same again with the split kernel forced in place of
+    the prefill route, on the same card in the same run: the before and
+    after of the route."""
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
     vocab = eng.model.cfg.vocab_size
@@ -985,33 +1018,12 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
         for route in ("prefill", "split"):
             paged_attn._route = lambda *a, route=route: route
             run(offset)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                run(offset)
-            torch.cuda.synchronize()
-            chunk_ms = (time.perf_counter() - t0) / reps * 1e3
-            prof = _profile_reps(lambda: run(offset), reps)
-            kernels = _device_ms_by_kernel(prof, reps)
-            device_ms = sum(k[2] for k in kernels)
-            by_class = _by_class(kernels)
-            launches = {cls: sum(c for n, c, _ in kernels
-                                 if _kernel_class(n) == cls) / reps
-                        for cls in by_class}
-            result[route] = {
-                "chunk_ms": chunk_ms, "device_ms_per_chunk": device_ms,
-                "device_busy_share": device_ms / chunk_ms,
-                "device_ms_per_chunk_by_class": by_class,
-                "launches_per_chunk_by_class": launches,
-                "top_kernels": [{"name": n[:90],
-                                 "launches_per_chunk": c / reps,
-                                 "ms_per_chunk": ms}
-                                for n, c, ms in kernels[:6]]}
+            result[route] = _profile(lambda: run(offset), reps)
     finally:
         paged_attn._route = routed
         for page in pages:
             eng.pool.deref(page)
-    got = {route: result[route]["launches_per_chunk_by_class"]
+    got = {route: result[route]["launches_by_class"]
            for route in ("prefill", "split")}
     check(got["prefill"].get("paged_prefill") == n_layers
           and "paged_attn" not in got["prefill"]
@@ -1021,8 +1033,8 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
           "prefill kernel on its route and none of the split kernel, and "
           "the reverse with the split kernel forced")
     result["device_ms_saved_per_chunk"] = (
-        result["split"]["device_ms_per_chunk"]
-        - result["prefill"]["device_ms_per_chunk"])
+        result["split"]["device_ms"]
+        - result["prefill"]["device_ms"])
     log(result)
     return result
 
@@ -1163,6 +1175,462 @@ def phase_c(dev):
 def phase_k(dev):
     result = _paths_phase("K", dev, quant=True)
     result["bf16_prefill"] = _bf16_prefill_logits("K", dev, quant=True)
+    return result
+
+
+# ------------------------------------------------------------- phase L/M
+
+GEN_NEW = 32
+
+
+def _all_launches() -> dict:
+    """Every wrapper's launches by kernel-line name (:func:`_launch_counts`)
+    and the paged wrapper's by branch and route."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    attn = paged_attn.paged_decode_attention
+    out = _launch_counts()
+    out.update({f"paged_{k}": getattr(attn, k) for k in (
+        "launches_int8", "launches_prefill", "launches_prefill_int8",
+        "launches_decode", "launches_decode_int8")})
+    return out
+
+
+def _zero_all() -> None:
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    _zero_launches()
+    _zero_counts(paged_attn.paged_decode_attention)
+
+
+def _pad_left(rows) -> tuple[np.ndarray, np.ndarray]:
+    """Token rows left-padded (with 0) to the longest, and their mask."""
+    s = max(len(r) for r in rows)
+    prompt = np.zeros((len(rows), s), np.int32)
+    mask = np.zeros((len(rows), s), np.int32)
+    for i, r in enumerate(rows):
+        prompt[i, s - len(r):] = r
+        mask[i, s - len(r):] = 1
+    return prompt, mask
+
+
+def _left_padded(vocab, lens, seed):
+    """Random prompts of ``lens`` real tokens each, left-padded."""
+    rng = np.random.default_rng(seed)
+    return _pad_left([rng.integers(0, vocab, n) for n in lens])
+
+
+class _PrefillSpy:
+    """While in use, ``models.generate.prefill`` is wrapped: synchronized
+    on both sides, each call records its seconds, the cache it made and
+    every wrapper's launches just after it."""
+
+    def __enter__(self):
+        from k8s_distributed_deeplearning_torch.models import generate
+
+        self.lib, self.orig = generate, generate.prefill
+
+        def spied(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+            self.cache = cache
+            self.launches = _all_launches()
+            return logits, cache
+
+        generate.prefill = spied
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.prefill = self.orig
+
+
+def _generate(model, prompt, **kw):
+    """One ``generate`` call on a host prompt, synchronized: tokens on the
+    host and its wall seconds. The tokens come back on the model's
+    device."""
+    from k8s_distributed_deeplearning_torch.models import generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate.generate(model, prompt, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    where = next(model.parameters()).device
+    check(out.device == where, f"generate ran on {out.device}, the model "
+          f"lives on {where}")
+    return out.cpu().numpy(), wall
+
+
+def _in_vocab(tokens, vocab, what):
+    check(bool(((tokens >= 0) & (tokens < vocab)).all()),
+          f"{what}: token outside the vocabulary")
+
+
+def phase_l(dev):
+    """Phase L: one-shot ``generate`` at Llama-3 8B, full width and depth,
+    bf16, random weights from seed 0, on the dense cache; then the f32
+    cross-checks at 4 layers."""
+    from k8s_distributed_deeplearning_torch.models import generate, llama
+
+    cfg = llama.config_llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    lens = [1500] + np.random.default_rng(6).integers(100, 1500, 3).tolist()
+    prompt, mask = _left_padded(cfg.vocab_size, lens, seed=7)
+    window = generate.cache_window(cfg.max_seq_len, prompt.shape[1],
+                                   GEN_NEW)
+    sampling = dict(temperature=0.8, top_k=50, top_p=0.9)
+    runs = {}
+    with _PrefillSpy() as spy:
+        _zero_all()
+        # The first call pays the allocator's growth and cuBLAS's first
+        # plans; the rates come from the second greedy run.
+        for name in ("greedy_first", "greedy", "sampled", "sampled_again"):
+            kw = {}
+            if name.startswith("sampled"):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(11)
+                kw = dict(sampling, generator=gen)
+            out, wall = _generate(model, prompt, max_new_tokens=GEN_NEW,
+                                  prompt_mask=mask, **kw)
+            check(out.shape == (4, GEN_NEW), f"{name}: shape {out.shape}")
+            _in_vocab(out, cfg.vocab_size, name)
+            check(spy.cache.length == window,
+                  f"{name}: cache of {spy.cache.length} columns, want the "
+                  f"window {window}")
+            runs[name] = {"tokens": out, "prefill_s": spy.seconds,
+                          "wall_s": wall}
+        launches = _all_launches()
+        cache = spy.cache
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not any(launches.values()),
+          f"launches during generate {launches}: the dense path runs no "
+          "paged, flash or grouped-matmul kernel")
+    check(np.array_equal(runs["sampled"]["tokens"],
+                         runs["sampled_again"]["tokens"]),
+          "two sampled runs from one seed differ")
+    greedy = runs["greedy"]["tokens"]
+    check(np.array_equal(greedy, runs["greedy_first"]["tokens"]),
+          "two greedy runs differ")
+    # A reading, not a gate: a row alone multiplies [1, S] matrices, the
+    # batch [4, S], and cuBLAS may sum those in another order in bf16.
+    alone = []
+    for i, n in enumerate(lens):
+        row, _ = _generate(model, prompt[i:i + 1, -n:],
+                           max_new_tokens=GEN_NEW)
+        same = row[0] == greedy[i]
+        alone.append({"len": n, "equal": int(same.sum()),
+                      "first_diff": (None if same.all()
+                                     else int(np.argmin(same)))})
+    pm = torch.from_numpy(mask).to(dev)
+    step_kw = dict(positions=pm.sum(-1, dtype=torch.int32)[:, None],
+                   segment_ids=torch.ones(4, 1, dtype=torch.int32,
+                                          device=dev))
+    token = torch.from_numpy(greedy[:, 0]).to(dev)
+
+    def step():
+        cache.index = prompt.shape[1]
+        generate.decode_step(model, cache, token, **step_kw).argmax(-1)
+
+    step()
+    profile = _profile(step, 16)
+    del cache
+    p_t, p_kw = torch.from_numpy(prompt).to(dev), \
+        generate.left_padded_inputs(pm)
+    prefill_prof = _profile(
+        lambda: generate.prefill(model, p_t, cache_len=window,
+                                 logits_index=-1, **p_kw), 2)
+    g = runs["greedy"]
+    result = {
+        "phase": "L", "model": "llama3-8b", "layers": cfg.n_layers,
+        "dtype": "bfloat16", "batch": 4, "prompt_lens": lens,
+        "prompt_columns": prompt.shape[1], "cache_window": window,
+        "new_tokens": GEN_NEW, "sampling": sampling,
+        "prefill_ms": g["prefill_s"] * 1e3,
+        "prefill_tokens_per_s": int(mask.sum()) / g["prefill_s"],
+        "decode_tokens_per_s": 4 * (GEN_NEW - 1)
+        / (g["wall_s"] - g["prefill_s"]),
+        "generate_s": {k: v["wall_s"] for k, v in runs.items()},
+        "prefill_s": {k: v["prefill_s"] for k, v in runs.items()},
+        "peak_memory_gb": peak_gb,
+        "launches": launches, "sampled_runs_equal": True,
+        "greedy_alone_tokens_equal": sum(a["equal"] for a in alone),
+        "greedy_alone_tokens_compared": 4 * GEN_NEW,
+        "greedy_alone_rows": alone, "decode_step": profile,
+        "prefill_profile": prefill_prof}
+    log(result)
+    del model, spy, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["f32"] = _generate_f32(dev)
+    return result
+
+
+def _generate_f32(dev):
+    """Phase L in f32 (TF32 off) at 8B width and 4 layers, one set of
+    weights: each of phase C's 8 requests generated alone equals the
+    port's ``ServeEngine`` greedy stream (the split paged kernel) for 16
+    tokens, and each row of a left-padded batch of the first 4 equals that
+    row alone. ``generate`` launches no kernel."""
+    from k8s_distributed_deeplearning_torch.models import generate, llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
+                                 dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    reqs = _requests(cfg.vocab_size, 16, sampled=False)
+    eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                      device=dev)
+    attn = paged_attn.paged_decode_attention
+    _zero_all()
+    engine = {o.request_id: o.tokens for o in eng.run(reqs)}
+    routes = {"split": attn.launches - attn.launches_prefill
+              - attn.launches_decode, "prefill": attn.launches_prefill,
+              "decode": attn.launches_decode}
+    check(routes["split"] > 0 and not routes["prefill"]
+          and not routes["decode"],
+          f"f32 engine launches by route {routes}: want the split route")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_all()
+    alone = {r.request_id: _generate(model, r.prompt[None],
+                                     max_new_tokens=16)[0][0].tolist()
+             for r in reqs}
+    lens = [len(r.prompt) for r in reqs[:4]]
+    prompt, mask = _pad_left([r.prompt for r in reqs[:4]])
+    padded, _ = _generate(model, prompt, max_new_tokens=16, prompt_mask=mask)
+    launches = _all_launches()
+    engine_equal = {rid: alone[rid] == engine[rid] for rid in sorted(alone)}
+    padded_equal = {r.request_id: padded[i].tolist() == alone[r.request_id]
+                    for i, r in enumerate(reqs[:4])}
+    result = {"phase": "L", "case": "f32_cross_checks",
+              "model": "llama3-8b width, 4 layers", "dtype": "float32",
+              "requests": len(reqs), "tokens_compared": 16,
+              "engine_launches_by_route": routes,
+              "generate_launches": {k: v for k, v in launches.items() if v},
+              "generate_equals_engine": engine_equal,
+              "padded_prompt_lens": lens,
+              "padded_row_equals_alone": padded_equal}
+    log(result)
+    check(not any(launches.values()),
+          f"f32 generate launches {launches}: want none")
+    check(all(engine_equal.values()),
+          "f32 generate and ServeEngine greedy streams differ")
+    check(all(padded_equal.values()),
+          "f32 left-padded rows differ from the rows generated alone")
+    del model
+    return result
+
+
+# Phase M, bf16: the logits of every real prefill position, ragged against
+# index dispatch on the same weights, relative L2 per row. The wgmma
+# grouped GEMM and cuBLAS's batched matmul sum each product in the same
+# order on the H100, and the two paths read bitwise-equal logits there
+# (relative L2 0.0, PERF.md section 6). The limit is one bf16 step: a
+# change of either summation order reads near it or above it, and a row
+# block sent to the wrong expert, which the phase plants in the first
+# layer to show that the check sees it, reads far above it.
+MOE_BF16_LOGIT_RTOL = 2 ** -8
+
+
+def _real_rel_l2(got, want, mask) -> list:
+    """Relative L2 of ``got`` against ``want`` [B, S, V] per row, over the
+    row's real positions (``mask`` [B, S], numpy, nonzero where real)."""
+    real = torch.from_numpy(mask).to(got.device).bool()
+    return [float((got[b, m] - want[b, m]).norm() / want[b, m].norm())
+            for b, m in enumerate(real)]
+
+
+class _MisroutedBlock:
+    """Within the ``with`` block, the first grouped layout that the MoE
+    layer builds sends its first live row block to the next expert (a
+    routing fault planted to show that phase M's comparison sees one)."""
+
+    def __enter__(self):
+        from k8s_distributed_deeplearning_torch.models import moe
+
+        self.gmm_ops = moe.gmm_ops
+        self.build = build = self.gmm_ops.grouped_layout
+        self.planted = 0
+
+        def faulty(group_sizes, total_rows, block_m):
+            lay = build(group_sizes, total_rows, block_m=block_m)
+            if self.planted:
+                return lay
+            self.planted += 1
+            experts = lay.block_expert.clone()
+            blk = int(lay.block_live.argmax())
+            experts[blk] = (experts[blk] + 1) % group_sizes.shape[0]
+            return lay._replace(block_expert=experts)
+
+        self.gmm_ops.grouped_layout = faulty
+        return self
+
+    def __exit__(self, *exc):
+        self.gmm_ops.grouped_layout = self.build
+
+
+def _rel_l2(got, want, dims) -> list:
+    return ((got - want).norm(dim=dims) / want.norm(dim=dims)).tolist()
+
+
+def phase_m(dev):
+    """Phase M: ``generate`` on the ragged MoE (phase H's backbone, 8
+    experts top-2, block 512), bf16; launches exact; ragged against index
+    dispatch in bf16 and, at 2 layers, in f32."""
+    import dataclasses
+
+    from k8s_distributed_deeplearning_torch.models import generate, llama, moe
+
+    cfg = llama.config_tiny(**MOE_BACKBONE, max_seq_len=1024,
+                            dtype=torch.bfloat16)
+    mcfg = moe.MoEConfig(num_experts=8, top_k=2, dispatch="ragged",
+                         ragged_block_m=512)
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = moe.MoELM(cfg, mcfg, device=dev, seed=0)
+    lens = [512] + np.random.default_rng(8).integers(100, 512, 3).tolist()
+    prompt, mask = _left_padded(cfg.vocab_size, lens, seed=9)
+    # A first call pays the allocator's growth and cuBLAS's first plans.
+    first, _ = _generate(model, prompt, max_new_tokens=GEN_NEW,
+                         prompt_mask=mask)
+    with _PrefillSpy() as spy:
+        _zero_all()
+        out, wall = _generate(model, prompt, max_new_tokens=GEN_NEW,
+                              prompt_mask=mask)
+        at_prefill, prefill_s = spy.launches, spy.seconds
+        window = spy.cache.length
+        launches = _all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    _in_vocab(out, cfg.vocab_size, "MoE generate")
+    check(np.array_equal(out, first), "two MoE greedy runs differ")
+    want = {k: 0 for k in launches}
+    want.update(gmm=3 * n, gmm_wgmma=3 * n)
+    check(at_prefill == want,
+          f"MoE prefill launches {at_prefill}: want {want} (3 grouped "
+          "GEMMs a layer on the wgmma route)")
+    check(launches == want,
+          f"MoE generate launches {launches}: the decode steps (t = 4, the "
+          f"index path) must add none to the prefill's {want}")
+    p_t = torch.from_numpy(prompt).to(dev)
+    kw = generate.left_padded_inputs(torch.from_numpy(mask).to(dev))
+
+    def prefill(m, **extra):
+        return generate.prefill(m, p_t, cache_len=window, **kw, **extra)[0]
+
+    profile = _profile(lambda: prefill(model, logits_index=-1), 4)
+    index = moe.MoELM(cfg, dataclasses.replace(mcfg, dispatch="index"),
+                      device=dev, seed=0)
+    index.load_state_dict(model.state_dict())
+    logits, compare_launches = {}, {}
+    for name, m in (("ragged", model), ("index", index)):
+        _zero_all()
+        logits[name] = prefill(m)
+        compare_launches[name] = {k: v for k, v in _all_launches().items()
+                                  if v}
+    check(compare_launches == {"ragged": {"gmm": 3 * n,
+                                          "gmm_wgmma": 3 * n},
+                               "index": {}},
+          f"bf16 comparison prefills launched {compare_launches}: want the "
+          "grouped GEMMs on the ragged path only")
+    ragged_all, index_all = logits["ragged"].float(), logits["index"].float()
+    rel = _real_rel_l2(ragged_all, index_all, mask)
+    with _MisroutedBlock() as fault:
+        faulty = prefill(model).float()
+    check(fault.planted == 1, "the misrouted block was not planted")
+    fault_rel = _real_rel_l2(faulty, index_all, mask)
+    ragged_last, index_last = ragged_all[:, -1], index_all[:, -1]
+    largest = (ragged_last - index_last).abs().max(-1).values
+    top2 = index_last.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * largest
+    same = ragged_last.argmax(-1) == index_last.argmax(-1)
+    bitwise = torch.equal(logits["ragged"], logits["index"])
+    del logits, ragged_all, index_all, faulty
+    del model, index, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {
+        "phase": "M", "model": "llama-small MoE 8e top-2 ragged",
+        "layers": n, "dtype": "bfloat16", "experts": mcfg.num_experts,
+        "top_k": mcfg.top_k, "ragged_block_m": mcfg.ragged_block_m,
+        "batch": 4, "prompt_lens": lens, "cache_window": window,
+        "new_tokens": GEN_NEW, "prefill_ms": prefill_s * 1e3,
+        "decode_tokens_per_s": 4 * (GEN_NEW - 1) / (wall - prefill_s),
+        "generate_s": wall, "peak_memory_gb": peak_gb,
+        "prefill_launches": {k: v for k, v in at_prefill.items() if v},
+        "generate_launches": {k: v for k, v in launches.items() if v},
+        "prefill_profile": profile,
+        "bf16_ragged_vs_index": {
+            "launches": compare_launches,
+            "logit_rel_l2": rel, "rtol": MOE_BF16_LOGIT_RTOL,
+            "bitwise_equal": bitwise,
+            "misrouted_block_rel_l2": fault_rel,
+            "first_token_decided": decided.tolist(),
+            "first_token_equal": same.tolist()}}
+    log(result)
+    check(all(np.isfinite(rel)) and max(rel) <= MOE_BF16_LOGIT_RTOL,
+          f"bf16 MoE prefill logits, ragged vs index: relative L2 "
+          f"{max(rel)} > {MOE_BF16_LOGIT_RTOL}")
+    check(max(fault_rel) > MOE_BF16_LOGIT_RTOL,
+          f"a row block sent to the wrong expert reads relative L2 "
+          f"{max(fault_rel)}, within the limit {MOE_BF16_LOGIT_RTOL}")
+    check(bool(same[decided].all()),
+          "bf16 MoE prefill: a first greedy token differs where the index "
+          "path's top-2 margin exceeds twice the largest logit difference")
+    result["f32"] = _moe_f32(dev, mcfg, prompt, mask)
+    return result
+
+
+def _moe_f32(dev, mcfg, prompt, mask):
+    """Phase M in f32 (TF32 off) at 2 layers, one set of weights: the
+    ragged path (the grouped GEMMs on the mma route, 3 a layer in the
+    prefill) and ``dispatch="index"`` give the same first 16 greedy tokens,
+    and their prefill logits agree within 1e-4 relative L2 per row."""
+    import dataclasses
+
+    from k8s_distributed_deeplearning_torch.models import generate, llama, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.config_tiny(**dict(MOE_BACKBONE, n_layers=2),
+                            max_seq_len=1024, dtype=torch.float32)
+    ragged = moe.MoELM(cfg, mcfg, device=dev, seed=0)
+    index = moe.MoELM(cfg, dataclasses.replace(mcfg, dispatch="index"),
+                      device=dev, seed=0)
+    index.load_state_dict(ragged.state_dict())
+    streams, launches = {}, {}
+    for name, m in (("ragged", ragged), ("index", index)):
+        _zero_all()
+        streams[name], _ = _generate(m, prompt, max_new_tokens=16,
+                                     prompt_mask=mask)
+        launches[name] = {k: v for k, v in _all_launches().items() if v}
+    p_t = torch.from_numpy(prompt).to(dev)
+    kw = generate.left_padded_inputs(torch.from_numpy(mask).to(dev))
+    window = generate.cache_window(cfg.max_seq_len, prompt.shape[1], 16)
+    logits = {name: generate.prefill(m, p_t, cache_len=window, **kw)[0]
+              for name, m in (("ragged", ragged), ("index", index))}
+    rel = _rel_l2(logits["ragged"], logits["index"], (-2, -1))
+    equal = np.array_equal(streams["ragged"], streams["index"])
+    result = {"phase": "M", "case": "f32_ragged_vs_index", "layers": 2,
+              "dtype": "float32", "tokens_compared": 16,
+              "launches": launches, "streams_equal": equal,
+              "prefill_logit_rel_l2": rel}
+    log(result)
+    n = cfg.n_layers
+    check(launches == {"ragged": {"gmm": 3 * n}, "index": {}},
+          f"f32 MoE generate launches {launches}: want {3 * n} gmm on the "
+          "mma route for ragged, none for index")
+    check(equal, "f32 MoE greedy streams differ, ragged vs index")
+    check(max(rel) <= 1e-4,
+          f"f32 MoE prefill logits, ragged vs index: relative L2 "
+          f"{max(rel)} > 1e-4")
+    del ragged, index, logits
     return result
 
 
@@ -1424,44 +1892,55 @@ def phase_d(dev, flush):
 
 # ------------------------------------------------------------- phase G
 
-# (case, group sizes, K, N, dtypes): the MoE slice's expert products (gate
-# and up: d 768 -> mlp 2048; down: 2048 -> 768) and Mixtral-8x7B-class
-# ones (4096 -> 14336, 14336 -> 4096), 8 experts and 16,384 routed rows.
+# (case, group sizes, routed rows, row block, K, N, dtypes), 8 experts: the
+# MoE slice's expert products (gate and up: d 768 -> mlp 2048; down: 2048
+# -> 768) at training's 16,384 rows and block 128; Mixtral-8x7B-class ones
+# (4096 -> 14336, 14336 -> 4096) at 16,384 rows; the slice's products at
+# phase M's prefill (B 4 x S 512 tokens at top-2: 4,096 rows, the layer's
+# block 512). The case's index seeds its inputs.
 GMM_CASES = [
-    ("slice_gate_up", "router", 768, 2048, (torch.bfloat16, torch.float32)),
-    ("slice_down", "router", 2048, 768, (torch.bfloat16, torch.float32)),
-    ("mixtral_gate_up_balanced", "balanced", 4096, 14336, (torch.bfloat16,)),
-    ("mixtral_down_balanced", "balanced", 14336, 4096, (torch.bfloat16,)),
-    ("mixtral_gate_up_skewed", "skewed", 4096, 14336, (torch.bfloat16,)),
-    ("mixtral_down_skewed", "skewed", 14336, 4096, (torch.bfloat16,)),
+    ("slice_gate_up", "router", GMM_ROWS, 128, 768, 2048,
+     (torch.bfloat16, torch.float32)),
+    ("slice_down", "router", GMM_ROWS, 128, 2048, 768,
+     (torch.bfloat16, torch.float32)),
+    ("mixtral_gate_up_balanced", "balanced", GMM_ROWS, 128, 4096, 14336,
+     (torch.bfloat16,)),
+    ("mixtral_down_balanced", "balanced", GMM_ROWS, 128, 14336, 4096,
+     (torch.bfloat16,)),
+    ("mixtral_gate_up_skewed", "skewed", GMM_ROWS, 128, 4096, 14336,
+     (torch.bfloat16,)),
+    ("mixtral_down_skewed", "skewed", GMM_ROWS, 128, 14336, 4096,
+     (torch.bfloat16,)),
+    ("prefill_gate_up", "router", 4096, 512, 768, 2048, (torch.bfloat16,)),
+    ("prefill_down", "router", 4096, 512, 2048, 768, (torch.bfloat16,)),
 ]
 
 
-def _gmm_sizes(kind: str) -> list[int]:
-    """Rows of each expert, 16,384 in all: from a seeded top-2 router over
-    8,192 tokens, even, or skewed (one expert 40 %, one empty)."""
+def _gmm_sizes(kind: str, rows: int) -> list[int]:
+    """Rows of each expert, ``rows`` in all: from a seeded top-2 router
+    over rows / 2 tokens, even, or skewed (one expert 40 %, one empty)."""
     if kind == "router":
-        logits = np.random.default_rng(5).standard_normal(
-            (GMM_ROWS // 2, GMM_E))
+        logits = np.random.default_rng(5).standard_normal((rows // 2, GMM_E))
         top2 = np.argsort(-logits, axis=1)[:, :2]
         return np.bincount(top2.ravel(), minlength=GMM_E).tolist()
     if kind == "balanced":
-        return [GMM_ROWS // GMM_E] * GMM_E
-    big = int(0.4 * GMM_ROWS)
-    rest = GMM_ROWS - big
+        return [rows // GMM_E] * GMM_E
+    big = int(0.4 * rows)
+    rest = rows - big
     sizes = [big, 0] + [rest // 6] * 6
     sizes[2] += rest - sum(sizes[2:])
     return sizes
 
 
-def _gmm_inputs(dev, dtype, sizes, k, n, seed):
+def _gmm_inputs(dev, dtype, sizes, block_m, k, n, seed):
     """The layout, lhs [M_pad, K], rhs [E, K, N] and an output gradient
     [M_pad, N]; rows that hold no token are 0 in lhs and in the gradient,
     as in the MoE layer."""
     from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
 
     lay = gmm_ops.grouped_layout(
-        torch.tensor(sizes, dtype=torch.int32, device=dev), GMM_ROWS)
+        torch.tensor(sizes, dtype=torch.int32, device=dev), sum(sizes),
+        block_m=block_m)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     live = gmm_ops.live_rows(lay)[:, None]
@@ -1528,33 +2007,39 @@ def phase_g(dev, flush):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {name: [] for name in GMM_KERNELS}
-    for ci, (case, kind, k, n, dtypes) in enumerate(GMM_CASES):
-        sizes = _gmm_sizes(kind)
+    for ci, (case, kind, n_rows, block_m, k, n, dtypes) in enumerate(
+            GMM_CASES):
+        sizes = _gmm_sizes(kind, n_rows)
         for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             tol = GMM_TOL[dtype]
-            lay, lhs, rhs, dout = _gmm_inputs(dev, dtype, sizes, k, n, ci)
+            lay, lhs, rhs, dout = _gmm_inputs(dev, dtype, sizes, block_m, k,
+                                              n, ci)
+            # Elements each function must read: the rows that hold a token
+            # (not the padding of their blocks, nor the dead blocks that
+            # m_pad reserves) and the weights of the experts that have one.
+            weights = sum(s > 0 for s in sizes) * k * n
             fns = {
                 "gmm": (lambda route: gmm_ops.gmm_forward(
                             lhs, rhs, lay, route=route),
                         lambda: gmm_ops.gmm_reference(lhs, rhs, lay),
-                        (lhs, rhs), (lay.m_pad, n)),
+                        n_rows * k + weights, (lay.m_pad, n)),
                 "gmm_dlhs": (
                     lambda route: gmm_ops.gmm_forward(
                         dout, rhs, lay, transpose_rhs=True, route=route),
                     lambda: gmm_ops.gmm_reference(dout, rhs, lay,
                                                   transpose_rhs=True),
-                    (dout, rhs), (lay.m_pad, k)),
+                    n_rows * n + weights, (lay.m_pad, k)),
                 "tgmm": (lambda route: gmm_ops.tgmm(lhs, dout, GMM_E, lay,
                                                     route=route),
                          lambda: gmm_ops.tgmm_reference(lhs, dout, GMM_E,
                                                         lay),
-                         (lhs, dout), (GMM_E, k, n))}
+                         n_rows * (k + n), (GMM_E, k, n))}
             routes = ["mma"] + (["wgmma"] if gmm_ops._gmm_route(dtype)
                                 == "wgmma" else [])
             library = _grouped_mm_fns(lay, lhs, rhs, dout)
             dead = ~gmm_ops.live_rows(lay)
-            for fn_name, (kern, plain, ins, out_shape) in fns.items():
+            for fn_name, (kern, plain, reads, out_shape) in fns.items():
                 want = plain()
                 ref = want.float()
                 rms = float(ref.square().mean().sqrt())
@@ -1565,9 +2050,8 @@ def phase_g(dev, flush):
                     lib_err = float(((lib_out - ref).abs() if fn_name == "tgmm"
                                      else (lib_out - ref)[~dead].abs()).max())
                     del lib_out
-                nbytes = (sum(t.numel() for t in ins) + math.prod(out_shape)
-                          ) * lhs.element_size()
-                bound, by = _gmm_bound(2 * GMM_ROWS * k * n, nbytes, dtype)
+                nbytes = (reads + math.prod(out_shape)) * lhs.element_size()
+                bound, by = _gmm_bound(2 * n_rows * k * n, nbytes, dtype)
                 plain_ms = time_ms(plain, flush, 5)
                 library_ms = (time_ms(lib_fn, flush, host_ahead=True)
                               if lib_fn is not None else None)
@@ -1602,7 +2086,7 @@ def phase_g(dev, flush):
                         check(same, f"{what}: two launches differ")
                     row = {"fn": fn_name, "case": case, "dtype": dname,
                            "route": route,
-                           "shape": {"E": GMM_E, "rows": GMM_ROWS,
+                           "shape": {"E": GMM_E, "rows": n_rows,
                                      "m_pad": lay.m_pad, "K": k, "N": n,
                                      "block_m": lay.block_m,
                                      "sizes": sizes},
@@ -1630,12 +2114,13 @@ def phase_g(dev, flush):
     return rows
 
 
-def _gmm_entries(rows, h_result, i_result):
+def _gmm_entries(rows, h_result, i_result, m_result):
     """Kernel-line entries of the grouped-matmul kernels: the
     representative case is the MoE slice's gate/up product in bf16. The
-    launches are phase H's (the bf16 step: the wgmma kernels), and for the
-    kernels of gmm.cu phase I's kernel path (f32), the path that runs
-    them."""
+    launches are phase H's (the bf16 step: the wgmma kernels) and phase
+    M's bf16 generate (its prefill), and for the kernels of gmm.cu phase
+    I's kernel path and phase M's ragged generate, both f32, the paths
+    that run them."""
     out = []
     for name, cases in rows.items():
         rep = next(c for c in cases if c["case"] == "slice_gate_up"
@@ -1643,14 +2128,18 @@ def _gmm_entries(rows, h_result, i_result):
                    and c["fn"] in ("gmm", "tgmm"))
         source, wrapper = GMM_KERNELS[name]
         mma = not name.endswith("_wgmma")
-        launched = (i_result["kernel_path_launches"] if mma
-                    else h_result["launches"])
+        by_phase = (
+            {"I (f32)": i_result["kernel_path_launches"].get(name, 0),
+             "M (f32)": m_result["f32"]["launches"]["ragged"].get(name, 0)}
+            if mma else
+            {"H": h_result["launches"].get(name, 0),
+             "M": m_result["generate_launches"].get(name, 0)})
         out.append({
             "name": name, "route": "cuda",
             "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
             "replaces": GMM_REPLACES[wrapper],
-            "launches": launched.get(name, 0),
-            "launches_in": "I (f32)" if mma else "H",
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: c.get(k) for k in (
@@ -2267,8 +2756,10 @@ def main() -> int:
     j = timed("J", phase_j, dev, b_streams)
     c = timed("C", phase_c, dev)
     k = timed("K", phase_k, dev)
+    timed("L", phase_l, dev)
     flash_rows = timed("D", phase_d, dev, flush)
     gmm_rows = timed("G", phase_g, dev, flush)
+    m = timed("M", phase_m, dev)
     del flush
     distributed.initialize_single("cuda")
     try:
@@ -2280,7 +2771,8 @@ def main() -> int:
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k)
-         + _flash_entries(flash_rows, e, f) + _gmm_entries(gmm_rows, h, i)})
+         + _flash_entries(flash_rows, e, f)
+         + _gmm_entries(gmm_rows, h, i, m)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -415,9 +415,16 @@ class MoELM(nn.Module):
 
     ``routing="expert_choice"`` is non-causal in this decoder: each expert
     picks its top-C tokens over the whole flattened [B*S] batch, so position
-    i's routing sees future tokens. Construction warns. The dense decode
-    cache is not ported yet, so the model has no serving path; the layer's
-    ``decode`` branch is."""
+    i's routing sees future tokens. Construction warns.
+
+    It serves through :func:`models.generate.generate` (JAX ``MoELM``
+    takes no block tables either): ``decode=True`` with a dense ``cache``
+    (and, for slot decode, ``cache_positions``) runs each block's
+    :class:`MoEMLP` on its decode branch, dropless per-token top-k, so a
+    step routes as the prefill did. A wide call (the prefill, ``t >=
+    128``) of ``dispatch="ragged"`` takes the grouped GEMMs, three a
+    layer; a narrow one (a decode step, ``t = B``) the index path at
+    capacity ``T``."""
 
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig, *,
                  device: str | torch.device = "cuda", seed: int = 0):
@@ -442,10 +449,14 @@ class MoELM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 positions: torch.Tensor | None = None,
                 segment_ids: torch.Tensor | None = None,
-                decode: bool = False, return_hidden: bool = False,
+                decode: bool = False, cache=None,
+                cache_positions: torch.Tensor | None = None,
+                return_hidden: bool = False,
                 aux: AuxCollector | None = None) -> torch.Tensor:
         x = self.transformer(tokens, positions=positions,
-                             segment_ids=segment_ids, decode=decode, aux=aux)
+                             segment_ids=segment_ids, decode=decode,
+                             cache=cache, cache_positions=cache_positions,
+                             aux=aux)
         if return_hidden:
             return x
         return self.logits(x)

@@ -10,7 +10,7 @@ multiplies by them in f32. Training keeps f32 params (``param_dtype=
 torch.float32``); serving's default stores weights in the compute dtype,
 which rounds identically and halves the weight memory.
 
-Two attention paths exist:
+Three attention paths exist:
 
 - the plain forward (``decode=False``): :func:`ops.attention
   .multi_head_attention` with ``cfg.attention_impl``, optional packed
@@ -23,7 +23,16 @@ Two attention paths exist:
   queries attend the row's pages through
   :func:`ops.paged_attn.paged_decode_attention`. Under ``kv_quant="int8"``
   the pools are int8 with f32 scale siblings ``[num_pages, page_tokens,
-  kv]``, written by :func:`quantize_kv` (quantize on write).
+  kv]``, written by :func:`quantize_kv` (quantize on write);
+- the DENSE decode branch (``decode=True`` without ``block_tables``): the
+  one-shot ``generate`` path of :mod:`models.generate`. A
+  :class:`DenseCache` holds ``[B, S_cache, kv·hd]`` K/V per layer,
+  per-column document ids and one shared cursor. Without
+  ``cache_positions`` the chunk is appended at the cursor and query
+  ``cur + i`` sees columns ``<= cur + i`` of its own document; with them
+  (slot mode) row ``b``'s token ``i`` lands at column ``cache_positions[b]
+  + i`` and sees the columns up to it. Attention is the einsum path
+  whatever ``cfg.attention_impl`` says, as JAX runs XLA attention there.
 
 A :class:`Dense` may hold an int8 weight and its f32 scales instead of its
 weight (``serve/quant.py``); it then dequantizes at every use.
@@ -38,8 +47,6 @@ saves nothing.
 ``Block`` and ``Transformer`` take an ``mlp_factory`` that swaps the dense
 MLP (the MoE layer of ``models/moe.py``); the factory's module is called
 with ``decode`` and with the ``aux`` collector the caller passes down.
-
-The dense (non-paged) decode cache is not ported yet.
 """
 from __future__ import annotations
 
@@ -353,6 +360,99 @@ class PagedWrite:
         return cls(tables, wpos, pg, wpos.long() % page_tokens)
 
 
+@dataclasses.dataclass
+class DenseCache:
+    """The dense KV cache of one batch (JAX ``cached_key``,
+    ``cached_value``, ``cached_seg`` and ``cache_index``), written in place
+    by every decode forward. K/V are ``[B, S_cache, kv·hd]`` at the compute
+    dtype, one pair a layer, heads folded into the last axis as in JAX.
+    ``seg`` holds each column's document id (0: left padding, never
+    attended), all ones at creation; JAX keeps an identical copy in every
+    layer. ``index`` is the shared cursor, a host int, so reading it costs
+    no device sync. Slot mode (``cache_positions``) leaves ``seg`` and
+    ``index`` as they are."""
+
+    keys: list[torch.Tensor]
+    values: list[torch.Tensor]
+    seg: torch.Tensor
+    index: int = 0
+
+    @classmethod
+    def create(cls, cfg: TransformerConfig, batch: int, length: int,
+               device=None) -> "DenseCache":
+        shape = (batch, length,
+                 cfg.resolved_kv_heads * cfg.resolved_head_dim)
+        return cls(
+            [torch.zeros(shape, dtype=cfg.dtype, device=device)
+             for _ in range(cfg.n_layers)],
+            [torch.zeros(shape, dtype=cfg.dtype, device=device)
+             for _ in range(cfg.n_layers)],
+            torch.ones(batch, length, dtype=torch.int32, device=device))
+
+    @property
+    def length(self) -> int:
+        return self.seg.shape[1]
+
+
+@dataclasses.dataclass
+class DenseWrite:
+    """Per-forward dense-cache addressing, shared by every layer: where the
+    chunk's K/V land in each ``[B, S_cache, kv·hd]`` buffer (a column
+    slice at the shared cursor, or each token's (row, column) in slot
+    mode), and the boolean mask ``[B, 1, sq, S_cache]`` of the columns
+    each query attends."""
+
+    index: tuple
+    mask: torch.Tensor
+
+    @classmethod
+    def build(cls, cache: DenseCache, sq: int, *,
+              segment_ids: torch.Tensor | None,
+              cache_positions: torch.Tensor | None,
+              positions: torch.Tensor | None) -> tuple["DenseWrite",
+                                                       torch.Tensor]:
+        """The addressing of one forward and the RoPE positions of its
+        tokens. Shared-cursor mode also does the forward's bookkeeping,
+        once for all layers: it writes ``segment_ids`` (when given) into
+        ``cache.seg`` at the cursor and advances the cursor by ``sq``."""
+        dev = cache.seg.device
+        col = torch.arange(cache.length, device=dev)
+        steps = torch.arange(sq, device=dev)
+        if cache_positions is not None:
+            if positions is None:
+                positions = cache_positions.long()[:, None] + steps[None]
+            wpos = positions.long()
+            mask = (col[None, None, :] <= wpos[:, :, None])[:, None]
+            rows = torch.arange(wpos.shape[0], device=dev)[:, None]
+            return cls((rows, wpos), mask), positions
+        cur = cache.index
+        if cur + sq > cache.length:
+            raise ValueError(
+                f"a {sq}-token chunk at cursor {cur} overflows the "
+                f"{cache.length}-column dense KV cache")
+        row_pos = cur + steps
+        base = (col[None, :] <= row_pos[:, None])[None, None]   # [1,1,sq,S]
+        diag = (col[None, :] == row_pos[:, None])[None, None]
+        if segment_ids is not None:
+            # Same-document columns only (pads are id 0, never a query's
+            # id). The diagonal keeps each query's own column, so even an
+            # all-pad row has one finite score: without it the row's NaN
+            # reaches its K/V in the next layer, and 0 x NaN in P.V then
+            # poisons every row that masks it out.
+            seg_now = segment_ids.to(torch.int32)
+            cache.seg[:, cur:cur + sq] = seg_now
+            same = cache.seg[:, None, None, :] == seg_now[:, None, :, None]
+            mask = (base & same) | diag
+        else:
+            # The safety net for a caller that prefilled with segment ids
+            # and steps without them: pad columns (id 0) stay invisible.
+            mask = (base & (cache.seg[:, None, None, :] != 0)) | diag
+        if positions is None:
+            positions = row_pos[None]
+        cache.index = cur + sq
+        return cls((slice(None), slice(cur, cur + sq)), mask), positions
+
+
 class Attention(nn.Module):
     """Multi-head / grouped-query attention with RoPE. Projection weights
     are ``nn.Linear`` ``[out, in]``: flax's ``[D, H, hd]`` q/k/v kernels
@@ -370,7 +470,8 @@ class Attention(nn.Module):
         self.o_proj = Dense(cfg.n_heads * hd, cfg.dim, **kw)
 
     def forward(self, x: torch.Tensor, *, rope, mask=None, segment_ids=None,
-                cache=None, paged: PagedWrite | None = None) -> torch.Tensor:
+                cache=None, paged: PagedWrite | None = None,
+                dense: DenseWrite | None = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         hd, kv = cfg.resolved_head_dim, cfg.resolved_kv_heads
@@ -382,6 +483,8 @@ class Attention(nn.Module):
             k = _rotate(k, *rope)
         if paged is not None:
             out = self._paged(q, k, v, cache, paged)
+        elif dense is not None:
+            out = self._dense(q, k, v, cache, dense)
         else:
             out = attention_ops.multi_head_attention(
                 q, k, v, causal=cfg.causal, mask=mask,
@@ -389,6 +492,19 @@ class Attention(nn.Module):
             if cfg.remat and cfg.remat_policy == "dots_attn":
                 out = attn_out(out)
         return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+
+    def _dense(self, q, k, v, cache, dense: DenseWrite) -> torch.Tensor:
+        """Write the chunk's K/V into this layer's dense cache at the
+        forward's columns, then attend the whole cache under its mask on
+        the einsum path (JAX ``impl="xla"``)."""
+        keys, values = cache
+        b, s, kv, hd = k.shape
+        keys[dense.index] = k.reshape(b, s, kv * hd)
+        values[dense.index] = v.reshape(b, s, kv * hd)
+        width = keys.shape[1]
+        return attention_ops.multi_head_attention(
+            q, keys.view(b, width, kv, hd), values.view(b, width, kv, hd),
+            causal=False, mask=dense.mask, impl="xla")
 
     def _paged(self, q, k, v, cache, paged: PagedWrite) -> torch.Tensor:
         """Write the chunk's K/V into the pool, then attend the rows' pages.
@@ -485,8 +601,13 @@ class Transformer(nn.Module):
     ``cache`` (one ``(pool_k, pool_v)`` pair per layer, written in place)
     selects the paged serving branch. Its write positions are
     ``positions`` ([B, S]) or, for slot decode, ``cache_positions[:, None]
-    + arange(S)`` ([B] cursors). ``mlp_factory`` reaches every block;
-    ``aux`` is handed to each block's factory MLP."""
+    + arange(S)`` ([B] cursors). ``decode=True`` without ``block_tables``
+    selects the dense branch: ``cache`` is a :class:`DenseCache`
+    (:func:`models.generate.prefill` creates one), slot mode when
+    ``cache_positions`` is given, else the shared cursor, which advances
+    by S; ``segment_ids`` there are the chunk's document ids (0 = pad).
+    ``mlp_factory`` reaches every block; ``aux`` is handed to each block's
+    factory MLP."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  mlp_factory=None):
@@ -517,14 +638,29 @@ class Transformer(nn.Module):
                 aux=None) -> torch.Tensor:
         cfg = self.cfg
         b, s = tokens.shape
-        paged = None
-        if decode:
-            if block_tables is None:
+        paged = dense = None
+        if decode and block_tables is None:
+            if mask is not None:
                 raise NotImplementedError(
-                    "decode without block_tables needs the dense KV cache, "
-                    "which the PyTorch port does not have yet")
+                    "decode mode builds its own cache-prefix mask and local "
+                    "attention; a caller-provided mask/attention_fn would be "
+                    "silently wrong")
+            if cache_positions is not None and segment_ids is not None:
+                raise NotImplementedError(
+                    "slot decode isolates rows by construction (each slot "
+                    "is one request); segment_ids have no meaning here")
+            if not isinstance(cache, DenseCache):
+                raise ValueError(
+                    "dense decode (no block_tables) requires a DenseCache "
+                    "(models.generate.prefill creates one)")
+            dense, positions = DenseWrite.build(
+                cache, s, segment_ids=segment_ids,
+                cache_positions=cache_positions, positions=positions)
+            segment_ids = None     # consumed into the cache mask
+        elif decode:
             per_layer = 4 if cfg.kv_quant == "int8" else 2
-            if (cache is None or len(cache) != cfg.n_layers
+            if (not isinstance(cache, (list, tuple))
+                    or len(cache) != cfg.n_layers
                     or any(len(c) != per_layer for c in cache)):
                 raise ValueError(
                     "paged decode requires the engine's page pool: one "
@@ -549,11 +685,16 @@ class Transformer(nn.Module):
         if cfg.position == "rope":
             rope = _rope_at(self.rope_cos, self.rope_sin, positions, s)
         x = self.tok_embed(tokens)
-        remat = (cfg.remat and paged is None and torch.is_grad_enabled())
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
+            layer_cache = None
+            if paged is not None:
+                layer_cache = cache[i]
+            elif dense is not None:
+                layer_cache = (cache.keys[i], cache.values[i])
             kw = dict(rope=rope, mask=mask, segment_ids=segment_ids,
-                      cache=cache[i] if paged is not None else None,
-                      paged=paged, decode=decode, aux=aux)
+                      cache=layer_cache, paged=paged, dense=dense,
+                      decode=decode, aux=aux)
             if remat:
                 saved = REMAT_POLICIES[cfg.remat_policy]
                 if saved:

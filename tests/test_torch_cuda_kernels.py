@@ -1217,6 +1217,41 @@ def test_gmm_wgmma_launches_give_the_same_bits(hopper):
         assert torch.equal(run(), run())
 
 
+def _moe_prefill_sizes():
+    """Rows of each of 8 experts at the MoE prefill's shape (phase M of
+    chip_smoke.py: B 4 x S 512 tokens at top-2, 4,096 rows) from a seeded
+    top-2 router."""
+    logits = np.random.default_rng(5).standard_normal((2048, 8))
+    top2 = np.argsort(-logits, axis=1)[:, :2]
+    return tuple(np.bincount(top2.ravel(), minlength=8).tolist())
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("k,n", [(768, 2048), (2048, 768)],
+                         ids=["gate_up", "down"])
+def test_gmm_at_the_moe_prefill_shape(hopper, route, k, n):
+    """The forward the MoE prefill runs, 4,096 routed rows at block 512 (the
+    layer's min(512, pow2(t·k))), in bf16 on both routes: within phase G's
+    limit of the plain version, rows that hold no token 0, one launch
+    counted by route, two wgmma launches bitwise equal."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes = _moe_prefill_sizes()
+    lay, lhs, rhs, _ = _gmm_inputs(hopper, torch.bfloat16, sizes, k, n, 512,
+                                   k + n)
+    assert sum(sizes) == 4096 and lay.block_m == 512
+    before = _gmm_counts()
+    out = g.gmm_forward(lhs, rhs, lay, route=route)
+    torch.cuda.synchronize()
+    wgmma = int(route == "wgmma")
+    assert _gmm_counts() == (before[0] + 1, before[1] + wgmma, before[2],
+                             before[3])
+    _within(out, g.gmm_reference(lhs, rhs, lay), GMM_DTYPES[1][1], "out")
+    assert torch.all(out[~g.live_rows(lay)] == 0)
+    if wgmma:
+        assert torch.equal(out, g.gmm_forward(lhs, rhs, lay, route=route))
+
+
 def test_gmm_launches_wgmma_counts_by_route(hopper):
     """bf16 counts on launches and launches_wgmma; f32, or the mma route
     named in bf16, on launches alone; autograd's bf16 forward and backward
