@@ -171,9 +171,37 @@ M. ``generate`` on the ragged MoE (phase H's backbone, 8 experts top-2,
    token equal where decided; in f32 at 2 layers the two give the same 16
    greedy tokens and prefill logits within 1e-4 relative, the ragged
    path on the mma route (3 x layers launches).
+N. The reference's own job: ``python -m
+   k8s_distributed_deeplearning_torch.train.mnist`` on the card as its
+   own process, synthetic MNIST at 60,000 / 10,000, batch 100, Adam 1e-3,
+   dropout 0.5, 600 steps (one epoch), a checkpoint every 200. Two
+   unkilled runs first, A as a user runs it and A0 with ``--prefetch 0``;
+   run B is SIGTERMed after its first log at step 300 or later
+   (``preempted``, checkpointed, exit 0), then run again (``restore`` at
+   that step, to 600). The step-600 checkpoints hold bitwise equal params
+   and Adam moments (cuDNN and cuBLAS held to deterministic algorithms;
+   were A and A0 to differ, B would be held to ``REPEAT_FACTOR`` x their
+   distance), every manifest verifies, one
+   flipped byte in B's newest step is quarantined and the restore falls
+   back to the step before it, and A's eval on the 10,000 held-out
+   examples reaches ``MNIST_MIN_ACCURACY``. Reports step ms (A's and
+   A0's), examples/s, the MFU against the f32 peak, the save and restore
+   ms and bytes, and the busy share of a profiled window of the same step
+   in this process.
+O. Checkpoint and resume on the kernels: phase H's model and batches,
+   nothing cut (params and AdamW moments, ~6.3 GB). 2k unkilled steps
+   (k = ``RESUME_K``); then k steps with a save at k, a fresh model from
+   another seed restored from disk by ``fit``'s restore-on-start, and k
+   more: losses, params and moments bitwise equal (or the repeat rule),
+   and in each half exactly H's launches a step on the wgmma routes.
+   Then from the step-2k checkpoint two steps with fused gradient buckets
+   (``bucket_bytes`` 64 MiB) against two without, params bitwise equal
+   (NCCL at world 1 on flat f32 buffers). Reports the save and restore
+   ms, GB/s and bytes, and the bucket count.
 
-Prints the card's name and power limit, the build time, one JSON line per
-phase, a ``{"kernels": [...]}`` line, and last
+The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
+whether it loads. Prints the card's name and power limit, the build time,
+one JSON line per phase, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -181,9 +209,12 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2152,29 +2183,35 @@ def _gmm_entries(rows, h_result, i_result, m_result):
 # ------------------------------------------------------------- phase E/F
 
 
-def _train_setup(cfg, dev, lr, chunked=True, moe_cfg=None):
-    """A seeded ``LlamaLM`` (or ``MoELM`` with ``moe_cfg``), AdamW with
-    global-norm clip 1.0, its state and the data-parallel train step."""
+def _train_loss(model, chunked, moe_cfg):
+    """The loss of ``model`` (an ``MoELM`` with ``moe_cfg``) for the
+    data-parallel step."""
+    from k8s_distributed_deeplearning_torch.models import llama, moe
+
+    if moe_cfg is None:
+        return lambda batch, gen: llama.loss_fn(model, batch, gen,
+                                                chunked=chunked)
+    return lambda batch, gen: moe.loss_fn(model, moe_cfg, batch, gen,
+                                          chunked=chunked)
+
+
+def _train_setup(cfg, dev, lr, chunked=True, moe_cfg=None, seed=0):
+    """A ``LlamaLM`` (or ``MoELM`` with ``moe_cfg``) from ``seed``, AdamW
+    with global-norm clip 1.0, its state and the data-parallel train
+    step."""
     from k8s_distributed_deeplearning_torch.models import llama, moe
     from k8s_distributed_deeplearning_torch.parallel import (
         data_parallel as dp)
     from k8s_distributed_deeplearning_torch.train import optim
 
     if moe_cfg is None:
-        model = llama.LlamaLM(cfg, device=dev, seed=0)
-
-        def loss(batch, gen):
-            return llama.loss_fn(model, batch, gen, chunked=chunked)
+        model = llama.LlamaLM(cfg, device=dev, seed=seed)
     else:
-        model = moe.MoELM(cfg, moe_cfg, device=dev, seed=0)
-
-        def loss(batch, gen):
-            return moe.loss_fn(model, moe_cfg, batch, gen, chunked=chunked)
-
+        model = moe.MoELM(cfg, moe_cfg, device=dev, seed=seed)
     params = dict(model.named_parameters())
     optimizer = optim.make_optimizer("adamw", lr, grad_clip=1.0)
     return model, optimizer, dp.init_state(params, optimizer), \
-        dp.make_train_step(loss, optimizer)
+        dp.make_train_step(_train_loss(model, chunked, moe_cfg), optimizer)
 
 
 def _kernel_wrappers() -> dict:
@@ -2336,7 +2373,14 @@ def phase_e(dev):
                   "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n})
 
 
-def phase_h(dev):
+def _moe_slice():
+    """Phase H's model (the JAX package's ``moe_8e_top2_ragged`` row: the
+    Llama-small backbone, 8 experts top-2 ragged, remat "dots", bf16
+    compute, f32 params) at 1024 tokens a row, and its kernel launches a
+    step by kernel-line name. Under remat "dots" the gmm outputs are
+    saved, not recomputed: 3 forward products and 3 input gradients a
+    layer, 3 weight gradients, all bf16 on the wgmma route; the flash
+    forward runs again in the recompute."""
     from k8s_distributed_deeplearning_torch.models import llama, moe
 
     seq = 1024
@@ -2345,6 +2389,18 @@ def phase_h(dev):
                             remat=True, remat_policy="dots")
     mcfg = moe.MoEConfig(num_experts=8, top_k=2, dispatch="ragged")
     n = cfg.n_layers
+    per_step = {"gmm": 6 * n, "tgmm": 3 * n, "gmm_wgmma": 6 * n,
+                "tgmm_wgmma": 3 * n, "flash_fwd": 2 * n,
+                "flash_fwd_wgmma": 2 * n,
+                "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n}
+    return cfg, mcfg, seq, per_step
+
+
+def phase_h(dev):
+    from k8s_distributed_deeplearning_torch.models import moe
+
+    cfg, mcfg, seq, per_step = _moe_slice()
     return _train_phase(
         "H", dev, {"model": "llama-small MoE 8e top-2 ragged",
                    "experts": mcfg.num_experts, "top_k": mcfg.top_k,
@@ -2352,16 +2408,7 @@ def phase_h(dev):
                    "ragged_block_m": mcfg.ragged_block_m},
         cfg, batch_size=8, seq=seq, lr=1e-3, chunked=False,
         flops_tok=moe.flops_per_token(cfg, mcfg, seq_len=seq),
-        # Under remat "dots" the gmm outputs are saved, not recomputed:
-        # 3 forward products and 3 input gradients a layer, 3 weight
-        # gradients, all bf16 on the wgmma route; the flash forward runs
-        # again in the recompute.
-        per_step={"gmm": 6 * n, "tgmm": 3 * n, "gmm_wgmma": 6 * n,
-                  "tgmm_wgmma": 3 * n, "flash_fwd": 2 * n,
-                  "flash_fwd_wgmma": 2 * n,
-                  "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                  "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n},
-        moe_cfg=mcfg)
+        per_step=per_step, moe_cfg=mcfg)
 
 
 def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
@@ -2558,6 +2605,341 @@ def phase_i(dev):
                             "steps": steps, "lr": lr}, ka, kx, dev)
 
 
+# ------------------------------------------------------------- phase N/O
+
+MNIST_STEPS = 600            # one epoch of 60,000 at batch 100
+MNIST_KILL_AFTER = 300       # SIGTERM after the first log at or past it
+MNIST_MIN_ACCURACY = 0.95
+# The repeat rule: when two unkilled runs already differ, a resumed run
+# is held to that distance, per tensor (max |a - b|), times this factor.
+REPEAT_FACTOR = 4.0
+# Phase O: k steps, save, restore into a fresh model, k more.
+RESUME_K = 3
+BUCKET_BYTES = 64 << 20      # Horovod's fusion-buffer default
+
+
+def _mnist_job(ckdir, log_path, kill_after=None, extra=()):
+    """Run the MNIST CLI on the card as its own process (cuDNN and cuBLAS
+    held to deterministic algorithms; the repeat rule covers what is left)
+    with the flags ``extra`` added, and return its events; with
+    ``kill_after``, SIGTERM it after the first ``train_step`` event at
+    that step or later."""
+    code = ("import runpy, torch; "
+            "torch.backends.cudnn.deterministic = True; "
+            "torch.backends.cudnn.benchmark = False; "
+            "runpy.run_module('k8s_distributed_deeplearning_torch.train."
+            "mnist', run_name='__main__')")
+    cmd = [sys.executable, "-c", code, "--num-steps", str(MNIST_STEPS),
+           "--batch-size", "100", "--lr", "0.001", "--checkpoint-dir",
+           str(ckdir), "--checkpoint-every", "200", "--log-every", "50",
+           *extra]
+    env = {**os.environ, "PYTHONPATH": str(REPO),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    with open(log_path, "a") as err:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                                text=True, cwd=REPO, env=env)
+        events = []
+        try:
+            for line in proc.stdout:
+                if not line.startswith("{"):
+                    continue
+                events.append(json.loads(line))
+                ev = events[-1]
+                if kill_after is not None and ev["event"] == "train_step" \
+                        and ev["step"] >= kill_after:
+                    proc.send_signal(signal.SIGTERM)
+                    kill_after = None
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:        # a failure above: stop the job
+                proc.kill()
+                proc.wait()
+    check(proc.returncode == 0, f"MNIST job exited {proc.returncode}; its "
+          f"stderr ends:\n{Path(log_path).read_text()[-3000:]}")
+    return events
+
+
+def _tensor_leaves(state: dict) -> dict:
+    """Params and optimizer moments of a loaded checkpoint, by name."""
+    out = {f"params/{n}": t for n, t in state["params"].items()}
+    for key in ("mu", "nu"):
+        out.update({f"{key}/{n}": t
+                    for n, t in state["opt_state"][key].items()})
+    return out
+
+
+def _max_diffs(a: dict, b: dict) -> dict:
+    return {n: float((a[n].float() - b[n].float()).abs().max())
+            for n in a}
+
+
+def _repeat_rule(name, a, b, again) -> dict:
+    """``b`` (resumed) against ``a`` (unkilled): bitwise equal, or, when
+    an unkilled repeat (``again()``) already differs from ``a``, within
+    ``REPEAT_FACTOR`` x that distance on every tensor."""
+    got = _max_diffs(a, b)
+    if not any(got.values()):
+        return {"bitwise_equal": True}
+    rep = _max_diffs(a, again())
+    bad = {n: (got[n], rep[n]) for n in got
+           if got[n] > REPEAT_FACTOR * rep[n]}
+    check(not bad, f"{name}: the resumed run differs beyond "
+          f"{REPEAT_FACTOR} x the unkilled runs' distance: {bad}")
+    return {"bitwise_equal": False,
+            "tensors_differing": sum(v > 0 for v in got.values()),
+            "max_abs_diff": max(got.values()),
+            "unkilled_repeat_max_abs_diff": max(rep.values()),
+            "repeat_differs": {n: v for n, v in rep.items() if v}}
+
+
+def _median_step(events, key="step_time_ms"):
+    """The median of a run's ``train_step`` windows but the first (which
+    holds the start-up)."""
+    return float(np.median([e[key] for e in events
+                            if e["event"] == "train_step"][1:]))
+
+
+def phase_n(dev, tmp: Path):
+    """The reference's own job: the MNIST CLI at 60,000 / 10,000 synthetic
+    examples, batch 100, Adam 1e-3, dropout 0.5, 600 steps. Two unkilled
+    runs first: A as a user runs it, A0 with ``--prefetch 0`` (the same
+    arithmetic; their step times say what the prefetch thread costs).
+    Run B is SIGTERMed past step 300 and run again. Then the checks, the
+    corrupted-step fallback, and a profiled window of the same step in
+    this process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_distributed_deeplearning_torch import config as cfg_lib
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import mnist as job
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+    from k8s_distributed_deeplearning_torch.utils import ckpt as ckpt_paths
+
+    log_path = tmp / "mnist_stderr.log"
+    dirs = {r: tmp / f"mnist_{r}" for r in ("a", "a0", "b")}
+    t0 = time.perf_counter()
+    run_a = _mnist_job(dirs["a"], log_path)
+    wall_a = time.perf_counter() - t0
+    run_a0 = _mnist_job(dirs["a0"], log_path, extra=("--prefetch", "0"))
+    run_b1 = _mnist_job(dirs["b"], log_path, kill_after=MNIST_KILL_AFTER)
+    pre = [e for e in run_b1 if e["event"] == "preempted"]
+    check(len(pre) == 1 and pre[0]["checkpointed"] is True
+          and MNIST_KILL_AFTER <= pre[0]["step"] < MNIST_STEPS,
+          f"run B: no checkpointed preemption past step {MNIST_KILL_AFTER}:"
+          f" {pre}")
+    check(not any(e["event"] == "eval" for e in run_b1),
+          "a preempted run evaluated")
+    run_b2 = _mnist_job(dirs["b"], log_path)
+    restores = [e for e in run_b2 if e["event"] == "restore"]
+    check([e["step"] for e in restores] == [pre[0]["step"]],
+          f"run B again restored {restores}, not step {pre[0]['step']}")
+    for d in (dirs["a"], dirs["b"]):
+        for step in ckpt_paths.steps_on_disk(str(d)):
+            problem = ckpt_paths.verify_manifest(str(d), step)
+            check(problem is None, f"{d}/{step}: {problem}")
+
+    def final(d):
+        return torch.load(d / str(MNIST_STEPS) / "state.pt",
+                          weights_only=True)
+
+    fa, fa0, fb = (final(dirs[r]) for r in ("a", "a0", "b"))
+    check(fa["step"] == fb["step"] == fa0["step"] == MNIST_STEPS
+          and fa["opt_state"]["count"] == fb["opt_state"]["count"],
+          "the step-600 checkpoints disagree on the step or Adam's count")
+    repeat = _max_diffs(_tensor_leaves(fa), _tensor_leaves(fa0))
+    resume = _repeat_rule("phase N", _tensor_leaves(fa), _tensor_leaves(fb),
+                          lambda: _tensor_leaves(fa0))
+    resume["unkilled_runs_bitwise_equal"] = not any(repeat.values())
+    evals = [e for e in run_a if e["event"] == "eval"]
+    check(len(evals) == 1 and evals[0]["eval_examples"] == 10_000
+          and evals[0]["accuracy"] >= MNIST_MIN_ACCURACY,
+          f"run A's eval: {evals}, want accuracy >= {MNIST_MIN_ACCURACY}")
+
+    # One corrupted byte in B's newest step: quarantined, and the next
+    # restore falls back to the step before it.
+    steps_b = ckpt_paths.steps_on_disk(str(dirs["b"]))
+    victim = dirs["b"] / str(steps_b[-1]) / "state.pt"
+    with open(victim, "r+b") as f:
+        f.seek(victim.stat().st_size // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    conf = cfg_lib.TrainConfig()
+    _, _, template, _ = job.build(conf, dev, 1)
+    ck = Checkpointer(str(dirs["b"]))
+    restored, step = ck.restore_latest(template)
+    check(step == steps_b[-2] and [s for s, _ in ck.quarantined]
+          == [steps_b[-1]] and "checksum" in ck.quarantined[0][1],
+          f"corrupt step {steps_b[-1]}: restored {step}, quarantined "
+          f"{ck.quarantined}")
+    want = torch.load(dirs["b"] / str(step) / "state.pt", weights_only=True)
+    check(all(torch.equal(restored.params[n].cpu(), t)
+              for n, t in want["params"].items()),
+          "the fallback restore does not hold the older step's params")
+
+    # The job's step in this process, under the job's cuDNN settings: a
+    # timed window, then a profiled one.
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = True, False, True
+    _, _, state, step_fn = job.build(conf, dev, 1)
+    x, y = data_lib.synthetic_mnist(10_000, seed=0)
+    batcher = data_lib.ShardedBatcher(x, y, conf.batch_size, seed=0)
+    for i in range(20):
+        state, loss, _ = step_fn(state, batcher.batch_at(i), i)
+    torch.cuda.synchronize()
+    steps = 50
+    t1 = time.perf_counter()
+    for i in range(steps):
+        state, loss, _ = step_fn(state, batcher.batch_at(i), i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            state, loss, _ = step_fn(state, batcher.batch_at(i), i)
+        torch.cuda.synchronize()
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = flags
+    kernels = _device_ms_by_kernel(prof, steps)
+    device_ms = sum(k[2] for k in kernels)
+    logs = [e for e in run_a if e["event"] == "train_step"]
+    saves = [e for e in run_a if e["event"] == "checkpoint"]
+    result = {
+        "phase": "N", "model": "MNIST ConvNet (the reference's conv_model)",
+        "train_examples": 60_000, "test_examples": 10_000, "batch": 100,
+        "steps": MNIST_STEPS, "dropout": 0.5, "lr": 0.001,
+        "run_a_wall_s": wall_a,
+        "step_ms": _median_step(run_a),
+        "examples_per_s": _median_step(run_a, "examples_per_sec"),
+        "mfu_f32_peak": _median_step(run_a, "mfu"),
+        "step_ms_prefetch_0": _median_step(run_a0),
+        "final_loss": logs[-1]["loss"], "eval": evals[0],
+        "preempted_at": pre[0]["step"],
+        "preempt_save": {k: pre[0][k] for k in pre[0]
+                         if k.endswith("_ms") or k == "bytes"},
+        "restore": {k: restores[0][k] for k in restores[0]
+                    if k.endswith("_ms") or k == "bytes"},
+        "saves": [{k: e[k] for k in e if k.endswith("_ms") or k in
+                   ("step", "bytes")} for e in saves],
+        "resume": resume, "corrupt_fallback": {
+            "quarantined": steps_b[-1], "restored": step},
+        "profiled_window": {
+            "steps": steps, "step_ms": step_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / step_ms,
+            "device_ms_by_class": _by_class(kernels),
+            "top_kernels": [{"name": n[:90], "launches": c / steps,
+                             "ms": ms} for n, c, ms in kernels[:8]]}}
+    log(result)
+    return result
+
+
+def phase_o(dev, tmp: Path):
+    """Checkpoint and resume on the kernels: phase H's model, unkilled for
+    2k steps, then k steps, a save, a fresh model from another seed
+    restored from disk and k more; then two steps with fused gradient
+    buckets against two without."""
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import loop
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+
+    cfg, mcfg, seq, per_step = _moe_slice()
+    k = RESUME_K
+    tokens = data_lib.synthetic_tokens(1 << 17, vocab_size=cfg.vocab_size,
+                                       seed=0)
+    batcher = data_lib.TokenBatcher(tokens, 8, seq, seed=0)
+
+    def setup(seed):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, optimizer, state, step_fn = _train_setup(
+            cfg, dev, lr=1e-3, chunked=False, moe_cfg=mcfg, seed=seed)
+        losses = []
+
+        def logged(state, batch, s):
+            state, loss, aux = step_fn(state, batch, s)
+            losses.append(float(loss))
+            return state, loss, aux
+        return model, optimizer, state, logged, losses
+
+    def host(state) -> dict:
+        return {f"params/{n}": t.detach().cpu() for n, t in
+                state.params.items()} | {
+            f"{m}/{n}": t.cpu() for m in ("mu", "nu")
+            for n, t in state.opt_state[m].items()}
+
+    def unkilled():
+        _, _, state, step_fn, losses = setup(0)
+        state = loop.fit(step_fn, state, batcher.iter_from, 2 * k, rng=1)
+        return host(state), losses
+
+    want, want_losses = unkilled()
+    ckdir = tmp / "moe"
+    ck = Checkpointer(str(ckdir), max_to_keep=2)
+    _, _, state, step_fn, losses = setup(0)
+    _zero_launches()
+    state = loop.fit(step_fn, state, batcher.iter_from, k, rng=1,
+                     checkpointer=ck, checkpoint_every=k)
+    first = _launch_counts()
+    save = dict(ck.last_save)
+    del state, step_fn
+    model, optimizer, state, step_fn, losses2 = setup(1)
+    _zero_launches()
+    state = loop.fit(step_fn, state, batcher.iter_from, 2 * k, rng=1,
+                     checkpointer=ck, checkpoint_every=k)
+    second = _launch_counts()
+    restore = dict(ck.last_restore)
+    want_counts = {n: per_step.get(n, 0) * k for n in first}
+    check(first == want_counts and second == want_counts,
+          f"phase O launches {first} / {second} != {want_counts} a half")
+    check(restore["step"] == k and state.step == 2 * k,
+          f"restored {restore}, ended at {state.step}")
+    resume = _repeat_rule("phase O", want, host(state),
+                          lambda: unkilled()[0])
+    resume["losses_equal"] = losses + losses2 == want_losses
+    check(resume["losses_equal"] or not resume["bitwise_equal"],
+          f"losses {losses + losses2} != {want_losses} with equal state")
+    del want
+
+    # Fused buckets: two steps from the step-2k checkpoint with and
+    # without them.
+    loss_fn = _train_loss(model, False, mcfg)
+    plain = dp.make_train_step(loss_fn, optimizer)
+    fused = dp.make_train_step(loss_fn, optimizer, bucket_bytes=BUCKET_BYTES)
+    out = {}
+    for name, fn in (("plain", plain), ("fused", fused)):
+        state, _ = ck.restore_latest(state)
+        state = loop.fit(fn, state, batcher.iter_from, 2 * k + 2, rng=1)
+        out[name] = {n: t.detach().cpu() for n, t in state.params.items()}
+    restore2 = dict(ck.last_restore)
+    check(all(torch.equal(out["plain"][n], out["fused"][n])
+              for n in out["plain"]),
+          "two steps with fused buckets differ from two without")
+    n_buckets = max(dp.plan_buckets(dict(state.params), None,
+                                    BUCKET_BYTES)) + 1
+    disk = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+    gb = save["bytes"] / 1e9
+    result = {
+        "phase": "O", "model": "llama-small MoE 8e top-2 ragged", "k": k,
+        "params": sum(t.numel() for t in state.params.values()),
+        "state_bytes": save["bytes"], "disk_bytes": disk,
+        "save": save, "save_gb_per_s": gb / (save["save_ms"] / 1e3),
+        "write_gb_per_s": gb / (save["write_ms"] / 1e3),
+        "restore": restore,
+        "restore_gb_per_s": restore["bytes"] / 1e9
+        / (restore["restore_ms"] / 1e3),
+        "restore_again": restore2, "resume": resume,
+        "losses": want_losses, "launches_a_half": first,
+        "buckets": {"bucket_bytes": BUCKET_BYTES, "count": n_buckets,
+                    "params_bitwise_equal": True}}
+    log(result)
+    del model, optimizer, state, step_fn, out
+    return result
+
+
 def _agreement(phase, info, ka, kx, dev):
     """Phases F and I: the kernel path's run ``ka`` (held on the host)
     against the plain path's ``kx``: losses, then per parameter tensor the
@@ -2728,8 +3110,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     libs = _build.build_all()
+    from k8s_distributed_deeplearning_torch.runtime import fusion
     log({"build_s": time.perf_counter() - t0,
-         "kernels": sorted(libs)})
+         "kernels": sorted(libs),
+         "fusion_native_available": fusion.native_available()})
     for lib in libs.values():
         entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -2768,6 +3152,9 @@ def main() -> int:
         timed("F_bf16", phase_f_bf16, dev)
         h = timed("H", phase_h, dev)
         i = timed("I", phase_i, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            timed("N", phase_n, dev, Path(tmp))
+            timed("O", phase_o, dev, Path(tmp))
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k)

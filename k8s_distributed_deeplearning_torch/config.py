@@ -1,11 +1,10 @@
 """Typed training configuration and its CLI flags.
 
 Own copy of the part of ``k8s_distributed_deeplearning_tpu/config.py``
-that the training CLI uses: :class:`TrainConfig` (the reference's
-defaults: lr 0.001, 20000 steps, batch size 100, Adasum off) and
-:func:`add_train_flags`. The checkpoint flags are accepted so that a
-command line written for the JAX script parses, and raise until the
-checkpointer is ported.
+that the training CLIs use: :class:`TrainConfig` (the reference's
+defaults: lr 0.001, 20000 steps, batch size 100, Adasum off, dropout 0.5,
+rank-0 checkpoints in ``./checkpoints`` every 1000 steps) with the
+Horovod LR and step rules, and :func:`add_train_flags`.
 """
 from __future__ import annotations
 
@@ -21,14 +20,44 @@ class TrainConfig:
 
     lr: float = 0.001
     num_steps: int = 20000
-    batch_size: int = 100            # global batch (LM scripts)
+    batch_size: int = 100            # global (LM CLI) / per replica (MNIST)
     use_adasum: bool = False
     seed: int = 0
     log_every: int = 10
     eval_final: bool = True
+    dropout: float = 0.5
     dtype: str = "float32"           # compute dtype; "bfloat16" on the card
+
+    # Checkpointing (reference: rank-0-only ./checkpoints, :157-159)
+    checkpoint_dir: str = "./checkpoints"
+    checkpoint_every: int = 1000
+    max_checkpoints_to_keep: int = 3
+    # Mid-training eval and best-checkpoint retention (Keras variant:
+    # ModelCheckpoint(save_best_only=True)); eval_every=0 disables.
     eval_every: int = 0
+    keep_best: bool = False
+    # The host snapshot stays synchronous; the write overlaps training.
+    async_checkpoint: bool = False
+
+    data_dir: str | None = None      # MNIST idx files; None -> synthetic
     grad_accum: int = 1              # microbatches per optimizer step
+
+    def scaled_lr(self, world_size: int, local_size: int = 1,
+                  fast_interconnect: bool = False) -> float:
+        """Horovod LR scaling rule (``tensorflow_mnist.py:123-130``).
+
+        Average reduction: lr x world_size. Adasum: lr x local_size when a
+        fast device interconnect handles the intra-node reduction (the
+        ``hvd.nccl_built()`` probe, ``:126-127``), else lr x 1.
+        """
+        if self.use_adasum:
+            return self.lr * (local_size if fast_interconnect else 1)
+        return self.lr * world_size
+
+    def steps_for_world(self, world_size: int) -> int:
+        """Total optimizer steps for this world size
+        (``tensorflow_mnist.py:146``)."""
+        return self.num_steps // world_size
 
 
 def add_train_flags(parser: argparse.ArgumentParser) -> None:
@@ -43,7 +72,8 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--num-steps", type=int, default=d.num_steps,
                         help="optimizer-step budget")
     parser.add_argument("--batch-size", type=int, default=d.batch_size,
-                        help="global batch size")
+                        help="batch size: global for the LM CLI, per "
+                        "replica for MNIST (the reference's)")
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--log-every", type=int, default=d.log_every)
     parser.add_argument("--dtype", type=str, default=d.dtype,
@@ -56,10 +86,26 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
                         help="global-norm gradient clip (0 disables)")
     parser.add_argument("--grad-accum", type=int, default=d.grad_accum,
                         help="microbatches accumulated per optimizer step")
-    parser.add_argument("--checkpoint-dir", type=str, default=None,
-                        help="not ported yet: raises when given")
-    parser.add_argument("--checkpoint-every", type=int, default=None,
-                        help="not ported yet: raises when given")
+    parser.add_argument("--checkpoint-dir", type=str,
+                        default=d.checkpoint_dir,
+                        help="rank 0 writes here; a run restores from the "
+                        "newest good step it finds")
+    parser.add_argument("--checkpoint-every", type=int,
+                        default=d.checkpoint_every)
+    parser.add_argument("--async-checkpoint", dest="async_checkpoint",
+                        action="store_true", default=d.async_checkpoint,
+                        help="overlap checkpoint writes with training (the "
+                        "host snapshot itself stays synchronous)")
+    parser.add_argument("--keep-best", action="store_true",
+                        default=d.keep_best,
+                        help="retain the best checkpoints by eval metric "
+                        "instead of the newest (save_best_only parity); "
+                        "requires --eval-every")
+    parser.add_argument("--data-dir", type=str, default=d.data_dir,
+                        help="MNIST idx files (default: synthetic images)")
+    parser.add_argument("--prefetch", type=int, default=2,
+                        help="batches staged ahead by a host thread "
+                        "(0 = off)")
 
 
 def train_config_from_args(args: argparse.Namespace) -> TrainConfig:

@@ -1,4 +1,4 @@
-"""Flax Llama and MoE parameters -> the port's state dict.
+"""Flax Llama, MoE and MNIST parameters -> the port's state dicts.
 
 The JAX ``LlamaLM`` and ``MoELM`` parameter trees come in two layouts: the
 layer-scanned
@@ -95,4 +95,23 @@ def from_flax_params(cfg: TransformerConfig,
     if not cfg.tie_embeddings:
         sd["head.lm_head.weight"] = t(_leaf(
             params["head"]["lm_head"]["kernel"]).T)
+    return sd
+
+
+def mnist_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for ``mnist.MNISTConvNet`` from the flax
+    ``MNISTConvNet``'s ``params`` tree: conv kernels HWIO -> OIHW, dense
+    kernels ``[in, out]`` -> ``[out, in]``. ``dense1``'s input rows need no
+    permutation: the port flattens its NCHW activations in NHWC order, as
+    flax flattens."""
+    def t(x):
+        return torch.from_numpy(np.array(_leaf(x), np.float32, order="C"))
+
+    sd = {}
+    for flax_name, name in (("Conv_0", "conv1"), ("Conv_1", "conv2"),
+                            ("Dense_0", "dense1"), ("Dense_1", "dense2")):
+        k = _leaf(params[flax_name]["kernel"])
+        k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+        sd[f"{name}.weight"] = t(k)
+        sd[f"{name}.bias"] = t(params[flax_name]["bias"])
     return sd

@@ -16,7 +16,8 @@ log2(N) rounds of pairwise exchanges, each combining with
 and, for N not a power of two, a fold-in of the residual ranks before the
 butterfly and a copy back after it.
 
-``bucketed_pmean`` (the fused-buffer form) is not ported yet.
+``bucketed_pmean`` is the fused-buffer form of the mean (Horovod's tensor
+fusion): one allreduce per bucket of flattened leaves.
 """
 from __future__ import annotations
 
@@ -44,6 +45,37 @@ def tree_pmean(tree: Tree, group=None) -> Tree:
     for x in tree.values():
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
         x.div_(n)
+    return tree
+
+
+def bucket_order(tree: Tree) -> list:
+    """The leaves' order for bucketing: sorted keys, the order
+    ``jax.tree.flatten`` gives the same dict, so a bucket plan made for
+    the JAX package's leaves holds here."""
+    return sorted(tree)
+
+
+@torch.no_grad()
+def bucketed_pmean(tree: Tree, group, bucket_ids) -> Tree:
+    """Mean-allreduce *tree* as few fused flat buffers, in place; returns
+    the tree. ``bucket_ids[i]`` is the bucket of the i-th leaf in
+    :func:`bucket_order` (the plan of ``runtime.fusion.plan_buckets``).
+    The leaves of a bucket are flattened in f32 and concatenated, reduced
+    in one ``all_reduce``, divided by the world size, split, and cast
+    back into their own tensors."""
+    keys = bucket_order(tree)
+    bucket_ids = list(bucket_ids)
+    if len(bucket_ids) != len(keys):
+        raise ValueError(f"{len(bucket_ids)} bucket ids for {len(keys)} "
+                         "leaves")
+    n = dist.get_world_size(group)
+    for bucket in sorted(set(bucket_ids)):
+        leaves = [tree[k] for k, b in zip(keys, bucket_ids) if b == bucket]
+        flat = torch.cat([x.reshape(-1).float() for x in leaves])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= n
+        for x, part in zip(leaves, flat.split([x.numel() for x in leaves])):
+            x.copy_(part.view(x.shape))
     return tree
 
 

@@ -39,20 +39,45 @@ class Reduction(enum.Enum):
 def reduce_gradients(grads: dict, group=None,
                      reduction: Reduction = Reduction.AVERAGE,
                      bucket_bytes: int | str | None = None) -> dict:
-    """Allreduce a ``{name: grad}`` dict across the group. ``bucket_bytes``
-    (the fused-bucket path) needs ``bucketed_pmean`` and the fusion
-    planner, which are not ported yet."""
-    if bucket_bytes:
-        raise NotImplementedError(
-            "bucket_bytes needs bucketed_pmean and the fusion planner, "
-            "which are not ported to PyTorch yet (ROADMAP.md, queue 1)")
+    """Allreduce a ``{name: grad}`` dict across the group, in place.
+    ``bucket_bytes`` (AVERAGE only): reduce the gradients as fused flat
+    buckets of at most that many bytes (Horovod's tensor fusion,
+    ``collectives.bucketed_pmean``), or ``"auto"`` to let the fusion
+    planner's alpha-beta model pick the threshold from the gradients'
+    sizes and a probe of this group's allreduce."""
+    _check_bucketing(bucket_bytes, reduction)
     if reduction is Reduction.AVERAGE:
+        if bucket_bytes:
+            return collectives.bucketed_pmean(
+                grads, group, plan_buckets(grads, group, bucket_bytes))
         return collectives.tree_pmean(grads, group)
     if reduction is Reduction.SUM:
         return collectives.tree_psum(grads, group)
     if reduction is Reduction.ADASUM:
         return collectives.adasum_reduce(grads, group)
     raise ValueError(f"unknown reduction {reduction}")
+
+
+def _check_bucketing(bucket_bytes, reduction: Reduction) -> None:
+    if bucket_bytes and reduction is not Reduction.AVERAGE:
+        raise ValueError(
+            f"bucket_bytes is only supported with Reduction.AVERAGE, "
+            f"got {reduction}")
+
+
+def plan_buckets(grads: dict, group, bucket_bytes: int | str) -> list[int]:
+    """Bucket id of each gradient, in ``collectives.bucket_order``, for a
+    threshold in bytes or ``"auto"``."""
+    from k8s_distributed_deeplearning_torch.runtime import fusion
+
+    sizes = [grads[k].numel() * grads[k].element_size()
+             for k in collectives.bucket_order(grads)]
+    if bucket_bytes == "auto":
+        alpha, beta = fusion.probe_allreduce(group)
+        bucket_bytes = fusion.FusionPlanner(
+            world=dist.get_world_size(group), alpha_s=alpha,
+            beta_s_per_byte=beta).autotune(sizes)
+    return fusion.plan_buckets(sizes, int(bucket_bytes)).tolist()
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -62,8 +87,10 @@ def fold_in(seed: int, data: int) -> int:
         1, np.uint64)[0] >> 1)
 
 
-def _generator(seed: int) -> torch.Generator:
-    gen = torch.Generator()
+def _generator(seed: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device``, so a dropout mask is drawn where its
+    tensor lives."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
 
@@ -89,8 +116,9 @@ def accumulate_gradients(loss_fn: LossFn, params: dict, batch: dict,
         parts = [{k: x.chunk(microbatches)[i] for k, x in batch.items()}
                  for i in range(microbatches)]
     loss_sum, aux_sum = None, None
+    device = next(iter(params.values())).device
     for i, part in enumerate(parts):
-        loss, aux = loss_fn(part, _generator(fold_in(seed, i)))
+        loss, aux = loss_fn(part, _generator(fold_in(seed, i), device))
         loss.backward()
         loss = loss.detach()
         aux = {k: v.detach() for k, v in (aux or {}).items()}
@@ -147,12 +175,16 @@ def make_train_step(loss_fn: LossFn, optimizer, group=None,
     rank for its generator (JAX ``fold_in(rng, axis_index)``). Loss and
     aux come back averaged across replicas (``MetricAverageCallback``
     parity). Runs in a process group, a world of one included, so the
-    gradient allreduce is a real collective."""
+    gradient allreduce is a real collective. With ``bucket_bytes`` the
+    bucket plan is made once, at the first step: the gradients' sizes do
+    not change."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_train_step needs a torch.distributed process group: call "
             "parallel.distributed.initialize_from_env() or "
             "initialize_single() first")
+    _check_bucketing(bucket_bytes, reduction)
+    plan: list[int] = []        # bucket ids, planned at the first step
 
     def step(state: TrainState, batch: dict, seed: int):
         device = next(iter(state.params.values())).device
@@ -160,8 +192,12 @@ def make_train_step(loss_fn: LossFn, optimizer, group=None,
         rank_seed = fold_in(seed, dist.get_rank(group))
         (loss, aux), grads = accumulate_gradients(
             loss_fn, state.params, batch, rank_seed, microbatches)
-        grads = reduce_gradients(grads, group, reduction,
-                                 bucket_bytes=bucket_bytes)
+        if bucket_bytes:
+            if not plan:
+                plan.extend(plan_buckets(grads, group, bucket_bytes))
+            grads = collectives.bucketed_pmean(grads, group, plan)
+        else:
+            grads = reduce_gradients(grads, group, reduction)
         loss, aux = _pmean_scalars(loss, aux, group)
         opt_state = optimizer.apply(state.params, grads, state.opt_state)
         for p in state.params.values():

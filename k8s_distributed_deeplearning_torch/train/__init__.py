@@ -1,2 +1,3 @@
-"""Training: the token batchers, optimizers, the loop and the CLI
+"""Training: data and batchers, optimizers, the loop with checkpoints,
+restore-on-start and preemption, the Llama/MoE CLI and the MNIST job
 (PyTorch port)."""

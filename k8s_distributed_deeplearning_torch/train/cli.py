@@ -14,10 +14,13 @@ CPU). The model runs on the card unless ``--device cpu`` is asked for;
 there the kernels' plain versions run. ``--moe-experts N`` swaps every MLP
 for a mixture-of-experts layer (``models/moe.py`` ``MoELM``, the loss
 ``moe.loss_fn``, MFU from ``moe.flops_per_token``); ``--moe-dispatch
-ragged`` runs the experts as grouped matmuls on the CUDA kernels. Sharded,
+ragged`` runs the experts as grouped matmuls on the CUDA kernels. Rank 0
+checkpoints to ``--checkpoint-dir`` (default ``./checkpoints``, every
+``--checkpoint-every`` steps and at the end), a run restores from the
+newest good step there, and SIGTERM checkpoints and stops
+(``train/checkpoint.py``, ``train/preemption.py``). Sharded,
 expert-parallel and pipelined training (``--fsdp``, ``--tp``, ``--sp``,
-``--ep``, ``--pp``), checkpoints and the profiler are not ported yet and
-raise.
+``--ep``, ``--pp``) and the profiler are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -33,7 +36,10 @@ from k8s_distributed_deeplearning_torch.models import moe as moe_lib
 from k8s_distributed_deeplearning_torch.parallel import distributed
 from k8s_distributed_deeplearning_torch.parallel import data_parallel as dp
 from k8s_distributed_deeplearning_torch.train import data as data_lib
-from k8s_distributed_deeplearning_torch.train import loop, optim
+from k8s_distributed_deeplearning_torch.train import loop, optim, prefetch
+from k8s_distributed_deeplearning_torch.train.checkpoint import Checkpointer
+from k8s_distributed_deeplearning_torch.train.preemption import (
+    PreemptionHandler)
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
 from k8s_distributed_deeplearning_torch.utils.metrics import (
     H100_PEAK_FLOPS, MetricsLogger)
@@ -76,9 +82,6 @@ def _unported(args) -> None:
                 f"{flag} {value}: sharded, context-parallel, "
                 "expert-parallel and pipelined training are not ported to "
                 "PyTorch yet (ROADMAP.md)")
-    if args.checkpoint_dir is not None or args.checkpoint_every is not None:
-        raise NotImplementedError("checkpoints are not ported to PyTorch "
-                                  "yet (ROADMAP.md)")
     if args.profile_dir is not None:
         raise NotImplementedError("--profile-dir: the step profiler is not "
                                   "ported to PyTorch yet (ROADMAP.md)")
@@ -242,6 +245,9 @@ def _train(args, conf, device) -> dict:
     if args.eval_every and eval_batcher is None:
         raise ValueError("--eval-every: held-out set smaller than one eval "
                          "batch per process")
+    if conf.keep_best and not conf.eval_every:
+        raise ValueError("--keep-best needs --eval-every to produce the "
+                         "metric it ranks checkpoints by")
     metrics = MetricsLogger(job="llama", enabled=distributed.is_primary())
     n_params = sum(p.numel() for p in params.values())
     if moe_cfg is not None:
@@ -257,19 +263,36 @@ def _train(args, conf, device) -> dict:
                  preset=args.preset, params=n_params, seq_len=seq_len,
                  attention=args.attention, chunked_ce=chunked,
                  device=str(device), dtype=args.dtype, **extra)
+    ckpt = Checkpointer(conf.checkpoint_dir,
+                        max_to_keep=conf.max_checkpoints_to_keep,
+                        keep_best_metric="loss" if conf.keep_best else None,
+                        best_mode="min", async_save=conf.async_checkpoint,
+                        metrics=metrics)
+    preemption = PreemptionHandler.install()
+    prefetchers: list = []
+
+    def batches(start_step: int):
+        return prefetch.maybe(batcher.iter_from(start_step),
+                              lambda b: dp.to_device(b, device),
+                              args.prefetch, prefetchers)
+
     try:
         state = loop.fit(
-            step_fn, state, batcher.iter_from, conf.num_steps, conf.seed,
-            metrics=metrics, log_every=conf.log_every,
+            step_fn, state, batches, conf.num_steps, conf.seed,
+            metrics=metrics, checkpointer=ckpt,
+            checkpoint_every=conf.checkpoint_every, log_every=conf.log_every,
             global_batch_size=conf.batch_size, flops_per_example=flops,
             peak_flops=(H100_PEAK_FLOPS[args.dtype]
                         if device.type == "cuda" else None),
+            preemption=preemption,
             eval_every=conf.eval_every,
             eval_fn=(lambda s: {"loss": eval_loss(s)})
             if conf.eval_every else None)
         result = {"num_steps": state.step, "world_size": world,
                   "params": n_params}
-        if conf.eval_final:
+        # A preempted run skips eval: the grace period is for the save,
+        # and an "eval" event would make an evicted run look completed.
+        if conf.eval_final and not preemption.triggered:
             if eval_batcher is None:
                 metrics.emit("eval_skipped", reason="held-out set smaller "
                              "than one window per process")
@@ -278,6 +301,9 @@ def _train(args, conf, device) -> dict:
                 metrics.emit("eval", loss=ev, perplexity=math.exp(ev))
                 result["eval_loss"] = ev
     finally:
+        preemption.uninstall()
+        prefetch.close_all(prefetchers)
+        ckpt.close()
         metrics.close()
     return result
 

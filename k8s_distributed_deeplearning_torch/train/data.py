@@ -1,22 +1,188 @@
-"""Token data: the seeded synthetic corpus and the deterministic LM batchers.
+"""Data: MNIST (idx files, the digits fixture, the seeded synthetic set),
+the seeded synthetic corpus, and the deterministic batchers.
 
 Own copies of the numpy-only pieces of
-``k8s_distributed_deeplearning_tpu/train/data.py`` (``synthetic_tokens``,
-``load_tokens``, ``_EpochShardedBatcher``, ``TokenBatcher``,
-``split_documents``, ``PackedTokenBatcher``), unchanged in behaviour: the
-same seed gives the same batches. One global permutation per epoch
-(seeded, identical on every process), each process takes a disjoint
-stride slice, and ``batch_at(step)`` is stateless. Nothing is downloaded.
+``k8s_distributed_deeplearning_tpu/train/data.py``, unchanged in
+behaviour: the same seed gives the same batches. One global permutation
+per epoch (seeded, identical on every process), each process takes a
+disjoint stride slice, and ``batch_at(step)`` is stateless. Nothing is
+downloaded: MNIST is read from idx files already on disk (the JAX
+package's ``fetch_mnist`` is not copied), or a stand-in is made.
 """
 from __future__ import annotations
 
 import gzip
+import hashlib
 import os
-from typing import Iterator
+import struct
+from typing import Iterator, Mapping
 
 import numpy as np
 
 PyTree = dict
+
+# The four canonical MNIST idx archives with their well-known MD5 digests
+# (the same pins torchvision ships).
+MNIST_FILES: dict[str, str] = {
+    "train-images-idx3-ubyte.gz": "f68b3c2dcbeaaa9fbdd348bbdeb94873",
+    "train-labels-idx1-ubyte.gz": "d53e105ee54ea40749a09fcbcd1e9432",
+    "t10k-images-idx3-ubyte.gz": "9fb629c4189551a2d022fa330f9573f3",
+    "t10k-labels-idx1-ubyte.gz": "ec29112dd5afa0611ce80d1b7f02629c",
+}
+
+
+class ChecksumError(RuntimeError):
+    """An on-disk dataset file does not match its pinned digest."""
+
+
+def _md5(path: str) -> str:
+    h = hashlib.md5()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def mnist_available(data_dir: str,
+                    checksums: Mapping[str, str] | None = None,
+                    verify: bool = True) -> bool:
+    """True iff all four idx archives exist in *data_dir* (and, when
+    *verify*, match their pinned MD5 digests). Unpacked (non-.gz) files are
+    accepted without digest verification: the pins are for the archives."""
+    checksums = MNIST_FILES if checksums is None else checksums
+    for name, digest in checksums.items():
+        gz = os.path.join(data_dir, name)
+        if os.path.exists(gz):
+            if verify and _md5(gz) != digest:
+                return False
+        elif not os.path.exists(os.path.join(data_dir, name[:-3])):
+            return False
+    return True
+
+
+def resolve_mnist_dir(data_dir: str | None = None) -> str | None:
+    """Locate real MNIST: explicit *data_dir*, else ``$MNIST_DATA_DIR``.
+    Returns None when neither holds the four verified archives (the JAX
+    package's copy also looks in a cache under the home directory and can
+    download; this one reads only what it is pointed at)."""
+    for d in (data_dir, os.environ.get("MNIST_DATA_DIR")):
+        if d and os.path.isdir(d) and mnist_available(d):
+            return d
+    return None
+
+
+def _open_maybe_gz(path: str):
+    if os.path.exists(path + ".gz"):
+        return gzip.open(path + ".gz", "rb")
+    return open(path, "rb")
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Parse an IDX file (the MNIST on-disk format)."""
+    with _open_maybe_gz(path) as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    return data.reshape(dims)
+
+
+def load_mnist(data_dir: str,
+               split: str = "train") -> tuple[np.ndarray, np.ndarray]:
+    """Load MNIST idx files from *data_dir*; images in [0,1] float32, HWC."""
+    prefix = "train" if split == "train" else "t10k"
+    images = _read_idx(os.path.join(data_dir, f"{prefix}-images-idx3-ubyte"))
+    labels = _read_idx(os.path.join(data_dir, f"{prefix}-labels-idx1-ubyte"))
+    return images.astype(np.float32)[..., None] / 255.0, labels.astype(np.int32)
+
+
+def write_idx_dataset(data_dir: str, images: np.ndarray, labels: np.ndarray,
+                      prefix: str) -> None:
+    """Write a split in the canonical MNIST on-disk idx format (gzipped):
+    *images* uint8 [N, H, W], *labels* uint8 [N], *prefix* "train"/"t10k".
+    The exact inverse of :func:`load_mnist`'s parser."""
+    if images.dtype != np.uint8 or labels.dtype != np.uint8:
+        raise ValueError("idx images and labels must be uint8")
+    n, h, w = images.shape
+    with gzip.open(os.path.join(
+            data_dir, f"{prefix}-images-idx3-ubyte.gz"), "wb") as f:
+        f.write(struct.pack(">I", 0x00000803)
+                + struct.pack(">III", n, h, w) + images.tobytes())
+    with gzip.open(os.path.join(
+            data_dir, f"{prefix}-labels-idx1-ubyte.gz"), "wb") as f:
+        f.write(struct.pack(">I", 0x00000801)
+                + struct.pack(">I", len(labels)) + labels.tobytes())
+
+
+def make_digits_fixture(data_dir: str, *, n_test: int = 400,
+                        seed: int = 0) -> str:
+    """Real handwritten digits with no download: the UCI ML hand-written
+    digits set bundled with scikit-learn (1,797 scanned 8x8 digits),
+    upscaled nearest-neighbor to 28x28 (3x kron + 2px pad) so the
+    reference ConvNet runs unchanged, written as idx files. Deterministic
+    shuffled split (*seed*): *n_test* held out. Not MNIST: a stand-in
+    that makes the engine's convergence on real scanned digits run."""
+    from sklearn.datasets import load_digits  # bundled data, no download
+
+    os.makedirs(data_dir, exist_ok=True)
+    d = load_digits()
+    images = d.images.astype(np.float32)            # [N, 8, 8] in 0..16
+    up = np.kron(images, np.ones((1, 3, 3), np.float32))   # [N, 24, 24]
+    up = np.pad(up, ((0, 0), (2, 2), (2, 2)))              # [N, 28, 28]
+    xs = np.clip(up * (255.0 / 16.0), 0, 255).astype(np.uint8)
+    ys = d.target.astype(np.uint8)
+    order = np.random.default_rng(seed).permutation(len(xs))
+    xs, ys = xs[order], ys[order]
+    write_idx_dataset(data_dir, xs[n_test:], ys[n_test:], "train")
+    write_idx_dataset(data_dir, xs[:n_test], ys[:n_test], "t10k")
+    return data_dir
+
+
+def synthetic_images(num: int, *, size: int = 32, channels: int = 3,
+                     num_classes: int = 10, seed: int = 0,
+                     noise: float = 0.25,
+                     sample_seed: int | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Procedural image-classification set: fixed random class templates
+    plus per-example Gaussian noise. ``seed`` fixes the templates (the
+    "dataset"); ``sample_seed`` varies the drawn examples, so train and
+    test splits share templates but not samples."""
+    tmpl_rng = np.random.default_rng(seed)
+    templates = tmpl_rng.normal(
+        size=(num_classes, size, size, channels)).astype(np.float32)
+    rng = np.random.default_rng(seed if sample_seed is None else sample_seed)
+    labels = rng.integers(0, num_classes, size=(num,)).astype(np.int32)
+    images = templates[labels] + noise * rng.normal(
+        size=(num, size, size, channels)).astype(np.float32)
+    return images.astype(np.float32), labels
+
+
+def synthetic_mnist(num: int = 4096, seed: int = 0, noise: float = 0.25,
+                    sample_seed: int | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """MNIST-shaped instance of :func:`synthetic_images` (28x28x1, 10
+    classes)."""
+    return synthetic_images(num, size=28, channels=1, num_classes=10,
+                            seed=seed, noise=noise, sample_seed=sample_seed)
+
+
+def load_or_synthesize(data_dir: str | None, split: str = "train",
+                       synth_size: int = 4096, seed: int = 0):
+    """Real MNIST from *data_dir*, or the synthetic set when no dir is
+    given (``synth_size`` train examples, a quarter of that for test).
+
+    An explicitly requested directory that doesn't exist is an error:
+    never silently train on fake data because a volume failed to mount.
+    """
+    if data_dir:
+        if not os.path.isdir(data_dir):
+            raise FileNotFoundError(
+                f"--data-dir {data_dir!r} does not exist; refusing to fall "
+                "back to synthetic data (omit --data-dir for synthetic)")
+        return load_mnist(data_dir, split)
+    return synthetic_mnist(synth_size if split == "train" else synth_size // 4,
+                           seed=seed,
+                           sample_seed=seed if split == "train" else seed + 10_000)
 
 
 def synthetic_tokens(num_tokens: int = 1 << 17, vocab_size: int = 256,
@@ -261,3 +427,21 @@ class PackedTokenBatcher(_EpochShardedBatcher):
         return {"tokens": self.rows_tokens[sel],
                 "segment_ids": segs,
                 "mask": (segs != self.PAD_SEGMENT).astype(np.float32)}
+
+
+class ShardedBatcher(_EpochShardedBatcher):
+    """Infinite per-process image batches with true epoch sharding.
+
+    Parity surface: ``train_input_generator`` (``tensorflow_mnist.py:76-85``)
+    (infinite, shuffled, fixed batch size), but each process sees a
+    disjoint 1/num_processes slice of every epoch. ``batch_size`` is the
+    per-process batch: one replica a process here."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int,
+                 seed: int = 0, process_index: int = 0, num_processes: int = 1):
+        self.images, self.labels = images, labels
+        super().__init__(len(images), batch_size, seed, process_index,
+                         num_processes, what="examples")
+
+    def _make_batch(self, sel: np.ndarray) -> PyTree:
+        return {"image": self.images[sel], "label": self.labels[sel]}

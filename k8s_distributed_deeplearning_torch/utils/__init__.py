@@ -1,1 +1,1 @@
-"""Utilities: device selection and serving metrics."""
+"""Utilities: device selection, metrics, checkpoint-directory integrity."""

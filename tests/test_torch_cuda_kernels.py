@@ -1302,3 +1302,49 @@ def test_gmm_wgmma_refuses_and_does_not_fall_back(hopper):
                small, route="wgmma")
     torch.cuda.synchronize()
     assert _gmm_counts() == before
+
+
+def test_checkpoint_resume_round_trip_on_the_card(hopper, tmp_path):
+    """The MNIST job's step on the card over NCCL (world of one): 2 steps,
+    a save, a fresh model from another seed restored from disk into its
+    own parameters on the card, and 2 more steps end bitwise equal to 4
+    unkilled steps (cuDNN held to deterministic algorithms)."""
+    from k8s_distributed_deeplearning_torch import config as cfg_lib
+    from k8s_distributed_deeplearning_torch.parallel import distributed
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import loop
+    from k8s_distributed_deeplearning_torch.train import mnist as job
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+
+    x, y = data_lib.synthetic_mnist(256, seed=0)
+    batches = data_lib.ShardedBatcher(x, y, 32, seed=0).iter_from
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    distributed.initialize_single("cuda")
+    try:
+        def run(seed, steps, ck=None):
+            conf = cfg_lib.TrainConfig(seed=seed)
+            model, _, state, step = job.build(conf, hopper, 1)
+            return model, loop.fit(step, state, batches, steps, rng=0,
+                                   checkpointer=ck, checkpoint_every=2)
+
+        _, want = run(0, 4)
+        ck = Checkpointer(str(tmp_path / "ck"))
+        run(0, 2, ck)
+        model, got = run(1, 4, ck)
+        assert ck.last_restore["step"] == 2 and got.step == 4
+        live = dict(model.named_parameters())
+        for n, p in got.params.items():
+            assert p is live[n] and p.is_cuda
+            assert torch.equal(p, want.params[n]), n
+            for m in ("mu", "nu"):
+                assert torch.equal(got.opt_state[m][n],
+                                   want.opt_state[m][n]), (m, n)
+        assert ck.latest_step() == 4
+    finally:
+        distributed.shutdown()
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags

@@ -432,16 +432,18 @@ def test_ragged_train_step_matches_jax_one_replica(world_of_one):
                                    rtol=1e-4, err_msg=name)
 
 
-def test_cli_trains_ragged_moe_on_cpu():
+def test_cli_trains_ragged_moe_on_cpu(tmp_path):
     """python -m k8s_distributed_deeplearning_torch.train --preset tiny
     --moe-experts 4 --moe-dispatch ragged --device cpu: the start event
-    names the MoE layer and the loss falls."""
+    names the MoE layer and the loss falls. The checkpoints go to a fresh
+    directory: the CLI restores from the one it is given."""
     buf = io.StringIO()
     with redirect_stdout(buf):
         t_cli.main(["--preset", "tiny", "--moe-experts", "4",
                     "--moe-dispatch", "ragged", "--device", "cpu",
                     "--num-steps", "10", "--batch-size", "4", "--seq-len",
-                    "32", "--lr", "3e-3", "--log-every", "1", "--no-eval"])
+                    "32", "--lr", "3e-3", "--log-every", "1", "--no-eval",
+                    "--checkpoint-dir", str(tmp_path / "ck")])
     events = [json.loads(line) for line in buf.getvalue().splitlines()]
     start = events[0]
     assert start["event"] == "start"

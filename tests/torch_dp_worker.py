@@ -1,4 +1,6 @@
-"""Rank worker for tests/test_torch_data_parallel.py.
+"""Rank worker for the port's multi-process tests
+(tests/test_torch_data_parallel.py, test_torch_fusion.py,
+test_torch_checkpoint.py).
 
 Imports torch and the port only, so the spawned rank processes never
 import JAX. Each rank joins a gloo group on localhost, reads its inputs
@@ -9,8 +11,12 @@ import torch
 import torch.distributed as dist
 
 from k8s_distributed_deeplearning_torch.models import llama
+from k8s_distributed_deeplearning_torch.ops import collectives
 from k8s_distributed_deeplearning_torch.parallel import data_parallel as dp
+from k8s_distributed_deeplearning_torch.runtime import fusion
 from k8s_distributed_deeplearning_torch.train import optim
+from k8s_distributed_deeplearning_torch.train.preemption import (
+    PreemptionHandler)
 
 
 def _tree(data, prefix):
@@ -31,17 +37,61 @@ def _reduce(rank, data):
     return out
 
 
+def _bucketed(rank, data):
+    """This rank's gradients reduced as fused buckets (the plan in
+    ``data["ids"]``) and leaf by leaf, counting the allreduces of each."""
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        fused = collectives.bucketed_pmean(_tree(data, f"g{rank}/"), None,
+                                           data["ids"])
+        n_fused = len(calls)
+        plain = collectives.tree_pmean(_tree(data, f"g{rank}/"))
+    finally:
+        dist.all_reduce = all_reduce
+    out = {f"fused/{k}": v.numpy() for k, v in fused.items()}
+    out.update({f"plain/{k}": v.numpy() for k, v in plain.items()})
+    out["n_fused"] = np.asarray(n_fused)
+    if "auto" in data:
+        out["link"] = np.asarray(fusion.probe_allreduce())
+        out["auto_ids"] = np.asarray(
+            dp.plan_buckets(_tree(data, f"g{rank}/"), None, "auto"))
+    return out
+
+
+def _agree(rank, data):
+    """Only rank 1 is signalled; both ranks ask for the agreement."""
+    h = PreemptionHandler()
+    before = h.triggered
+    if rank == 1:
+        h.request()
+    flags = [None, None]
+    dist.all_gather_object(flags, before)
+    agreed = h.agreed()
+    got = [None, None]
+    dist.all_gather_object(got, agreed)
+    return {"before": np.asarray(flags), "agreed": np.asarray(got),
+            "latched": np.asarray(h.triggered)}
+
+
 def _step(rank, data):
     """Two AdamW steps of the tiny Llama on this rank's half of each
-    global batch."""
+    global batch (with ``data["bucket_bytes"]``, as fused buckets)."""
     cfg = llama.config_tiny(dtype=torch.float32, param_dtype=torch.float32)
     model = llama.LlamaLM(cfg, device="cpu")
     model.load_state_dict(_tree(data, "p/"))
     opt = optim.make_optimizer("adamw", 1e-3, grad_clip=1.0)
     state = dp.init_state(dict(model.named_parameters()), opt)
+    bucket = int(data["bucket_bytes"]) if "bucket_bytes" in data else None
     step = dp.make_train_step(
         lambda b, g: llama.loss_fn(model, b, g, chunked=True, chunk_size=16),
-        opt)
+        opt, bucket_bytes=bucket)
     world = dist.get_world_size()
     losses = []
     for i, tokens in enumerate(data["batches"]):
@@ -62,7 +112,8 @@ def run_rank(rank: int, world: int, port: int, directory: str,
                             world_size=world, rank=rank)
     try:
         data = dict(np.load(f"{directory}/in.npz"))
-        out = _reduce(rank, data) if mode == "reduce" else _step(rank, data)
+        out = {"reduce": _reduce, "step": _step, "bucketed": _bucketed,
+               "agree": _agree}[mode](rank, data)
         np.savez(f"{directory}/out_{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
