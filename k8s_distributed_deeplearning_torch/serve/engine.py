@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over a paged KV pool.
 
-Port of the core of ``k8s_distributed_deeplearning_tpu/serve/engine.py``
+Port of ``k8s_distributed_deeplearning_tpu/serve/engine.py``
 (``ServeEngine``): the same host-side design, with PyTorch calls where the
-JAX engine runs its three compiled programs.
+JAX engine runs its compiled programs.
 
 - The KV cache is ONE pool of fixed-size pages per layer
   (``[num_pages, page_tokens, kv·head_dim]``, K and V). Each slot owns a
@@ -11,12 +11,16 @@ JAX engine runs its three compiled programs.
   admission allocates the prompt's pages and RESERVES the request's
   worst-case decode growth, so the mid-decode page-boundary allocation
   cannot fail; back-pressure exists only at admission.
-- Admission prefills straight into the pool: intermediate chunks of
-  exactly ``prefill_chunk_tokens`` real tokens (no LM head), then a final
-  chunk right-padded to a power-of-two bucket that samples the first token
-  from column ``length - 1``. Pad writes past the table land in the
-  scratch page 0; pad writes inside the last page sit past the cursor and
-  are never attended.
+- Admission prefills straight into the pool, from up to three sources:
+  the prefix cache (``prefix_cache_mb``; :mod:`serve.prefix_cache`), whose
+  longest hit is MAPPED into the slot's table (each trie page ref'd, no
+  device copy); intermediate chunks of exactly ``prefill_chunk_tokens``
+  real tokens (no LM head) from the hit onwards; and a final chunk
+  right-padded to a power-of-two bucket that samples the first token from
+  column ``length - 1``. A finished prefill hands the trie a reference to
+  each whole prompt block it does not hold yet. Pad writes past the table
+  land in the scratch page 0; pad writes inside the last page sit past the
+  cursor and are never attended.
 - Every iteration runs one decode step for all slots. Free slots ride
   along with all-scratch tables: their writes land in page 0 and are never
   attended. The host register file (tokens, cursors, tables, sampling
@@ -25,15 +29,29 @@ JAX engine runs its three compiled programs.
 - Sampling is per slot: greedy rows take the argmax; a sampled request
   draws from its own ``torch.Generator`` seeded with ``Request.seed``, so
   its stream depends only on the request, not on its slot.
-
+- Admission order is the multi-tenant scheduler's
+  (:class:`serve.sched.TenantScheduler`: EDF within a tenant, weighted
+  round robin, strict priority classes, rate limits and slot quotas).
+  ``cancel``, ``drain`` and ``submit(requeue=True)`` control single
+  requests and the engine's intake; shutdown and a finished drain check
+  that no page is left held.
+- Speculative decoding (``draft_model``, ``spec_k``): a second paged
+  arena, sized for the draft model, over the SAME page indices and tables
+  (every prefill write lands in both). Each iteration the draft proposes
+  ``spec_k`` greedy tokens a slot in ``spec_k + 1`` single-token steps,
+  one target pass scores the ``[B, spec_k + 1]`` window through the paged
+  kernels, and a slot emits the drafts that equal the target's own
+  selections plus the target's next one. Rollback is the cursor: rejected
+  positions stay past it, never attended. A sampled slot draws the
+  window's positions in order with its generator and keeps the state
+  after its last emitted token, so its stream is the non-speculative one.
 - Quantized serving (``kv_quant="int8"``, ``weight_quant="int8"``): int8
   KV pages with per-token-per-head f32 scales, read by the int8 branch of
-  the paged-attention kernel; per-channel int8 matmul weights
+  the paged-attention kernels; per-channel int8 matmul weights
   (``serve/quant.py``), dequantized at use.
 
-Not ported yet: the prefix cache, the multi-tenant scheduler, speculative
-decoding, tensor parallelism, KV export/import, drain/cancel, the flight
-recorder and fault sites.
+Not ported yet: tensor parallelism, KV export/import, the prefill-only
+role, the flight recorder, request traces and fault sites.
 """
 from __future__ import annotations
 
@@ -48,9 +66,11 @@ import torch
 from k8s_distributed_deeplearning_torch.models import generate
 from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
 from k8s_distributed_deeplearning_torch.serve.page_pool import PagePool
+from k8s_distributed_deeplearning_torch.serve.prefix_cache import PrefixCache
 from k8s_distributed_deeplearning_torch.serve.request import (
-    QueueFull, Request, RequestOutput)
-from k8s_distributed_deeplearning_torch.serve.scheduler import RequestQueue
+    EngineDraining, QueueFull, Request, RequestOutput)
+from k8s_distributed_deeplearning_torch.serve.sched import (
+    TenantConfig, TenantScheduler)
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
 from k8s_distributed_deeplearning_torch.utils.metrics import ServingStats
 
@@ -87,34 +107,44 @@ class _InFlight:
     """Host-side record for the request occupying a slot."""
 
     __slots__ = ("req", "tokens", "t_submit", "t_admit", "t_first",
-                 "prefill_chunks", "grow_left")
+                 "cached_prompt_tokens", "prefill_chunks", "grow_left",
+                 "spec_proposed", "spec_accepted")
 
     def __init__(self, req: Request, first_token: int, t_admit: float,
-                 t_first: float, prefill_chunks: int, grow_left: int):
+                 t_first: float, prefill_chunks: int, grow_left: int,
+                 cached_prompt_tokens: int = 0):
         self.req = req
         self.tokens = [first_token]
         self.t_submit = req._t_submit if req._t_submit is not None else t_admit
         self.t_admit = t_admit
         self.t_first = t_first
+        self.cached_prompt_tokens = cached_prompt_tokens
         self.prefill_chunks = prefill_chunks
         self.grow_left = grow_left   # reserved-but-unallocated decode pages
+        self.spec_proposed = 0       # draft tokens proposed for the request
+        self.spec_accepted = 0       # draft tokens accepted AND emitted
 
 
 class _PendingPrefill:
     """A slot whose prompt is still being prefilled. ``pos`` is the
-    prefill cursor; ``table`` is the slot's PRIVATE block-table row until
-    admission completes — the engine-wide row stays all-scratch meanwhile,
-    because the decode step writes a rider row for every slot."""
+    prefill cursor (the prompt's first ``pos`` tokens are in the slot's
+    pages: the mapped prefix-cache hit, then finished chunks); ``nodes``
+    pins the trie nodes behind the mapped hit until admission completes;
+    ``table`` is the slot's PRIVATE block-table row until then: the
+    engine-wide row stays all-scratch meanwhile, because the decode step
+    writes a rider row for every slot."""
 
-    __slots__ = ("req", "prompt", "n", "pos", "t_pop", "chunks", "grow",
-                 "table")
+    __slots__ = ("req", "prompt", "n", "pos", "hit_tokens", "nodes",
+                 "t_pop", "chunks", "grow", "table")
 
-    def __init__(self, req: Request, prompt: np.ndarray, t_pop: float,
-                 grow: int, table: np.ndarray):
+    def __init__(self, req: Request, prompt: np.ndarray, hit_tokens: int,
+                 nodes: list, t_pop: float, grow: int, table: np.ndarray):
         self.req = req
         self.prompt = prompt
         self.n = int(prompt.shape[0])
-        self.pos = 0
+        self.pos = hit_tokens
+        self.hit_tokens = hit_tokens
+        self.nodes = nodes
         self.t_pop = t_pop
         self.chunks = 0
         self.grow = grow
@@ -127,7 +157,8 @@ class ServeEngine:
     Usage::
 
         model = LlamaLM(cfg)                          # on the GPU
-        eng = ServeEngine(model, num_slots=8, prefill_chunk_tokens=512)
+        eng = ServeEngine(model, num_slots=8, prefill_chunk_tokens=512,
+                          prefix_cache_mb=256)
         outputs = eng.run([Request(prompt=[...], max_new_tokens=64)])
 
     or drive :meth:`step` in a loop while :meth:`busy`. ``device``
@@ -139,24 +170,44 @@ class ServeEngine:
     of ``min_bucket``; ``prefix_block_tokens`` (default ``min_bucket``) is
     the page size.
 
+    ``prefix_cache_mb`` (None or 0 = off) bounds the prefix-reuse trie,
+    whose pages come out of the same pool: a cached block is one
+    refcounted page, mapped into the slots that hit it.
+
+    ``tenants`` (TenantConfigs; None = one unlimited default tenant, i.e.
+    FCFS) configures the multi-tenant scheduler; ``max_queue`` bounds each
+    tenant that sets no ``max_queue`` of its own.
+
+    ``draft_model`` and ``spec_k`` (both or neither) turn on speculative
+    decoding: the draft proposes ``spec_k`` greedy tokens a slot through
+    its own paged arena over the same page indices and tables, and one
+    target pass verifies the window with exact-match accept. The output is
+    the non-speculative engine's, greedy or sampled. The draft must live
+    on the engine's device, share the target's vocabulary and cover its
+    ``max_seq_len``; it may be ``model`` itself.
+
     ``kv_quant="int8"`` makes every layer's pool int8 ``(pool_k, pool_v,
     k_scale, v_scale)``, the scales ``[num_pages, page_tokens, kv]`` f32,
-    and sets ``kv_quant`` on ``model.cfg``. ``weight_quant="int8"``
-    quantizes ``model``'s matmul weights IN PLACE
+    and sets ``kv_quant`` on ``model.cfg`` (and on the draft's, whose
+    arena is int8 too). ``weight_quant="int8"`` quantizes ``model``'s (and
+    the draft's) matmul weights IN PLACE
     (:func:`serve.quant.quantize_model`, one scale per channel shared
-    across layers, as the JAX engine's scanned params): the model's fp
-    weights are gone afterwards. Both modes change ``model`` itself, where
-    the JAX engine clones its model and keeps its params.
+    across layers, as the JAX engine's scanned params): the fp weights are
+    gone afterwards. Both modes change the models themselves, where the
+    JAX engine clones its models and keeps their params.
     """
 
     def __init__(self, model, *, num_slots: int = 8, max_queue: int = 256,
                  eos_id: int | None = None, pad_id: int = 0,
                  min_bucket: int = 32,
                  prefill_chunk_tokens: int | None = None,
+                 prefix_cache_mb: float | None = None,
                  prefix_block_tokens: int | None = None,
                  kv_pool_pages: int | None = None,
+                 tenants: Iterable[TenantConfig] | None = None,
                  stats: ServingStats | None = None,
                  device: str | torch.device = "cuda",
+                 draft_model=None, spec_k: int = 0,
                  kv_quant: str | None = None,
                  weight_quant: str | None = None):
         dev = resolve_device(device)
@@ -167,12 +218,15 @@ class ServeEngine:
             if mode not in (None, "int8"):
                 raise ValueError(
                     f"{what} must be None or 'int8', got {mode!r}")
-        param_dev = next(model.parameters()).device
-        if param_dev.type != dev.type or (
-                dev.index is not None and param_dev.index != dev.index):
-            raise ValueError(
-                f"model lives on {param_dev}, engine asked for {dev}: build "
-                "the model on the engine's device")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            if m is None:
+                continue
+            param_dev = next(m.parameters()).device
+            if param_dev.type != dev.type or (
+                    dev.index is not None and param_dev.index != dev.index):
+                raise ValueError(
+                    f"{what} lives on {param_dev}, engine asked for {dev}: "
+                    "build the model on the engine's device")
         cfg = model.cfg
         if prefill_chunk_tokens is not None and (
                 prefill_chunk_tokens < min_bucket
@@ -180,8 +234,34 @@ class ServeEngine:
             raise ValueError(
                 f"prefill_chunk_tokens ({prefill_chunk_tokens}) must be a "
                 f"positive multiple of min_bucket ({min_bucket})")
+        if prefix_cache_mb is not None and prefix_cache_mb < 0:
+            raise ValueError(
+                f"prefix_cache_mb must be >= 0 (0 = off), got "
+                f"{prefix_cache_mb}")
+        if (draft_model is None) != (spec_k == 0):
+            raise ValueError(
+                "speculative decoding needs BOTH a draft model and "
+                f"spec_k >= 1 (got draft_model={draft_model!r}, "
+                f"spec_k={spec_k})")
+        if draft_model is not None:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            dcfg = draft_model.cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size ({dcfg.vocab_size}) != target "
+                    f"vocab_size ({cfg.vocab_size}) — draft proposals must "
+                    "be target token ids")
+            if dcfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError(
+                    f"draft max_seq_len ({dcfg.max_seq_len}) < target "
+                    f"max_seq_len ({cfg.max_seq_len}) — the draft cache "
+                    "shares the target's block tables and must cover every "
+                    "position")
         self.model = model
-        self.device = param_dev
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k)
+        self.device = next(model.parameters()).device
         self.num_slots = num_slots
         self.max_seq_len = int(cfg.max_seq_len)
         self.eos_id = eos_id
@@ -191,7 +271,9 @@ class ServeEngine:
         self.stats = stats if stats is not None else ServingStats()
         self.kv_quant = kv_quant
         self.weight_quant = weight_quant
-        self.queue = RequestQueue(max_queue)
+        self.queue = TenantScheduler(tenants, default_max_queue=max_queue)
+        self._draining = False
+        self._drain_finalized = False
         bt = (prefix_block_tokens if prefix_block_tokens is not None
               else min_bucket)
         if bt < 1 or bt > self.max_seq_len:
@@ -200,6 +282,12 @@ class ServeEngine:
                 f"[1, max_seq_len={self.max_seq_len}]")
         self.page_tokens = int(bt)
         self.max_blocks = -(-self.max_seq_len // self.page_tokens)
+        # A verify window writes up to spec_k positions past a cursor that
+        # may sit at max_seq_len - 2: the table rows get scratch columns
+        # for them, so every position a window writes or reads has a
+        # column (where JAX's gather clamps an index past the row).
+        self.table_cols = -(-(self.max_seq_len + self.spec_k)
+                            // self.page_tokens)
         usable = (int(kv_pool_pages) if kv_pool_pages is not None
                   else num_slots * self.max_blocks)
         if usable < 1:
@@ -207,41 +295,40 @@ class ServeEngine:
                 f"kv_pool_pages must be >= 1, got {kv_pool_pages}")
         # +1: page 0 is the scratch page.
         self.pool = PagePool(usable + 1, self.page_tokens)
-        # The arguments hold: now change the model for the modes.
-        if kv_quant is not None and cfg.kv_quant != kv_quant:
-            _set_cfg(model, dataclasses.replace(cfg, kv_quant=kv_quant))
+        # The arguments hold: now change the models for the modes.
+        models = [model] + ([draft_model] if draft_model is not None
+                            and draft_model is not model else [])
+        if kv_quant is not None:
+            for m in models:
+                if m.cfg.kv_quant != kv_quant:
+                    _set_cfg(m, dataclasses.replace(m.cfg,
+                                                    kv_quant=kv_quant))
         weight_saved = 0
         if weight_quant == "int8":
             fp_nbytes = quant_lib.params_nbytes(model)
-            quant_lib.quantize_model(model)
+            for m in models:
+                quant_lib.quantize_model(m)
             weight_saved = fp_nbytes - quant_lib.quantized_nbytes(model)
-        kv = cfg.resolved_kv_heads
-        shape = (self.pool.num_pages, self.page_tokens,
-                 kv * cfg.resolved_head_dim)
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
-        if kv_quant == "int8":
-            self._cache = [
-                (zeros(shape, torch.int8), zeros(shape, torch.int8),
-                 zeros(shape[:2] + (kv,), torch.float32),
-                 zeros(shape[:2] + (kv,), torch.float32))
-                for _ in range(cfg.n_layers)]
-        else:
-            self._cache = [(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype))
-                           for _ in range(cfg.n_layers)]
+        self._cache = self._init_pool(model.cfg)
+        self._draft_cache = (self._init_pool(draft_model.cfg)
+                             if draft_model is not None else None)
         # Host register file; kv_lens doubles as the next write position,
         # table rows default to all-scratch (page 0).
         self._tokens = np.full(num_slots, pad_id, np.int32)
         self._kv_lens = np.zeros(num_slots, np.int32)
-        self._tables = np.zeros((num_slots, self.max_blocks), np.int32)
+        self._tables = np.zeros((num_slots, self.table_cols), np.int32)
         self._temps = np.zeros(num_slots, np.float32)
         self._top_ks = np.zeros(num_slots, np.int32)
         self._top_ps = np.ones(num_slots, np.float32)
         self._gens: list[torch.Generator | None] = [None] * num_slots
         self._slots: list[_InFlight | None] = [None] * num_slots
         self._pending: dict[int, _PendingPrefill] = {}
+        self.prefix_cache: PrefixCache | None = None
+        if prefix_cache_mb is not None and prefix_cache_mb > 0:
+            self.prefix_cache = PrefixCache(
+                int(prefix_cache_mb * 2 ** 20), block_tokens=self.page_tokens,
+                block_nbytes=self._block_nbytes(self.page_tokens),
+                release_page=self._release_trie_page)
         self.last_step_prefill_tokens = 0
         self._step_prefill_budget: int | None = None
         self._record_pool_gauges()
@@ -249,26 +336,46 @@ class ServeEngine:
                                 kv_bytes_saved=self._kv_bytes_saved(),
                                 weight_bytes_saved=weight_saved)
 
+    def _init_pool(self, cfg) -> list[tuple]:
+        """One layer's pool tensors for every layer of ``cfg``: ``(pool_k,
+        pool_v)`` at the compute dtype, or under int8 KV ``(pool_k,
+        pool_v, k_scale, v_scale)``."""
+        kv = cfg.resolved_kv_heads
+        shape = (self.pool.num_pages, self.page_tokens,
+                 kv * cfg.resolved_head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if self.kv_quant == "int8":
+            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                     zeros(shape[:2] + (kv,), torch.float32),
+                     zeros(shape[:2] + (kv,), torch.float32))
+                    for _ in range(cfg.n_layers)]
+        return [(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype))
+                for _ in range(cfg.n_layers)]
+
     def _kv_bytes_saved(self) -> int:
-        """Device bytes the int8 pools save against the fp pools they
-        replace (the JAX formula): each int8 lane would have cost the
-        compute dtype's itemsize, less the f32 scales."""
+        """Device bytes the int8 pools (target and draft) save against the
+        fp pools they replace (the JAX formula): each int8 lane would have
+        cost the compute dtype's itemsize, less the f32 scales."""
         if self.kv_quant != "int8":
             return 0
         fp_item = torch.finfo(self.model.cfg.dtype).bits // 8
         saved = 0
-        for layer in self._cache:
-            for t in layer:
-                saved += (-4 * t.numel() if t.dtype == torch.float32
-                          else (fp_item - 1) * t.numel())
+        for arena in (self._cache, self._draft_cache):
+            for layer in arena or ():
+                for t in layer:
+                    saved += (-4 * t.numel() if t.dtype == torch.float32
+                              else (fp_item - 1) * t.numel())
         return max(0, saved)
 
     def _block_nbytes(self, block_tokens: int, *,
                       kv_quant: str | None = "unset") -> int:
-        """KV bytes of ``block_tokens`` positions over every layer, K and
-        V: under int8 one byte per lane plus a 4-byte scale per KV head,
-        else the compute dtype's itemsize per lane (``kv_quant`` overrides
-        the engine's mode)."""
+        """KV bytes of ``block_tokens`` positions over every layer of the
+        target, K and V: under int8 one byte per lane plus a 4-byte scale
+        per KV head, else the compute dtype's itemsize per lane
+        (``kv_quant`` overrides the engine's mode)."""
         cfg = self.model.cfg
         mode = self.kv_quant if kv_quant == "unset" else kv_quant
         hd = cfg.resolved_head_dim
@@ -279,15 +386,28 @@ class ServeEngine:
 
     def _need_pages(self, req: Request) -> int:
         """Worst-case pages: prompt [0, n) plus decode growth
-        [n, n + max_new - 1) (the last sampled token is never written)."""
+        [n, n + max_new - 1) (the last sampled token is never written).
+        No prefix-hit credit: the admission probe runs before the trie
+        lookup pins anything."""
         total = len(req.prompt) + req.max_new_tokens - 1
         return -(-total // self.page_tokens)
 
     # ---------------------------------------------------------------- API
 
-    def submit(self, req: Request) -> str:
-        """Queue a request. Raises QueueFull when the queue is at capacity
-        and ValueError for a request that could never run."""
+    def submit(self, req: Request, *, requeue: bool = False) -> str:
+        """Queue a request under its tenant's policy. Raises QueueFull
+        (scoped to the tenant) when that tenant's queue is at capacity,
+        EngineDraining once :meth:`drain` was called, and ValueError for a
+        request that could never run or names an unregistered tenant.
+
+        ``requeue=True`` re-enters a request that was admitted once and
+        given back (cancelled as "migrated", say) at the HEAD of its
+        deadline class, with its first ``_t_submit`` (so its deadline)
+        kept and its tenant's rate and round-robin cost already paid."""
+        if self._draining:
+            raise EngineDraining(
+                f"engine is draining — admitting nothing new "
+                f"(request {req.request_id})")
         n = len(req.prompt)
         if n < 1:
             raise ValueError("empty prompt")
@@ -305,9 +425,13 @@ class ServeEngine:
                 f"request needs {need} KV pages but the pool only has "
                 f"{self.pool.num_pages - 1} — raise kv_pool_pages or "
                 "lower max_new_tokens")
-        self.queue.submit(req)
-        req._t_submit = time.perf_counter()
+        if not requeue or req._t_submit is None:
+            req._t_submit = time.perf_counter()
         req._finished = False
+        if requeue:
+            self.queue.requeue(req)
+        else:
+            self.queue.submit(req)
         return req.request_id
 
     def busy(self) -> bool:
@@ -323,12 +447,56 @@ class ServeEngine:
         """Queued + mid-prefill + decoding request count."""
         return len(self.queue) + len(self._pending) + self.occupied_slots()
 
+    def drain(self, *, flush: bool = False) -> list[Request]:
+        """Stop admitting (:meth:`submit` raises EngineDraining) while
+        :meth:`step` finishes what the engine holds. ``flush=True`` also
+        hands the still-queued requests back, untouched, for the caller to
+        place elsewhere. Idempotent."""
+        self._draining = True
+        return self.queue.drain() if flush else []
+
+    @property
+    def draining(self) -> bool:
+        """True once :meth:`drain` has been called."""
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """True when draining and no work remains."""
+        return self._draining and not self.busy()
+
+    def cancel(self, request_id: str, reason: str = "aborted"
+               ) -> RequestOutput | None:
+        """End ONE request wherever it is: queued (removed, no tokens),
+        mid-prefill (pinned trie nodes released, pages freed) or decoding
+        (partial tokens, slot freed), with finish_reason *reason*. None
+        for an unknown or finished request id."""
+        req = self.queue.remove(request_id)
+        if req is not None:
+            now = time.perf_counter()
+            t0 = req._t_submit if req._t_submit is not None else now
+            out = RequestOutput(
+                request_id=req.request_id, prompt_len=len(req.prompt),
+                tokens=[], finish_reason=reason, queue_s=now - t0,
+                ttft_s=None, latency_s=now - t0)
+            self.stats.record_completion(latency_s=out.latency_s,
+                                         n_tokens=0, reason=reason)
+            self._notify_finish(req, reason)
+            return out
+        for slot in list(self._pending):
+            if self._pending[slot].req.request_id == request_id:
+                return self._cancel_pending(slot, reason)
+        for slot, fl in enumerate(self._slots):
+            if fl is not None and fl.req.request_id == request_id:
+                return self._finish(slot, reason)
+        return None
+
     def step(self) -> list[RequestOutput]:
         """One serving iteration: cancel expired requests, admit queued
         requests into free slots (page budget permitting), run at most
         ``prefill_chunk_tokens`` real tokens of prefill, then advance every
-        occupied slot one token. Returns the requests finished this
-        iteration."""
+        occupied slot: one token, or under speculative decoding 1 to
+        ``spec_k + 1``. Returns the requests finished this iteration."""
         outputs: list[RequestOutput] = []
         now = time.perf_counter()
         for slot, fl in enumerate(self._slots):
@@ -350,17 +518,31 @@ class ServeEngine:
                 break
         active = self.occupied_slots()
         if active == 0:
-            self._record_pool_gauges()
+            self._step_epilogue()
             return outputs
-        # Decode-growth pages: a slot whose next write crosses into an
-        # unmapped block claims one of its reserved pages.
+        # Decode-growth pages: a slot whose next write positions cross
+        # into unmapped blocks claims from its reserved pages. A window
+        # writes up to spec_k positions past the cursor, but never past
+        # the request's own budget (n + max_new - 2 is the last position
+        # an emitted token can take): writes beyond land in the scratch
+        # page, and the selections they feed are never emitted.
         for slot, fl in enumerate(self._slots):
             if fl is None:
                 continue
-            blk = int(self._kv_lens[slot]) // self.page_tokens
-            if self._tables[slot, blk] == 0:
-                self._tables[slot, blk] = self.pool.alloc_reserved(1)[0]
-                fl.grow_left -= 1
+            first = int(self._kv_lens[slot])
+            last = first
+            if self.spec_k:
+                limit = len(fl.req.prompt) + fl.req.max_new_tokens - 2
+                last = min(first + self.spec_k, limit)
+            for blk in range(first // self.page_tokens,
+                             last // self.page_tokens + 1):
+                if self._tables[slot, blk] == 0:
+                    self._tables[slot, blk] = self.pool.alloc_reserved(1)[0]
+                    fl.grow_left -= 1
+        if self.spec_k:
+            self._spec_decode(active, outputs)
+            self._step_epilogue()
+            return outputs
         nxt = self._decode_step()
         self.stats.record_step(active, self.num_slots)
         for slot, fl in enumerate(self._slots):
@@ -378,8 +560,62 @@ class ServeEngine:
                 outputs.append(self._finish(slot, "eos"))
             elif len(fl.tokens) >= fl.req.max_new_tokens:
                 outputs.append(self._finish(slot, "length"))
-        self._record_pool_gauges()
+        self._step_epilogue()
         return outputs
+
+    def _spec_decode(self, active: int,
+                     outputs: list[RequestOutput]) -> None:
+        """One speculative iteration: the draft's window, one verify pass,
+        then the host's accept bookkeeping. Each slot emits the longest
+        run of drafts equal to the target's own selections, then the
+        target's selection after them (1 to spec_k + 1 tokens); the
+        cursor advance is the accept, and rejected positions stay past
+        it, never attended, rewritten by the next window."""
+        window = self._spec_draft_step()
+        sel, states = self._spec_verify_step(window)
+        window = window.cpu().numpy()
+        sel = sel.cpu().numpy()
+        matches = (window[:, 1:] == sel[:, :-1]).astype(np.int32)
+        acc = np.cumprod(matches, axis=1).sum(axis=1)
+        emitted_total = 0
+        proposed = 0
+        accepted_counts: list[int] = []
+        for slot, fl in enumerate(self._slots):
+            if fl is None:
+                continue
+            a = int(acc[slot])
+            # In emission order: the accepted drafts, then the target's
+            # correction (a < spec_k) or bonus (a == spec_k) token.
+            cand = [int(window[slot, i]) for i in range(1, a + 1)]
+            cand.append(int(sel[slot, a]))
+            proposed += self.spec_k
+            m = 0
+            finished = None
+            for tok in cand:
+                m += 1
+                fl.tokens.append(tok)
+                if fl.req.on_token is not None:
+                    fl.req.on_token(tok)
+                if self.eos_id is not None and tok == self.eos_id:
+                    finished = "eos"
+                    break
+                if len(fl.tokens) >= fl.req.max_new_tokens:
+                    finished = "length"
+                    break
+            acc_emitted = min(m, a)
+            accepted_counts.append(acc_emitted)
+            fl.spec_proposed += self.spec_k
+            fl.spec_accepted += acc_emitted
+            emitted_total += m
+            self._kv_lens[slot] += m
+            self._tokens[slot] = cand[m - 1]
+            if states[slot]:
+                # The generator as it stood after the m-th emitted draw.
+                self._gens[slot].set_state(states[slot][m - 1])
+            if finished is not None:
+                outputs.append(self._finish(slot, finished))
+        self.stats.record_step(active, self.num_slots, tokens=emitted_total)
+        self.stats.record_spec_step(proposed, accepted_counts)
 
     def run(self, requests: Iterable[Request] | None = None,
             max_steps: int | None = None) -> list[RequestOutput]:
@@ -397,16 +633,23 @@ class ServeEngine:
                 feed.popleft()
             if not (self.busy() or feed):
                 break
-            outputs.extend(self.step())
+            outs = self.step()
+            outputs.extend(outs)
+            if (not outs and len(self.queue) and not self._pending
+                    and not any(s is not None for s in self._slots)):
+                # Every queued tenant is rate-limited: nothing decodes, so
+                # yield while the buckets refill.
+                time.sleep(0.001)
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
         return outputs
 
     def shutdown(self) -> list[RequestOutput]:
-        """Abort everything — queued (no tokens), mid-prefill (pages
-        freed) and in-flight (partial tokens) — with finish_reason
-        "aborted". The engine is reusable afterwards."""
+        """Abort everything — queued (no tokens), mid-prefill (pinned trie
+        nodes released, pages freed) and in-flight (partial tokens) — with
+        finish_reason "aborted", then check that no page is left held
+        (:meth:`_check_page_leaks`). The engine is reusable afterwards."""
         outs: list[RequestOutput] = []
         now = time.perf_counter()
         for req in self.queue.drain():
@@ -421,7 +664,7 @@ class ServeEngine:
         for slot, fl in enumerate(self._slots):
             if fl is not None:
                 outs.append(self._finish(slot, "aborted"))
-        self._record_pool_gauges()
+        self._check_page_leaks("shutdown")
         return outs
 
     # --------------------------------------------------- device programs
@@ -440,14 +683,75 @@ class ServeEngine:
                             self._gens)
         return nxt.cpu().numpy()
 
+    def _spec_draft_step(self) -> torch.Tensor:
+        """Draft half: ``spec_k + 1`` greedy single-token steps of the
+        draft model through its arena (JAX scans them into one program;
+        eager here). Returns the window [num_slots, spec_k + 1] int32 on
+        the device: column 0 each slot's last emitted token, then the
+        proposals. The last step only writes the last proposal's K/V (no
+        LM head), so a fully accepted window leaves the draft arena
+        gap-free at the advanced cursor."""
+        tok = self._host_to_device(self._tokens)
+        kv = self._host_to_device(self._kv_lens)
+        tables = self._host_to_device(self._tables)
+        cols = [tok]
+        for i in range(self.spec_k):
+            logits = generate.slot_decode_step(
+                self.draft_model, self._draft_cache, cols[-1], kv + i,
+                tables)
+            cols.append(logits.argmax(-1).to(torch.int32))
+        generate.prefill_chunk(
+            self.draft_model, self._draft_cache, cols[-1][:, None],
+            positions=(kv + self.spec_k)[:, None], block_tables=tables,
+            logits_index=None)
+        return torch.stack(cols, 1)
+
+    def _spec_verify_step(self, window: torch.Tensor):
+        """Verify half: ONE target pass over the window, written at
+        ``kv_lens + [0, W)``, then each position's selection with the
+        slot's sampling rule, in window order. Returns ``(sel [B, W],
+        states)``: ``states[i]`` is slot i's generator state after each
+        position's draw (empty for a greedy slot)."""
+        logits = generate.slot_verify_step(
+            self.model, self._cache, window,
+            self._host_to_device(self._kv_lens),
+            self._host_to_device(self._tables))
+        states: list[list] = [[] for _ in range(self.num_slots)]
+        sampled = np.flatnonzero(self._temps > 0.0)
+        if not sampled.size:
+            return logits.argmax(-1), states
+        cols = []
+        for j in range(window.shape[1]):
+            cols.append(_sample_slots(logits[:, j], self._temps,
+                                      self._top_ks, self._top_ps,
+                                      self._gens))
+            for i in sampled:
+                states[i].append(self._gens[i].get_state())
+        return torch.stack(cols, 1), states
+
     def _prefill(self, chunk: np.ndarray, table: np.ndarray, start: int,
-                 logits_index: int | None):
+                 logits_index: int | None, *, draft: bool = False):
+        """Write ``chunk`` at positions ``start + [0, C)`` through
+        ``table`` into the target's arena (``draft``: the draft's) and
+        return the logits ``logits_index`` picks."""
         positions = (start + torch.arange(chunk.shape[1], dtype=torch.int32,
                                           device=self.device))[None]
+        model, cache = ((self.draft_model, self._draft_cache) if draft
+                        else (self.model, self._cache))
         return generate.prefill_chunk(
-            self.model, self._cache, self._host_to_device(chunk),
+            model, cache, self._host_to_device(chunk),
             positions=positions, block_tables=self._host_to_device(table),
             logits_index=logits_index)
+
+    def _prefill_both(self, chunk: np.ndarray, table: np.ndarray,
+                      start: int, logits_index: int | None):
+        """:meth:`_prefill` into the target's arena and, under
+        speculative decoding, the same write into the draft's (no LM
+        head there)."""
+        out = self._prefill(chunk, table, start, logits_index)
+        if self.spec_k:
+            self._prefill(chunk, table, start, None, draft=True)
+        return out
 
     # ----------------------------------------------------------- internals
 
@@ -468,7 +772,44 @@ class ServeEngine:
     def _record_pool_gauges(self) -> None:
         c = self.pool.counters()
         self.stats.record_kv_pool(c["pages_total"], c["pages_used"],
-                                  c["pages_shared"])
+                                  c["pages_shared"],
+                                  by_owner=self.pool.owners_summary())
+
+    def _step_epilogue(self) -> None:
+        """Every :meth:`step` return: refresh the pool gauges, and once a
+        draining engine has no work left, check it for page leaks."""
+        self._record_pool_gauges()
+        if self._draining and not self._drain_finalized and not self.busy():
+            self._drain_finalized = True
+            self._check_page_leaks("drain")
+
+    def _release_trie_page(self, page: int) -> None:
+        """Trie eviction: drop the trie's reference and, when a slot still
+        maps the page, attribute it back to the slot."""
+        self.pool.deref(page)
+        if self.pool.refcount(page):
+            self.pool.tag(page, "slot")
+
+    def _check_page_leaks(self, origin: str) -> dict | None:
+        """Once every request is terminal nothing is pinned: empty the
+        prefix trie (a cache is retention, not a leak), then any page
+        still live or reservation outstanding is an accounting leak.
+        A leak is counted in ``stats`` (``kv_page_leaks``) and its record
+        (by-owner counts; ``pool.held_pages()`` names the pages) is
+        returned; None when the pool is clean."""
+        if self.prefix_cache is not None:
+            while self.prefix_cache.evict_lru_unpinned():
+                pass
+        self._record_pool_gauges()
+        c = self.pool.counters()
+        if not c["pages_used"] and not self.pool.reserved:
+            return None
+        leak = {"origin": origin,
+                "pages_leaked": c["pages_used"],
+                "pages_reserved": self.pool.reserved,
+                "by_owner": self.pool.owners_summary()}
+        self.stats.record_page_leak(leak)
+        return leak
 
     def _timeout_unadmitted(self, req: Request) -> RequestOutput:
         now = time.perf_counter()
@@ -487,8 +828,15 @@ class ServeEngine:
 
     def _fits(self, req: Request) -> bool:
         """Admission-time page probe: can the pool cover the request's
-        worst-case need right now? False defers it in place."""
-        return self.pool.available() >= self._need_pages(req)
+        worst-case need right now? Trie-only pages are reclaimable: evict
+        unpinned LRU leaves until it fits or the trie runs dry. False
+        defers the request in place."""
+        need = self._need_pages(req)
+        while self.pool.available() < need:
+            if (self.prefix_cache is None
+                    or not self.prefix_cache.evict_lru_unpinned()):
+                return False
+        return True
 
     def _admit_free_slots(self, outputs: list[RequestOutput]) -> None:
         for slot in range(self.num_slots):
@@ -505,19 +853,30 @@ class ServeEngine:
                 break
 
     def _begin_admission(self, slot: int, req: Request) -> None:
-        """Allocate the prompt's pages into a private table row, reserve
-        worst-case decode growth, and park the slot as a pending prefill.
-        Cannot fail: ``_fits`` checked the need before the pop."""
+        """Map the longest trie-cached prefix into a private table row
+        (each matched page ref'd, no device copy), allocate pages for the
+        rest of the prompt, reserve worst-case decode growth, and park the
+        slot as a pending prefill from the hit on. Cannot fail: ``_fits``
+        checked the (hit-blind) need before the pop."""
         n = len(req.prompt)
         t_pop = time.perf_counter()
+        prompt = np.asarray(req.prompt, np.int32)
         bt = self.page_tokens
-        table = np.zeros(self.max_blocks, np.int32)
+        hit, nodes = 0, []
+        table = np.zeros(self.table_cols, np.int32)
+        if self.prefix_cache is not None:
+            hit, nodes = self.prefix_cache.acquire(prompt.tolist())
+            self.stats.record_prefix_lookup(hit, n)
+            for j, node in enumerate(nodes):
+                self.pool.ref(node.page)
+                table[j] = node.page
         n_prompt_blocks = -(-n // bt)
-        table[:n_prompt_blocks] = self.pool.alloc(n_prompt_blocks)
+        table[hit // bt:n_prompt_blocks] = self.pool.alloc(
+            n_prompt_blocks - hit // bt)
         grow = -(-(n + req.max_new_tokens - 1) // bt) - n_prompt_blocks
         self.pool.reserve(grow)
-        self._pending[slot] = _PendingPrefill(
-            req, np.asarray(req.prompt, np.int32), t_pop, grow, table)
+        self._pending[slot] = _PendingPrefill(req, prompt, hit, nodes,
+                                              t_pop, grow, table)
         t0 = req._t_submit if req._t_submit is not None else t_pop
         self.stats.record_admission(queue_s=t_pop - t0, prompt_len=n)
 
@@ -536,8 +895,9 @@ class ServeEngine:
                 if c is not None and rem > c:
                     if budget is not None and budget < c:
                         break       # out of budget; resume next iteration
-                    self._prefill(pend.prompt[None, pend.pos:pend.pos + c],
-                                  pend.table[None], pend.pos, None)
+                    self._prefill_both(
+                        pend.prompt[None, pend.pos:pend.pos + c],
+                        pend.table[None], pend.pos, None)
                     pend.pos += c
                     pend.chunks += 1
                     self._charge_prefill(c)
@@ -561,9 +921,10 @@ class ServeEngine:
     def _finish_admission(self, slot: int,
                           pend: _PendingPrefill) -> RequestOutput | None:
         """Run the final chunk, right-padded to its bucket, sample the
-        first token from its last real column, and activate the slot.
-        Returns a RequestOutput when the request finished at admission
-        (first token EOS, or a one-token budget)."""
+        first token from its last real column, hand the trie the prompt's
+        new whole blocks, and activate the slot. Returns a RequestOutput
+        when the request finished at admission (first token EOS, or a
+        one-token budget)."""
         req, n = pend.req, pend.n
         rem = n - pend.pos
         sp = req.sampling
@@ -576,17 +937,33 @@ class ServeEngine:
         if sp.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(req.seed)
-        logits = self._prefill(chunk, self._tables[slot:slot + 1], pend.pos,
-                               rem - 1)
+        logits = self._prefill_both(chunk, self._tables[slot:slot + 1],
+                                    pend.pos, rem - 1)
         first = int(_sample_slots(
             logits, np.array([sp.temperature], np.float32),
             np.array([sp.top_k], np.int32), np.array([sp.top_p], np.float32),
             [gen])[0])
+        if self.prefix_cache is not None:
+            # The trie takes its own reference on each new whole prompt
+            # block's page: the K/V outlives the slot, and later requests
+            # map it.
+            def page_for_block(i: int) -> int:
+                page = int(self._tables[slot, i])
+                self.pool.ref(page)
+                self.pool.tag(page, "trie")
+                return page
+
+            _, evicted = self.prefix_cache.insert(pend.prompt.tolist(),
+                                                  page_for_block)
+            if evicted:
+                self.stats.record_prefix_evictions(evicted)
+            self.prefix_cache.release(pend.nodes)
+            pend.nodes = []
         del self._pending[slot]
         now = time.perf_counter()
         # prefill_chunks: the intermediate chunks + the final sampling one.
         fl = _InFlight(req, first, pend.t_pop, now, pend.chunks + 1,
-                       pend.grow)
+                       pend.grow, cached_prompt_tokens=pend.hit_tokens)
         self._slots[slot] = fl
         self._tokens[slot] = first
         self._kv_lens[slot] = n          # next write position
@@ -605,8 +982,9 @@ class ServeEngine:
 
     def _release_slot_pages(self, slot: int, grow_left: int,
                             row: np.ndarray | None = None) -> None:
-        """Deref every mapped page, reset the row to all-scratch, return
-        unused growth reservation. *row* is a pending slot's private row."""
+        """Deref every mapped page (freeing those the trie does not also
+        hold), reset the row to all-scratch, return unused growth
+        reservation. *row* is a pending slot's private row."""
         if row is None:
             row = self._tables[slot]
         for page in row[row != 0]:
@@ -617,13 +995,17 @@ class ServeEngine:
 
     def _cancel_pending(self, slot: int, reason: str) -> RequestOutput:
         pend = self._pending.pop(slot)
+        if self.prefix_cache is not None and pend.nodes:
+            self.prefix_cache.release(pend.nodes)
+            pend.nodes = []
         self._release_slot_pages(slot, pend.grow, row=pend.table)
         now = time.perf_counter()
         t0 = pend.req._t_submit if pend.req._t_submit is not None else now
         out = RequestOutput(
             request_id=pend.req.request_id, prompt_len=pend.n, tokens=[],
             finish_reason=reason, queue_s=pend.t_pop - t0, ttft_s=None,
-            latency_s=now - t0, prefill_chunks=pend.chunks)
+            latency_s=now - t0, cached_prompt_tokens=pend.hit_tokens,
+            prefill_chunks=pend.chunks)
         self.stats.record_completion(latency_s=out.latency_s, n_tokens=0,
                                      reason=reason)
         self.queue.release(pend.req)
@@ -639,7 +1021,10 @@ class ServeEngine:
             queue_s=fl.t_admit - fl.t_submit,
             ttft_s=fl.t_first - fl.t_submit,
             latency_s=now - fl.t_submit,
-            prefill_chunks=fl.prefill_chunks)
+            cached_prompt_tokens=fl.cached_prompt_tokens,
+            prefill_chunks=fl.prefill_chunks,
+            spec_proposed=fl.spec_proposed,
+            spec_accepted=fl.spec_accepted)
         self._slots[slot] = None
         self._tokens[slot] = self.pad_id
         self._kv_lens[slot] = 0

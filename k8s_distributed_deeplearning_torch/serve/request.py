@@ -1,9 +1,9 @@
 """Request/response types for the serving engine.
 
 The port's own copy of ``k8s_distributed_deeplearning_tpu/serve/
-request.py``, cut to what this engine serves: no tenants, migration or
-trace ids yet. ``temperature <= 0`` selects greedy, ``top_k == 0`` and
-``top_p == 1.0`` mean "off".
+request.py``, cut to what this engine serves: no migration or trace ids
+yet. ``temperature <= 0`` selects greedy, ``top_k == 0`` and ``top_p ==
+1.0`` mean "off".
 """
 from __future__ import annotations
 
@@ -49,9 +49,11 @@ class Request:
     ``on_token`` streams each emitted token id in order, including the
     first (prefill-sampled) token. ``seed`` seeds the request's own random
     generator, so a sampled stream depends only on the request, not on its
-    slot or admission order. ``deadline_s`` (from submit) cancels the
-    request at the next decode boundary once exceeded; ``on_finish`` is
-    called exactly once with the finish reason.
+    slot or admission order. ``tenant`` names the scheduler tenant the
+    request bills against (:mod:`serve.sched`; the default tenant always
+    exists). ``deadline_s`` (from submit) cancels the request at the next
+    decode boundary once exceeded; ``on_finish`` is called exactly once
+    with the finish reason.
     """
 
     prompt: Sequence[int]
@@ -61,6 +63,7 @@ class Request:
         default_factory=lambda: f"req-{next(_req_counter)}")
     seed: int = 0
     on_token: Callable[[int], None] | None = None
+    tenant: str = "default"
     deadline_s: float | None = None
     on_finish: Callable[[str], None] | None = None
     # Stamped by ServeEngine.submit (perf_counter clock).
@@ -69,14 +72,23 @@ class Request:
     # Exactly-once latch for on_finish, re-armed on resubmit.
     _finished: bool = dataclasses.field(
         default=False, repr=False, compare=False)
+    # Set by TenantScheduler.requeue: the request was billed at its first
+    # pop, so the next pop takes it from the queue head without charging
+    # its tenant's token bucket or DRR deficit again.
+    _requeued: bool = dataclasses.field(
+        default=False, repr=False, compare=False)
 
 
 @dataclasses.dataclass
 class RequestOutput:
     """Terminal result for one request. ``finish_reason`` is "eos",
-    "length", "aborted" or "timeout"; ``ttft_s`` is None for requests that
-    ended before their first token; ``prefill_chunks`` counts prefill
-    program runs (intermediate chunks + the final sampling chunk)."""
+    "length", "aborted" or "timeout" (or the reason given to
+    ``ServeEngine.cancel``); ``ttft_s`` is None for requests that ended
+    before their first token; ``cached_prompt_tokens`` counts prompt
+    tokens served from the prefix cache; ``prefill_chunks`` counts prefill
+    program runs (intermediate chunks + the final sampling chunk);
+    ``spec_proposed``/``spec_accepted`` count draft tokens proposed and
+    accepted-and-emitted under speculative decoding (0 otherwise)."""
 
     request_id: str
     prompt_len: int
@@ -87,3 +99,5 @@ class RequestOutput:
     latency_s: float
     cached_prompt_tokens: int = 0
     prefill_chunks: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0

@@ -3,7 +3,7 @@
 Port of the parts of ``k8s_distributed_deeplearning_tpu/utils/metrics.py``
 the serving engine, the training loop and the CLIs use:
 :class:`ServingStats` (the methods the engine calls, and a ``summary()``
-with the JAX package's serving fields), a JSON-lines :class:`MetricsLogger`
+with the JAX package's serving, prefix-cache and speculative fields), a JSON-lines :class:`MetricsLogger`
 with its ``train_step`` event, and :func:`mfu`.
 """
 from __future__ import annotations
@@ -86,9 +86,29 @@ class ServingStats:
         self.ttft_s: list[float] = []
         self.latency_s: list[float] = []
         self.finish_reasons: dict[str, int] = {}
+        # Prefix cache: one lookup per admission (a hit matched >= 1
+        # block); the token counts say how much prefill was skipped.
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.prefix_evictions = 0
         self.kv_pages_total = 0
         self.kv_pages_used = 0
         self.kv_pages_shared = 0
+        # Page ledger: owner class -> live pages, plus the reservation.
+        self.kv_pages_by_owner: dict[str, int] = {}
+        # Leak checks (shutdown, end of a drain) that found pages still
+        # held or reserved with every request terminal, and the last one.
+        self.kv_page_leaks = 0
+        self.kv_page_leak_last: dict | None = None
+        # Speculative decoding: draft tokens proposed and accepted-and-
+        # emitted, iterations run, and the accepted-draft count of each
+        # slot-iteration binned (key 0..spec_k).
+        self.spec_steps = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_accept_hist: dict[int, int] = {}
         # Quantized serving: the modes (None = fp) and the device bytes the
         # int8 pools and weights save against fp. Gauges, set once when
         # the engine is built.
@@ -113,19 +133,60 @@ class ServingStats:
         self._tick()
         self.ttft_s.append(ttft_s)
 
-    def record_step(self, active_slots: int, num_slots: int) -> None:
-        """One decode iteration."""
+    def record_step(self, active_slots: int, num_slots: int,
+                    tokens: int | None = None) -> None:
+        """One decode iteration. ``tokens`` overrides the emitted-token
+        count (a speculative iteration emits 1 to spec_k + 1 tokens a
+        slot); None counts one per active slot."""
         self._tick()
         self.steps += 1
-        self.decode_tokens += active_slots
+        self.decode_tokens += active_slots if tokens is None else int(tokens)
         self.occupancy_sum += active_slots / max(num_slots, 1)
 
+    def record_spec_step(self, proposed: int, accepted_counts) -> None:
+        """One speculative iteration: ``proposed`` draft tokens in all,
+        and each active slot's accepted-and-emitted draft count."""
+        self._tick()
+        self.spec_steps += 1
+        self.spec_proposed_tokens += int(proposed)
+        for a in accepted_counts:
+            a = int(a)
+            self.spec_accepted_tokens += a
+            self.spec_accept_hist[a] = self.spec_accept_hist.get(a, 0) + 1
+
+    def record_prefix_lookup(self, hit_tokens: int,
+                             prompt_tokens: int) -> None:
+        """One prefix-cache lookup at admission: ``hit_tokens`` of the
+        ``prompt_tokens``-long prompt came from cached KV."""
+        self._tick()
+        if hit_tokens > 0:
+            self.prefix_hits += 1
+        else:
+            self.prefix_misses += 1
+        self.prefix_hit_tokens += hit_tokens
+        self.prefix_lookup_tokens += prompt_tokens
+
+    def record_prefix_evictions(self, n_blocks: int) -> None:
+        self._tick()
+        self.prefix_evictions += n_blocks
+
     def record_kv_pool(self, pages_total: int, pages_used: int,
-                       pages_shared: int) -> None:
-        """Latest pool snapshot; a gauge, so it does not tick the clock."""
+                       pages_shared: int,
+                       by_owner: dict | None = None) -> None:
+        """Latest pool snapshot; a gauge, so it does not tick the clock.
+        ``by_owner`` is the page ledger's attribution (None keeps the
+        last one)."""
         self.kv_pages_total = int(pages_total)
         self.kv_pages_used = int(pages_used)
         self.kv_pages_shared = int(pages_shared)
+        if by_owner is not None:
+            self.kv_pages_by_owner = {k: int(v) for k, v in by_owner.items()}
+
+    def record_page_leak(self, leak: dict) -> None:
+        """A leak check found an accounting leak; ``leak`` is the engine's
+        record (origin, pages leaked and reserved, by-owner counts)."""
+        self.kv_page_leaks += 1
+        self.kv_page_leak_last = dict(leak)
 
     def record_quant(self, kv_quant: str | None, weight_quant: str | None,
                      kv_bytes_saved: int, weight_bytes_saved: int) -> None:
@@ -177,13 +238,34 @@ class ServingStats:
             "queue_p95_ms": _ms(self._pct(self.queue_s, 0.95)),
             "latency_p50_ms": _ms(self._pct(self.latency_s, 0.5)),
             "latency_p95_ms": _ms(self._pct(self.latency_s, 0.95)),
+            "prefix_cache_hits": self.prefix_hits,
+            "prefix_cache_misses": self.prefix_misses,
+            "prefix_cache_evictions": self.prefix_evictions,
             "kv_pages_total": self.kv_pages_total,
             "kv_pages_used": self.kv_pages_used,
             "kv_pages_shared": self.kv_pages_shared,
+            "kv_pages_by_owner": dict(self.kv_pages_by_owner),
+            "kv_page_leaks": self.kv_page_leaks,
+            "kv_page_leak_last": self.kv_page_leak_last,
             "kv_quant": self.kv_quant,
             "weight_quant": self.weight_quant,
             "kv_quant_bytes_saved": self.kv_quant_bytes_saved,
             "weight_quant_bytes_saved": self.weight_quant_bytes_saved,
+            "spec_steps": self.spec_steps,
+            "spec_proposed_tokens": self.spec_proposed_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            # Share of proposed drafts accepted and emitted (None until
+            # the first speculative iteration).
+            "spec_acceptance_rate": (
+                round(self.spec_accepted_tokens / self.spec_proposed_tokens,
+                      4) if self.spec_proposed_tokens else None),
+            "spec_accept_hist": {str(k): v for k, v in
+                                 sorted(self.spec_accept_hist.items())},
+            # Share of looked-up prompt tokens served from cached KV
+            # (None until the first lookup).
+            "prefix_hit_rate": (
+                round(self.prefix_hit_tokens / self.prefix_lookup_tokens, 4)
+                if self.prefix_lookup_tokens else None),
         }
 
 
