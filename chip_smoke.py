@@ -15,16 +15,17 @@ A. The paged-attention kernels against their plain PyTorch version on
    phase B's decode-profile shape (live 512-560 of 64 blocks) and at
    Llama-3 8B's own 8,192-token context (live 7,000-8,000 of 256 blocks);
    query chunks (512 queries at offset 1024, 512 at 0, a 32-query final
-   bucket at offset 1480) on the tensor-core prefill kernel in bf16, the
-   512 @ 1024 chunk on the split kernel in f32; stale K/V past each cursor
-   and scratch-page garbage changing no bit on every route. Reports the
-   error, the kernel's time, the plain version's, the bound (the larger of
-   bytes over 3.35 TB/s and FLOPs over the dtype's peak), and the time of
-   ``scaled_dot_product_attention`` on the pre-gathered K/V with the
-   boolean mask as a yardstick (the port never calls it); for a case on
-   the decode route, also the split kernel's error and time on the same
-   inputs, two decode launches bitwise equal, and every time on the
-   device alone; for a chunk on the prefill route, the split kernel's
+   bucket at offset 1480) on the tensor-core prefill kernel in bf16 and
+   an 8-query chunk at offset 1480 (32 rows a KV head) on the decode
+   kernel, the 512 @ 1024 chunk on the split kernel in f32; stale K/V past
+   each cursor and scratch-page garbage changing no bit on every route.
+   Reports the error, the kernel's time, the plain version's, the bound
+   (the larger of bytes over 3.35 TB/s and FLOPs over the dtype's peak),
+   and the time of ``scaled_dot_product_attention`` on the pre-gathered
+   K/V with the boolean mask as a yardstick (the port never calls it);
+   for a case on the decode route, also the split kernel's error and time
+   on the same inputs, two decode launches bitwise equal, and every time
+   on the device alone; for a chunk on the prefill route, the split kernel's
    error and time on the same inputs and the prefill kernel's time at
    64- and 128-row tiles. The same cases again through the int8 branch:
    int8 pools quantized from random ones by the model's quantize-on-write,
@@ -206,13 +207,16 @@ P. The serving engine's host surface at Llama-3 8B (bf16, full depth,
    cache off and at 256 MiB: hit and computed prompt tokens, prefill
    tokens/s, TTFT, launches by route exact, no page held after shutdown,
    first tokens equal where phase C's margin rule decides them. P2: B's
-   requests (greedy) plain and with a self-draft at spec_k 3 (verify
-   windows of 4: the decode route) and 7 (8: the split route) and a
-   2-layer draft at 8B width (rejections, rollback): decode tokens/s,
-   acceptance, launches by route exact, a verify pass's host and device
-   ms; then the verify windows alone against the plain version with
-   their times, SDPA's and the bound. P3: two tenants from a config
-   string; a queued, a pending-prefill and an in-flight request
+   requests (greedy) plain and with a self-draft at spec_k 3 and 7
+   (verify windows of 4 and 8, 16 and 32 rows a KV head: both on the
+   decode route, none on the split route) and a 2-layer draft at 8B
+   width (rejections, rollback): decode tokens/s, acceptance, launches by
+   route exact, a verify pass's host and device ms (the decode kernel
+   once a layer); then the verify windows alone (W 4, 5, 8, 15, and 8
+   with int8 pools; W 16, 64 rows, on both tensor-core routes) against
+   the plain version with their times, the split kernel's, SDPA's and
+   the bound, and two launches bitwise equal. P3: two tenants from a
+   config string; a queued, a pending-prefill and an in-flight request
    cancelled, the pending one requeued, a drain to the end: finish
    reasons, on_finish once a submission, no page held. Then at 4 layers
    in f32: streams with the cache on equal off, greedy and sampled
@@ -443,11 +447,14 @@ def _sdpa_fn(args):
 
 
 # Phase A's query chunks (live lengths, sq, n_blocks, pages): 512 queries
-# at offset 1024, the first 512-token chunk, and a final 32-query bucket
-# at offset 1480. bf16 chunks take the prefill route, f32 the split one.
+# at offset 1024, the first 512-token chunk, and final 32- and 8-query
+# buckets at offset 1480. bf16 chunks of 64 rows a KV head and more take
+# the prefill route, the 8-query one (32 rows) the decode route; f32 the
+# split one.
 PREFILL_CASES = {"prefill512": ([1024 + 512], 512, 64, 64),
                  "prefill512_at0": ([512], 512, 64, 64),
-                 "prefill32_at1480": ([1480 + 32], 32, 64, 64)}
+                 "prefill32_at1480": ([1480 + 32], 32, 64, 64),
+                 "chunk8_at1480": ([1480 + 8], 8, 64, 64)}
 # The bitwise stale-cell check through the prefill route: two rows of 64
 # queries at live lengths 700 and 1000.
 STALE_PREFILL = ([700, 1000], 64, 64, 2 * 64 + 1)
@@ -1262,9 +1269,12 @@ P_TENANTS = json.dumps({"tenants": [
     {"id": "interactive", "priority": "interactive", "weight": 2},
     {"id": "batch", "priority": "batch", "max_slots": 2}]})
 # Phase P's verify windows at 8B heads, B's decode-profile lengths (live
-# 512-560 of 64 blocks): W 4 is 16 rows a KV head (the decode route), W 8
-# is 32 (the split route).
-VERIFY_CASES = {"verify_w4": 4, "verify_w8": 8}
+# 512-560 of 64 blocks), name -> (window, int8 pools): W 4 is 16 rows a KV
+# head, W 5-15 20-60 rows, all on the decode route; W 16 is 64 rows, the
+# boundary between the decode and prefill routes, timed on both.
+VERIFY_CASES = {"verify_w4": (4, False), "verify_w5": (5, False),
+                "verify_w8": (8, False), "verify_w15": (15, False),
+                "verify_w16": (16, False), "verify_w8_int8": (8, True)}
 
 
 def _prefix_requests(vocab, n_new, seed=4):
@@ -1471,72 +1481,95 @@ def _verify_profile(eng, spec_k, reps: int = 8):
     prof = _profile(lambda: eng._spec_verify_step(window), reps)
     check(eng.occupied_slots() == eng.num_slots,
           "a slot emptied inside the profiled window")
-    route = paged_attn._route(spec_k + 1, H // KV, HD, torch.bfloat16,
-                              False)
+    check(paged_attn._route(spec_k + 1, H // KV, HD, torch.bfloat16,
+                            False) == "decode",
+          f"a verify window of {spec_k + 1} is not on the decode route")
     layers = eng.model.cfg.n_layers
-    want = {"paged_decode": 0, "paged_attn": 0, "paged_attn_combine": 0}
-    if route == "decode":
-        want["paged_decode"] = layers
-    else:
-        # The split kernel once a layer, and its combine once a layer when
-        # the key range is split: paged_attn_num_splits at the window's
-        # shape over the engine's table width.
-        splits = paged_attn._library("paged_attn").paged_attn_num_splits(
-            eng.num_slots, spec_k + 1, H, KV, HD, PAGE,
-            eng._tables.shape[1], paged_attn._num_sms(eng.device))
-        want["paged_attn"] = layers
-        want["paged_attn_combine"] = layers if splits > 1 else 0
+    want = {"paged_decode": layers, "paged_attn": 0, "paged_attn_combine": 0}
     got = {cls: prof["launches_by_class"].get(cls, 0) for cls in want}
     check(got == want,
           f"verify profile: launches by class {got}, want {want} "
-          f"({layers} layers)")
+          f"({layers} layers: the decode kernel once a layer, no split "
+          f"kernel)")
     return {f: prof[f] for f in ("host_ms", "device_ms",
                                  "device_busy_share", "device_ms_by_class",
                                  "launches_by_class")}
 
 
 def _verify_cases(dev, flush):
-    """The verify windows alone at 8B heads (bf16, B's decode-profile
-    lengths): the kernel of their route against the plain version (phase
-    A's decode limit), with its time, the plain version's, SDPA's and the
-    bound; W 4 also on the split kernel."""
+    """The verify windows alone at 8B heads (bf16 q, B's decode-profile
+    lengths, fp or int8 pools): the kernel of their route against the
+    plain version (phase A's decode limits), with its time, the plain
+    version's, SDPA's and the bound; on the decode route also the split
+    kernel's error and time on the same inputs and a second launch
+    bitwise equal; at 64 rows the decode and prefill kernels' times."""
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
     rng = np.random.default_rng(6)
     kern = paged_attn.paged_decode_attention
     plain = paged_attn.paged_decode_attention_reference
     lens, nb, pages = DECODE_CASES["decode_b_profile"]
+    bf16 = torch.bfloat16
     cases = []
-    for name, w in VERIFY_CASES.items():
-        args = _attn_case(rng, dev, torch.bfloat16, lens, w, nb, pages)
-        route = paged_attn._route(w, H // KV, HD, torch.bfloat16, False)
-        out, ref = kern(*args), plain(*args)
+    for name, (w, quant) in VERIFY_CASES.items():
+        if quant:
+            args = _quantized(_attn_case(rng, dev, torch.float32, lens, w,
+                                         nb, pages))
+            args = (args[0].to(bf16),) + args[1:]
+            q, kq, vq, tables, pos, ks, vs = args
+            base, kw = args[:5], dict(k_scale=ks, v_scale=vs)
+            sdpa_args = tuple(
+                (x.view(-1, PAGE, KV, HD).float() * s[..., None]).to(
+                    bf16).view(x.shape) for x, s in ((kq, ks), (vq, vs)))
+            sdpa_args = (q, *sdpa_args, tables, pos)
+        else:
+            args = base = sdpa_args = _attn_case(rng, dev, bf16, lens, w, nb,
+                                                 pages)
+            kw = {}
+
+        def err_of(x, ref, quant=quant):
+            if quant:
+                return _int8_err(x, ref, bf16)
+            e = float((x.float() - ref.float()).abs().max())
+            return e, e / TOL[bf16]
+
+        route = paged_attn._route(w, H // KV, HD, bf16, quant)
+        out, ref = kern(*base, **kw), plain(*base, **kw)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        check(bool(torch.isfinite(out).all())
-              and err <= TOL[torch.bfloat16],
-              f"{name}: max err {err} > {TOL[torch.bfloat16]}")
-        bound, by = _bound(args, torch.bfloat16)
-        case = {"case": name, "dtype": "bfloat16", "route": route,
+        err, share = err_of(out, ref)
+        check(bool(torch.isfinite(out).all()) and share <= 1.0,
+              f"{name}: max err {err} uses {share} of its limit")
+        bound, by = _bound(args, bf16)
+        case = {"case": name, "dtype": "bfloat16",
+                "branch": "int8" if quant else "fp", "route": route,
                 "shape": {"B": len(lens), "sq": w, "H": H, "kv": KV,
                           "hd": HD, "page_tokens": PAGE, "n_blocks": nb,
                           "live": list(lens)},
-                "max_abs_err": err,
-                "tol_share": err / TOL[torch.bfloat16],
-                "ms": time_ms(lambda: kern(*args), flush, host_ahead=True),
-                "plain_ms": time_ms(lambda: plain(*args), flush,
+                "max_abs_err": err, "tol_share": share,
+                "ms": time_ms(lambda: kern(*base, **kw), flush,
+                              host_ahead=True),
+                "plain_ms": time_ms(lambda: plain(*base, **kw), flush,
                                     host_ahead=True),
-                "library_ms": time_ms(_sdpa_fn(args), flush,
+                "library_ms": time_ms(_sdpa_fn(sdpa_args), flush,
                                       host_ahead=True),
                 "bound_ms": bound, "bound_by": by}
         if route == "decode":
-            timed = _decode_timings(args, {}, out, ref,
-                                    lambda a, b: float(
-                                        (a.float() - b.float()).abs().max()),
-                                    flush)
-            timed.pop("split")
+            timed = _decode_timings(base, kw, out, ref,
+                                    lambda x, r: err_of(x, r)[0], flush)
+            case["split_tol_share"] = err_of(timed.pop("split"), ref)[1]
             check(timed["repeat_bitwise"], f"{name}: two launches differ")
             case.update(timed)
+        if w * (H // KV) == paged_attn._DECODE_MAX_ROWS:
+            # The boundary: both tensor-core kernels on the same inputs.
+            for other in ("decode", "prefill"):
+                x = paged_attn._launch(*base, **kw, route=other)
+                torch.cuda.synchronize()
+                e, sh = err_of(x, ref)
+                check(sh <= 1.0, f"{name} on the {other} route: max err "
+                      f"{e} uses {sh} of its limit")
+                case[f"{other}_ms"] = time_ms(
+                    lambda other=other: paged_attn._launch(
+                        *base, **kw, route=other), flush, host_ahead=True)
         log({"phase": "P", **case})
         cases.append(case)
     return cases
@@ -1608,9 +1641,11 @@ def phase_p(dev, flush):
         p2[key]["tokens"] = sum(len(o.tokens) for o in base_outs.values())
         log({"phase": "P2", "case": key, **p2[key],
              "since_p_s": time.perf_counter() - t0})
-    check(p2["self_k7"]["route_launches"]["split"] > 0
-          and p2["self_k3"]["route_launches"]["split"] == 0,
-          "P2: W 8 did not take the split route, or W 4 did")
+    check(all(r["route_launches"]["split"] == 0 for r in p2.values())
+          and p2["self_k7"]["verify_route"] == "decode"
+          and p2["self_k3"]["verify_route"] == "decode",
+          "P2: a bf16 run launched the split kernel, or a verify window "
+          "left the decode route")
     del draft2
 
     # ---- P3: control and tenants.
@@ -3580,8 +3615,7 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
     in f32, with the launches of the f32 kernel paths of phases C (fp) and
     K (int8), the paths that run it. Each fp entry also carries phase
     P's launches by path (the prefix cache, the speculative runs); P's
-    verify windows join the decode entry (W 4) and make an entry of their
-    own on the split route (W 8, the launches of P2's spec_k 7 run)."""
+    verify windows join the entry of their route and branch."""
     out = []
     keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3618,19 +3652,12 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
                            if k in c} for c in mine]})
             if branch == "fp":
                 out[-1]["launches_p"] = _p_launches(p_result, route)
-                out[-1]["cases"] += [
-                    {k: c[k] for k in keys + extra + ("tol_share",)
-                     if k in c} for c in verify_cases
-                    if c["route"] == route]
-    w8 = next(c for c in verify_cases if c["case"] == "verify_w8")
-    out.append({
-        "name": "paged_attn_split_verify", "route": "cuda",
-        "source": "k8s_distributed_deeplearning_torch/csrc/paged_attn.cu",
-        "replaces": PAGED_REPLACES, "branch": "fp",
-        "launches": p_result["p2"]["self_k7"]["route_launches"]["split"],
-        "launches_in": "P2 self_k7 (verify windows of 8, bf16)",
-        **{k: w8[k] for k in keys[2:]},
-        "cases": [{k: w8[k] for k in keys + ("tol_share",)}]})
+            out[-1]["cases"] += [
+                {k: c[k] for k in keys + extra + ("tol_share",
+                                                  "decode_ms", "prefill_ms")
+                 if k in c} for c in verify_cases
+                if c["route"] == route
+                and c["branch"] == ("fp" if branch == "fp" else "int8")]
     return out
 
 

@@ -1,14 +1,18 @@
-// Paged grouped-query attention for decode, on Hopper's tensor cores
-// (mma.sync), with the key range split over the live length and the
-// splits merged in the same launch.
+// Paged grouped-query attention for decode, speculative verify windows and
+// short chunks, on Hopper's tensor cores (mma.sync), with the key range
+// split over the live length and the splits merged in the same launch.
 //
 // Replaces: k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py,
-// `_kernel` (launched by `paged_decode_attention`), for decode and short
-// verify windows, both branches: fp pools, and int8 pools with
+// `_kernel` (launched by `paged_decode_attention`), for decode, verify
+// windows and short chunks, both branches: fp pools, and int8 pools with
 // per-token-per-head f32 scales (`quant=True`). ops/paged_attn.py `_route`
-// sends bf16 q with at most 16 flattened (position, group head) rows per
-// KV head, sq * group <= 16, at head_dim 64 or 128 here; prefill chunks go
-// to csrc/paged_prefill.cu, everything else to csrc/paged_attn.cu.
+// sends bf16 q at head_dim 64 or 128 here when it has at most MAX_TILES
+// 16-row tiles of flattened (position, group head) rows per KV head, sq *
+// group <= 64: decode at every group size, verify windows of up to 16 and
+// chunks of up to 16 tokens at Llama-3 8B's group of 4 (at 64 rows this
+// kernel measured faster than one 64-row tile of csrc/paged_prefill.cu).
+// Longer chunks go to csrc/paged_prefill.cu; f32 q and other head dims to
+// csrc/paged_attn.cu.
 //
 // Contract (paged_attn.cu's, narrowed to what this kernel takes):
 //   q          [B, sq, H, hd]                   bfloat16, hd 64 or 128
@@ -31,21 +35,29 @@
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): bytes. Decode
 // does 4 * H * hd FLOPs per live key on 2 * kv * hd * itemsize bytes of
 // K/V per live key (int8: plus 8 * kv bytes of scales): about 4 FLOPs a
-// byte at Llama-3 8B's heads, far below the card's ~295. Phase A's decode
-// case (B 4, 4,710 live keys, 32/8 heads, hd 128) moves 19.3 MB of bf16
-// K/V: 0.0058 ms.
+// byte at Llama-3 8B's heads, far below the card's ~295, and a verify
+// window of W positions does W times the FLOPs on the same bytes, still
+// below it at W 16 (64). Phase A's decode case (B 4, 4,710 live keys,
+// 32/8 heads, hd 128) moves 19.3 MB of bf16 K/V: 0.0058 ms.
 // What the design does about it:
-// - Grid (splits, KV heads, batch rows): a cluster of `splits` CTAs (at
-//   most 8, the host's choice from the batch, the KV heads and the SM
-//   count: about two CTAs an SM) serves one (row, KV head), each CTA an
-//   equal share of the row's live 16-key tiles, read from the row's cursor
-//   on the device: bytes follow the live length, not the table width, and
-//   no launch waits on the device.
-// - A CTA holds all the query rows of its KV head (the group's heads at
-//   each position, padded to 16), so each K/V byte is read once. It loads
-//   the row's cursors, the row's block table (its first TAB_W entries, into
-//   shared memory) and Q at once, so one memory round trip precedes the
-//   first K/V copy.
+// - Grid (splits, KV heads x row tiles, batch rows): a cluster of `splits`
+//   CTAs (at most 8, the host's choice from the batch, the KV heads, the
+//   row tiles and the SM count: about two CTAs an SM) serves one (row, KV
+//   head, row tile), each CTA an equal share of the row's live 16-key
+//   tiles, read from the row's cursors on the device: bytes follow the
+//   live length, not the table width, and no launch waits on the device.
+// - A CTA holds one 16-row tile of the query rows of its KV head (the
+//   group's heads at each position; the last tile padded to 16): decode
+//   at groups up to 16 is one tile, so each K/V byte is read once; a
+//   verify window of 8 at group 4 is 32 rows, two tiles, whose CTAs read
+//   the same K/V, the second mostly from L2 (one layer's live K/V at B 4
+//   and 540 tokens a row is 8.8 MB of the 50 MB L2; the CTAs of one (row,
+//   KV head) are neighbours in the grid). Every tile's arithmetic is
+//   a one-tile call's: the key range of a row is set by the largest
+//   cursor of all its queries, so the tiles of a row split it alike. A
+//   CTA loads the row's cursors (two queries a lane), the row's block
+//   table (its first TAB_W entries, into shared memory) and its Q tile at
+//   once, so one memory round trip precedes the first K/V copy.
 // - Its four warps work alone: warp w takes tiles w, w + 4, ... of the
 //   CTA's share through its own ring of two 16-key slots, one tile ahead,
 //   filled by 16-byte cp.async of each key's head slice, so a warp waits
@@ -83,7 +95,8 @@ constexpr int KT = 16;          // keys a tile: one mma k-step of P.V
 constexpr int NW = 4;           // warps a CTA, each with its own ring
 constexpr int NT = NW * 32;
 constexpr int RING = 2;         // ring slots a warp: one tile ahead
-constexpr int MAX_ROWS = 16;    // query rows a KV head: one mma M tile
+constexpr int MAX_ROWS = 16;    // query rows a CTA: one mma M tile
+constexpr int MAX_TILES = 4;    // row tiles a (row, KV head): 64 rows
 constexpr int MAX_SPLITS = 8;   // CTAs a (row, KV head): a portable cluster
 constexpr int TAB_W = 512;      // block-table entries kept in shared memory
 constexpr unsigned FULL = 0xffffffffu;
@@ -141,18 +154,20 @@ __device__ __forceinline__ void mma16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Where a K/V row comes from: the element offset of its head slice in the
-// pools and of its scale in the scale pages; `valid` false zero-fills.
+// Where a K/V row comes from: the element offset of its token in the
+// pools and of its scale in the scale pages, from the CTA's KV head on;
+// `valid` false zero-fills.
 struct Src {
   unsigned long long off;
   int soff;
   int valid;
 };
 
-// Grid: (splits, KV heads, B), clusters of `splits` CTAs along x. CTA
-// (s, kvh, b) serves KV head kvh of batch row b: tiles [s T / splits,
-// (s + 1) T / splits) of the row's T live 16-key tiles. Flattened row r is
-// query position r / group of q head kvh * group + r % group.
+// Grid: (splits, KV heads x row tiles, B), clusters of `splits` CTAs
+// along x. CTA (s, kvh * n_rt + t, b) serves rows [16 t, 16 t + 16) of KV
+// head kvh of batch row b: key tiles [s T / splits, (s + 1) T / splits)
+// of the row's T live 16-key tiles. Flattened row r is query position
+// r / group of q head kvh * group + r % group.
 template <int HD, bool QUANT>
 __global__ void __launch_bounds__(NT, 3)    // three CTAs an SM
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
@@ -175,30 +190,35 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
   const int split = blockIdx.x;
   const int n_split = gridDim.x;
-  const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int group = n_heads / n_kv;
   const int rows = sq * group;
+  const int n_rt = (rows + MAX_ROWS - 1) / MAX_ROWS;   // row tiles
+  // (One tile, decode: no division on the way to the first copy.)
+  const int kvh = n_rt == 1 ? (int)blockIdx.y : (int)blockIdx.y / n_rt;
+  const int r0 = n_rt == 1 ? 0 : (int)blockIdx.y % n_rt * MAX_ROWS;
+  const int tr = min(rows - r0, MAX_ROWS);             // its rows
   const int width = n_blocks * page_tokens;
 
-  // The row's cursors: lane i < sq holds query i's. Rows past `rows` see
-  // nothing (-1).
-  const int pos_l =
-      lane < sq ? __ldg(positions + (size_t)b * sq + lane) : -1;
+  // The row's cursors: lane i holds those of queries i and i + 32 (sq <=
+  // 64), -1 past sq. Tile rows past `tr` see nothing (-1).
+  const int32_t* pos_b = positions + (size_t)b * sq;
+  const int pos_l = lane < sq ? __ldg(pos_b + lane) : -1;
+  const int pos_h = lane + 32 < sq ? __ldg(pos_b + lane + 32) : -1;
 
-  // The Q tile (rows past `rows` zero), swizzled, and the row's block
-  // table, as one copy group.
+  // The Q tile (rows past `tr` zero), swizzled, and the row's block table,
+  // as one copy group.
   const int32_t* table = tables + (size_t)b * n_blocks;
   int* tab_s = reinterpret_cast<int*>(smem + P::TAB_OFF);
   {
     constexpr int CPR = HD / 8;
     for (int idx = tid; idx < MAX_ROWS * CPR; idx += NT) {
       const int r = idx / CPR, ch = idx % CPR;
-      const bool valid = r < rows;
+      const bool valid = r < tr;
       size_t off = 0;
       if (valid)
-        off = (((size_t)b * sq + r / group) * n_heads + kvh * group +
-               r % group) * HD + ch * 8;
+        off = (((size_t)b * sq + (r0 + r) / group) * n_heads + kvh * group +
+               (r0 + r) % group) * HD + ch * 8;
       cp_async16(smem + P::Q_OFF + r * P::ROWB + ((ch ^ (r & 7)) << 4),
                  q + off, valid);
     }
@@ -206,16 +226,20 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async4(tab_s + i, table + i, true);
     cp_async_commit();
   }
-  const int kmax = __reduce_max_sync(FULL, pos_l);
-  const int kmin = __reduce_min_sync(FULL, lane < sq ? pos_l : INT_MAX);
+  const int kmax = __reduce_max_sync(FULL, max(pos_l, pos_h));
+  const int kmin = __reduce_min_sync(
+      FULL, min(lane < sq ? pos_l : INT_MAX, lane + 32 < sq ? pos_h : INT_MAX));
   const int c_lim = min(kmax + 1, width);      // columns the row reads
   const int n_tiles = c_lim > 0 ? (c_lim + KT - 1) / KT : 0;
   const int g = lane >> 2;                     // this thread's rows g, g + 8
   const int qd = lane & 3;
-  const int pos0 = __shfl_sync(FULL, pos_l, g < rows ? g / group : 0);
-  const int pos1 =
-      __shfl_sync(FULL, pos_l, g + 8 < rows ? (g + 8) / group : 0);
-  const int cur0 = g < rows ? pos0 : -1, cur1 = g + 8 < rows ? pos1 : -1;
+  auto cursor = [&](int r) {                   // tile row r's cursor
+    const int qi = r < tr ? (r0 + r) / group : 0;
+    const int lo = __shfl_sync(FULL, pos_l, qi & 31);
+    const int hi = __shfl_sync(FULL, pos_h, qi & 31);
+    return r < tr ? (qi < 32 ? lo : hi) : -1;
+  };
+  const int cur0 = cursor(g), cur1 = cursor(g + 8);
   const int t_lo = split * n_tiles / n_split;
   const int t_hi = (split + 1) * n_tiles / n_split;
   const int my_n = t_hi - t_lo > warp ? (t_hi - t_lo - warp + NW - 1) / NW
@@ -236,12 +260,20 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int page = blk < TAB_W ? tab_s[blk] : __ldg(table + blk);
       const long long tok =
           (long long)page * page_tokens + (col - blk * page_tokens);
-      s.off = (unsigned long long)tok * tok_stride + (size_t)kvh * HD;
-      s.soff = (int)(tok * n_kv + kvh);
+      s.off = (unsigned long long)tok * tok_stride;
+      s.soff = (int)(tok * n_kv);
       s.valid = 1;
     }
     return s;
   };
+  // The pools and scales from this KV head on: the copies' offsets are
+  // the tokens' alone (kvh leaves the loop's registers).
+  pool_k += (size_t)kvh * HD;
+  pool_v += (size_t)kvh * HD;
+  if constexpr (QUANT) {
+    k_scale += kvh;
+    v_scale += kvh;
+  }
   unsigned char* ring = smem + P::RING_OFF + warp * P::WARP;
   constexpr int VEC = 16 / (int)sizeof(S);       // elements a chunk
   constexpr int CPK = HD / VEC;                  // chunks a key
@@ -465,7 +497,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int D4 = HD / 4;
   float* co = reinterpret_cast<float*>(smem + P::CO_OFF);
   float2* cml = reinterpret_cast<float2*>(smem + P::CML_OFF);
-  for (int it = tid; it < rows * D4; it += NT) {
+  for (int it = tid; it < tr * D4; it += NT) {
     const int r = it / D4, d = (it % D4) * 4;
     float mm = NEG_INF;
 #pragma unroll
@@ -486,8 +518,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (n_split == 1) {
       const float n = fmaxf(ll, 1e-30f);
-      __nv_bfloat16* op = out + (((size_t)b * sq + r / group) * n_heads +
-                                 kvh * group + r % group) * HD + d;
+      __nv_bfloat16* op = out + (((size_t)b * sq + (r0 + r) / group) *
+                                     n_heads + kvh * group + (r0 + r) % group) *
+                                    HD + d;
       *reinterpret_cast<uint2*>(op) =
           make_uint2(pack_bf16(acc.x / n, acc.y / n),
                      pack_bf16(acc.z / n, acc.w / n));
@@ -505,7 +538,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                   // every CTA's state is written
   const int rank = (int)cluster.block_rank();
-  for (int it = rank + n_split * tid; it < rows * D4; it += n_split * NT) {
+  for (int it = rank + n_split * tid; it < tr * D4; it += n_split * NT) {
     const int r = it / D4, d = (it % D4) * 4;
     float2 ml[MAX_SPLITS];
     float4 x[MAX_SPLITS];
@@ -534,8 +567,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       acc.w += a * x[j].w;
     }
     const float n = fmaxf(ll, 1e-30f);
-    __nv_bfloat16* op = out + (((size_t)b * sq + r / group) * n_heads +
-                               kvh * group + r % group) * HD + d;
+    __nv_bfloat16* op = out + (((size_t)b * sq + (r0 + r) / group) * n_heads +
+                               kvh * group + (r0 + r) % group) * HD + d;
     *reinterpret_cast<uint2*>(op) = make_uint2(
         pack_bf16(acc.x / n, acc.y / n), pack_bf16(acc.z / n, acc.w / n));
   }
@@ -554,7 +587,8 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, n_kv, batch);
+  const int row_tiles = (sq * (n_heads / n_kv) + MAX_ROWS - 1) / MAX_ROWS;
+  cfg.gridDim = dim3(splits, n_kv * row_tiles, batch);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = P::BYTES;
   cfg.stream = stream;
@@ -578,9 +612,10 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
 
 }  // namespace
 
-// paged_prefill_fwd's arguments, with the key splits of a (row, KV head)
-// in place of the row tile: 1 to MAX_SPLITS CTAs, launched as one
-// cluster. dtype must be 1 (bfloat16); hd 64 or 128; sq * (H / kv) <= 16;
+// paged_prefill_fwd's arguments, with the key splits of a (row, KV head,
+// row tile) in place of the row tile: 1 to MAX_SPLITS CTAs, launched as
+// one cluster. dtype must be 1 (bfloat16); hd 64 or 128; sq * (H / kv) <=
+// MAX_TILES * MAX_ROWS (64);
 // k_scale and v_scale both null for bf16 pools or both given for int8
 // pools. Returns cudaGetLastError() after the launch (cudaSuccess = 0),
 // or cudaErrorInvalidValue for arguments the kernel does not take; the
@@ -594,7 +629,7 @@ extern "C" int paged_decode_fwd(const void* q, const void* pool_k,
                                 int splits, float scale, void* stream) {
   const bool quant = k_scale != nullptr;
   if (batch <= 0 || sq <= 0 || n_kv <= 0 || n_heads <= 0 ||
-      n_heads % n_kv || sq * (n_heads / n_kv) > MAX_ROWS ||
+      n_heads % n_kv || sq * (n_heads / n_kv) > MAX_TILES * MAX_ROWS ||
       page_tokens <= 0 || n_blocks <= 0 || dtype != 1 ||
       quant != (v_scale != nullptr) || (hd != 64 && hd != 128) ||
       splits < 1 || splits > MAX_SPLITS)

@@ -15,12 +15,13 @@ pools are int8 and each token has one f32 scale per KV head,
   CUDA tensors, and takes the plain version on CPU tensors. Three kernels
   share the contract, and :func:`_route` picks one by shape alone, for q
   with ``sq`` positions and ``group = H / kv`` query heads a KV head:
-  bf16 decode and short verify windows (``sq x group <= 16``) at head_dim
-  64 or 128 go to the tensor-core decode kernel (``csrc/paged_decode.cu``,
-  route ``"decode"``); bf16 query chunks with ``sq x group >= 64`` at
-  head_dim 64 or 128 to the tensor-core prefill kernel
-  (``csrc/paged_prefill.cu``, route ``"prefill"``); f32 q, other head
-  dims and the windows in between to the split kernel
+  bf16 q at head_dim 64 or 128 goes to the tensor-core decode kernel
+  (``csrc/paged_decode.cu``, route ``"decode"``) when ``sq x group <=
+  64``: decode, speculative verify windows (up to 16 positions at Llama-3
+  8B's group of 4) and short chunks, in 16-row tiles; and to the
+  tensor-core prefill kernel (``csrc/paged_prefill.cu``, route
+  ``"prefill"``) when ``sq x group > 64``, in 64- or 128-row wgmma tiles.
+  f32 q and other head dims go to the split kernel
   (``csrc/paged_attn.cu``, route ``"split"``). There is no fallback from
   one to another: a CUDA tensor the chosen kernel cannot take, or a
   failed build or launch, raises.
@@ -44,14 +45,17 @@ from k8s_distributed_deeplearning_torch.ops import _build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-# The prefill route: bf16 q, at least one 64-row wgmma tile of flattened
-# (position, group head) rows per KV head, head_dim 64 or 128.
-_PREFILL_MIN_ROWS = 64
+# The prefill route: bf16 q, more flattened (position, group head) rows
+# per KV head than the decode route takes, head_dim 64 or 128.
 _PREFILL_HEAD_DIMS = (64, 128)
-# The decode route: bf16 q, at most one 16-row mma tile of flattened rows
-# per KV head, head_dim 64 or 128. A (row, KV head) takes a cluster of up
-# to _DECODE_MAX_SPLITS CTAs, about _DECODE_CTAS_PER_SM an SM in all.
-_DECODE_MAX_ROWS = 16
+# The decode route: bf16 q, head_dim 64 or 128, up to _DECODE_MAX_ROWS
+# flattened rows per KV head in 16-row mma tiles; each (row, KV head, row
+# tile) takes a cluster of up to _DECODE_MAX_SPLITS CTAs, about
+# _DECODE_CTAS_PER_SM an SM in all. At exactly 64 rows, one wgmma tile of
+# the prefill kernel, the decode kernel's four tiles measured faster on
+# an H100 (PERF.md §6), so the boundary sits above 64.
+_DECODE_TILE_ROWS = 16
+_DECODE_MAX_ROWS = 64
 _DECODE_HEAD_DIMS = (64, 128)
 _DECODE_CTAS_PER_SM = 2
 _DECODE_MAX_SPLITS = 8
@@ -148,21 +152,18 @@ def paged_decode_attention_reference(q: torch.Tensor, pool_k: torch.Tensor,
 def _route(sq: int, group: int, head_dim: int, q_dtype: torch.dtype,
            quant: bool) -> str:
     """Which kernel takes a CUDA call, with fp or int8 (``quant``) pools
-    alike: for bf16 q at head_dim 64 or 128, ``"decode"`` (tensor cores)
-    when the flattened (position, group head) rows per KV head fit one
-    16-row tile, ``sq * group <= 16`` (decode at every group size the port
-    serves, and short verify windows), and ``"prefill"`` (tensor cores)
-    when they fill at least one 64-row wgmma tile, ``sq * group >= 64``;
-    ``"split"`` otherwise: f32 q, other head dims, and ``16 < sq * group
-    < 64``."""
+    alike: for bf16 q at head_dim 64 or 128, ``"decode"`` (tensor cores,
+    16-row tiles) when the flattened (position, group head) rows per KV
+    head are at most ``_DECODE_MAX_ROWS``, ``sq * group <= 64`` (decode at
+    every group size the port serves, verify windows and short chunks),
+    and ``"prefill"`` (tensor cores, 64- or 128-row tiles) above that;
+    ``"split"`` for f32 q and other head dims."""
     del quant                     # both branches take every route
-    if q_dtype == torch.bfloat16:
-        if sq * group <= _DECODE_MAX_ROWS and head_dim in _DECODE_HEAD_DIMS:
-            return "decode"
-        if (sq * group >= _PREFILL_MIN_ROWS
-                and head_dim in _PREFILL_HEAD_DIMS):
-            return "prefill"
-    return "split"
+    if q_dtype != torch.bfloat16:
+        return "split"
+    if sq * group <= _DECODE_MAX_ROWS:
+        return "decode" if head_dim in _DECODE_HEAD_DIMS else "split"
+    return "prefill" if head_dim in _PREFILL_HEAD_DIMS else "split"
 
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -187,8 +188,8 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
     tensors launch the kernel :func:`_route` names from the shape: bf16 q
     at head_dim 64 or 128 runs the tensor-core decode kernel when
-    ``sq * (H / kv) <= 16`` and the tensor-core prefill kernel when
-    ``sq * (H / kv) >= 64``; everything else runs the split kernel. All
+    ``sq * (H / kv) <= 64`` and the tensor-core prefill kernel otherwise;
+    f32 q and other head dims run the split kernel. All
     three take pools of q's dtype (or int8 with f32 scales), int32 tables
     and positions, all contiguous and the pools 16-byte aligned; the
     decode and prefill kernels take bfloat16 q, 16-byte aligned; the split
@@ -300,8 +301,9 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
                 q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
                 block_tables.data_ptr(), positions.data_ptr(),
                 out.data_ptr(), b, sq, h, hkv, hd, page_tokens, n_blocks,
-                _DTYPE_CODE[q.dtype], _decode_splits(b, hkv, _num_sms(
-                    q.device)), scale, stream)
+                _DTYPE_CODE[q.dtype], _decode_splits(
+                    b, hkv, _num_sms(q.device), sq * (h // hkv)), scale,
+                stream)
         elif route == "prefill":
             rc = _library("paged_prefill").paged_prefill_fwd(
                 q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
@@ -346,10 +348,13 @@ def _num_sms(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_splits(batch: int, n_kv: int, num_sms: int) -> int:
-    """CTAs per (row, KV head) of the decode kernel: _DECODE_CTAS_PER_SM
-    an SM over the batch rows and KV heads, 1 to _DECODE_MAX_SPLITS."""
-    want = -(-_DECODE_CTAS_PER_SM * num_sms // (batch * n_kv))
+def _decode_splits(batch: int, n_kv: int, num_sms: int, rows: int) -> int:
+    """CTAs per (row, KV head, row tile) of the decode kernel, for ``rows``
+    flattened (position, group head) rows per KV head in 16-row tiles:
+    _DECODE_CTAS_PER_SM an SM over the batch rows, KV heads and row tiles,
+    1 to _DECODE_MAX_SPLITS."""
+    row_tiles = -(-rows // _DECODE_TILE_ROWS)
+    want = -(-_DECODE_CTAS_PER_SM * num_sms // (batch * n_kv * row_tiles))
     return max(1, min(want, _DECODE_MAX_SPLITS))
 
 

@@ -22,16 +22,18 @@ variant, launch).
 another checkout of the repo (``DIR``, e.g. a parent commit unpacked with
 ``git archive``; its own ``csrc/`` headers), runs every launch once on
 each build, prints whether the outputs are bitwise equal, then times both
-builds as above.
+builds as above. A launch the other build refuses (a shape its kernel
+does not take) is printed as refused and timed on this build alone.
 
 ``decode``: Llama-3 8B's heads (32 q, 8 KV, head_dim 128, 32-token pages),
-one query a row, fp and int8 pools, at phase A's decode case (B 4, live
+fp and int8 pools, one query a row at phase A's decode case (B 4, live
 lengths drawn as phase A draws them, 64-block tables) and at phase B's
-decode-profile shape (B 4, live 512-560 of 64 blocks), the CTA count the
-wrapper picks. Variants: ``no_loads`` (no copies after the first two
-tiles of a warp), ``no_s`` (no S products), ``no_pv`` (no P.V products:
-their fragments are folded into one accumulator element by integer
-XORs), ``no_exp`` (p = x, no exponentials), ``no_convert`` (int8: no
+decode-profile shape (B 4, live 512-560 of 64 blocks), and a speculative
+verify window of 8 at that shape (32 rows a KV head: two row tiles), the
+CTA count the wrapper picks. Variants: ``no_loads`` (no copies after the
+first two tiles of a warp), ``no_s`` (no S products), ``no_pv`` (no P.V
+products: their fragments are folded into one accumulator element by
+integer XORs), ``no_exp`` (p = x, no exponentials), ``no_convert`` (int8: no
 int8-to-bf16 pass), ``no_merge`` (the cluster's CTA states are not
 merged), ``skeleton`` (none of these: the cursors, the Q and table loads,
 the waits, the masks, the warps' merge and the cluster barriers), and
@@ -126,7 +128,7 @@ DECODE_VARIANTS = {
                 "float p = x;", 1)],
     "no_convert": [("for (int i = 0; i < 2 * KT * UPK / 32; ++i) {",
                     "for (int i = 0; i < 0; ++i) {", 1)],
-    "no_merge": [("it < rows * D4; it += n_split * NT) {",
+    "no_merge": [("it < tr * D4; it += n_split * NT) {",
                   "it < 0; it += n_split * NT) {", 1)],
 }
 # The design point beside this one: three ring slots a warp (two tiles
@@ -268,31 +270,41 @@ Launches = dict[str, tuple[Callable[[ctypes.CDLL], int],
                            tuple[torch.Tensor, ...]]]
 
 
+# The decode launches, name -> (live lengths of the 4 rows, queries a
+# row): phase A's decode case, phase B's decode-profile shape, and a
+# verify window of 8 at that shape.
+DECODE_LAUNCHES = {
+    "a": ([int(n) for n in np.random.default_rng(0).integers(100, 2001, 4)],
+          1),
+    "b_profile": ([512, 528, 544, 560], 1),
+    "b_profile_w8": ([512, 528, 544, 560], 8),
+}
+DECODE_HEADS = (32, 8, 128)             # q heads, KV heads, head_dim
+
+
 def decode_case(dev: torch.device, stream: int) -> Launches:
-    """The fp and int8 launches at phase A's decode case and at phase B's
-    decode-profile shape."""
+    """The fp and int8 launches of DECODE_LAUNCHES."""
     from k8s_distributed_deeplearning_torch.models.transformer import (
         quantize_kv)
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
-    h, kv, hd, page, n_blocks = 32, 8, 128, 32, 64
-    cases = {"a": [int(n) for n in
-                   np.random.default_rng(0).integers(100, 2001, 4)],
-             "b_profile": [512, 528, 544, 560]}
-    splits = paged_attn._decode_splits(4, kv, paged_attn._num_sms(dev))
+    (h, kv, hd), page, n_blocks = DECODE_HEADS, 32, 64
 
     def launch(q, pk, pv, scales, tables, pos, o):
+        sq = q.shape[1]
+        splits = paged_attn._decode_splits(4, kv, paged_attn._num_sms(dev),
+                                           sq * (h // kv))
         return lambda lib: lib.paged_decode_fwd(
             q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
             *(s.data_ptr() if s is not None else None for s in scales),
-            tables.data_ptr(), pos.data_ptr(), o.data_ptr(), 4, 1, h, kv,
+            tables.data_ptr(), pos.data_ptr(), o.data_ptr(), 4, sq, h, kv,
             hd, page, n_blocks, 1, splits, hd ** -0.5, stream)
 
     out = {}
-    for name, lens in cases.items():
+    for name, (lens, sq) in DECODE_LAUNCHES.items():
         gen = torch.Generator(device=dev).manual_seed(0)
         pages = sum(-(-n // page) for n in lens) + 1
-        q = torch.randn(4, 1, h, hd, device=dev, generator=gen).bfloat16()
+        q = torch.randn(4, sq, h, hd, device=dev, generator=gen).bfloat16()
         pools = [torch.randn(pages, page, kv * hd, device=dev,
                              generator=gen).bfloat16() for _ in range(2)]
         tables = torch.zeros(4, n_blocks, dtype=torch.int32, device=dev)
@@ -302,7 +314,8 @@ def decode_case(dev: torch.device, stream: int) -> Launches:
             nb = -(-n // page)
             tables[i, :nb] = perm[used:used + nb]
             used += nb
-        pos = torch.tensor(lens, dtype=torch.int32, device=dev)[:, None] - 1
+        pos = (torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+               - sq + torch.arange(sq, dtype=torch.int32, device=dev))
         (kq, ks), (vq, vs) = (quantize_kv(p.float().view(pages, page, kv,
                                                           hd)) for p in pools)
         o = torch.empty_like(q)
@@ -522,11 +535,16 @@ def main(argv: list[str]) -> int:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
 
     same = True
+    refused = set()                    # (variant, launch) the build refuses
     if against is not None:
         for label, (fn, outs) in launches.items():
             run(fn, libs["base"])
             base = [x.clone() for x in outs]
-            run(fn, libs["against"])
+            if fn(libs["against"]):
+                refused.add(("against", label))
+                print(json.dumps({"launch": label, "against": "refused"}),
+                      flush=True)
+                continue
             torch.cuda.synchronize()
             equal = all(torch.equal(a, b) for a, b in zip(base, outs))
             same = same and equal
@@ -553,6 +571,8 @@ def main(argv: list[str]) -> int:
     for rnd in range(2):
         for name, lib in libs.items():
             for label, (fn, _) in launches.items():
+                if (name, label) in refused:
+                    continue
                 print(json.dumps({
                     "round": rnd, "variant": name, "launch": label,
                     "ms": time_ms(fn, lib)}), flush=True)

@@ -248,11 +248,12 @@ def test_paged_attn_int8_rejects_what_the_kernel_cannot_take(hopper):
 
 # The prefill route (csrc/paged_prefill.cu): (b, sq, h, hkv, pages,
 # page_tokens, n_blocks, head_dim). Llama-3 8B's heads at pages of 8, 16,
-# 32 and 64 tokens and of 24 (not a power of two), sq 16 (one 64-row
-# tile), 64 and 512, B 1-3 with live lengths drawn across the table (rarely
-# a multiple of the 64-key tile); then head_dim 64 with groups of 3 and 8.
+# 32 and 64 tokens and of 24 (not a power of two), sq 17 (68 rows, the
+# fewest the route takes at group 4), 64 and 512, B 1-3 with live lengths
+# drawn across the table (rarely a multiple of the 64-key tile); then
+# head_dim 64 with groups of 3 and 8.
 PREFILL_SHAPES = [
-    (1, 16, 32, 8, 80, 8, 64, 128),
+    (1, 17, 32, 8, 80, 8, 64, 128),
     (2, 64, 32, 8, 100, 16, 40, 128),
     (3, 64, 32, 8, 120, 32, 24, 128),
     (1, 512, 32, 8, 40, 64, 30, 128),
@@ -377,7 +378,8 @@ def test_paged_prefill_fully_masked_row_is_zero(hopper, quant):
     q, pk, pv, tables, pos = args
     pos[0, 3] = -1
     pos[1] = -1                       # a whole batch row sees nothing
-    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    # 64 rows a KV head take the decode route: the prefill kernel forced.
+    out = paged_attn._launch(q, pk, pv, tables, pos, **kw, route="prefill")
     assert torch.all(out[0, 3] == 0) and torch.all(out[1] == 0)
     assert torch.isfinite(out).all()
     _assert_prefill_close(out, paged_decode_attention_reference(
@@ -417,7 +419,11 @@ def test_paged_prefill_refuses_and_does_not_fall_back(hopper):
 # page_tokens, n_blocks, head_dim, live lengths or None for random ones).
 # Groups 1, 3, 4 and 8 at head_dim 64 and 128; verify windows of 2 and 4
 # (8 and 16 rows a KV head); pages of 2, 16, 24 (not a power of two) and
-# 32 tokens; live lengths from 1 to 8,000, a page and a page and one.
+# 32 tokens; live lengths from 1 to 8,000, a page and a page and one. Then
+# 17-63 rows, two to four 16-row tiles: verify windows of 5, 8 and 15 at
+# 8B's heads (8 at phase P's live lengths), of 6 at the small preset's, of
+# 5 at a group of 8, 40 queries of one head each, and a 21-token chunk at
+# group 3 (63 rows).
 DECODE_SHAPES = [
     (4, 1, 32, 8, 300, 32, 64, 128, None),
     (3, 1, 12, 4, 80, 16, 20, 64, None),
@@ -429,6 +435,13 @@ DECODE_SHAPES = [
     (3, 1, 32, 8, 80, 32, 16, 128, [1, 32, 33]),
     (4, 1, 32, 8, 1100, 32, 256, 128, [1, 33, 4000, 8000]),
     (1, 1, 12, 4, 20, 32, 16, 64, [1]),
+    (4, 5, 32, 8, 300, 32, 64, 128, None),
+    (4, 8, 32, 8, 300, 32, 64, 128, [512, 528, 544, 560]),
+    (2, 15, 32, 8, 120, 16, 40, 128, None),
+    (3, 6, 12, 4, 80, 16, 20, 64, None),
+    (2, 5, 64, 8, 80, 32, 16, 128, None),
+    (2, 40, 16, 16, 60, 16, 25, 128, [40, 400]),
+    (1, 21, 12, 4, 40, 24, 30, 64, None),
 ]
 
 
@@ -490,13 +503,16 @@ def test_paged_decode_matches_reference(hopper, quant, shape):
     assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("window", [2, 8])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
-def test_paged_decode_stale_cells_and_scratch_are_inert(hopper, quant):
+def test_paged_decode_stale_cells_and_scratch_are_inert(hopper, quant,
+                                                        window):
     """Every cell past each row's cursor (fp: +-1e4; int8: 127 with scales
     1e4), the blocks past the live length pointed at the scratch page, and
     garbage in the scratch page change no output bit of the decode route,
-    at a verify window of 2 (cursors that differ within a row)."""
-    shape = (3, 2, 32, 8, 120, 16, 24, 128, [350, 300, 17])
+    at verify windows of 2 and 8 (cursors that differ within a row; 8 and
+    32 rows a KV head)."""
+    shape = (3, window, 32, 8, 120, 16, 24, 128, [350, 300, 17])
     args, kw = _decode_args(hopper, shape, quant, 29)
     q, pk, pv, tables, pos = args
     before = _decode_counts()[2:]
@@ -525,10 +541,11 @@ def test_paged_decode_stale_cells_and_scratch_are_inert(hopper, quant):
         [0, 2] if quant else [2, 0])
 
 
+@pytest.mark.parametrize("window", [2, 10])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
-def test_paged_decode_fully_masked_row_is_zero(hopper, quant):
-    args, kw = _decode_args(hopper, (3, 2, 32, 8, 80, 16, 20, 128, None),
-                            quant, 31)
+def test_paged_decode_fully_masked_row_is_zero(hopper, quant, window):
+    args, kw = _decode_args(hopper, (3, window, 32, 8, 80, 16, 20, 128,
+                                     None), quant, 31)
     q, pk, pv, tables, pos = args
     pos[0, 1] = -1
     pos[1] = -1                       # a whole batch row sees nothing
@@ -539,11 +556,12 @@ def test_paged_decode_fully_masked_row_is_zero(hopper, quant):
         q, pk, pv, tables, pos, **kw), quant)
 
 
-def test_paged_decode_launches_count_by_route(hopper):
-    """A decode-shaped bf16 call counts on the decode route; the same
-    inputs through the split kernel forced, and an f32 call, count on the
-    branch alone."""
-    shape = (2, 1, 32, 8, 80, 32, 16, 128, None)
+@pytest.mark.parametrize("window", [1, 8])
+def test_paged_decode_launches_count_by_route(hopper, window):
+    """A decode-shaped bf16 call, or a verify window of 8 (32 rows a KV
+    head), counts on the decode route; the same inputs through the split
+    kernel forced, and an f32 call, count on the branch alone."""
+    shape = (2, window, 32, 8, 80, 32, 16, 128, None)
     for quant in (False, True):
         args, kw = _decode_args(hopper, shape, quant, 41)
         branch = [0, 1] if quant else [1, 0]
@@ -584,10 +602,17 @@ def test_paged_decode_refuses_and_does_not_fall_back(hopper):
                            pv.view(48, 16, 8, 128)[..., :80].reshape(
                                48, 16, 640).contiguous(), tables, pos,
                            route="decode")
-    wide = q.expand(2, 5, 32, 128).contiguous()      # 5 x 4 = 20 rows
+    wide = q.expand(2, 17, 32, 128).contiguous()     # 17 x 4 = 68 rows
     with pytest.raises(ValueError, match="sq x group"):
-        paged_attn._launch(wide, pk, pv, tables, pos.expand(2, 5).contiguous(),
-                           route="decode")
+        paged_attn._launch(wide, pk, pv, tables,
+                           pos.expand(2, 17).contiguous(), route="decode")
+    for quant in (False, True):       # f32 q at a verify window of 8
+        w8, kw = _decode_args(hopper, (2, 8, 32, 8, 48, 16, 20, 128, None),
+                              quant, 43)
+        pools = w8[1:3] if quant else (w8[1].float(), w8[2].float())
+        with pytest.raises(TypeError, match="bfloat16"):
+            paged_attn._launch(w8[0].float(), *pools, *w8[3:], **kw,
+                               route="decode")
     with pytest.raises(ValueError, match="route"):
         paged_attn._launch(*args, route="flash")
     torch.cuda.synchronize()

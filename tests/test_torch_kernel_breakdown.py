@@ -2,14 +2,17 @@
 
 Each variant of the breakdown tool is a list of text substitutions on a
 CUDA source; a source edit that moves one of those texts makes the tool
-refuse to build on the card. These tests catch that here, on the CPU.
+refuse to build on the card. These tests catch that here, on the CPU,
+and check that the decode breakdown's launches are shapes of the decode
+route, a row-tiled verify window among them.
 """
 import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
-from k8s_distributed_deeplearning_torch.ops import _build
+from k8s_distributed_deeplearning_torch.ops import _build, paged_attn
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
@@ -35,3 +38,23 @@ def test_variant_substitutions_match_the_source(kernel, variant):
 def test_every_kernel_has_a_base_variant():
     for spec in kernel_breakdown.KERNELS.values():
         assert spec.variants["base"] == []
+
+
+@pytest.mark.parametrize("name", list(kernel_breakdown.DECODE_LAUNCHES))
+def test_decode_launches_take_the_decode_route(name):
+    """Every launch the decode breakdown times is a shape the decode route
+    takes, with its queries' positions inside the 64-block table."""
+    lens, sq = kernel_breakdown.DECODE_LAUNCHES[name]
+    h, kv, hd = kernel_breakdown.DECODE_HEADS
+    assert paged_attn._route(sq, h // kv, hd, torch.bfloat16,
+                             False) == "decode"
+    assert len(lens) == 4 and sq <= min(lens) and max(lens) <= 64 * 32
+
+
+def test_decode_breakdown_times_a_row_tiled_window():
+    """The breakdown covers the verify window's launch: more than one
+    16-row tile a KV head."""
+    h, kv, _ = kernel_breakdown.DECODE_HEADS
+    rows = [sq * (h // kv)
+            for _, sq in kernel_breakdown.DECODE_LAUNCHES.values()]
+    assert max(rows) > paged_attn._DECODE_TILE_ROWS

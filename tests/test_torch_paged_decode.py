@@ -2,22 +2,28 @@
 (``csrc/paged_decode.cu``) on the CPU, where the kernel cannot run.
 
 - ``_route``: the engine's decode shapes (one query at groups 3, 4 and 8,
-  head_dim 64 and 128, fp and int8 pools) and short verify windows take
-  the decode kernel; f32 q, other head dims and ``16 < sq x group < 64``
-  take the split kernel.
-- A torch model of the kernel's arithmetic, written here: each (row, KV
-  head) split over ``_decode_splits`` CTAs, each CTA an equal share of
-  the row's live 16-key tiles, its four warps walking every fourth tile
-  of that share with their own online softmax (log2 domain), the warps'
-  states merged in warp order and the CTAs' states in CTA order. fp rounds
-  p to bf16 at the warp's running max; int8 takes ``S = k_scale * (Q .
-  K_int8)`` and splits ``p' = p * v_scale`` into bf16 ``hi + lo``. The
-  model is held to the JAX Pallas kernel in interpret mode at Llama-3 8B's
-  heads (and the small preset's) cut to a few pages: fp within phase A's
-  1e-2, int8 within the card's int8 limit. Live lengths of 1, of exactly
-  one page and of a page and one; a row of one key, split over 8 CTAs of
-  which 7 have none; a fully masked row (exactly 0). Each case runs at the
-  card's 132 SMs and at 8, where a warp walks several tiles.
+  head_dim 64 and 128, fp and int8 pools), speculative verify windows and
+  short chunks (``sq x group <= 64``) take the decode kernel; f32 q and
+  other head dims take the split kernel.
+- A torch model of the kernel's arithmetic, written here: the flattened
+  (position, group head) rows of a KV head cut into 16-row tiles, each
+  (row, KV head, row tile) split over ``_decode_splits`` CTAs, each CTA an
+  equal share of the row's live 16-key tiles (the live length set by the
+  largest cursor of the whole row, so every row tile splits it alike),
+  its four warps walking every fourth tile of that share with their own
+  online softmax (log2 domain), the warps' states merged in warp order
+  and the CTAs' states in CTA order. fp rounds p to bf16 at the warp's
+  running max; int8 takes ``S = k_scale * (Q . K_int8)`` and splits ``p'
+  = p * v_scale`` into bf16 ``hi + lo``. The model is held to the JAX
+  Pallas kernel in interpret mode at Llama-3 8B's heads (and the small
+  preset's) cut to a few pages: fp within phase A's 1e-2, int8 within the
+  card's int8 limit. Live lengths of 1, of exactly one page and of a page
+  and one; a row of one key, split over 8 CTAs of which 7 have none; a
+  fully masked row (exactly 0); verify windows of 4 to 15 (16 to 60 rows,
+  one to four row tiles, the last one partly padding), a group of 8, and
+  40 queries of one head each (cursors past the warp's 32 lanes). Each
+  case runs at the card's 132 SMs and at 8, where a warp walks several
+  tiles.
 - CPU tensors take the plain version and count no launch on any route.
 
 The kernel itself is held to the plain version on the card
@@ -36,6 +42,7 @@ from k8s_distributed_deeplearning_torch.ops import paged_attn
 from k8s_distributed_deeplearning_tpu.ops import pallas_paged_attn
 
 KT = 16                              # the kernel's key tile
+RT = 16                              # its row tile
 NW = 4                               # warps a CTA
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
@@ -59,6 +66,9 @@ FP_TOL = 1e-2
     (1, 16, 64),
     (4, 4, 128),                     # a verify window of 4
     (2, 8, 64),
+    (5, 4, 128),                     # verify windows of 5-15: 17-63 rows
+    (2, 12, 64),
+    (15, 4, 128),
 ])
 def test_engine_decode_shapes_take_the_decode_route(sq, group, hd, quant):
     assert paged_attn._route(sq, group, hd, torch.bfloat16,
@@ -71,24 +81,39 @@ def test_engine_decode_shapes_take_the_decode_route(sq, group, hd, quant):
     (1, 4, 80, torch.bfloat16),       # other head dims
     (1, 4, 256, torch.bfloat16),
     (1, 4, 16, torch.bfloat16),
-    (5, 4, 128, torch.bfloat16),      # 16 < sq x group < 64
-    (2, 12, 64, torch.bfloat16),
-    (15, 4, 128, torch.bfloat16),
+    (8, 4, 128, torch.float32),       # a verify window of 8, f32 q
+    (8, 4, 80, torch.bfloat16),       # and at another head dim
 ])
 def test_other_shapes_keep_the_split_route(sq, group, hd, dtype, quant):
     assert paged_attn._route(sq, group, hd, dtype, quant) == "split"
 
 
-@pytest.mark.parametrize("b,kv,sms,want", [
-    (4, 8, 132, 8),        # phase A and B's decode: 256 CTAs
-    (1, 8, 132, 8),        # capped at one portable cluster
-    (16, 8, 132, 3),
-    (64, 8, 132, 1),
-    (4, 4, 8, 1),
-    (1, 1, 8, 8),
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("sq,group,hd,want", [
+    (21, 3, 64, "decode"),            # 63 rows
+    (16, 4, 128, "decode"),           # 64: four 16-row tiles beat one
+    (17, 4, 128, "prefill"),          # wgmma tile on the card; 68 rows
 ])
-def test_decode_splits_fill_the_card_two_ctas_an_sm(b, kv, sms, want):
-    assert paged_attn._decode_splits(b, kv, sms) == want
+def test_the_64_row_boundary_takes_the_measured_route(sq, group, hd, want,
+                                                      quant):
+    assert paged_attn._route(sq, group, hd, torch.bfloat16, quant) == want
+
+
+@pytest.mark.parametrize("b,kv,sms,rows,want", [
+    (4, 8, 132, 4, 8),     # phase A and B's decode: 256 CTAs
+    (1, 8, 132, 4, 8),     # capped at one portable cluster
+    (16, 8, 132, 4, 3),
+    (64, 8, 132, 4, 1),
+    (4, 4, 8, 3, 1),
+    (1, 1, 8, 16, 8),
+    (4, 8, 132, 32, 5),    # a verify window of 8 at 8B heads: two row
+    (4, 8, 132, 60, 3),    # tiles, 320 CTAs; of 15: four, 384 CTAs
+    (4, 4, 132, 45, 6),    # the small preset's window of 15: three tiles
+    (16, 8, 132, 64, 1),
+])
+def test_decode_splits_fill_the_card_two_ctas_an_sm(b, kv, sms, rows,
+                                                    want):
+    assert paged_attn._decode_splits(b, kv, sms, rows) == want
 
 
 def _merge(states):
@@ -112,12 +137,13 @@ def kernel_model(q, pool_k, pool_v, tables, positions, k_scale=None,
     hkv = kvhd // hd
     group = h // hkv
     rows = sq * group
+    n_rt = -(-rows // RT)
     width = tables.shape[1] * bt
     sl = hd ** -0.5 * LOG2E
     quant = k_scale is not None
     lims = [min(int(positions[i].max()) + 1, width) for i in range(b)]
     tiles = [-(-n // KT) if n > 0 else 0 for n in lims]
-    cnt = paged_attn._decode_splits(b, hkv, num_sms)
+    cnt = paged_attn._decode_splits(b, hkv, num_sms, rows)
     out = torch.zeros(b, sq, h, hd)
     for i in range(b):
         tl = tables[i].long()
@@ -133,56 +159,75 @@ def kernel_model(q, pool_k, pool_v, tables, positions, k_scale=None,
                             torch.zeros(pad, hkv)]).T
         # Flattened row r: position r // group of q head kvh * group +
         # r % group.
-        qr = q[i].float().reshape(sq, hkv, group, hd).permute(1, 0, 2, 3)
-        qr = qr.reshape(hkv, rows, hd)
-        cur = positions[i].long().repeat_interleave(group)       # [rows]
-        parts = []
-        for c in range(cnt):
-            t_lo, t_hi = c * tiles[i] // cnt, (c + 1) * tiles[i] // cnt
-            warps = []
-            for w in range(NW):
-                m = torch.full((hkv, rows), NEG_INF)
-                l = torch.zeros(hkv, rows)
-                o = torch.zeros(hkv, rows, hd)
-                for t in range(t_lo + w, t_hi, NW):
-                    cols = torch.arange(t * KT, (t + 1) * KT)
-                    s = torch.einsum("krd,kjd->krj", qr, k[:, cols])
-                    if quant:
-                        s = s * ks[:, None, cols]
-                    s = s * sl
-                    seen = ((cols[None, :] <= cur[:, None])
-                            & (cols[None, :] < lims[i]))
-                    s = torch.where(seen[None], s, torch.tensor(NEG_INF))
-                    mn = torch.maximum(m, s.amax(-1))
-                    p = torch.exp2(s - mn[..., None])
-                    p = torch.where(s <= NEG_INF / 2, torch.tensor(0.0), p)
-                    a = torch.exp2(m - mn)
-                    l = a * l + p.sum(-1)
-                    if quant:
-                        p = p * vs[:, None, cols]
-                        hi = p.to(torch.bfloat16).float()
-                        lo = (p - hi).to(torch.bfloat16).float()
-                        pv = (torch.einsum("krj,kjd->krd", hi, v[:, cols])
-                              + torch.einsum("krj,kjd->krd", lo, v[:, cols]))
-                    else:
-                        pv = torch.einsum("krj,kjd->krd",
-                                          p.to(torch.bfloat16).float(),
-                                          v[:, cols])
-                    o = o * a[..., None] + pv
-                    m = mn
-                warps.append((m, l, o))
-            # The warps in order: every warp's state counts, as in the
-            # kernel's shared-memory merge.
-            mw = torch.stack([x[0] for x in warps]).amax(0)
-            parts.append((mw, sum(torch.exp2(x[0] - mw) * x[1]
-                                  for x in warps),
-                           sum(torch.exp2(x[0] - mw)[..., None] * x[2]
-                               for x in warps)))
-        _, l, o = parts[0] if cnt == 1 else _merge(parts)
-        res = o / l.clamp_min(1e-30)[..., None]           # [hkv, rows, hd]
+        qa = q[i].float().reshape(sq, hkv, group, hd).permute(1, 0, 2, 3)
+        qa = qa.reshape(hkv, rows, hd)
+        cura = positions[i].long().repeat_interleave(group)      # [rows]
+        res = torch.zeros(hkv, rows, hd)
+        # Each 16-row tile of the KV head is a call of its own.
+        for r0 in range(0, rows, RT):
+            tile = slice(r0, min(r0 + RT, rows))
+            res[:, tile] = _tile_model(
+                qa[:, tile], cura[tile], k, v, (ks, vs) if quant else None,
+                lims[i], tiles[i], cnt, sl)
         out[i] = res.reshape(hkv, sq, group, hd).permute(1, 0, 2, 3).reshape(
             sq, h, hd)
     return out.to(q.dtype)
+
+
+def _tile_model(qr, cur, k, v, scales, lim, n_tiles, cnt, sl):
+    """One row tile of one batch row, every KV head: ``qr`` [hkv, rows,
+    hd] and ``cur`` [rows] its rows' queries and cursors, K/V [hkv, cols,
+    hd] the row's (and ``scales`` its K and V scales [hkv, cols]), ``lim``
+    the columns the row reads, in ``n_tiles`` 16-key tiles over ``cnt``
+    CTAs. Returns O / l, [hkv, rows, hd]."""
+    hkv, rows, hd = qr.shape
+    quant = scales is not None
+    if quant:
+        ks, vs = scales
+    parts = []
+    for c in range(cnt):
+        t_lo, t_hi = c * n_tiles // cnt, (c + 1) * n_tiles // cnt
+        warps = []
+        for w in range(NW):
+            m = torch.full((hkv, rows), NEG_INF)
+            l = torch.zeros(hkv, rows)
+            o = torch.zeros(hkv, rows, hd)
+            for t in range(t_lo + w, t_hi, NW):
+                cols = torch.arange(t * KT, (t + 1) * KT)
+                s = torch.einsum("krd,kjd->krj", qr, k[:, cols])
+                if quant:
+                    s = s * ks[:, None, cols]
+                s = s * sl
+                seen = ((cols[None, :] <= cur[:, None])
+                        & (cols[None, :] < lim))
+                s = torch.where(seen[None], s, torch.tensor(NEG_INF))
+                mn = torch.maximum(m, s.amax(-1))
+                p = torch.exp2(s - mn[..., None])
+                p = torch.where(s <= NEG_INF / 2, torch.tensor(0.0), p)
+                a = torch.exp2(m - mn)
+                l = a * l + p.sum(-1)
+                if quant:
+                    p = p * vs[:, None, cols]
+                    hi = p.to(torch.bfloat16).float()
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    pv = (torch.einsum("krj,kjd->krd", hi, v[:, cols])
+                          + torch.einsum("krj,kjd->krd", lo, v[:, cols]))
+                else:
+                    pv = torch.einsum("krj,kjd->krd",
+                                      p.to(torch.bfloat16).float(),
+                                      v[:, cols])
+                o = o * a[..., None] + pv
+                m = mn
+            warps.append((m, l, o))
+        # The warps in order: every warp's state counts, as in the
+        # kernel's shared-memory merge.
+        mw = torch.stack([x[0] for x in warps]).amax(0)
+        parts.append((mw, sum(torch.exp2(x[0] - mw) * x[1]
+                              for x in warps),
+                       sum(torch.exp2(x[0] - mw)[..., None] * x[2]
+                           for x in warps)))
+    _, l, o = parts[0] if cnt == 1 else _merge(parts)
+    return o / l.clamp_min(1e-30)[..., None]
 
 
 def _case(rng, b, sq, h, hkv, pages, bt, nb, hd, lens):
@@ -213,8 +258,13 @@ def _quantized(pool, hd):
 # lengths): Llama-3 8B's heads on 32-token pages at live lengths 1, 32 and
 # 33; the small preset's 12/4 heads at head_dim 64; one KV head a query
 # head on 16-token pages; a verify window of 4 at 8B's heads (16 rows a
-# KV head); one row of one key, split over 8 CTAs (2 at 8 SMs); and rows
-# whose cursors are -1 (masked, set below).
+# KV head); one row of one key, split over 8 CTAs (2 at 8 SMs); rows
+# whose cursors are -1 (masked, set below); verify windows of 5, 8 and 15
+# at 8B's heads (20, 32 and 60 rows: two to four row tiles) and of 6 at
+# the small preset's (18 rows); a window of 5 at a group of 8 (40 rows);
+# 40 queries of one head each (group 1: cursors of queries 32-39 come
+# from the lanes' second halves); and a window of 9 (36 rows) whose last
+# tile is 4 rows and 12 of padding, one row's window across a page edge.
 MODEL_CASES = {
     "llama3_8b": (3, 1, 32, 8, 12, 32, 4, 128, [1, 32, 33]),
     "small": (3, 1, 12, 4, 12, 32, 4, 64, [1, 32, 97]),
@@ -222,6 +272,13 @@ MODEL_CASES = {
     "verify4": (2, 4, 32, 8, 12, 32, 4, 128, [40, 100]),
     "one_key": (1, 1, 32, 8, 4, 32, 2, 128, [1]),
     "masked": (2, 2, 12, 4, 8, 32, 3, 64, [50, 70]),
+    "verify5": (2, 5, 32, 8, 12, 32, 4, 128, [40, 100]),
+    "verify8": (2, 8, 32, 8, 12, 32, 4, 128, [60, 120]),
+    "verify15": (2, 15, 32, 8, 12, 32, 4, 128, [50, 110]),
+    "small_verify6": (2, 6, 12, 4, 12, 32, 4, 64, [30, 90]),
+    "group8_verify5": (2, 5, 16, 2, 12, 32, 4, 128, [45, 77]),
+    "group1_w40": (2, 40, 8, 8, 14, 16, 6, 128, [60, 90]),
+    "pad_tile": (2, 9, 32, 8, 12, 32, 4, 128, [37, 100]),
 }
 
 

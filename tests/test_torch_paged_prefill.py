@@ -3,9 +3,9 @@
 
 - ``_route``: the engine's prefill chunks (bf16, 32-512 queries, Llama-3
   8B's 32/8 heads at head_dim 128, the small preset's 12/4 at 64) take
-  the prefill kernel; bf16 decode takes the decode kernel; f32 q, other
-  head dims and fewer than one 64-row tile per KV head (but more than the
-  decode kernel's 16 rows) take the split kernel.
+  the prefill kernel; bf16 decode and up to 64 rows (one 64-row tile)
+  per KV head take the decode kernel; f32 q and other head dims take the
+  split kernel.
 - A torch model of the kernel's arithmetic, written here, tile by tile
   over 64-key tiles as the kernel walks them, against the JAX Pallas
   kernel in interpret mode at Llama-3 8B's heads cut to a few pages:
@@ -49,10 +49,13 @@ def test_engine_prefill_shapes_take_the_prefill_route(sq, quant, group, hd):
 @pytest.mark.parametrize("sq,group,hd,dtype", [
     (1, 4, 128, torch.bfloat16),      # decode
     (1, 8, 64, torch.bfloat16),
+    (15, 4, 128, torch.bfloat16),     # sq x group <= 64
+    (21, 3, 64, torch.bfloat16),
 ])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 def test_decode_shapes_take_the_decode_route(sq, group, hd, dtype, quant):
-    """Decode left the split kernel for its own tensor-core kernel
+    """Decode, and every chunk of at most 64 rows per KV head, left the
+    split kernel for the tensor-core decode kernel
     (``csrc/paged_decode.cu``); ``tests/test_torch_paged_decode.py`` holds
     that route's rule and arithmetic."""
     assert paged_attn._route(sq, group, hd, dtype, quant) == "decode"
@@ -63,8 +66,8 @@ def test_decode_shapes_take_the_decode_route(sq, group, hd, dtype, quant):
     (512, 4, 8, torch.bfloat16),      # other head dims
     (512, 4, 80, torch.bfloat16),
     (512, 4, 256, torch.bfloat16),
-    (15, 4, 128, torch.bfloat16),     # sq x group < 64
-    (21, 3, 64, torch.bfloat16),
+    (15, 4, 128, torch.float32),      # a short chunk, f32 q
+    (21, 3, 80, torch.bfloat16),      # and at another head dim
 ])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 def test_other_shapes_take_the_split_route(sq, group, hd, dtype, quant):
