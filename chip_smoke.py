@@ -57,22 +57,31 @@ D. The flash-attention kernels against their plain PyTorch versions on
    head_dim 128: causal, non-causal, 512 queries against 2048 keys
    (causal, offset 1536), and three packed documents by segment ids
    (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
-   head_dim 64, causal). The forward and the backward on both routes:
+   head_dim 64, causal). The forward and the backward on every route:
    in bf16 the tensor-core kernels of ``csrc/flash_fwd.cu`` and
    ``csrc/flash_bwd.cu`` (``"wgmma"``, the route bf16 takes) and the
-   mma.sync kernels of ``flash_attn.cu`` forced on the same inputs; f32
-   takes the mma route alone. Each output is held element by element to
-   a limit of atol x the RMS of its row (never below the output's RMS) +
-   rtol x the element, and the log-sum-exp to an absolute limit; rows
-   that see no key match the plain version exactly; two wgmma launches on
-   the same inputs give the same bits.
+   mma.sync kernels of ``flash_attn.cu`` forced on the same inputs; in
+   f32 the backward on the three-pass TF32 kernels of
+   ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``, the route f32 takes) and on
+   the mma kernels forced, the forward on the mma route alone. Each
+   output is held element by element to a limit of atol x the RMS of its
+   row (never below the output's RMS) + rtol x the element, and the
+   log-sum-exp to an absolute limit; rows that see no key match the plain
+   version exactly; two launches of the default backward route (wgmma,
+   tf32x3) and of the wgmma forward on the same inputs give the same
+   bits. Then a case with rows that see no key and keys that no row sees,
+   in both dtypes: every backward route's dQ, dK and dV there exactly the
+   plain version's.
    Reports each kernel's error, time, the plain version's, the bound (the
    larger of the bytes it must move over 3.35 TB/s and its matmul FLOPs on
-   the visible pairs over the dtype's peak) and, as a yardstick the port
-   never calls, ``scaled_dot_product_attention`` (forward alone for the
-   forward kernel; for the backward ones forward and backward through
-   autograd less the forward), timed on the device alone: autograd's host
-   side outlasts the card's work at these sizes.
+   the visible pairs over the dtype's peak; for the tf32x3 lines 3 x the
+   FLOPs over the TF32 peak, with the CUDA-core f32 bound beside it) and,
+   as a yardstick the port never calls, ``scaled_dot_product_attention``
+   (forward alone for the forward kernel; for the backward ones forward
+   and backward through autograd less the forward), timed on the device
+   alone: autograd's host side outlasts the card's work at these sizes;
+   with the backend SDPA took (flash, efficient, cudnn or math, read from
+   the names of the kernels it launched).
 E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
    max_seq_len=2048)``: bf16 compute, f32 params, remat "dots"), chunked
    CE, AdamW with global-norm clip 1.0, 4 x 2048 tokens per step, through
@@ -84,14 +93,18 @@ E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
    with the remat recompute, dQ and dK/dV once per layer, all on the
    wgmma route), and one profiled step gives device time by class and the
    busy share.
-F. Three AdamW steps in f32 (TF32 off) at 8B width, 2 layers, B 2, S 1024
+F. Three AdamW steps in f32 (TF32 off: cuBLAS and cuDNN hold f32; the
+   flash backward's three-pass TF32 split is f32-accurate and is not the
+   TF32 those flags allow) at 8B width, 2 layers, B 2, S 1024
    from the same weights, through the kernels (``attention_impl="auto"``)
    and through the plain einsum path (``"xla"``): the losses agree, and
    for every parameter tensor on its own the first step's gradient and
    the parameters after the 3 steps agree, within the stated tolerances.
    Logs the element whose parameter differs most, with its gradient and
-   Adam moments on both paths. The f32 forward and backward run on the
-   mma route alone (checked). Then the same model and first batch in bf16 compute:
+   Adam moments on both paths. The f32 forward runs on the mma route and
+   the backward on the tf32x3 route, 2 x steps launches of each tf32x3
+   kernel and none of the mma backward (checked). Then the same model and
+   first batch in bf16 compute:
    one step's gradients on the wgmma route and on the mma route (forced),
    each against the f32 plain path per parameter tensor; the wgmma
    route's relative L2 distance is at most ``BF16_STEP_RATIO`` x the mma
@@ -130,8 +143,10 @@ I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    steps from the same weights through the kernels (``dispatch="ragged"``,
    flash attention) and through an independent plain path
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
-   attention), compared as in phase F. The f32 kernel path runs the mma
-   routes alone (the wgmma counts stay 0, checked).
+   attention), compared as in phase F. The f32 kernel path runs the
+   grouped GEMMs and the flash forward on the mma routes and the flash
+   backward on tf32x3, 2 x steps launches of each and none of the mma
+   backward (the wgmma counts stay 0, checked).
 J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
@@ -223,6 +238,15 @@ P. The serving engine's host surface at Llama-3 8B (bf16, full depth,
    speculative streams (self-draft, 2-layer draft) equal plain decode,
    the self-draft accepts every greedy proposal, and a request with
    prompt + new tokens == max_seq_len runs at spec_k 4.
+
+Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
+   head_dim 16: ``--preset tiny --seq-len 1024``, where the auto attention
+   takes the flash kernels) in bf16 and in f32 (the CLI's default), 8
+   AdamW steps on one fixed batch through ``make_train_step``: the loss
+   falls by phase E's margin, the flash backward launches once a layer a
+   step on its dtype's route (bf16 at head_dim 16: the mma kernels; f32:
+   tf32x3) and on no other; at the path's attention shape that route's
+   backward is within phase D's limit of the plain version.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -938,6 +962,8 @@ def _kernel_class(name: str) -> str:
                      ("flash_dkv_kernel", "flash_dkv"),
                      ("flash_dq_wgmma", "flash_dq_wgmma"),
                      ("flash_dkv_wgmma", "flash_dkv_wgmma"),
+                     ("flash_dq_tf32x3", "flash_dq_tf32x3"),
+                     ("flash_dkv_tf32x3", "flash_dkv_tf32x3"),
                      ("gmm_kernel", "gmm"),         # gmm_ and tgmm_kernel
                      ("gmm_wgmma", "gmm_wgmma")):   # gmm_ and tgmm_wgmma
         if key in name:
@@ -2276,10 +2302,12 @@ FLASH_REPLACES = {
         "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:520",
 }
 # Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
-# kernel by wrapper. Each wrapper launches the kernel of either route: the
-# wgmma lines are its "wgmma" route (bf16, head_dim 64/128), the others the
-# mma.sync kernels of flash_attn.cu ("mma": f32 on the training path,
-# forced in bf16 here).
+# kernel by wrapper. Each wrapper launches the kernel of its route: the
+# wgmma lines are the "wgmma" route (bf16, head_dim 64/128), the tf32x3
+# lines the backward's "tf32x3" route (f32, every head dim), the others the
+# mma.sync kernels of flash_attn.cu ("mma": the f32 forward and bf16 at
+# head_dim 16/32 on the training path; the backward forced in bf16 and
+# f32 here).
 FLASH_KERNELS = {
     "flash_fwd": ("flash_attn.cu", "flash_fwd"),
     "flash_fwd_wgmma": ("flash_fwd.cu", "flash_fwd"),
@@ -2287,7 +2315,15 @@ FLASH_KERNELS = {
     "flash_bwd_dkv": ("flash_attn.cu", "flash_bwd_dkv"),
     "flash_bwd_dq_wgmma": ("flash_bwd.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_wgmma": ("flash_bwd.cu", "flash_bwd_dkv"),
+    "flash_bwd_dq_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dq"),
+    "flash_bwd_dkv_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dkv"),
 }
+# Routes other than "mma", whose launches a wrapper counts apart
+# (``launches_<route>``) and whose kernel lines carry ``_<route>``.
+ROUTE_COUNTS = ("wgmma", "tf32x3")
+# TF32 dense on an H100 SXM: the tf32x3 kernels issue three TF32 products
+# for each f32 product, so their least time is 3 x FLOPs over this.
+PEAK_TF32 = 495e12
 
 
 def _flash_case(dev, dtype, shape, seed):
@@ -2327,20 +2363,24 @@ def _visible_pairs(dev, shape, segq, segk):
 def _flash_bound(kind, dtype, shape, pairs):
     """Least time on an H100 SXM: the larger of each input read once and
     each output written once over 3.35 TB/s, and the kernel's matmul FLOPs
-    on the visible pairs over the dtype's peak (forward 2 products, dQ 3,
-    dK/dV 4, each 2 * head_dim FLOPs per pair and query head)."""
+    on the visible pairs (forward 2 products, dQ 3, dK/dV 4, each 2 *
+    head_dim FLOPs per pair and query head) over the dtype's peak; for the
+    tf32x3 lines, 3 x those FLOPs over the TF32 peak (the f32 CUDA-core
+    bound, 67 TF/s, which a three-pass kernel may beat, is the mma line's
+    bound for the same work)."""
     b, sq, sk, h, kv, hd, _, _ = shape
     item = torch.finfo(dtype).bits // 8
     qo = b * sq * h * hd * item                    # q, o, do or dq
     kvb = b * sk * kv * hd * item                  # k or v (dk or dv)
     stat = b * h * sq * 4                          # lse or delta, f32
-    kind = kind.removesuffix("_wgmma")
+    base = kind.removesuffix("_wgmma").removesuffix("_tf32x3")
     nbytes, mm = {"flash_fwd": (2 * qo + 2 * kvb + stat, 2),
                   "flash_bwd_dq": (3 * qo + 2 * kvb + 2 * stat, 3),
-                  "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4)}[kind]
+                  "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4)}[base]
     flops = mm * 2 * hd * h * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_flops = (3 * flops / PEAK_TF32 if kind.endswith("_tf32x3")
+               else flops / PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
 
@@ -2396,11 +2436,81 @@ def _sdpa_fns(q, k, v, do, causal, segq, segk):
     return fwd, fwd_bwd
 
 
+def _sdpa_backend(fn, reps: int = 3) -> str:
+    """Which fused kernel ``scaled_dot_product_attention`` took in ``fn``,
+    read from the names of the CUDA kernels that ``reps`` profiled calls
+    launch (one call alone was seen to miss kernels in a trace started
+    cold, as in ``_profile_reps``): "cudnn", "flash", "efficient" (the
+    memory-efficient CUTLASS fmha), else "math (<the longest kernel's
+    name>)"; "not traced" if the profiler saw no CUDA kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((getattr(e, "self_device_time_total", 0), e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    if not kernels:
+        return "not traced"
+    names = " ".join(name.lower() for _, name in kernels)
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return f"math ({kernels[0][1][:60]})"
+
+
+def _blind_rows(dev):
+    """Rows that see no key (causal with sq > sk; a query segment id no
+    key carries) and keys no row sees (a key segment id no query carries),
+    in bf16 and f32: every backward route gives exactly the plain
+    version's dQ, dK and dV there (0). Returns the routes checked."""
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+
+    checked = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, _, _ = _flash_case(
+            dev, dtype, (2, 96, 64, 8, 2, HD, True, None), 99)
+        segq = torch.ones(2, 96, dtype=torch.int32, device=dev)
+        segk = torch.ones(2, 64, dtype=torch.int32, device=dev)
+        segq[0, 40:45] = 7
+        segk[1, 10:20] = 8
+        o, lse = fa.flash_attention_reference(
+            q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, segq, segk, True, HD ** -0.5)
+        want = fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=True, q_segment_ids=segq,
+            kv_segment_ids=segk)
+        blind = (lse <= -1e29).transpose(1, 2)       # [B, sq, H]
+        unseen = torch.zeros(k.shape[:3], dtype=torch.bool, device=dev)
+        unseen[1, 10:20] = True
+        check(int(blind.sum()) > 0, "the blind-row case has no blind row")
+        routes = ["mma", fa._bwd_route(dtype, HD)]
+        for route in routes:
+            dq = fa.flash_bwd_dq(*args, route=route)
+            dk, dv = fa.flash_bwd_dkv(*args, route=route)
+            torch.cuda.synchronize()
+            check(torch.equal(dq[blind], want[0][blind])
+                  and torch.equal(dk[unseen], want[1][unseen])
+                  and torch.equal(dv[unseen], want[2][unseen]),
+                  f"{route} backward, {dtype}: rows that see no key or "
+                  f"keys no row sees differ from the plain version")
+            checked.append(f"{route}/{str(dtype).split('.')[-1]}")
+    return checked
+
+
 def phase_d(dev, flush):
-    """The flash kernels against their plain versions, case by case; in
-    bf16 the forward and the backward on both routes (the wgmma kernels,
-    and the mma.sync kernels forced) on the same inputs, and the wgmma
-    kernels launched twice for bitwise equality."""
+    """The flash kernels against their plain versions, case by case; the
+    forward and the backward on every route a dtype has (bf16: the wgmma
+    kernels and the mma.sync kernels forced; f32: the backward on the
+    tf32x3 kernels and flash_attn.cu's mma kernels forced) on the same
+    inputs, and the default route's kernels launched twice for bitwise
+    equality; then rows that see no key on every backward route."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -2426,10 +2536,11 @@ def phase_d(dev, flush):
             want = fa.flash_attention_bwd_reference(
                 q, k, v, ref_o, ref_lse, do, causal=causal,
                 q_segment_ids=segq, kv_segment_ids=segk)
+            bwd_default = fa._bwd_route(dtype, hd)
             routes = {"mma": ("flash_bwd_dq", "flash_bwd_dkv")}
-            if fa._bwd_route(dtype, hd) == "wgmma":
-                routes["wgmma"] = ("flash_bwd_dq_wgmma",
-                                   "flash_bwd_dkv_wgmma")
+            if bwd_default != "mma":
+                routes[bwd_default] = (f"flash_bwd_dq_{bwd_default}",
+                                       f"flash_bwd_dkv_{bwd_default}")
             got = {route: (fa.flash_bwd_dq(*bwd_args, route=route),
                            fa.flash_bwd_dkv(*bwd_args, route=route))
                    for route in routes}
@@ -2462,17 +2573,21 @@ def phase_d(dev, flush):
                 check(e["tol_share"] <= 1.0,
                       f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
                       f"<= {tol[0]} x rms + {tol[1]} x |plain|")
-            if "wgmma" in got:            # two launches, the same bits
-                dq, (dk, dv) = got["wgmma"]
+            if bwd_default != "mma":      # two launches, the same bits
+                dq, (dk, dv) = got[bwd_default]
                 dq2 = fa.flash_bwd_dq(*bwd_args)
                 dk2, dv2 = fa.flash_bwd_dkv(*bwd_args)
-                o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
-                check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                      and torch.equal(dv, dv2)
-                      and torch.equal(fwd["wgmma"][0], o2)
-                      and torch.equal(fwd["wgmma"][1], lse2),
-                      f"{case}/{dname}: two wgmma launches differ")
-                del dq2, dk2, dv2, o2, lse2
+                same = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                        and torch.equal(dv, dv2))
+                if "wgmma" in fwd:
+                    o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, causal,
+                                            scale)
+                    same = (same and torch.equal(fwd["wgmma"][0], o2)
+                            and torch.equal(fwd["wgmma"][1], lse2))
+                    del o2, lse2
+                check(same, f"{case}/{dname}: two {bwd_default} launches "
+                      f"differ")
+                del dq2, dk2, dv2
             del got, fwd, o, lse
             pairs = _visible_pairs(dev, shape, segq, segk)
             sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, causal, segq,
@@ -2482,6 +2597,7 @@ def phase_d(dev, flush):
                 q_segment_ids=segq, kv_segment_ids=segk), flush, 10)
             lib_fwd = time_ms(sdpa_fwd, flush, 10, host_ahead=True)
             lib_fwd_bwd = time_ms(sdpa_fwd_bwd, flush, 10, host_ahead=True)
+            lib_backend = _sdpa_backend(sdpa_fwd_bwd)
             plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal=causal, q_segment_ids=segq,
                 kv_segment_ids=segk), flush, 10)
@@ -2498,6 +2614,9 @@ def phase_d(dev, flush):
             b, sq, sk, h, kv, _, _, seg_lens = shape
             for name, (ms, plain_ms, lib_ms) in times.items():
                 bound, by = _flash_bound(name, dtype, shape, pairs)
+                if name.endswith("_tf32x3"):       # the mma line's bound
+                    errs[name]["bound_ms_f32_cores"] = _flash_bound(
+                        name.removesuffix("_tf32x3"), dtype, shape, pairs)[0]
                 rows[name].append({
                     "case": case, "dtype": dname, "shape": {
                         "B": b, "sq": sq, "sk": sk, "H": h, "kv": kv,
@@ -2506,10 +2625,13 @@ def phase_d(dev, flush):
                     "tol": {"atol_rms": tol[0], "rtol": tol[1]},
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "library_fwd_bwd_ms": lib_fwd_bwd,
+                    "library_backend": lib_backend,
                     "bound_ms": bound, "bound_by": by})
                 log({"phase": "D", "kernel": name, **rows[name][-1]})
             del q, k, v, do, ref_o, ref_lse, want, delta, bwd_args
             torch.cuda.empty_cache()
+    log({"phase": "D", "case": "blind_rows_exact",
+         "routes": _blind_rows(dev)})
     return rows
 
 
@@ -2821,19 +2943,29 @@ def _kernel_wrappers() -> dict:
 def _zero_launches() -> None:
     for w in _kernel_wrappers().values():
         w.launches = 0
-        if hasattr(w, "launches_wgmma"):
-            w.launches_wgmma = 0
+        for route in ROUTE_COUNTS:
+            if hasattr(w, f"launches_{route}"):
+                setattr(w, f"launches_{route}", 0)
 
 
 def _launch_counts() -> dict:
-    """Every wrapper's launches by its kernel-line name; the flash and
-    grouped-matmul wrappers' wgmma-route launches under their own lines."""
+    """Every wrapper's launches by its kernel-line name (all routes); the
+    flash and grouped-matmul wrappers' wgmma-route launches, and the flash
+    backward wrappers' tf32x3-route launches, under their own lines."""
     wrappers = _kernel_wrappers()
     out = {n: w.launches for n, w in wrappers.items()}
     for n, w in wrappers.items():
-        if hasattr(w, "launches_wgmma"):
-            out[n + "_wgmma"] = w.launches_wgmma
+        for route in ROUTE_COUNTS:
+            if hasattr(w, f"launches_{route}"):
+                out[f"{n}_{route}"] = getattr(w, f"launches_{route}")
     return out
+
+
+def _mma_launches(launches: dict, name: str) -> int:
+    """Launches of a wrapper's mma route: its total less its other
+    routes'."""
+    return launches[name] - sum(launches.get(f"{name}_{r}", 0)
+                                for r in ROUTE_COUNTS)
 
 
 def _train_phase(phase, dev, info, cfg, *, batch_size, seq, lr, chunked,
@@ -3032,6 +3164,20 @@ def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
                for k in ("mu", "nu")}}
 
 
+def _check_f32_flash(phase, launches, backward) -> None:
+    """An f32 training path's flash launches: the forward on the mma route
+    (at least once a backward), the backward ``backward`` times on the
+    tf32x3 route and never on the mma or wgmma routes."""
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == backward
+          and launches["flash_bwd_dq_tf32x3"] == backward
+          and launches["flash_bwd_dkv_tf32x3"] == backward
+          and launches["flash_fwd"] >= backward
+          and launches["flash_fwd_wgmma"] == 0,
+          f"phase {phase} (f32) flash launches {launches}: want {backward} "
+          f"of each backward on the tf32x3 route and none on the others, "
+          f"at least as many forward on the mma route")
+
+
 def phase_f(dev):
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.train import data as data_lib
@@ -3054,16 +3200,7 @@ def phase_f(dev):
     _zero_launches()
     ka = run("auto", torch.device("cpu"))
     launches = _launch_counts()
-    # f32 keeps the forward and the backward on the mma.sync kernels,
-    # never wgmma.
-    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 2 * steps
-          and launches["flash_fwd"] >= 2 * steps
-          and launches["flash_bwd_dq_wgmma"] == 0
-          and launches["flash_bwd_dkv_wgmma"] == 0
-          and launches["flash_fwd_wgmma"] == 0,
-          f"phase F (f32) flash launches {launches}: want 2 backward a "
-          f"step and at least as many forward on the mma route, none on "
-          f"the wgmma route")
+    _check_f32_flash("F", launches, 2 * steps)
     gc.collect()
     torch.cuda.empty_cache()
     kx = run("xla", dev)
@@ -3182,11 +3319,11 @@ def phase_i(dev):
     torch.cuda.empty_cache()
     kx, plain_launches = run("xla", index, dev)
     check(kernel_launches["gmm"] > 0 and kernel_launches["tgmm"] > 0
-          and kernel_launches["flash_fwd"] > 0
           and kernel_launches["gmm_wgmma"] == 0
           and kernel_launches["tgmm_wgmma"] == 0,
           f"phase I kernel path (f32: the gmm.cu kernels) launched "
           f"{kernel_launches}")
+    _check_f32_flash("I", kernel_launches, 2 * steps)
     check(not any(plain_launches.values()),
           f"phase I plain path launched kernels: {plain_launches}")
     return _agreement("I", {"model": "llama-small MoE width, 2 layers",
@@ -3195,6 +3332,91 @@ def phase_i(dev):
                             "kernel_path_launches": kernel_launches,
                             "batch": batch_size, "seq_len": seq,
                             "steps": steps, "lr": lr}, ka, kx, dev)
+
+
+# ------------------------------------------------------------- phase Q
+
+Q_STEPS = 8
+
+
+def phase_q(dev):
+    """The train CLI's tiny preset at 1,024 tokens (``--preset tiny
+    --seq-len 1024``: dim 64, 4/2 heads, head_dim 16; the length at which
+    ``attention_impl="auto"`` takes the flash kernels) in bf16 and in f32
+    (the CLI's default dtype) through
+    ``make_train_step``: 8 AdamW steps on one fixed batch bring the loss
+    below phase E's margin; the flash backward launches once a layer a step
+    on its dtype's route (bf16 at head_dim 16: the mma kernels of
+    flash_attn.cu; f32: tf32x3) and on no other; then, at the path's
+    attention shape, the backward kernels of that route against the plain
+    version within phase D's limit."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+    from k8s_distributed_deeplearning_torch.train import cli
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    batch_size, seq = 8, 1024
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        cfg = llama.config_tiny(**{**cli.PRESETS["tiny"], "dtype": dtype,
+                                   "param_dtype": torch.float32,
+                                   "max_seq_len": seq})
+        hd = cfg.resolved_head_dim
+        _, _, state, step_fn = _train_setup(cfg, dev, lr=1e-3)
+        tokens = data_lib.synthetic_tokens(1 << 16,
+                                           vocab_size=cfg.vocab_size, seed=5)
+        fixed = data_lib.TokenBatcher(tokens, batch_size, seq,
+                                      seed=5).batch_at(0)
+        _zero_launches()
+        losses = []
+        for i in range(Q_STEPS):
+            state, loss, _ = step_fn(state, fixed, i)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        del state, step_fn
+        route = fa._bwd_route(dtype, hd)
+        n = cfg.n_layers * Q_STEPS
+        on_route = {w: (_mma_launches(launches, w) if route == "mma"
+                        else launches[f"{w}_{route}"])
+                    for w in ("flash_bwd_dq", "flash_bwd_dkv")}
+        check(all(np.isfinite(losses))
+              and losses[-1] < FIXED_BATCH_MARGIN * losses[0],
+              f"tiny preset, {dname}: 8 steps on one fixed batch, loss "
+              f"{losses[0]} -> {losses[-1]}")
+        check(on_route == {"flash_bwd_dq": n, "flash_bwd_dkv": n}
+              and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == n
+              and _mma_launches(launches, "flash_fwd") >= n
+              and launches["flash_fwd_wgmma"] == 0,
+              f"tiny preset, {dname}: flash launches {launches}, want {n} "
+              f"of each backward on the {route} route alone")
+        shape = (batch_size, seq, seq, cfg.n_heads, cfg.n_kv_heads, hd, True,
+                 None)
+        q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, 7)
+        o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, segq, segk, True, hd ** -0.5)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                causal=True)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        err = _flash_err({"dq": (dq, want[0]), "dk": (dk, want[1]),
+                          "dv": (dv, want[2])}, FLASH_TOL[dtype])
+        check(err["tol_share"] <= 1.0,
+              f"tiny preset's attention, {dname}, {route} backward: {err}")
+        out[dname] = {"route": route, "losses": losses,
+                      "launches": {k_: c for k_, c in launches.items() if c},
+                      "backward_vs_plain": err}
+        del q, k, v, do, o, lse, delta, args, want, dq, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    result = {"phase": "Q", "model": "train --preset tiny --seq-len 1024",
+              "batch": batch_size, "seq_len": seq, "steps": Q_STEPS,
+              "layers": cfg.n_layers, "head_dim": hd, **out}
+    log(result)
+    return result
 
 
 # ------------------------------------------------------------- phase N/O
@@ -3661,44 +3883,58 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
     return out
 
 
-def _flash_entries(rows, e_result, f_result):
+def _flash_entries(rows, e_result, f_result, q_result):
     """Kernel-line entries of the flash kernels: the representative case
-    is the training path's (causal, bf16). The launches are phase E's (the
-    bf16 step: the wgmma kernels), and for the mma kernels phase F's
-    kernel path (f32), the path that runs them."""
+    is the training path's causal one, in bf16 (f32 for the tf32x3 lines).
+    The launches are those of the path that runs each kernel: phase E's
+    bf16 step for the wgmma kernels, phase F's f32 kernel path for the
+    tf32x3 kernels and the mma forward, phase Q's bf16 tiny preset (head
+    dim 16) for the mma backward; each by route."""
     out = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     for name, cases in rows.items():
-        rep = next(c for c in cases
-                   if c["case"] == "causal" and c["dtype"] == "bfloat16")
         source, wrapper = FLASH_KERNELS[name]
-        mma = not name.endswith("_wgmma")
-        launched = (f_result["kernel_path_launches"] if mma
-                    else e_result["launches"])
+        route = next((r for r in ROUTE_COUNTS if name.endswith(f"_{r}")),
+                     "mma")
+        rep = next(c for c in cases if c["case"] == "causal" and c["dtype"]
+                   == ("float32" if route == "tf32x3" else "bfloat16"))
+        if route == "wgmma":
+            where, counts = "E", e_result["launches"]
+        elif route == "tf32x3" or wrapper == "flash_fwd":
+            where, counts = "F (f32)", f_result["kernel_path_launches"]
+        else:
+            where = "Q (bf16, head_dim 16)"
+            counts = q_result["bfloat16"]["launches"]
+        if route != "mma":
+            launched = counts.get(name, 0)
+        else:       # the counts hold nonzero entries alone
+            launched = _mma_launches(counts, name) if name in counts else 0
         out.append({
             "name": name, "route": "cuda",
             "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
             "replaces": FLASH_REPLACES[wrapper],
-            "launches": launched.get(name, 0),
-            "launches_in": "F (f32)" if mma else "E",
-            **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
+            "launches": launched, "launches_in": where,
+            **{k: rep[k] for k in keys},
+            **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
+               if "bound_ms_f32_cores" in rep else {}),
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",
-                                          "tol_share", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")} for c in cases]})
+                                          "tol_share", *keys[1:],
+                                          "library_backend")}
+                      for c in cases]})
     return out
 
 
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol: the
-    length-prefixed name ending in ``kernel`` or ``wgmma`` (a length may
-    follow hex digits of the namespace's hash, so every suffix of a digit
-    run is tried)."""
+    length-prefixed name ending in ``kernel``, ``wgmma`` or ``tf32x3`` (a
+    length may follow hex digits of the namespace's hash, so every suffix
+    of a digit run is tried)."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             end = run.end() + int(mangled[i:run.end()])
             name = mangled[run.end():end]
-            if re.fullmatch(r"[a-z_]+(?:kernel|wgmma)", name) and \
+            if re.fullmatch(r"[a-z_]+(?:kernel|wgmma|tf32x3)", name) and \
                     mangled[end:end + 1] in ("I", "E"):
                 args = re.match(r"(I\w*?)EvP", mangled[end:])
                 return name + (args.group(1) if args else "")
@@ -3764,6 +4000,7 @@ def main() -> int:
         timed("F_bf16", phase_f_bf16, dev)
         h = timed("H", phase_h, dev)
         i = timed("I", phase_i, dev)
+        q = timed("Q", phase_q, dev)
         with tempfile.TemporaryDirectory() as tmp:
             timed("N", phase_n, dev, Path(tmp))
             timed("O", phase_o, dev, Path(tmp))
@@ -3771,7 +4008,7 @@ def main() -> int:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,
                                    verify)
-         + _flash_entries(flash_rows, e, f)
+         + _flash_entries(flash_rows, e, f, q)
          + _gmm_entries(gmm_rows, h, i, m)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,204 @@
+// f32 products on Hopper's tensor cores at f32 accuracy: the three-pass
+// TF32 split ("tf32x3") through mma.sync m16n8k8, for csrc/flash_bwd_f32.cu
+// (the f32 flash backward) and the f32 kernels that may follow it onto the
+// tensor cores.
+//
+// One TF32 value keeps 11 significant bits (10 stored), so one TF32
+// product of two f32 tiles is off by ~2^-11 relative: too coarse for f32.
+// Each f32 operand is split in registers as its fragment is loaded,
+//   hi = rna_tf32(x),  lo = rna_tf32(x - hi)     (x = hi + lo + ~2^-22 x)
+// with cvt.rna.tf32.f32's rounding (to nearest, ties away from zero;
+// `split` does it in integer instructions), and a product of fragments
+// accumulates a_lo.b_hi, then a_hi.b_lo, then
+// a_hi.b_hi (the small terms first) in f32. Each product of TF32 values is
+// exact in f32; only a_lo.b_lo (~2^-22 relative) is dropped, so the
+// result is f32-accurate at a third of the TF32 rate (495 / 3 = 165
+// TFLOP/s dense on an H100 SXM, against 67 for f32 on the CUDA cores).
+//
+// Fragments (PTX's m16n8k8 .tf32 layouts): lane (g = lane / 4, t = lane %
+// 4) holds A (16 x 8) at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
+// (8 x 8) at (t, g), (t + 4, g); the f32 accumulator C (16 x 8) at (g,
+// 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). Within one product the
+// contraction index may be permuted, as long as A and B agree: the
+// loaders below use that so that an accumulator is an A fragment as it
+// stands (a_from_acc) and B tiles stored [k][n] load as vectors
+// (load_b_kn). Tiles sit in shared memory as rows of `ld` floats with
+// ld = 4 (mod 8): then every loader's pattern is free of bank conflicts,
+// the (g, t) scalar reads and the (2t, NV g) vector reads.
+//
+// Everything is device-inline; ops/_build.py hashes every csrc/*.cuh with
+// each source. kernel_breakdown.py builds variants of a source with
+// TF32X3_NO_SPLIT (hi = x, lo = 0: no split work) or TF32X3_NO_MMA (no
+// products: their operands are folded into one accumulator element by
+// integer XORs) defined before this header; their numbers are wrong on
+// purpose.
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero), as an operand: the mma reads the top 19 bits of
+// the register and not the 13 below, so adding half a TF32 unit in the
+// last place to the bit pattern is the whole rounding, one integer add.
+// (cvt.rna compiles to three instructions on sm_90a, two of them to pass
+// infinities and NaN through.)
+__device__ __forceinline__ uint32_t tf32_operand(float x) {
+  return __float_as_uint(x) + 0x1000u;
+}
+// The value of a tf32_operand: its low 13 bits cleared.
+__device__ __forceinline__ float tf32_value(uint32_t op) {
+  return __uint_as_float(op & 0xffffe000u);
+}
+
+// hi = rna_tf32(x), lo = rna_tf32(x - hi), as operands: four instructions.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+#ifdef TF32X3_NO_SPLIT
+  hi = __float_as_uint(x);
+  lo = 0u;
+#else
+  hi = tf32_operand(x);
+  lo = tf32_operand(x - tf32_value(hi));
+#endif
+}
+
+// c += a . b: one m16n8k8 product of TF32 fragments, f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+#ifdef TF32X3_NO_MMA
+  // Four integer instructions keep every operand live; c[0] stays a
+  // finite number in [1, 2), so nothing downstream meets a NaN.
+  c[0] = __uint_as_float(
+      ((__float_as_uint(c[0]) ^ a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1]) &
+       0x007fffffu) | 0x3f800000u);
+#else
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#endif
+}
+
+// A split f32 fragment.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a . b at f32 accuracy: the three passes, small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// The same three passes into two accumulators: the small terms into
+// `small`, a_hi.b_hi into `big`; the product is big + small. The tensor
+// cores' f32 accumulation rounds toward zero, a bias of up to one unit in
+// the sum's last place a chained product; keeping the small terms apart
+// cuts the chain at the sum's magnitude to one product in three, and the
+// small sum's own bias is ~2^-11 of it.
+__device__ __forceinline__ void mma3_split(float (&big)[4],
+                                           float (&small)[4],
+                                           const FragA& a, const FragB& b) {
+  mma_tf32(small, a.lo, b.hi);
+  mma_tf32(small, a.hi, b.lo);
+  mma_tf32(big, a.hi, b.hi);
+}
+
+// A (16 x 8) from a tile stored [m][k]: rows [0, 16), columns [k0, k0 + 8).
+__device__ __forceinline__ FragA load_a(const float* tile, int ld, int k0,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + t;
+  const float x[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
+  FragA a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], a.hi[i], a.lo[i]);
+  return a;
+}
+
+// A (16 x 8) from an accumulator C (16 x 8) of an earlier product: the
+// product's contraction runs over C's columns in the order 0, 2, 4, 6
+// (k = t) and 1, 3, 5, 7 (k = t + 4); load_b_kn reads B's rows in that
+// order.
+__device__ __forceinline__ FragA a_from_acc(const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  FragA a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], a.hi[i], a.lo[i]);
+  return a;
+}
+
+// B (8 x 8) from a tile stored [n][k] (B's transpose row-major, e.g. K for
+// S = Q.K^T): rows [0, 8) of the tile are B's columns, columns [k0, k0 +
+// 8) its rows.
+__device__ __forceinline__ FragB load_b_nk(const float* tile, int ld, int k0,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + t;
+  FragB b;
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[4], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// NV B fragments (8 x 8 each) from a tile stored [k][n] (e.g. K for dQ =
+// dS.K): rows [k0, k0 + 8) in a_from_acc's order, columns [n0, n0 + 8 NV).
+// Fragment i takes column n0 + NV g + i as its column g, so a lane reads
+// NV adjacent floats of two rows, one vector load each. The accumulator of
+// fragment i then holds, for its rows, columns n0 + NV (2t) + i and
+// n0 + NV (2t + 1) + i: store_acc_row writes them back in order.
+template <int NV>
+__device__ __forceinline__ void load_b_kn(FragB (&b)[NV], const float* tile,
+                                          int ld, int k0, int n0, int lane) {
+  static_assert(NV == 2 || NV == 4, "vector width");
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + 2 * t) * ld + n0 + NV * g;
+  float x0[NV], x1[NV];
+  if constexpr (NV == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    const float4 w = *reinterpret_cast<const float4*>(p + ld);
+    x0[0] = u.x; x0[1] = u.y; x0[2] = u.z; x0[3] = u.w;
+    x1[0] = w.x; x1[1] = w.y; x1[2] = w.z; x1[3] = w.w;
+  } else {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    const float2 w = *reinterpret_cast<const float2*>(p + ld);
+    x0[0] = u.x; x0[1] = u.y;
+    x1[0] = w.x; x1[1] = w.y;
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    split(x0[i], b[i].hi[0], b[i].lo[0]);
+    split(x1[i], b[i].hi[1], b[i].lo[1]);
+  }
+}
+
+// Row h (0: g, 1: g + 8) of the NV accumulators that load_b_kn's
+// fragments fed, columns [n0, n0 + 8 NV): this lane's 2 NV adjacent
+// values, from column n0 + 2 NV t, written to `row` (the row's column 0)
+// as vectors.
+template <int NV>
+__device__ __forceinline__ void store_acc_row(float* row, int n0,
+                                              const float (*acc)[4], int h,
+                                              int lane) {
+  const int t = lane & 3;
+  float* p = row + n0 + 2 * NV * t;
+  if constexpr (NV == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(
+        acc[0][2 * h], acc[1][2 * h], acc[2][2 * h], acc[3][2 * h]);
+    *reinterpret_cast<float4*>(p + 4) =
+        make_float4(acc[0][2 * h + 1], acc[1][2 * h + 1], acc[2][2 * h + 1],
+                    acc[3][2 * h + 1]);
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(
+        acc[0][2 * h], acc[1][2 * h], acc[0][2 * h + 1], acc[1][2 * h + 1]);
+  }
+}
+
+}  // namespace

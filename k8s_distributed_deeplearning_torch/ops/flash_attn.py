@@ -14,17 +14,22 @@ restricting attention to equal ids.
   launches the dQ kernel and the dK/dV kernel of the route
   :func:`_bwd_route` names. Both rules give ``"wgmma"`` (tensor cores
   through wgmma: ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) for bf16 at
-  head_dim 64 or 128, ``"mma"`` (``csrc/flash_attn.cu``, mma.sync)
-  otherwise. On CPU tensors the same function takes the plain versions. A
-  CUDA tensor the kernels cannot take raises; there is no fallback from
-  one kernel to another or to the plain version.
+  head_dim 64 or 128. Otherwise the forward takes ``"mma"``
+  (``csrc/flash_attn.cu``, mma.sync); the backward takes ``"tf32x3"``
+  (``csrc/flash_bwd_f32.cu``: tensor cores through mma.sync, each f32
+  product a three-pass TF32 split, f32-accurate) for float32 at every head
+  dim, and ``"mma"`` for bf16 at head_dim 16 or 32. On CPU tensors the same
+  function takes the plain versions. A CUDA tensor the kernels cannot take
+  raises; there is no fallback from one kernel to another or to the plain
+  version.
 - :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
   kernel wrappers; each adds one to its ``launches`` where it launches, and
-  also to ``launches_wgmma`` on the ``"wgmma"`` route.
+  also to ``launches_wgmma`` on the ``"wgmma"`` route and, for the two
+  backward wrappers, to ``launches_tf32x3`` on the ``"tf32x3"`` route.
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -234,10 +239,15 @@ def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float, *,
 
 
 def _bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which backward kernels take a CUDA call: ``"wgmma"`` (the tensor-core
-    kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128;
-    ``"mma"`` (``flash_dq_kernel`` and ``flash_dkv_kernel`` of
-    ``csrc/flash_attn.cu``) for float32 and head_dim 16 or 32."""
+    """Which backward kernels take a CUDA call: ``"tf32x3"`` (the three-pass
+    TF32 kernels of ``csrc/flash_bwd_f32.cu``) for float32; ``"wgmma"`` (the
+    tensor-core kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64
+    or 128; ``"mma"`` (``flash_dq_kernel`` and ``flash_dkv_kernel`` of
+    ``csrc/flash_attn.cu``) for bf16 at head_dim 16 or 32. A caller may
+    name ``"mma"`` in float32 too: the CUDA-core f32 kernels of
+    ``csrc/flash_attn.cu``, kept to be timed on the same inputs."""
+    if dtype == torch.float32:
+        return "tf32x3"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma"
@@ -263,12 +273,19 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
         lib = _bwd_library()
         fn = lib.flash_bwd_dq_wgmma if which == "dq" else \
             lib.flash_bwd_dkv_wgmma
+    elif route == "tf32x3":
+        if q.dtype != torch.float32:
+            raise TypeError(f"the tf32x3 route takes float32, got {q.dtype}")
+        lib = _tf32x3_library()
+        fn = lib.flash_bwd_dq_tf32x3 if which == "dq" else \
+            lib.flash_bwd_dkv_tf32x3
     elif route == "mma":
         lib = _library()
         fn = lib.flash_attn_bwd_dq if which == "dq" else \
             lib.flash_attn_bwd_dkv
     else:
-        raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
+        raise ValueError(f"route must be 'wgmma', 'tf32x3' or 'mma', got "
+                         f"{route!r}")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segk),
@@ -283,37 +300,46 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
 def flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, causal: bool,
                  scale: float, *, route: str | None = None):
     """dQ on the card: ``flash_dq_wgmma`` on the ``"wgmma"`` route,
-    ``flash_dq_kernel`` on ``"mma"`` (default: :func:`_bwd_route`'s
-    choice). Adds one to ``flash_bwd_dq.launches``, and on the wgmma route
-    to ``.launches_wgmma``. CUDA tensors only."""
+    ``flash_dq_tf32x3`` on ``"tf32x3"``, ``flash_dq_kernel`` on ``"mma"``
+    (default: :func:`_bwd_route`'s choice). Adds one to
+    ``flash_bwd_dq.launches``, and to ``.launches_wgmma`` or
+    ``.launches_tf32x3`` on those routes. CUDA tensors only."""
     dq = torch.empty_like(q)
-    if _bwd_launch("dq", q, k, v, do, lse, delta, segq, segk, (dq,), causal,
-                   scale, route) == "wgmma":
-        flash_bwd_dq.launches_wgmma += 1
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, _bwd_launch("dq", q, k, v, do, lse, delta, segq,
+                                     segk, (dq,), causal, scale, route))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
                   scale: float, *, route: str | None = None):
     """dK and dV on the card, the query-head group summed:
-    ``flash_dkv_wgmma`` on the ``"wgmma"`` route, ``flash_dkv_kernel`` on
-    ``"mma"``. Adds one to ``flash_bwd_dkv.launches``, and on the wgmma
-    route to ``.launches_wgmma``. CUDA tensors only."""
+    ``flash_dkv_wgmma`` on the ``"wgmma"`` route, ``flash_dkv_tf32x3`` on
+    ``"tf32x3"``, ``flash_dkv_kernel`` on ``"mma"``. Adds one to
+    ``flash_bwd_dkv.launches``, and to ``.launches_wgmma`` or
+    ``.launches_tf32x3`` on those routes. CUDA tensors only."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if _bwd_launch("dkv", q, k, v, do, lse, delta, segq, segk, (dk, dv),
-                   causal, scale, route) == "wgmma":
-        flash_bwd_dkv.launches_wgmma += 1
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, _bwd_launch("dkv", q, k, v, do, lse, delta, segq,
+                                      segk, (dk, dv), causal, scale, route))
     return dk, dv
+
+
+def _count(wrapper, route: str) -> None:
+    """One launch of a backward wrapper on ``route``."""
+    wrapper.launches += 1
+    if route == "wgmma":
+        wrapper.launches_wgmma += 1
+    elif route == "tf32x3":
+        wrapper.launches_tf32x3 += 1
 
 
 flash_fwd.launches = 0
 flash_fwd.launches_wgmma = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dq.launches_wgmma = 0
+flash_bwd_dq.launches_tf32x3 = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_wgmma = 0
+flash_bwd_dkv.launches_tf32x3 = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
@@ -328,7 +354,8 @@ def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
                    scale: float):
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
     delta = rowsum(dO·O) (a PyTorch reduction), then the dQ kernel, then
-    the dK/dV kernel, both of :func:`_bwd_route`'s route."""
+    the dK/dV kernel, both of :func:`_bwd_route`'s route (float32:
+    ``"tf32x3"``)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, softmax_scale=scale,
@@ -398,6 +425,17 @@ def _fwd_library():
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attn_fwd_wgmma.restype = ctypes.c_int
+    return lib
+
+
+def _tf32x3_library():
+    lib = _build.load("flash_bwd_f32")
+    if lib.flash_bwd_dq_tf32x3.argtypes is None:
+        tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_dq_tf32x3.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.flash_bwd_dkv_tf32x3.argtypes = [ctypes.c_void_p] * 10 + tail
+        for fn in (lib.flash_bwd_dq_tf32x3, lib.flash_bwd_dkv_tf32x3):
+            fn.restype = ctypes.c_int
     return lib
 
 

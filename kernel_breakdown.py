@@ -4,6 +4,7 @@
     python3 kernel_breakdown.py decode       # csrc/paged_decode.cu
     python3 kernel_breakdown.py prefill      # csrc/paged_prefill.cu
     python3 kernel_breakdown.py flash_bwd    # csrc/flash_bwd.cu
+    python3 kernel_breakdown.py flash_bwd_f32  # csrc/flash_bwd_f32.cu
     python3 kernel_breakdown.py flash_fwd    # csrc/flash_fwd.cu
     python3 kernel_breakdown.py gmm          # csrc/gmm_wgmma.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
@@ -55,6 +56,17 @@ products: their fragments are folded into one accumulator element by
 integer XORs instead), ``no_loads`` (no copies after the first tiles),
 ``no_sync`` (no barrier a tile: the two warpgroups of a CTA run out of
 step).
+
+``flash_bwd_f32``: the f32 dQ and dK/dV kernels (three-pass TF32) at
+phase D's causal f32 case (B 2, S 2048, 32/8 heads, head_dim 128) and at
+phase H's attention in f32 (B 8, S 1024, 12/4 heads, head_dim 64,
+causal). Variants: ``no_split`` (hi = x, lo = 0: no split instructions;
+the three products still run), ``no_products`` (no mma.sync: their
+operands are folded into the accumulator by integer XORs), ``no_exp`` (p
+= x, no exponentials), ``no_loads`` (no copies after the first tile),
+``skeleton`` (none of these: the tile loop's waits, barriers, fragment
+loads, masks and bookkeeping). ``--against DIR`` needs the same source in
+``DIR``.
 
 ``flash_fwd``: the forward at phase D's causal bf16 case (B 2, S 2048,
 32/8 heads, head_dim 128) and at phase H's (B 8, S 1024, 12/4 heads,
@@ -184,6 +196,27 @@ FLASH_BWD_VARIANTS = {
          "tile t - 1 done\n", "", 2)],
 }
 
+# tf32x3.cuh reads TF32X3_NO_SPLIT and TF32X3_NO_MMA.
+_TF32X3_INCLUDE = '#include "tf32x3.cuh"'
+FLASH_BWD_F32_VARIANTS = {
+    "base": [],
+    "no_split": [(_TF32X3_INCLUDE,
+                  "#define TF32X3_NO_SPLIT\n" + _TF32X3_INCLUDE, 1)],
+    "no_products": [(_TF32X3_INCLUDE,
+                     "#define TF32X3_NO_MMA\n" + _TF32X3_INCLUDE, 1)],
+    "no_exp": [
+        ("const float p = ok ? expf(x - lse_r[h]) : 0.f;",
+         "const float p = ok ? x - lse_r[h] : 0.f;", 1),
+        ("const float p = ok ? expf(st[n][e] * g.scale - lse_s[c]) : 0.f;",
+         "const float p = ok ? st[n][e] * g.scale - lse_s[c] : 0.f;", 1)],
+    "no_loads": [
+        ("    if (t + 1 < n_tiles) issue(t + 1, (t + 1) & 1);\n", "", 1),
+        ("    if (u + 1 < n_rt) issue(u + 1, stage ^ 1);\n", "", 1)],
+}
+FLASH_BWD_F32_VARIANTS["skeleton"] = [
+    sub for name in ("no_split", "no_products", "no_exp", "no_loads")
+    for sub in FLASH_BWD_F32_VARIANTS[name]]
+
 FLASH_FWD_VARIANTS = {
     "base": [],
     "no_exp": [("float p = ex2(x - ((i & 2) ? mn1 : mn0));",
@@ -248,6 +281,14 @@ def bind_flash_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_dq_wgmma.argtypes = [ctypes.c_void_p] * 9 + tail
     lib.flash_bwd_dkv_wgmma.argtypes = [ctypes.c_void_p] * 10 + tail
     for fn in (lib.flash_bwd_dq_wgmma, lib.flash_bwd_dkv_wgmma):
+        fn.restype = ctypes.c_int
+
+
+def bind_flash_bwd_f32(lib: ctypes.CDLL) -> None:
+    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    lib.flash_bwd_dq_tf32x3.argtypes = [ctypes.c_void_p] * 9 + tail
+    lib.flash_bwd_dkv_tf32x3.argtypes = [ctypes.c_void_p] * 10 + tail
+    for fn in (lib.flash_bwd_dq_tf32x3, lib.flash_bwd_dkv_tf32x3):
         fn.restype = ctypes.c_int
 
 
@@ -379,6 +420,36 @@ def flash_bwd_case(dev: torch.device, stream: int) -> Launches:
                 *head, dk.data_ptr(), dv.data_ptr(), *tail), (dk, dv))}
 
 
+def flash_bwd_f32_case(dev: torch.device, stream: int) -> Launches:
+    """The f32 dQ and dK/dV launches at phase D's causal f32 case (head_dim
+    128) and at phase H's attention (head_dim 64)."""
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+
+    out = {}
+    for label, (b, s, h, kv, hd) in (("d", (2, 2048, 32, 8, 128)),
+                                     ("h", (8, 1024, 12, 4, 64))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, do = (torch.randn(b, s, h, hd, device=dev, generator=gen)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, kv, hd, device=dev, generator=gen)
+                for _ in range(2))
+        o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        head = [x.data_ptr() for x in (q, k, v, do, lse, delta)] + [None,
+                                                                    None]
+        tail = [b, s, s, h, kv, hd, 1, 0, hd ** -0.5, stream]
+        keep = (q, k, v, do, lse, delta)   # the launches hold raw pointers
+        out[f"{label}_dq"] = (
+            lambda lib, head=head, tail=tail, dq=dq, keep=keep:
+            lib.flash_bwd_dq_tf32x3(*head, dq.data_ptr(), *tail), (dq,))
+        out[f"{label}_dkv"] = (
+            lambda lib, head=head, tail=tail, dk=dk, dv=dv, keep=keep:
+            lib.flash_bwd_dkv_tf32x3(*head, dk.data_ptr(), dv.data_ptr(),
+                                     *tail), (dk, dv))
+    return out
+
+
 def flash_fwd_case(dev: torch.device, stream: int) -> Launches:
     """The forward at phase D's causal bf16 case (head_dim 128) and at
     phase H's attention (head_dim 64)."""
@@ -450,6 +521,8 @@ KERNELS = {
                       prefill_case),
     "flash_bwd": Kernel("flash_bwd.cu", FLASH_BWD_VARIANTS, bind_flash_bwd,
                         flash_bwd_case),
+    "flash_bwd_f32": Kernel("flash_bwd_f32.cu", FLASH_BWD_F32_VARIANTS,
+                            bind_flash_bwd_f32, flash_bwd_f32_case),
     "flash_fwd": Kernel("flash_fwd.cu", FLASH_FWD_VARIANTS, bind_flash_fwd,
                         flash_fwd_case),
     "gmm": Kernel("gmm_wgmma.cu", GMM_VARIANTS, bind_gmm, gmm_case),

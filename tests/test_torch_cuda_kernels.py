@@ -797,11 +797,11 @@ FLASH_BWD_SHAPES = [
 ]
 
 
-def _flash_bwd_case(dev, shape, seed):
-    """bf16 inputs, the plain forward's o and lse, delta, and the plain
-    backward: (args of the backward wrappers, (dq, dk, dv) wanted)."""
-    q, k, v, do, segq, segk, causal = _flash_inputs(
-        dev, torch.bfloat16, shape, seed)
+def _flash_bwd_case(dev, shape, seed, dtype=torch.bfloat16):
+    """Inputs (bf16 unless named), the plain forward's o and lse, delta,
+    and the plain backward: (args of the backward wrappers, (dq, dk, dv)
+    wanted)."""
+    q, k, v, do, segq, segk, causal = _flash_inputs(dev, dtype, shape, seed)
     scale = q.shape[-1] ** -0.5
     o, lse = fa.flash_attention_reference(
         q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
@@ -863,9 +863,10 @@ def test_flash_bwd_wgmma_fully_masked_rows_are_zero(hopper):
 
 
 def test_flash_bwd_launches_wgmma_counts_by_route(hopper):
-    """bf16 at head_dim 64/128 counts on launches and launches_wgmma; f32,
-    head_dim 32 and a forced "mma" route count on launches alone; the
-    autograd backward takes the wgmma route."""
+    """bf16 at head_dim 64/128 counts on launches and launches_wgmma; f32
+    (the tf32x3 route), bf16 at head_dim 32 and a forced "mma" route count
+    on launches and not on launches_wgmma; the autograd backward takes the
+    wgmma route in bf16."""
     def counts():
         return (fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_wgmma,
                 fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.launches_wgmma)
@@ -910,6 +911,120 @@ def test_flash_bwd_refuses_and_does_not_fall_back(hopper):
                segq, segk, causal, scale, route="wgmma")
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
+# The f32 backward on the tensor cores (csrc/flash_bwd_f32.cu, the "tf32x3"
+# route: three-pass TF32 products): every head dim, on FLASH_SHAPES and
+# the wgmma backward's shapes with rows that see no key (sq > sk).
+FLASH_TF32X3_SHAPES = FLASH_SHAPES + [(1, 200, 100, 8, 2, 128, True, False),
+                                      (2, 96, 96, 4, 1, 128, True, True)]
+
+
+def _tf32x3_counts():
+    return (fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_tf32x3,
+            fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.launches_tf32x3)
+
+
+@pytest.mark.parametrize("shape", FLASH_TF32X3_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_bwd_tf32x3_matches_reference(hopper, shape):
+    """dQ and dK/dV on the tf32x3 route against the plain backward and
+    against flash_attn.cu's mma kernels forced on the same inputs, held
+    as phase D holds f32; one launch of each counted on the route."""
+    args, want = _flash_bwd_case(hopper, shape, sum(shape[:6]),
+                                 torch.float32)
+    before = _tf32x3_counts()
+    got = (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+    assert _tf32x3_counts() == tuple(n + 1 for n in before)
+    mma = (fa.flash_bwd_dq(*args, route="mma"),) + fa.flash_bwd_dkv(
+        *args, route="mma")
+    torch.cuda.synchronize()
+    tol = FLASH_DTYPES[0][1]
+    for name, x, ref, other in zip(("dq", "dk", "dv"), got, want, mma):
+        assert x.dtype == torch.float32 and x.shape == ref.shape
+        assert torch.isfinite(x).all(), name
+        _close(x, ref, tol, name)
+        _close(x, other, tol, f"{name} vs the mma route")
+
+
+def test_flash_bwd_tf32x3_launches_give_the_same_bits(hopper):
+    """Three launches give the same bits: the halves of dK and dV meet in
+    one fixed order, with no atomics."""
+    args, _ = _flash_bwd_case(hopper, (2, 1024, 1024, 12, 4, 64, True, True),
+                              5, torch.float32)
+    outs = [(fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_flash_bwd_tf32x3_fully_masked_rows_are_zero(hopper):
+    """A query whose segment id no key carries, and causal rows with
+    sq > sk that see no key, give exactly 0 in dQ; keys no query sees give
+    exactly 0 in dK and dV."""
+    q, k, v, do, segq, segk, _ = _flash_inputs(
+        hopper, torch.float32, (2, 96, 64, 8, 2, 64, True, True), 9)
+    segq[0, 40:45] = 7
+    segk[1, 10:20] = 8
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_attention_reference(
+        q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, segq, segk, True, scale)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 32), slice(40, 45)):    # 0..31: sq - sk = 32
+        assert torch.all(dq[0, rows] == 0)
+    assert torch.all(dk[1, 10:20] == 0) and torch.all(dv[1, 10:20] == 0)
+    assert torch.isfinite(dk).all() and torch.isfinite(dq).all()
+
+
+def test_flash_bwd_launches_tf32x3_counts_by_route(hopper):
+    """f32 counts on launches and launches_tf32x3, at every head dim and
+    through autograd; a forced "mma" route in f32 and bf16 at head_dim 32
+    count on launches alone; bf16 at 128 on launches_wgmma."""
+    for d in fa.HEAD_DIMS:
+        q, k, v, do, _, _, _ = _flash_inputs(
+            hopper, torch.float32, (1, 64, 64, 4, 2, d, True, False), d)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = _tf32x3_counts()
+        fa.flash_attention(q, k, v, causal=True).backward(do)
+        assert _tf32x3_counts() == tuple(n + 1 for n in before)
+    for dtype, d, kw in ((torch.float32, 64, {"route": "mma"}),
+                         (torch.bfloat16, 32, {}),
+                         (torch.bfloat16, 128, {})):
+        args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, d, True, False),
+                                  3, dtype)
+        before = _tf32x3_counts() + (fa.flash_bwd_dq.launches_wgmma,)
+        fa.flash_bwd_dq(*args, **kw)
+        fa.flash_bwd_dkv(*args, **kw)
+        wgmma = int(dtype == torch.bfloat16 and d == 128)
+        assert _tf32x3_counts() + (fa.flash_bwd_dq.launches_wgmma,) == (
+            before[0] + 1, before[1], before[2] + 1, before[3],
+            before[4] + wgmma)
+
+
+def test_flash_bwd_tf32x3_refuses_and_does_not_fall_back(hopper):
+    """bf16 on a forced tf32x3 route, a non-contiguous input and mixed
+    dtypes raise before any launch."""
+    args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 64, True, False), 6,
+                              torch.float32)
+    q, k, v, do, lse, delta, segq, segk, causal, scale = args
+    before = _tf32x3_counts()
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(TypeError, match="tf32x3 route takes float32"):
+            fn(q.bfloat16(), k.bfloat16(), v.bfloat16(), do.bfloat16(), lse,
+               delta, segq, segk, causal, scale, route="tf32x3")
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(strided, k, v, do, lse, delta, segq, segk, causal, scale)
+        with pytest.raises(TypeError, match="must be torch.float32"):
+            fn(q, k.bfloat16(), v, do, lse, delta, segq, segk, causal, scale)
+    torch.cuda.synchronize()
+    assert _tf32x3_counts() == before
 
 
 # The tensor-core forward (csrc/flash_fwd.cu, the "wgmma" route): bf16 at

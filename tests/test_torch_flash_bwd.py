@@ -2,8 +2,9 @@
 (``csrc/flash_bwd.cu``) on the CPU, where the kernels cannot run.
 
 - ``_bwd_route``: bf16 at head_dim 64 or 128 takes the ``"wgmma"`` kernels;
-  float32 and head_dim 16 or 32 take the ``mma.sync`` kernels of
-  ``csrc/flash_attn.cu`` (``"mma"``).
+  bf16 at head_dim 16 or 32 the ``mma.sync`` kernels of
+  ``csrc/flash_attn.cu`` (``"mma"``); float32 at every head dim the
+  three-pass TF32 kernels of ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``).
 - A torch model of the two kernels' arithmetic, written here: the dQ kernel
   walks 64-key tiles in order, the dK/dV kernel 64-row tiles of flattened
   (position, group head) query rows; P = 2^(s * scale * log2 e - lse *
@@ -47,9 +48,15 @@ def test_bf16_at_wgmma_head_dims_takes_the_wgmma_route(head_dim):
     assert fa._bwd_route(torch.bfloat16, head_dim) == "wgmma"
 
 
+@pytest.mark.parametrize("head_dim", [64, 128, 16, 32])
+def test_f32_calls_take_the_tf32x3_route(head_dim):
+    """float32 at every head dim: the three-pass TF32 kernels of
+    ``csrc/flash_bwd_f32.cu`` (``tests/test_torch_flash_bwd_f32.py``)."""
+    assert fa._bwd_route(torch.float32, head_dim) == "tf32x3"
+
+
 @pytest.mark.parametrize("dtype,head_dim", [
-    (torch.float32, 64), (torch.float32, 128), (torch.float32, 16),
-    (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 32)])
+    (torch.bfloat16, 16), (torch.bfloat16, 32)])
 def test_other_calls_take_the_mma_route(dtype, head_dim):
     assert fa._bwd_route(dtype, head_dim) == "mma"
 
