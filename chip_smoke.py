@@ -11,13 +11,18 @@ A. The paged-attention kernels against their plain PyTorch version on
    the card, at the Llama-3 8B attention shapes (32 q heads, 8 KV heads,
    head_dim 128, 32-token pages), by the route ``_route`` picks: decode
    (B=4, one query each, live lengths 100-2000) on the tensor-core decode
-   kernel in bf16 and on the split kernel in f32; in bf16 also decode at
+   kernel in bf16 and on the three-pass TF32 kernel (``"tf32x3"``,
+   ``csrc/paged_attn_f32.cu``) in f32; in bf16 also decode at
    phase B's decode-profile shape (live 512-560 of 64 blocks) and at
    Llama-3 8B's own 8,192-token context (live 7,000-8,000 of 256 blocks);
    query chunks (512 queries at offset 1024, 512 at 0, a 32-query final
    bucket at offset 1480) on the tensor-core prefill kernel in bf16 and
    an 8-query chunk at offset 1480 (32 rows a KV head) on the decode
-   kernel, the 512 @ 1024 chunk on the split kernel in f32; stale K/V past
+   kernel, the 512 @ 1024 chunk and a verify window of 8 at phase P's
+   table width (65 blocks, live 512-560) on the tf32x3 kernel in f32;
+   in f32 also the serve CLI's tiny preset's shape (4/2 heads, head_dim
+   16: an 8-slot decode step and a 128-query prefill in a 16-block
+   table) on the split kernel, the route it takes there; stale K/V past
    each cursor and scratch-page garbage changing no bit on every route.
    Reports the error, the kernel's time, the plain version's, the bound
    (the larger of bytes over 3.35 TB/s and FLOPs over the dtype's peak),
@@ -25,9 +30,12 @@ A. The paged-attention kernels against their plain PyTorch version on
    K/V with the boolean mask as a yardstick (the port never calls it);
    for a case on the decode route, also the split kernel's error and time
    on the same inputs, two decode launches bitwise equal, and every time
-   on the device alone; for a chunk on the prefill route, the split kernel's
-   error and time on the same inputs and the prefill kernel's time at
-   64- and 128-row tiles. The same cases again through the int8 branch:
+   on the device alone; for a case on the tf32x3 route the same (two
+   launches bitwise equal, the split kernel's error and time on the same
+   inputs); for a case on the split route, two launches bitwise equal,
+   timed on the device alone; for a chunk on the prefill route, the split
+   kernel's error and time on the same inputs and the prefill kernel's
+   time at 64- and 128-row tiles. The same cases again through the int8 branch:
    int8 pools quantized from random ones by the model's quantize-on-write,
    bf16 and f32 q, held to the int8 plain version, stale int8 cells and
    their scales past each cursor and scratch-page garbage changing no
@@ -47,7 +55,11 @@ B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
    kernel class and the busy share.
 C. The same workload in f32 at 8B width and 4 layers, greedy, through the
    kernel path and through the plain path (``attention_impl="xla"``):
-   the first 16 tokens of every request agree. Then, in bf16 (which the
+   the first 16 tokens of every request agree, every paged launch on the
+   tf32x3 route and none on the split route. Then the train CLI's tiny
+   preset (head_dim 16, which only the split kernel takes) served in f32
+   through both paths: streams equal, every paged launch on the split
+   route. Then, in bf16 (which the
    prefill route takes), every prompt prefilled in 512-token chunks
    through both paths: the last position's logits agree within
    ``BF16_LOGIT_RTOL`` and the first greedy token is equal wherever the
@@ -57,7 +69,9 @@ D. The flash-attention kernels against their plain PyTorch versions on
    head_dim 128: causal, non-causal, 512 queries against 2048 keys
    (causal, offset 1536), and three packed documents by segment ids
    (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
-   head_dim 64, causal). The forward and the backward on every route:
+   head_dim 64, causal) and at phase Q's (B 8, S 1024, 4/2 heads, head_dim
+   16, causal: the mma kernels' own route in bf16). The forward and the
+   backward on every route:
    in bf16 the tensor-core kernels of ``csrc/flash_fwd.cu`` and
    ``csrc/flash_bwd.cu`` (``"wgmma"``, the route bf16 takes) and the
    mma.sync kernels of ``flash_attn.cu`` forced on the same inputs; in
@@ -120,11 +134,14 @@ G. The grouped-matmul kernels (the forward and, reading the weight
    bf16 runs both routes on the same inputs
    (``gmm_wgmma``/``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, and the
    mma.sync ``gmm_kernel``/``tgmm_kernel`` of ``csrc/gmm.cu`` forced), f32
-   the mma route alone. Every
+   the forward and dlhs on both ``gmm_tf32x3`` of ``csrc/gmm_f32.cu``
+   (``"tf32x3"``, the route f32 takes) and ``gmm_kernel`` forced, the
+   weight gradient on ``tgmm_kernel`` (``"mma"``). Every
    element within atol x the output's RMS + rtol x |plain|, rows that
    hold no token exactly 0, an empty expert's weight gradient exactly 0;
-   two wgmma launches give the same bits. Reports each kernel's time, the
-   plain version's, the bound, and ``torch._grouped_mm`` on the same spans
+   two wgmma or tf32x3 launches give the same bits. Reports each
+   kernel's time, the plain version's, the bound, and
+   ``torch._grouped_mm`` on the same spans
    as a yardstick (the port never calls it; null with the reason where
    this torch refuses the case), the kernels and the yardstick timed on
    the device alone.
@@ -144,9 +161,10 @@ I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    flash attention) and through an independent plain path
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
    attention), compared as in phase F. The f32 kernel path runs the
-   grouped GEMMs and the flash forward on the mma routes and the flash
-   backward on tf32x3, 2 x steps launches of each and none of the mma
-   backward (the wgmma counts stay 0, checked).
+   forward grouped GEMM and dlhs on tf32x3 (exactly 6 x layers x steps),
+   the weight gradient and the flash forward on the mma routes and the
+   flash backward on tf32x3, 2 x steps launches of each and none of the
+   mma backward (the wgmma counts stay 0, checked).
 J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
@@ -186,7 +204,7 @@ M. ``generate`` on the ragged MoE (phase H's backbone, 8 experts top-2,
    and a row block planted on the wrong expert above it; the first greedy
    token equal where decided; in f32 at 2 layers the two give the same 16
    greedy tokens and prefill logits within 1e-4 relative, the ragged
-   path on the mma route (3 x layers launches).
+   path on the tf32x3 route (3 x layers launches).
 N. The reference's own job: ``python -m
    k8s_distributed_deeplearning_torch.train.mnist`` on the card as its
    own process, synthetic MNIST at 60,000 / 10,000, batch 100, Adam 1e-3,
@@ -361,13 +379,15 @@ GMM_REPLACES = {
     "tgmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:209",
 }
 # Kernel-line name -> (source, wrapper): each wrapper launches the kernel
-# of either route, the wgmma lines its "wgmma" route (bf16), the others
-# the kernels of gmm.cu ("mma": f32 on the training path, forced in bf16
+# of its route, the wgmma lines its "wgmma" route (bf16), gmm_tf32x3 the
+# forward's "tf32x3" route (f32), the others the kernels of gmm.cu
+# ("mma": tgmm in f32 on the training path; gmm forced in both dtypes
 # here).
 GMM_KERNELS = {
     "gmm": ("gmm.cu", "gmm"), "tgmm": ("gmm.cu", "tgmm"),
     "gmm_wgmma": ("gmm_wgmma.cu", "gmm"),
     "tgmm_wgmma": ("gmm_wgmma.cu", "tgmm"),
+    "gmm_tf32x3": ("gmm_f32.cu", "gmm"),
 }
 # The MoE slice's model: the JAX package's ragged MoE benchmark row
 # (Llama-small backbone, 8 experts, top-2, dispatch="ragged").
@@ -415,14 +435,17 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 20,
 # ------------------------------------------------------------- phase A
 
 
-def _attn_case(rng, dev, dtype, lengths, sq, n_blocks, pages):
+def _attn_case(rng, dev, dtype, lengths, sq, n_blocks, pages,
+               heads=(H, KV, HD)):
     """Pools of ``pages`` random pages; row b maps its live blocks onto
     distinct real pages (the rest stay on scratch page 0) and queries the
-    last ``sq`` positions of its ``lengths[b]`` tokens."""
+    last ``sq`` positions of its ``lengths[b]`` tokens. ``heads``: (q
+    heads, KV heads, head_dim)."""
     b = len(lengths)
-    q = torch.randn(b, sq, H, HD, device=dev).to(dtype)
-    pk = torch.randn(pages, PAGE, KV * HD, device=dev).to(dtype)
-    pv = torch.randn(pages, PAGE, KV * HD, device=dev).to(dtype)
+    h, kv, hd = heads
+    q = torch.randn(b, sq, h, hd, device=dev).to(dtype)
+    pk = torch.randn(pages, PAGE, kv * hd, device=dev).to(dtype)
+    pv = torch.randn(pages, PAGE, kv * hd, device=dev).to(dtype)
     tables = np.zeros((b, n_blocks), np.int32)
     free = rng.permutation(np.arange(1, pages))
     used = 0
@@ -436,22 +459,30 @@ def _attn_case(rng, dev, dtype, lengths, sq, n_blocks, pages):
             torch.from_numpy(pos).to(dev))
 
 
-def _bound(args, dtype):
+def _bound(args, dtype, route=None):
     """Bytes: K and V of the live tokens once (int8 pools, ``args`` with
     their scales: one byte an element plus an f32 scale a token and head),
     q in, out, tables and positions; operations: 4 x H x hd per visible
-    (query, key) pair. The larger time over the card's rates."""
+    (query, key) pair over the dtype's peak, or on the tf32x3 route the
+    TF32 products it issues for them (three a product, two with int8 K/V,
+    exact in TF32) over the TF32 peak. The larger time over the card's
+    rates."""
     q, pk, _, tables, pos = args[:5]
     item = q.element_size()
+    h, hd = q.shape[2:]
+    kv = pk.shape[2] // hd
     live = (pos.max(dim=1).values.long() + 1).clamp_max(
         tables.shape[1] * PAGE)
-    per_token = KV * (HD * pk.element_size() + (4 if len(args) > 5 else 0))
+    per_token = kv * (hd * pk.element_size() + (4 if len(args) > 5 else 0))
     nbytes = (2 * int(live.sum()) * per_token         # K and V, once
               + 2 * q.numel() * item                   # q in, out
               + 4 * (tables.numel() + pos.numel()))
-    flops = 4 * H * HD * int((pos.long() + 1).sum())
+    flops = 4 * h * hd * int((pos.long() + 1).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    if route == "tf32x3":
+        t_flops = (2 if len(args) > 5 else 3) * flops / PEAK_TF32 * 1e3
+    else:
+        t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else \
         "operations"
 
@@ -459,10 +490,11 @@ def _bound(args, dtype):
 def _sdpa_fn(args):
     """scaled_dot_product_attention on K/V gathered beforehand."""
     q, pk, pv, tables, pos = args
-    b, sq = q.shape[:2]
+    b, sq, _, hd = q.shape
+    kv = pk.shape[2] // hd
     s_virt = tables.shape[1] * PAGE
-    k = pk[tables.long()].reshape(b, s_virt, KV, HD).transpose(1, 2)
-    v = pv[tables.long()].reshape(b, s_virt, KV, HD).transpose(1, 2)
+    k = pk[tables.long()].reshape(b, s_virt, kv, hd).transpose(1, 2)
+    v = pv[tables.long()].reshape(b, s_virt, kv, hd).transpose(1, 2)
     qt = q.transpose(1, 2)
     mask = (torch.arange(s_virt, device=q.device)[None, None, :]
             <= pos[:, :, None])[:, None]
@@ -484,16 +516,53 @@ PREFILL_CASES = {"prefill512": ([1024 + 512], 512, 64, 64),
 STALE_PREFILL = ([700, 1000], 64, 64, 2 * 64 + 1)
 
 
+# f32's verify window: spec_k 7 (8 positions, 32 rows a KV head) at phase
+# B's decode-profile lengths in a table as wide as phase P's engine gives
+# it (ceil((2048 + 7) / 32) = 65 blocks), where a split of the table's
+# width leaves most splits empty.
+F32_VERIFY_CASE = ([512, 528, 544, 560], 8, 65, 4 * 18 + 1)
+
+# The split kernel's own path: the serve CLI's tiny preset in f32 (phases
+# C and K, :func:`_tiny_split_run`), 4/2 heads at head_dim 16 in 32-token
+# pages of a 16-block table (max_seq_len 512). Its 8 prompts are drawn
+# from TINY_SEED; a decode step of all 8 slots halfway through their 16
+# new tokens, and the prefill of one prompt padded to its 128-token bucket.
+TINY_HEADS = (4, 2, 16)
+TINY_SEED = 2
+TINY_BLOCKS = 512 // PAGE
+
+
+def _tiny_prompt_lengths() -> np.ndarray:
+    """The tiny-preset run's 8 prompt lengths (32-128 tokens)."""
+    return np.random.default_rng(TINY_SEED).integers(32, 129, 8)
+
+
+def _tiny_cases() -> dict:
+    """Phase A's cases at the tiny preset's shape (f32): name -> (live
+    lengths, sq, n_blocks, pages)."""
+    lens = [int(n) + 8 for n in _tiny_prompt_lengths()]
+    return {"tiny_decode": (lens, 1, TINY_BLOCKS, 8 * 5 + 1),
+            "tiny_prefill128": ([128], 128, TINY_BLOCKS, 2 * 4 + 1)}
+
+
 def _shapes(dtype, decode_lens):
-    """Phase A's cases for ``dtype``: decode, the prefill chunks (f32: the
-    512 @ 1024 chunk alone), then bf16's other decode cases."""
+    """Phase A's cases for ``dtype``: name -> (live lengths, sq, n_blocks,
+    pages, heads). Decode, the prefill chunks (f32: the 512 @ 1024 chunk
+    alone), then bf16's other decode cases (f32: a verify window of 8, and
+    the tiny preset's decode and prefill on the split route)."""
     bf16 = dtype == torch.bfloat16
     chunks = (PREFILL_CASES if bf16 else
               {"prefill512": PREFILL_CASES["prefill512"]})
     more = ({name: (lens, 1, nb, pages)
              for name, (lens, nb, pages) in DECODE_CASES.items()}
-            if bf16 else {})
-    return {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks, **more}
+            if bf16 else {"verify8_p_table": F32_VERIFY_CASE})
+    cases = {name: (*case, (H, KV, HD)) for name, case in
+             {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks,
+              **more}.items()}
+    if not bf16:
+        cases.update({name: (*case, TINY_HEADS)
+                      for name, case in _tiny_cases().items()})
+    return cases
 
 
 def _route_timings(args, kw, ref, err_of, flush) -> dict:
@@ -513,16 +582,17 @@ def _route_timings(args, kw, ref, err_of, flush) -> dict:
             "ms_tile128": time_ms(launch("prefill", 128), flush)}
 
 
-def _decode_timings(args, kw, out, ref, err_of, flush) -> dict:
-    """For a case on the decode route: a second launch bitwise equal to
-    the first, and the split kernel on the same inputs (its error, and its
-    time on the device alone)."""
+def _decode_timings(args, kw, out, ref, err_of, flush,
+                    route="decode") -> dict:
+    """For a case on the decode or the tf32x3 route: a second launch
+    bitwise equal to the first, and the split kernel on the same inputs
+    (its error, and its time on the device alone)."""
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
     def launch(route):
         return lambda: paged_attn._launch(*args, **kw, route=route)
 
-    again = launch("decode")()
+    again = launch(route)()
     split = launch("split")()
     torch.cuda.synchronize()
     return {"repeat_bitwise": torch.equal(again, out),
@@ -563,17 +633,24 @@ def phase_a(dev, flush):
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, (lens, sq, nb, pages) in _shapes(dtype,
-                                                   decode_lens).items():
-            args = _attn_case(rng, dev, dtype, lens, sq, nb, pages)
-            route = paged_attn._route(sq, H // KV, HD, dtype, False)
-            before = (kern.launches_prefill, kern.launches_decode)
+        for name, (lens, sq, nb, pages, heads) in _shapes(
+                dtype, decode_lens).items():
+            h, kv, hd = heads
+            args = _attn_case(rng, dev, dtype, lens, sq, nb, pages, heads)
+            route = paged_attn._route(sq, h // kv, hd, dtype, False)
+            check(route == "split" or heads == (H, KV, HD),
+                  f"{name}: the tiny preset's shape is not on the split "
+                  f"route ({route})")
+            before = (kern.launches_prefill, kern.launches_decode,
+                      kern.launches_tf32x3)
             out = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
             check((kern.launches_prefill - before[0],
-                   kern.launches_decode - before[1])
-                  == (route == "prefill", route == "decode"),
+                   kern.launches_decode - before[1],
+                   kern.launches_tf32x3 - before[2])
+                  == (route == "prefill", route == "decode",
+                      route == "tf32x3"),
                   f"{name}/{dname}: the {route} route did not launch")
             err = err_of(out, ref)
             rtol = (CHUNK_RTOL_BF16 if dtype == torch.bfloat16
@@ -588,11 +665,11 @@ def phase_a(dev, flush):
             check(bool(torch.isfinite(out).all()), f"{name}/{dname}: nan")
             check(share <= 1.0, f"{name}/{dname}: max err {err} uses "
                   f"{share} of its limit (atol {TOL[dtype]}, rtol {rtol})")
-            bound, by = _bound(args, dtype)
-            alone = route == "decode"      # time on the device alone
+            bound, by = _bound(args, dtype, route)
+            alone = route != "prefill"   # on the device alone
             cases.append({
                 "case": name, "dtype": dname, "route": route, "shape": {
-                    "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
+                    "B": len(lens), "sq": sq, "H": h, "kv": kv, "hd": hd,
                     "page_tokens": PAGE, "n_blocks": nb,
                     "live": [int(n) for n in lens]},
                 "max_abs_err": err, "tol_share": share,
@@ -603,28 +680,40 @@ def phase_a(dev, flush):
                 "library_ms": time_ms(_sdpa_fn(args), flush,
                                       host_ahead=alone),
                 "bound_ms": bound, "bound_by": by})
+            if route == "tf32x3":      # the split kernel's f32-core bound
+                (cases[-1]["bound_ms_f32_cores"],
+                 cases[-1]["bound_by_f32_cores"]) = _bound(args, dtype)
             if route == "prefill":
                 cases[-1].update(_route_timings(args, {}, ref, err_of, flush))
                 cases[-1]["split_tol_share"] = share_of(
                     paged_attn._launch(*args, route="split"))
-            if route == "decode":
-                timed = _decode_timings(args, {}, out, ref, err_of, flush)
+            if route in ("decode", "tf32x3"):
+                timed = _decode_timings(args, {}, out, ref, err_of, flush,
+                                        route)
                 cases[-1]["split_tol_share"] = share_of(timed.pop("split"))
                 cases[-1].update(timed)
                 check(timed["repeat_bitwise"],
-                      f"{name}/{dname}: two decode launches differ")
+                      f"{name}/{dname}: two {route} launches differ")
+            if route == "split":
+                cases[-1]["repeat_bitwise"] = torch.equal(kern(*args), out)
+                check(cases[-1]["repeat_bitwise"],
+                      f"{name}/{dname}: two split launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale K/V past each cursor and garbage in the scratch page (the
         # blocks past the live length map to it) change no output bit, on
-        # the route decode takes (bf16: the decode route; f32: the split
-        # route) and, in bf16, the prefill route.
-        stale = [("decode" if dtype == torch.bfloat16 else "split",
-                  decode_lens, 1, 64, 4 * 64 + 1)]
-        if dtype == torch.bfloat16:
-            stale.append(("prefill", *STALE_PREFILL))
-        for route, lens, sq, nb, pages in stale:
-            args = _attn_case(rng, dev, dtype, lens, sq, nb, pages)
-            check(paged_attn._route(sq, H // KV, HD, dtype, False) == route,
+        # the route decode takes (bf16: the decode route; f32: the tf32x3
+        # route) and on the route of STALE_PREFILL's chunks (bf16: the
+        # prefill route; f32: tf32x3 in 64-row tiles); in f32 also on the
+        # split route at the tiny preset's shape (its decode, and two
+        # rows of 64 queries).
+        stale = [("decode" if dtype == torch.bfloat16 else "tf32x3",
+                  decode_lens, 1, 64, 4 * 64 + 1, (H, KV, HD)),
+                 ("prefill" if dtype == torch.bfloat16 else "tf32x3",
+                  *STALE_PREFILL, (H, KV, HD))] + _tiny_stale(dtype)
+        for route, lens, sq, nb, pages, heads in stale:
+            args = _attn_case(rng, dev, dtype, lens, sq, nb, pages, heads)
+            check(paged_attn._route(sq, heads[0] // heads[1], heads[2],
+                                    dtype, False) == route,
                   f"stale case is not on the {route} route")
             base = kern(*args)
             args2 = _stale(args, lens, quant=False)
@@ -634,9 +723,21 @@ def phase_a(dev, flush):
             err = err_of(base, plain(*args2))
             check(err <= TOL[dtype], f"stale/scratch vs plain: {err}")
             log({"phase": "A", "case": "stale_kv+scratch_page",
-                 "dtype": dname, "route": route, "bitwise_unchanged": same,
-                 "max_abs_err": err})
+                 "dtype": dname, "route": route, "hd": heads[2],
+                 "bitwise_unchanged": same, "max_abs_err": err})
     return cases
+
+
+def _tiny_stale(dtype) -> list:
+    """Phase A's stale-cell cases on the split route (f32 only): (route,
+    live lengths, sq, n_blocks, pages, heads) at the tiny preset's shape,
+    its decode step and the last 64 queries of its two longest prompts."""
+    if dtype != torch.float32:
+        return []
+    lens, sq, nb, pages = _tiny_cases()["tiny_decode"]
+    longest = sorted(int(n) for n in _tiny_prompt_lengths())[-2:]
+    return [("split", lens, sq, nb, pages, TINY_HEADS),
+            ("split", longest, 64, TINY_BLOCKS, 2 * 4 + 1, TINY_HEADS)]
 
 
 def _quantized(args):
@@ -647,8 +748,9 @@ def _quantized(args):
         quantize_kv)
 
     q, pk, pv, tables, pos = args
-    (kq, ks), (vq, vs) = (quantize_kv(p.view(p.shape[0], PAGE, KV, HD))
-                          for p in (pk, pv))
+    hd = q.shape[3]
+    (kq, ks), (vq, vs) = (quantize_kv(
+        p.view(p.shape[0], PAGE, p.shape[2] // hd, hd)) for p in (pk, pv))
     return (q, kq.view(pk.shape), vq.view(pv.shape), tables, pos, ks, vs)
 
 
@@ -685,22 +787,28 @@ def phase_a_int8(dev, flush):
         def err_of(out, ref):
             return _int8_err(out, ref, dtype)[0]
 
-        for name, (lens, sq, nb, pages) in _shapes(dtype,
-                                                   decode_lens).items():
+        for name, (lens, sq, nb, pages, heads) in _shapes(
+                dtype, decode_lens).items():
+            h, kv, hd = heads
             args = _quantized(_attn_case(rng, dev, torch.float32, lens, sq,
-                                         nb, pages))
+                                         nb, pages, heads))
             args = (args[0].to(dtype),) + args[1:]
             base5, kw = args[:5], scales(args)
-            route = paged_attn._route(sq, H // KV, HD, dtype, True)
+            route = paged_attn._route(sq, h // kv, hd, dtype, True)
+            check(route == "split" or heads == (H, KV, HD),
+                  f"int8 {name}: the tiny preset's shape is not on the "
+                  f"split route ({route})")
             before = (attn.launches_int8, attn.launches_prefill_int8,
-                      attn.launches_decode_int8)
+                      attn.launches_decode_int8, attn.launches_tf32x3_int8)
             out = attn(*base5, **kw)
             want = plain(*base5, **kw)
             torch.cuda.synchronize()
             check((attn.launches_int8 - before[0],
                    attn.launches_prefill_int8 - before[1],
-                   attn.launches_decode_int8 - before[2])
-                  == (1, int(route == "prefill"), int(route == "decode")),
+                   attn.launches_decode_int8 - before[2],
+                   attn.launches_tf32x3_int8 - before[3])
+                  == (1, int(route == "prefill"), int(route == "decode"),
+                      int(route == "tf32x3")),
                   f"int8 {name}/{dname}: the {route} route did not launch")
             check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                   f"int8 {name}/{dname}: {out.dtype} or non-finite")
@@ -709,16 +817,16 @@ def phase_a_int8(dev, flush):
                   f"{share} of its limit")
             q, kq, vq, tables, pos, ks, vs = args
 
-            def deq(x, s):
-                return (x.view(-1, PAGE, KV, HD).float() * s[..., None]).to(
+            def deq(x, s, kv=kv, hd=hd):
+                return (x.view(-1, PAGE, kv, hd).float() * s[..., None]).to(
                     dtype).view(x.shape)
 
-            bound, by = _bound(args, dtype)
-            alone = route == "decode"      # time on the device alone
+            bound, by = _bound(args, dtype, route)
+            alone = route != "prefill"   # on the device alone
             cases.append({
                 "case": name, "dtype": dname, "branch": "int8",
                 "route": route, "shape": {
-                    "B": len(lens), "sq": sq, "H": H, "kv": KV, "hd": HD,
+                    "B": len(lens), "sq": sq, "H": h, "kv": kv, "hd": hd,
                     "page_tokens": PAGE, "n_blocks": nb,
                     "live": [int(n) for n in lens]},
                 "max_abs_err": err, "tol_share": share,
@@ -733,32 +841,43 @@ def phase_a_int8(dev, flush):
                     (q, deq(kq, ks), deq(vq, vs), tables, pos)), flush,
                     host_ahead=alone),
                 "bound_ms": bound, "bound_by": by})
+            if route == "tf32x3":      # the split kernel's f32-core bound
+                (cases[-1]["bound_ms_f32_cores"],
+                 cases[-1]["bound_by_f32_cores"]) = _bound(args, dtype)
             if route == "prefill":
                 cases[-1].update(_route_timings(base5, kw, want, err_of,
                                                 flush))
                 cases[-1]["split_tol_share"] = _int8_err(
                     paged_attn._launch(*base5, **kw, route="split"), want,
                     dtype)[1]
-            if route == "decode":
-                timed = _decode_timings(base5, kw, out, want, err_of, flush)
+            if route in ("decode", "tf32x3"):
+                timed = _decode_timings(base5, kw, out, want, err_of, flush,
+                                        route)
                 cases[-1]["split_tol_share"] = _int8_err(
                     timed.pop("split"), want, dtype)[1]
                 cases[-1].update(timed)
                 check(timed["repeat_bitwise"],
-                      f"int8 {name}/{dname}: two decode launches differ")
+                      f"int8 {name}/{dname}: two {route} launches differ")
+            if route == "split":
+                cases[-1]["repeat_bitwise"] = torch.equal(
+                    attn(*base5, **kw), out)
+                check(cases[-1]["repeat_bitwise"],
+                      f"int8 {name}/{dname}: two split launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale int8 cells past each cursor (127, scale 1e4) and garbage in
         # the scratch page and its scale page change no output bit, on the
-        # route decode takes and, in bf16, the prefill route.
-        stale = [("decode" if dtype == torch.bfloat16 else "split",
-                  decode_lens, 1, 64, 4 * 64 + 1)]
-        if dtype == torch.bfloat16:
-            stale.append(("prefill", *STALE_PREFILL))
-        for route, lens, sq, nb, pages in stale:
+        # route decode takes and on STALE_PREFILL's; in f32 also on the
+        # split route at the tiny preset's shape.
+        stale = [("decode" if dtype == torch.bfloat16 else "tf32x3",
+                  decode_lens, 1, 64, 4 * 64 + 1, (H, KV, HD)),
+                 ("prefill" if dtype == torch.bfloat16 else "tf32x3",
+                  *STALE_PREFILL, (H, KV, HD))] + _tiny_stale(dtype)
+        for route, lens, sq, nb, pages, heads in stale:
             args = _quantized(_attn_case(rng, dev, torch.float32, lens, sq,
-                                         nb, pages))
+                                         nb, pages, heads))
             args = (args[0].to(dtype),) + args[1:]
-            check(paged_attn._route(sq, H // KV, HD, dtype, True) == route,
+            check(paged_attn._route(sq, heads[0] // heads[1], heads[2],
+                                    dtype, True) == route,
                   f"int8 stale case is not on the {route} route")
             base = attn(*args[:5], **scales(args))
             args2 = _stale(args, lens, quant=True)
@@ -770,8 +889,8 @@ def phase_a_int8(dev, flush):
             check(share <= 1.0, f"int8 stale/scratch vs plain: {err}")
             log({"phase": "A", "case": "stale_kv+scratch_page",
                  "dtype": dname, "branch": "int8", "route": route,
-                 "bitwise_unchanged": same, "max_abs_err": err,
-                 "tol_share": share})
+                 "hd": heads[2], "bitwise_unchanged": same,
+                 "max_abs_err": err, "tol_share": share})
     return cases
 
 
@@ -919,6 +1038,7 @@ def _zero_counts(attn) -> None:
     attn.launches = attn.launches_int8 = 0
     attn.launches_prefill = attn.launches_prefill_int8 = 0
     attn.launches_decode = attn.launches_decode_int8 = 0
+    attn.launches_tf32x3 = attn.launches_tf32x3_int8 = 0
 
 
 def phase_b(dev):
@@ -954,6 +1074,7 @@ def phase_j(dev, b_streams):
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_prefill", "paged_prefill"),
                      ("paged_decode", "paged_decode"),
+                     ("paged_attn_tf32x3", "paged_attn_tf32x3"),
                      ("paged_attn_combine", "paged_attn_combine"),
                      ("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
@@ -965,7 +1086,8 @@ def _kernel_class(name: str) -> str:
                      ("flash_dq_tf32x3", "flash_dq_tf32x3"),
                      ("flash_dkv_tf32x3", "flash_dkv_tf32x3"),
                      ("gmm_kernel", "gmm"),         # gmm_ and tgmm_kernel
-                     ("gmm_wgmma", "gmm_wgmma")):   # gmm_ and tgmm_wgmma
+                     ("gmm_wgmma", "gmm_wgmma"),    # gmm_ and tgmm_wgmma
+                     ("gmm_tf32x3", "gmm_tf32x3")):
         if key in name:
             return cls
     if any(s in name for s in ("gemm", "gemv", "cutlass", "nvjet", "sm90")):
@@ -1142,11 +1264,24 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
     return result
 
 
+def _split_launches(attn, branch: str) -> int:
+    """The paged wrapper's launches of ``branch`` ("fp" or "int8") on the
+    split route since the last ``_zero_counts``: the branch's total less
+    its other routes'."""
+    if branch == "fp":
+        return (attn.launches - attn.launches_decode - attn.launches_prefill
+                - attn.launches_tf32x3)
+    return (attn.launches_int8 - attn.launches_decode_int8
+            - attn.launches_prefill_int8 - attn.launches_tf32x3_int8)
+
+
 def _paths_phase(phase, dev, quant: bool):
     """Phases C and K: f32 at 8B width and 4 layers, greedy, the kernel
     path (``attention_impl="auto"``) against the plain path (``"xla"``); K
     with int8 KV pages and int8 weights. The first 16 tokens of every
-    request agree, and only the kernel path launches the kernel."""
+    request agree, and only the kernel path launches the kernel, every
+    launch on the tf32x3 route. Then the serve CLI's default preset on
+    the split route (:func:`_tiny_split_run`)."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
@@ -1165,7 +1300,11 @@ def _paths_phase(phase, dev, quant: bool):
                           device=dev, **kw)
         _zero_counts(attn)
         outs = eng.run(_requests(cfg.vocab_size, 16, sampled=False))
-        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8}
+        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8,
+                          "tf32x3": attn.launches_tf32x3,
+                          "tf32x3_int8": attn.launches_tf32x3_int8,
+                          "split": _split_launches(
+                              attn, "int8" if quant else "fp")}
         streams[impl] = {o.request_id: o.tokens for o in outs}
         del model, eng
         gc.collect()
@@ -1180,11 +1319,68 @@ def _paths_phase(phase, dev, quant: bool):
     check(len(agree) == 8 and all(agree.values()),
           "kernel-path and plain-path greedy streams differ")
     branch = "int8" if quant else "fp"
+    tf32x3 = "tf32x3_int8" if quant else "tf32x3"
     check(launches["auto"][branch] > 0 and not any(
         launches["xla"].values()) and not launches["auto"][
             "fp" if quant else "int8"],
           f"launches by path {launches}: the {branch} branch on the kernel "
           "path only")
+    check(launches["auto"][tf32x3] == launches["auto"][branch]
+          and launches["auto"]["split"] == 0,
+          f"launches by path {launches}: every f32 {branch} launch on the "
+          "tf32x3 route, none on the split route")
+    result["split_route"] = _tiny_split_run(phase, dev, quant)
+    return result
+
+
+def _tiny_split_run(phase, dev, quant: bool):
+    """The serve CLI's default preset (``--preset tiny``: the test
+    topology in f32, 4/2 heads at head_dim 16, which only the split
+    kernel takes; with ``quant`` its int8 KV pages and weights) through
+    the kernel path and the plain path: 8 greedy requests of 32-128 prompt
+    tokens and 16 new on 8 slots, as the CLI's defaults draw them. The
+    streams agree and every paged launch of the kernel path is on the
+    split route."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import (Request,
+                                                          ServeEngine)
+
+    kw = dict(kv_quant="int8", weight_quant="int8") if quant else {}
+    branch = "int8" if quant else "fp"
+    attn = paged_attn.paged_decode_attention
+    rng = np.random.default_rng(TINY_SEED)
+    prompts = [rng.integers(0, 256, int(n)).astype(np.int32)
+               for n in rng.integers(32, 129, 8)]
+    streams, launches = {}, {}
+    for impl in ("auto", "xla"):
+        cfg = llama.config_tiny(max_seq_len=512, dtype=torch.float32,
+                                attention_impl=impl)
+        model = llama.LlamaLM(cfg, device=dev, seed=0)
+        eng = ServeEngine(model, num_slots=8, device=dev, **kw)
+        _zero_counts(attn)
+        outs = eng.run([Request(prompt=p, max_new_tokens=16,
+                                request_id=f"t{i}")
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8,
+                          "split": _split_launches(attn, branch)}
+        streams[impl] = {o.request_id: o.tokens for o in outs}
+        del model, eng
+    agree = {r: streams["auto"][r] == streams["xla"][r]
+             for r in sorted(streams["auto"])}
+    result = {"phase": phase, "case": "tiny_preset_split_route",
+              "model": "config_tiny (dim 64, 4/2 heads, head_dim 16)",
+              "dtype": "float32", **kw, "requests": len(agree),
+              "tokens_compared": 16, "launches": launches,
+              "streams_agree": agree}
+    log(result)
+    check(len(agree) == 8 and all(agree.values()),
+          "tiny preset: kernel-path and plain-path greedy streams differ")
+    check(launches["auto"]["split"] == launches["auto"][branch] > 0
+          and not any(launches["xla"].values()),
+          f"tiny preset launches by path {launches}: every {branch} launch "
+          "of the kernel path on the split route")
     return result
 
 
@@ -1317,12 +1513,18 @@ def _prefix_requests(vocab, n_new, seed=4):
 
 def _route_counts(attn) -> dict:
     """The paged kernels' fp launches since the last ``_zero_counts``, by
-    route."""
+    route, and the int8 branch's in all."""
     return {"decode": attn.launches_decode,
             "prefill": attn.launches_prefill,
-            "split": (attn.launches - attn.launches_decode
-                      - attn.launches_prefill),
+            "tf32x3": attn.launches_tf32x3,
+            "split": _split_launches(attn, "fp"),
             "int8": attn.launches_int8}
+
+
+def _f32_want(want: dict) -> dict:
+    """A bf16 run's launches by route (``want``) as the same run in f32
+    makes them: every launch on the tf32x3 route."""
+    return {**{k: 0 for k in want}, "tf32x3": sum(want.values())}
 
 
 def _first_logits(engine, store):
@@ -1400,11 +1602,12 @@ def _p1_run(model, dev, cache_mb, n_new):
     chunks = sum(o.prefill_chunks for o in outs)
     steps = eng.stats.steps - steps0
     want = {"decode": layers * steps, "prefill": layers * chunks,
-            "split": 0, "int8": 0}
-    if model.cfg.dtype == torch.bfloat16:
-        check(routes == want, f"P1 launches by route {routes}: want {want} "
-              f"(layers x decode iterations {steps}, layers x prefill "
-              f"chunks {chunks})")
+            "tf32x3": 0, "split": 0, "int8": 0}
+    if model.cfg.dtype == torch.float32:
+        want = _f32_want(want)
+    check(routes == want, f"P1 launches by route {routes}: want {want} "
+          f"(layers x decode iterations {steps}, layers x prefill "
+          f"chunks {chunks})")
     hit = sum(o.cached_prompt_tokens for o in outs)
     prompt = sum(o.prompt_len for o in outs)
     ttft = sorted(o.ttft_s * 1e3 for o in outs)
@@ -1460,16 +1663,18 @@ def _spec_run(model, dev, reqs, draft, spec_k, profile=False):
         w_route = paged_attn._route(spec_k + 1, H // KV, HD, model.cfg.dtype,
                                     False)
         want = {"decode": steps * (spec_k + 1) * ld,
-                "prefill": chunks * (lt + ld), "split": 0, "int8": 0}
+                "prefill": chunks * (lt + ld), "tf32x3": 0, "split": 0,
+                "int8": 0}
         want[w_route] += steps * lt
     else:
         w_route = None
-        want = {"decode": steps * lt, "prefill": chunks * lt, "split": 0,
-                "int8": 0}
-    if model.cfg.dtype == torch.bfloat16:
-        check(routes == want,
-              f"spec_k {spec_k}: launches by route {routes}, want {want} "
-              f"({steps} iterations, {chunks} prefill chunks)")
+        want = {"decode": steps * lt, "prefill": chunks * lt, "tf32x3": 0,
+                "split": 0, "int8": 0}
+    if model.cfg.dtype == torch.float32:
+        want = _f32_want(want)
+    check(routes == want,
+          f"spec_k {spec_k}: launches by route {routes}, want {want} "
+          f"({steps} iterations, {chunks} prefill chunks)")
     result = {"spec_k": spec_k, "draft_layers": ld,
               "verify_route": w_route, "requests": len(outs),
               "decode_iterations": steps, "prefill_chunks": chunks,
@@ -1775,17 +1980,20 @@ def _exact_gates(dev):
     """At 8B width, 4 layers, f32: the prefix cache on equals off, greedy
     and sampled speculative streams (a self-draft, a 2-layer draft) equal
     plain decode, the self-draft accepts every greedy proposal, and a
-    request with n + max_new == max_seq_len runs at spec_k 4."""
+    request with n + max_new == max_seq_len runs at spec_k 4; every paged
+    launch on the tf32x3 route (checked in each run)."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.serve import Request
 
     cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
                                  dtype=torch.float32)
     model = llama.LlamaLM(cfg, device=dev, seed=0)
-    out = {}
+    out = {"route_launches": {}}
     streams = {}
     for mb in (None, P_CACHE_MB):
-        _, streams[mb], _ = _p1_run(model, dev, mb, 16)
+        res, streams[mb], _ = _p1_run(model, dev, mb, 16)
+        out["route_launches"]["cache_on" if mb else "cache_off"] = res[
+            "route_launches"]
     out["prefix_cache_on_equals_off"] = streams[None] == streams[
         P_CACHE_MB]
     check(out["prefix_cache_on_equals_off"],
@@ -1795,9 +2003,11 @@ def _exact_gates(dev):
     draft2 = llama.LlamaLM(llama.config_llama3_8b(
         max_seq_len=2048, n_layers=2, dtype=torch.float32), device=dev,
         seed=1)
-    _, base = _spec_run(model, dev, _copy(reqs), None, 0)
+    res, base = _spec_run(model, dev, _copy(reqs), None, 0)
+    out["route_launches"]["plain"] = res["route_launches"]
     for key, draft in (("self_k3", model), ("draft2_k3", draft2)):
         res, outs = _spec_run(model, dev, _copy(reqs), draft, 3)
+        out["route_launches"][key] = res["route_launches"]
         same = {r: outs[r].tokens == base[r].tokens for r in base}
         out[key] = {"streams_equal": same,
                     "acceptance_rate": res["spec_acceptance_rate"]}
@@ -1841,7 +2051,8 @@ def _all_launches() -> dict:
     out = _launch_counts()
     out.update({f"paged_{k}": getattr(attn, k) for k in (
         "launches_int8", "launches_prefill", "launches_prefill_int8",
-        "launches_decode", "launches_decode_int8")})
+        "launches_decode", "launches_decode_int8", "launches_tf32x3",
+        "launches_tf32x3_int8")})
     return out
 
 
@@ -2239,7 +2450,7 @@ def phase_m(dev):
 
 def _moe_f32(dev, mcfg, prompt, mask):
     """Phase M in f32 (TF32 off) at 2 layers, one set of weights: the
-    ragged path (the grouped GEMMs on the mma route, 3 a layer in the
+    ragged path (the grouped GEMM on the tf32x3 route, 3 a layer in the
     prefill) and ``dispatch="index"`` give the same first 16 greedy tokens,
     and their prefill logits agree within 1e-4 relative L2 per row."""
     import dataclasses
@@ -2272,9 +2483,10 @@ def _moe_f32(dev, mcfg, prompt, mask):
               "prefill_logit_rel_l2": rel}
     log(result)
     n = cfg.n_layers
-    check(launches == {"ragged": {"gmm": 3 * n}, "index": {}},
+    check(launches == {"ragged": {"gmm": 3 * n, "gmm_tf32x3": 3 * n},
+                       "index": {}},
           f"f32 MoE generate launches {launches}: want {3 * n} gmm on the "
-          "mma route for ragged, none for index")
+          "tf32x3 route for ragged, none for index")
     check(equal, "f32 MoE greedy streams differ, ragged vs index")
     check(max(rel) <= 1e-4,
           f"f32 MoE prefill logits, ragged vs index: relative L2 "
@@ -2287,13 +2499,16 @@ def _moe_f32(dev, mcfg, prompt, mask):
 
 # name: (B, sq, sk, H, KV, head_dim, causal, segment lengths). Llama-3
 # 8B's attention at training length, then MoE H's (the Llama-small
-# backbone's 12/4 heads at head_dim 64, 8 x 1024 tokens).
+# backbone's 12/4 heads at head_dim 64, 8 x 1024 tokens), then phase Q's
+# (the train CLI's tiny preset, 4/2 heads at head_dim 16, 8 x 1024
+# tokens).
 FLASH_CASES = {
     "causal": (2, 2048, 2048, H, KV, HD, True, None),
     "noncausal": (2, 2048, 2048, H, KV, HD, False, None),
     "sq512_sk2048_causal": (2, 512, 2048, H, KV, HD, True, None),
     "three_docs_causal": (2, 2048, 2048, H, KV, HD, True, (700, 800, 548)),
     "moe_h_causal": (8, 1024, 1024, 12, 4, 64, True, None),
+    "q_tiny_causal": (8, 1024, 1024, 4, 2, 16, True, None),
 }
 FLASH_REPLACES = {
     "flash_fwd": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:148",
@@ -2733,21 +2948,24 @@ def _grouped_mm_fns(lay, lhs, rhs, dout) -> dict:
     return out
 
 
-def _gmm_bound(flops, nbytes, dtype):
+def _gmm_bound(flops, nbytes, dtype, route=None):
     """Least time on an H100 SXM: the larger of the FLOPs over the dtype's
-    peak and the bytes (each input read once, each output written once)
-    over 3.35 TB/s."""
+    peak (on the tf32x3 route: the three TF32 products it issues for each
+    over the TF32 peak) and the bytes (each input read once, each output
+    written once) over 3.35 TB/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_flops = (3 * flops / PEAK_TF32 if route == "tf32x3"
+               else flops / PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
 
 
 def phase_g(dev, flush):
     """The grouped-matmul kernels against their plain versions, case by
-    case; bf16 on both routes on the same inputs, the wgmma kernels
-    launched twice for bitwise equality; every kernel and the yardstick
-    timed on the device alone."""
+    case; every function on the mma route and on its dtype's own (bf16:
+    wgmma; f32: the forward and dlhs on tf32x3) on the same inputs, the
+    latter launched twice for bitwise equality; every kernel and the
+    yardstick timed on the device alone."""
     from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2780,11 +2998,14 @@ def phase_g(dev, flush):
                          lambda: gmm_ops.tgmm_reference(lhs, dout, GMM_E,
                                                         lay),
                          n_rows * (k + n), (GMM_E, k, n))}
-            routes = ["mma"] + (["wgmma"] if gmm_ops._gmm_route(dtype)
-                                == "wgmma" else [])
+            extra = gmm_ops._gmm_route(dtype)      # bf16 wgmma, f32 tf32x3
             library = _grouped_mm_fns(lay, lhs, rhs, dout)
             dead = ~gmm_ops.live_rows(lay)
             for fn_name, (kern, plain, reads, out_shape) in fns.items():
+                routes = ["mma"] + (
+                    [extra] if gmm_ops._gmm_route(
+                        dtype, "tgmm" if fn_name == "tgmm" else "gmm")
+                    == extra else [])
                 want = plain()
                 ref = want.float()
                 rms = float(ref.square().mean().sqrt())
@@ -2796,7 +3017,7 @@ def phase_g(dev, flush):
                                      else (lib_out - ref)[~dead].abs()).max())
                     del lib_out
                 nbytes = (reads + math.prod(out_shape)) * lhs.element_size()
-                bound, by = _gmm_bound(2 * n_rows * k * n, nbytes, dtype)
+                bound = _gmm_bound(2 * n_rows * k * n, nbytes, dtype)[0]
                 plain_ms = time_ms(plain, flush, 5)
                 library_ms = (time_ms(lib_fn, flush, host_ahead=True)
                               if lib_fn is not None else None)
@@ -2826,9 +3047,11 @@ def phase_g(dev, flush):
                         check(zeros, f"{what}: rows that hold no token are "
                               "not 0")
                     same = None
-                    if route == "wgmma":     # two launches, the same bits
+                    if route != "mma":       # two launches, the same bits
                         same = torch.equal(got, kern(route))
                         check(same, f"{what}: two launches differ")
+                    route_bound = _gmm_bound(2 * n_rows * k * n, nbytes,
+                                             dtype, route)
                     row = {"fn": fn_name, "case": case, "dtype": dname,
                            "route": route,
                            "shape": {"E": GMM_E, "rows": n_rows,
@@ -2844,12 +3067,15 @@ def phase_g(dev, flush):
                                          host_ahead=True),
                            "plain_ms": plain_ms, "library_ms": library_ms,
                            "library_max_abs_err": lib_err,
-                           "bound_ms": bound, "bound_by": by}
+                           "bound_ms": route_bound[0],
+                           "bound_by": route_bound[1]}
+                    if route == "tf32x3":    # gmm_kernel's f32-core bound
+                        row["bound_ms_f32_cores"] = bound
                     if lib_reason is not None:
                         row["library_null_reason"] = lib_reason
                     del got, err
                     kernel = ("tgmm" if fn_name == "tgmm" else "gmm") + (
-                        "_wgmma" if route == "wgmma" else "")
+                        "" if route == "mma" else f"_{route}")
                     rows[kernel].append(row)
                     log({"phase": "G", "kernel": kernel, **row})
                 del want, ref
@@ -2861,24 +3087,31 @@ def phase_g(dev, flush):
 
 def _gmm_entries(rows, h_result, i_result, m_result):
     """Kernel-line entries of the grouped-matmul kernels: the
-    representative case is the MoE slice's gate/up product in bf16. The
-    launches are phase H's (the bf16 step: the wgmma kernels) and phase
-    M's bf16 generate (its prefill), and for the kernels of gmm.cu phase
-    I's kernel path and phase M's ragged generate, both f32, the paths
-    that run them."""
+    representative case is the MoE slice's gate/up product, in bf16 (in
+    f32 for gmm_tf32x3, which takes f32 alone). The launches are phase H's
+    (the bf16 step: the wgmma kernels) and phase M's bf16 generate (its
+    prefill); for gmm_tf32x3 and the kernels of gmm.cu, phase I's kernel
+    path and phase M's ragged generate, both f32, by route: gmm_kernel
+    runs on no path since f32 gmm took the tf32x3 route (0, the forced
+    comparison of phase G alone)."""
     out = []
     for name, cases in rows.items():
+        rep_dtype = "float32" if name.endswith("_tf32x3") else "bfloat16"
         rep = next(c for c in cases if c["case"] == "slice_gate_up"
-                   and c["dtype"] == "bfloat16"
+                   and c["dtype"] == rep_dtype
                    and c["fn"] in ("gmm", "tgmm"))
         source, wrapper = GMM_KERNELS[name]
-        mma = not name.endswith("_wgmma")
-        by_phase = (
-            {"I (f32)": i_result["kernel_path_launches"].get(name, 0),
-             "M (f32)": m_result["f32"]["launches"]["ragged"].get(name, 0)}
-            if mma else
-            {"H": h_result["launches"].get(name, 0),
-             "M": m_result["generate_launches"].get(name, 0)})
+        if name.endswith("_wgmma"):
+            by_phase = {"H": h_result["launches"].get(name, 0),
+                        "M": m_result["generate_launches"].get(name, 0)}
+        else:
+            f32_paths = {"I (f32)": i_result["kernel_path_launches"],
+                         "M (f32)": m_result["f32"]["launches"]["ragged"]}
+            by_phase = {where: (counts.get(name, 0)
+                                if name.endswith("_tf32x3") else
+                                _mma_launches(counts, name)
+                                if name in counts else 0)
+                        for where, counts in f32_paths.items()}
         out.append({
             "name": name, "route": "cuda",
             "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
@@ -2887,6 +3120,8 @@ def _gmm_entries(rows, h_result, i_result, m_result):
             "launches_by_phase": by_phase,
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
+            **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
+               if "bound_ms_f32_cores" in rep else {}),
             "cases": [{k: c.get(k) for k in (
                 "case", "fn", "dtype", "max_abs_err", "tol_share", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -3318,11 +3553,15 @@ def phase_i(dev):
     gc.collect()
     torch.cuda.empty_cache()
     kx, plain_launches = run("xla", index, dev)
-    check(kernel_launches["gmm"] > 0 and kernel_launches["tgmm"] > 0
+    # A layer's three expert products, forward and dlhs, each step; their
+    # weight gradients on tgmm_kernel.
+    want = 2 * 3 * 2 * steps
+    check(kernel_launches["gmm"] == kernel_launches["gmm_tf32x3"] == want
+          and kernel_launches["tgmm"] == want // 2
           and kernel_launches["gmm_wgmma"] == 0
           and kernel_launches["tgmm_wgmma"] == 0,
-          f"phase I kernel path (f32: the gmm.cu kernels) launched "
-          f"{kernel_launches}")
+          f"phase I kernel path (f32: gmm on tf32x3, {want}; tgmm on "
+          f"gmm.cu, {want // 2}) launched {kernel_launches}")
     _check_f32_flash("I", kernel_launches, 2 * steps)
     check(not any(plain_launches.values()),
           f"phase I plain path launched kernels: {plain_launches}")
@@ -3821,11 +4060,15 @@ def _agreement(phase, info, ka, kx, dev):
 
 def _p_launches(p_result, route) -> dict:
     """Phase P's launches of one route, by path (each path's counts were
-    set to 0 just before it and read just after)."""
-    paths = {f"P1 {k}": v for k, v in p_result["p1"].items()
-             if k.startswith("cache")}
-    paths.update({f"P2 {k}": v for k, v in p_result["p2"].items()})
-    return {k: v["route_launches"][route] for k, v in paths.items()}
+    set to 0 just before it and read just after); the f32 exact gates'
+    paths under "f32"."""
+    paths = {f"P1 {k}": v["route_launches"]
+             for k, v in p_result["p1"].items() if k.startswith("cache")}
+    paths.update({f"P2 {k}": v["route_launches"]
+                  for k, v in p_result["p2"].items()})
+    paths.update({f"f32 {k}": v for k, v in
+                  p_result["f32_exact"]["route_launches"].items()})
+    return {k: v[route] for k, v in paths.items()}
 
 
 def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
@@ -3833,11 +4076,15 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
     """Kernel-line entries of the paged kernels, by route and branch. The
     decode kernel's representative case is decode in bf16, the prefill
     kernel's 512 queries at offset 1024 in bf16, with the launches of
-    phases B (fp) and J (int8) on each route; the split kernel's is decode
-    in f32, with the launches of the f32 kernel paths of phases C (fp) and
-    K (int8), the paths that run it. Each fp entry also carries phase
-    P's launches by path (the prefix cache, the speculative runs); P's
-    verify windows join the entry of their route and branch."""
+    phases B (fp) and J (int8) on each route; the tf32x3 kernel's is
+    decode in f32, with the launches of the f32 kernel paths of phases C
+    (fp) and K (int8); the split kernel's is the tiny preset's f32 decode
+    step (4/2 heads, head_dim 16), with the launches of C's and K's
+    tiny-preset runs, the path that runs it at that shape; the other
+    routes' cases forced onto it join its cases. Each fp entry also carries
+    phase P's launches by path (the prefix cache, the speculative runs;
+    for tf32x3 its f32 exact gates); P's verify windows join the entry of
+    their route and branch."""
     out = []
     keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3848,38 +4095,63 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
              "bfloat16"),
             ("paged_prefill_attention", "prefill", "paged_prefill.cu",
              "prefill512", "bfloat16"),
-            ("paged_attn_split", "split", "paged_attn.cu", "decode",
+            ("paged_attn_tf32x3", "tf32x3", "paged_attn_f32.cu", "decode",
+             "float32"),
+            ("paged_attn_split", "split", "paged_attn.cu", "tiny_decode",
              "float32")):
         for branch, cases, served, f32_path in (
                 ("fp", fp_cases, b_result, c_result),
                 ("quant=True", int8_cases, j_result, k_result)):
-            mine = [c for c in cases if c["route"] == route]
+            int8 = branch != "fp"
+            if route == "split":
+                # Its own cases (the tiny preset's shape), then the other
+                # routes' cases with the split kernel forced on their
+                # inputs: their split_* numbers, and the f32 CUDA cores'
+                # bound where the case's own route has the TF32 one.
+                mine = [c for c in cases if c["route"] == route] + [
+                    {**{k: c[k] for k in keys
+                        if k not in ("max_abs_err", "ms")},
+                     "route_of_case": c["route"], "ms": c["split_ms"],
+                     "max_abs_err": c["split_max_abs_err"],
+                     "tol_share": c["split_tol_share"],
+                     "bound_ms": c.get("bound_ms_f32_cores", c["bound_ms"]),
+                     "bound_by": c.get("bound_by_f32_cores", c["bound_by"])}
+                    for c in cases if "split_ms" in c]
+                launched = f32_path["split_route"]["launches"]["auto"][
+                    "split"]
+                where = (f"{f32_path['phase']} (f32 tiny preset, head_dim "
+                         "16)")
+            else:
+                mine = [c for c in cases if c["route"] == route]
+                if route == "tf32x3":
+                    launched = f32_path["launches"]["auto"][
+                        "tf32x3_int8" if int8 else "tf32x3"]
+                    where = f"{f32_path['phase']} (f32 kernel path)"
+                else:
+                    launched = served["route_launches"][route]
+                    where = served["phase"]
             rep = next(c for c in mine
                        if c["case"] == rep_case and c["dtype"] == rep_dtype)
-            if route == "split":
-                launched = f32_path["launches"]["auto"][
-                    "fp" if branch == "fp" else "int8"]
-                where = f"{f32_path['phase']} (f32 kernel path)"
-            else:
-                launched = served["route_launches"][route]
-                where = served["phase"]
             out.append({
-                "name": name + ("_int8" if branch != "fp" else ""),
+                "name": name + ("_int8" if int8 else ""),
                 "route": "cuda",
                 "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
                 "replaces": PAGED_REPLACES, "branch": branch,
                 "launches": launched, "launches_in": where,
                 **{k: rep[k] for k in keys[2:]},
-                "cases": [{k: c[k] for k in keys + extra + ("tol_share",)
-                           if k in c} for c in mine]})
-            if branch == "fp":
+                **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
+                   if "bound_ms_f32_cores" in rep else {}),
+                "cases": [{k: c[k] for k in keys + extra + (
+                    "tol_share", "route_of_case", "bound_ms_f32_cores")
+                    if k in c} for c in mine]})
+            if not int8:
                 out[-1]["launches_p"] = _p_launches(p_result, route)
             out[-1]["cases"] += [
                 {k: c[k] for k in keys + extra + ("tol_share",
                                                   "decode_ms", "prefill_ms")
                  if k in c} for c in verify_cases
                 if c["route"] == route
-                and c["branch"] == ("fp" if branch == "fp" else "int8")]
+                and c["branch"] == ("int8" if int8 else "fp")]
     return out
 
 

@@ -49,6 +49,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"         // s8x4_to_f32
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -70,13 +72,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Four int8 values packed in a 32-bit word, lowest byte first, as floats.
-__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* o) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    o[k] = static_cast<float>(static_cast<int>(w << (24 - 8 * k)) >> 24);
 }
 
 // N consecutive elements of T starting at p, as floats. p is aligned to

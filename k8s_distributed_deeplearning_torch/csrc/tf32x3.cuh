@@ -1,7 +1,7 @@
 // f32 products on Hopper's tensor cores at f32 accuracy: the three-pass
 // TF32 split ("tf32x3") through mma.sync m16n8k8, for csrc/flash_bwd_f32.cu
-// (the f32 flash backward) and the f32 kernels that may follow it onto the
-// tensor cores.
+// (the f32 flash backward), csrc/paged_attn_f32.cu (paged attention with
+// f32 q) and csrc/gmm_f32.cu (the f32 grouped GEMM).
 //
 // One TF32 value keeps 11 significant bits (10 stored), so one TF32
 // product of two f32 tiles is off by ~2^-11 relative: too coarse for f32.
@@ -24,7 +24,14 @@
 // stands (a_from_acc) and B tiles stored [k][n] load as vectors
 // (load_b_kn). Tiles sit in shared memory as rows of `ld` floats with
 // ld = 4 (mod 8): then every loader's pattern is free of bank conflicts,
-// the (g, t) scalar reads and the (2t, NV g) vector reads.
+// the (g, t) scalar reads and the (2t, NV g) vector reads. Two more
+// contraction orders serve tiles whose contraction index is contiguous in
+// both operands: the "x4" loaders take four k-steps of 8 at once, lane t
+// reading 8 adjacent floats (k-step j: k0 + 8t + 2j in slot t, + 1 in slot
+// t + 4), free of conflicts at ld = 4 (mod 8); the "pairs" loaders take
+// load_b_kn's order (k0 + 2t, k0 + 2t + 1) as one 8-byte read a row, free
+// of conflicts at ld = 8 (mod 16). int8 operands (exact in TF32) load
+// unsplit, and their products take two passes (mma2).
 //
 // Everything is device-inline; ops/_build.py hashes every csrc/*.cuh with
 // each source. kernel_breakdown.py builds variants of a source with
@@ -109,6 +116,129 @@ __device__ __forceinline__ void mma3_split(float (&big)[4],
   mma_tf32(small, a.lo, b.hi);
   mma_tf32(small, a.hi, b.lo);
   mma_tf32(big, a.hi, b.hi);
+}
+
+// c += a . b where b holds exact TF32 values in `hi` (int8 operands): two
+// passes, the small one first.
+__device__ __forceinline__ void mma2(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// Four int8 values packed in a 32-bit word, lowest byte first, as floats.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* o) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    o[k] = static_cast<float>(static_cast<int>(w << (24 - 8 * k)) >> 24);
+}
+
+// An exact operand: x's bits as they stand (an int8 value, or 0).
+__device__ __forceinline__ FragB exact_b(float x0, float x1) {
+  FragB b;
+  b.hi[0] = __float_as_uint(x0);
+  b.hi[1] = __float_as_uint(x1);
+  b.lo[0] = b.lo[1] = 0u;
+  return b;
+}
+
+// Four k-steps of A (16 x 32) from a tile stored [m][k], columns [k0, k0
+// + 32): lane (g, t) reads columns k0 + 8t .. k0 + 8t + 7 of rows g and g
+// + 8 as float4s; k-step j takes column k0 + 8t + 2j in slot t and k0 +
+// 8t + 2j + 1 in slot t + 4 (load_b_nk_x4's order).
+__device__ __forceinline__ void load_a_x4(FragA (&a)[4], const float* tile,
+                                          int ld, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + 8 * t;
+  const float4 u0 = *reinterpret_cast<const float4*>(p);
+  const float4 u1 = *reinterpret_cast<const float4*>(p + 4);
+  const float4 w0 = *reinterpret_cast<const float4*>(p + 8 * ld);
+  const float4 w1 = *reinterpret_cast<const float4*>(p + 8 * ld + 4);
+  const float x[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+  const float y[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split(x[2 * j], a[j].hi[0], a[j].lo[0]);
+    split(y[2 * j], a[j].hi[1], a[j].lo[1]);
+    split(x[2 * j + 1], a[j].hi[2], a[j].lo[2]);
+    split(y[2 * j + 1], a[j].hi[3], a[j].lo[3]);
+  }
+}
+
+// Four k-steps of B (32 x 8) from a tile stored [n][k] (B's transpose
+// row-major, e.g. K for S = Q.K^T), columns [k0, k0 + 32) of rows [0, 8),
+// in load_a_x4's order: lane (g, t) reads row g at k0 + 8t .. + 7.
+__device__ __forceinline__ void load_b_nk_x4(FragB (&b)[4], const float* tile,
+                                             int ld, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + 8 * t;
+  const float4 u0 = *reinterpret_cast<const float4*>(p);
+  const float4 u1 = *reinterpret_cast<const float4*>(p + 4);
+  const float x[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split(x[2 * j], b[j].hi[0], b[j].lo[0]);
+    split(x[2 * j + 1], b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// load_b_nk_x4 from an int8 tile (`ld` in bytes, k0 a multiple of 8):
+// exact, one 8-byte read a lane, free of conflicts at ld = 32 (mod 64)
+// bytes.
+__device__ __forceinline__ void load_b_nk_x4_s8(FragB (&b)[4],
+                                                const int8_t* tile, int ld,
+                                                int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint2 raw =
+      *reinterpret_cast<const uint2*>(tile + g * ld + k0 + 8 * t);
+  float x[8];
+  s8x4_to_f32(raw.x, x);
+  s8x4_to_f32(raw.y, x + 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = exact_b(x[2 * j], x[2 * j + 1]);
+}
+
+// load_b_kn<4> from an int8 tile stored [k][n] (`ld` in bytes): rows k0 +
+// 2t and k0 + 2t + 1, columns n0 + 4g + i for fragment i, one 4-byte read
+// a row, exact; free of conflicts at ld = 16 (mod 32) bytes.
+__device__ __forceinline__ void load_b_kn4_s8(FragB (&b)[4],
+                                              const int8_t* tile, int ld,
+                                              int k0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int8_t* p = tile + (k0 + 2 * t) * ld + n0 + 4 * g;
+  float x0[4], x1[4];
+  s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), x0);
+  s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p + ld), x1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = exact_b(x0[i], x1[i]);
+}
+
+// A (16 x 8) from a tile stored [m][k] in load_b_kn's order: column k0 +
+// 2t in slot t and k0 + 2t + 1 in slot t + 4, one 8-byte read a row.
+__device__ __forceinline__ FragA load_a_pairs(const float* tile, int ld,
+                                              int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + 2 * t;
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 w = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float x[4] = {u.x, w.x, u.y, w.y};
+  FragA a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], a.hi[i], a.lo[i]);
+  return a;
+}
+
+// B (8 x 8) from a tile stored [n][k] in load_b_kn's order (load_a_pairs
+// for the other operand): row g at k0 + 2t and k0 + 2t + 1.
+__device__ __forceinline__ FragB load_b_nk_pairs(const float* tile, int ld,
+                                                 int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2 u =
+      *reinterpret_cast<const float2*>(tile + g * ld + k0 + 2 * t);
+  FragB b;
+  split(u.x, b.hi[0], b.lo[0]);
+  split(u.y, b.hi[1], b.lo[1]);
+  return b;
 }
 
 // A (16 x 8) from a tile stored [m][k]: rows [0, 16), columns [k0, k0 + 8).

@@ -20,18 +20,23 @@ from k8s_distributed_deeplearning_torch.ops import flash_attn
 
 
 def default_impl(seq_len: int, kv_seq_len: int | None = None,
-                 platform: str | None = None) -> str:
+                 platform: str | None = None, *, head_dim: int) -> str:
     """The ``impl="auto"`` rule (JAX ``default_impl`` with ``cuda`` in the
     place of the TPU): the flash kernels on the card when both sequence
-    lengths tile well (>= 1024 and 128-aligned), the einsum path otherwise
-    and on the CPU, where flash would run its plain version. ``platform``
-    is a device type (``"cuda"``, ``"cpu"``); None means the default
-    device."""
+    lengths tile well (>= 1024 and 128-aligned) and a flash kernel takes
+    the head dim (``head_dim`` in :data:`flash_attn.HEAD_DIMS`), the
+    einsum path otherwise and on the CPU, where flash would run its plain
+    version. JAX's flash wrapper computes at any head
+    dim; the port's kernels take those in ``HEAD_DIMS``, so on the card a
+    model at another head dim (80, 96) takes the einsum path, chosen from
+    the shape before any launch. ``platform`` is a device type
+    (``"cuda"``, ``"cpu"``); None means the default device."""
     if platform is None:
         platform = "cuda" if torch.cuda.is_available() else "cpu"
     kv = seq_len if kv_seq_len is None else kv_seq_len
     well_tiled = all(s >= 1024 and s % 128 == 0 for s in (seq_len, kv))
-    if platform == "cuda" and well_tiled:
+    if (platform == "cuda" and well_tiled
+            and head_dim in flash_attn.HEAD_DIMS):
         return "flash"
     return "xla"
 
@@ -98,12 +103,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     path expands it to a boolean mask. The flash kernels take no general
     ``mask``: ``impl="auto"`` with one resolves to the einsum path,
     ``impl="flash"`` with one raises. Otherwise ``impl="auto"`` resolves
-    per :func:`default_impl` on q's device."""
+    per :func:`default_impl` on q's device and head dim; ``impl="flash"``
+    at a head dim no flash kernel takes raises on the card."""
     if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
         impl = ("xla" if mask is not None
-                else default_impl(q.shape[1], k.shape[1], q.device.type))
+                else default_impl(q.shape[1], k.shape[1], q.device.type,
+                                  head_dim=q.shape[-1]))
     if impl == "flash":
         if mask is not None:
             raise ValueError(

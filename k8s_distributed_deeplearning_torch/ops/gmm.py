@@ -18,9 +18,12 @@ multiplied by its own expert's weight.
 - :func:`gmm_forward` and :func:`tgmm` are the kernel wrappers: on CUDA
   tensors they launch the kernels of the route :func:`_gmm_route` names
   (bf16: ``gmm_wgmma`` and ``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, on
-  wgmma tensor cores; f32: ``gmm_kernel`` and ``tgmm_kernel`` of
-  ``csrc/gmm.cu``) and add one to their ``launches``, and on the wgmma
-  route to ``launches_wgmma``; on CPU tensors they take the plain versions
+  wgmma tensor cores; f32: ``gmm_tf32x3`` of ``csrc/gmm_f32.cu``, three-pass
+  TF32 on mma.sync tensor cores, for the forward and dlhs, and
+  ``tgmm_kernel`` of ``csrc/gmm.cu`` for the weight gradient) and add one
+  to their ``launches``, and on the wgmma route to ``launches_wgmma``, on
+  the tf32x3 route to ``launches_tf32x3``; on CPU tensors they take the
+  plain versions
   :func:`gmm_reference` and :func:`tgmm_reference`. A CUDA tensor the
   kernels cannot take raises; there is no fallback.
 
@@ -199,25 +202,35 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _gmm_route(dtype: torch.dtype) -> str:
-    """Which kernels take a CUDA call: ``"wgmma"`` (``gmm_wgmma`` and
-    ``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, tensor cores) for bfloat16;
-    ``"mma"`` (``gmm_kernel`` and ``tgmm_kernel`` of ``csrc/gmm.cu``) for
-    float32, which wgmma cannot multiply in full precision."""
-    return "wgmma" if dtype == torch.bfloat16 else "mma"
+def _gmm_route(dtype: torch.dtype, which: str = "gmm") -> str:
+    """Which kernel takes a CUDA call of ``which`` ("gmm": the forward and
+    dlhs; "tgmm"): ``"wgmma"`` (``gmm_wgmma`` and ``tgmm_wgmma`` of
+    ``csrc/gmm_wgmma.cu``, tensor cores) for bfloat16; for float32, which
+    wgmma cannot multiply in full precision, ``"tf32x3"`` (``gmm_tf32x3``
+    of ``csrc/gmm_f32.cu``, three-pass TF32 on the tensor cores) for gmm
+    and ``"mma"`` (``tgmm_kernel`` of ``csrc/gmm.cu``) for tgmm."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "tf32x3" if which == "gmm" else "mma"
 
 
 def _entry(which: str, dtype: torch.dtype, route: str | None):
     """The C entry point of kernel ``which`` ("gmm" or "tgmm") on ``route``
     (None: :func:`_gmm_route`'s choice), and the route."""
-    route = _gmm_route(dtype) if route is None else route
+    route = _gmm_route(dtype, which) if route is None else route
     if route == "wgmma":
         if dtype != torch.bfloat16:
             raise TypeError(f"the wgmma route takes bfloat16, got {dtype}")
         return getattr(_wgmma_library(), f"{which}_wgmma_launch"), route
+    if route == "tf32x3":
+        if which != "gmm" or dtype != torch.float32:
+            raise TypeError(f"the tf32x3 route takes float32 gmm, got "
+                            f"{dtype} {which}")
+        return _tf32x3_library().gmm_tf32x3_launch, route
     if route == "mma":
         return getattr(_library(), f"{which}_launch"), route
-    raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
+    raise ValueError(f"route must be 'wgmma', 'tf32x3' or 'mma', got "
+                     f"{route!r}")
 
 
 def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, layout: GroupedLayout,
@@ -227,11 +240,12 @@ def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, layout: GroupedLayout,
     expert's ``rhs`` [E, K, N] (``transpose_rhs``: [E, N, K], read
     transposed in place), dead blocks 0. CPU tensors take
     :func:`gmm_reference` (and refuse a named ``route``); CUDA tensors
-    launch ``gmm_wgmma`` on the ``"wgmma"`` route or ``gmm_kernel`` on
-    ``"mma"`` (default: :func:`_gmm_route`'s choice; naming it lets a
-    caller time both routes on the same inputs), and add one to
-    ``gmm_forward.launches``, and on the wgmma route to
-    ``.launches_wgmma``."""
+    launch ``gmm_wgmma`` on the ``"wgmma"`` route (bf16), ``gmm_tf32x3``
+    on ``"tf32x3"`` (f32) or ``gmm_kernel`` on ``"mma"`` (default:
+    :func:`_gmm_route`'s choice; naming it lets a caller time two routes
+    on the same inputs), and add one to ``gmm_forward.launches``, and on
+    the wgmma route to ``.launches_wgmma``, on the tf32x3 route to
+    ``.launches_tf32x3``."""
     if lhs.ndim != 2 or rhs.ndim != 3:
         raise ValueError(f"lhs must be [M, K] and rhs [E, K, N], got "
                          f"{tuple(lhs.shape)}, {tuple(rhs.shape)}")
@@ -261,6 +275,7 @@ def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, layout: GroupedLayout,
                            f"{rc}")
     if route == "wgmma":
         gmm_forward.launches_wgmma += 1
+    gmm_forward.launches_tf32x3 += route == "tf32x3"
     gmm_forward.launches += 1
     return out
 
@@ -305,6 +320,7 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, num_experts: int,
 
 gmm_forward.launches = 0
 gmm_forward.launches_wgmma = 0
+gmm_forward.launches_tf32x3 = 0
 tgmm.launches = 0
 tgmm.launches_wgmma = 0
 
@@ -377,3 +393,15 @@ def _library():
 
 def _wgmma_library():
     return _bind("gmm_wgmma")
+
+
+def _tf32x3_library() -> ctypes.CDLL:
+    """``csrc/gmm_f32.cu``'s library, its ``gmm_tf32x3_launch`` typed as
+    ``gmm_launch`` (no weight-gradient kernel there)."""
+    lib = _build.load("gmm_f32")
+    fn = lib.gmm_tf32x3_launch
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
+        fn.restype = ctypes.c_int
+    return lib

@@ -21,8 +21,11 @@ pools are int8 and each token has one f32 scale per KV head,
   8B's group of 4) and short chunks, in 16-row tiles; and to the
   tensor-core prefill kernel (``csrc/paged_prefill.cu``, route
   ``"prefill"``) when ``sq x group > 64``, in 64- or 128-row wgmma tiles.
-  f32 q and other head dims go to the split kernel
-  (``csrc/paged_attn.cu``, route ``"split"``). There is no fallback from
+  f32 q at head_dim 64 or 128 goes to the three-pass TF32 kernel
+  (``csrc/paged_attn_f32.cu``, route ``"tf32x3"``) at every row count, in
+  16-row tiles up to 64 rows a KV head and 64-row tiles above. Other head
+  dims go to the split kernel (``csrc/paged_attn.cu``, route
+  ``"split"``). There is no fallback from
   one to another: a CUDA tensor the chosen kernel cannot take, or a
   failed build or launch, raises.
 - :func:`paged_decode_attention_reference` is the plain version: gather the
@@ -59,6 +62,12 @@ _DECODE_MAX_ROWS = 64
 _DECODE_HEAD_DIMS = (64, 128)
 _DECODE_CTAS_PER_SM = 2
 _DECODE_MAX_SPLITS = 8
+# The tf32x3 route: f32 q, head_dim 64 or 128, every row count; rows of a
+# KV head in 16-row tiles up to _DECODE_MAX_ROWS of them, else in 64-row
+# tiles; each (row, KV head, row tile) takes a cluster of up to
+# _DECODE_MAX_SPLITS CTAs (_tf32x3_splits).
+_TF32X3_HEAD_DIMS = (64, 128)
+_TF32X3_WIDE_TILE_ROWS = 64
 
 
 def _check_shapes(q, pool_k, pool_v, block_tables, positions,
@@ -157,8 +166,11 @@ def _route(sq: int, group: int, head_dim: int, q_dtype: torch.dtype,
     head are at most ``_DECODE_MAX_ROWS``, ``sq * group <= 64`` (decode at
     every group size the port serves, verify windows and short chunks),
     and ``"prefill"`` (tensor cores, 64- or 128-row tiles) above that;
-    ``"split"`` for f32 q and other head dims."""
+    ``"tf32x3"`` (tensor cores, three-pass TF32) for f32 q at head_dim
+    64 or 128, at every row count; ``"split"`` for other head dims."""
     del quant                     # both branches take every route
+    if q_dtype == torch.float32:
+        return "tf32x3" if head_dim in _TF32X3_HEAD_DIMS else "split"
     if q_dtype != torch.bfloat16:
         return "split"
     if sq * group <= _DECODE_MAX_ROWS:
@@ -189,17 +201,20 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     tensors launch the kernel :func:`_route` names from the shape: bf16 q
     at head_dim 64 or 128 runs the tensor-core decode kernel when
     ``sq * (H / kv) <= 64`` and the tensor-core prefill kernel otherwise;
-    f32 q and other head dims run the split kernel. All
-    three take pools of q's dtype (or int8 with f32 scales), int32 tables
+    f32 q at head_dim 64 or 128 runs the three-pass TF32 kernel; other
+    head dims run the split kernel. All
+    four take pools of q's dtype (or int8 with f32 scales), int32 tables
     and positions, all contiguous and the pools 16-byte aligned; the
-    decode and prefill kernels take bfloat16 q, 16-byte aligned; the split
+    decode and prefill kernels take bfloat16 q, the tf32x3 kernel float32
+    q, both 16-byte aligned; the split
     kernel takes float32 or bfloat16 q and a ``head_dim`` that is a
     multiple of 8 (of 16 for int8 pools) up to 256; anything else raises.
     Each launch adds one to ``paged_decode_attention.launches`` (fp pools)
     or ``.launches_int8`` (int8 pools), whichever the route; a launch of
     the decode route also adds one to ``.launches_decode`` or
     ``.launches_decode_int8``, one of the prefill route to
-    ``.launches_prefill`` or ``.launches_prefill_int8``.
+    ``.launches_prefill`` or ``.launches_prefill_int8``, one of the tf32x3
+    route to ``.launches_tf32x3`` or ``.launches_tf32x3_int8``.
     """
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
@@ -219,6 +234,8 @@ paged_decode_attention.launches_prefill = 0
 paged_decode_attention.launches_prefill_int8 = 0
 paged_decode_attention.launches_decode = 0
 paged_decode_attention.launches_decode_int8 = 0
+paged_decode_attention.launches_tf32x3 = 0
+paged_decode_attention.launches_tf32x3_int8 = 0
 
 
 def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
@@ -233,9 +250,9 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {q.device}")
-    if route not in ("decode", "prefill", "split"):
-        raise ValueError(f"route must be 'decode', 'prefill' or 'split', "
-                         f"got {route!r}")
+    if route not in ("decode", "prefill", "split", "tf32x3"):
+        raise ValueError(f"route must be 'decode', 'prefill', 'split' or "
+                         f"'tf32x3', got {route!r}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 q, got {q.dtype}")
     quant = k_scale is not None
@@ -272,6 +289,13 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
             raise ValueError(f"the decode kernel takes sq x group <= "
                              f"{_DECODE_MAX_ROWS} rows per KV head, got "
                              f"{sq} x {h // hkv}")
+    elif route == "tf32x3":
+        if q.dtype != torch.float32:
+            raise TypeError(f"the tf32x3 kernel takes float32 q, got "
+                            f"{q.dtype}")
+        if hd not in _TF32X3_HEAD_DIMS:
+            raise ValueError(f"the tf32x3 kernel takes head_dim "
+                             f"{_TF32X3_HEAD_DIMS}, got {hd}")
     else:
         if hd > _MAX_HEAD_DIM or hd % 8:
             raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and "
@@ -287,7 +311,7 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
             raise ValueError(f"{name} must be contiguous")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("pool_k/pool_v must start 16-byte aligned")
-    if route in ("decode", "prefill") and q.data_ptr() % 16:
+    if route != "split" and q.data_ptr() % 16:
         raise ValueError(f"the {route} kernel takes q 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     n_blocks = block_tables.shape[1]
@@ -304,6 +328,13 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
                 _DTYPE_CODE[q.dtype], _decode_splits(
                     b, hkv, _num_sms(q.device), sq * (h // hkv)), scale,
                 stream)
+        elif route == "tf32x3":
+            rc = _library("paged_attn_f32").paged_attn_tf32x3_fwd(
+                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+                block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), b, sq, h, hkv, hd, page_tokens, n_blocks,
+                _tf32x3_splits(b, hkv, _num_sms(q.device), sq * (h // hkv)),
+                scale, _tf32x3_tile_rows(sq * (h // hkv)), stream)
         elif route == "prefill":
             rc = _library("paged_prefill").paged_prefill_fwd(
                 q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
@@ -335,10 +366,12 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
         fn.launches_int8 += 1
         fn.launches_prefill_int8 += route == "prefill"
         fn.launches_decode_int8 += route == "decode"
+        fn.launches_tf32x3_int8 += route == "tf32x3"
     else:
         fn.launches += 1
         fn.launches_prefill += route == "prefill"
         fn.launches_decode += route == "decode"
+        fn.launches_tf32x3 += route == "tf32x3"
     return out
 
 
@@ -358,12 +391,42 @@ def _decode_splits(batch: int, n_kv: int, num_sms: int, rows: int) -> int:
     return max(1, min(want, _DECODE_MAX_SPLITS))
 
 
+def _tf32x3_tile_rows(rows: int) -> int:
+    """The tf32x3 kernel's row tile for ``rows`` flattened rows a KV head:
+    16 up to _DECODE_MAX_ROWS, else _TF32X3_WIDE_TILE_ROWS. The launch
+    passes it to the kernel, which takes it as given, and
+    :func:`_tf32x3_splits` counts the row tiles by it."""
+    return (_DECODE_TILE_ROWS if rows <= _DECODE_MAX_ROWS
+            else _TF32X3_WIDE_TILE_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32x3_splits(batch: int, n_kv: int, num_sms: int, rows: int) -> int:
+    """CTAs per (row, KV head, row tile) of the tf32x3 kernel: one where
+    the (row, KV head, row tile) triples alone reach the SM count (prefill
+    chunks), else _DECODE_CTAS_PER_SM an SM over them, 1 to
+    _DECODE_MAX_SPLITS. Each CTA takes an equal share of the tile's live
+    key tiles on the device, so the count never follows the table
+    width."""
+    base = batch * n_kv * -(-rows // _tf32x3_tile_rows(rows))
+    if base >= num_sms:
+        return 1
+    want = -(-_DECODE_CTAS_PER_SM * num_sms // base)
+    return max(1, min(want, _DECODE_MAX_SPLITS))
+
+
 # The C entry points of each kernel library: argument and result types.
 _SIGNATURES = {
     "paged_decode": {
         "paged_decode_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                              + [ctypes.c_float, ctypes.c_void_p],
                              ctypes.c_int),
+    },
+    "paged_attn_f32": {
+        "paged_attn_tf32x3_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                                  + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p],
+                                  ctypes.c_int),
     },
     "paged_attn": {
         "paged_attn_num_splits": ([ctypes.c_int] * 8, ctypes.c_int),

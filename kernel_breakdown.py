@@ -7,6 +7,8 @@
     python3 kernel_breakdown.py flash_bwd_f32  # csrc/flash_bwd_f32.cu
     python3 kernel_breakdown.py flash_fwd    # csrc/flash_fwd.cu
     python3 kernel_breakdown.py gmm          # csrc/gmm_wgmma.cu
+    python3 kernel_breakdown.py paged_f32    # csrc/paged_attn_f32.cu
+    python3 kernel_breakdown.py gmm_f32      # csrc/gmm_f32.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
@@ -86,6 +88,25 @@ a constant added), ``no_loads`` (no copies after the first two
 stages), ``no_epilogue`` (the tile is not written), ``skeleton`` (none of
 the three: the ring's waits and barriers, the block lookup and the
 bookkeeping).
+
+``paged_f32``: the f32 paged-attention kernel (three-pass TF32) at
+Llama-3 8B's heads (32/8, head_dim 128, 32-token pages), fp and int8
+pools: phase A's f32 decode case (B 4, live 100-2000 of 64 blocks), its
+512-query chunk at offset 1024 (64-row tiles) and its verify window of 8
+at phase P's table width (live 512-560 of 65 blocks), the CTA count the
+wrapper picks. Variants: ``no_split`` (hi = x, lo = 0: no split
+instructions; the products still run), ``no_products`` (no mma.sync:
+their operands are folded into the accumulator by integer XORs),
+``no_exp`` (p = x, no exponentials), ``no_loads`` (no copies after the
+first tile), ``no_merge`` (the cluster's CTA states are not merged),
+``skeleton`` (none of these).
+
+``gmm_f32``: the f32 grouped GEMM (three-pass TF32) at the MoE slice's
+gate/up product in f32 (phase G's router group sizes, K 768 -> N 2048):
+the forward and dlhs (K 2048 -> N 768 on the weight read transposed).
+Variants: ``no_split``, ``no_products``, ``no_loads`` (no copies after
+the first stage), ``skeleton`` (none of the three), and, not a stage,
+``three_stages`` (a third stage in shared memory, two ahead).
 """
 from __future__ import annotations
 
@@ -217,6 +238,35 @@ FLASH_BWD_F32_VARIANTS["skeleton"] = [
     sub for name in ("no_split", "no_products", "no_exp", "no_loads")
     for sub in FLASH_BWD_F32_VARIANTS[name]]
 
+PAGED_F32_VARIANTS = {
+    "base": [],
+    "no_split": FLASH_BWD_F32_VARIANTS["no_split"],
+    "no_products": FLASH_BWD_F32_VARIANTS["no_products"],
+    "no_exp": [("float p = ex2(x - ((e & 2) ? mn1 : mn0));",
+                "float p = x;", 1)],
+    "no_loads": [("    if (t + 1 < t_hi) issue(t + 1, (t + 1 - t_lo) & 1);\n",
+                  "", 1)],
+    "no_merge": [("it < tr * D4; it += n_split * NT) {",
+                  "it < 0; it += n_split * NT) {", 1)],
+}
+PAGED_F32_VARIANTS["skeleton"] = [
+    sub for name in ("no_split", "no_products", "no_exp", "no_loads",
+                     "no_merge") for sub in PAGED_F32_VARIANTS[name]]
+
+GMM_F32_VARIANTS = {
+    "base": [],
+    "no_split": FLASH_BWD_F32_VARIANTS["no_split"],
+    "no_products": FLASH_BWD_F32_VARIANTS["no_products"],
+    "no_loads": [("      if (ahead < n_k) load(ahead % STAGES, ahead * "
+                  "BK);\n", "", 1)],
+}
+GMM_F32_VARIANTS["skeleton"] = [
+    sub for name in ("no_split", "no_products", "no_loads")
+    for sub in GMM_F32_VARIANTS[name]]
+# The design point beside this one: three stages, two ahead.
+GMM_F32_VARIANTS["three_stages"] = [
+    ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;", 1)]
+
 FLASH_FWD_VARIANTS = {
     "base": [],
     "no_exp": [("float p = ex2(x - ((i & 2) ? mn1 : mn0));",
@@ -304,6 +354,19 @@ def bind_gmm(lib: ctypes.CDLL) -> None:
     lib.gmm_wgmma_launch.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
     lib.tgmm_wgmma_launch.argtypes = [ptr] * 5 + [i] * 6 + [ptr]
     lib.gmm_wgmma_launch.restype = lib.tgmm_wgmma_launch.restype = i
+
+
+def bind_paged_f32(lib: ctypes.CDLL) -> None:
+    lib.paged_attn_tf32x3_fwd.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.paged_attn_tf32x3_fwd.restype = ctypes.c_int
+
+
+def bind_gmm_f32(lib: ctypes.CDLL) -> None:
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.gmm_tf32x3_launch.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
+    lib.gmm_tf32x3_launch.restype = i
 
 
 # label -> (launch on a library, the tensors that launch writes)
@@ -507,6 +570,93 @@ def gmm_case(dev: torch.device, stream: int) -> Launches:
             lay.m_pad, k, n, e, lay.block_m, 1, stream), (drhs,))}
 
 
+# The f32 paged launches, name -> (live lengths, queries a row, n_blocks):
+# phase A's f32 decode case, its 512-query chunk at offset 1024 and its
+# verify window of 8 at phase P's table width.
+PAGED_F32_LAUNCHES = {
+    "a": (DECODE_LAUNCHES["a"][0], 1, 64),
+    "chunk512": ([1024 + 512], 512, 64),
+    "w8_p_table": ([512, 528, 544, 560], 8, 65),
+}
+
+
+def paged_f32_case(dev: torch.device, stream: int) -> Launches:
+    """The fp and int8 launches of PAGED_F32_LAUNCHES."""
+    from k8s_distributed_deeplearning_torch.models.transformer import (
+        quantize_kv)
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    (h, kv, hd), page = DECODE_HEADS, 32
+    out = {}
+    for name, (lens, sq, n_blocks) in PAGED_F32_LAUNCHES.items():
+        b = len(lens)
+        splits = paged_attn._tf32x3_splits(b, kv, paged_attn._num_sms(dev),
+                                           sq * (h // kv))
+        tile_rows = paged_attn._tf32x3_tile_rows(sq * (h // kv))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pages = sum(-(-n // page) for n in lens) + 1
+        q = torch.randn(b, sq, h, hd, device=dev, generator=gen)
+        pools = [torch.randn(pages, page, kv * hd, device=dev,
+                             generator=gen) for _ in range(2)]
+        tables = torch.zeros(b, n_blocks, dtype=torch.int32, device=dev)
+        perm = torch.randperm(pages - 1, device=dev, generator=gen) + 1
+        used = 0
+        for i, n in enumerate(lens):
+            nb = -(-n // page)
+            tables[i, :nb] = perm[used:used + nb]
+            used += nb
+        pos = (torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+               - sq + torch.arange(sq, dtype=torch.int32, device=dev))
+        (kq, ks), (vq, vs) = (quantize_kv(p.view(pages, page, kv, hd))
+                              for p in pools)
+        o = torch.empty_like(q)
+
+        def launch(pk, pv, scales, q=q, tables=tables, pos=pos, o=o, b=b,
+                   sq=sq, n_blocks=n_blocks, splits=splits,
+                   tile_rows=tile_rows):
+            return lambda lib: lib.paged_attn_tf32x3_fwd(
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                *(s.data_ptr() if s is not None else None for s in scales),
+                tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, sq, h,
+                kv, hd, page, n_blocks, splits, hd ** -0.5, tile_rows,
+                stream)
+
+        out[f"{name}_fp"] = (launch(*pools, (None, None)), (o,))
+        out[f"{name}_int8"] = (launch(kq.view(pools[0].shape),
+                                      vq.view(pools[1].shape), (ks, vs)),
+                               (o,))
+    return out
+
+
+def gmm_f32_case(dev: torch.device, stream: int) -> Launches:
+    """The f32 forward and dlhs launches at the MoE slice's gate/up
+    product, with phase G's router group sizes."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+
+    e, rows, k, n = 8, 16384, 768, 2048
+    logits = np.random.default_rng(5).standard_normal((rows // 2, e))
+    sizes = np.bincount(np.argsort(-logits, axis=1)[:, :2].ravel(),
+                        minlength=e)
+    lay = gmm_ops.grouped_layout(
+        torch.tensor(sizes, dtype=torch.int32, device=dev), rows)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    live = gmm_ops.live_rows(lay)[:, None]
+    lhs = torch.randn(lay.m_pad, k, device=dev, generator=gen) * live
+    rhs = torch.randn(e, k, n, device=dev, generator=gen) * k ** -0.5
+    dout = torch.randn(lay.m_pad, n, device=dev, generator=gen) * live
+    out = torch.empty(lay.m_pad, n, device=dev)
+    dlhs = torch.empty_like(lhs)
+    be, bl = lay.block_expert.data_ptr(), lay.block_live.data_ptr()
+    keep = (lhs, rhs, dout, lay)         # the launches hold raw pointers
+    return {
+        "fwd": (lambda lib, keep=keep: lib.gmm_tf32x3_launch(
+            lhs.data_ptr(), rhs.data_ptr(), be, bl, out.data_ptr(),
+            lay.m_pad, k, n, e, lay.block_m, 0, 0, stream), (out,)),
+        "dlhs": (lambda lib, keep=keep: lib.gmm_tf32x3_launch(
+            dout.data_ptr(), rhs.data_ptr(), be, bl, dlhs.data_ptr(),
+            lay.m_pad, n, k, e, lay.block_m, 1, 0, stream), (dlhs,))}
+
+
 class Kernel(NamedTuple):
     source: str
     variants: dict[str, list[tuple[str, str, int]]]
@@ -526,6 +676,10 @@ KERNELS = {
     "flash_fwd": Kernel("flash_fwd.cu", FLASH_FWD_VARIANTS, bind_flash_fwd,
                         flash_fwd_case),
     "gmm": Kernel("gmm_wgmma.cu", GMM_VARIANTS, bind_gmm, gmm_case),
+    "paged_f32": Kernel("paged_attn_f32.cu", PAGED_F32_VARIANTS,
+                        bind_paged_f32, paged_f32_case),
+    "gmm_f32": Kernel("gmm_f32.cu", GMM_F32_VARIANTS, bind_gmm_f32,
+                      gmm_f32_case),
 }
 
 

@@ -619,6 +619,190 @@ def test_paged_decode_refuses_and_does_not_fall_back(hopper):
     assert _decode_counts() == before
 
 
+# The tf32x3 route (csrc/paged_attn_f32.cu): f32 q at head_dim 64 and
+# 128, (b, sq, h, hkv, pages, page_tokens, n_blocks, head_dim, live
+# lengths or None): decode at groups 4, 3, 1 and 8; live lengths of 1, 32
+# and 33 and of 4,000-8,000 (a 256-block table); verify windows of 5, 8
+# and 15 (20, 32, 60 rows: 16-row tiles); 17 positions (68 rows: the
+# first 64-row tiling), phase A's 512-query chunk at offset 1024, 64
+# positions at group 3 on 24-token pages, 9 at group 8 (72 rows).
+PAGED_TF32X3_SHAPES = [
+    (4, 1, 32, 8, 300, 32, 64, 128, None),
+    (3, 1, 12, 4, 80, 16, 20, 64, None),
+    (2, 1, 16, 16, 60, 16, 25, 128, None),
+    (2, 1, 64, 8, 40, 32, 16, 64, None),
+    (3, 1, 32, 8, 80, 32, 16, 128, [1, 32, 33]),
+    (4, 1, 32, 8, 1100, 32, 256, 128, [1, 33, 4000, 8000]),
+    (4, 5, 32, 8, 300, 32, 64, 128, None),
+    (4, 8, 32, 8, 300, 32, 64, 128, [512, 528, 544, 560]),
+    (2, 15, 32, 8, 120, 16, 40, 128, None),
+    (1, 17, 32, 8, 80, 32, 40, 128, None),
+    (1, 512, 32, 8, 100, 32, 64, 128, [1536]),
+    (2, 64, 12, 4, 80, 24, 30, 64, None),
+    (1, 9, 64, 8, 40, 32, 16, 64, None),
+]
+# f32 against the plain version: the three passes leave ~2^-22 of each
+# product out and the sums run in another order: 2e-5 absolute and
+# relative (fp, as the split kernel's f32 cases), 2e-5 x RMS + 2e-5 x
+# |plain| (int8, INT8_DTYPES' f32 limit).
+TF32X3_TOL = 2e-5
+
+
+def _tf32x3_args(dev, shape, quant, seed):
+    rng = np.random.default_rng(seed)
+    *dims, lens = shape
+    arrays = (_case(rng, *dims) if lens is None
+              else _lens_case(rng, *dims, lens))
+    if quant:
+        q, kq, vq, tables, pos, ks, vs = _int8_on(dev, torch.float32,
+                                                  *arrays)
+        return (q, kq, vq, tables, pos), dict(k_scale=ks, v_scale=vs)
+    return _on(dev, torch.float32, *arrays), {}
+
+
+def _paged_tf32x3_counts():
+    f = paged_decode_attention
+    return (f.launches, f.launches_int8, f.launches_tf32x3,
+            f.launches_tf32x3_int8)
+
+
+def _assert_tf32x3_close(out, ref, quant):
+    if quant:
+        limit = TF32X3_TOL * (float(ref.square().mean().sqrt())
+                              + ref.abs())
+        err = (out - ref).abs()
+        assert bool((err <= limit).all()), float((err / limit).max())
+    else:
+        torch.testing.assert_close(out, ref, atol=TF32X3_TOL,
+                                   rtol=TF32X3_TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape", PAGED_TF32X3_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_paged_tf32x3_matches_reference(hopper, quant, shape):
+    """The tf32x3 kernel against the plain version, one launch counted on
+    its route, a second launch bitwise equal, and the split kernel forced
+    on the same inputs within the same limit."""
+    b, sq, h, hkv, _, _, _, hd, _ = shape
+    assert paged_attn._route(sq, h // hkv, hd, torch.float32,
+                             quant) == "tf32x3"
+    args, kw = _tf32x3_args(hopper, shape, quant, sum(shape[:8]) + 5 * quant)
+    before = _paged_tf32x3_counts()
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_paged_tf32x3_counts(), before)]
+    assert moved == ([0, 1, 0, 1] if quant else [1, 0, 1, 0])
+    ref = paged_decode_attention_reference(*args, **kw)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    _assert_tf32x3_close(out, ref, quant)
+    assert torch.equal(paged_attn._launch(*args, **kw, route="tf32x3"), out)
+    _assert_tf32x3_close(paged_attn._launch(*args, **kw, route="split"), ref,
+                         quant)
+
+
+@pytest.mark.parametrize("window", [1, 8, 24])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_tf32x3_stale_cells_and_scratch_are_inert(hopper, quant,
+                                                        window):
+    """Every cell past each row's cursor (fp: +-1e4; int8: 127 with scales
+    1e4), the blocks past the live length pointed at the scratch page, and
+    garbage in the scratch page change no output bit of the tf32x3 route:
+    decode, a verify window of 8 (32 rows) and 24 positions (96 rows,
+    64-row tiles)."""
+    shape = (3, window, 32, 8, 120, 16, 24, 128, [350, 300, 37])
+    args, kw = _tf32x3_args(hopper, shape, quant, 53)
+    q, pk, pv, tables, pos = args
+    before = _paged_tf32x3_counts()[2:]
+    base = paged_decode_attention(*args, **kw)
+    pk2, pv2, t2 = pk.clone(), pv.clone(), tables.clone()
+    kw2 = {k: v.clone() for k, v in kw.items()}
+    bt = pk.shape[1]
+    for bi in range(tables.shape[0]):
+        cursor = int(pos[bi].max())
+        for blk in range(tables.shape[1]):
+            page = int(tables[bi, blk])
+            for t in range(bt):
+                if blk * bt + t > cursor:
+                    pk2[page, t] = 127 if quant else 1e4
+                    pv2[page, t] = 127 if quant else -1e4
+                    for v in kw2.values():
+                        v[page, t] = 1e4
+            if blk * bt > cursor:
+                t2[bi, blk] = 0
+    pk2[0], pv2[0] = (127, 127) if quant else (1e4, -1e4)
+    for v in kw2.values():
+        v[0] = 1e4
+    out = paged_decode_attention(q, pk2, pv2, t2, pos, **kw2)
+    assert torch.equal(out, base)
+    assert [a - b for a, b in zip(_paged_tf32x3_counts()[2:], before)] == (
+        [0, 2] if quant else [2, 0])
+
+
+@pytest.mark.parametrize("window", [2, 20])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_tf32x3_fully_masked_row_is_zero(hopper, quant, window):
+    args, kw = _tf32x3_args(hopper, (3, window, 32, 8, 80, 16, 20, 128,
+                                     None), quant, 59)
+    q, pk, pv, tables, pos = args
+    pos[0, 1] = -1
+    pos[1] = -1                       # a whole batch row sees nothing
+    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert torch.all(out[0, 1] == 0) and torch.all(out[1] == 0)
+    assert torch.isfinite(out).all()
+    _assert_tf32x3_close(out, paged_decode_attention_reference(
+        q, pk, pv, tables, pos, **kw), quant)
+
+
+def test_paged_tf32x3_refuses_and_does_not_fall_back(hopper):
+    """What the tf32x3 kernel does not take raises, from the public
+    function and from the private launcher, and nothing launches."""
+    args, _ = _tf32x3_args(hopper, (2, 1, 32, 8, 48, 16, 20, 128, None),
+                           False, 61)
+    q, pk, pv, tables, pos = args
+    before = _paged_tf32x3_counts()
+    raw = torch.empty(q.numel() + 2, dtype=q.dtype, device=q.device)
+    q_off = raw[2:].view(q.shape)     # contiguous, 8 bytes off alignment
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q_off, pk, pv, tables, pos)
+    with pytest.raises(TypeError, match="float32"):
+        paged_attn._launch(q.bfloat16(), pk.bfloat16(), pv.bfloat16(),
+                           tables, pos, route="tf32x3")
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attn._launch(q[..., :80].contiguous(),
+                           pk.view(48, 16, 8, 128)[..., :80].reshape(
+                               48, 16, 640).contiguous(),
+                           pv.view(48, 16, 8, 128)[..., :80].reshape(
+                               48, 16, 640).contiguous(), tables, pos,
+                           route="tf32x3")
+    torch.cuda.synchronize()
+    assert _paged_tf32x3_counts() == before
+
+
+def test_auto_attention_at_head_dim_80_takes_the_einsum_path(hopper):
+    """impl="auto" at head_dim 80 (no flash kernel takes it) returns the
+    einsum path's answer on the card and launches no flash kernel;
+    impl="flash" there raises as before."""
+    from k8s_distributed_deeplearning_torch.ops import attention
+
+    gen = torch.Generator(device=hopper)
+    gen.manual_seed(67)
+    q = torch.randn(1, 1024, 4, 80, device=hopper, generator=gen)
+    k = torch.randn(1, 1024, 2, 80, device=hopper, generator=gen)
+    v = torch.randn(1, 1024, 2, 80, device=hopper, generator=gen)
+    assert attention.default_impl(1024, 1024, "cuda", head_dim=80) == "xla"
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches)
+    auto = attention.multi_head_attention(q, k, v, causal=True, impl="auto")
+    xla = attention.multi_head_attention(q, k, v, causal=True, impl="xla")
+    torch.cuda.synchronize()
+    assert torch.equal(auto, xla)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches) == before
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.multi_head_attention(q, k, v, causal=True, impl="flash")
+
+
 def test_build_directory_is_ignored_by_git():
     """Kernel builds land inside the package, in a directory .gitignore
     lists."""
@@ -1442,6 +1626,77 @@ def test_gmm_wgmma_refuses_and_does_not_fall_back(hopper):
                small, route="wgmma")
     torch.cuda.synchronize()
     assert _gmm_counts() == before
+
+
+# The f32 grouped GEMM on the tensor cores (csrc/gmm_f32.cu, the "tf32x3"
+# route): f32 over GMM_SHAPES, the slice's down product (K 2048 -> N 768)
+# and GMM_SKEWED, forward and dlhs.
+GMM_TF32X3_SHAPES = GMM_WGMMA_SHAPES + [GMM_SKEWED]
+
+
+def _gmm_tf32x3_counts():
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    return (g.gmm_forward.launches, g.gmm_forward.launches_tf32x3,
+            g.tgmm.launches)
+
+
+@pytest.mark.parametrize("shape", GMM_TF32X3_SHAPES,
+                         ids=lambda s: f"E{len(s[0])}-K{s[1]}-N{s[2]}-"
+                         f"bm{s[3]}")
+def test_gmm_tf32x3_matches_reference(hopper, shape):
+    """Forward and dlhs on the tf32x3 route against their plain versions at
+    phase G's f32 limit, and gmm_kernel forced on the same inputs; rows
+    that hold no token exactly 0; a second launch bitwise equal."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes, k, n, bm = shape
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.float32, sizes, k, n, bm,
+                                     sum(sizes) + k + 2)
+    dead = ~g.live_rows(lay)
+    for name, a, trans in (("out", lhs, False), ("dlhs", cot, True)):
+        before = _gmm_tf32x3_counts()
+        got = g.gmm_forward(a, rhs, lay, transpose_rhs=trans)
+        torch.cuda.synchronize()
+        assert _gmm_tf32x3_counts() == (before[0] + 1, before[1] + 1,
+                                        before[2])
+        want = g.gmm_reference(a, rhs, lay, transpose_rhs=trans)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all(), name
+        _within(got, want, GMM_DTYPES[0][1], name)
+        assert torch.all(got[dead] == 0), name
+        assert torch.equal(got, g.gmm_forward(a, rhs, lay,
+                                              transpose_rhs=trans)), name
+        _within(g.gmm_forward(a, rhs, lay, transpose_rhs=trans,
+                              route="mma"), want, GMM_DTYPES[0][1],
+                name + " (mma)")
+
+
+def test_gmm_tf32x3_autograd_counts_by_route(hopper):
+    """f32 autograd: the forward and dlhs on tf32x3, drhs on tgmm_kernel
+    (mma); the route refuses bf16 and tgmm."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    sizes, k, n, bm = GMM_SKEWED
+    lay, lhs, rhs, cot = _gmm_inputs(hopper, torch.float32, sizes, k, n, bm,
+                                     17)
+    lhs.requires_grad_(), rhs.requires_grad_()
+    before = _gmm_tf32x3_counts()
+    (g.gmm(lhs, rhs, lay) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert _gmm_tf32x3_counts() == (before[0] + 2, before[1] + 2,
+                                    before[2] + 1)
+    _within(rhs.grad, g.tgmm_reference(lhs.detach(), cot, len(sizes), lay),
+            GMM_DTYPES[0][1], "drhs")
+    before = _gmm_tf32x3_counts()
+    with pytest.raises(TypeError, match="tf32x3 route takes float32"):
+        g.gmm_forward(lhs.detach().bfloat16(), rhs.detach().bfloat16(), lay,
+                      route="tf32x3")
+    with pytest.raises(TypeError, match="tf32x3 route takes float32"):
+        g.tgmm(lhs.detach(), cot, len(sizes), lay, route="tf32x3")
+    torch.cuda.synchronize()
+    assert _gmm_tf32x3_counts() == before
 
 
 def test_checkpoint_resume_round_trip_on_the_card(hopper, tmp_path):

@@ -137,9 +137,28 @@ def test_default_impl_rule_matches_jax():
     path."""
     for s, kv in ((512, None), (1024, None), (2048, 1024), (1024, 1000),
                   (1536, 4096), (1000, 1000)):
-        assert (t_attention.default_impl(s, kv, "cuda")
+        assert (t_attention.default_impl(s, kv, "cuda", head_dim=128)
                 == j_attention.default_impl(s, kv, "tpu"))
-        assert t_attention.default_impl(s, kv, "cpu") == "xla"
+        assert t_attention.default_impl(s, kv, "cpu", head_dim=128) == "xla"
+
+
+@pytest.mark.parametrize("head_dim,want", [
+    (80, "xla"), (96, "xla"), (16, "flash"), (32, "flash"), (64, "flash"),
+    (128, "flash")])
+def test_default_impl_takes_the_einsum_path_where_no_kernel_fits(head_dim,
+                                                                 want):
+    """On the card auto picks flash only at a head dim a flash kernel takes
+    (``flash_attn.HEAD_DIMS``): JAX's flash wrapper computes at any head
+    dim, the port's kernels raise outside those, so hd 80 or 96 takes the
+    einsum path by the rule, before any launch. The CPU stays on the
+    einsum path, and an ill-tiled length too."""
+    assert t_attention.default_impl(2048, 2048, "cuda",
+                                    head_dim=head_dim) == want
+    assert t_attention.default_impl(2048, 2048, "cpu",
+                                    head_dim=head_dim) == "xla"
+    assert t_attention.default_impl(1000, 1000, "cuda",
+                                    head_dim=head_dim) == "xla"
+    assert (head_dim in fa.HEAD_DIMS) == (want == "flash")
 
 
 def test_flash_impl_dispatches_to_flash_attention():

@@ -194,10 +194,14 @@ def test_remat_policies_save_the_gmm_operator():
 
 
 def test_gmm_route_rule():
-    """bf16 takes the wgmma kernels (csrc/gmm_wgmma.cu), f32 the mma.sync
-    and CUDA-core kernels (csrc/gmm.cu): by dtype alone."""
+    """bf16 takes the wgmma kernels (csrc/gmm_wgmma.cu); f32 gmm_forward
+    (the forward and dlhs) the three-pass TF32 kernel (csrc/gmm_f32.cu),
+    f32 tgmm the CUDA-core kernel (csrc/gmm.cu): by dtype and kernel."""
     assert t_gmm._gmm_route(torch.bfloat16) == "wgmma"
-    assert t_gmm._gmm_route(torch.float32) == "mma"
+    assert t_gmm._gmm_route(torch.bfloat16, "tgmm") == "wgmma"
+    assert t_gmm._gmm_route(torch.float32) == "tf32x3"
+    assert t_gmm._gmm_route(torch.float32, "gmm") == "tf32x3"
+    assert t_gmm._gmm_route(torch.float32, "tgmm") == "mma"
 
 
 def _counts():

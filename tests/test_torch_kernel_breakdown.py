@@ -4,9 +4,15 @@ Each variant of the breakdown tool is a list of text substitutions on a
 CUDA source; a source edit that moves one of those texts makes the tool
 refuse to build on the card. These tests catch that here, on the CPU,
 and check that the decode breakdown's launches are shapes of the decode
-route, a row-tiled verify window among them.
+route, a row-tiled verify window among them. They also hold each ctypes
+binding of a C entry point, the breakdown's and the paged wrapper's,
+to the entry point's declaration in its source: an argument added on
+one side alone would pass garbage on the card.
 """
+import ctypes
 import importlib.util
+import re
+import types
 from pathlib import Path
 
 import pytest
@@ -23,6 +29,30 @@ _spec.loader.exec_module(kernel_breakdown)
 CASES = [(kernel, variant)
          for kernel, spec in kernel_breakdown.KERNELS.items()
          for variant in spec.variants]
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_argtypes(source: str, name: str) -> list:
+    """The ctypes argument types of ``extern "C" int name(...)`` in the
+    source ``source``: a pointer is c_void_p, int and float their own."""
+    src = (_build.CSRC_DIR / source).read_text()
+    found = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert found, f"{name} is not declared in {source}"
+    return [ctypes.c_void_p if "*" in p else _C_TYPES[p.split()[0]]
+            for p in (a.strip() for a in found.group(1).split(","))]
+
+
+class _Library:
+    """Stands in for a ctypes library: records what a binding sets."""
+
+    def __init__(self):
+        self.bound = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_") or name == "bound":
+            raise AttributeError(name)
+        return self.bound.setdefault(
+            name, types.SimpleNamespace(argtypes=None, restype=None))
 
 
 @pytest.mark.parametrize("kernel,variant", CASES,
@@ -58,3 +88,34 @@ def test_decode_breakdown_times_a_row_tiled_window():
     rows = [sq * (h // kv)
             for _, sq in kernel_breakdown.DECODE_LAUNCHES.values()]
     assert max(rows) > paged_attn._DECODE_TILE_ROWS
+
+
+@pytest.mark.parametrize("name", list(kernel_breakdown.PAGED_F32_LAUNCHES))
+def test_paged_f32_launches_take_the_tf32x3_route(name):
+    """Every launch the f32 paged breakdown times is a shape the tf32x3
+    route takes, with its queries' positions inside its table."""
+    lens, sq, n_blocks = kernel_breakdown.PAGED_F32_LAUNCHES[name]
+    h, kv, hd = kernel_breakdown.DECODE_HEADS
+    assert paged_attn._route(sq, h // kv, hd, torch.float32,
+                             False) == "tf32x3"
+    assert sq <= min(lens) and max(lens) <= n_blocks * 32
+
+
+@pytest.mark.parametrize("kernel", list(kernel_breakdown.KERNELS))
+def test_breakdown_bindings_match_the_c_entry_points(kernel):
+    spec = kernel_breakdown.KERNELS[kernel]
+    lib = _Library()
+    spec.bind(lib)
+    assert lib.bound
+    for name, fn in lib.bound.items():
+        assert fn.argtypes == _c_argtypes(spec.source, name), name
+        assert fn.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("library,entry", [
+    (lib, entry) for lib, entries in paged_attn._SIGNATURES.items()
+    for entry in entries])
+def test_paged_wrapper_signatures_match_the_c_entry_points(library, entry):
+    args, result = paged_attn._SIGNATURES[library][entry]
+    assert list(args) == _c_argtypes(f"{library}.cu", entry)
+    assert result is ctypes.c_int

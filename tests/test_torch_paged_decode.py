@@ -3,8 +3,9 @@
 
 - ``_route``: the engine's decode shapes (one query at groups 3, 4 and 8,
   head_dim 64 and 128, fp and int8 pools), speculative verify windows and
-  short chunks (``sq x group <= 64``) take the decode kernel; f32 q and
-  other head dims take the split kernel.
+  short chunks (``sq x group <= 64``) take the decode kernel; other head
+  dims take the split kernel, in bf16 and in f32 (f32 q at head_dim 64 and
+  128 takes the tf32x3 kernel: ``tests/test_torch_paged_attn_f32.py``).
 - A torch model of the kernel's arithmetic, written here: the flattened
   (position, group head) rows of a KV head cut into 16-row tiles, each
   (row, KV head, row tile) split over ``_decode_splits`` CTAs, each CTA an
@@ -77,11 +78,11 @@ def test_engine_decode_shapes_take_the_decode_route(sq, group, hd, quant):
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("sq,group,hd,dtype", [
-    (1, 4, 128, torch.float32),       # f32 q
+    (1, 4, 80, torch.float32),        # f32 q at another head dim
     (1, 4, 80, torch.bfloat16),       # other head dims
     (1, 4, 256, torch.bfloat16),
     (1, 4, 16, torch.bfloat16),
-    (8, 4, 128, torch.float32),       # a verify window of 8, f32 q
+    (8, 4, 16, torch.float32),        # a verify window of 8, f32 q at 16
     (8, 4, 80, torch.bfloat16),       # and at another head dim
 ])
 def test_other_shapes_keep_the_split_route(sq, group, hd, dtype, quant):

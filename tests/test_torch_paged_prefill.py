@@ -4,8 +4,9 @@
 - ``_route``: the engine's prefill chunks (bf16, 32-512 queries, Llama-3
   8B's 32/8 heads at head_dim 128, the small preset's 12/4 at 64) take
   the prefill kernel; bf16 decode and up to 64 rows (one 64-row tile)
-  per KV head take the decode kernel; f32 q and other head dims take the
-  split kernel.
+  per KV head take the decode kernel; other head dims take the split
+  kernel, in bf16 and in f32 (f32 q at head_dim 64 and 128 takes the
+  tf32x3 kernel: ``tests/test_torch_paged_attn_f32.py``).
 - A torch model of the kernel's arithmetic, written here, tile by tile
   over 64-key tiles as the kernel walks them, against the JAX Pallas
   kernel in interpret mode at Llama-3 8B's heads cut to a few pages:
@@ -62,11 +63,11 @@ def test_decode_shapes_take_the_decode_route(sq, group, hd, dtype, quant):
 
 
 @pytest.mark.parametrize("sq,group,hd,dtype", [
-    (512, 4, 128, torch.float32),     # f32 q
+    (512, 4, 80, torch.float32),      # f32 q at another head dim
     (512, 4, 8, torch.bfloat16),      # other head dims
     (512, 4, 80, torch.bfloat16),
     (512, 4, 256, torch.bfloat16),
-    (15, 4, 128, torch.float32),      # a short chunk, f32 q
+    (15, 4, 16, torch.float32),       # a short chunk, f32 q at 16
     (21, 3, 80, torch.bfloat16),      # and at another head dim
 ])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
