@@ -2501,7 +2501,8 @@ def _moe_f32(dev, mcfg, prompt, mask):
 # 8B's attention at training length, then MoE H's (the Llama-small
 # backbone's 12/4 heads at head_dim 64, 8 x 1024 tokens), then phase Q's
 # (the train CLI's tiny preset, 4/2 heads at head_dim 16, 8 x 1024
-# tokens).
+# tokens), then the same heads at head_dim 32 with packed documents of
+# 300/400/324 tokens (the small kernels' other head dim, with segment ids).
 FLASH_CASES = {
     "causal": (2, 2048, 2048, H, KV, HD, True, None),
     "noncausal": (2, 2048, 2048, H, KV, HD, False, None),
@@ -2509,6 +2510,7 @@ FLASH_CASES = {
     "three_docs_causal": (2, 2048, 2048, H, KV, HD, True, (700, 800, 548)),
     "moe_h_causal": (8, 1024, 1024, 12, 4, 64, True, None),
     "q_tiny_causal": (8, 1024, 1024, 4, 2, 16, True, None),
+    "q_hd32_docs": (8, 1024, 1024, 4, 2, 32, True, (300, 400, 324)),
 }
 FLASH_REPLACES = {
     "flash_fwd": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:148",
@@ -2519,10 +2521,11 @@ FLASH_REPLACES = {
 # Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
 # kernel by wrapper. Each wrapper launches the kernel of its route: the
 # wgmma lines are the "wgmma" route (bf16, head_dim 64/128), the tf32x3
-# lines the backward's "tf32x3" route (f32, every head dim), the others the
-# mma.sync kernels of flash_attn.cu ("mma": the f32 forward and bf16 at
-# head_dim 16/32 on the training path; the backward forced in bf16 and
-# f32 here).
+# lines the backward's "tf32x3" route (f32, every head dim), the small
+# lines the "small" route (the bf16 forward and dK/dV at head_dim 16/32),
+# the others the mma.sync kernels of flash_attn.cu ("mma": the f32
+# forward and the bf16 dQ at head_dim 16/32 on the training path; the
+# others forced here).
 FLASH_KERNELS = {
     "flash_fwd": ("flash_attn.cu", "flash_fwd"),
     "flash_fwd_wgmma": ("flash_fwd.cu", "flash_fwd"),
@@ -2532,13 +2535,19 @@ FLASH_KERNELS = {
     "flash_bwd_dkv_wgmma": ("flash_bwd.cu", "flash_bwd_dkv"),
     "flash_bwd_dq_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dkv"),
+    "flash_fwd_small": ("flash_small.cu", "flash_fwd"),
+    "flash_bwd_dkv_small": ("flash_small.cu", "flash_bwd_dkv"),
 }
 # Routes other than "mma", whose launches a wrapper counts apart
 # (``launches_<route>``) and whose kernel lines carry ``_<route>``.
-ROUTE_COUNTS = ("wgmma", "tf32x3")
+ROUTE_COUNTS = ("wgmma", "tf32x3", "small")
 # TF32 dense on an H100 SXM: the tf32x3 kernels issue three TF32 products
 # for each f32 product, so their least time is 3 x FLOPs over this.
 PEAK_TF32 = 495e12
+# The H100 SXM's exponentials: 16 ex2 an SM a clock (the multi-function
+# units), 132 SMs at the 1.98 GHz boost clock. Every flash kernel takes
+# one exponential per visible (query, key) pair and query head.
+PEAK_EX2 = 16 * 132 * 1.98e9
 
 
 def _flash_case(dev, dtype, shape, seed):
@@ -2576,19 +2585,23 @@ def _visible_pairs(dev, shape, segq, segk):
 
 
 def _flash_bound(kind, dtype, shape, pairs):
-    """Least time on an H100 SXM: the larger of each input read once and
-    each output written once over 3.35 TB/s, and the kernel's matmul FLOPs
-    on the visible pairs (forward 2 products, dQ 3, dK/dV 4, each 2 *
-    head_dim FLOPs per pair and query head) over the dtype's peak; for the
-    tf32x3 lines, 3 x those FLOPs over the TF32 peak (the f32 CUDA-core
-    bound, 67 TF/s, which a three-pass kernel may beat, is the mma line's
-    bound for the same work)."""
+    """Least time on an H100 SXM: the largest of each input read once and
+    each output written once over 3.35 TB/s, the kernel's matmul FLOPs on
+    the visible pairs (forward 2 products, dQ 3, dK/dV 4, each 2 *
+    head_dim FLOPs per pair and query head) over the dtype's peak (for
+    the tf32x3 lines, 3 x those FLOPs over the TF32 peak; the f32
+    CUDA-core bound, 67 TF/s, which a three-pass kernel may beat, is the
+    mma line's bound for the same work), and one exponential per visible
+    pair and query head over ``PEAK_EX2``. Returns (ms, "bytes" or
+    "operations", {"bytes_ms", "mma_ms", "exp_ms"})."""
     b, sq, sk, h, kv, hd, _, _ = shape
     item = torch.finfo(dtype).bits // 8
     qo = b * sq * h * hd * item                    # q, o, do or dq
     kvb = b * sk * kv * hd * item                  # k or v (dk or dv)
     stat = b * h * sq * 4                          # lse or delta, f32
-    base = kind.removesuffix("_wgmma").removesuffix("_tf32x3")
+    base = kind
+    for route in ROUTE_COUNTS:
+        base = base.removesuffix(f"_{route}")
     nbytes, mm = {"flash_fwd": (2 * qo + 2 * kvb + stat, 2),
                   "flash_bwd_dq": (3 * qo + 2 * kvb + 2 * stat, 3),
                   "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4)}[base]
@@ -2596,8 +2609,11 @@ def _flash_bound(kind, dtype, shape, pairs):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = (3 * flops / PEAK_TF32 if kind.endswith("_tf32x3")
                else flops / PEAK_FLOPS[dtype]) * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
-                                   else "operations")
+    t_exp = h * pairs / PEAK_EX2 * 1e3
+    t_ops = max(t_flops, t_exp)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), {
+        "bytes_ms": t_bytes, "mma_ms": t_flops, "exp_ms": t_exp}
 
 
 def _flash_err(outputs: dict, tol) -> dict:
@@ -2682,14 +2698,17 @@ def _sdpa_backend(fn, reps: int = 3) -> str:
 def _blind_rows(dev):
     """Rows that see no key (causal with sq > sk; a query segment id no
     key carries) and keys no row sees (a key segment id no query carries),
-    in bf16 and f32: every backward route gives exactly the plain
-    version's dQ, dK and dV there (0). Returns the routes checked."""
+    in bf16 and f32 at 8B's head_dim and in bf16 at head_dim 16 (the small
+    kernels): every backward route gives exactly the plain version's dQ, dK
+    and dV there (0), and the small forward O = 0 and the plain lse.
+    Returns the routes checked."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     checked = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, hd in ((torch.bfloat16, HD), (torch.float32, HD),
+                      (torch.bfloat16, 16)):
         q, k, v, do, _, _ = _flash_case(
-            dev, dtype, (2, 96, 64, 8, 2, HD, True, None), 99)
+            dev, dtype, (2, 96, 64, 8, 2, hd, True, None), 99)
         segq = torch.ones(2, 96, dtype=torch.int32, device=dev)
         segk = torch.ones(2, 64, dtype=torch.int32, device=dev)
         segq[0, 40:45] = 7
@@ -2697,7 +2716,7 @@ def _blind_rows(dev):
         o, lse = fa.flash_attention_reference(
             q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        args = (q, k, v, do, lse, delta, segq, segk, True, HD ** -0.5)
+        args = (q, k, v, do, lse, delta, segq, segk, True, hd ** -0.5)
         want = fa.flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=True, q_segment_ids=segq,
             kv_segment_ids=segk)
@@ -2705,27 +2724,43 @@ def _blind_rows(dev):
         unseen = torch.zeros(k.shape[:3], dtype=torch.bool, device=dev)
         unseen[1, 10:20] = True
         check(int(blind.sum()) > 0, "the blind-row case has no blind row")
-        routes = ["mma", fa._bwd_route(dtype, HD)]
-        for route in routes:
-            dq = fa.flash_bwd_dq(*args, route=route)
-            dk, dv = fa.flash_bwd_dkv(*args, route=route)
+        dname = f"{str(dtype).split('.')[-1]}/hd{hd}"
+        for which in ("dq", "dkv"):
+            for route in sorted({"mma", fa._bwd_route(dtype, hd, which)}):
+                if which == "dq":
+                    dq = fa.flash_bwd_dq(*args, route=route)
+                    torch.cuda.synchronize()
+                    same = torch.equal(dq[blind], want[0][blind])
+                else:
+                    dk, dv = fa.flash_bwd_dkv(*args, route=route)
+                    torch.cuda.synchronize()
+                    same = (torch.equal(dk[unseen], want[1][unseen])
+                            and torch.equal(dv[unseen], want[2][unseen]))
+                check(same, f"{route} {which}, {dname}: rows that see no "
+                      f"key or keys no row sees differ from the plain "
+                      f"version")
+                checked.append(f"{which}:{route}/{dname}")
+        route = fa._fwd_route(dtype, hd)
+        if route != "mma":
+            o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, True, hd ** -0.5)
             torch.cuda.synchronize()
-            check(torch.equal(dq[blind], want[0][blind])
-                  and torch.equal(dk[unseen], want[1][unseen])
-                  and torch.equal(dv[unseen], want[2][unseen]),
-                  f"{route} backward, {dtype}: rows that see no key or "
-                  f"keys no row sees differ from the plain version")
-            checked.append(f"{route}/{str(dtype).split('.')[-1]}")
+            check(torch.equal(lse2[lse <= -1e29], lse[lse <= -1e29])
+                  and bool((o2[blind] == 0).all()),
+                  f"{route} forward, {dname}: rows that see no key differ "
+                  f"from the plain version")
+            checked.append(f"fwd:{route}/{dname}")
     return checked
 
 
 def phase_d(dev, flush):
     """The flash kernels against their plain versions, case by case; the
-    forward and the backward on every route a dtype has (bf16: the wgmma
-    kernels and the mma.sync kernels forced; f32: the backward on the
-    tf32x3 kernels and flash_attn.cu's mma kernels forced) on the same
-    inputs, and the default route's kernels launched twice for bitwise
-    equality; then rows that see no key on every backward route."""
+    forward and each backward kernel on every route its dtype and head dim
+    have (bf16 at head_dim 64/128: the wgmma kernels; bf16 at 16/32: the
+    small forward and dK/dV and the mma dQ; f32: the backward on the tf32x3
+    kernels; each beside flash_attn.cu's mma kernels forced) on the same
+    inputs, and each default route other than mma launched twice for
+    bitwise equality; then rows that see no key on every backward route
+    and on the small forward."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -2736,11 +2771,18 @@ def phase_d(dev, flush):
             causal, hd = shape[6], shape[5]
             q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, ci)
             scale = hd ** -0.5
-            fwd_routes = {"mma": "flash_fwd"}
-            if fa._fwd_route(dtype, hd) == "wgmma":
-                fwd_routes["wgmma"] = "flash_fwd_wgmma"
+            # kernel -> {route: kernel-line name}, the default route last.
+            lines = {}
+            for kernel, wrapper, default in (
+                    ("fwd", "flash_fwd", fa._fwd_route(dtype, hd)),
+                    ("dq", "flash_bwd_dq", fa._bwd_route(dtype, hd, "dq")),
+                    ("dkv", "flash_bwd_dkv",
+                     fa._bwd_route(dtype, hd, "dkv"))):
+                lines[kernel] = {"mma": wrapper}
+                if default != "mma":
+                    lines[kernel][default] = f"{wrapper}_{default}"
             fwd = {route: fa.flash_fwd(q, k, v, segq, segk, causal, scale,
-                                       route=route) for route in fwd_routes}
+                                       route=route) for route in lines["fwd"]}
             ref_o, ref_lse = fa.flash_attention_reference(
                 q, k, v, causal=causal, q_segment_ids=segq,
                 kv_segment_ids=segk)
@@ -2751,23 +2793,20 @@ def phase_d(dev, flush):
             want = fa.flash_attention_bwd_reference(
                 q, k, v, ref_o, ref_lse, do, causal=causal,
                 q_segment_ids=segq, kv_segment_ids=segk)
-            bwd_default = fa._bwd_route(dtype, hd)
-            routes = {"mma": ("flash_bwd_dq", "flash_bwd_dkv")}
-            if bwd_default != "mma":
-                routes[bwd_default] = (f"flash_bwd_dq_{bwd_default}",
-                                       f"flash_bwd_dkv_{bwd_default}")
-            got = {route: (fa.flash_bwd_dq(*bwd_args, route=route),
-                           fa.flash_bwd_dkv(*bwd_args, route=route))
-                   for route in routes}
+            got_dq = {route: fa.flash_bwd_dq(*bwd_args, route=route)
+                      for route in lines["dq"]}
+            got_dkv = {route: fa.flash_bwd_dkv(*bwd_args, route=route)
+                       for route in lines["dkv"]}
             torch.cuda.synchronize()
-            for out in [x for o_lse in fwd.values() for x in o_lse] + [
-                    x for dq, (dk, dv) in got.values() for x in (dq, dk, dv)]:
+            for out in [x for o_lse in fwd.values() for x in o_lse] + list(
+                    got_dq.values()) + [x for dk_dv in got_dkv.values()
+                                        for x in dk_dv]:
                 check(bool(torch.isfinite(out).all()),
                       f"{case}/{dname}: non-finite kernel output")
             seen = ref_lse > -1e29
             blind = ~seen.transpose(1, 2)            # [B, sq, H]
             errs = {}
-            for route, name in fwd_routes.items():
+            for route, name in lines["fwd"].items():
                 o, lse = fwd[route]
                 check(torch.equal(lse <= -1e29, ~seen)
                       and torch.equal(lse[~seen], ref_lse[~seen])
@@ -2779,31 +2818,47 @@ def phase_d(dev, flush):
                       f"{LSE_ATOL}")
                 errs[name] = _flash_err({"o": (o, ref_o)}, tol)
                 errs[name]["lse_max_abs_err"] = lse_err
-            for route, (dq_name, dkv_name) in routes.items():
-                dq, (dk, dv) = got[route]
-                errs[dq_name] = _flash_err({"dq": (dq, want[0])}, tol)
-                errs[dkv_name] = _flash_err({"dk": (dk, want[1]),
-                                             "dv": (dv, want[2])}, tol)
+            for route, name in lines["dq"].items():
+                errs[name] = _flash_err({"dq": (got_dq[route], want[0])},
+                                        tol)
+            for route, name in lines["dkv"].items():
+                dk, dv = got_dkv[route]
+                errs[name] = _flash_err({"dk": (dk, want[1]),
+                                         "dv": (dv, want[2])}, tol)
             for name, e in errs.items():
                 check(e["tol_share"] <= 1.0,
                       f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
                       f"<= {tol[0]} x rms + {tol[1]} x |plain|")
-            if bwd_default != "mma":      # two launches, the same bits
-                dq, (dk, dv) = got[bwd_default]
-                dq2 = fa.flash_bwd_dq(*bwd_args)
-                dk2, dv2 = fa.flash_bwd_dkv(*bwd_args)
-                same = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                        and torch.equal(dv, dv2))
-                if "wgmma" in fwd:
-                    o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, causal,
-                                            scale)
-                    same = (same and torch.equal(fwd["wgmma"][0], o2)
-                            and torch.equal(fwd["wgmma"][1], lse2))
-                    del o2, lse2
-                check(same, f"{case}/{dname}: two {bwd_default} launches "
+            # Two launches of each default route other than mma, the same
+            # bits.
+            repeated = []
+            fwd_default = list(lines["fwd"])[-1]
+            if fwd_default != "mma":
+                o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+                check(torch.equal(fwd[fwd_default][0], o2)
+                      and torch.equal(fwd[fwd_default][1], lse2),
+                      f"{case}/{dname}: two {fwd_default} forward launches "
                       f"differ")
-                del dq2, dk2, dv2
-            del got, fwd, o, lse
+                repeated.append(f"fwd:{fwd_default}")
+                del o2, lse2
+            dq_default = list(lines["dq"])[-1]
+            if dq_default != "mma":
+                check(torch.equal(got_dq[dq_default],
+                                  fa.flash_bwd_dq(*bwd_args)),
+                      f"{case}/{dname}: two {dq_default} dQ launches differ")
+                repeated.append(f"dq:{dq_default}")
+            dkv_default = list(lines["dkv"])[-1]
+            if dkv_default != "mma":
+                dk2, dv2 = fa.flash_bwd_dkv(*bwd_args)
+                check(torch.equal(got_dkv[dkv_default][0], dk2)
+                      and torch.equal(got_dkv[dkv_default][1], dv2),
+                      f"{case}/{dname}: two {dkv_default} dK/dV launches "
+                      f"differ")
+                repeated.append(f"dkv:{dkv_default}")
+                del dk2, dv2
+            log({"phase": "D", "case": case, "dtype": dname,
+                 "bitwise_repeat": repeated})
+            del got_dq, got_dkv, fwd, o, lse
             pairs = _visible_pairs(dev, shape, segq, segk)
             sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, causal, segq,
                                                segk)
@@ -2816,19 +2871,23 @@ def phase_d(dev, flush):
             plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal=causal, q_segment_ids=segq,
                 kv_segment_ids=segk), flush, 10)
+            # Each kernel on the device alone: a wrapper's host side can
+            # outlast the L2 flush before it, and the gap would count.
             times = {name: (time_ms(lambda: fa.flash_fwd(
-                q, k, v, segq, segk, causal, scale, route=route), flush, 10),
-                plain_fwd_ms, lib_fwd) for route, name in fwd_routes.items()}
-            for route, (dq_name, dkv_name) in routes.items():
-                times[dq_name] = (time_ms(lambda: fa.flash_bwd_dq(
-                    *bwd_args, route=route), flush, 10), plain_bwd_ms,
-                    lib_fwd_bwd - lib_fwd)
-                times[dkv_name] = (time_ms(lambda: fa.flash_bwd_dkv(
-                    *bwd_args, route=route), flush, 10), plain_bwd_ms,
-                    lib_fwd_bwd - lib_fwd)
+                q, k, v, segq, segk, causal, scale, route=route), flush, 10,
+                host_ahead=True), plain_fwd_ms, lib_fwd)
+                for route, name in lines["fwd"].items()}
+            for route, name in lines["dq"].items():
+                times[name] = (time_ms(lambda: fa.flash_bwd_dq(
+                    *bwd_args, route=route), flush, 10, host_ahead=True),
+                    plain_bwd_ms, lib_fwd_bwd - lib_fwd)
+            for route, name in lines["dkv"].items():
+                times[name] = (time_ms(lambda: fa.flash_bwd_dkv(
+                    *bwd_args, route=route), flush, 10, host_ahead=True),
+                    plain_bwd_ms, lib_fwd_bwd - lib_fwd)
             b, sq, sk, h, kv, _, _, seg_lens = shape
             for name, (ms, plain_ms, lib_ms) in times.items():
-                bound, by = _flash_bound(name, dtype, shape, pairs)
+                bound, by, parts = _flash_bound(name, dtype, shape, pairs)
                 if name.endswith("_tf32x3"):       # the mma line's bound
                     errs[name]["bound_ms_f32_cores"] = _flash_bound(
                         name.removesuffix("_tf32x3"), dtype, shape, pairs)[0]
@@ -2841,7 +2900,8 @@ def phase_d(dev, flush):
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "library_fwd_bwd_ms": lib_fwd_bwd,
                     "library_backend": lib_backend,
-                    "bound_ms": bound, "bound_by": by})
+                    "bound_ms": bound, "bound_by": by,
+                    "bound_parts_ms": parts})
                 log({"phase": "D", "kernel": name, **rows[name][-1]})
             del q, k, v, do, ref_o, ref_lse, want, delta, bwd_args
             torch.cuda.empty_cache()
@@ -3407,7 +3467,9 @@ def _check_f32_flash(phase, launches, backward) -> None:
           and launches["flash_bwd_dq_tf32x3"] == backward
           and launches["flash_bwd_dkv_tf32x3"] == backward
           and launches["flash_fwd"] >= backward
-          and launches["flash_fwd_wgmma"] == 0,
+          and launches["flash_fwd_wgmma"] == 0
+          and launches["flash_fwd_small"] == 0
+          and launches["flash_bwd_dkv_small"] == 0,
           f"phase {phase} (f32) flash launches {launches}: want {backward} "
           f"of each backward on the tf32x3 route and none on the others, "
           f"at least as many forward on the mma route")
@@ -3486,7 +3548,7 @@ def phase_f_bf16(dev):
     route_of = fa._bwd_route
     try:
         for route in ("wgmma", "mma"):
-            fa._bwd_route = lambda dtype, head_dim, r=route: r
+            fa._bwd_route = lambda dtype, head_dim, which, r=route: r
             _zero_launches()
             losses[route], g = grads(model)
             launches[route] = {n: c for n, c in _launch_counts().items() if c}
@@ -3584,11 +3646,13 @@ def phase_q(dev):
     ``attention_impl="auto"`` takes the flash kernels) in bf16 and in f32
     (the CLI's default dtype) through
     ``make_train_step``: 8 AdamW steps on one fixed batch bring the loss
-    below phase E's margin; the flash backward launches once a layer a step
-    on its dtype's route (bf16 at head_dim 16: the mma kernels of
-    flash_attn.cu; f32: tf32x3) and on no other; then, at the path's
-    attention shape, the backward kernels of that route against the plain
-    version within phase D's limit."""
+    below phase E's margin; each flash backward kernel launches once a
+    layer a step on its route (bf16 at head_dim 16: dK/dV on the small
+    kernel, dQ on flash_attn.cu's mma kernel; f32: both on tf32x3) and on
+    no other, the forward at least as often on its own route (bf16: small;
+    f32: mma) and on no other; then, at the path's attention shape, the
+    backward kernels of those routes against the plain version within
+    phase D's limit."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
     from k8s_distributed_deeplearning_torch.train import cli
@@ -3615,21 +3679,22 @@ def phase_q(dev):
         torch.cuda.synchronize()
         launches = _launch_counts()
         del state, step_fn
-        route = fa._bwd_route(dtype, hd)
+        route = {"flash_fwd": fa._fwd_route(dtype, hd),
+                 "flash_bwd_dq": fa._bwd_route(dtype, hd, "dq"),
+                 "flash_bwd_dkv": fa._bwd_route(dtype, hd, "dkv")}
         n = cfg.n_layers * Q_STEPS
-        on_route = {w: (_mma_launches(launches, w) if route == "mma"
-                        else launches[f"{w}_{route}"])
-                    for w in ("flash_bwd_dq", "flash_bwd_dkv")}
+        on_route = {w: (_mma_launches(launches, w) if r == "mma"
+                        else launches[f"{w}_{r}"]) for w, r in route.items()}
         check(all(np.isfinite(losses))
               and losses[-1] < FIXED_BATCH_MARGIN * losses[0],
               f"tiny preset, {dname}: 8 steps on one fixed batch, loss "
               f"{losses[0]} -> {losses[-1]}")
-        check(on_route == {"flash_bwd_dq": n, "flash_bwd_dkv": n}
+        check(on_route["flash_bwd_dq"] == on_route["flash_bwd_dkv"] == n
               and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == n
-              and _mma_launches(launches, "flash_fwd") >= n
-              and launches["flash_fwd_wgmma"] == 0,
+              and on_route["flash_fwd"] == launches["flash_fwd"] >= n,
               f"tiny preset, {dname}: flash launches {launches}, want {n} "
-              f"of each backward on the {route} route alone")
+              f"of each backward and at least {n} forward, each on its "
+              f"route {route} alone")
         shape = (batch_size, seq, seq, cfg.n_heads, cfg.n_kv_heads, hd, True,
                  None)
         q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, 7)
@@ -3644,7 +3709,8 @@ def phase_q(dev):
         err = _flash_err({"dq": (dq, want[0]), "dk": (dk, want[1]),
                           "dv": (dv, want[2])}, FLASH_TOL[dtype])
         check(err["tol_share"] <= 1.0,
-              f"tiny preset's attention, {dname}, {route} backward: {err}")
+              f"tiny preset's attention, {dname}, backward on {route}: "
+              f"{err}")
         out[dname] = {"route": route, "losses": losses,
                       "launches": {k_: c for k_, c in launches.items() if c},
                       "backward_vs_plain": err}
@@ -4157,11 +4223,13 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
 
 def _flash_entries(rows, e_result, f_result, q_result):
     """Kernel-line entries of the flash kernels: the representative case
-    is the training path's causal one, in bf16 (f32 for the tf32x3 lines).
-    The launches are those of the path that runs each kernel: phase E's
-    bf16 step for the wgmma kernels, phase F's f32 kernel path for the
-    tf32x3 kernels and the mma forward, phase Q's bf16 tiny preset (head
-    dim 16) for the mma backward; each by route."""
+    is the training path's causal one, in bf16 (f32 for the tf32x3 lines;
+    phase Q's shape for the small lines). The launches are those of the
+    path that runs each kernel: phase E's bf16 step for the wgmma kernels,
+    phase F's f32 kernel path for the tf32x3 kernels and the mma forward,
+    phase Q's bf16 tiny preset (head dim 16) for the small kernels and the
+    mma backward (dQ; dK/dV forced since the small route); each by
+    route."""
     out = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4169,11 +4237,14 @@ def _flash_entries(rows, e_result, f_result, q_result):
         source, wrapper = FLASH_KERNELS[name]
         route = next((r for r in ROUTE_COUNTS if name.endswith(f"_{r}")),
                      "mma")
-        rep = next(c for c in cases if c["case"] == "causal" and c["dtype"]
-                   == ("float32" if route == "tf32x3" else "bfloat16"))
+        rep = next(c for c in cases if c["case"] == (
+            "q_tiny_causal" if route == "small" else "causal")
+            and c["dtype"] == ("float32" if route == "tf32x3"
+                               else "bfloat16"))
         if route == "wgmma":
             where, counts = "E", e_result["launches"]
-        elif route == "tf32x3" or wrapper == "flash_fwd":
+        elif route == "tf32x3" or (wrapper == "flash_fwd"
+                                   and route == "mma"):
             where, counts = "F (f32)", f_result["kernel_path_launches"]
         else:
             where = "Q (bf16, head_dim 16)"
@@ -4190,6 +4261,7 @@ def _flash_entries(rows, e_result, f_result, q_result):
             **{k: rep[k] for k in keys},
             **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
                if "bound_ms_f32_cores" in rep else {}),
+            "bound_parts_ms": rep["bound_parts_ms"],
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",
                                           "tol_share", *keys[1:],
                                           "library_backend")}
@@ -4199,14 +4271,16 @@ def _flash_entries(rows, e_result, f_result, q_result):
 
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol: the
-    length-prefixed name ending in ``kernel``, ``wgmma`` or ``tf32x3`` (a
+    length-prefixed name ending in ``kernel``, ``wgmma``, ``tf32x3`` or
+    ``small`` (a
     length may follow hex digits of the namespace's hash, so every suffix
     of a digit run is tried)."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             end = run.end() + int(mangled[i:run.end()])
             name = mangled[run.end():end]
-            if re.fullmatch(r"[a-z_]+(?:kernel|wgmma|tf32x3)", name) and \
+            if re.fullmatch(r"[a-z_]+(?:kernel|wgmma|tf32x3|small)",
+                            name) and \
                     mangled[end:end + 1] in ("I", "E"):
                 args = re.match(r"(I\w*?)EvP", mangled[end:])
                 return name + (args.group(1) if args else "")

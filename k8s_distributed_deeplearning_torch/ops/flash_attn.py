@@ -12,24 +12,27 @@ restricting attention to equal ids.
   names, and its backward computes ``delta = rowsum(dO * O)`` with a
   PyTorch reduction, as the JAX wrapper does outside its kernels, then
   launches the dQ kernel and the dK/dV kernel of the route
-  :func:`_bwd_route` names. Both rules give ``"wgmma"`` (tensor cores
-  through wgmma: ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) for bf16 at
-  head_dim 64 or 128. Otherwise the forward takes ``"mma"``
-  (``csrc/flash_attn.cu``, mma.sync); the backward takes ``"tf32x3"``
-  (``csrc/flash_bwd_f32.cu``: tensor cores through mma.sync, each f32
-  product a three-pass TF32 split, f32-accurate) for float32 at every head
-  dim, and ``"mma"`` for bf16 at head_dim 16 or 32. On CPU tensors the same
-  function takes the plain versions. A CUDA tensor the kernels cannot take
-  raises; there is no fallback from one kernel to another or to the plain
-  version.
+  :func:`_bwd_route` names for each of the two kernels. Both rules give
+  ``"wgmma"`` (tensor cores through wgmma: ``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128, and ``"small"``
+  (``csrc/flash_small.cu``: mma.sync with ldmatrix fragments, P and dS in
+  registers) for the bf16 forward and dK/dV at head_dim 16 or 32, where
+  dQ takes ``"mma"`` (``csrc/flash_attn.cu``). The f32 forward takes
+  ``"mma"``; the f32 backward ``"tf32x3"`` (``csrc/flash_bwd_f32.cu``:
+  tensor cores through mma.sync, each f32 product a three-pass TF32 split,
+  f32-accurate) at every head dim. On CPU tensors the same function takes
+  the plain versions. A CUDA tensor the kernels cannot take raises; there
+  is no fallback from one kernel to another or to the plain version.
 - :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
   kernel wrappers; each adds one to its ``launches`` where it launches, and
-  also to ``launches_wgmma`` on the ``"wgmma"`` route and, for the two
-  backward wrappers, to ``launches_tf32x3`` on the ``"tf32x3"`` route.
+  also to ``launches_wgmma`` on the ``"wgmma"`` route, for the two
+  backward wrappers to ``launches_tf32x3`` on the ``"tf32x3"`` route, and
+  for the forward and dK/dV wrappers to ``launches_small`` on the
+  ``"small"`` route.
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -48,6 +51,12 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
+SMALL_HEAD_DIMS = (16, 32)
+# CTAs of one cluster that share a key tile's row steps on the small dK/dV
+# kernel (csrc/flash_small.cu MAX_SPLITS), and the rows of a step.
+SMALL_MAX_SPLITS = 8
+SMALL_ROW_STEP = 64
+SMALL_KEY_TILE = 64
 
 
 def _shapes(q, k, v, segq, segk):
@@ -178,11 +187,20 @@ def _stream(device):
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel takes a CUDA call: ``"wgmma"``
     (``flash_fwd_wgmma`` of ``csrc/flash_fwd.cu``, tensor cores) for bf16
-    at head_dim 64 or 128; ``"mma"`` (``flash_fwd_kernel`` of
-    ``csrc/flash_attn.cu``) for float32 and head_dim 16 or 32."""
+    at head_dim 64 or 128; ``"small"`` (``flash_fwd_small`` of
+    ``csrc/flash_small.cu``) for bf16 at head_dim 16 or 32; ``"mma"``
+    (``flash_fwd_kernel`` of ``csrc/flash_attn.cu``) for float32."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if dtype == torch.bfloat16 and head_dim in SMALL_HEAD_DIMS:
+        return "small"
     return "mma"
+
+
+def _check_small(dtype: torch.dtype, head_dim: int) -> None:
+    if dtype != torch.bfloat16 or head_dim not in SMALL_HEAD_DIMS:
+        raise TypeError(f"the small route takes bfloat16 at head_dim "
+                        f"{SMALL_HEAD_DIMS}, got {dtype} at {head_dim}")
 
 
 def _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale, route):
@@ -200,10 +218,14 @@ def _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale, route):
             raise TypeError(f"the wgmma route takes bfloat16 at head_dim "
                             f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
         fn = _fwd_library().flash_attn_fwd_wgmma
+    elif route == "small":
+        _check_small(q.dtype, d)
+        fn = _small_library().flash_attn_fwd_small
     elif route == "mma":
         fn = _library().flash_attn_fwd
     else:
-        raise ValueError(f"route must be 'wgmma' or 'mma', got {route!r}")
+        raise ValueError(f"route must be 'wgmma', 'small' or 'mma', got "
+                         f"{route!r}")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segq),
                 _ptr(segk), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv,
@@ -219,11 +241,12 @@ def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float, *,
               route: str | None = None):
     """The forward: ``(o, lse)``. CPU tensors take
     :func:`flash_attention_reference` (and refuse a named ``route``); CUDA
-    tensors launch ``flash_fwd_wgmma`` on the ``"wgmma"`` route or
-    ``flash_fwd_kernel`` on ``"mma"`` (default: :func:`_fwd_route`'s
-    choice; naming it lets a caller time both routes on the same inputs),
-    and add one to ``flash_fwd.launches``, and on the wgmma route to
-    ``.launches_wgmma``."""
+    tensors launch ``flash_fwd_wgmma`` on the ``"wgmma"`` route,
+    ``flash_fwd_small`` on ``"small"`` or ``flash_fwd_kernel`` on
+    ``"mma"`` (default: :func:`_fwd_route`'s choice; naming it lets a
+    caller time two routes on the same inputs), and add one to
+    ``flash_fwd.launches``, and on the wgmma or small route to
+    ``.launches_wgmma`` or ``.launches_small``."""
     b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
     if q.device.type == "cpu" and route is None:
         return flash_attention_reference(
@@ -231,26 +254,48 @@ def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float, *,
             kv_segment_ids=segk)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    if _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale,
-                   route) == "wgmma":
-        flash_fwd.launches_wgmma += 1
-    flash_fwd.launches += 1
+    _count(flash_fwd, _fwd_launch(q, k, v, segq, segk, o, lse, causal,
+                                  scale, route))
     return o, lse
 
 
-def _bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which backward kernels take a CUDA call: ``"tf32x3"`` (the three-pass
-    TF32 kernels of ``csrc/flash_bwd_f32.cu``) for float32; ``"wgmma"`` (the
-    tensor-core kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64
-    or 128; ``"mma"`` (``flash_dq_kernel`` and ``flash_dkv_kernel`` of
-    ``csrc/flash_attn.cu``) for bf16 at head_dim 16 or 32. A caller may
-    name ``"mma"`` in float32 too: the CUDA-core f32 kernels of
+def _bwd_route(dtype: torch.dtype, head_dim: int, which: str) -> str:
+    """Which kernel takes backward kernel ``which`` ("dq" or "dkv") of a
+    CUDA call: ``"tf32x3"`` (the three-pass TF32 kernels of
+    ``csrc/flash_bwd_f32.cu``) for float32; ``"wgmma"`` (the tensor-core
+    kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128; for
+    bf16 at head_dim 16 or 32, ``"small"`` (``flash_dkv_small`` of
+    ``csrc/flash_small.cu``) for dK/dV and ``"mma"`` (``flash_dq_kernel``
+    of ``csrc/flash_attn.cu``) for dQ. A caller may name ``"mma"`` for
+    either kernel at every dtype: the mma.sync and CUDA-core kernels of
     ``csrc/flash_attn.cu``, kept to be timed on the same inputs."""
+    if which not in ("dq", "dkv"):
+        raise ValueError(f"which must be 'dq' or 'dkv', got {which!r}")
     if dtype == torch.float32:
         return "tf32x3"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if (dtype == torch.bfloat16 and head_dim in SMALL_HEAD_DIMS
+            and which == "dkv"):
+        return "small"
     return "mma"
+
+
+def _dkv_small_splits(batch: int, n_kv: int, sq: int, sk: int, group: int,
+                      causal: bool, sms: int) -> int:
+    """CTAs (one cluster, 1 to ``SMALL_MAX_SPLITS``) that share a key tile's
+    64-row steps on the small dK/dV kernel: enough that a CTA walks at most
+    about 16 steps of the heaviest key tile (key tile 0: under causal
+    masking every row sees it) and that the grid holds about two CTAs an
+    SM, but never more than that key tile has steps. Each CTA more costs
+    a K/V load, a prologue and a share of the merge: at phase Q's shape 2
+    CTAs a key tile ran faster than 4 and 8 (``PERF.md``)."""
+    rows = sq * group
+    first = max(0, -(sk - sq)) * group if causal else 0   # rows of tile 0
+    steps = max(1, -(-(rows - min(first, rows)) // SMALL_ROW_STEP))
+    tiles = batch * n_kv * -(-sk // SMALL_KEY_TILE)
+    want = max(-(-steps // 16), -(-2 * sms // tiles))
+    return max(1, min(SMALL_MAX_SPLITS, steps, want))
 
 
 def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
@@ -265,7 +310,8 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
                          f"{q.device}")
     _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse,
                  "delta": delta}, segq, segk)
-    route = _bwd_route(q.dtype, d) if route is None else route
+    route = _bwd_route(q.dtype, d, which) if route is None else route
+    extra = []
     if route == "wgmma":
         if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
             raise TypeError(f"the wgmma route takes bfloat16 at head_dim "
@@ -279,18 +325,28 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
         lib = _tf32x3_library()
         fn = lib.flash_bwd_dq_tf32x3 if which == "dq" else \
             lib.flash_bwd_dkv_tf32x3
+    elif route == "small":
+        if which != "dkv":
+            raise ValueError("the small route has a dK/dV kernel only; dQ "
+                             "at head_dim 16 or 32 takes 'mma'")
+        _check_small(q.dtype, d)
+        fn = _small_library().flash_attn_bwd_dkv_small
+        extra = [_dkv_small_splits(
+            b, hkv, sq, sk, h // hkv, causal,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)]
     elif route == "mma":
         lib = _library()
         fn = lib.flash_attn_bwd_dq if which == "dq" else \
             lib.flash_attn_bwd_dkv
     else:
-        raise ValueError(f"route must be 'wgmma', 'tf32x3' or 'mma', got "
-                         f"{route!r}")
+        raise ValueError(f"route must be 'wgmma', 'tf32x3', 'small' or "
+                         f"'mma', got {route!r}")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segk),
                 *(t.data_ptr() for t in outs), b, sq, sk, h, hkv, d,
-                int(causal), _DTYPE_CODE[q.dtype], scale, _stream(q.device))
+                int(causal), _DTYPE_CODE[q.dtype], scale, *extra,
+                _stream(q.device))
     if rc:
         raise RuntimeError(f"flash backward {which} ({route} route) launch "
                            f"failed: CUDA error {rc}")
@@ -314,9 +370,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
                   scale: float, *, route: str | None = None):
     """dK and dV on the card, the query-head group summed:
     ``flash_dkv_wgmma`` on the ``"wgmma"`` route, ``flash_dkv_tf32x3`` on
-    ``"tf32x3"``, ``flash_dkv_kernel`` on ``"mma"``. Adds one to
-    ``flash_bwd_dkv.launches``, and to ``.launches_wgmma`` or
-    ``.launches_tf32x3`` on those routes. CUDA tensors only."""
+    ``"tf32x3"``, ``flash_dkv_small`` on ``"small"``, ``flash_dkv_kernel``
+    on ``"mma"``. Adds one to ``flash_bwd_dkv.launches``, and to
+    ``.launches_wgmma``, ``.launches_tf32x3`` or ``.launches_small`` on
+    those routes. CUDA tensors only."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _count(flash_bwd_dkv, _bwd_launch("dkv", q, k, v, do, lse, delta, segq,
                                       segk, (dk, dv), causal, scale, route))
@@ -324,22 +381,24 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
 
 
 def _count(wrapper, route: str) -> None:
-    """One launch of a backward wrapper on ``route``."""
+    """One launch of a wrapper on ``route``: ``launches``, and
+    ``launches_<route>`` for every route but ``"mma"``."""
     wrapper.launches += 1
-    if route == "wgmma":
-        wrapper.launches_wgmma += 1
-    elif route == "tf32x3":
-        wrapper.launches_tf32x3 += 1
+    if route != "mma":
+        name = f"launches_{route}"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 flash_fwd.launches = 0
 flash_fwd.launches_wgmma = 0
+flash_fwd.launches_small = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dq.launches_wgmma = 0
 flash_bwd_dq.launches_tf32x3 = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_wgmma = 0
 flash_bwd_dkv.launches_tf32x3 = 0
+flash_bwd_dkv.launches_small = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
@@ -354,8 +413,9 @@ def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
                    scale: float):
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
     delta = rowsum(dO·O) (a PyTorch reduction), then the dQ kernel, then
-    the dK/dV kernel, both of :func:`_bwd_route`'s route (float32:
-    ``"tf32x3"``)."""
+    the dK/dV kernel, each on :func:`_bwd_route`'s route for it (float32:
+    ``"tf32x3"``; bf16 at head_dim 16 or 32: dQ ``"mma"``, dK/dV
+    ``"small"``)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, softmax_scale=scale,
@@ -435,6 +495,19 @@ def _tf32x3_library():
         lib.flash_bwd_dq_tf32x3.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.flash_bwd_dkv_tf32x3.argtypes = [ctypes.c_void_p] * 10 + tail
         for fn in (lib.flash_bwd_dq_tf32x3, lib.flash_bwd_dkv_tf32x3):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _small_library():
+    lib = _build.load("flash_small")
+    if lib.flash_attn_fwd_small.argtypes is None:
+        tail = [ctypes.c_int] * 8 + [ctypes.c_float]
+        lib.flash_attn_fwd_small.argtypes = (
+            [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p])
+        lib.flash_attn_bwd_dkv_small.argtypes = (
+            [ctypes.c_void_p] * 10 + tail + [ctypes.c_int, ctypes.c_void_p])
+        for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dkv_small):
             fn.restype = ctypes.c_int
     return lib
 

@@ -9,6 +9,7 @@
     python3 kernel_breakdown.py gmm          # csrc/gmm_wgmma.cu
     python3 kernel_breakdown.py paged_f32    # csrc/paged_attn_f32.cu
     python3 kernel_breakdown.py gmm_f32      # csrc/gmm_f32.cu
+    python3 kernel_breakdown.py flash_small  # csrc/flash_small.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
@@ -107,6 +108,22 @@ the forward and dlhs (K 2048 -> N 768 on the weight read transposed).
 Variants: ``no_split``, ``no_products``, ``no_loads`` (no copies after
 the first stage), ``skeleton`` (none of the three), and, not a stage,
 ``three_stages`` (a third stage in shared memory, two ahead).
+
+``flash_small``: the bf16 forward and dK/dV kernels at head_dim 16 and 32
+at phase Q's attention (B 8, S 1024, 4/2 heads, head_dim 16, causal) and
+at phase D's head_dim-32 case (the same with head_dim 32 and documents of
+300/400/324 tokens); dK/dV also at cluster sizes 1, 2, 3, 4 and 8 beside
+the wrapper's choice. Variants: ``no_exp`` (p = the
+exponent, no ex2), ``no_s``
+(no S = Q.K^T, S^T or dP^T products: their fragments are folded into one
+accumulator element by integer XORs), ``no_pv`` (no P.V, dV or dK
+products, likewise), ``no_loads`` (no copies after the first tile),
+``no_merge`` (the cluster's partials are not summed or written),
+``skeleton`` (none of these), ``no_tiles`` (no tile or row step: the
+prologue, the epilogue and the merge) and ``empty`` (every CTA returns at
+once: the launch), and, not stages, ``kt64`` (64-key forward tiles),
+``dkv_4_ctas`` (dK/dV held to 128 registers, four CTAs an SM) and
+``three_stages`` (three ring slots, two tiles ahead, in both kernels).
 """
 from __future__ import annotations
 
@@ -295,6 +312,63 @@ FLASH_FWD_VARIANTS["loads_only"] = [
 FLASH_FWD_VARIANTS["skeleton"] = [*FLASH_FWD_VARIANTS["loads_only"],
                                   *FLASH_FWD_VARIANTS["no_loads"]]
 
+FLASH_SMALL_VARIANTS = {
+    "base": [],
+    "no_exp": [
+        (f"const float p{i} = ex2(fmaf(s[n][{i}], sl, -mn{i // 2}));",
+         f"const float p{i} = fmaf(s[n][{i}], sl, -mn{i // 2});", 1)
+        for i in range(4)] + [
+        ("float p = ex2(fmaf(st[n][e], sl, -(lse_s[c] * LOG2E)));",
+         "float p = fmaf(st[n][e], sl, -(lse_s[c] * LOG2E));", 1)],
+    # A product left out is replaced by an XOR of its fragments into one
+    # accumulator element, so that the fragment loads stay live.
+    "no_s": [
+        (f"mma_bf16({acc}[2 * np{plus}], {a}[kk], {b}[{i}], {b}[{i + 1}]);",
+         f"{acc}[2 * np{plus}][0] += __uint_as_float({a}[kk][0] ^ "
+         f"{b}[{i}] ^ {b}[{i + 1}]);", 1)
+        for acc, a, b in (("s", "qa", "kb"), ("st", "kf", "qb"),
+                          ("dpt", "vf", "ob"))
+        for plus, i in (("", 0), (" + 1", 2))],
+    "no_pv": [
+        (f"mma_bf16({acc}[2 * np{plus}], {a}, {b}[{i}], {b}[{i + 1}]);",
+         f"{acc}[2 * np{plus}][0] += __uint_as_float({a}[0] ^ {a}[3] ^ "
+         f"{b}[{i}] ^ {b}[{i + 1}]);", 1)
+        for acc, a, b in (("acc", "pa[kk]", "vb"), ("adv", "pa", "ob"),
+                          ("adk", "da", "qb"))
+        for plus, i in (("", 0), (" + 1", 2))],
+    "no_loads": [
+        ("    if (t + DIST < n_tiles) issue(t + DIST, (t + DIST) % "
+         "FWD_STAGES);\n", "", 1),
+        ("    if (u + DIST < n_my) issue(u + DIST, (u + DIST) % "
+         "DKV_STAGES);\n", "", 1)],
+    "no_merge": [("it < ITEMS; it += n_split * NT) {",
+                  "it < 0; it += n_split * NT) {", 1)],
+    # What a launch costs with no tile: the prologue's copies, the
+    # epilogue's stores and (dK/dV) the merge; and with no work at all.
+    "no_tiles": [
+        ("  const int n_tiles = (kend + KT - 1) / KT;",
+         "  const int n_tiles = 0 * kend;", 1),
+        ("  const int n_my = n_steps * (rank + 1) / n_split - u_lo;",
+         "  const int n_my = 0 * (n_steps * (rank + 1) / n_split - u_lo);",
+         1)],
+    "empty": [("  const int tid = threadIdx.x, lane = tid & 31, "
+               "warp = tid >> 5;\n",
+               "  if (g.batch > 0) return;\n  const int tid = threadIdx.x, "
+               "lane = tid & 31, warp = tid >> 5;\n", 2)],
+}
+FLASH_SMALL_VARIANTS["skeleton"] = [
+    sub for name in ("no_exp", "no_s", "no_pv", "no_loads", "no_merge")
+    for sub in FLASH_SMALL_VARIANTS[name]]
+# Design points beside the kernels' own.
+FLASH_SMALL_VARIANTS["kt64"] = [("constexpr int KT = 128;",
+                                 "constexpr int KT = 64;", 1)]
+FLASH_SMALL_VARIANTS["dkv_4_ctas"] = [
+    ("__global__ void __launch_bounds__(NT)\nflash_dkv_small(",
+     "__global__ void __launch_bounds__(NT, 4)\nflash_dkv_small(", 1)]
+FLASH_SMALL_VARIANTS["three_stages"] = [
+    ("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 3;", 1),
+    ("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;", 1)]
+
 GMM_VARIANTS = {
     "base": [],
     "no_mma": [("      wgmma_ss_n256<TA, TB>(acc, a_desc(st, kk), "
@@ -347,6 +421,16 @@ def bind_flash_fwd(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attn_fwd_wgmma.restype = ctypes.c_int
+
+
+def bind_flash_small(lib: ctypes.CDLL) -> None:
+    tail = [ctypes.c_int] * 8 + [ctypes.c_float]
+    lib.flash_attn_fwd_small.argtypes = (
+        [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p])
+    lib.flash_attn_bwd_dkv_small.argtypes = (
+        [ctypes.c_void_p] * 10 + tail + [ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dkv_small):
+        fn.restype = ctypes.c_int
 
 
 def bind_gmm(lib: ctypes.CDLL) -> None:
@@ -533,6 +617,57 @@ def flash_fwd_case(dev: torch.device, stream: int) -> Launches:
     return out
 
 
+# name -> (B, S, H, KV, head_dim, document lengths or None), causal.
+FLASH_SMALL_LAUNCHES = {"q": (8, 1024, 4, 2, 16, None),
+                        "hd32_docs": (8, 1024, 4, 2, 32, (300, 400, 324))}
+
+
+def flash_small_case(dev: torch.device, stream: int) -> Launches:
+    """The forward and dK/dV at phase Q's attention and at phase D's
+    head_dim-32 case with documents; dK/dV at the wrapper's cluster size
+    and at 1, 2, 3, 4 and 8."""
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+
+    out = {}
+    for label, (b, s, h, kv, hd, docs) in FLASH_SMALL_LAUNCHES.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, do = (torch.randn(b, s, h, hd, device=dev,
+                             generator=gen).bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, s, kv, hd, device=dev,
+                            generator=gen).bfloat16() for _ in range(2))
+        segq = segk = None
+        if docs is not None:
+            ids = torch.repeat_interleave(
+                torch.arange(1, len(docs) + 1, device=dev),
+                torch.tensor(docs, device=dev)).to(torch.int32)
+            segq = segk = ids[None].expand(b, s).contiguous()
+        o, lse = fa.flash_attention_reference(
+            q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        o = torch.empty_like(q)
+        lse_out = torch.empty_like(lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        segs = [None if x is None else x.data_ptr() for x in (segq, segk)]
+        shape = [b, s, s, h, kv, hd, 1, 1, hd ** -0.5]
+        keep = (q, k, v, do, lse, delta, segq, segk)   # raw pointers
+        out[f"{label}_fwd"] = (
+            lambda lib, a=[x.data_ptr() for x in (q, k, v)] + segs
+            + [o.data_ptr(), lse_out.data_ptr()] + shape + [stream],
+            keep=keep: lib.flash_attn_fwd_small(*a), (o, lse_out))
+        rule = fa._dkv_small_splits(b, kv, s, s, h // kv, True,
+                                    torch.cuda.get_device_properties(
+                                        dev).multi_processor_count)
+        for splits in sorted({rule, 1, 2, 3, 4, 8}):
+            name = f"{label}_dkv" + ("" if splits == rule else
+                                     f"_{splits}_ctas")
+            out[name] = (
+                lambda lib, a=[x.data_ptr() for x in (q, k, v, do, lse,
+                                                      delta)] + segs
+                + [dk.data_ptr(), dv.data_ptr()] + shape + [splits, stream],
+                keep=keep: lib.flash_attn_bwd_dkv_small(*a), (dk, dv))
+    return out
+
+
 def gmm_case(dev: torch.device, stream: int) -> Launches:
     """The forward, dlhs and tgmm launches at the MoE slice's gate/up
     product, with phase G's router group sizes."""
@@ -680,6 +815,8 @@ KERNELS = {
                         bind_paged_f32, paged_f32_case),
     "gmm_f32": Kernel("gmm_f32.cu", GMM_F32_VARIANTS, bind_gmm_f32,
                       gmm_f32_case),
+    "flash_small": Kernel("flash_small.cu", FLASH_SMALL_VARIANTS,
+                          bind_flash_small, flash_small_case),
 }
 
 

@@ -1332,6 +1332,154 @@ def test_flash_fwd_refuses_and_does_not_fall_back(hopper):
     assert _fwd_counts() == before
 
 
+# The small kernels (csrc/flash_small.cu, the "small" route): the bf16
+# forward and dK/dV at head_dim 16 and 32. (b, sq, sk, h, hkv, head_dim,
+# causal, segments): groups 1, 2 and 4, causal and not, sq < sk, sq > sk
+# (rows that see no key), segment ids (rows that see no key, keys no row
+# sees), lengths that cut the 128-key, 64-key and 64-row tiles, then phase
+# Q's attention and its head_dim-32 twin with segments.
+FLASH_SMALL_SHAPES = [
+    (2, 128, 128, 4, 2, 16, True, False),
+    (1, 96, 96, 4, 4, 32, False, False),
+    (1, 64, 200, 8, 2, 16, True, False),
+    (1, 160, 160, 8, 2, 32, True, True),
+    (2, 100, 77, 6, 2, 32, False, True),
+    (1, 200, 136, 4, 2, 16, True, False),
+    (3, 77, 77, 4, 1, 16, True, True),
+    (1, 1000, 1000, 12, 3, 32, True, False),
+    (8, 1024, 1024, 4, 2, 16, True, False),
+    (8, 1024, 1024, 4, 2, 32, True, True),
+]
+
+
+def _small_counts():
+    return (fa.flash_fwd.launches, fa.flash_fwd.launches_small,
+            fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.launches_small)
+
+
+@pytest.mark.parametrize("shape", FLASH_SMALL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_small_matches_reference(hopper, shape):
+    """O, lse, dK and dV on the small route against the plain versions,
+    held as phase D holds them (rows that see no key exactly the plain
+    version's, keys no row sees exactly 0), each launch counted on the
+    route; the mma kernels forced on the same inputs still run and agree."""
+    args, want = _flash_bwd_case(hopper, shape, sum(shape[:6]))
+    q, k, v, do, lse, delta, segq, segk, causal, scale = args
+    if segq is not None:
+        segq[0, :3] = 9                            # rows that see no key
+        segk[-1, 5:9] = 8                          # keys no row sees
+        ref_o, lse = fa.flash_attention_reference(
+            q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+        delta = (do.float() * ref_o.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, segq, segk, causal, scale)
+        want = fa.flash_attention_bwd_reference(
+            q, k, v, ref_o, lse, do, causal=causal, q_segment_ids=segq,
+            kv_segment_ids=segk)
+    before = _small_counts()
+    o, got_lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert _small_counts() == tuple(n + 1 for n in before)
+    ref_o, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    tol = FLASH_DTYPES[1][1]
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    _close(o, ref_o, tol, "o")
+    seen = ref_lse > -1e29
+    torch.testing.assert_close(got_lse[seen], ref_lse[seen], atol=1e-3,
+                               rtol=0)
+    assert torch.equal(got_lse[~seen], ref_lse[~seen])
+    assert torch.all(o[~seen.transpose(1, 2)] == 0)
+    for name, got, ref in (("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all(), name
+        _close(got, ref, tol, name)
+    if segk is not None:
+        assert torch.all(dk[-1, 5:9] == 0) and torch.all(dv[-1, 5:9] == 0)
+    mma_o, _ = fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="mma")
+    mma_dk, mma_dv = fa.flash_bwd_dkv(*args, route="mma")
+    torch.cuda.synchronize()
+    _close(mma_o, ref_o, tol, "o, mma route")
+    _close(mma_dk, want[1], tol, "dk, mma route")
+    _close(mma_dv, want[2], tol, "dv, mma route")
+
+
+def test_flash_small_launches_give_the_same_bits(hopper):
+    """Three launches of each small kernel give the same bits: the
+    cluster's partials are summed in rank order, with no atomics."""
+    args, _ = _flash_bwd_case(hopper, (8, 1024, 1024, 4, 2, 32, True, True),
+                              5)
+    q, k, v, _, _, _, segq, segk, causal, scale = args
+    outs = [fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+            + fa.flash_bwd_dkv(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_flash_small_launches_count_by_route(hopper):
+    """Autograd in bf16 at head_dim 16 and 32: the forward and dK/dV on
+    the small route (launches and launches_small), dQ on the mma route
+    (launches alone); a forced mma route counts on launches alone; bf16 at
+    head_dim 64 and f32 at 16 count nothing on launches_small."""
+    for d in fa.SMALL_HEAD_DIMS:
+        q, k, v, do, _, _, _ = _flash_inputs(
+            hopper, torch.bfloat16, (1, 64, 64, 4, 2, d, True, False), d)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = _small_counts() + (fa.flash_bwd_dq.launches,)
+        fa.flash_attention(q, k, v, causal=True).backward(do)
+        torch.cuda.synchronize()
+        assert _small_counts() + (fa.flash_bwd_dq.launches,) == tuple(
+            n + 1 for n in before)
+    args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 16, True, False), 3)
+    q, k, v, _, _, _, segq, segk, causal, scale = args
+    before = _small_counts()
+    fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="mma")
+    fa.flash_bwd_dkv(*args, route="mma")
+    assert _small_counts() == (before[0] + 1, before[1], before[2] + 1,
+                               before[3])
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 16)):
+        q, k, v, do, _, _, _ = _flash_inputs(
+            hopper, dtype, (1, 64, 64, 4, 2, d, True, False), 4)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = _small_counts()
+        fa.flash_attention(q, k, v, causal=True).backward(do)
+        torch.cuda.synchronize()
+        assert _small_counts() == (before[0] + 1, before[1], before[2] + 1,
+                                   before[3])
+
+
+def test_flash_small_refuses_and_does_not_fall_back(hopper):
+    """A forced small route in f32 or at head_dim 64, a small dQ, a
+    non-contiguous input and mixed dtypes raise before any launch: no path
+    gives way to the mma kernels or to the plain version."""
+    args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 16, True, False), 6)
+    q, k, v, do, lse, delta, segq, segk, causal, scale = args
+    before = _small_counts() + (fa.flash_bwd_dq.launches,)
+    with pytest.raises(TypeError, match="small route takes bfloat16"):
+        fa.flash_fwd(q.float(), k.float(), v.float(), None, None, True,
+                     scale, route="small")
+    with pytest.raises(TypeError, match="small route takes bfloat16"):
+        fa.flash_bwd_dkv(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta, None, None, True, scale, route="small")
+    wide = [torch.cat([x, x, x, x], -1) for x in (q, k, v, do)]
+    with pytest.raises(TypeError, match="small route takes bfloat16"):
+        fa.flash_fwd(*wide[:3], None, None, True, scale, route="small")
+    with pytest.raises(ValueError, match="dK/dV kernel only"):
+        fa.flash_bwd_dq(*args, route="small")
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(strided, k, v, None, None, True, scale)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        fa.flash_bwd_dkv(q, k.float(), v, do, lse, delta, segq, segk,
+                         causal, scale)
+    torch.cuda.synchronize()
+    assert _small_counts() + (fa.flash_bwd_dq.launches,) == before
+
+
 # Grouped matmul: (group sizes, K, N, block_m). The JAX kernel tests'
 # layouts (an empty group, everything in one expert), contraction and
 # column sizes that cut the 32-deep and 128-wide tiles, a block_m of two

@@ -2,8 +2,9 @@
 (``csrc/flash_bwd.cu``) on the CPU, where the kernels cannot run.
 
 - ``_bwd_route``: bf16 at head_dim 64 or 128 takes the ``"wgmma"`` kernels;
-  bf16 at head_dim 16 or 32 the ``mma.sync`` kernels of
-  ``csrc/flash_attn.cu`` (``"mma"``); float32 at every head dim the
+  bf16 at head_dim 16 or 32 the ``mma.sync`` dQ kernel of
+  ``csrc/flash_attn.cu`` (``"mma"``) and the dK/dV kernel of
+  ``csrc/flash_small.cu`` (``"small"``); float32 at every head dim the
   three-pass TF32 kernels of ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``).
 - A torch model of the two kernels' arithmetic, written here: the dQ kernel
   walks 64-key tiles in order, the dK/dV kernel 64-row tiles of flattened
@@ -45,20 +46,27 @@ BF16_TOL = (2 ** -5, 2 ** -6)      # chip_smoke.py FLASH_TOL[torch.bfloat16]
 
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_bf16_at_wgmma_head_dims_takes_the_wgmma_route(head_dim):
-    assert fa._bwd_route(torch.bfloat16, head_dim) == "wgmma"
+    for which in ("dq", "dkv"):
+        assert fa._bwd_route(torch.bfloat16, head_dim, which) == "wgmma"
 
 
 @pytest.mark.parametrize("head_dim", [64, 128, 16, 32])
 def test_f32_calls_take_the_tf32x3_route(head_dim):
     """float32 at every head dim: the three-pass TF32 kernels of
     ``csrc/flash_bwd_f32.cu`` (``tests/test_torch_flash_bwd_f32.py``)."""
-    assert fa._bwd_route(torch.float32, head_dim) == "tf32x3"
+    for which in ("dq", "dkv"):
+        assert fa._bwd_route(torch.float32, head_dim, which) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype,head_dim", [
     (torch.bfloat16, 16), (torch.bfloat16, 32)])
 def test_other_calls_take_the_mma_route(dtype, head_dim):
-    assert fa._bwd_route(dtype, head_dim) == "mma"
+    """bf16 at head_dim 16 and 32: dQ on the mma.sync kernel of
+    ``csrc/flash_attn.cu`` (``"mma"``), dK/dV on ``flash_dkv_small`` of
+    ``csrc/flash_small.cu`` (``"small"``,
+    ``tests/test_torch_flash_small.py``)."""
+    assert fa._bwd_route(dtype, head_dim, "dq") == "mma"
+    assert fa._bwd_route(dtype, head_dim, "dkv") == "small"
 
 
 def _flat(x, hkv):

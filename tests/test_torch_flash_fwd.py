@@ -2,8 +2,9 @@
 (``csrc/flash_fwd.cu``) on the CPU, where the kernel cannot run.
 
 - ``_fwd_route``: bf16 at head_dim 64 or 128 takes ``flash_fwd_wgmma``
-  (``"wgmma"``); float32 and head_dim 16 or 32 take ``flash_fwd_kernel``
-  of ``csrc/flash_attn.cu`` (``"mma"``).
+  (``"wgmma"``); bf16 at head_dim 16 or 32 ``flash_fwd_small`` of
+  ``csrc/flash_small.cu`` (``"small"``); float32 ``flash_fwd_kernel`` of
+  ``csrc/flash_attn.cu`` (``"mma"``).
 - A torch model of the kernel's arithmetic, written here: flattened
   (position, group head) query rows walk 64-key tiles in order; scores
   summed in f32 and taken to the log2 domain (times scale * log2 e),
@@ -62,7 +63,11 @@ def test_bf16_at_wgmma_head_dims_takes_the_wgmma_route(head_dim):
     (torch.float32, 64), (torch.float32, 128), (torch.float32, 16),
     (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 32)])
 def test_other_calls_take_the_mma_route(dtype, head_dim):
-    assert fa._fwd_route(dtype, head_dim) == "mma"
+    """float32 at every head dim takes ``"mma"``; bf16 at head_dim 16 and
+    32 takes ``"small"`` (``csrc/flash_small.cu``,
+    ``tests/test_torch_flash_small.py``) instead."""
+    want = "small" if dtype == torch.bfloat16 else "mma"
+    assert fa._fwd_route(dtype, head_dim) == want
 
 
 def kernel_model(q, k, v, *, causal, scale, segq=None, segk=None):
