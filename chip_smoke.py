@@ -69,23 +69,23 @@ D. The flash-attention kernels against their plain PyTorch versions on
    head_dim 128: causal, non-causal, 512 queries against 2048 keys
    (causal, offset 1536), and three packed documents by segment ids
    (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
-   head_dim 64, causal) and at phase Q's (B 8, S 1024, 4/2 heads, head_dim
-   16, causal: the mma kernels' own route in bf16). The forward and the
-   backward on every route:
-   in bf16 the tensor-core kernels of ``csrc/flash_fwd.cu`` and
-   ``csrc/flash_bwd.cu`` (``"wgmma"``, the route bf16 takes) and the
-   mma.sync kernels of ``flash_attn.cu`` forced on the same inputs; in
-   f32 the backward on the three-pass TF32 kernels of
-   ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``, the route f32 takes) and on
-   the mma kernels forced, the forward on the mma route alone. Each
+   head_dim 64, causal), at phase Q's (B 8, S 1024, 4/2 heads, head_dim
+   16, causal) and at its head_dim-32 twin with three documents. The
+   forward and the backward on every route: in bf16 the tensor-core
+   kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+   (``"wgmma"``, head_dim 64/128) or of ``csrc/flash_small.cu``
+   (``"small"``, head_dim 16/32), in f32 the three-pass TF32 kernels of
+   ``csrc/flash_fwd_f32.cu`` and ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``),
+   each beside the first kernels of ``flash_attn.cu`` (``"mma"``) forced on
+   the same inputs. Each
    output is held element by element to a limit of atol x the RMS of its
    row (never below the output's RMS) + rtol x the element, and the
    log-sum-exp to an absolute limit; rows that see no key match the plain
-   version exactly; two launches of the default backward route (wgmma,
-   tf32x3) and of the wgmma forward on the same inputs give the same
-   bits. Then a case with rows that see no key and keys that no row sees,
-   in both dtypes: every backward route's dQ, dK and dV there exactly the
-   plain version's.
+   version exactly; two launches of each kernel's default route on the
+   same inputs give the same bits. Then a case with rows that see no key
+   and keys that no row sees, in both dtypes: every backward route's dQ,
+   dK and dV there exactly the plain version's, and every default forward
+   route's O and lse.
    Reports each kernel's error, time, the plain version's, the bound (the
    larger of the bytes it must move over 3.35 TB/s and its matmul FLOPs on
    the visible pairs over the dtype's peak; for the tf32x3 lines 3 x the
@@ -115,9 +115,9 @@ F. Three AdamW steps in f32 (TF32 off: cuBLAS and cuDNN hold f32; the
    for every parameter tensor on its own the first step's gradient and
    the parameters after the 3 steps agree, within the stated tolerances.
    Logs the element whose parameter differs most, with its gradient and
-   Adam moments on both paths. The f32 forward runs on the mma route and
-   the backward on the tf32x3 route, 2 x steps launches of each tf32x3
-   kernel and none of the mma backward (checked). Then the same model and
+   Adam moments on both paths. The flash forward and backward run on the
+   tf32x3 route alone, 2 x steps launches of each backward kernel and at
+   least as many forward (checked). Then the same model and
    first batch in bf16 compute:
    one step's gradients on the wgmma route and on the mma route (forced),
    each against the f32 plain path per parameter tensor; the wgmma
@@ -162,9 +162,8 @@ I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
    attention), compared as in phase F. The f32 kernel path runs the
    forward grouped GEMM and dlhs on tf32x3 (exactly 6 x layers x steps),
-   the weight gradient and the flash forward on the mma routes and the
-   flash backward on tf32x3, 2 x steps launches of each and none of the
-   mma backward (the wgmma counts stay 0, checked).
+   the weight gradient on the mma route and the flash forward and
+   backward on tf32x3, as in phase F (the wgmma counts stay 0, checked).
 J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
@@ -261,10 +260,11 @@ Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
    head_dim 16: ``--preset tiny --seq-len 1024``, where the auto attention
    takes the flash kernels) in bf16 and in f32 (the CLI's default), 8
    AdamW steps on one fixed batch through ``make_train_step``: the loss
-   falls by phase E's margin, the flash backward launches once a layer a
-   step on its dtype's route (bf16 at head_dim 16: the mma kernels; f32:
-   tf32x3) and on no other; at the path's attention shape that route's
-   backward is within phase D's limit of the plain version.
+   falls by phase E's margin, each flash backward kernel launches once a
+   layer a step, and the forward at least as often, on its dtype's route
+   (bf16 at head_dim 16: small; f32: tf32x3) and on no other; at the
+   path's attention shape that route's backward is within phase D's limit
+   of the plain version.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -1079,6 +1079,10 @@ def _kernel_class(name: str) -> str:
                      ("paged_attn", "paged_attn"),
                      ("flash_fwd_kernel", "flash_fwd"),
                      ("flash_fwd_wgmma", "flash_fwd_wgmma"),
+                     ("flash_fwd_tf32x3", "flash_fwd_tf32x3"),
+                     ("flash_fwd_small", "flash_fwd_small"),
+                     ("flash_dq_small", "flash_dq_small"),
+                     ("flash_dkv_small", "flash_dkv_small"),
                      ("flash_dq_kernel", "flash_dq"),
                      ("flash_dkv_kernel", "flash_dkv"),
                      ("flash_dq_wgmma", "flash_dq_wgmma"),
@@ -2521,14 +2525,14 @@ FLASH_REPLACES = {
 # Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
 # kernel by wrapper. Each wrapper launches the kernel of its route: the
 # wgmma lines are the "wgmma" route (bf16, head_dim 64/128), the tf32x3
-# lines the backward's "tf32x3" route (f32, every head dim), the small
-# lines the "small" route (the bf16 forward and dK/dV at head_dim 16/32),
-# the others the mma.sync kernels of flash_attn.cu ("mma": the f32
-# forward and the bf16 dQ at head_dim 16/32 on the training path; the
-# others forced here).
+# lines the "tf32x3" route (f32, every head dim), the small lines the
+# "small" route (bf16 at head_dim 16/32), the others the first kernels
+# of flash_attn.cu ("mma"), which no training path takes: forced here on
+# the same inputs.
 FLASH_KERNELS = {
     "flash_fwd": ("flash_attn.cu", "flash_fwd"),
     "flash_fwd_wgmma": ("flash_fwd.cu", "flash_fwd"),
+    "flash_fwd_tf32x3": ("flash_fwd_f32.cu", "flash_fwd"),
     "flash_bwd_dq": ("flash_attn.cu", "flash_bwd_dq"),
     "flash_bwd_dkv": ("flash_attn.cu", "flash_bwd_dkv"),
     "flash_bwd_dq_wgmma": ("flash_bwd.cu", "flash_bwd_dq"),
@@ -2536,6 +2540,7 @@ FLASH_KERNELS = {
     "flash_bwd_dq_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_tf32x3": ("flash_bwd_f32.cu", "flash_bwd_dkv"),
     "flash_fwd_small": ("flash_small.cu", "flash_fwd"),
+    "flash_bwd_dq_small": ("flash_small.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_small": ("flash_small.cu", "flash_bwd_dkv"),
 }
 # Routes other than "mma", whose launches a wrapper counts apart
@@ -2700,8 +2705,8 @@ def _blind_rows(dev):
     key carries) and keys no row sees (a key segment id no query carries),
     in bf16 and f32 at 8B's head_dim and in bf16 at head_dim 16 (the small
     kernels): every backward route gives exactly the plain version's dQ, dK
-    and dV there (0), and the small forward O = 0 and the plain lse.
-    Returns the routes checked."""
+    and dV there (0), and every forward route but mma (wgmma, tf32x3,
+    small) O = 0 and the plain lse. Returns the routes checked."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     checked = []
@@ -2756,11 +2761,10 @@ def phase_d(dev, flush):
     """The flash kernels against their plain versions, case by case; the
     forward and each backward kernel on every route its dtype and head dim
     have (bf16 at head_dim 64/128: the wgmma kernels; bf16 at 16/32: the
-    small forward and dK/dV and the mma dQ; f32: the backward on the tf32x3
-    kernels; each beside flash_attn.cu's mma kernels forced) on the same
-    inputs, and each default route other than mma launched twice for
-    bitwise equality; then rows that see no key on every backward route
-    and on the small forward."""
+    small kernels; f32: the tf32x3 kernels; each beside flash_attn.cu's
+    mma kernels forced) on the same inputs, and each default route launched
+    twice for bitwise equality; then rows that see no key on every
+    backward route and on every forward route but mma."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -3460,19 +3464,18 @@ def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
 
 
 def _check_f32_flash(phase, launches, backward) -> None:
-    """An f32 training path's flash launches: the forward on the mma route
-    (at least once a backward), the backward ``backward`` times on the
-    tf32x3 route and never on the mma or wgmma routes."""
+    """An f32 training path's flash launches: the forward on the tf32x3
+    route alone (at least once a backward), the backward ``backward``
+    times on the tf32x3 route alone; none on the mma, wgmma or small
+    routes."""
     check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == backward
           and launches["flash_bwd_dq_tf32x3"] == backward
           and launches["flash_bwd_dkv_tf32x3"] == backward
-          and launches["flash_fwd"] >= backward
-          and launches["flash_fwd_wgmma"] == 0
-          and launches["flash_fwd_small"] == 0
-          and launches["flash_bwd_dkv_small"] == 0,
+          and launches["flash_fwd"] == launches["flash_fwd_tf32x3"]
+          >= backward,
           f"phase {phase} (f32) flash launches {launches}: want {backward} "
-          f"of each backward on the tf32x3 route and none on the others, "
-          f"at least as many forward on the mma route")
+          f"of each backward and at least as many forward, all on the "
+          f"tf32x3 route and none on the others")
 
 
 def phase_f(dev):
@@ -3647,12 +3650,10 @@ def phase_q(dev):
     (the CLI's default dtype) through
     ``make_train_step``: 8 AdamW steps on one fixed batch bring the loss
     below phase E's margin; each flash backward kernel launches once a
-    layer a step on its route (bf16 at head_dim 16: dK/dV on the small
-    kernel, dQ on flash_attn.cu's mma kernel; f32: both on tf32x3) and on
-    no other, the forward at least as often on its own route (bf16: small;
-    f32: mma) and on no other; then, at the path's attention shape, the
-    backward kernels of those routes against the plain version within
-    phase D's limit."""
+    layer a step on its route (bf16 at head_dim 16: small; f32: tf32x3) and
+    on no other, the forward at least as often on the same route and on no
+    other; then, at the path's attention shape, the backward kernels of
+    those routes against the plain version within phase D's limit."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
     from k8s_distributed_deeplearning_torch.train import cli
@@ -4228,8 +4229,7 @@ def _flash_entries(rows, e_result, f_result, q_result):
     path that runs each kernel: phase E's bf16 step for the wgmma kernels,
     phase F's f32 kernel path for the tf32x3 kernels and the mma forward,
     phase Q's bf16 tiny preset (head dim 16) for the small kernels and the
-    mma backward (dQ; dK/dV forced since the small route); each by
-    route."""
+    mma backward; each by route (the mma kernels: 0, forced only)."""
     out = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -5,6 +5,12 @@
 //   `_fwd_kernel`      (launched by `_fwd`)  -> flash_fwd_kernel
 //   `_bwd_dq_kernel`   (launched by `_bwd`)  -> flash_dq_kernel
 //   `_bwd_dkv_kernel`  (launched by `_bwd`)  -> flash_dkv_kernel
+// The first design of all three, in both dtypes. Every call now routes
+// elsewhere (ops/flash_attn.py `_fwd_route`, `_bwd_route`): bf16 to
+// csrc/flash_fwd.cu and csrc/flash_bwd.cu (head_dim 64/128) or
+// csrc/flash_small.cu (16/32), f32 to csrc/flash_fwd_f32.cu and
+// csrc/flash_bwd_f32.cu. These kernels stay as the "mma" route, which
+// only a caller that names it takes, to time them on the same inputs.
 //
 // Contract (the Pallas kernels' semantics):
 //   q          [B, sq, H, D]    float32 or bfloat16, contiguous

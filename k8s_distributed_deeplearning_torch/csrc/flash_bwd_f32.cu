@@ -7,9 +7,10 @@
 //   `_bwd_dq_kernel`  (:396, launched by `_bwd` at :690) -> flash_dq_tf32x3
 //   `_bwd_dkv_kernel` (:520, launched by `_bwd` at :723) -> flash_dkv_tf32x3
 // ops/flash_attn.py `_bwd_route` sends every float32 call here ("tf32x3");
-// bf16 stays on csrc/flash_bwd.cu (head_dim 64/128) and on the mma.sync
-// kernels of csrc/flash_attn.cu (16/32), whose f32 branch runs on the
-// CUDA cores and which a caller may still name ("mma").
+// bf16 stays on csrc/flash_bwd.cu (head_dim 64/128) and csrc/
+// flash_small.cu (16/32). The mma.sync kernels of csrc/flash_attn.cu,
+// whose f32 branch runs on the CUDA cores, stay reachable as the forced
+// "mma" route.
 //
 // Contract (flash_attn.cu's backward in f32):
 //   q, dout    [B, sq, H, D]    float32
@@ -51,9 +52,10 @@
 //   the (2t, NV g) vector patterns are all free of bank conflicts.
 // - The tensor cores' f32 accumulation rounds toward zero: a tile's share
 //   of dQ, dK or dV is summed from zero and added to the running sum in
-//   f32 (add_part), so no chain of truncations grows with the sequence;
-//   dQ's S and dP keep the small passes in accumulators of their own
-//   (mma3_split), since dP - delta cancels in a row that sees few keys.
+//   f32 (tf32x3.cuh add_part), so no chain of truncations grows with the
+//   sequence; dQ's S and dP keep the small passes in accumulators of
+//   their own (mma3_split), since dP - delta cancels in a row that sees
+//   few keys.
 // - dQ: one CTA per (128 flattened query rows, KV head, batch row), eight
 //   warps of 16 rows, heaviest tiles first; Q and dO loaded once; 32-key
 //   K/V tiles double-buffered with cp.async, the next tile loading under
@@ -73,6 +75,7 @@
 
 #include <climits>
 
+#include "flash_rows.cuh"     // Geo, the flattened rows, copy_rows
 #include "tf32x3.cuh"
 #include "wgmma.cuh"          // cp.async copies
 
@@ -84,7 +87,8 @@ constexpr int DQ_ROWS = NW * 16;    // flattened query rows a dQ CTA
 constexpr int DQ_KEYS = 32;         // keys a K/V tile (dQ)
 constexpr int DKV_KEYS = 64;        // keys a dK/dV CTA: 4 groups of 16
 constexpr int DKV_ROWS = 64;        // flattened rows a Q/dO tile: 2 halves
-constexpr int PAD = 4;              // row pitch D + 4 floats (= 4 mod 8)
+constexpr int PAD = 4;              // row pitch D + 4 floats (= 4 mod 8),
+                                    // copy_rows' pitch
 constexpr unsigned FULL = 0xffffffffu;
 
 // B fragments a vector load feeds in dQ's [k][n] product: 4 (float4 rows)
@@ -120,60 +124,6 @@ struct DkvPlan {
   static_assert(4 * D * 32 <= 2 * STAGE, "the halves' sums fit the ring");
 };
 
-struct Geo {
-  int batch, sq, sk, n_heads, n_kv, group, rows_total, off, causal, seg;
-  float scale;
-};
-
-// Flattened query row fr of KV head kvh in batch row b: position
-// fr / group, head kvh * group + fr % group. Its row in a [B, sq, H, D]
-// tensor, and its element of a [B, H, sq] statistic.
-__device__ __forceinline__ size_t q_row(const Geo& g, int b, int kvh,
-                                        int fr) {
-  const int i = fr / g.group, h = kvh * g.group + fr % g.group;
-  return ((size_t)b * g.sq + i) * g.n_heads + h;
-}
-__device__ __forceinline__ size_t stat_at(const Geo& g, int b, int kvh,
-                                          int fr) {
-  const int i = fr / g.group, h = kvh * g.group + fr % g.group;
-  return ((size_t)b * g.n_heads + h) * g.sq + i;
-}
-
-// Copy rows [0, n) of D floats into a tile of rows of D + PAD floats, 16
-// bytes a thread a step; src(r) is row r's first float, null for a row
-// past the end (zero-filled; `base`, any address of the tensor, stands in
-// for its source).
-template <int D, typename Src>
-__device__ __forceinline__ void copy_rows(float* dst, int n,
-                                          const float* base, Src src) {
-  constexpr int CPR = D / 4;
-  for (int idx = threadIdx.x; idx < n * CPR; idx += NT) {
-    const int r = idx / CPR, c = idx - r * CPR;
-    const float* s = src(r);
-    cp_async16(dst + r * (D + PAD) + 4 * c, s ? s + 4 * c : base,
-               s != nullptr);
-  }
-}
-
-// acc[i][e] += part[i][e], then part = 0. The tensor cores' f32
-// accumulation drops the bits below the sum's last place (it rounds toward
-// zero, not to nearest), a bias that grows with the number of products
-// chained into one accumulator: chained over a causal row of 2,048 keys
-// (768 products), it put dQ at 1.67x chip_smoke.py's f32 limit at B 2,
-// 32/8 heads, D 128 on an H100. So a tile's products run from a zeroed
-// accumulator and the running sums take them in f32, rounded to nearest.
-template <int NV>
-__device__ __forceinline__ void add_part(float (*acc)[4],
-                                         float (&part)[NV][4]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[i][e] += part[i][e];
-      part[i][e] = 0.f;
-    }
-}
-
 // Grid: (n_kv * B, row tiles). CTA (x, y) serves KV head x % n_kv of batch
 // row x / n_kv and flattened rows [tile * DQ_ROWS, (tile + 1) * DQ_ROWS),
 // tile = row tiles - 1 - y: under causal masking the heaviest first. Warp
@@ -198,11 +148,11 @@ flash_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = blockIdx.x % g.n_kv, b = blockIdx.x / g.n_kv;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * DQ_ROWS;
 
-  copy_rows<D>(q_s, DQ_ROWS, q, [&](int r) -> const float* {
+  copy_rows<D, NT>(q_s, DQ_ROWS, q, [&](int r) -> const float* {
     const int fr = row0 + r;
     return fr < g.rows_total ? q + q_row(g, b, kvh, fr) * D : nullptr;
   });
-  copy_rows<D>(do_s, DQ_ROWS, dout, [&](int r) -> const float* {
+  copy_rows<D, NT>(do_s, DQ_ROWS, dout, [&](int r) -> const float* {
     const int fr = row0 + r;
     return fr < g.rows_total ? dout + q_row(g, b, kvh, fr) * D : nullptr;
   });
@@ -212,10 +162,10 @@ flash_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   auto issue = [&](int u, int stage) {
     float* ks = smem + P::RING_OFF + stage * P::STAGE;
     const int j0 = u * DQ_KEYS;
-    copy_rows<D>(ks, DQ_KEYS, k, [&](int r) -> const float* {
+    copy_rows<D, NT>(ks, DQ_KEYS, k, [&](int r) -> const float* {
       return j0 + r < g.sk ? k_b + (j0 + r) * kv_stride : nullptr;
     });
-    copy_rows<D>(ks + DQ_KEYS * LD, DQ_KEYS, v, [&](int r) -> const float* {
+    copy_rows<D, NT>(ks + DQ_KEYS * LD, DQ_KEYS, v, [&](int r) -> const float* {
       return j0 + r < g.sk ? v_b + (j0 + r) * kv_stride : nullptr;
     });
     if (g.seg && threadIdx.x < DQ_KEYS) {
@@ -367,10 +317,10 @@ flash_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const size_t kv_stride = (size_t)g.n_kv * D;
   const float* k_b = k + ((size_t)b * g.sk * g.n_kv + kvh) * D;
   const float* v_b = v + ((size_t)b * g.sk * g.n_kv + kvh) * D;
-  copy_rows<D>(k_s, DKV_KEYS, k, [&](int r) -> const float* {
+  copy_rows<D, NT>(k_s, DKV_KEYS, k, [&](int r) -> const float* {
     return key0 + r < g.sk ? k_b + (key0 + r) * kv_stride : nullptr;
   });
-  copy_rows<D>(v_s, DKV_KEYS, v, [&](int r) -> const float* {
+  copy_rows<D, NT>(v_s, DKV_KEYS, v, [&](int r) -> const float* {
     return key0 + r < g.sk ? v_b + (key0 + r) * kv_stride : nullptr;
   });
   // Row tiles [u0, n_rt): under causal masking from the tile of the first
@@ -607,18 +557,8 @@ int run(int which, const Args& a, int batch, int sq, int sk, int n_heads,
       (long long)batch * sq * n_heads > INT_MAX ||
       (a.segq == nullptr) != (a.segk == nullptr))
     return (int)cudaErrorInvalidValue;
-  Geo g;
-  g.batch = batch;
-  g.sq = sq;
-  g.sk = sk;
-  g.n_heads = n_heads;
-  g.n_kv = n_kv;
-  g.group = n_heads / n_kv;
-  g.rows_total = sq * g.group;
-  g.off = sk - sq;
-  g.causal = causal;
-  g.seg = a.segq != nullptr;
-  g.scale = scale;
+  const Geo g = make_geo(batch, sq, sk, n_heads, n_kv, causal,
+                         a.segq != nullptr, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return (int)dispatch<16>(which, a, g, s);

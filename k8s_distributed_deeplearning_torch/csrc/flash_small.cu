@@ -1,41 +1,43 @@
-// Flash attention for Hopper in bf16 at head_dim 16 and 32: the forward
-// and the dK/dV kernel, built around mma.sync's register layout.
+// Flash attention for Hopper in bf16 at head_dim 16 and 32: the forward,
+// the dQ and the dK/dV kernel, built around mma.sync's register layout.
 //
 // Replaces: k8s_distributed_deeplearning_tpu/ops/pallas_flash.py
 //   `_fwd_kernel`     (:148, launched by `_fwd` at :364) -> flash_fwd_small
+//   `_bwd_dq_kernel`  (:396, launched by `_bwd` at :690) -> flash_dq_small
 //   `_bwd_dkv_kernel` (:520, launched by `_bwd` at :723) -> flash_dkv_small
 // for bf16 at head_dim 16 and 32: ops/flash_attn.py routes those calls
-// "small". dQ at these head dims stays on flash_dq_kernel, and the
-// forward and dK/dV kernels of csrc/flash_attn.cu stay reachable as the
-// forced "mma" route.
+// "small". The kernels of csrc/flash_attn.cu stay reachable as the forced
+// "mma" route.
 //
 // Contract (flash_attn.cu's, narrowed to what these kernels take):
 //   q, do      [B, sq, H, D]    bfloat16, D 16 or 32
 //   k, v       [B, sk, kv, D]   bfloat16; q head h reads KV head h / (H/kv)
 //   segq, segk [B, sq], [B, sk] int32 or null: attend only where equal
-//   o          [B, sq, H, D]    bfloat16
+//   o, dq      [B, sq, H, D]    bfloat16
 //   lse, delta [B, H, sq]       float32 (delta = rowsum(dO * O))
 //   dk, dv     [B, sk, kv, D]   bfloat16, the query-head group summed
 // Causal masking is bottom-right aligned: row i sees key j iff
 // i + (sk - sq) >= j. Rounding points, the Pallas kernels': products of
 // bf16 values summed in f32; the forward rounds p to bf16 at the running
-// max for P.V and sums l over the f32 p; dK/dV rounds P to bf16 before
-// P^T.dO and dS = P (dP - delta) scale to bf16 before dS^T.Q; each output
-// is rounded once. A row that sees no key gives O = 0 and lse = -1e30
-// exactly (the sum floored at 1e-30), and its dK/dV terms are exactly 0.
-// The softmax runs in the log2 domain: p = 2^(s * scale * log2 e - m) with
-// the scale folded into one FFMA and ex2.approx; lse goes back to natural
-// units (m ln 2 + log(max(l, 1e-30))); dK/dV reads lse times log2 e.
+// max for P.V and sums l over the f32 p; dQ and dK/dV round dS = P (dP -
+// delta) scale to bf16 before dS.K and dS^T.Q, dK/dV also P before
+// P^T.dO; each output is rounded once. A row that sees no key gives O = 0,
+// lse = -1e30 (the sum floored at 1e-30) and dQ = 0 exactly, and its dK/dV
+// terms are exactly 0. The softmax runs in the log2 domain: p = 2^(s *
+// scale * log2 e - m) with the scale folded into one FFMA and ex2.approx;
+// lse goes back to natural units (m ln 2 + log(max(l, 1e-30))); dQ and
+// dK/dV read lse times log2 e.
 //
 // Bound on an H100 SXM: at head_dim 16 and 32 the exponentials, not the
 // products: one ex2 per visible (query, key) pair and query head in each
-// kernel, at 16 an SM a clock (132 SMs, 1.98 GHz), against 4 (forward) or
-// 8 (dK/dV) x D FLOPs per pair at 989 TFLOP/s.
+// kernel, at 16 an SM a clock (132 SMs, 1.98 GHz), against 4 (forward), 6
+// (dQ) or 8 (dK/dV) x D FLOPs per pair at 989 TFLOP/s.
 // What the design does about it:
 // - Fragments come from shared memory through ldmatrix.x4 (Q and K as A
-//   and B of S = Q.K^T; V, Q and dO transposed as B of P.V, dS^T.Q and
-//   P^T.dO), in tiles with a row pitch of D + 8 elements, so that the
-//   eight 16-byte rows of each 8x8 matrix fall in distinct banks.
+//   and B of S = Q.K^T, dO and V of dP = dO.V^T; V, K, Q and dO
+//   transposed as B of P.V, dS.K, dS^T.Q and P^T.dO), in tiles with a
+//   row pitch of D + 8 elements, so that the eight 16-byte rows of each
+//   8x8 matrix fall in distinct banks.
 // - P and dS never leave registers: the S (or S^T, dP^T) accumulator,
 //   masked, exponentiated and packed to bf16 pairs, is the A fragment of
 //   the next product (csrc/mma_sync.cuh has the layouts).
@@ -49,6 +51,12 @@
 // - Forward: one CTA of four warps per 64 flattened (position, group head)
 //   query rows, 16 a warp, walking 128-key tiles up to its causal frontier;
 //   grid (KV heads x B, row tiles), heaviest row tiles first.
+// - dQ: the forward's CTAs and grid, walking DQ_KT-key tiles (half the
+//   forward's: S and dP both live in registers) through the same ring; Q
+//   and dO fragments are loaded once and stay in registers, lse and delta
+//   of a lane's two rows too; the f32 dQ accumulates in registers over the
+//   key tiles, in order, and is rounded once. No atomics: the same bits on
+//   every launch.
 // - dK/dV: one CTA of four warps per 64 keys, 16 a warp, walking 64-row
 //   steps of flattened query rows from the first one that sees its keys.
 //   The steps of a key tile are split over a thread-block cluster of up to
@@ -64,6 +72,7 @@
 
 #include <cooperative_groups.h>
 
+#include "flash_rows.cuh"     // Geo, the flattened rows
 #include "mma_sync.cuh"
 #include "wgmma.cuh"          // cp.async copies, ex2, pack_bf16
 
@@ -71,46 +80,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr int NT = 128;            // four warps a CTA
 constexpr int FWD_ROWS = 64;       // flattened query rows a forward CTA
 constexpr int KT = 128;            // keys a forward K/V tile
+constexpr int DQ_KT = 64;          // keys a dQ K/V tile
 constexpr int DKV_KEYS = 64;       // keys a dK/dV CTA
 constexpr int RT = 64;             // flattened query rows a dK/dV step
 constexpr int MAX_SPLITS = 8;      // CTAs a dK/dV cluster
 constexpr int FWD_STAGES = 2;      // ring slots of K/V tiles
 constexpr int DKV_STAGES = 2;      // ring slots of row steps
 constexpr unsigned FULL = 0xffffffffu;
-
-struct Geo {
-  int batch, sq, sk, n_heads, n_kv, group, rows_total, off, causal, seg;
-  float scale;
-};
-
-// Flattened query row fr of KV head kvh in batch row b: position
-// fr / group, head kvh * group + fr % group. Its row in a [B, sq, H, D]
-// tensor, and its element of a [B, H, sq] statistic.
-__device__ __forceinline__ size_t q_row(const Geo& g, int b, int kvh,
-                                        int fr) {
-  const int i = fr / g.group, h = kvh * g.group + fr % g.group;
-  return ((size_t)b * g.sq + i) * g.n_heads + h;
-}
-__device__ __forceinline__ size_t stat_at(const Geo& g, int b, int kvh,
-                                          int fr) {
-  const int i = fr / g.group, h = kvh * g.group + fr % g.group;
-  return ((size_t)b * g.n_heads + h) * g.sq + i;
-}
-// The last key a valid row at position i sees; -1 for a row past the end.
-__device__ __forceinline__ int last_key(const Geo& g, int fr) {
-  if (fr >= g.rows_total) return -1;
-  return g.causal ? min(fr / g.group + g.off, g.sk - 1) : g.sk - 1;
-}
-
-__device__ __forceinline__ float neg_inf() {
-  return __int_as_float(static_cast<int>(0xff800000u));
-}
 
 // Shared memory of the forward, in bytes: the Q tile, then FWD_STAGES ring
 // stages of (K tile, V tile, key segment ids).
@@ -330,6 +309,213 @@ flash_fwd_small(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (tq == 0)
       lse[stat_at(g, b, kvh, fr)] =
           (m <= NEG_INF * 0.5f ? NEG_INF : m * LN2) + logf(n);
+  }
+}
+
+// Shared memory of dQ, in bytes: the Q and dO tiles, then FWD_STAGES ring
+// stages of (K tile, V tile, key segment ids).
+template <int HD>
+struct DqPlan {
+  static constexpr int LD = HD + 8;             // row pitch, elements
+  static constexpr int ROWS = FWD_ROWS * LD * 2;
+  static constexpr int TILE = DQ_KT * LD * 2;
+  static constexpr int STAGE = 2 * TILE + DQ_KT * 4;
+  static constexpr int BYTES = 2 * ROWS + FWD_STAGES * STAGE;
+};
+
+// Grid (KV heads x B, row tiles), as the forward's: CTA (x, y) serves KV
+// head x % kv of batch row x / kv and flattened rows [tile * 64, tile * 64
+// + 64) with tile = row tiles - 1 - y; warp w owns 16 of them.
+template <int HD>
+__global__ void __launch_bounds__(NT)
+flash_dq_small(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               const int32_t* __restrict__ segq,
+               const int32_t* __restrict__ segk, bf16* __restrict__ dq,
+               Geo g) {
+  using P = DqPlan<HD>;
+  constexpr int LD = P::LD;
+  constexpr int CPR = HD / 8;                   // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = reinterpret_cast<bf16*>(smem + P::ROWS);
+  auto k_at = [&](int st) {
+    return reinterpret_cast<bf16*>(smem + 2 * P::ROWS + st * P::STAGE);
+  };
+  auto seg_at = [&](int st) {
+    return reinterpret_cast<int*>(smem + 2 * P::ROWS + st * P::STAGE +
+                                  2 * P::TILE);
+  };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int kvh = blockIdx.x % g.n_kv, b = blockIdx.x / g.n_kv;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * FWD_ROWS;
+
+  for (int idx = tid; idx < FWD_ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, ch = idx % CPR, fr = row0 + r;
+    const bool valid = fr < g.rows_total;
+    const size_t off = valid ? q_row(g, b, kvh, fr) * HD + ch * 8 : 0;
+    cp_async16(q_s + r * LD + ch * 8, q + off, valid);
+    cp_async16(do_s + r * LD + ch * 8, dout + off, valid);
+  }
+  cp_async_commit();
+
+  // Keys [0, kend) are visible to some row of the CTA.
+  const int kend = last_key(g, min(row0 + FWD_ROWS, g.rows_total) - 1) + 1;
+  const int n_tiles = kend > 0 ? (kend + DQ_KT - 1) / DQ_KT : 0;
+  const size_t key_stride = (size_t)g.n_kv * HD;
+  const size_t kv_base = ((size_t)b * g.sk * g.n_kv + kvh) * HD;
+  auto fetch = [&](int t, int st) {
+    bf16* ks = k_at(st);
+    bf16* vs = ks + P::TILE / 2;
+    for (int idx = tid; idx < DQ_KT * CPR; idx += NT) {
+      const int r = idx / CPR, ch = idx % CPR, j = t * DQ_KT + r;
+      const bool valid = j < g.sk;
+      const size_t off = valid ? kv_base + (size_t)j * key_stride + ch * 8
+                               : 0;
+      cp_async16(ks + r * LD + ch * 8, k + off, valid);
+      cp_async16(vs + r * LD + ch * 8, v + off, valid);
+    }
+    if (g.seg) {
+      int* ss = seg_at(st);
+      for (int jj = tid; jj < DQ_KT; jj += NT) {
+        const int j = t * DQ_KT + jj;
+        const bool valid = j < g.sk;
+        cp_async4(ss + jj, segk + (valid ? (size_t)b * g.sk + j : 0), valid);
+      }
+    }
+  };
+  constexpr int DIST = FWD_STAGES - 1;           // tiles in flight ahead
+#pragma unroll
+  for (int u = 0; u < DIST; ++u) {
+    if (u < n_tiles) fetch(u, u);
+    cp_async_commit();
+  }
+
+  // This lane's rows: wr0 + gq and wr0 + gq + 8, with their lse times
+  // log2 e, delta, last visible key and segment id. The warp's keys
+  // [0, w_kend) are visible to some of its rows, [0, w_full) to all.
+  const int wr0 = row0 + warp * 16;
+  int lim[2], sgq[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int fr = wr0 + gq + 8 * h;
+    const bool valid = fr < g.rows_total;
+    const size_t at = valid ? stat_at(g, b, kvh, fr) : 0;
+    lim[h] = last_key(g, fr);
+    sgq[h] = (valid && g.seg) ? segq[(size_t)b * g.sq + fr / g.group] : 0;
+    lse2[h] = valid ? lse[at] * LOG2E : 0.f;
+    dlt[h] = valid ? delta[at] : 0.f;
+  }
+  const int w_kend =
+      wr0 < g.rows_total
+          ? last_key(g, min(wr0 + 16, g.rows_total) - 1) + 1 : 0;
+  const int w_full =
+      (g.seg || wr0 >= g.rows_total) ? 0 : last_key(g, wr0) + 1;
+
+  cp_async_wait<DIST>();                    // Q and dO landed
+  __syncthreads();
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int at = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(qa[kk], q_s + at);
+    ldsm_x4(da[kk], do_s + at);
+  }
+
+  const float sl = g.scale * LOG2E;
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<DIST - 1>();              // tile t landed ...
+    __syncthreads();                        // ... for all; tile t - 1 done
+    if (t + DIST < n_tiles) fetch(t + DIST, (t + DIST) % FWD_STAGES);
+    cp_async_commit();
+    const int c0 = t * DQ_KT;
+    if (c0 >= w_kend) continue;             // warp-uniform: nothing visible
+    const int slot = t % FWD_STAGES;
+    const bf16* ks = k_at(slot);
+    const bf16* vs = ks + P::TILE / 2;
+
+    // S = Q . K^T and dP = dO . V^T, 16 rows x DQ_KT keys.
+    float s[DQ_KT / 8][4], dp[DQ_KT / 8][4];
+#pragma unroll
+    for (int n = 0; n < DQ_KT / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int np = 0; np < DQ_KT / 16; ++np)
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int at = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, ks + at);
+        mma_bf16(s[2 * np], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        ldsm_x4(vb, vs + at);
+        mma_bf16(dp[2 * np], da[kk], vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], da[kk], vb[2], vb[3]);
+      }
+    if (c0 + DQ_KT > w_full) {              // the tile needs the mask
+      const int* ss = seg_at(slot);
+#pragma unroll
+      for (int n = 0; n < DQ_KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * n + 2 * tq + (e & 1);
+          const bool ok = c0 + col <= lim[h] &&
+                          (!g.seg || ss[col] == sgq[h]);
+          if (!ok) s[n][e] = neg_inf();
+        }
+    }
+    // P = 2^(s sl - lse log2 e), 0 where masked; dS = P (dP - delta)
+    // scale, packed to bf16 pairs as the A fragments of dS . K.
+    uint32_t dsa[DQ_KT / 16][4];
+#pragma unroll
+    for (int n = 0; n < DQ_KT / 8; ++n) {
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = ex2(fmaf(s[n][e], sl, -lse2[h]));
+        d[e] = p * (dp[n][e] - dlt[h]) * g.scale;
+      }
+      dsa[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+    }
+    // dQ += dS . K, 16 keys a step: K read transposed as the B operand.
+#pragma unroll
+    for (int kk = 0; kk < DQ_KT / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t kt[4];
+        ldsm_x4_trans(kt, ks + (kk * 16 + (lane & 15)) * LD + np * 16 +
+                              (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], dsa[kk], kt[0], kt[1]);
+        mma_bf16(acc[2 * np + 1], dsa[kk], kt[2], kt[3]);
+      }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int fr = wr0 + gq + 8 * h;
+    if (fr >= g.rows_total) continue;
+    bf16* out = dq + q_row(g, b, kvh, fr) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
@@ -607,23 +793,6 @@ flash_dkv_small(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cluster.sync();                           // no CTA leaves while read
 }
 
-Geo make_geo(int batch, int sq, int sk, int n_heads, int n_kv, int causal,
-             bool seg, float scale) {
-  Geo g;
-  g.batch = batch;
-  g.sq = sq;
-  g.sk = sk;
-  g.n_heads = n_heads;
-  g.n_kv = n_kv;
-  g.group = n_heads / n_kv;
-  g.rows_total = sq * g.group;
-  g.off = sk - sq;
-  g.causal = causal;
-  g.seg = seg;
-  g.scale = scale;
-  return g;
-}
-
 bool bad_shape(int batch, int sq, int sk, int n_heads, int n_kv, int hd,
                int dtype, const void* segq, const void* segk) {
   return batch <= 0 || sq <= 0 || sk <= 0 || n_kv <= 0 || n_heads <= 0 ||
@@ -647,6 +816,27 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const int32_t*>(segq),
       static_cast<const int32_t*>(segk), static_cast<bf16*>(o),
       static_cast<float*>(lse), g);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* segq, const void* segk, void* dq,
+                      const Geo& g, cudaStream_t stream) {
+  using P = DqPlan<HD>;
+  auto kernel = flash_dq_small<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g.n_kv * g.batch,
+                  (g.rows_total + FWD_ROWS - 1) / FWD_ROWS);
+  kernel<<<grid, NT, P::BYTES, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int32_t*>(segq), static_cast<const int32_t*>(segk),
+      static_cast<bf16*>(dq), g);
   return cudaGetLastError();
 }
 
@@ -704,6 +894,24 @@ extern "C" int flash_attn_fwd_small(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 32) return (int)launch_fwd<32>(q, k, v, segq, segk, o, lse, g, s);
   return (int)launch_fwd<16>(q, k, v, segq, segk, o, lse, g, s);
+}
+
+// flash_attn_bwd_dq's arguments (csrc/flash_attn.cu), the forward's
+// conditions.
+extern "C" int flash_attn_bwd_dq_small(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* segq, const void* segk,
+    void* dq, int batch, int sq, int sk, int n_heads, int n_kv, int hd,
+    int causal, int dtype, float scale, void* stream) {
+  if (bad_shape(batch, sq, sk, n_heads, n_kv, hd, dtype, segq, segk))
+    return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(batch, sq, sk, n_heads, n_kv, causal,
+                         segq != nullptr, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 32)
+    return (int)launch_dq<32>(q, k, v, dout, lse, delta, segq, segk, dq, g,
+                              s);
+  return (int)launch_dq<16>(q, k, v, dout, lse, delta, segq, segk, dq, g, s);
 }
 
 // flash_attn_bwd_dkv's arguments, and `splits`: the CTAs (1 to 8, one

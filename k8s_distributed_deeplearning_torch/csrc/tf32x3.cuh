@@ -1,7 +1,8 @@
 // f32 products on Hopper's tensor cores at f32 accuracy: the three-pass
-// TF32 split ("tf32x3") through mma.sync m16n8k8, for csrc/flash_bwd_f32.cu
-// (the f32 flash backward), csrc/paged_attn_f32.cu (paged attention with
-// f32 q) and csrc/gmm_f32.cu (the f32 grouped GEMM).
+// TF32 split ("tf32x3") through mma.sync m16n8k8, for csrc/flash_fwd_f32.cu
+// and csrc/flash_bwd_f32.cu (the f32 flash forward and backward),
+// csrc/paged_attn_f32.cu (paged attention with f32 q) and csrc/gmm_f32.cu
+// (the f32 grouped GEMM).
 //
 // One TF32 value keeps 11 significant bits (10 stored), so one TF32
 // product of two f32 tiles is off by ~2^-11 relative: too coarse for f32.
@@ -124,6 +125,29 @@ __device__ __forceinline__ void mma2(float (&c)[4], const FragA& a,
                                      const FragB& b) {
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.hi);
+}
+
+// acc[i][e] = acc[i][e] * a + part[i][e], rounded once (a = a0 on row g,
+// e < 2; a1 on row g + 8), then part = 0. The tensor cores' f32
+// accumulation drops the bits below the sum's last place (it rounds toward
+// zero, not to nearest), a bias that grows with the number of products
+// chained into one accumulator: chained over a causal row of 2,048 keys
+// (768 products), it put the f32 flash dQ at 1.67x chip_smoke.py's f32
+// limit at B 2, 32/8 heads, D 128 on an H100. So a tile's products run
+// from a zeroed accumulator and the running sums take them in f32,
+// rounded to nearest; the flash forward's online softmax rescales its sum
+// by a in the same instruction.
+template <int NV>
+__device__ __forceinline__ void add_part(float (*acc)[4],
+                                         float (&part)[NV][4],
+                                         float a0 = 1.f, float a1 = 1.f) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[i][e] = fmaf(acc[i][e], e < 2 ? a0 : a1, part[i][e]);
+      part[i][e] = 0.f;
+    }
 }
 
 // Four int8 values packed in a 32-bit word, lowest byte first, as floats.

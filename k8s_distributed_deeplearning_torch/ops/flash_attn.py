@@ -14,25 +14,25 @@ restricting attention to equal ids.
   launches the dQ kernel and the dK/dV kernel of the route
   :func:`_bwd_route` names for each of the two kernels. Both rules give
   ``"wgmma"`` (tensor cores through wgmma: ``csrc/flash_fwd.cu``,
-  ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128, and ``"small"``
+  ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128, ``"small"``
   (``csrc/flash_small.cu``: mma.sync with ldmatrix fragments, P and dS in
-  registers) for the bf16 forward and dK/dV at head_dim 16 or 32, where
-  dQ takes ``"mma"`` (``csrc/flash_attn.cu``). The f32 forward takes
-  ``"mma"``; the f32 backward ``"tf32x3"`` (``csrc/flash_bwd_f32.cu``:
-  tensor cores through mma.sync, each f32 product a three-pass TF32 split,
-  f32-accurate) at every head dim. On CPU tensors the same function takes
-  the plain versions. A CUDA tensor the kernels cannot take raises; there
-  is no fallback from one kernel to another or to the plain version.
+  registers) for bf16 at head_dim 16 or 32, and ``"tf32x3"``
+  (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``: tensor cores
+  through mma.sync, each f32 product a three-pass TF32 split,
+  f32-accurate) for f32 at every head dim. The first kernels, of
+  ``csrc/flash_attn.cu`` (mma.sync in bf16, the CUDA cores in f32), are
+  the ``"mma"`` route, which only a caller that names it takes. On CPU
+  tensors the same function takes the plain versions. A CUDA tensor the
+  kernels cannot take raises; there is no fallback from one kernel to
+  another or to the plain version.
 - :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
   kernel wrappers; each adds one to its ``launches`` where it launches, and
-  also to ``launches_wgmma`` on the ``"wgmma"`` route, for the two
-  backward wrappers to ``launches_tf32x3`` on the ``"tf32x3"`` route, and
-  for the forward and dK/dV wrappers to ``launches_small`` on the
-  ``"small"`` route.
+  also to ``launches_<route>`` on every route but ``"mma"``
+  (``launches_wgmma``, ``launches_tf32x3``, ``launches_small``).
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -188,8 +188,13 @@ def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel takes a CUDA call: ``"wgmma"``
     (``flash_fwd_wgmma`` of ``csrc/flash_fwd.cu``, tensor cores) for bf16
     at head_dim 64 or 128; ``"small"`` (``flash_fwd_small`` of
-    ``csrc/flash_small.cu``) for bf16 at head_dim 16 or 32; ``"mma"``
-    (``flash_fwd_kernel`` of ``csrc/flash_attn.cu``) for float32."""
+    ``csrc/flash_small.cu``) for bf16 at head_dim 16 or 32;
+    ``"tf32x3"`` (``flash_fwd_tf32x3`` of ``csrc/flash_fwd_f32.cu``,
+    three-pass TF32 on the tensor cores) for float32. ``"mma"``
+    (``flash_fwd_kernel`` of ``csrc/flash_attn.cu``) only when a caller
+    names it, to time it on the same inputs."""
+    if dtype == torch.float32:
+        return "tf32x3"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype == torch.bfloat16 and head_dim in SMALL_HEAD_DIMS:
@@ -221,11 +226,15 @@ def _fwd_launch(q, k, v, segq, segk, o, lse, causal, scale, route):
     elif route == "small":
         _check_small(q.dtype, d)
         fn = _small_library().flash_attn_fwd_small
+    elif route == "tf32x3":
+        if q.dtype != torch.float32:
+            raise TypeError(f"the tf32x3 route takes float32, got {q.dtype}")
+        fn = _fwd_tf32x3_library().flash_attn_fwd_tf32x3
     elif route == "mma":
         fn = _library().flash_attn_fwd
     else:
-        raise ValueError(f"route must be 'wgmma', 'small' or 'mma', got "
-                         f"{route!r}")
+        raise ValueError(f"route must be 'wgmma', 'small', 'tf32x3' or "
+                         f"'mma', got {route!r}")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segq),
                 _ptr(segk), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv,
@@ -242,11 +251,11 @@ def flash_fwd(q, k, v, segq, segk, causal: bool, scale: float, *,
     """The forward: ``(o, lse)``. CPU tensors take
     :func:`flash_attention_reference` (and refuse a named ``route``); CUDA
     tensors launch ``flash_fwd_wgmma`` on the ``"wgmma"`` route,
-    ``flash_fwd_small`` on ``"small"`` or ``flash_fwd_kernel`` on
-    ``"mma"`` (default: :func:`_fwd_route`'s choice; naming it lets a
-    caller time two routes on the same inputs), and add one to
-    ``flash_fwd.launches``, and on the wgmma or small route to
-    ``.launches_wgmma`` or ``.launches_small``."""
+    ``flash_fwd_small`` on ``"small"``, ``flash_fwd_tf32x3`` on
+    ``"tf32x3"`` or ``flash_fwd_kernel`` on ``"mma"`` (default:
+    :func:`_fwd_route`'s choice; naming it lets a caller time two routes
+    on the same inputs), and add one to ``flash_fwd.launches``, and on
+    every route but mma to ``.launches_<route>``."""
     b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
     if q.device.type == "cpu" and route is None:
         return flash_attention_reference(
@@ -263,20 +272,19 @@ def _bwd_route(dtype: torch.dtype, head_dim: int, which: str) -> str:
     """Which kernel takes backward kernel ``which`` ("dq" or "dkv") of a
     CUDA call: ``"tf32x3"`` (the three-pass TF32 kernels of
     ``csrc/flash_bwd_f32.cu``) for float32; ``"wgmma"`` (the tensor-core
-    kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128; for
-    bf16 at head_dim 16 or 32, ``"small"`` (``flash_dkv_small`` of
-    ``csrc/flash_small.cu``) for dK/dV and ``"mma"`` (``flash_dq_kernel``
-    of ``csrc/flash_attn.cu``) for dQ. A caller may name ``"mma"`` for
-    either kernel at every dtype: the mma.sync and CUDA-core kernels of
-    ``csrc/flash_attn.cu``, kept to be timed on the same inputs."""
+    kernels of ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128;
+    ``"small"`` (``flash_dq_small`` and ``flash_dkv_small`` of
+    ``csrc/flash_small.cu``) for bf16 at head_dim 16 or 32. A caller may
+    name ``"mma"`` for either kernel at every dtype: the mma.sync and
+    CUDA-core kernels of ``csrc/flash_attn.cu``, kept to be timed on the
+    same inputs."""
     if which not in ("dq", "dkv"):
         raise ValueError(f"which must be 'dq' or 'dkv', got {which!r}")
     if dtype == torch.float32:
         return "tf32x3"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
-    if (dtype == torch.bfloat16 and head_dim in SMALL_HEAD_DIMS
-            and which == "dkv"):
+    if dtype == torch.bfloat16 and head_dim in SMALL_HEAD_DIMS:
         return "small"
     return "mma"
 
@@ -326,14 +334,16 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
         fn = lib.flash_bwd_dq_tf32x3 if which == "dq" else \
             lib.flash_bwd_dkv_tf32x3
     elif route == "small":
-        if which != "dkv":
-            raise ValueError("the small route has a dK/dV kernel only; dQ "
-                             "at head_dim 16 or 32 takes 'mma'")
         _check_small(q.dtype, d)
-        fn = _small_library().flash_attn_bwd_dkv_small
-        extra = [_dkv_small_splits(
-            b, hkv, sq, sk, h // hkv, causal,
-            torch.cuda.get_device_properties(q.device).multi_processor_count)]
+        lib = _small_library()
+        if which == "dq":
+            fn = lib.flash_attn_bwd_dq_small
+        else:
+            fn = lib.flash_attn_bwd_dkv_small
+            extra = [_dkv_small_splits(
+                b, hkv, sq, sk, h // hkv, causal,
+                torch.cuda.get_device_properties(
+                    q.device).multi_processor_count)]
     elif route == "mma":
         lib = _library()
         fn = lib.flash_attn_bwd_dq if which == "dq" else \
@@ -356,10 +366,11 @@ def _bwd_launch(which, q, k, v, do, lse, delta, segq, segk, outs, causal,
 def flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, causal: bool,
                  scale: float, *, route: str | None = None):
     """dQ on the card: ``flash_dq_wgmma`` on the ``"wgmma"`` route,
-    ``flash_dq_tf32x3`` on ``"tf32x3"``, ``flash_dq_kernel`` on ``"mma"``
-    (default: :func:`_bwd_route`'s choice). Adds one to
-    ``flash_bwd_dq.launches``, and to ``.launches_wgmma`` or
-    ``.launches_tf32x3`` on those routes. CUDA tensors only."""
+    ``flash_dq_tf32x3`` on ``"tf32x3"``, ``flash_dq_small`` on
+    ``"small"``, ``flash_dq_kernel`` on ``"mma"`` (default:
+    :func:`_bwd_route`'s choice). Adds one to ``flash_bwd_dq.launches``,
+    and to ``.launches_wgmma``, ``.launches_tf32x3`` or
+    ``.launches_small`` on those routes. CUDA tensors only."""
     dq = torch.empty_like(q)
     _count(flash_bwd_dq, _bwd_launch("dq", q, k, v, do, lse, delta, segq,
                                      segk, (dq,), causal, scale, route))
@@ -392,9 +403,11 @@ def _count(wrapper, route: str) -> None:
 flash_fwd.launches = 0
 flash_fwd.launches_wgmma = 0
 flash_fwd.launches_small = 0
+flash_fwd.launches_tf32x3 = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dq.launches_wgmma = 0
 flash_bwd_dq.launches_tf32x3 = 0
+flash_bwd_dq.launches_small = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_wgmma = 0
 flash_bwd_dkv.launches_tf32x3 = 0
@@ -414,8 +427,8 @@ def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
     delta = rowsum(dO·O) (a PyTorch reduction), then the dQ kernel, then
     the dK/dV kernel, each on :func:`_bwd_route`'s route for it (float32:
-    ``"tf32x3"``; bf16 at head_dim 16 or 32: dQ ``"mma"``, dK/dV
-    ``"small"``)."""
+    ``"tf32x3"``; bf16 at head_dim 16 or 32: ``"small"``; at 64 or 128:
+    ``"wgmma"``)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, softmax_scale=scale,
@@ -505,10 +518,23 @@ def _small_library():
         tail = [ctypes.c_int] * 8 + [ctypes.c_float]
         lib.flash_attn_fwd_small.argtypes = (
             [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p])
+        lib.flash_attn_bwd_dq_small.argtypes = (
+            [ctypes.c_void_p] * 9 + tail + [ctypes.c_void_p])
         lib.flash_attn_bwd_dkv_small.argtypes = (
             [ctypes.c_void_p] * 10 + tail + [ctypes.c_int, ctypes.c_void_p])
-        for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dkv_small):
+        for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dq_small,
+                   lib.flash_attn_bwd_dkv_small):
             fn.restype = ctypes.c_int
+    return lib
+
+
+def _fwd_tf32x3_library():
+    lib = _build.load("flash_fwd_f32")
+    if lib.flash_attn_fwd_tf32x3.argtypes is None:
+        lib.flash_attn_fwd_tf32x3.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attn_fwd_tf32x3.restype = ctypes.c_int
     return lib
 
 

@@ -10,6 +10,7 @@
     python3 kernel_breakdown.py paged_f32    # csrc/paged_attn_f32.cu
     python3 kernel_breakdown.py gmm_f32      # csrc/gmm_f32.cu
     python3 kernel_breakdown.py flash_small  # csrc/flash_small.cu
+    python3 kernel_breakdown.py flash_fwd_f32  # csrc/flash_fwd_f32.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
@@ -109,21 +110,33 @@ Variants: ``no_split``, ``no_products``, ``no_loads`` (no copies after
 the first stage), ``skeleton`` (none of the three), and, not a stage,
 ``three_stages`` (a third stage in shared memory, two ahead).
 
-``flash_small``: the bf16 forward and dK/dV kernels at head_dim 16 and 32
-at phase Q's attention (B 8, S 1024, 4/2 heads, head_dim 16, causal) and
-at phase D's head_dim-32 case (the same with head_dim 32 and documents of
-300/400/324 tokens); dK/dV also at cluster sizes 1, 2, 3, 4 and 8 beside
-the wrapper's choice. Variants: ``no_exp`` (p = the
-exponent, no ex2), ``no_s``
-(no S = Q.K^T, S^T or dP^T products: their fragments are folded into one
-accumulator element by integer XORs), ``no_pv`` (no P.V, dV or dK
-products, likewise), ``no_loads`` (no copies after the first tile),
-``no_merge`` (the cluster's partials are not summed or written),
-``skeleton`` (none of these), ``no_tiles`` (no tile or row step: the
-prologue, the epilogue and the merge) and ``empty`` (every CTA returns at
-once: the launch), and, not stages, ``kt64`` (64-key forward tiles),
-``dkv_4_ctas`` (dK/dV held to 128 registers, four CTAs an SM) and
-``three_stages`` (three ring slots, two tiles ahead, in both kernels).
+``flash_small``: the bf16 forward, dQ and dK/dV kernels at head_dim 16
+and 32 at phase Q's attention (B 8, S 1024, 4/2 heads, head_dim 16,
+causal) and at phase D's head_dim-32 case (the same with head_dim 32 and
+documents of 300/400/324 tokens); dK/dV also at cluster sizes 1, 2, 3, 4
+and 8 beside the wrapper's choice. Variants: ``no_exp`` (p = the
+exponent, no ex2), ``no_s`` (no S = Q.K^T, S^T or dP^T products: their
+fragments are folded into one accumulator element by integer XORs),
+``no_dp`` (dQ: no dP = dO.V^T products, likewise), ``no_pv`` (no P.V,
+dS.K, dV or dK products, likewise), ``no_loads`` (no copies after the
+first tile), ``no_merge`` (the cluster's partials are not summed or
+written), ``skeleton`` (none of these), ``no_tiles`` (no tile or row
+step: the prologue, the epilogue and the merge) and ``empty`` (every CTA
+returns at once: the launch), and, not stages, ``kt64`` (64-key forward
+tiles), ``dq_kt128`` (128-key dQ tiles, the forward's), ``dkv_4_ctas``
+(dK/dV held to 128 registers, four CTAs an SM) and ``three_stages``
+(three ring slots, two tiles ahead, in all three kernels).
+
+``flash_fwd_f32``: the f32 forward (three-pass TF32) at phase D's causal
+f32 case (B 2, S 2048, 32/8 heads, head_dim 128), at phase H's attention
+in f32 (B 8, S 1024, 12/4 heads, head_dim 64, causal) and at phase Q's f32
+attention (B 8, S 1024, 4/2 heads, head_dim 16, causal). Variants:
+``no_split`` (hi = x, lo = 0: no split instructions; the three products
+still run), ``no_products`` (no mma.sync: their operands are folded into
+the accumulator by integer XORs), ``no_exp`` (p = the exponent, no ex2),
+``no_loads`` (no copies after the first tile), ``skeleton`` (none of
+these: the tile loop's waits, barriers, fragment loads, masks and
+bookkeeping).
 """
 from __future__ import annotations
 
@@ -312,6 +325,17 @@ FLASH_FWD_VARIANTS["loads_only"] = [
 FLASH_FWD_VARIANTS["skeleton"] = [*FLASH_FWD_VARIANTS["loads_only"],
                                   *FLASH_FWD_VARIANTS["no_loads"]]
 
+def _xor_mma(acc, a, b, count, a_words=(0,)):
+    """A product ``mma_bf16(acc[2 * np (+ 1)], a, b[i], b[i + 1])`` left
+    out: replaced by an XOR of its fragments into one accumulator element,
+    so that the fragment loads stay live; ``count`` kernels hold it."""
+    words = " ^ ".join(f"{a}[{w}]" for w in a_words)
+    return [(f"mma_bf16({acc}[2 * np{plus}], {a}, {b}[{i}], {b}[{i + 1}]);",
+             f"{acc}[2 * np{plus}][0] += __uint_as_float({words} ^ "
+             f"{b}[{i}] ^ {b}[{i + 1}]);", count)
+            for plus, i in (("", 0), (" + 1", 2))]
+
+
 FLASH_SMALL_VARIANTS = {
     "base": [],
     "no_exp": [
@@ -319,25 +343,22 @@ FLASH_SMALL_VARIANTS = {
          f"const float p{i} = fmaf(s[n][{i}], sl, -mn{i // 2});", 1)
         for i in range(4)] + [
         ("float p = ex2(fmaf(st[n][e], sl, -(lse_s[c] * LOG2E)));",
-         "float p = fmaf(st[n][e], sl, -(lse_s[c] * LOG2E));", 1)],
-    # A product left out is replaced by an XOR of its fragments into one
-    # accumulator element, so that the fragment loads stay live.
-    "no_s": [
-        (f"mma_bf16({acc}[2 * np{plus}], {a}[kk], {b}[{i}], {b}[{i + 1}]);",
-         f"{acc}[2 * np{plus}][0] += __uint_as_float({a}[kk][0] ^ "
-         f"{b}[{i}] ^ {b}[{i + 1}]);", 1)
-        for acc, a, b in (("s", "qa", "kb"), ("st", "kf", "qb"),
-                          ("dpt", "vf", "ob"))
-        for plus, i in (("", 0), (" + 1", 2))],
-    "no_pv": [
-        (f"mma_bf16({acc}[2 * np{plus}], {a}, {b}[{i}], {b}[{i + 1}]);",
-         f"{acc}[2 * np{plus}][0] += __uint_as_float({a}[0] ^ {a}[3] ^ "
-         f"{b}[{i}] ^ {b}[{i + 1}]);", 1)
-        for acc, a, b in (("acc", "pa[kk]", "vb"), ("adv", "pa", "ob"),
-                          ("adk", "da", "qb"))
-        for plus, i in (("", 0), (" + 1", 2))],
+         "float p = fmaf(st[n][e], sl, -(lse_s[c] * LOG2E));", 1),
+        ("const float p = ex2(fmaf(s[n][e], sl, -lse2[h]));",
+         "const float p = fmaf(s[n][e], sl, -lse2[h]);", 1)],
+    # S = Q.K^T in the forward and in dQ; S^T and dP^T in dK/dV.
+    "no_s": [*_xor_mma("s", "qa[kk]", "kb", 2),
+             *_xor_mma("st", "kf[kk]", "qb", 1),
+             *_xor_mma("dpt", "vf[kk]", "ob", 1)],
+    "no_dp": _xor_mma("dp", "da[kk]", "vb", 1),
+    "no_pv": [*_xor_mma("acc", "pa[kk]", "vb", 1, (0, 3)),
+              *_xor_mma("acc", "dsa[kk]", "kt", 1, (0, 3)),
+              *_xor_mma("adv", "pa", "ob", 1, (0, 3)),
+              *_xor_mma("adk", "da", "qb", 1, (0, 3))],
     "no_loads": [
         ("    if (t + DIST < n_tiles) issue(t + DIST, (t + DIST) % "
+         "FWD_STAGES);\n", "", 1),
+        ("    if (t + DIST < n_tiles) fetch(t + DIST, (t + DIST) % "
          "FWD_STAGES);\n", "", 1),
         ("    if (u + DIST < n_my) issue(u + DIST, (u + DIST) % "
          "DKV_STAGES);\n", "", 1)],
@@ -348,26 +369,44 @@ FLASH_SMALL_VARIANTS = {
     "no_tiles": [
         ("  const int n_tiles = (kend + KT - 1) / KT;",
          "  const int n_tiles = 0 * kend;", 1),
+        ("  const int n_tiles = kend > 0 ? (kend + DQ_KT - 1) / DQ_KT : 0;",
+         "  const int n_tiles = 0 * kend;", 1),
         ("  const int n_my = n_steps * (rank + 1) / n_split - u_lo;",
          "  const int n_my = 0 * (n_steps * (rank + 1) / n_split - u_lo);",
          1)],
     "empty": [("  const int tid = threadIdx.x, lane = tid & 31, "
                "warp = tid >> 5;\n",
                "  if (g.batch > 0) return;\n  const int tid = threadIdx.x, "
-               "lane = tid & 31, warp = tid >> 5;\n", 2)],
+               "lane = tid & 31, warp = tid >> 5;\n", 3)],
 }
 FLASH_SMALL_VARIANTS["skeleton"] = [
-    sub for name in ("no_exp", "no_s", "no_pv", "no_loads", "no_merge")
-    for sub in FLASH_SMALL_VARIANTS[name]]
+    sub for name in ("no_exp", "no_s", "no_dp", "no_pv", "no_loads",
+                     "no_merge") for sub in FLASH_SMALL_VARIANTS[name]]
 # Design points beside the kernels' own.
 FLASH_SMALL_VARIANTS["kt64"] = [("constexpr int KT = 128;",
                                  "constexpr int KT = 64;", 1)]
+FLASH_SMALL_VARIANTS["dq_kt128"] = [("constexpr int DQ_KT = 64;",
+                                     "constexpr int DQ_KT = 128;", 1)]
 FLASH_SMALL_VARIANTS["dkv_4_ctas"] = [
     ("__global__ void __launch_bounds__(NT)\nflash_dkv_small(",
      "__global__ void __launch_bounds__(NT, 4)\nflash_dkv_small(", 1)]
 FLASH_SMALL_VARIANTS["three_stages"] = [
     ("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 3;", 1),
     ("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;", 1)]
+
+FLASH_FWD_F32_VARIANTS = {
+    "base": [],
+    "no_split": FLASH_BWD_F32_VARIANTS["no_split"],
+    "no_products": FLASH_BWD_F32_VARIANTS["no_products"],
+    "no_exp": [("const float p = ex2(fmaf(s[n][e], sl, -((e & 2) ? mn1 : "
+                "mn0)));", "const float p = fmaf(s[n][e], sl, -((e & 2) ? "
+                "mn1 : mn0));", 1)],
+    "no_loads": [("    if (t + 1 < n_tiles) fetch(t + 1, (t + 1) & 1);\n",
+                  "", 1)],
+}
+FLASH_FWD_F32_VARIANTS["skeleton"] = [
+    sub for name in ("no_split", "no_products", "no_exp", "no_loads")
+    for sub in FLASH_FWD_F32_VARIANTS[name]]
 
 GMM_VARIANTS = {
     "base": [],
@@ -427,10 +466,20 @@ def bind_flash_small(lib: ctypes.CDLL) -> None:
     tail = [ctypes.c_int] * 8 + [ctypes.c_float]
     lib.flash_attn_fwd_small.argtypes = (
         [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p])
+    lib.flash_attn_bwd_dq_small.argtypes = (
+        [ctypes.c_void_p] * 9 + tail + [ctypes.c_void_p])
     lib.flash_attn_bwd_dkv_small.argtypes = (
         [ctypes.c_void_p] * 10 + tail + [ctypes.c_int, ctypes.c_void_p])
-    for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dkv_small):
+    for fn in (lib.flash_attn_fwd_small, lib.flash_attn_bwd_dq_small,
+               lib.flash_attn_bwd_dkv_small):
         fn.restype = ctypes.c_int
+
+
+def bind_flash_fwd_f32(lib: ctypes.CDLL) -> None:
+    lib.flash_attn_fwd_tf32x3.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attn_fwd_tf32x3.restype = ctypes.c_int
 
 
 def bind_gmm(lib: ctypes.CDLL) -> None:
@@ -623,7 +672,7 @@ FLASH_SMALL_LAUNCHES = {"q": (8, 1024, 4, 2, 16, None),
 
 
 def flash_small_case(dev: torch.device, stream: int) -> Launches:
-    """The forward and dK/dV at phase Q's attention and at phase D's
+    """The forward, dQ and dK/dV at phase Q's attention and at phase D's
     head_dim-32 case with documents; dK/dV at the wrapper's cluster size
     and at 1, 2, 3, 4 and 8."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
@@ -644,7 +693,7 @@ def flash_small_case(dev: torch.device, stream: int) -> Launches:
         o, lse = fa.flash_attention_reference(
             q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        o = torch.empty_like(q)
+        o, dq = torch.empty_like(q), torch.empty_like(q)
         lse_out = torch.empty_like(lse)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         segs = [None if x is None else x.data_ptr() for x in (segq, segk)]
@@ -654,6 +703,10 @@ def flash_small_case(dev: torch.device, stream: int) -> Launches:
             lambda lib, a=[x.data_ptr() for x in (q, k, v)] + segs
             + [o.data_ptr(), lse_out.data_ptr()] + shape + [stream],
             keep=keep: lib.flash_attn_fwd_small(*a), (o, lse_out))
+        out[f"{label}_dq"] = (
+            lambda lib, a=[x.data_ptr() for x in (q, k, v, do, lse, delta)]
+            + segs + [dq.data_ptr()] + shape + [stream],
+            keep=keep: lib.flash_attn_bwd_dq_small(*a), (dq,))
         rule = fa._dkv_small_splits(b, kv, s, s, h // kv, True,
                                     torch.cuda.get_device_properties(
                                         dev).multi_processor_count)
@@ -665,6 +718,31 @@ def flash_small_case(dev: torch.device, stream: int) -> Launches:
                                                       delta)] + segs
                 + [dk.data_ptr(), dv.data_ptr()] + shape + [splits, stream],
                 keep=keep: lib.flash_attn_bwd_dkv_small(*a), (dk, dv))
+    return out
+
+
+# name -> (B, S, H, KV, head_dim), causal, f32.
+FLASH_FWD_F32_LAUNCHES = {"d_causal": (2, 2048, 32, 8, 128),
+                          "h_causal": (8, 1024, 12, 4, 64),
+                          "q_causal": (8, 1024, 4, 2, 16)}
+
+
+def flash_fwd_f32_case(dev: torch.device, stream: int) -> Launches:
+    """The f32 forward at phase D's causal case (head_dim 128), at phase
+    H's attention (64) and at phase Q's (16)."""
+    out = {}
+    for label, (b, s, h, kv, hd) in FLASH_FWD_F32_LAUNCHES.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(b, s, h, hd, device=dev, generator=gen)
+        k, v = (torch.randn(b, s, kv, hd, device=dev, generator=gen)
+                for _ in range(2))
+        o = torch.empty_like(q)
+        lse = torch.empty(b, h, s, device=dev)
+        args = ([x.data_ptr() for x in (q, k, v)] + [None, None]
+                + [o.data_ptr(), lse.data_ptr(), b, s, s, h, kv, hd, 1, 0,
+                   hd ** -0.5, stream])
+        out[label] = (lambda lib, args=args, keep=(q, k, v):    # pointers
+                      lib.flash_attn_fwd_tf32x3(*args), (o, lse))
     return out
 
 
@@ -817,6 +895,8 @@ KERNELS = {
                       gmm_f32_case),
     "flash_small": Kernel("flash_small.cu", FLASH_SMALL_VARIANTS,
                           bind_flash_small, flash_small_case),
+    "flash_fwd_f32": Kernel("flash_fwd_f32.cu", FLASH_FWD_F32_VARIANTS,
+                            bind_flash_fwd_f32, flash_fwd_f32_case),
 }
 
 

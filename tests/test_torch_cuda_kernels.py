@@ -1211,6 +1211,110 @@ def test_flash_bwd_tf32x3_refuses_and_does_not_fall_back(hopper):
     assert _tf32x3_counts() == before
 
 
+# The f32 forward on the tensor cores (csrc/flash_fwd_f32.cu, the "tf32x3"
+# route: three-pass TF32 products) at every head dim, on the tf32x3
+# backward's shapes.
+def _fwd_tf32x3_counts():
+    return fa.flash_fwd.launches, fa.flash_fwd.launches_tf32x3
+
+
+@pytest.mark.parametrize("shape", FLASH_TF32X3_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_fwd_tf32x3_matches_reference(hopper, shape):
+    """O and lse on the tf32x3 route against the plain forward and against
+    flash_attn.cu's forward forced on the same inputs, held as phase D
+    holds f32; rows that see no key exactly the plain version's; one
+    launch counted on the route."""
+    q, k, v, _, segq, segk, causal = _flash_inputs(
+        hopper, torch.float32, shape, sum(shape[:6]))
+    scale = q.shape[-1] ** -0.5
+    before = _fwd_tf32x3_counts()
+    o, lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+    torch.cuda.synchronize()
+    assert _fwd_tf32x3_counts() == (before[0] + 1, before[1] + 1)
+    mma_o, _ = fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="mma")
+    ref_o, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    tol = FLASH_DTYPES[0][1]
+    assert o.dtype == torch.float32 and o.shape == ref_o.shape
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _close(o, ref_o, tol, "o")
+    _close(o, mma_o, tol, "o vs the mma route")
+    seen = ref_lse > -1e29
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    assert torch.equal(lse[~seen], ref_lse[~seen])
+    assert torch.all(o[~seen.transpose(1, 2)] == 0)
+
+
+def test_flash_fwd_tf32x3_launches_give_the_same_bits(hopper):
+    """Three launches give the same bits: every sum runs in one fixed
+    order."""
+    q, k, v, _, segq, segk, _ = _flash_inputs(
+        hopper, torch.float32, (2, 1024, 1024, 12, 4, 64, True, True), 5)
+    outs = [fa.flash_fwd(q, k, v, segq, segk, True, 0.125)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_flash_fwd_tf32x3_fully_masked_rows_are_zero(hopper):
+    """A query whose segment id no key carries, and causal rows with
+    sq > sk that see no key, give exactly 0 in O and lse = -1e30, the
+    plain version's."""
+    q, k, v, _, segq, segk, _ = _flash_inputs(
+        hopper, torch.float32, (2, 96, 64, 8, 2, 32, True, True), 9)
+    segq[0, 40:45] = 7
+    o, lse = fa.flash_fwd(q, k, v, segq, segk, True, 32 ** -0.5)
+    torch.cuda.synchronize()
+    _, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=True, q_segment_ids=segq, kv_segment_ids=segk)
+    for rows in (slice(0, 32), slice(40, 45)):    # 0..31: sq - sk = 32
+        assert torch.all(o[0, rows] == 0)
+        assert torch.equal(lse[0, :, rows], ref_lse[0, :, rows])
+        assert torch.all(lse[0, :, rows] <= -1e29)
+
+
+def test_flash_fwd_launches_tf32x3_counts_by_route(hopper):
+    """f32 counts on launches and launches_tf32x3 at every head dim,
+    through autograd too; a forced "mma" route in f32 and bf16 count on
+    launches alone."""
+    for d in fa.HEAD_DIMS:
+        q, k, v, _, _, _, _ = _flash_inputs(
+            hopper, torch.float32, (1, 64, 64, 4, 2, d, True, False), d)
+        before = _fwd_tf32x3_counts()
+        fa.flash_attention(q, k, v, causal=True)
+        assert _fwd_tf32x3_counts() == (before[0] + 1, before[1] + 1)
+    for dtype, d, kw in ((torch.float32, 64, {"route": "mma"}),
+                         (torch.bfloat16, 32, {}),
+                         (torch.bfloat16, 128, {})):
+        q, k, v, _, _, _, _ = _flash_inputs(
+            hopper, dtype, (1, 64, 64, 4, 2, d, True, False), 3)
+        before = _fwd_tf32x3_counts()
+        fa.flash_fwd(q, k, v, None, None, True, d ** -0.5, **kw)
+        torch.cuda.synchronize()
+        assert _fwd_tf32x3_counts() == (before[0] + 1, before[1])
+
+
+def test_flash_fwd_tf32x3_refuses_and_does_not_fall_back(hopper):
+    """bf16 on a forced tf32x3 route, a non-contiguous input and mixed
+    dtypes raise before any launch."""
+    q, k, v, _, _, _, _ = _flash_inputs(
+        hopper, torch.float32, (1, 64, 64, 4, 2, 64, True, False), 6)
+    before = _fwd_tf32x3_counts()
+    with pytest.raises(TypeError, match="tf32x3 route takes float32"):
+        fa.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, None,
+                     True, 0.125, route="tf32x3")
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(strided, k, v, None, None, True, 0.125)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        fa.flash_fwd(q, k.bfloat16(), v, None, None, True, 0.125)
+    torch.cuda.synchronize()
+    assert _fwd_tf32x3_counts() == before
+
+
 # The tensor-core forward (csrc/flash_fwd.cu, the "wgmma" route): bf16 at
 # head_dim 64 and 128, over FLASH_SHAPES at those head dims and the
 # backward's shapes (groups 1, 3 and 4, sq > sk, MoE H's and Llama-3 8B's
@@ -1333,7 +1437,7 @@ def test_flash_fwd_refuses_and_does_not_fall_back(hopper):
 
 
 # The small kernels (csrc/flash_small.cu, the "small" route): the bf16
-# forward and dK/dV at head_dim 16 and 32. (b, sq, sk, h, hkv, head_dim,
+# forward, dQ and dK/dV at head_dim 16 and 32. (b, sq, sk, h, hkv, head_dim,
 # causal, segments): groups 1, 2 and 4, causal and not, sq < sk, sq > sk
 # (rows that see no key), segment ids (rows that see no key, keys no row
 # sees), lengths that cut the 128-key, 64-key and 64-row tiles, then phase
@@ -1354,13 +1458,14 @@ FLASH_SMALL_SHAPES = [
 
 def _small_counts():
     return (fa.flash_fwd.launches, fa.flash_fwd.launches_small,
+            fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_small,
             fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.launches_small)
 
 
 @pytest.mark.parametrize("shape", FLASH_SMALL_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_small_matches_reference(hopper, shape):
-    """O, lse, dK and dV on the small route against the plain versions,
+    """O, lse, dQ, dK and dV on the small route against the plain versions,
     held as phase D holds them (rows that see no key exactly the plain
     version's, keys no row sees exactly 0), each launch counted on the
     route; the mma kernels forced on the same inputs still run and agree."""
@@ -1379,6 +1484,7 @@ def test_flash_small_matches_reference(hopper, shape):
             kv_segment_ids=segk)
     before = _small_counts()
     o, got_lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
+    dq = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
     assert _small_counts() == tuple(n + 1 for n in before)
@@ -1392,16 +1498,20 @@ def test_flash_small_matches_reference(hopper, shape):
                                rtol=0)
     assert torch.equal(got_lse[~seen], ref_lse[~seen])
     assert torch.all(o[~seen.transpose(1, 2)] == 0)
-    for name, got, ref in (("dk", dk, want[1]), ("dv", dv, want[2])):
+    for name, got, ref in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert torch.isfinite(got.float()).all(), name
         _close(got, ref, tol, name)
+    assert torch.all(dq[~seen.transpose(1, 2)] == 0)
     if segk is not None:
         assert torch.all(dk[-1, 5:9] == 0) and torch.all(dv[-1, 5:9] == 0)
     mma_o, _ = fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="mma")
+    mma_dq = fa.flash_bwd_dq(*args, route="mma")
     mma_dk, mma_dv = fa.flash_bwd_dkv(*args, route="mma")
     torch.cuda.synchronize()
     _close(mma_o, ref_o, tol, "o, mma route")
+    _close(mma_dq, want[0], tol, "dq, mma route")
     _close(mma_dk, want[1], tol, "dk, mma route")
     _close(mma_dv, want[2], tol, "dv, mma route")
 
@@ -1413,7 +1523,8 @@ def test_flash_small_launches_give_the_same_bits(hopper):
                               5)
     q, k, v, _, _, _, segq, segk, causal, scale = args
     outs = [fa.flash_fwd(q, k, v, segq, segk, causal, scale)
-            + fa.flash_bwd_dkv(*args) for _ in range(3)]
+            + (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+            for _ in range(3)]
     torch.cuda.synchronize()
     for other in outs[1:]:
         for a, b in zip(outs[0], other):
@@ -1421,26 +1532,26 @@ def test_flash_small_launches_give_the_same_bits(hopper):
 
 
 def test_flash_small_launches_count_by_route(hopper):
-    """Autograd in bf16 at head_dim 16 and 32: the forward and dK/dV on
-    the small route (launches and launches_small), dQ on the mma route
-    (launches alone); a forced mma route counts on launches alone; bf16 at
-    head_dim 64 and f32 at 16 count nothing on launches_small."""
+    """Autograd in bf16 at head_dim 16 and 32: the forward, dQ and dK/dV
+    on the small route (launches and launches_small); a forced mma route
+    counts on launches alone; bf16 at head_dim 64 and f32 at 16 count
+    nothing on launches_small."""
     for d in fa.SMALL_HEAD_DIMS:
         q, k, v, do, _, _, _ = _flash_inputs(
             hopper, torch.bfloat16, (1, 64, 64, 4, 2, d, True, False), d)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
-        before = _small_counts() + (fa.flash_bwd_dq.launches,)
+        before = _small_counts()
         fa.flash_attention(q, k, v, causal=True).backward(do)
         torch.cuda.synchronize()
-        assert _small_counts() + (fa.flash_bwd_dq.launches,) == tuple(
-            n + 1 for n in before)
+        assert _small_counts() == tuple(n + 1 for n in before)
     args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 16, True, False), 3)
     q, k, v, _, _, _, segq, segk, causal, scale = args
+    once = (1, 0, 1, 0, 1, 0)
     before = _small_counts()
     fa.flash_fwd(q, k, v, segq, segk, causal, scale, route="mma")
+    fa.flash_bwd_dq(*args, route="mma")
     fa.flash_bwd_dkv(*args, route="mma")
-    assert _small_counts() == (before[0] + 1, before[1], before[2] + 1,
-                               before[3])
+    assert _small_counts() == tuple(a + b for a, b in zip(before, once))
     for dtype, d in ((torch.bfloat16, 64), (torch.float32, 16)):
         q, k, v, do, _, _, _ = _flash_inputs(
             hopper, dtype, (1, 64, 64, 4, 2, d, True, False), 4)
@@ -1448,17 +1559,16 @@ def test_flash_small_launches_count_by_route(hopper):
         before = _small_counts()
         fa.flash_attention(q, k, v, causal=True).backward(do)
         torch.cuda.synchronize()
-        assert _small_counts() == (before[0] + 1, before[1], before[2] + 1,
-                                   before[3])
+        assert _small_counts() == tuple(a + b for a, b in zip(before, once))
 
 
 def test_flash_small_refuses_and_does_not_fall_back(hopper):
-    """A forced small route in f32 or at head_dim 64, a small dQ, a
-    non-contiguous input and mixed dtypes raise before any launch: no path
-    gives way to the mma kernels or to the plain version."""
+    """A forced small route in f32 or at head_dim 64, a non-contiguous
+    input and mixed dtypes raise before any launch: no path gives way to
+    the mma kernels or to the plain version."""
     args, _ = _flash_bwd_case(hopper, (1, 64, 64, 4, 2, 16, True, False), 6)
     q, k, v, do, lse, delta, segq, segk, causal, scale = args
-    before = _small_counts() + (fa.flash_bwd_dq.launches,)
+    before = _small_counts()
     with pytest.raises(TypeError, match="small route takes bfloat16"):
         fa.flash_fwd(q.float(), k.float(), v.float(), None, None, True,
                      scale, route="small")
@@ -1468,16 +1578,23 @@ def test_flash_small_refuses_and_does_not_fall_back(hopper):
     wide = [torch.cat([x, x, x, x], -1) for x in (q, k, v, do)]
     with pytest.raises(TypeError, match="small route takes bfloat16"):
         fa.flash_fwd(*wide[:3], None, None, True, scale, route="small")
-    with pytest.raises(ValueError, match="dK/dV kernel only"):
-        fa.flash_bwd_dq(*args, route="small")
+    with pytest.raises(TypeError, match="small route takes bfloat16"):
+        fa.flash_bwd_dq(q.float(), k.float(), v.float(), do.float(), lse,
+                        delta, None, None, True, scale, route="small")
+    with pytest.raises(TypeError, match="small route takes bfloat16"):
+        fa.flash_bwd_dq(*wide, lse, delta, None, None, True, scale,
+                        route="small")
     strided = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(strided, k, v, None, None, True, scale)
     with pytest.raises(TypeError, match="must be torch.bfloat16"):
         fa.flash_bwd_dkv(q, k.float(), v, do, lse, delta, segq, segk,
                          causal, scale)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        fa.flash_bwd_dq(q, k, v.float(), do, lse, delta, segq, segk, causal,
+                        scale)
     torch.cuda.synchronize()
-    assert _small_counts() + (fa.flash_bwd_dq.launches,) == before
+    assert _small_counts() == before
 
 
 # Grouped matmul: (group sizes, K, N, block_m). The JAX kernel tests'

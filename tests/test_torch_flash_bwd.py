@@ -2,8 +2,7 @@
 (``csrc/flash_bwd.cu``) on the CPU, where the kernels cannot run.
 
 - ``_bwd_route``: bf16 at head_dim 64 or 128 takes the ``"wgmma"`` kernels;
-  bf16 at head_dim 16 or 32 the ``mma.sync`` dQ kernel of
-  ``csrc/flash_attn.cu`` (``"mma"``) and the dK/dV kernel of
+  bf16 at head_dim 16 or 32 the dQ and dK/dV kernels of
   ``csrc/flash_small.cu`` (``"small"``); float32 at every head dim the
   three-pass TF32 kernels of ``csrc/flash_bwd_f32.cu`` (``"tf32x3"``).
 - A torch model of the two kernels' arithmetic, written here: the dQ kernel
@@ -61,11 +60,11 @@ def test_f32_calls_take_the_tf32x3_route(head_dim):
 @pytest.mark.parametrize("dtype,head_dim", [
     (torch.bfloat16, 16), (torch.bfloat16, 32)])
 def test_other_calls_take_the_mma_route(dtype, head_dim):
-    """bf16 at head_dim 16 and 32: dQ on the mma.sync kernel of
-    ``csrc/flash_attn.cu`` (``"mma"``), dK/dV on ``flash_dkv_small`` of
-    ``csrc/flash_small.cu`` (``"small"``,
-    ``tests/test_torch_flash_small.py``)."""
-    assert fa._bwd_route(dtype, head_dim, "dq") == "mma"
+    """bf16 at head_dim 16 and 32: dQ on ``flash_dq_small`` and dK/dV on
+    ``flash_dkv_small`` of ``csrc/flash_small.cu`` (``"small"``,
+    ``tests/test_torch_flash_small.py``). ``"mma"``, the kernels of
+    ``csrc/flash_attn.cu``, only when named."""
+    assert fa._bwd_route(dtype, head_dim, "dq") == "small"
     assert fa._bwd_route(dtype, head_dim, "dkv") == "small"
 
 

@@ -3,8 +3,10 @@
 
 - ``_fwd_route``: bf16 at head_dim 64 or 128 takes ``flash_fwd_wgmma``
   (``"wgmma"``); bf16 at head_dim 16 or 32 ``flash_fwd_small`` of
-  ``csrc/flash_small.cu`` (``"small"``); float32 ``flash_fwd_kernel`` of
-  ``csrc/flash_attn.cu`` (``"mma"``).
+  ``csrc/flash_small.cu`` (``"small"``); float32 ``flash_fwd_tf32x3`` of
+  ``csrc/flash_fwd_f32.cu`` (``"tf32x3"``,
+  ``tests/test_torch_flash_fwd_f32.py``). ``flash_fwd_kernel`` of
+  ``csrc/flash_attn.cu`` (``"mma"``) runs only when named.
 - A torch model of the kernel's arithmetic, written here: flattened
   (position, group head) query rows walk 64-key tiles in order; scores
   summed in f32 and taken to the log2 domain (times scale * log2 e),
@@ -63,10 +65,12 @@ def test_bf16_at_wgmma_head_dims_takes_the_wgmma_route(head_dim):
     (torch.float32, 64), (torch.float32, 128), (torch.float32, 16),
     (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 32)])
 def test_other_calls_take_the_mma_route(dtype, head_dim):
-    """float32 at every head dim takes ``"mma"``; bf16 at head_dim 16 and
-    32 takes ``"small"`` (``csrc/flash_small.cu``,
-    ``tests/test_torch_flash_small.py``) instead."""
-    want = "small" if dtype == torch.bfloat16 else "mma"
+    """float32 at every head dim takes ``"tf32x3"``
+    (``csrc/flash_fwd_f32.cu``, ``tests/test_torch_flash_fwd_f32.py``);
+    bf16 at head_dim 16 and 32 takes ``"small"`` (``csrc/flash_small.cu``,
+    ``tests/test_torch_flash_small.py``). No call takes ``"mma"`` unless
+    a caller names it."""
+    want = "small" if dtype == torch.bfloat16 else "tf32x3"
     assert fa._fwd_route(dtype, head_dim) == want
 
 

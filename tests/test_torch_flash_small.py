@@ -3,11 +3,10 @@
 kernels cannot run.
 
 - The route rules: ``_fwd_route`` sends bf16 at head_dim 16 and 32 to
-  ``flash_fwd_small`` (``"small"``); ``_bwd_route`` is per kernel and sends
-  dK/dV there to ``flash_dkv_small`` (``"small"``) and dQ to
-  ``flash_dq_kernel`` of ``csrc/flash_attn.cu`` (``"mma"``); float32 and
-  head_dim 64/128 keep their routes. ``_dkv_small_splits`` sizes the
-  dK/dV cluster.
+  ``flash_fwd_small`` (``"small"``); ``_bwd_route`` sends dQ there to
+  ``flash_dq_small`` and dK/dV to ``flash_dkv_small`` (both ``"small"``);
+  float32 (``"tf32x3"``) and head_dim 64/128 (``"wgmma"``) keep their own.
+  ``_dkv_small_splits`` sizes the dK/dV cluster.
 - A torch model of each kernel's arithmetic, written here.
   Forward: flattened (position, group head) query rows walk 128-key tiles
   in order; masked scores are -inf; per tile m = max(m, max(s) x scale x
@@ -23,6 +22,10 @@ kernels cannot run.
   sums bf16(P)^T . dO and dS^T . Q over its steps in f32 from zero, and the
   CTAs' partials are added in rank order (the cluster's merge) before the
   one bf16 cast.
+  dQ: flattened query rows walk 64-key tiles in order; P = 2^(s x scale
+  log2 e - lse x log2 e) as in dK/dV, 0 where masked (-inf scores);
+  dS = bf16(P (dP - delta) scale); dQ = sum of dS . K over the tiles in
+  f32 from zero, rounded once to bf16.
   Each model is held against the Pallas kernels in interpret mode
   (``pallas_flash._fwd`` and ``pallas_flash._bwd``, run as
   ``tests/test_torch_flash_fwd.py`` runs them) and against the port's
@@ -36,11 +39,12 @@ kernels cannot run.
   points, so they differ by the order of the f32 sums, the last bits of
   the exponential (a bf16 step now and then) and where the running max
   moves, and by the one rounding of each output (2^-7 of the value).
-- A row that sees no key: O exactly 0, lse the plain version's -1e30, and
-  nothing in dK/dV from it; a key no row sees: dK = dV = 0 exactly.
+- A row that sees no key: O and dQ exactly 0, lse the plain version's
+  -1e30, and nothing in dK/dV from it; a key no row sees: dK = dV = 0
+  exactly.
 - CPU tensors take the plain version and count no launch on any route; a
-  named route on CPU tensors, the small route in f32 or at head_dim 64,
-  and a small dQ refuse.
+  named route on CPU tensors (the forward, dQ and dK/dV), and the small
+  route in f32 or at head_dim 64, refuse.
 
 The kernels themselves are held to the plain version on the card
 (``tests/test_torch_cuda_kernels.py -k flash_small``) and in
@@ -57,6 +61,7 @@ from k8s_distributed_deeplearning_tpu.ops import pallas_flash as pf
 torch.set_num_threads(2)
 
 FWD_KT = 128                       # the forward's key tile
+DQ_KT = 64                         # dQ's key tile
 DKV_KEYS = RT = 64                 # dK/dV's key tile and row step
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -72,13 +77,14 @@ def test_bf16_small_head_dims_take_the_small_forward(head_dim):
 
 @pytest.mark.parametrize("head_dim", [16, 32])
 def test_bf16_small_head_dims_split_the_backward_by_kernel(head_dim):
-    """dK/dV on the small kernel, dQ on flash_attn.cu's mma.sync kernel."""
+    """dK/dV and dQ both on the small kernels of csrc/flash_small.cu."""
     assert fa._bwd_route(torch.bfloat16, head_dim, "dkv") == "small"
-    assert fa._bwd_route(torch.bfloat16, head_dim, "dq") == "mma"
+    assert fa._bwd_route(torch.bfloat16, head_dim, "dq") == "small"
 
 
 @pytest.mark.parametrize("dtype,head_dim,fwd,bwd", [
-    (torch.float32, 16, "mma", "tf32x3"), (torch.float32, 32, "mma", "tf32x3"),
+    (torch.float32, 16, "tf32x3", "tf32x3"),
+    (torch.float32, 32, "tf32x3", "tf32x3"),
     (torch.bfloat16, 64, "wgmma", "wgmma"),
     (torch.bfloat16, 128, "wgmma", "wgmma")])
 def test_other_calls_keep_their_routes(dtype, head_dim, fwd, bwd):
@@ -228,6 +234,33 @@ def dkv_model(q, k, v, do, lse, delta, *, causal, scale, splits, segq=None,
             dv.transpose(1, 2).to(torch.bfloat16))
 
 
+def dq_model(q, k, v, do, lse, delta, *, causal, scale, segq=None,
+             segk=None):
+    """``flash_dq_small``'s arithmetic (see the module docstring). q, k, v,
+    do bf16; lse, delta f32 ``[B, H, sq]``. Returns dq bf16
+    ``[B, sq, H, D]``."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf, dof = _flat(q.float(), hkv), _flat(do.float(), hkv)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    lse2 = (_flat_stat(lse, hkv) * np.float32(LOG2E)).float()[..., None]
+    dl = _flat_stat(delta, hkv)[..., None]
+    allow = _allow(b, sq, sk, g, causal, segq, segk)
+    sl = float(np.float32(scale * LOG2E))
+    dq = torch.zeros(b, hkv, sq * g, d)
+    for c0 in range(0, sk, DQ_KT):
+        kt, vt = kf[:, :, c0:c0 + DQ_KT], vf[:, :, c0:c0 + DQ_KT]
+        s = torch.where(allow[..., c0:c0 + DQ_KT],
+                        qf @ kt.transpose(-1, -2), -torch.inf)
+        p = torch.exp2(_fma(s, sl, -lse2))
+        dp = dof @ vt.transpose(-1, -2)
+        ds = (p * (dp - dl) * scale).to(torch.bfloat16).float()
+        dq = dq + ds @ kt
+    dq = dq.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4)
+    return dq.reshape(b, sq, h, d).to(torch.bfloat16)
+
+
 def _close(got, want, tol, what):
     """Per element: |got - want| <= atol x max(RMS of its head_dim row, RMS
     of the whole output) + rtol x |want| (chip_smoke.py ``_flash_err``)."""
@@ -370,10 +403,45 @@ def test_dkv_model_matches_pallas_backward(shape):
                 assert torch.all(mine[b - 1, 10:13] == 0)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_dq_model_matches_pallas_backward(shape):
+    """The dQ model against the Pallas backward in interpret mode and the
+    port's plain version on the same bf16 inputs and forward residuals;
+    rows that see no key give exactly 0."""
+    q, k, v, do, segq, segk = _inputs(shape, 5 + sum(shape[:6]))
+    b, sq, sk, h, hkv, d, causal, _ = shape
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o, lse = pf._fwd(jq, jk, jv, _j(segq), _j(segk), causal=causal,
+                     scale=scale, interpret=True)
+    want = _t(np.asarray(pf._bwd(
+        causal, scale, True, (jq, jk, jv, _j(segq), _j(segk), o, lse),
+        jdo)[0].astype(jnp.float32)))
+    tq, tk, tv, tdo = _bf16(q, k, v, do)
+    to = _t(np.asarray(o.astype(jnp.float32))).to(torch.bfloat16)
+    tlse = _t(np.asarray(lse)).reshape(b, h, sq)
+    delta = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
+    plain = fa.flash_attention_bwd_reference(
+        tq, tk, tv, to, tlse, tdo, causal=causal, softmax_scale=scale,
+        q_segment_ids=_t(segq), kv_segment_ids=_t(segk))[0]
+    got = dq_model(tq, tk, tv, tdo, tlse, delta, causal=causal,
+                   scale=scale, segq=_t(segq), segk=_t(segk))
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    _close(got, want, BF16_TOL, "dq vs Pallas")
+    _close(got, plain, BF16_TOL, "dq vs the plain version")
+    blind = (tlse <= -1e29).transpose(1, 2)          # [B, sq, H]
+    if causal and sq > sk or segq is not None:
+        assert blind.any()
+    assert torch.all(got[blind] == 0) and torch.all(plain[blind] == 0)
+
+
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     q, k, v, do, _, _ = _inputs((1, 64, 64, 4, 2, 16, True, False), 3)
     counts = (lambda: (fa.flash_fwd.launches, fa.flash_fwd.launches_small,
-                       fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+                       fa.flash_bwd_dq.launches,
+                       fa.flash_bwd_dq.launches_small,
+                       fa.flash_bwd_dkv.launches,
                        fa.flash_bwd_dkv.launches_small))
     before = counts()
     tq, tk, tv = (x.requires_grad_() for x in _bf16(q, k, v))
@@ -395,11 +463,14 @@ def test_small_wrappers_refuse_cpu_tensors():
     q, k, v, do, _, _ = _inputs((1, 16, 16, 2, 2, 16, True, False), 1)
     tq, tk, tv, tdo = _bf16(q, k, v, do)
     stat = torch.zeros(1, 2, 16)
-    before = (fa.flash_fwd.launches_small, fa.flash_bwd_dkv.launches_small)
+    counts = (lambda: (fa.flash_fwd.launches_small,
+                       fa.flash_bwd_dq.launches_small,
+                       fa.flash_bwd_dkv.launches_small))
+    before = counts()
     with pytest.raises(ValueError, match="device cpu"):
         fa.flash_fwd(tq, tk, tv, None, None, True, 0.25, route="small")
-    with pytest.raises(ValueError, match="device cpu"):
-        fa.flash_bwd_dkv(tq, tk, tv, tdo, stat, stat, None, None, True, 0.25,
-                         route="small")
-    assert (fa.flash_fwd.launches_small,
-            fa.flash_bwd_dkv.launches_small) == before
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="device cpu"):
+            fn(tq, tk, tv, tdo, stat, stat, None, None, True, 0.25,
+               route="small")
+    assert counts() == before
