@@ -20,10 +20,14 @@ A. The paged-attention kernels against their plain PyTorch version on
    an 8-query chunk at offset 1480 (32 rows a KV head) on the decode
    kernel, the 512 @ 1024 chunk and a verify window of 8 at phase P's
    table width (65 blocks, live 512-560) on the tf32x3 kernel in f32;
-   in f32 also the serve CLI's tiny preset's shape (4/2 heads, head_dim
-   16: an 8-slot decode step and a 128-query prefill in a 16-block
-   table) on the split kernel, the route it takes there; stale K/V past
-   each cursor and scratch-page garbage changing no bit on every route.
+   at head_dim 16 and 32: in f32 the serve CLI's tiny preset's
+   shape (4/2 heads, head_dim 16: an 8-slot decode step and a 128-query
+   prefill in a 16-block table) on the tf32x3 kernel, in bf16 the micro
+   draft's 2/1 heads at head_dim 16 and 4/2 heads at head_dim 32 (an
+   8-slot decode, a 512-token chunk at offset 0) on the decode kernel,
+   each beside the split kernel forced; stale K/V past each cursor and
+   scratch-page garbage changing no bit on every route (head_dim 16 too:
+   a decode step and 80-query chunks).
    Reports the error, the kernel's time, the plain version's, the bound
    (the larger of bytes over 3.35 TB/s and FLOPs over the dtype's peak),
    and the time of ``scaled_dot_product_attention`` on the pre-gathered
@@ -32,8 +36,7 @@ A. The paged-attention kernels against their plain PyTorch version on
    on the same inputs, two decode launches bitwise equal, and every time
    on the device alone; for a case on the tf32x3 route the same (two
    launches bitwise equal, the split kernel's error and time on the same
-   inputs); for a case on the split route, two launches bitwise equal,
-   timed on the device alone; for a chunk on the prefill route, the split
+   inputs); for a chunk on the prefill route, the split
    kernel's error and time on the same inputs and the prefill kernel's
    time at 64- and 128-row tiles. The same cases again through the int8 branch:
    int8 pools quantized from random ones by the model's quantize-on-write,
@@ -56,10 +59,10 @@ B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
 C. The same workload in f32 at 8B width and 4 layers, greedy, through the
    kernel path and through the plain path (``attention_impl="xla"``):
    the first 16 tokens of every request agree, every paged launch on the
-   tf32x3 route and none on the split route. Then the train CLI's tiny
-   preset (head_dim 16, which only the split kernel takes) served in f32
-   through both paths: streams equal, every paged launch on the split
-   route. Then, in bf16 (which the
+   tf32x3 route and none on the split route. Then the serve CLI's tiny
+   preset (head_dim 16) served in f32 through both paths: streams equal,
+   every paged launch on the tf32x3 route at head_dim 16, none on the
+   split route. Then, in bf16 (which the
    prefill route takes), every prompt prefilled in 512-token chunks
    through both paths: the last position's logits agree within
    ``BF16_LOGIT_RTOL`` and the first greedy token is equal wherever the
@@ -134,12 +137,15 @@ G. The grouped-matmul kernels (the forward and, reading the weight
    bf16 runs both routes on the same inputs
    (``gmm_wgmma``/``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, and the
    mma.sync ``gmm_kernel``/``tgmm_kernel`` of ``csrc/gmm.cu`` forced), f32
-   the forward and dlhs on both ``gmm_tf32x3`` of ``csrc/gmm_f32.cu``
-   (``"tf32x3"``, the route f32 takes) and ``gmm_kernel`` forced, the
-   weight gradient on ``tgmm_kernel`` (``"mma"``). Every
-   element within atol x the output's RMS + rtol x |plain|, rows that
-   hold no token exactly 0, an empty expert's weight gradient exactly 0;
-   two wgmma or tf32x3 launches give the same bits. Reports each
+   on both ``gmm_tf32x3``/``tgmm_tf32x3`` of ``csrc/gmm_f32.cu``
+   (``"tf32x3"``, the route f32 takes) and gmm.cu's kernels forced; f32
+   also at the slice's gate/up shape balanced, skewed and in one expert.
+   Every element within atol x the output's RMS + rtol x
+   |plain| (the forced ``tgmm_kernel`` at the skewed and one-expert f32
+   layouts a reading: it chains every row of an expert into one f32
+   accumulator), rows that hold no token exactly 0, an empty expert's
+   weight gradient exactly 0; two wgmma or tf32x3 launches give the same
+   bits. Reports each
    kernel's time, the plain version's, the bound, and
    ``torch._grouped_mm`` on the same spans
    as a yardstick (the port never calls it; null with the reason where
@@ -162,8 +168,9 @@ I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    (``dispatch="index"`` at a capacity that drops nothing, the einsum
    attention), compared as in phase F. The f32 kernel path runs the
    forward grouped GEMM and dlhs on tf32x3 (exactly 6 x layers x steps),
-   the weight gradient on the mma route and the flash forward and
-   backward on tf32x3, as in phase F (the wgmma counts stay 0, checked).
+   the weight gradient on tf32x3 too (3 x layers x steps, mma 0) and the
+   flash forward and backward on tf32x3, as in phase F (the wgmma counts
+   stay 0, checked).
 J. Quantized serving: phase B's engine and workload with
    ``kv_quant="int8"`` and ``weight_quant="int8"`` (Llama-3 8B, full width
    and depth, bf16 random weights from seed 0, quantized in place). The
@@ -188,7 +195,7 @@ L. One-shot ``generate`` on the dense KV cache at Llama-3 8B, full width
    share (``torch.profiler``), and, as a reading, the greedy tokens equal
    to each row generated alone. Then in f32 (TF32 off) at 8B width and 4
    layers, one set of weights: each of phase C's 8 requests generated
-   alone equals the ``ServeEngine`` greedy stream (split paged kernel)
+   alone equals the ``ServeEngine`` greedy stream (tf32x3 paged kernel)
    for 16 tokens, and each row of a left-padded batch of 4 equals that
    row alone.
 M. ``generate`` on the ragged MoE (phase H's backbone, 8 experts top-2,
@@ -250,11 +257,16 @@ P. The serving engine's host surface at Llama-3 8B (bf16, full depth,
    the bound, and two launches bitwise equal. P3: two tenants from a
    config string; a queued, a pending-prefill and an in-flight request
    cancelled, the pending one requeued, a drain to the end: finish
-   reasons, on_finish once a submission, no page held. Then at 4 layers
-   in f32: streams with the cache on equal off, greedy and sampled
-   speculative streams (self-draft, 2-layer draft) equal plain decode,
-   the self-draft accepts every greedy proposal, and a request with
-   prompt + new tokens == max_seq_len runs at spec_k 4.
+   reasons, on_finish once a submission, no page held. Then the serve
+   CLI's ``--preset small`` (12 layers, bf16, head_dim 64) plain and with
+   ``--draft-model micro`` (head_dim 16) at spec_k 3 on 16 of its default
+   requests: launches by route exact, every draft launch on the decode
+   route at head_dim 16, none on the split route, the greedy tokens equal
+   to plain as a reading; the same in f32, streams equal token for token.
+   Then at 4 layers in f32: streams with the cache on equal off, greedy
+   and sampled speculative streams (self-draft, 2-layer draft) equal
+   plain decode, the self-draft accepts every greedy proposal, and a
+   request with prompt + new tokens == max_seq_len runs at spec_k 4.
 
 Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
    head_dim 16: ``--preset tiny --seq-len 1024``, where the auto attention
@@ -379,15 +391,15 @@ GMM_REPLACES = {
     "tgmm": "k8s_distributed_deeplearning_tpu/ops/pallas_gmm.py:209",
 }
 # Kernel-line name -> (source, wrapper): each wrapper launches the kernel
-# of its route, the wgmma lines its "wgmma" route (bf16), gmm_tf32x3 the
-# forward's "tf32x3" route (f32), the others the kernels of gmm.cu
-# ("mma": tgmm in f32 on the training path; gmm forced in both dtypes
-# here).
+# of its route, the wgmma lines its "wgmma" route (bf16), the tf32x3 lines
+# its "tf32x3" route (f32), the others the kernels of gmm.cu ("mma",
+# forced in both dtypes here: no path runs them).
 GMM_KERNELS = {
     "gmm": ("gmm.cu", "gmm"), "tgmm": ("gmm.cu", "tgmm"),
     "gmm_wgmma": ("gmm_wgmma.cu", "gmm"),
     "tgmm_wgmma": ("gmm_wgmma.cu", "tgmm"),
     "gmm_tf32x3": ("gmm_f32.cu", "gmm"),
+    "tgmm_tf32x3": ("gmm_f32.cu", "tgmm"),
 }
 # The MoE slice's model: the JAX package's ragged MoE benchmark row
 # (Llama-small backbone, 8 experts, top-2, dispatch="ragged").
@@ -522,14 +534,20 @@ STALE_PREFILL = ([700, 1000], 64, 64, 2 * 64 + 1)
 # width leaves most splits empty.
 F32_VERIFY_CASE = ([512, 528, 544, 560], 8, 65, 4 * 18 + 1)
 
-# The split kernel's own path: the serve CLI's tiny preset in f32 (phases
-# C and K, :func:`_tiny_split_run`), 4/2 heads at head_dim 16 in 32-token
-# pages of a 16-block table (max_seq_len 512). Its 8 prompts are drawn
-# from TINY_SEED; a decode step of all 8 slots halfway through their 16
-# new tokens, and the prefill of one prompt padded to its 128-token bucket.
+# The serve CLI's tiny preset in f32 (phases C and K, :func:`_tiny_run`),
+# 4/2 heads at head_dim 16 in 32-token pages of a 16-block table
+# (max_seq_len 512), on the tf32x3 route. Its 8 prompts are drawn from
+# TINY_SEED; a decode step of all 8 slots halfway through their 16 new
+# tokens, and the prefill of one prompt padded to its 128-token bucket. In
+# bf16 the same at the micro draft's 2/1 heads (head_dim 16: decode, and a
+# 512-token chunk at offset 0, 1,024 rows a KV head) and at 4/2 heads and
+# head_dim 32, on the decode route.
 TINY_HEADS = (4, 2, 16)
+MICRO_HEADS = (2, 1, 16)
+HD32_HEADS = (4, 2, 32)
 TINY_SEED = 2
 TINY_BLOCKS = 512 // PAGE
+SMALL_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "decode"}
 
 
 def _tiny_prompt_lengths() -> np.ndarray:
@@ -537,19 +555,29 @@ def _tiny_prompt_lengths() -> np.ndarray:
     return np.random.default_rng(TINY_SEED).integers(32, 129, 8)
 
 
-def _tiny_cases() -> dict:
-    """Phase A's cases at the tiny preset's shape (f32): name -> (live
-    lengths, sq, n_blocks, pages)."""
+def _tiny_cases(dtype) -> dict:
+    """Phase A's cases at head_dim 16 and 32: name -> (live lengths, sq,
+    n_blocks, pages, heads). f32: the tiny preset's decode step and
+    prefill; bf16: decode and a 512-token chunk at the micro draft's heads
+    and at head_dim 32."""
     lens = [int(n) + 8 for n in _tiny_prompt_lengths()]
-    return {"tiny_decode": (lens, 1, TINY_BLOCKS, 8 * 5 + 1),
-            "tiny_prefill128": ([128], 128, TINY_BLOCKS, 2 * 4 + 1)}
+    decode = (lens, 1, TINY_BLOCKS, 8 * 5 + 1)
+    chunk = ([512], 512, TINY_BLOCKS, 16 + 1)
+    if dtype == torch.float32:
+        return {"tiny_decode": (*decode, TINY_HEADS),
+                "tiny_prefill128": ([128], 128, TINY_BLOCKS, 2 * 4 + 1,
+                                    TINY_HEADS)}
+    return {"micro_decode": (*decode, MICRO_HEADS),
+            "micro_chunk512": (*chunk, MICRO_HEADS),
+            "hd32_decode": (*decode, HD32_HEADS),
+            "hd32_chunk512": (*chunk, HD32_HEADS)}
 
 
 def _shapes(dtype, decode_lens):
     """Phase A's cases for ``dtype``: name -> (live lengths, sq, n_blocks,
     pages, heads). Decode, the prefill chunks (f32: the 512 @ 1024 chunk
-    alone), then bf16's other decode cases (f32: a verify window of 8, and
-    the tiny preset's decode and prefill on the split route)."""
+    alone), then bf16's other decode cases (f32: a verify window of 8),
+    then :func:`_tiny_cases`."""
     bf16 = dtype == torch.bfloat16
     chunks = (PREFILL_CASES if bf16 else
               {"prefill512": PREFILL_CASES["prefill512"]})
@@ -559,9 +587,7 @@ def _shapes(dtype, decode_lens):
     cases = {name: (*case, (H, KV, HD)) for name, case in
              {"decode": (decode_lens, 1, 64, 4 * 64 + 1), **chunks,
               **more}.items()}
-    if not bf16:
-        cases.update({name: (*case, TINY_HEADS)
-                      for name, case in _tiny_cases().items()})
+    cases.update(_tiny_cases(dtype))
     return cases
 
 
@@ -638,19 +664,21 @@ def phase_a(dev, flush):
             h, kv, hd = heads
             args = _attn_case(rng, dev, dtype, lens, sq, nb, pages, heads)
             route = paged_attn._route(sq, h // kv, hd, dtype, False)
-            check(route == "split" or heads == (H, KV, HD),
-                  f"{name}: the tiny preset's shape is not on the split "
-                  f"route ({route})")
+            small = heads != (H, KV, HD)
+            check(not small or route == SMALL_ROUTES[dtype],
+                  f"{name}: head_dim {hd} is not on the "
+                  f"{SMALL_ROUTES[dtype]} route ({route})")
             before = (kern.launches_prefill, kern.launches_decode,
-                      kern.launches_tf32x3)
+                      kern.launches_tf32x3, kern.launches_small)
             out = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
             check((kern.launches_prefill - before[0],
                    kern.launches_decode - before[1],
-                   kern.launches_tf32x3 - before[2])
+                   kern.launches_tf32x3 - before[2],
+                   kern.launches_small - before[3])
                   == (route == "prefill", route == "decode",
-                      route == "tf32x3"),
+                      route == "tf32x3", small),
                   f"{name}/{dname}: the {route} route did not launch")
             err = err_of(out, ref)
             rtol = (CHUNK_RTOL_BF16 if dtype == torch.bfloat16
@@ -694,18 +722,14 @@ def phase_a(dev, flush):
                 cases[-1].update(timed)
                 check(timed["repeat_bitwise"],
                       f"{name}/{dname}: two {route} launches differ")
-            if route == "split":
-                cases[-1]["repeat_bitwise"] = torch.equal(kern(*args), out)
-                check(cases[-1]["repeat_bitwise"],
-                      f"{name}/{dname}: two split launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale K/V past each cursor and garbage in the scratch page (the
         # blocks past the live length map to it) change no output bit, on
         # the route decode takes (bf16: the decode route; f32: the tf32x3
         # route) and on the route of STALE_PREFILL's chunks (bf16: the
-        # prefill route; f32: tf32x3 in 64-row tiles); in f32 also on the
-        # split route at the tiny preset's shape (its decode, and two
-        # rows of 64 queries).
+        # prefill route; f32: tf32x3 in 64-row tiles); also at the tiny
+        # preset's shape, head_dim 16 (its decode, and two rows of 80
+        # queries: bf16 tiles that each read their own key range).
         stale = [("decode" if dtype == torch.bfloat16 else "tf32x3",
                   decode_lens, 1, 64, 4 * 64 + 1, (H, KV, HD)),
                  ("prefill" if dtype == torch.bfloat16 else "tf32x3",
@@ -729,15 +753,16 @@ def phase_a(dev, flush):
 
 
 def _tiny_stale(dtype) -> list:
-    """Phase A's stale-cell cases on the split route (f32 only): (route,
-    live lengths, sq, n_blocks, pages, heads) at the tiny preset's shape,
-    its decode step and the last 64 queries of its two longest prompts."""
-    if dtype != torch.float32:
-        return []
-    lens, sq, nb, pages = _tiny_cases()["tiny_decode"]
+    """Phase A's stale-cell cases at head_dim 16: (route, live lengths,
+    sq, n_blocks, pages, heads) at the tiny preset's shape, its decode step
+    and the last 80 queries (160 rows a KV head) of its two longest
+    prompts, on the route ``dtype`` takes there."""
+    lens = [int(n) + 8 for n in _tiny_prompt_lengths()]
     longest = sorted(int(n) for n in _tiny_prompt_lengths())[-2:]
-    return [("split", lens, sq, nb, pages, TINY_HEADS),
-            ("split", longest, 64, TINY_BLOCKS, 2 * 4 + 1, TINY_HEADS)]
+    route = SMALL_ROUTES[dtype]
+    return [(route, lens, 1, TINY_BLOCKS, 8 * 5 + 1, TINY_HEADS),
+            (route, longest, min(80, longest[0]), TINY_BLOCKS, 2 * 4 + 1,
+             TINY_HEADS)]
 
 
 def _quantized(args):
@@ -795,20 +820,23 @@ def phase_a_int8(dev, flush):
             args = (args[0].to(dtype),) + args[1:]
             base5, kw = args[:5], scales(args)
             route = paged_attn._route(sq, h // kv, hd, dtype, True)
-            check(route == "split" or heads == (H, KV, HD),
-                  f"int8 {name}: the tiny preset's shape is not on the "
-                  f"split route ({route})")
+            small = heads != (H, KV, HD)
+            check(not small or route == SMALL_ROUTES[dtype],
+                  f"int8 {name}: head_dim {hd} is not on the "
+                  f"{SMALL_ROUTES[dtype]} route ({route})")
             before = (attn.launches_int8, attn.launches_prefill_int8,
-                      attn.launches_decode_int8, attn.launches_tf32x3_int8)
+                      attn.launches_decode_int8, attn.launches_tf32x3_int8,
+                      attn.launches_small_int8)
             out = attn(*base5, **kw)
             want = plain(*base5, **kw)
             torch.cuda.synchronize()
             check((attn.launches_int8 - before[0],
                    attn.launches_prefill_int8 - before[1],
                    attn.launches_decode_int8 - before[2],
-                   attn.launches_tf32x3_int8 - before[3])
+                   attn.launches_tf32x3_int8 - before[3],
+                   attn.launches_small_int8 - before[4])
                   == (1, int(route == "prefill"), int(route == "decode"),
-                      int(route == "tf32x3")),
+                      int(route == "tf32x3"), int(small)),
                   f"int8 {name}/{dname}: the {route} route did not launch")
             check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                   f"int8 {name}/{dname}: {out.dtype} or non-finite")
@@ -858,16 +886,11 @@ def phase_a_int8(dev, flush):
                 cases[-1].update(timed)
                 check(timed["repeat_bitwise"],
                       f"int8 {name}/{dname}: two {route} launches differ")
-            if route == "split":
-                cases[-1]["repeat_bitwise"] = torch.equal(
-                    attn(*base5, **kw), out)
-                check(cases[-1]["repeat_bitwise"],
-                      f"int8 {name}/{dname}: two split launches differ")
             log({"phase": "A", **cases[-1]})
         # Stale int8 cells past each cursor (127, scale 1e4) and garbage in
         # the scratch page and its scale page change no output bit, on the
-        # route decode takes and on STALE_PREFILL's; in f32 also on the
-        # split route at the tiny preset's shape.
+        # route decode takes and on STALE_PREFILL's; also at the tiny
+        # preset's shape, head_dim 16.
         stale = [("decode" if dtype == torch.bfloat16 else "tf32x3",
                   decode_lens, 1, 64, 4 * 64 + 1, (H, KV, HD)),
                  ("prefill" if dtype == torch.bfloat16 else "tf32x3",
@@ -1039,6 +1062,7 @@ def _zero_counts(attn) -> None:
     attn.launches_prefill = attn.launches_prefill_int8 = 0
     attn.launches_decode = attn.launches_decode_int8 = 0
     attn.launches_tf32x3 = attn.launches_tf32x3_int8 = 0
+    attn.launches_small = attn.launches_small_int8 = 0
 
 
 def phase_b(dev):
@@ -1284,8 +1308,8 @@ def _paths_phase(phase, dev, quant: bool):
     path (``attention_impl="auto"``) against the plain path (``"xla"``); K
     with int8 KV pages and int8 weights. The first 16 tokens of every
     request agree, and only the kernel path launches the kernel, every
-    launch on the tf32x3 route. Then the serve CLI's default preset on
-    the split route (:func:`_tiny_split_run`)."""
+    launch on the tf32x3 route. Then the serve CLI's default preset
+    (:func:`_tiny_run`)."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
@@ -1333,18 +1357,19 @@ def _paths_phase(phase, dev, quant: bool):
           and launches["auto"]["split"] == 0,
           f"launches by path {launches}: every f32 {branch} launch on the "
           "tf32x3 route, none on the split route")
-    result["split_route"] = _tiny_split_run(phase, dev, quant)
+    result["tiny_preset"] = _tiny_run(phase, dev, quant)
     return result
 
 
-def _tiny_split_run(phase, dev, quant: bool):
+def _tiny_run(phase, dev, quant: bool):
     """The serve CLI's default preset (``--preset tiny``: the test
-    topology in f32, 4/2 heads at head_dim 16, which only the split
-    kernel takes; with ``quant`` its int8 KV pages and weights) through
-    the kernel path and the plain path: 8 greedy requests of 32-128 prompt
+    topology in f32, 4/2 heads at head_dim 16, on the tf32x3 kernel;
+    with ``quant`` its int8 KV pages and weights) through the
+    kernel path and the plain path: 8 greedy requests of 32-128 prompt
     tokens and 16 new on 8 slots, as the CLI's defaults draw them. The
     streams agree and every paged launch of the kernel path is on the
-    split route."""
+    tf32x3 route at head_dim 16 (``launches_small``), none on the split
+    route."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import (Request,
@@ -1367,13 +1392,17 @@ def _tiny_split_run(phase, dev, quant: bool):
                                 request_id=f"t{i}")
                         for i, p in enumerate(prompts)])
         torch.cuda.synchronize()
-        launches[impl] = {"fp": attn.launches, "int8": attn.launches_int8,
-                          "split": _split_launches(attn, branch)}
+        sfx = "_int8" if quant else ""
+        launches[impl] = {
+            "fp": attn.launches, "int8": attn.launches_int8,
+            "tf32x3": getattr(attn, "launches_tf32x3" + sfx),
+            "small": getattr(attn, "launches_small" + sfx),
+            "split": _split_launches(attn, branch)}
         streams[impl] = {o.request_id: o.tokens for o in outs}
         del model, eng
     agree = {r: streams["auto"][r] == streams["xla"][r]
              for r in sorted(streams["auto"])}
-    result = {"phase": phase, "case": "tiny_preset_split_route",
+    result = {"phase": phase, "case": "tiny_preset",
               "model": "config_tiny (dim 64, 4/2 heads, head_dim 16)",
               "dtype": "float32", **kw, "requests": len(agree),
               "tokens_compared": 16, "launches": launches,
@@ -1381,10 +1410,12 @@ def _tiny_split_run(phase, dev, quant: bool):
     log(result)
     check(len(agree) == 8 and all(agree.values()),
           "tiny preset: kernel-path and plain-path greedy streams differ")
-    check(launches["auto"]["split"] == launches["auto"][branch] > 0
-          and not any(launches["xla"].values()),
+    auto = launches["auto"]
+    check(auto["tf32x3"] == auto["small"] == auto[branch] > 0
+          and auto["split"] == 0 and not any(launches["xla"].values()),
           f"tiny preset launches by path {launches}: every {branch} launch "
-          "of the kernel path on the split route")
+          "of the kernel path on the tf32x3 route at head_dim 16, none on "
+          "the split route")
     return result
 
 
@@ -1890,12 +1921,127 @@ def phase_p(dev, flush):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- The serve CLI's small preset with the micro draft (head_dim 16).
+    result["small_micro"] = _small_micro_run(dev)
+
     # ---- The exact gates, at 4 layers in f32.
     exact = _exact_gates(dev)
     log({"phase": "P", "case": "f32_exact", **exact,
          "since_p_s": time.perf_counter() - t0})
     result.update({"p1": p1, "p2": p2, "p3": p3, "f32_exact": exact})
     return result, _verify_cases(dev, flush)
+
+
+SMALL_MICRO_SPEC_K = 3
+SMALL_MICRO_REQUESTS = 16        # of the CLI's 32 defaults
+
+
+def _small_micro_engine(dev, dtype, draft: bool):
+    """The serve CLI's ``--preset small [--draft-model micro --spec-k
+    3]`` engine (its defaults: 8 slots, max_seq_len 512, no chunking),
+    random weights from seeds 0 and 1, in ``dtype``."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+
+    cfg = llama.config_tiny(vocab_size=32000, dim=768, n_layers=12,
+                            n_heads=12, n_kv_heads=4, mlp_dim=2048,
+                            max_seq_len=512, dtype=dtype)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    micro = None
+    if draft:
+        micro = llama.LlamaLM(llama.config_tiny(
+            vocab_size=32000, dim=32, n_layers=1, n_heads=2, n_kv_heads=1,
+            mlp_dim=64, max_seq_len=512, dtype=dtype), device=dev, seed=1)
+    return ServeEngine(model, num_slots=8, device=dev, draft_model=micro,
+                       spec_k=SMALL_MICRO_SPEC_K if draft else 0)
+
+
+def _cli_requests(n: int):
+    """The first ``n`` of the serve CLI's default requests (seed 0:
+    prompts of 32-128 tokens, 16-64 new, greedy), as it draws them."""
+    from k8s_distributed_deeplearning_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(0, 32000, size=int(rng.integers(32, 129)))
+        reqs.append(Request(prompt=prompt.astype(np.int32),
+                            max_new_tokens=int(rng.integers(16, 65)),
+                            seed=i, request_id=f"c{i}"))
+    return reqs
+
+
+def _small_micro_run(dev):
+    """The serve CLI's small preset (12 layers, 12/4 heads at head_dim
+    64) plain and with the micro draft (1 layer, 2/1 heads at head_dim
+    16) at spec_k 3, the first 16 of the CLI's default requests, greedy
+    (8 slots, two waves). In bf16, the
+    CLI's dtype for the preset: every paged launch by route exact (the
+    target's decode steps and verify windows on the decode route, its
+    prompts on the prefill route, every draft launch, prefill chunks
+    included, on the decode route at head_dim 16; split 0), the greedy
+    tokens equal to the plain run's as a reading (bf16 rounds the
+    verify pass and single-token decode differently: phase P2's 8B runs
+    read 198-230 of 256, this case 1,326 of 1,327 on an H100).
+    Then the same in f32 (TF32 off), where the two agree far inside the
+    logits' margins: the streams equal token for token, every draft launch
+    on the tf32x3 route at head_dim 16."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = paged_attn.paged_decode_attention
+    n_req = SMALL_MICRO_REQUESTS
+    out = {"model": "serve --preset small --draft-model micro --spec-k 3",
+           "requests": n_req}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        runs, streams = {}, {}
+        for key, draft in (("plain", False), ("micro_k3", True)):
+            eng = _small_micro_engine(dev, dtype, draft)
+            _zero_counts(attn)
+            t0 = time.perf_counter()
+            outs = eng.run(_cli_requests(n_req))
+            torch.cuda.synchronize()
+            summ = eng.stats.summary()
+            steps = summ["decode_steps"]
+            chunks = sum(o.prefill_chunks for o in outs)
+            routes = {**_route_counts(attn), "small": attn.launches_small}
+            lt, ld = 12, int(draft)
+            k1 = SMALL_MICRO_SPEC_K + 1 if draft else 1
+            small = (steps * k1 + chunks) * ld
+            want = {"decode": steps * lt + small, "prefill": chunks * lt,
+                    "tf32x3": 0, "split": 0, "int8": 0, "small": small}
+            if dtype == torch.float32:
+                want = {**_f32_want({k: v for k, v in want.items()
+                                     if k != "small"}), "small": small}
+            check(len(outs) == n_req and routes == want,
+                  f"small preset {dname} {key}: launches by route {routes}, "
+                  f"want {want} ({steps} iterations, {chunks} chunks)")
+            streams[key] = {o.request_id: o.tokens for o in outs}
+            runs[key] = {"route_launches": routes, "decode_iterations": steps,
+                         "prefill_chunks": chunks,
+                         "wall_s": time.perf_counter() - t0,
+                         "decode_tokens": eng.stats.decode_tokens,
+                         "spec_acceptance_rate": summ.get(
+                             "spec_acceptance_rate")}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        equal = sum(a == b for r in streams["plain"] for a, b in zip(
+            streams["plain"][r], streams["micro_k3"][r]))
+        total = sum(len(t) for t in streams["plain"].values())
+        same = {r: streams["plain"][r] == streams["micro_k3"][r]
+                for r in streams["plain"]}
+        runs["tokens_equal_plain"], runs["tokens"] = equal, total
+        runs["streams_equal"] = sum(same.values())
+        out[dname] = runs
+        log({"phase": "P", "case": f"small_micro_{dname}", **runs})
+        if dtype == torch.float32:
+            check(all(same.values()),
+                  f"small preset f32: the micro draft changed a stream "
+                  f"({runs['streams_equal']} of {n_req} equal)")
+    return out
 
 
 def _copy(reqs):
@@ -2236,7 +2382,7 @@ def phase_l(dev):
 def _generate_f32(dev):
     """Phase L in f32 (TF32 off) at 8B width and 4 layers, one set of
     weights: each of phase C's 8 requests generated alone equals the
-    port's ``ServeEngine`` greedy stream (the split paged kernel) for 16
+    port's ``ServeEngine`` greedy stream (the tf32x3 paged kernel) for 16
     tokens, and each row of a left-padded batch of the first 4 equals that
     row alone. ``generate`` launches no kernel."""
     from k8s_distributed_deeplearning_torch.models import generate, llama
@@ -2254,12 +2400,13 @@ def _generate_f32(dev):
     attn = paged_attn.paged_decode_attention
     _zero_all()
     engine = {o.request_id: o.tokens for o in eng.run(reqs)}
-    routes = {"split": attn.launches - attn.launches_prefill
-              - attn.launches_decode, "prefill": attn.launches_prefill,
+    routes = {"tf32x3": attn.launches_tf32x3,
+              "split": _split_launches(attn, "fp"),
+              "prefill": attn.launches_prefill,
               "decode": attn.launches_decode}
-    check(routes["split"] > 0 and not routes["prefill"]
-          and not routes["decode"],
-          f"f32 engine launches by route {routes}: want the split route")
+    check(routes["tf32x3"] > 0 and not routes["split"]
+          and not routes["prefill"] and not routes["decode"],
+          f"f32 engine launches by route {routes}: want the tf32x3 route")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2937,18 +3084,27 @@ GMM_CASES = [
      (torch.bfloat16,)),
     ("prefill_gate_up", "router", 4096, 512, 768, 2048, (torch.bfloat16,)),
     ("prefill_down", "router", 4096, 512, 2048, 768, (torch.bfloat16,)),
+    ("slice_gate_up_balanced", "balanced", GMM_ROWS, 128, 768, 2048,
+     (torch.float32,)),
+    ("slice_gate_up_skewed", "skewed", GMM_ROWS, 128, 768, 2048,
+     (torch.float32,)),
+    ("slice_gate_up_one_expert", "one_expert", GMM_ROWS, 128, 768, 2048,
+     (torch.float32,)),
 ]
 
 
 def _gmm_sizes(kind: str, rows: int) -> list[int]:
     """Rows of each expert, ``rows`` in all: from a seeded top-2 router
-    over rows / 2 tokens, even, or skewed (one expert 40 %, one empty)."""
+    over rows / 2 tokens, even, skewed (one expert 40 %, one empty), or
+    all in one expert."""
     if kind == "router":
         logits = np.random.default_rng(5).standard_normal((rows // 2, GMM_E))
         top2 = np.argsort(-logits, axis=1)[:, :2]
         return np.bincount(top2.ravel(), minlength=GMM_E).tolist()
     if kind == "balanced":
         return [rows // GMM_E] * GMM_E
+    if kind == "one_expert":
+        return [rows] + [0] * (GMM_E - 1)
     big = int(0.4 * rows)
     rest = rows - big
     sizes = [big, 0] + [rest // 6] * 6
@@ -3027,9 +3183,9 @@ def _gmm_bound(flops, nbytes, dtype, route=None):
 def phase_g(dev, flush):
     """The grouped-matmul kernels against their plain versions, case by
     case; every function on the mma route and on its dtype's own (bf16:
-    wgmma; f32: the forward and dlhs on tf32x3) on the same inputs, the
-    latter launched twice for bitwise equality; every kernel and the
-    yardstick timed on the device alone."""
+    wgmma; f32: tf32x3) on the same inputs, the latter launched twice for
+    bitwise equality; every kernel and the yardstick timed on the device
+    alone."""
     from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3097,7 +3253,16 @@ def phase_g(dev, flush):
                     err = (got.float() - ref).abs()
                     share = float((err / (tol[0] * rms + tol[1]
                                           * ref.abs())).max())
-                    check(share <= 1.0,
+                    # tgmm_kernel, forced, chains all of an expert's rows
+                    # into one f32 accumulator on the CUDA cores: at the
+                    # f32 layouts of 6,553 and 16,384 rows an expert that
+                    # drifts past the limit (2.85x at 16,384 on an
+                    # H100), so its error there is a reading; every
+                    # other route and case is gated.
+                    reading = (route == "mma" and fn_name == "tgmm"
+                               and dtype == torch.float32
+                               and kind in ("skewed", "one_expert"))
+                    check(share <= 1.0 or reading,
                           f"{what}: |kernel - plain| uses {share} of the "
                           f"limit {tol[0]} x rms + {tol[1]} x |plain|")
                     if fn_name == "tgmm":
@@ -3124,7 +3289,7 @@ def phase_g(dev, flush):
                                      "sizes": sizes},
                            "max_abs_err": float(err.max()),
                            "err_over_rms": float(err.max()) / rms,
-                           "tol_share": share,
+                           "tol_share": share, "gated": not reading,
                            "tol": {"atol_rms": tol[0], "rtol": tol[1]},
                            "zeros_exact": zeros, "bitwise_repeat": same,
                            "ms": time_ms(lambda: kern(route), flush,
@@ -3152,12 +3317,12 @@ def phase_g(dev, flush):
 def _gmm_entries(rows, h_result, i_result, m_result):
     """Kernel-line entries of the grouped-matmul kernels: the
     representative case is the MoE slice's gate/up product, in bf16 (in
-    f32 for gmm_tf32x3, which takes f32 alone). The launches are phase H's
-    (the bf16 step: the wgmma kernels) and phase M's bf16 generate (its
-    prefill); for gmm_tf32x3 and the kernels of gmm.cu, phase I's kernel
-    path and phase M's ragged generate, both f32, by route: gmm_kernel
-    runs on no path since f32 gmm took the tf32x3 route (0, the forced
-    comparison of phase G alone)."""
+    f32 for the tf32x3 lines, which take f32 alone). The launches are
+    phase H's (the bf16 step: the wgmma kernels) and phase M's bf16
+    generate (its prefill); for the tf32x3 kernels and those of gmm.cu,
+    phase I's kernel path and phase M's ragged generate, both f32, by
+    route: gmm.cu's kernels run on no path since f32 gmm and tgmm took
+    the tf32x3 route (0, the forced comparison of phase G alone)."""
     out = []
     for name, cases in rows.items():
         rep_dtype = "float32" if name.endswith("_tf32x3") else "bfloat16"
@@ -3619,14 +3784,16 @@ def phase_i(dev):
     torch.cuda.empty_cache()
     kx, plain_launches = run("xla", index, dev)
     # A layer's three expert products, forward and dlhs, each step; their
-    # weight gradients on tgmm_kernel.
+    # weight gradients on tgmm_tf32x3; gmm.cu's kernels never.
     want = 2 * 3 * 2 * steps
     check(kernel_launches["gmm"] == kernel_launches["gmm_tf32x3"] == want
-          and kernel_launches["tgmm"] == want // 2
+          and kernel_launches["tgmm"] == kernel_launches["tgmm_tf32x3"]
+          == want // 2
+          and _mma_launches(kernel_launches, "tgmm") == 0
           and kernel_launches["gmm_wgmma"] == 0
           and kernel_launches["tgmm_wgmma"] == 0,
           f"phase I kernel path (f32: gmm on tf32x3, {want}; tgmm on "
-          f"gmm.cu, {want // 2}) launched {kernel_launches}")
+          f"tf32x3, {want // 2}; mma 0) launched {kernel_launches}")
     _check_f32_flash("I", kernel_launches, 2 * steps)
     check(not any(plain_launches.values()),
           f"phase I plain path launched kernels: {plain_launches}")
@@ -4140,42 +4307,50 @@ def _p_launches(p_result, route) -> dict:
 
 def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
                    k_result, p_result, verify_cases):
-    """Kernel-line entries of the paged kernels, by route and branch. The
-    decode kernel's representative case is decode in bf16, the prefill
-    kernel's 512 queries at offset 1024 in bf16, with the launches of
-    phases B (fp) and J (int8) on each route; the tf32x3 kernel's is
-    decode in f32, with the launches of the f32 kernel paths of phases C
-    (fp) and K (int8); the split kernel's is the tiny preset's f32 decode
-    step (4/2 heads, head_dim 16), with the launches of C's and K's
-    tiny-preset runs, the path that runs it at that shape; the other
-    routes' cases forced onto it join its cases. Each fp entry also carries
-    phase P's launches by path (the prefix cache, the speculative runs;
-    for tf32x3 its f32 exact gates); P's verify windows join the entry of
-    their route and branch."""
+    """Kernel-line entries of the paged kernels, by kernel, head dims and
+    branch. The decode kernel's representative case at head_dim 64/128 is
+    decode in bf16, the prefill kernel's 512 queries at offset 1024 in
+    bf16, with the launches of phases B (fp) and J (int8) on each route;
+    the tf32x3 kernel's is decode in f32, with the launches of the f32
+    kernel paths of phases C (fp) and K (int8). At head_dim 16/32 the
+    decode kernel's is the micro draft's decode in bf16, with the
+    draft's launches in phase P's small-preset run; the tf32x3 kernel's
+    the tiny preset's f32 decode step, with the launches of C's and K's
+    tiny-preset runs. The split kernel's cases are the other routes'
+    cases with it forced on their inputs (the tiny preset's decode its
+    representative), with its launches in those runs: 0. Each fp entry of
+    a head_dim 64/128 kernel also carries phase P's launches by path (the
+    prefix cache, the speculative runs; for tf32x3 its f32 exact gates);
+    P's verify windows join the entry of their route and branch."""
     out = []
     keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("split_ms", "split_max_abs_err", "split_tol_share",
              "repeat_bitwise", "ms_tile64", "ms_tile128")
-    for name, route, source, rep_case, rep_dtype in (
+    small_hd = (16, 32)
+    for name, route, source, rep_case, rep_dtype, small in (
             ("paged_decode", "decode", "paged_decode.cu", "decode",
-             "bfloat16"),
+             "bfloat16", False),
             ("paged_prefill_attention", "prefill", "paged_prefill.cu",
-             "prefill512", "bfloat16"),
+             "prefill512", "bfloat16", False),
             ("paged_attn_tf32x3", "tf32x3", "paged_attn_f32.cu", "decode",
-             "float32"),
+             "float32", False),
+            ("paged_decode_small", "decode", "paged_decode.cu",
+             "micro_decode", "bfloat16", True),
+            ("paged_attn_tf32x3_small", "tf32x3", "paged_attn_f32.cu",
+             "tiny_decode", "float32", True),
             ("paged_attn_split", "split", "paged_attn.cu", "tiny_decode",
-             "float32")):
+             "float32", False)):
         for branch, cases, served, f32_path in (
                 ("fp", fp_cases, b_result, c_result),
                 ("quant=True", int8_cases, j_result, k_result)):
             int8 = branch != "fp"
+            tiny = f32_path["tiny_preset"]["launches"]["auto"]
             if route == "split":
-                # Its own cases (the tiny preset's shape), then the other
-                # routes' cases with the split kernel forced on their
-                # inputs: their split_* numbers, and the f32 CUDA cores'
-                # bound where the case's own route has the TF32 one.
-                mine = [c for c in cases if c["route"] == route] + [
+                # The other routes' cases with the split kernel forced on
+                # their inputs: their split_* numbers, and the f32 CUDA
+                # cores' bound where the case's own route has the TF32 one.
+                mine = [
                     {**{k: c[k] for k in keys
                         if k not in ("max_abs_err", "ms")},
                      "route_of_case": c["route"], "ms": c["split_ms"],
@@ -4184,13 +4359,22 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
                      "bound_ms": c.get("bound_ms_f32_cores", c["bound_ms"]),
                      "bound_by": c.get("bound_by_f32_cores", c["bound_by"])}
                     for c in cases if "split_ms" in c]
-                launched = f32_path["split_route"]["launches"]["auto"][
-                    "split"]
+                launched = tiny["split"]
                 where = (f"{f32_path['phase']} (f32 tiny preset, head_dim "
                          "16)")
             else:
-                mine = [c for c in cases if c["route"] == route]
-                if route == "tf32x3":
+                mine = [c for c in cases if c["route"] == route
+                        and (c["shape"]["hd"] in small_hd) == small]
+                if small and route == "tf32x3":
+                    launched = tiny["small"]
+                    where = (f"{f32_path['phase']} (f32 tiny preset, "
+                             "head_dim 16)")
+                elif small:
+                    launched = (0 if int8 else p_result["small_micro"][
+                        "bfloat16"]["micro_k3"]["route_launches"]["small"])
+                    where = ("P (bf16 small preset, the micro draft's "
+                             "head_dim 16)")
+                elif route == "tf32x3":
                     launched = f32_path["launches"]["auto"][
                         "tf32x3_int8" if int8 else "tf32x3"]
                     where = f"{f32_path['phase']} (f32 kernel path)"
@@ -4211,14 +4395,14 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
                 "cases": [{k: c[k] for k in keys + extra + (
                     "tol_share", "route_of_case", "bound_ms_f32_cores")
                     if k in c} for c in mine]})
-            if not int8:
+            if not int8 and not small:
                 out[-1]["launches_p"] = _p_launches(p_result, route)
-            out[-1]["cases"] += [
-                {k: c[k] for k in keys + extra + ("tol_share",
-                                                  "decode_ms", "prefill_ms")
-                 if k in c} for c in verify_cases
-                if c["route"] == route
-                and c["branch"] == ("int8" if int8 else "fp")]
+            if not small:
+                out[-1]["cases"] += [
+                    {k: c[k] for k in keys + extra + (
+                        "tol_share", "decode_ms", "prefill_ms") if k in c}
+                    for c in verify_cases if c["route"] == route
+                    and c["branch"] == ("int8" if int8 else "fp")]
     return out
 
 

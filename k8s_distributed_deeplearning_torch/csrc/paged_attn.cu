@@ -2,7 +2,13 @@
 //
 // Replaces: k8s_distributed_deeplearning_tpu/ops/pallas_paged_attn.py,
 // `_kernel` (launched by `paged_decode_attention`), both branches: fp
-// pools, and int8 pools with per-token-per-head scales (`quant=True`).
+// pools, and int8 pools with per-token-per-head scales (`quant=True`), at
+// the head dims no tensor-core kernel takes. ops/paged_attn.py `_route`
+// sends a call here ("split") only at a head_dim other than 16, 32, 64 and
+// 128 (8, 24, 80, 96, 256, ...), which no preset of the port reaches; bf16
+// q at 16-128 goes to csrc/paged_decode.cu or csrc/paged_prefill.cu, f32 q
+// to csrc/paged_attn_f32.cu. A caller may still name this route, as
+// chip_smoke.py does to time it beside them.
 //
 // Contract (identical to the Pallas kernel's):
 //   q          [B, sq, H, hd]                   float32 or bfloat16

@@ -2,7 +2,7 @@
 // product a three-pass TF32 split (tf32x3.cuh) through mma.sync m16n8k8,
 // for decode, speculative verify windows and prefill chunks alike.
 //
-// Replaces, for f32 q at head_dim 64 and 128: k8s_distributed_
+// Replaces, for f32 q at head_dim 16, 32, 64 and 128: k8s_distributed_
 // deeplearning_tpu/ops/pallas_paged_attn.py `_kernel` (:66, launched by
 // `paged_decode_attention` at :243), both branches: f32 pools, and int8
 // pools with per-token-per-head f32 scales (`quant=True`). ops/
@@ -11,7 +11,7 @@
 // (the split kernel, which a caller may still name).
 //
 // Contract (paged_attn.cu's, narrowed to what this kernel takes):
-//   q          [B, sq, H, hd]                   float32, hd 64 or 128
+//   q          [B, sq, H, hd]                   float32, hd 16, 32, 64, 128
 //   pool_k/v   [num_pages, page_tokens, kv*hd]  float32, or int8
 //   k/v_scale  [num_pages, page_tokens, kv]     float32, int8 pools only
 //   tables     [B, n_blocks] int32  (virtual block -> pool page, 0 = scratch)
@@ -37,7 +37,15 @@
 // bytes a token; int8: 2 * kv * (hd + 4)); chunks: operations, 4 * H * hd
 // FLOPs a visible (query, key) pair, three passes (two for int8) at the
 // TF32 rate. Phase A's 512-query chunk at offset 1024 (32/8 heads, hd 128)
-// is 1.07e10 FLOPs: 0.065 ms at 495 / 3 TFLOP/s.
+// is 1.07e10 FLOPs: 0.065 ms at 495 / 3 TFLOP/s. At head_dim 16 and 32
+// (the serve CLI's tiny preset: 4/2 heads, hd 16) the bytes and the
+// operations are both about 0 (5.0e-5 and 3.2e-5 ms for phase A's 8-slot
+// decode and 128-query prefill): the time is the launch and the latency of
+// the chain of copies and tiles. There the design keeps one launch (the
+// cluster merge replaces csrc/paged_attn.cu's combine kernel), one memory
+// round trip before the first K/V copy (the cursors, the block table and
+// the Q tile fetched together) and few key tiles a CTA (the cluster splits
+// a row's live tiles).
 // What the design does about it:
 // - Rows are flattened (query position, head of the KV head's group) rows
 //   of a KV head, as in paged_decode.cu: each K/V element is read once a
@@ -61,11 +69,13 @@
 //   at the end.
 // - S = Q.K^T: Q and K rows both run along head_dim, so both load as
 //   float4 rows (tf32x3.cuh `load_a_x4`, `load_b_nk_x4`: four k-steps a
-//   load), split as they load; rows of hd + 4 floats are free of bank
-//   conflicts. O += P.V: S's accumulators are P's A fragments as they
-//   stand (`a_from_acc`), V rows [key][d] load as float4 (`load_b_kn`).
-//   int8 tiles load unsplit (rows of hd + 32 bytes for K, hd + 16 for V:
-//   conflict-free for their 8- and 4-byte reads).
+//   load; at hd 16 `load_a_x2`, `load_b_nk_x2`: two), split as they load;
+//   rows of hd + 4 floats (16 at hd 16) are free of bank conflicts. O +=
+//   P.V: S's accumulators are P's A fragments as they stand
+//   (`a_from_acc`), V rows [key][d] load as float4 (`load_b_kn<4>`; at hd
+//   16 float2, `load_b_kn<2>`). int8 tiles load unsplit, at pitches
+//   (`Plan::LDK`, `LDV`) where their 8-, 4- and 2-byte reads are free of
+//   conflicts.
 // - The tensor cores' f32 accumulation rounds toward zero: a tile's P.V
 //   is summed from zero and taken into O in f32 with one fused multiply-
 //   add (O = alpha O + part, rounded to nearest), so no chain of
@@ -100,10 +110,19 @@ struct Plan {
   static constexpr int KW = NW / RT;         // warps a sub-tile, by keys
   static constexpr int KN = KT / KW;         // keys a warp a tile
   static constexpr int NN = KN / 8;          // S n-tiles a warp
-  static constexpr int LDQ = HD + 4;         // floats
+  // Row pitches, in elements, at which the loaders' reads are free of
+  // bank conflicts (tf32x3.cuh): f32 Q and K at hd + 4 floats (16 at hd
+  // 16: two rows of float4s a phase); int8 K at 32 (mod 64) bytes (48 at hd
+  // 16: 4-byte reads), int8 V at 16 (mod 32) bytes (48 at hd 16: 2-byte
+  // reads).
+  static constexpr int LDQ = HD == 16 ? 16 : HD + 4;
   static constexpr int ELEM = QUANT ? 1 : 4;
-  static constexpr int LDK = QUANT ? HD + 32 : HD + 4;   // elements
-  static constexpr int LDV = QUANT ? HD + 16 : HD + 4;
+  static constexpr int LDK = !QUANT ? LDQ
+                             : HD == 16 ? 48 : HD == 32 ? 96 : HD + 32;
+  static constexpr int LDV = !QUANT ? HD + 4 : HD == 16 ? 48 : HD + 16;
+  // k-steps a Q/K load in S = Q.K^T; V fragments a load in P.V.
+  static constexpr int SJ = HD >= 32 ? 4 : 2;
+  static constexpr int NV = HD >= 32 ? 4 : 2;
   static constexpr int K_BYTES = KT * LDK * ELEM;
   static constexpr int V_BYTES = KT * LDV * ELEM;
   // A stage: K, V, then for int8 KT K scales and KT V scales.
@@ -283,19 +302,28 @@ paged_attn_tf32x3(const float* __restrict__ q,
     for (int n = 0; n < P::NN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    constexpr int SJ = P::SJ;
 #pragma unroll
-    for (int c = 0; c < HD / 32; ++c) {
-      FragA a[4];
-      load_a_x4(a, qa, P::LDQ, 32 * c, lane);
+    for (int c = 0; c < HD / (8 * SJ); ++c) {
+      FragA a[SJ];
+      if constexpr (SJ == 4)
+        load_a_x4(a, qa, P::LDQ, 32 * c, lane);
+      else
+        load_a_x2(a, qa, P::LDQ, 16 * c, lane);
 #pragma unroll
       for (int n = 0; n < P::NN; ++n) {
-        FragB bk[4];
-        if constexpr (QUANT)
-          load_b_nk_x4_s8(bk, kt + 8 * n * P::LDK, P::LDK, 32 * c, lane);
+        FragB bk[SJ];
+        const S* kn = kt + 8 * n * P::LDK;
+        if constexpr (QUANT && SJ == 4)
+          load_b_nk_x4_s8(bk, kn, P::LDK, 32 * c, lane);
+        else if constexpr (QUANT)
+          load_b_nk_x2_s8(bk, kn, P::LDK, 16 * c, lane);
+        else if constexpr (SJ == 4)
+          load_b_nk_x4(bk, kn, P::LDK, 32 * c, lane);
         else
-          load_b_nk_x4(bk, kt + 8 * n * P::LDK, P::LDK, 32 * c, lane);
+          load_b_nk_x2(bk, kn, P::LDK, 16 * c, lane);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < SJ; ++j) {
           if constexpr (QUANT)
             mma2(s[n], a[j], bk[j]);
           else
@@ -353,27 +381,30 @@ paged_attn_tf32x3(const float* __restrict__ q,
     l0 = a0 * l0 + sum0;    // per-thread partial sums; the quad's at the end
     l1 = a1 * l1 + sum1;
 
-    // O = alpha O + P . V, each group of 32 columns' share summed from
+    // O = alpha O + P . V, each group of 8 NV columns' share summed from
     // zero and taken in with one rounding.
+    constexpr int NV = P::NV;
     FragA pa[P::NN];
 #pragma unroll
     for (int n = 0; n < P::NN; ++n) pa[n] = a_from_acc(s[n]);
 #pragma unroll
-    for (int c = 0; c < HD / 32; ++c) {
-      float part[4][4];
+    for (int c = 0; c < HD / (8 * NV); ++c) {
+      float part[NV][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NV; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
 #pragma unroll
       for (int n = 0; n < P::NN; ++n) {
-        FragB bv[4];
-        if constexpr (QUANT)
+        FragB bv[NV];
+        if constexpr (QUANT && NV == 4)
           load_b_kn4_s8(bv, vt, P::LDV, 8 * n, 32 * c, lane);
+        else if constexpr (QUANT)
+          load_b_kn2_s8(bv, vt, P::LDV, 8 * n, 16 * c, lane);
         else
-          load_b_kn<4>(bv, vt, P::LDV, 8 * n, 32 * c, lane);
+          load_b_kn<NV>(bv, vt, P::LDV, 8 * n, 8 * NV * c, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < NV; ++i) {
           if constexpr (QUANT)
             mma2(part[i], pa[n], bv[i]);
           else
@@ -381,11 +412,11 @@ paged_attn_tf32x3(const float* __restrict__ q,
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NV; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          o[4 * c + i][e] = fmaf(o[4 * c + i][e], (e & 2) ? a1 : a0,
-                                 part[i][e]);
+          o[NV * c + i][e] = fmaf(o[NV * c + i][e], (e & 2) ? a1 : a0,
+                                  part[i][e]);
     }
   }
   cp_async_wait<0>();
@@ -418,12 +449,14 @@ paged_attn_tf32x3(const float* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) x[n][e] = o[n][e] * inv;
 #pragma unroll
-        for (int c = 0; c < HD / 32; ++c)
-          store_acc_row<4>(out_row(r), 32 * c, x + 4 * c, h, lane);
+        for (int c = 0; c < HD / (8 * P::NV); ++c)
+          store_acc_row<P::NV>(out_row(r), 8 * P::NV * c, x + P::NV * c, h,
+                               lane);
       } else {
 #pragma unroll
-        for (int c = 0; c < HD / 32; ++c)
-          store_acc_row<4>(co + r * HD, 32 * c, o + 4 * c, h, lane);
+        for (int c = 0; c < HD / (8 * P::NV); ++c)
+          store_acc_row<P::NV>(co + r * HD, 8 * P::NV * c, o + P::NV * c, h,
+                               lane);
         if (qd == 0) cml[r] = make_float2(h ? m1 : m0, l);
       }
     }
@@ -437,8 +470,8 @@ paged_attn_tf32x3(const float* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
       float* row = wo + (warp * 16 + g + 8 * h) * P::OSTR;
 #pragma unroll
-      for (int c = 0; c < HD / 32; ++c)
-        store_acc_row<4>(row, 32 * c, o + 4 * c, h, lane);
+      for (int c = 0; c < HD / (8 * P::NV); ++c)
+        store_acc_row<P::NV>(row, 8 * P::NV * c, o + P::NV * c, h, lane);
     }
     if (qd == 0) {
       wml[warp * 16 + g] = make_float2(m0, l0);
@@ -559,7 +592,8 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
 
 // paged_decode_fwd's arguments without the dtype (q, out and fp pools are
 // float32): the key splits of a (row, KV head, row tile), 1 to MAX_SPLITS
-// CTAs launched as one cluster; hd 64 or 128; k_scale and v_scale both
+// CTAs launched as one cluster; hd 16, 32, 64 or 128; k_scale and v_scale
+// both
 // null for f32 pools or both given for int8 pools. A KV head's sq * (H /
 // kv) flattened rows run in tiles of `tile_rows` (16 or 64), the host's
 // choice, which also sizes `splits` from the same row-tile count. Returns
@@ -578,7 +612,8 @@ extern "C" int paged_attn_tf32x3_fwd(const void* q, const void* pool_k,
   const bool quant = k_scale != nullptr;
   if (batch <= 0 || sq <= 0 || n_kv <= 0 || n_heads <= 0 ||
       n_heads % n_kv || page_tokens <= 0 || n_blocks <= 0 ||
-      quant != (v_scale != nullptr) || (hd != 64 && hd != 128) ||
+      quant != (v_scale != nullptr) ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128) ||
       splits < 1 || splits > MAX_SPLITS ||
       (tile_rows != 16 && tile_rows != 64))
     return (int)cudaErrorInvalidValue;
@@ -589,6 +624,14 @@ extern "C" int paged_attn_tf32x3_fwd(const void* q, const void* pool_k,
                                       tables, positions, out, batch, sq,     \
                                       n_heads, n_kv, page_tokens, n_blocks,  \
                                       splits, scale, s);
+  PAGED_TF32X3_CASE(16, false, 1)
+  PAGED_TF32X3_CASE(32, false, 1)
+  PAGED_TF32X3_CASE(16, true, 1)
+  PAGED_TF32X3_CASE(32, true, 1)
+  PAGED_TF32X3_CASE(16, false, 4)
+  PAGED_TF32X3_CASE(32, false, 4)
+  PAGED_TF32X3_CASE(16, true, 4)
+  PAGED_TF32X3_CASE(32, true, 4)
   PAGED_TF32X3_CASE(64, false, 1)
   PAGED_TF32X3_CASE(128, false, 1)
   PAGED_TF32X3_CASE(64, true, 1)

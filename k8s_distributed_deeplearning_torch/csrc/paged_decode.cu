@@ -6,16 +6,18 @@
 // `_kernel` (launched by `paged_decode_attention`), for decode, verify
 // windows and short chunks, both branches: fp pools, and int8 pools with
 // per-token-per-head f32 scales (`quant=True`). ops/paged_attn.py `_route`
-// sends bf16 q at head_dim 64 or 128 here when it has at most MAX_TILES
+// sends bf16 q here at head_dim 64 or 128 when it has at most MAX_TILES
 // 16-row tiles of flattened (position, group head) rows per KV head, sq *
 // group <= 64: decode at every group size, verify windows of up to 16 and
 // chunks of up to 16 tokens at Llama-3 8B's group of 4 (at 64 rows this
-// kernel measured faster than one 64-row tile of csrc/paged_prefill.cu).
-// Longer chunks go to csrc/paged_prefill.cu; f32 q and other head dims to
-// csrc/paged_attn.cu.
+// kernel measured faster than one 64-row tile of csrc/paged_prefill.cu);
+// and at head_dim 16 or 32 at every row count (decode, verify windows,
+// prefill chunks: the drafts of the serve CLI, micro and tiny, have
+// head_dim 16). Longer chunks at hd 64/128 go to csrc/paged_prefill.cu;
+// f32 q to csrc/paged_attn_f32.cu; other head dims to csrc/paged_attn.cu.
 //
 // Contract (paged_attn.cu's, narrowed to what this kernel takes):
-//   q          [B, sq, H, hd]                   bfloat16, hd 64 or 128
+//   q          [B, sq, H, hd]                   bfloat16, hd 16, 32, 64, 128
 //   pool_k/v   [num_pages, page_tokens, kv*hd]  bfloat16, or int8
 //   k/v_scale  [num_pages, page_tokens, kv]     float32, int8 pools only
 //   tables     [B, n_blocks] int32  (virtual block -> pool page, 0 = scratch)
@@ -38,7 +40,12 @@
 // byte at Llama-3 8B's heads, far below the card's ~295, and a verify
 // window of W positions does W times the FLOPs on the same bytes, still
 // below it at W 16 (64). Phase A's decode case (B 4, 4,710 live keys,
-// 32/8 heads, hd 128) moves 19.3 MB of bf16 K/V: 0.0058 ms.
+// 32/8 heads, hd 128) moves 19.3 MB of bf16 K/V: 0.0058 ms. At head_dim 16
+// and 32 (a draft model's heads) the bytes are about 0 and the time is the
+// launch and the latency of the tile chain: this one launch (no combine
+// kernel, as csrc/paged_attn.cu needs), one memory round trip before the
+// first K/V copy, and few key tiles a warp are what the design offers
+// there.
 // What the design does about it:
 // - Grid (splits, KV heads x row tiles, batch rows): a cluster of `splits`
 //   CTAs (at most 8, the host's choice from the batch, the KV heads, the
@@ -52,19 +59,23 @@
 //   verify window of 8 at group 4 is 32 rows, two tiles, whose CTAs read
 //   the same K/V, the second mostly from L2 (one layer's live K/V at B 4
 //   and 540 tokens a row is 8.8 MB of the 50 MB L2; the CTAs of one (row,
-//   KV head) are neighbours in the grid). Every tile's arithmetic is
-//   a one-tile call's: the key range of a row is set by the largest
-//   cursor of all its queries, so the tiles of a row split it alike. A
-//   CTA loads the row's cursors (two queries a lane), the row's block
-//   table (its first TAB_W entries, into shared memory) and its Q tile at
-//   once, so one memory round trip precedes the first K/V copy.
+//   KV head) are neighbours in the grid). Up to 64 queries a row, every
+//   tile's arithmetic is a one-tile call's: the key range of a row is set
+//   by the largest cursor of all its queries, so the tiles of a row split
+//   it alike, and a CTA loads the row's cursors (two queries a lane). A
+//   longer chunk (head_dim 16/32 only) sets each tile's key range by its
+//   own rows' cursors, loaded a row a lane, so a causal chunk's early
+//   tiles walk few keys. A CTA loads the cursors, the row's block table
+//   (its first TAB_W entries, into shared memory) and its Q tile at once,
+//   so one memory round trip precedes the first K/V copy.
 // - Its four warps work alone: warp w takes tiles w, w + 4, ... of the
 //   CTA's share through its own ring of two 16-key slots, one tile ahead,
 //   filled by 16-byte cp.async of each key's head slice, so a warp waits
 //   only on its own copies (one __syncwarp a tile, no CTA barrier in the
 //   loop). Three CTAs fit an SM (70 KB each at bf16 and head_dim 128),
 //   with 96 KB of K/V in flight; a third slot a warp, at two CTAs an SM,
-//   measured slower.
+//   measured slower. A key's head slice is 32 bytes at head_dim 16 (16 at
+//   int8, where half a warp issues a tile's copies) and 64 at 32.
 // - Both products run on the tensor cores with mma.sync m16n8k16, the
 //   query rows as M: S = Q.K^T (Q fragments loaded once, K by ldmatrix)
 //   and O += P.V (P from the S accumulators, V by ldmatrix.trans). The
@@ -102,7 +113,7 @@ constexpr int TAB_W = 512;      // block-table entries kept in shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared memory of one CTA, in bytes. A bf16 tile is [rows][HD] with the
-// 16-byte chunks of row r XORed with r % 8, so ldmatrix reads eight rows
+// 16-byte chunks of each row permuted (`swz`), so ldmatrix reads eight rows
 // at one chunk from eight bank groups.
 template <int HD, bool QUANT>
 struct Plan {
@@ -127,6 +138,20 @@ struct Plan {
   static constexpr int MERGE_END = CML_OFF + MAX_ROWS * 8;
   static constexpr int BYTES = RING_END > MERGE_END ? RING_END : MERGE_END;
 };
+
+// Where chunk ch (16 bytes) of row r of a bf16 [rows][HD] tile lies in
+// its row: ch XORed with the bits of r that tell apart the eight rows an
+// ldmatrix reads at once within 128 bytes (r % 8 at HD >= 64; at HD 32,
+// two rows a 128 bytes, bits 1-2 of r; at HD 16, four rows, bit 2). Only r
+// % 8 counts, so a matrix's row within its 8 rows gives the chunk.
+template <int HD>
+__device__ __forceinline__ int swz(int r, int ch) {
+  constexpr int CPR = HD / 8;                  // chunks a row
+  if constexpr (CPR >= 8)
+    return ch ^ (r & 7);
+  else
+    return ch ^ ((r / (8 / CPR)) & (CPR - 1));
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
@@ -199,12 +224,25 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = n_rt == 1 ? 0 : (int)blockIdx.y % n_rt * MAX_ROWS;
   const int tr = min(rows - r0, MAX_ROWS);             // its rows
   const int width = n_blocks * page_tokens;
+  const int g = lane >> 2;                     // this thread's rows g, g + 8
+  const int qd = lane & 3;
+  // Past 64 queries (head_dim 16/32 only) each tile's own rows set its
+  // key range.
+  const bool wide = HD < 64 && sq > 64;
 
-  // The row's cursors: lane i holds those of queries i and i + 32 (sq <=
-  // 64), -1 past sq. Tile rows past `tr` see nothing (-1).
+  // The cursors. Up to 64 queries, the row's: lane i holds those of
+  // queries i and i + 32, -1 past sq. A wide call's, the tile's: lane
+  // holds those of its rows g and g + 8. Tile rows past `tr` see nothing
+  // (-1).
   const int32_t* pos_b = positions + (size_t)b * sq;
-  const int pos_l = lane < sq ? __ldg(pos_b + lane) : -1;
-  const int pos_h = lane + 32 < sq ? __ldg(pos_b + lane + 32) : -1;
+  int pos_l, pos_h;
+  if (wide) {
+    pos_l = g < tr ? __ldg(pos_b + (r0 + g) / group) : -1;
+    pos_h = g + 8 < tr ? __ldg(pos_b + (r0 + g + 8) / group) : -1;
+  } else {
+    pos_l = lane < sq ? __ldg(pos_b + lane) : -1;
+    pos_h = lane + 32 < sq ? __ldg(pos_b + lane + 32) : -1;
+  }
 
   // The Q tile (rows past `tr` zero), swizzled, and the row's block table,
   // as one copy group.
@@ -219,7 +257,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       if (valid)
         off = (((size_t)b * sq + (r0 + r) / group) * n_heads + kvh * group +
                (r0 + r) % group) * HD + ch * 8;
-      cp_async16(smem + P::Q_OFF + r * P::ROWB + ((ch ^ (r & 7)) << 4),
+      cp_async16(smem + P::Q_OFF + r * P::ROWB + (swz<HD>(r, ch) << 4),
                  q + off, valid);
     }
     for (int i = tid; i < min(n_blocks, TAB_W); i += NT)
@@ -227,19 +265,23 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
   const int kmax = __reduce_max_sync(FULL, max(pos_l, pos_h));
+  const bool real_l = wide ? g < tr : lane < sq;
+  const bool real_h = wide ? g + 8 < tr : lane + 32 < sq;
   const int kmin = __reduce_min_sync(
-      FULL, min(lane < sq ? pos_l : INT_MAX, lane + 32 < sq ? pos_h : INT_MAX));
-  const int c_lim = min(kmax + 1, width);      // columns the row reads
+      FULL, min(real_l ? pos_l : INT_MAX, real_h ? pos_h : INT_MAX));
+  const int c_lim = min(kmax + 1, width);      // columns the tile reads
   const int n_tiles = c_lim > 0 ? (c_lim + KT - 1) / KT : 0;
-  const int g = lane >> 2;                     // this thread's rows g, g + 8
-  const int qd = lane & 3;
   auto cursor = [&](int r) {                   // tile row r's cursor
     const int qi = r < tr ? (r0 + r) / group : 0;
     const int lo = __shfl_sync(FULL, pos_l, qi & 31);
     const int hi = __shfl_sync(FULL, pos_h, qi & 31);
     return r < tr ? (qi < 32 ? lo : hi) : -1;
   };
-  const int cur0 = cursor(g), cur1 = cursor(g + 8);
+  int cur0 = pos_l, cur1 = pos_h;
+  if (!wide) {
+    cur0 = cursor(g);
+    cur1 = cursor(g + 8);
+  }
   const int t_lo = split * n_tiles / n_split;
   const int t_hi = (split + 1) * n_tiles / n_split;
   const int my_n = t_hi - t_lo > warp ? (t_hi - t_lo - warp + NW - 1) / NW
@@ -277,7 +319,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   unsigned char* ring = smem + P::RING_OFF + warp * P::WARP;
   constexpr int VEC = 16 / (int)sizeof(S);       // elements a chunk
   constexpr int CPK = HD / VEC;                  // chunks a key
-  constexpr int KPP = 32 / CPK;                  // keys a pass of the warp
+  // Keys a pass of the warp: at int8 and head_dim 16 (one chunk a key)
+  // half the warp copies a tile's 16 keys and the rest idles.
+  constexpr int KPP = 32 / CPK < KT ? 32 / CPK : KT;
   static_assert(32 % CPK == 0 && KT % KPP == 0, "copy grid");
   auto issue = [&](const Src& src, int slot) {
     unsigned char* st = ring + slot * P::SLOT;
@@ -285,12 +329,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int p = 0; p < KT / KPP; ++p) {
       const int j = lane / CPK + p * KPP;
-      const unsigned long long off = __shfl_sync(FULL, src.off, j);
-      const bool valid = __shfl_sync(FULL, src.valid, j);
+      const unsigned long long off = __shfl_sync(FULL, src.off, j & 31);
+      const bool valid = __shfl_sync(FULL, src.valid, j & 31);
       const uint32_t dst =
-          QUANT ? j * HD + ch * 16 : j * P::ROWB + ((ch ^ (j & 7)) << 4);
-      cp_async16(st + dst, pool_k + off + ch * VEC, valid);
-      cp_async16(st + P::V_OFF + dst, pool_v + off + ch * VEC, valid);
+          QUANT ? j * HD + ch * 16 : j * P::ROWB + (swz<HD>(j, ch) << 4);
+      if (j < KT) {
+        cp_async16(st + dst, pool_k + off + ch * VEC, valid);
+        cp_async16(st + P::V_OFF + dst, pool_v + off + ch * VEC, valid);
+      }
     }
     if constexpr (QUANT) {
       if (lane < KT) {
@@ -320,7 +366,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                         ((mi & 1) * 8 + rr) * P::ROWB;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      ldsm_x4(qb + (((2 * kk + (mi >> 1)) ^ rr) << 4), qa[kk]);
+      ldsm_x4(qb + (swz<HD>(rr, 2 * kk + (mi >> 1)) << 4), qa[kk]);
   }
   // K rows for S (keys (mi >> 1) * 8 + rr, chunk 2 kk + (mi & 1)); V rows
   // for P.V (keys (mi & 1) * 8 + rr, chunk 2 np + (mi >> 1)).
@@ -358,7 +404,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const uint2 raw = *reinterpret_cast<const uint2*>(
             st + kv * KT * HD + j * HD + ch * 8);
         *reinterpret_cast<uint4*>(cvt + kv * P::TILE + j * P::ROWB +
-                                  ((ch ^ (j & 7)) << 4)) = s8x8_to_bf16(raw);
+                                  (swz<HD>(j, ch) << 4)) = s8x8_to_bf16(raw);
       }
       __syncwarp();
       kb = smem_u32(cvt);
@@ -374,7 +420,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kf[4];
-      ldsm_x4(kb + k_row + (((2 * kk + (mi & 1)) ^ rr) << 4), kf);
+      ldsm_x4(kb + k_row + (swz<HD>(rr, 2 * kk + (mi & 1)) << 4), kf);
       mma16816(s[0], qa[kk], kf[0], kf[1]);
       mma16816(s[1], qa[kk], kf[2], kf[3]);
     }
@@ -457,7 +503,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int np = 0; np < HD / 16; ++np) {
       uint32_t vf[4];
-      ldsm_x4_t(vb + v_row + (((2 * np + (mi >> 1)) ^ rr) << 4), vf);
+      ldsm_x4_t(vb + v_row + (swz<HD>(rr, 2 * np + (mi >> 1)) << 4), vf);
       mma16816(o[2 * np], pa, vf[0], vf[1]);
       mma16816(o[2 * np + 1], pa, vf[2], vf[3]);
       if constexpr (QUANT) {
@@ -614,8 +660,9 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
 
 // paged_prefill_fwd's arguments, with the key splits of a (row, KV head,
 // row tile) in place of the row tile: 1 to MAX_SPLITS CTAs, launched as
-// one cluster. dtype must be 1 (bfloat16); hd 64 or 128; sq * (H / kv) <=
-// MAX_TILES * MAX_ROWS (64);
+// one cluster. dtype must be 1 (bfloat16); hd 16, 32, 64 or 128; at hd 64
+// and 128 sq * (H / kv) <= MAX_TILES * MAX_ROWS (64), at 16 and 32 any
+// row count;
 // k_scale and v_scale both null for bf16 pools or both given for int8
 // pools. Returns cudaGetLastError() after the launch (cudaSuccess = 0),
 // or cudaErrorInvalidValue for arguments the kernel does not take; the
@@ -629,9 +676,11 @@ extern "C" int paged_decode_fwd(const void* q, const void* pool_k,
                                 int splits, float scale, void* stream) {
   const bool quant = k_scale != nullptr;
   if (batch <= 0 || sq <= 0 || n_kv <= 0 || n_heads <= 0 ||
-      n_heads % n_kv || sq * (n_heads / n_kv) > MAX_TILES * MAX_ROWS ||
+      n_heads % n_kv ||
+      (hd >= 64 && sq * (n_heads / n_kv) > MAX_TILES * MAX_ROWS) ||
       page_tokens <= 0 || n_blocks <= 0 || dtype != 1 ||
-      quant != (v_scale != nullptr) || (hd != 64 && hd != 128) ||
+      quant != (v_scale != nullptr) ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128) ||
       splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -641,6 +690,10 @@ extern "C" int paged_decode_fwd(const void* q, const void* pool_k,
                                   tables, positions, out, batch, sq,         \
                                   n_heads, n_kv, page_tokens, n_blocks,      \
                                   splits, scale, s);
+  PAGED_DECODE_CASE(16, false)
+  PAGED_DECODE_CASE(32, false)
+  PAGED_DECODE_CASE(16, true)
+  PAGED_DECODE_CASE(32, true)
   PAGED_DECODE_CASE(64, false)
   PAGED_DECODE_CASE(128, false)
   PAGED_DECODE_CASE(64, true)

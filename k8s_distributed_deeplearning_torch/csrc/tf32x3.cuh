@@ -2,7 +2,7 @@
 // TF32 split ("tf32x3") through mma.sync m16n8k8, for csrc/flash_fwd_f32.cu
 // and csrc/flash_bwd_f32.cu (the f32 flash forward and backward),
 // csrc/paged_attn_f32.cu (paged attention with f32 q) and csrc/gmm_f32.cu
-// (the f32 grouped GEMM).
+// (the f32 grouped GEMM and its weight gradient).
 //
 // One TF32 value keeps 11 significant bits (10 stored), so one TF32
 // product of two f32 tiles is off by ~2^-11 relative: too coarse for f32.
@@ -31,8 +31,11 @@
 // reading 8 adjacent floats (k-step j: k0 + 8t + 2j in slot t, + 1 in slot
 // t + 4), free of conflicts at ld = 4 (mod 8); the "pairs" loaders take
 // load_b_kn's order (k0 + 2t, k0 + 2t + 1) as one 8-byte read a row, free
-// of conflicts at ld = 8 (mod 16). int8 operands (exact in TF32) load
-// unsplit, and their products take two passes (mma2).
+// of conflicts at ld = 8 (mod 16); the "x2" loaders are the x4 ones at
+// half the depth (head_dim 16). A tile stored [k][m] (M contiguous, a
+// weight gradient's lhs^T) loads as A with M permuted (load_a_km4). int8
+// operands (exact in TF32) load unsplit, and their products take two
+// passes (mma2).
 //
 // Everything is device-inline; ops/_build.py hashes every csrc/*.cuh with
 // each source. kernel_breakdown.py builds variants of a source with
@@ -206,6 +209,56 @@ __device__ __forceinline__ void load_b_nk_x4(FragB (&b)[4], const float* tile,
   }
 }
 
+// Two k-steps of A (16 x 16) from a tile stored [m][k], columns [k0, k0
+// + 16): load_a_x4 at half the depth, for head_dim 16. Lane (g, t) reads
+// columns k0 + 4t .. k0 + 4t + 3 of rows g and g + 8 as float4s; k-step j
+// takes column k0 + 4t + 2j in slot t and k0 + 4t + 2j + 1 in slot t + 4
+// (load_b_nk_x2's order); free of conflicts at ld = 16 (mod 32).
+__device__ __forceinline__ void load_a_x2(FragA (&a)[2], const float* tile,
+                                          int ld, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + 4 * t;
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  const float4 w = *reinterpret_cast<const float4*>(p + 8 * ld);
+  const float x[4] = {u.x, u.y, u.z, u.w};
+  const float y[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    split(x[2 * j], a[j].hi[0], a[j].lo[0]);
+    split(y[2 * j], a[j].hi[1], a[j].lo[1]);
+    split(x[2 * j + 1], a[j].hi[2], a[j].lo[2]);
+    split(y[2 * j + 1], a[j].hi[3], a[j].lo[3]);
+  }
+}
+
+// Two k-steps of B (16 x 8) from a tile stored [n][k], in load_a_x2's
+// order: lane (g, t) reads row g at k0 + 4t .. + 3.
+__device__ __forceinline__ void load_b_nk_x2(FragB (&b)[2], const float* tile,
+                                             int ld, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float4 u =
+      *reinterpret_cast<const float4*>(tile + g * ld + k0 + 4 * t);
+  const float x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    split(x[2 * j], b[j].hi[0], b[j].lo[0]);
+    split(x[2 * j + 1], b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// load_b_nk_x2 from an int8 tile (`ld` in bytes): exact, one 4-byte read
+// a lane, free of conflicts at ld = 48 (mod 128) bytes.
+__device__ __forceinline__ void load_b_nk_x2_s8(FragB (&b)[2],
+                                                const int8_t* tile, int ld,
+                                                int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float x[4];
+  s8x4_to_f32(*reinterpret_cast<const uint32_t*>(tile + g * ld + k0 + 4 * t),
+              x);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) b[j] = exact_b(x[2 * j], x[2 * j + 1]);
+}
+
 // load_b_nk_x4 from an int8 tile (`ld` in bytes, k0 a multiple of 8):
 // exact, one 8-byte read a lane, free of conflicts at ld = 32 (mod 64)
 // bytes.
@@ -235,6 +288,53 @@ __device__ __forceinline__ void load_b_kn4_s8(FragB (&b)[4],
   s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p + ld), x1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) b[i] = exact_b(x0[i], x1[i]);
+}
+
+// load_b_kn<2> from an int8 tile stored [k][n] (`ld` in bytes): rows k0 +
+// 2t and k0 + 2t + 1, columns n0 + 2g + i for fragment i, one 2-byte read
+// a row, exact; free of conflicts at ld = 48 (mod 128) bytes.
+__device__ __forceinline__ void load_b_kn2_s8(FragB (&b)[2],
+                                              const int8_t* tile, int ld,
+                                              int k0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int8_t* p = tile + (k0 + 2 * t) * ld + n0 + 2 * g;
+  const uint32_t r0 = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t r1 = *reinterpret_cast<const uint16_t*>(p + ld);
+  float x0[4], x1[4];
+  s8x4_to_f32(r0, x0);
+  s8x4_to_f32(r1, x1);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) b[i] = exact_b(x0[i], x1[i]);
+}
+
+// Four A fragments (16 x 8 each) from a tile stored [k][m] (M contiguous:
+// the operand that a weight gradient reads transposed, lhs^T), k-rows k0 +
+// 2t and k0 + 2t + 1 in load_b_kn's order, 64 values of M from m0. M is
+// permuted as load_b_kn permutes N: fragment i takes column m0 + 4g + i of
+// the tile as its row g and m0 + 32 + 4g + i as its row g + 8, so a lane
+// reads four float4s (two k-rows, two halves of the 64) and the
+// accumulator of fragment i holds, on its row h (0: g, 1: g + 8), output
+// row m0 + 32 h + 4 g + i. Free of conflicts at ld = 4 (mod 8).
+__device__ __forceinline__ void load_a_km4(FragA (&a)[4], const float* tile,
+                                           int ld, int k0, int m0,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + 2 * t) * ld + m0 + 4 * g;
+  const float4 u0 = *reinterpret_cast<const float4*>(p);
+  const float4 u1 = *reinterpret_cast<const float4*>(p + 32);
+  const float4 w0 = *reinterpret_cast<const float4*>(p + ld);
+  const float4 w1 = *reinterpret_cast<const float4*>(p + ld + 32);
+  const float x0[4] = {u0.x, u0.y, u0.z, u0.w};
+  const float x1[4] = {u1.x, u1.y, u1.z, u1.w};
+  const float y0[4] = {w0.x, w0.y, w0.z, w0.w};
+  const float y1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    split(x0[i], a[i].hi[0], a[i].lo[0]);   // row g, slot t
+    split(x1[i], a[i].hi[1], a[i].lo[1]);   // row g + 8, slot t
+    split(y0[i], a[i].hi[2], a[i].lo[2]);   // row g, slot t + 4
+    split(y1[i], a[i].hi[3], a[i].lo[3]);   // row g + 8, slot t + 4
+  }
 }
 
 // A (16 x 8) from a tile stored [m][k] in load_b_kn's order: column k0 +

@@ -18,12 +18,12 @@ multiplied by its own expert's weight.
 - :func:`gmm_forward` and :func:`tgmm` are the kernel wrappers: on CUDA
   tensors they launch the kernels of the route :func:`_gmm_route` names
   (bf16: ``gmm_wgmma`` and ``tgmm_wgmma`` of ``csrc/gmm_wgmma.cu``, on
-  wgmma tensor cores; f32: ``gmm_tf32x3`` of ``csrc/gmm_f32.cu``, three-pass
-  TF32 on mma.sync tensor cores, for the forward and dlhs, and
-  ``tgmm_kernel`` of ``csrc/gmm.cu`` for the weight gradient) and add one
-  to their ``launches``, and on the wgmma route to ``launches_wgmma``, on
-  the tf32x3 route to ``launches_tf32x3``; on CPU tensors they take the
-  plain versions
+  wgmma tensor cores; f32: ``gmm_tf32x3`` and ``tgmm_tf32x3`` of
+  ``csrc/gmm_f32.cu``, three-pass TF32 on mma.sync tensor cores; the first
+  kernels of ``csrc/gmm.cu``, ``"mma"``, only when a caller names them)
+  and add one to their ``launches``, and on the wgmma route to
+  ``launches_wgmma``, on the tf32x3 route to ``launches_tf32x3``; on CPU
+  tensors they take the plain versions
   :func:`gmm_reference` and :func:`tgmm_reference`. A CUDA tensor the
   kernels cannot take raises; there is no fallback.
 
@@ -207,11 +207,10 @@ def _gmm_route(dtype: torch.dtype, which: str = "gmm") -> str:
     dlhs; "tgmm"): ``"wgmma"`` (``gmm_wgmma`` and ``tgmm_wgmma`` of
     ``csrc/gmm_wgmma.cu``, tensor cores) for bfloat16; for float32, which
     wgmma cannot multiply in full precision, ``"tf32x3"`` (``gmm_tf32x3``
-    of ``csrc/gmm_f32.cu``, three-pass TF32 on the tensor cores) for gmm
-    and ``"mma"`` (``tgmm_kernel`` of ``csrc/gmm.cu``) for tgmm."""
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    return "tf32x3" if which == "gmm" else "mma"
+    and ``tgmm_tf32x3`` of ``csrc/gmm_f32.cu``, three-pass TF32 on the
+    tensor cores). ``"mma"`` (``csrc/gmm.cu``) is taken only when named."""
+    del which                     # both kernels of a dtype share its route
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _entry(which: str, dtype: torch.dtype, route: str | None):
@@ -223,10 +222,9 @@ def _entry(which: str, dtype: torch.dtype, route: str | None):
             raise TypeError(f"the wgmma route takes bfloat16, got {dtype}")
         return getattr(_wgmma_library(), f"{which}_wgmma_launch"), route
     if route == "tf32x3":
-        if which != "gmm" or dtype != torch.float32:
-            raise TypeError(f"the tf32x3 route takes float32 gmm, got "
-                            f"{dtype} {which}")
-        return _tf32x3_library().gmm_tf32x3_launch, route
+        if dtype != torch.float32:
+            raise TypeError(f"the tf32x3 route takes float32, got {dtype}")
+        return getattr(_tf32x3_library(), f"{which}_tf32x3_launch"), route
     if route == "mma":
         return getattr(_library(), f"{which}_launch"), route
     raise ValueError(f"route must be 'wgmma', 'tf32x3' or 'mma', got "
@@ -285,9 +283,11 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, num_experts: int,
     """``drhs [E, K, N]`` in lhs's dtype: per expert, the f32 sum of
     ``lhs[r]ᵀ · dout[r]`` over the rows of its live blocks. CPU tensors take
     :func:`tgmm_reference` (and refuse a named ``route``); CUDA tensors
-    launch ``tgmm_wgmma`` on the ``"wgmma"`` route or ``tgmm_kernel`` on
-    ``"mma"`` (default: :func:`_gmm_route`'s choice), and add one to
-    ``tgmm.launches``, and on the wgmma route to ``.launches_wgmma``."""
+    launch ``tgmm_wgmma`` on the ``"wgmma"`` route (bf16), ``tgmm_tf32x3``
+    on ``"tf32x3"`` (f32) or ``tgmm_kernel`` on ``"mma"`` (default:
+    :func:`_gmm_route`'s choice), and add one to ``tgmm.launches``, and on
+    the wgmma route to ``.launches_wgmma``, on the tf32x3 route to
+    ``.launches_tf32x3``."""
     if lhs.ndim != 2 or dout.ndim != 2 or dout.shape[0] != lhs.shape[0]:
         raise ValueError(f"lhs [M, K] and dout [M, N] must share M, got "
                          f"{tuple(lhs.shape)}, {tuple(dout.shape)}")
@@ -314,6 +314,7 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, num_experts: int,
                            f"{rc}")
     if route == "wgmma":
         tgmm.launches_wgmma += 1
+    tgmm.launches_tf32x3 += route == "tf32x3"
     tgmm.launches += 1
     return out
 
@@ -323,6 +324,7 @@ gmm_forward.launches_wgmma = 0
 gmm_forward.launches_tf32x3 = 0
 tgmm.launches = 0
 tgmm.launches_wgmma = 0
+tgmm.launches_tf32x3 = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::gmm", mutates_args=())
@@ -373,12 +375,13 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         layout.block_first, layout.group_sizes, layout.m_pad, layout.block_m)
 
 
-def _bind(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu``'s library with its ``<name>_launch`` and
-    ``t<name>_launch`` entry points typed (both sources take the same
-    arguments)."""
+def _bind(name: str, kernel: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library with its ``<kernel>_launch`` and
+    ``t<kernel>_launch`` entry points typed (the three sources take the
+    same arguments)."""
     lib = _build.load(name)
-    gmm_fn, tgmm_fn = (getattr(lib, f"{p}{name}_launch") for p in ("", "t"))
+    gmm_fn, tgmm_fn = (getattr(lib, f"{p}{kernel}_launch")
+                       for p in ("", "t"))
     if gmm_fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         gmm_fn.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
@@ -388,20 +391,12 @@ def _bind(name: str) -> ctypes.CDLL:
 
 
 def _library():
-    return _bind("gmm")
+    return _bind("gmm", "gmm")
 
 
 def _wgmma_library():
-    return _bind("gmm_wgmma")
+    return _bind("gmm_wgmma", "gmm_wgmma")
 
 
-def _tf32x3_library() -> ctypes.CDLL:
-    """``csrc/gmm_f32.cu``'s library, its ``gmm_tf32x3_launch`` typed as
-    ``gmm_launch`` (no weight-gradient kernel there)."""
-    lib = _build.load("gmm_f32")
-    fn = lib.gmm_tf32x3_launch
-    if fn.argtypes is None:
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
-        fn.restype = ctypes.c_int
-    return lib
+def _tf32x3_library():
+    return _bind("gmm_f32", "gmm_tf32x3")

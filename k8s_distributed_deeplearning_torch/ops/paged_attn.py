@@ -12,7 +12,7 @@ pools are int8 and each token has one f32 scale per KV head,
 ``f32(int8) * scale``.
 
 - :func:`paged_decode_attention` launches a hand-written CUDA kernel on
-  CUDA tensors, and takes the plain version on CPU tensors. Three kernels
+  CUDA tensors, and takes the plain version on CPU tensors. Four kernels
   share the contract, and :func:`_route` picks one by shape alone, for q
   with ``sq`` positions and ``group = H / kv`` query heads a KV head:
   bf16 q at head_dim 64 or 128 goes to the tensor-core decode kernel
@@ -21,11 +21,13 @@ pools are int8 and each token has one f32 scale per KV head,
   8B's group of 4) and short chunks, in 16-row tiles; and to the
   tensor-core prefill kernel (``csrc/paged_prefill.cu``, route
   ``"prefill"``) when ``sq x group > 64``, in 64- or 128-row wgmma tiles.
-  f32 q at head_dim 64 or 128 goes to the three-pass TF32 kernel
-  (``csrc/paged_attn_f32.cu``, route ``"tf32x3"``) at every row count, in
-  16-row tiles up to 64 rows a KV head and 64-row tiles above. Other head
-  dims go to the split kernel (``csrc/paged_attn.cu``, route
-  ``"split"``). There is no fallback from
+  bf16 q at head_dim 16 or 32 (the serve CLI's draft models) goes to the
+  decode kernel at every row count. f32 q at head_dim 16, 32, 64 or 128
+  goes to the three-pass TF32 kernel (``csrc/paged_attn_f32.cu``, route
+  ``"tf32x3"``) at every row count, in 16-row tiles up to 64 rows a KV
+  head and 64-row tiles above. Other head dims (8, 24, 80, 96, 256, ...,
+  which no preset of the port has) go to the split kernel
+  (``csrc/paged_attn.cu``, route ``"split"``). There is no fallback from
   one to another: a CUDA tensor the chosen kernel cannot take, or a
   failed build or launch, raises.
 - :func:`paged_decode_attention_reference` is the plain version: gather the
@@ -60,13 +62,16 @@ _PREFILL_HEAD_DIMS = (64, 128)
 _DECODE_TILE_ROWS = 16
 _DECODE_MAX_ROWS = 64
 _DECODE_HEAD_DIMS = (64, 128)
+# bf16 q at these head dims takes the decode kernel at every row count:
+# past 64 rows each 16-row tile walks its own rows' key range.
+_SMALL_HEAD_DIMS = (16, 32)
 _DECODE_CTAS_PER_SM = 2
 _DECODE_MAX_SPLITS = 8
-# The tf32x3 route: f32 q, head_dim 64 or 128, every row count; rows of a
-# KV head in 16-row tiles up to _DECODE_MAX_ROWS of them, else in 64-row
-# tiles; each (row, KV head, row tile) takes a cluster of up to
+# The tf32x3 route: f32 q, head_dim 16, 32, 64 or 128, every row count;
+# rows of a KV head in 16-row tiles up to _DECODE_MAX_ROWS of them, else
+# in 64-row tiles; each (row, KV head, row tile) takes a cluster of up to
 # _DECODE_MAX_SPLITS CTAs (_tf32x3_splits).
-_TF32X3_HEAD_DIMS = (64, 128)
+_TF32X3_HEAD_DIMS = _SMALL_HEAD_DIMS + _DECODE_HEAD_DIMS
 _TF32X3_WIDE_TILE_ROWS = 64
 
 
@@ -166,13 +171,17 @@ def _route(sq: int, group: int, head_dim: int, q_dtype: torch.dtype,
     head are at most ``_DECODE_MAX_ROWS``, ``sq * group <= 64`` (decode at
     every group size the port serves, verify windows and short chunks),
     and ``"prefill"`` (tensor cores, 64- or 128-row tiles) above that;
+    for bf16 q at head_dim 16 or 32, ``"decode"`` at every row count;
     ``"tf32x3"`` (tensor cores, three-pass TF32) for f32 q at head_dim
-    64 or 128, at every row count; ``"split"`` for other head dims."""
+    16, 32, 64 or 128, at every row count; ``"split"`` for other head
+    dims."""
     del quant                     # both branches take every route
     if q_dtype == torch.float32:
         return "tf32x3" if head_dim in _TF32X3_HEAD_DIMS else "split"
     if q_dtype != torch.bfloat16:
         return "split"
+    if head_dim in _SMALL_HEAD_DIMS:
+        return "decode"
     if sq * group <= _DECODE_MAX_ROWS:
         return "decode" if head_dim in _DECODE_HEAD_DIMS else "split"
     return "prefill" if head_dim in _PREFILL_HEAD_DIMS else "split"
@@ -200,8 +209,9 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     CPU tensors go to :func:`paged_decode_attention_reference`. CUDA
     tensors launch the kernel :func:`_route` names from the shape: bf16 q
     at head_dim 64 or 128 runs the tensor-core decode kernel when
-    ``sq * (H / kv) <= 64`` and the tensor-core prefill kernel otherwise;
-    f32 q at head_dim 64 or 128 runs the three-pass TF32 kernel; other
+    ``sq * (H / kv) <= 64`` and the tensor-core prefill kernel otherwise,
+    and at head_dim 16 or 32 the decode kernel at every row count; f32 q
+    at head_dim 16, 32, 64 or 128 runs the three-pass TF32 kernel; other
     head dims run the split kernel. All
     four take pools of q's dtype (or int8 with f32 scales), int32 tables
     and positions, all contiguous and the pools 16-byte aligned; the
@@ -214,7 +224,9 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     the decode route also adds one to ``.launches_decode`` or
     ``.launches_decode_int8``, one of the prefill route to
     ``.launches_prefill`` or ``.launches_prefill_int8``, one of the tf32x3
-    route to ``.launches_tf32x3`` or ``.launches_tf32x3_int8``.
+    route to ``.launches_tf32x3`` or ``.launches_tf32x3_int8``; a launch of
+    the decode or the tf32x3 route at head_dim 16 or 32 also to
+    ``.launches_small`` or ``.launches_small_int8``.
     """
     b, sq, h, hd, page_tokens, hkv = _check_shapes(
         q, pool_k, pool_v, block_tables, positions, k_scale, v_scale)
@@ -236,6 +248,8 @@ paged_decode_attention.launches_decode = 0
 paged_decode_attention.launches_decode_int8 = 0
 paged_decode_attention.launches_tf32x3 = 0
 paged_decode_attention.launches_tf32x3_int8 = 0
+paged_decode_attention.launches_small = 0
+paged_decode_attention.launches_small_int8 = 0
 
 
 def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
@@ -282,13 +296,14 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
         if q.dtype != torch.bfloat16:
             raise TypeError(f"the decode kernel takes bfloat16 q, got "
                             f"{q.dtype}")
-        if hd not in _DECODE_HEAD_DIMS:
+        if hd not in _SMALL_HEAD_DIMS + _DECODE_HEAD_DIMS:
             raise ValueError(f"the decode kernel takes head_dim "
-                             f"{_DECODE_HEAD_DIMS}, got {hd}")
-        if sq * (h // hkv) > _DECODE_MAX_ROWS:
+                             f"{_SMALL_HEAD_DIMS + _DECODE_HEAD_DIMS}, got "
+                             f"{hd}")
+        if hd in _DECODE_HEAD_DIMS and sq * (h // hkv) > _DECODE_MAX_ROWS:
             raise ValueError(f"the decode kernel takes sq x group <= "
-                             f"{_DECODE_MAX_ROWS} rows per KV head, got "
-                             f"{sq} x {h // hkv}")
+                             f"{_DECODE_MAX_ROWS} rows per KV head at "
+                             f"head_dim {hd}, got {sq} x {h // hkv}")
     elif route == "tf32x3":
         if q.dtype != torch.float32:
             raise TypeError(f"the tf32x3 kernel takes float32 q, got "
@@ -362,16 +377,19 @@ def _launch(q, pool_k, pool_v, block_tables, positions, *, k_scale=None,
         raise RuntimeError(f"{route} paged attention launch failed: CUDA "
                            f"error {rc}")
     fn = paged_decode_attention
+    small = route in ("decode", "tf32x3") and hd in _SMALL_HEAD_DIMS
     if quant:
         fn.launches_int8 += 1
         fn.launches_prefill_int8 += route == "prefill"
         fn.launches_decode_int8 += route == "decode"
         fn.launches_tf32x3_int8 += route == "tf32x3"
+        fn.launches_small_int8 += small
     else:
         fn.launches += 1
         fn.launches_prefill += route == "prefill"
         fn.launches_decode += route == "decode"
         fn.launches_tf32x3 += route == "tf32x3"
+        fn.launches_small += small
     return out
 
 

@@ -9,6 +9,9 @@
     python3 kernel_breakdown.py gmm          # csrc/gmm_wgmma.cu
     python3 kernel_breakdown.py paged_f32    # csrc/paged_attn_f32.cu
     python3 kernel_breakdown.py gmm_f32      # csrc/gmm_f32.cu
+    python3 kernel_breakdown.py tgmm_f32     # csrc/gmm_f32.cu, tgmm
+    python3 kernel_breakdown.py paged_small  # csrc/paged_decode.cu, hd 16
+    python3 kernel_breakdown.py paged_small_f32  # paged_attn_f32.cu, hd 16
     python3 kernel_breakdown.py flash_small  # csrc/flash_small.cu
     python3 kernel_breakdown.py flash_fwd_f32  # csrc/flash_fwd_f32.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
@@ -109,6 +112,22 @@ the forward and dlhs (K 2048 -> N 768 on the weight read transposed).
 Variants: ``no_split``, ``no_products``, ``no_loads`` (no copies after
 the first stage), ``skeleton`` (none of the three), and, not a stage,
 ``three_stages`` (a third stage in shared memory, two ahead).
+
+``tgmm_f32``: the f32 weight gradient (``tgmm_tf32x3``, three-pass TF32)
+at the MoE slice's shapes in f32: phase G's router group sizes at K 768 /
+N 2048 and K 2048 / N 768, a skewed layout (one expert 40 %, one empty)
+and every row in one expert, at K 768 / N 2048. Variants: ``no_split``,
+``no_products``, ``no_loads`` (no copies after the first stage),
+``skeleton`` (none of the three).
+
+``paged_small``: the decode kernel at head_dim 16 in bf16, fp and int8
+pools: the micro draft's 2/1 heads at an 8-slot decode and at a
+512-token prefill chunk at offset 0 (1,024 rows a KV head), and the tiny
+preset's 4/2 heads at phase A's 8-slot decode; 32-token pages, the CTA
+count the wrapper picks. Variants: ``decode``'s. ``paged_small_f32``: the
+tf32x3 kernel at phase A's tiny-preset cases (4/2 heads, head_dim 16: the
+8-slot decode and the 128-query prefill), fp and int8. Variants:
+``paged_f32``'s.
 
 ``flash_small``: the bf16 forward, dQ and dK/dV kernels at head_dim 16
 and 32 at phase Q's attention (B 8, S 1024, 4/2 heads, head_dim 16,
@@ -296,6 +315,17 @@ GMM_F32_VARIANTS["skeleton"] = [
 # The design point beside this one: three stages, two ahead.
 GMM_F32_VARIANTS["three_stages"] = [
     ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;", 1)]
+
+TGMM_F32_VARIANTS = {
+    "base": [],
+    "no_split": FLASH_BWD_F32_VARIANTS["no_split"],
+    "no_products": FLASH_BWD_F32_VARIANTS["no_products"],
+    "no_loads": [("    if (ahead < n_steps) load(ahead % STAGES, r_begin + "
+                  "ahead * BK);\n", "", 1)],
+}
+TGMM_F32_VARIANTS["skeleton"] = [
+    sub for name in ("no_split", "no_products", "no_loads")
+    for sub in TGMM_F32_VARIANTS[name]]
 
 FLASH_FWD_VARIANTS = {
     "base": [],
@@ -499,7 +529,8 @@ def bind_paged_f32(lib: ctypes.CDLL) -> None:
 def bind_gmm_f32(lib: ctypes.CDLL) -> None:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.gmm_tf32x3_launch.argtypes = [ptr] * 5 + [i] * 7 + [ptr]
-    lib.gmm_tf32x3_launch.restype = i
+    lib.tgmm_tf32x3_launch.argtypes = [ptr] * 5 + [i] * 6 + [ptr]
+    lib.gmm_tf32x3_launch.restype = lib.tgmm_tf32x3_launch.restype = i
 
 
 # label -> (launch on a library, the tensors that launch writes)
@@ -870,6 +901,136 @@ def gmm_f32_case(dev: torch.device, stream: int) -> Launches:
             lay.m_pad, n, k, e, lay.block_m, 1, 0, stream), (dlhs,))}
 
 
+TGMM_F32_LAUNCHES = {"router_gate_up": ("router", 768, 2048),
+                     "router_down": ("router", 2048, 768),
+                     "skewed_gate_up": ("skewed", 768, 2048),
+                     "one_expert_gate_up": ("one_expert", 768, 2048)}
+
+
+def _gmm_sizes(kind: str, e: int = 8, rows: int = 16384) -> list[int]:
+    """Phase G's group sizes: a seeded top-2 router's, skewed (one expert
+    40 %, one empty), or every row in one expert."""
+    if kind == "router":
+        logits = np.random.default_rng(5).standard_normal((rows // 2, e))
+        return np.bincount(np.argsort(-logits, axis=1)[:, :2].ravel(),
+                           minlength=e).tolist()
+    if kind == "one_expert":
+        return [rows] + [0] * (e - 1)
+    big = int(0.4 * rows)
+    sizes = [big, 0] + [(rows - big) // (e - 2)] * (e - 2)
+    sizes[2] += rows - sum(sizes)
+    return sizes
+
+
+def tgmm_f32_case(dev: torch.device, stream: int) -> Launches:
+    """The f32 weight-gradient launches of TGMM_F32_LAUNCHES."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as gmm_ops
+
+    out = {}
+    for label, (kind, k, n) in TGMM_F32_LAUNCHES.items():
+        sizes = _gmm_sizes(kind)
+        lay = gmm_ops.grouped_layout(
+            torch.tensor(sizes, dtype=torch.int32, device=dev), sum(sizes))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        live = gmm_ops.live_rows(lay)[:, None]
+        lhs = torch.randn(lay.m_pad, k, device=dev, generator=gen) * live
+        dout = torch.randn(lay.m_pad, n, device=dev, generator=gen) * live
+        drhs = torch.empty(len(sizes), k, n, device=dev)
+        keep = (lhs, dout, lay)          # the launches hold raw pointers
+        out[label] = (lambda lib, keep=keep, drhs=drhs, k=k, n=n, e=len(
+            sizes): lib.tgmm_tf32x3_launch(
+                keep[0].data_ptr(), keep[1].data_ptr(),
+                keep[2].row_offset.data_ptr(),
+                keep[2].group_sizes.data_ptr(), drhs.data_ptr(),
+                keep[2].m_pad, k, n, e, keep[2].block_m, 0, stream),
+            (drhs,))
+    return out
+
+
+# The head-dim-16 paged launches, name -> (q heads, KV heads, live
+# lengths, queries a row, n_blocks): the micro draft's decode (8 slots at
+# phase A's tiny-preset lengths) and its 512-token chunk at offset 0; the
+# tiny preset's heads at the same decode. The f32 launches: phase A's
+# tiny-preset decode and 128-query prefill.
+PAGED_SMALL_LAUNCHES = {
+    "micro_decode": (2, 1, [int(n) + 8 for n in np.random.default_rng(
+        2).integers(32, 129, 8)], 1, 16),
+    "micro_chunk512": (2, 1, [512], 512, 16),
+    "tiny_decode": (4, 2, [int(n) + 8 for n in np.random.default_rng(
+        2).integers(32, 129, 8)], 1, 16),
+}
+PAGED_SMALL_F32_LAUNCHES = {
+    "tiny_decode": PAGED_SMALL_LAUNCHES["tiny_decode"],
+    "tiny_prefill128": (4, 2, [128], 128, 16),
+}
+SMALL_HEAD_DIM = 16
+
+
+def _small_paged_case(dev, stream, launches, dtype) -> Launches:
+    """fp and int8 launches at head_dim 16 on the decode kernel (bf16) or
+    the tf32x3 kernel (f32), with the CTA count (and, f32, the row tile)
+    the wrapper picks."""
+    from k8s_distributed_deeplearning_torch.models.transformer import (
+        quantize_kv)
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    hd, page, sms = SMALL_HEAD_DIM, 32, paged_attn._num_sms(dev)
+    out = {}
+    for name, (h, kv, lens, sq, n_blocks) in launches.items():
+        b, rows = len(lens), sq * (h // kv)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pages = sum(-(-n // page) for n in lens) + 1
+        q = torch.randn(b, sq, h, hd, device=dev, generator=gen).to(dtype)
+        pools = [torch.randn(pages, page, kv * hd, device=dev,
+                             generator=gen).to(dtype) for _ in range(2)]
+        tables = torch.zeros(b, n_blocks, dtype=torch.int32, device=dev)
+        perm = torch.randperm(pages - 1, device=dev, generator=gen) + 1
+        used = 0
+        for i, n in enumerate(lens):
+            nb = -(-n // page)
+            tables[i, :nb] = perm[used:used + nb]
+            used += nb
+        pos = (torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+               - sq + torch.arange(sq, dtype=torch.int32, device=dev))
+        (kq, ks), (vq, vs) = (quantize_kv(p.float().view(pages, page, kv,
+                                                          hd)) for p in pools)
+        o = torch.empty_like(q)
+        if dtype == torch.bfloat16:
+            tail = (1, paged_attn._decode_splits(b, kv, sms, rows))
+            entry = "paged_decode_fwd"
+        else:
+            tail = (paged_attn._tf32x3_splits(b, kv, sms, rows),)
+            entry = "paged_attn_tf32x3_fwd"
+        rows_tile = (() if dtype == torch.bfloat16
+                     else (paged_attn._tf32x3_tile_rows(rows),))
+
+        def launch(pk, pv, scales, q=q, tables=tables, pos=pos, o=o, b=b,
+                   sq=sq, h=h, kv=kv, n_blocks=n_blocks, tail=tail,
+                   rows_tile=rows_tile, entry=entry):
+            return lambda lib: getattr(lib, entry)(
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                *(s.data_ptr() if s is not None else None for s in scales),
+                tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, sq, h,
+                kv, hd, page, n_blocks, *tail, hd ** -0.5, *rows_tile,
+                stream)
+
+        out[f"{name}_fp"] = (launch(*pools, (None, None)), (o,))
+        out[f"{name}_int8"] = (launch(kq.view(pools[0].shape),
+                                      vq.view(pools[1].shape), (ks, vs)),
+                               (o,))
+    return out
+
+
+def paged_small_case(dev: torch.device, stream: int) -> Launches:
+    return _small_paged_case(dev, stream, PAGED_SMALL_LAUNCHES,
+                             torch.bfloat16)
+
+
+def paged_small_f32_case(dev: torch.device, stream: int) -> Launches:
+    return _small_paged_case(dev, stream, PAGED_SMALL_F32_LAUNCHES,
+                             torch.float32)
+
+
 class Kernel(NamedTuple):
     source: str
     variants: dict[str, list[tuple[str, str, int]]]
@@ -893,6 +1054,12 @@ KERNELS = {
                         bind_paged_f32, paged_f32_case),
     "gmm_f32": Kernel("gmm_f32.cu", GMM_F32_VARIANTS, bind_gmm_f32,
                       gmm_f32_case),
+    "tgmm_f32": Kernel("gmm_f32.cu", TGMM_F32_VARIANTS, bind_gmm_f32,
+                       tgmm_f32_case),
+    "paged_small": Kernel("paged_decode.cu", DECODE_VARIANTS, bind_decode,
+                          paged_small_case),
+    "paged_small_f32": Kernel("paged_attn_f32.cu", PAGED_F32_VARIANTS,
+                              bind_paged_f32, paged_small_f32_case),
     "flash_small": Kernel("flash_small.cu", FLASH_SMALL_VARIANTS,
                           bind_flash_small, flash_small_case),
     "flash_fwd_f32": Kernel("flash_fwd_f32.cu", FLASH_FWD_F32_VARIANTS,

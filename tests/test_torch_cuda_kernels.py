@@ -781,6 +781,168 @@ def test_paged_tf32x3_refuses_and_does_not_fall_back(hopper):
     assert _paged_tf32x3_counts() == before
 
 
+# Head dims 16 and 32 on the tensor cores: bf16 q on the decode kernel
+# (csrc/paged_decode.cu) at every row count, f32 q on the tf32x3 kernel
+# (csrc/paged_attn_f32.cu). (b, sq, h, hkv, pages, page_tokens, n_blocks,
+# head_dim, live lengths or None): the micro draft's 2/1 heads at decode,
+# at a verify window of 4 and at a 512-token chunk (1,024 rows: each
+# 16-row tile its own key range); the tiny preset's 4/2 at an 8-slot
+# decode, a 128-query prefill (256 rows) and a 40-query chunk (80 rows,
+# the row's key range); head_dim 32 at decode, a verify window of 8 and a
+# 100-query chunk at group 4; pages of 16 and of 24 tokens.
+PAGED_SMALL_SHAPES = [
+    (4, 1, 2, 1, 300, 32, 64, 16, None),
+    (4, 4, 2, 1, 300, 32, 64, 16, [512, 528, 544, 560]),
+    (1, 512, 2, 1, 40, 32, 32, 16, [900]),
+    (8, 1, 4, 2, 130, 32, 16, 16, [41, 77, 100, 128, 33, 64, 90, 120]),
+    (1, 128, 4, 2, 20, 32, 16, 16, [128]),
+    (2, 40, 4, 2, 60, 16, 25, 16, [40, 400]),
+    (3, 1, 4, 2, 80, 16, 20, 32, [1, 32, 33]),
+    (2, 8, 4, 2, 120, 24, 30, 32, None),
+    (1, 100, 16, 4, 60, 32, 20, 32, [600]),
+]
+
+
+def _small_args(dev, dtype, shape, quant, seed):
+    rng = np.random.default_rng(seed)
+    *dims, lens = shape
+    arrays = (_case(rng, *dims) if lens is None
+              else _lens_case(rng, *dims, lens))
+    if quant:
+        q, kq, vq, tables, pos, ks, vs = _int8_on(dev, dtype, *arrays)
+        return (q, kq, vq, tables, pos), dict(k_scale=ks, v_scale=vs)
+    return _on(dev, dtype, *arrays), {}
+
+
+def _paged_small_counts():
+    f = paged_decode_attention
+    return (f.launches, f.launches_int8, f.launches_decode,
+            f.launches_decode_int8, f.launches_tf32x3,
+            f.launches_tf32x3_int8, f.launches_small, f.launches_small_int8)
+
+
+def _assert_small_close(out, ref, dtype, quant):
+    if dtype == torch.float32:
+        _assert_tf32x3_close(out, ref, quant)
+    else:
+        _assert_prefill_close(out, ref, quant)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", PAGED_SMALL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_paged_small_heads_match_reference(hopper, shape, dtype, quant):
+    """Head dims 16 and 32 on their tensor-core route (bf16: decode; f32:
+    tf32x3) against the plain version (bf16 as the decode kernel's test,
+    f32 as the tf32x3 kernel's), one launch counted on the route and on
+    launches_small, a second launch bitwise equal, and the split kernel
+    forced on the same inputs within the same limit."""
+    b, sq, h, hkv, _, _, _, hd, _ = shape
+    route = "decode" if dtype == torch.bfloat16 else "tf32x3"
+    assert paged_attn._route(sq, h // hkv, hd, dtype, quant) == route
+    args, kw = _small_args(hopper, dtype, shape, quant,
+                           sum(shape[:8]) + 3 * quant)
+    before = _paged_small_counts()
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_paged_small_counts(), before)]
+    one = [0, 1] if quant else [1, 0]
+    assert moved == one + [x * (route == "decode") for x in one] + [
+        x * (route == "tf32x3") for x in one] + one
+    ref = paged_decode_attention_reference(*args, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    _assert_small_close(out, ref, dtype, quant)
+    assert torch.equal(paged_attn._launch(*args, **kw, route=route), out)
+    _assert_small_close(paged_attn._launch(*args, **kw, route="split"), ref,
+                        dtype, quant)
+
+
+@pytest.mark.parametrize("window", [1, 8, 80])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_small_heads_stale_cells_and_scratch_are_inert(
+        hopper, dtype, quant, window):
+    """At head_dim 16 (the tiny preset's 4/2 heads), every cell past each
+    row's cursor, the blocks past the live length pointed at the scratch
+    page, and garbage in the scratch page change no output bit: decode, a
+    verify window of 8 and 80 positions (160 rows: bf16 tiles that each
+    read their own key range, f32 64-row tiles)."""
+    shape = (3, window, 4, 2, 120, 16, 24, 16, [350, 300, 87])
+    args, kw = _small_args(hopper, dtype, shape, quant, 71)
+    q, pk, pv, tables, pos = args
+    base = paged_decode_attention(*args, **kw)
+    pk2, pv2, t2 = pk.clone(), pv.clone(), tables.clone()
+    kw2 = {k: v.clone() for k, v in kw.items()}
+    bt = pk.shape[1]
+    for bi in range(tables.shape[0]):
+        cursor = int(pos[bi].max())
+        for blk in range(tables.shape[1]):
+            page = int(tables[bi, blk])
+            for t in range(bt):
+                if blk * bt + t > cursor:
+                    pk2[page, t] = 127 if quant else 1e4
+                    pv2[page, t] = 127 if quant else -1e4
+                    for v in kw2.values():
+                        v[page, t] = 1e4
+            if blk * bt > cursor:
+                t2[bi, blk] = 0
+    pk2[0], pv2[0] = (127, 127) if quant else (1e4, -1e4)
+    for v in kw2.values():
+        v[0] = 1e4
+    out = paged_decode_attention(q, pk2, pv2, t2, pos, **kw2)
+    assert torch.equal(out, base)
+
+
+@pytest.mark.parametrize("window", [2, 72])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_small_heads_fully_masked_row_is_zero(hopper, dtype, quant,
+                                                    window):
+    args, kw = _small_args(hopper, dtype, (3, window, 4, 2, 80, 16, 20, 16,
+                                           None), quant, 73)
+    q, pk, pv, tables, pos = args
+    pos[0, 1] = -1
+    pos[1] = -1                       # a whole batch row sees nothing
+    out = paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert torch.all(out[0, 1] == 0) and torch.all(out[1] == 0)
+    assert torch.isfinite(out).all()
+    _assert_small_close(out, paged_decode_attention_reference(
+        q, pk, pv, tables, pos, **kw), dtype, quant)
+
+
+def test_paged_small_heads_refuse_and_do_not_fall_back(hopper):
+    """At head_dim 16: f32 q on the decode route, bf16 q on the tf32x3
+    route and a q 8 bytes off alignment raise; head_dim 24 raises on both
+    routes; nothing launches."""
+    args, _ = _small_args(hopper, torch.bfloat16,
+                          (2, 1, 4, 2, 48, 16, 20, 16, None), False, 79)
+    q, pk, pv, tables, pos = args
+    before = _paged_small_counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_attn._launch(q.float(), pk.float(), pv.float(), tables, pos,
+                           route="decode")
+    with pytest.raises(TypeError, match="float32"):
+        paged_attn._launch(q, pk, pv, tables, pos, route="tf32x3")
+    raw = torch.empty(q.numel() + 4, dtype=q.dtype, device=q.device)
+    q_off = raw[4:].view(q.shape)
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q_off, pk, pv, tables, pos)
+    args24, _ = _small_args(hopper, torch.bfloat16,
+                            (2, 1, 4, 2, 48, 16, 20, 24, None), False, 83)
+    for route, dt in (("decode", torch.bfloat16), ("tf32x3", torch.float32)):
+        with pytest.raises(ValueError, match="head_dim"):
+            paged_attn._launch(*(a.to(dt) if a.is_floating_point() else a
+                                 for a in args24), route=route)
+    torch.cuda.synchronize()
+    assert _paged_small_counts() == before
+
+
 def test_auto_attention_at_head_dim_80_takes_the_einsum_path(hopper):
     """impl="auto" at head_dim 80 (no flash kernel takes it) returns the
     einsum path's answer on the card and launches no flash kernel;
@@ -1939,8 +2101,8 @@ def test_gmm_tf32x3_matches_reference(hopper, shape):
 
 
 def test_gmm_tf32x3_autograd_counts_by_route(hopper):
-    """f32 autograd: the forward and dlhs on tf32x3, drhs on tgmm_kernel
-    (mma); the route refuses bf16 and tgmm."""
+    """f32 autograd: the forward and dlhs on tf32x3, drhs on tgmm_tf32x3
+    (tf32x3 too); the route refuses bf16 in both kernels."""
     from k8s_distributed_deeplearning_torch.ops import gmm as g
 
     sizes, k, n, bm = GMM_SKEWED
@@ -1948,10 +2110,12 @@ def test_gmm_tf32x3_autograd_counts_by_route(hopper):
                                      17)
     lhs.requires_grad_(), rhs.requires_grad_()
     before = _gmm_tf32x3_counts()
+    tgmm_before = g.tgmm.launches_tf32x3
     (g.gmm(lhs, rhs, lay) * cot).sum().backward()
     torch.cuda.synchronize()
     assert _gmm_tf32x3_counts() == (before[0] + 2, before[1] + 2,
                                     before[2] + 1)
+    assert g.tgmm.launches_tf32x3 == tgmm_before + 1
     _within(rhs.grad, g.tgmm_reference(lhs.detach(), cot, len(sizes), lay),
             GMM_DTYPES[0][1], "drhs")
     before = _gmm_tf32x3_counts()
@@ -1959,9 +2123,85 @@ def test_gmm_tf32x3_autograd_counts_by_route(hopper):
         g.gmm_forward(lhs.detach().bfloat16(), rhs.detach().bfloat16(), lay,
                       route="tf32x3")
     with pytest.raises(TypeError, match="tf32x3 route takes float32"):
-        g.tgmm(lhs.detach(), cot, len(sizes), lay, route="tf32x3")
+        g.tgmm(lhs.detach().bfloat16(), cot.bfloat16(), len(sizes), lay,
+               route="tf32x3")
     torch.cuda.synchronize()
     assert _gmm_tf32x3_counts() == before
+
+
+# The f32 weight gradient on the tensor cores (csrc/gmm_f32.cu
+# tgmm_tf32x3): GMM_TF32X3_SHAPES (an empty expert, every row in one
+# expert, K and N that cut the 128-wide tile, a block_m of two row tiles,
+# the MoE slice's gate/up and down shapes) and a one-expert layout at the
+# slice's 16,384 rows.
+TGMM_TF32X3_SHAPES = GMM_TF32X3_SHAPES + [
+    ((16384, 0, 0, 0, 0, 0, 0, 0), 768, 2048, 128)]
+
+
+def _tgmm_tf32x3_counts():
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    return (g.tgmm.launches, g.tgmm.launches_tf32x3, g.tgmm.launches_wgmma)
+
+
+@pytest.mark.parametrize("shape", TGMM_TF32X3_SHAPES,
+                         ids=lambda s: f"E{len(s[0])}-K{s[1]}-N{s[2]}-"
+                         f"bm{s[3]}-{max(s[0])}")
+def test_tgmm_tf32x3_matches_reference(hopper, shape):
+    """tgmm on the tf32x3 route against its plain version at phase G's f32
+    limit, and tgmm_kernel forced on the same inputs; an empty expert's
+    gradient exactly 0; a second launch bitwise equal; one launch counted
+    on the route."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes, k, n, bm = shape
+    lay, lhs, _, cot = _gmm_inputs(hopper, torch.float32, sizes, k, n, bm,
+                                   sum(sizes) + n + 5)
+    before = _tgmm_tf32x3_counts()
+    got = g.tgmm(lhs, cot, len(sizes), lay)
+    torch.cuda.synchronize()
+    assert _tgmm_tf32x3_counts() == (before[0] + 1, before[1] + 1,
+                                     before[2])
+    want = g.tgmm_reference(lhs, cot, len(sizes), lay)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    _within(got, want, GMM_DTYPES[0][1], "drhs")
+    for e, s in enumerate(sizes):
+        if s == 0:
+            assert torch.all(got[e] == 0), e
+    assert torch.equal(got, g.tgmm(lhs, cot, len(sizes), lay))
+    forced = g.tgmm(lhs, cot, len(sizes), lay, route="mma")
+    if max(sizes) <= 4096:
+        _within(forced, want, GMM_DTYPES[0][1], "drhs (mma)")
+    else:
+        # tgmm_kernel chains every row of an expert into one f32
+        # accumulator on the CUDA cores; past ~4,096 rows that drifts past
+        # the limit (16,384 rows: 2.85x on an H100), which the stages
+        # summed from zero keep tgmm_tf32x3 inside.
+        assert float((got - want).abs().max()) < float(
+            (forced - want).abs().max())
+
+
+def test_tgmm_tf32x3_refuses_and_does_not_fall_back(hopper):
+    """bf16 on the tf32x3 route, a layout whose block_m is not a multiple
+    of the row tile and a K that is not a multiple of 8 raise, and nothing
+    launches."""
+    from k8s_distributed_deeplearning_torch.ops import gmm as g
+
+    lay, lhs, _, cot = _gmm_inputs(hopper, torch.float32, (30, 9), 64, 64,
+                                   128, 19)
+    before = _tgmm_tf32x3_counts()
+    with pytest.raises(TypeError, match="tf32x3 route takes float32"):
+        g.tgmm(lhs.bfloat16(), cot.bfloat16(), 2, lay, route="tf32x3")
+    small = g.grouped_layout(lay.group_sizes, 39, block_m=64)
+    with pytest.raises(ValueError, match="row tile"):
+        g.tgmm(torch.zeros(small.m_pad, 64, device=hopper),
+               torch.zeros(small.m_pad, 64, device=hopper), 2, small)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        g.tgmm(lhs[:, :60].contiguous(), cot, 2, lay)
+    torch.cuda.synchronize()
+    assert _tgmm_tf32x3_counts() == before
 
 
 def test_checkpoint_resume_round_trip_on_the_card(hopper, tmp_path):

@@ -195,13 +195,13 @@ def test_remat_policies_save_the_gmm_operator():
 
 def test_gmm_route_rule():
     """bf16 takes the wgmma kernels (csrc/gmm_wgmma.cu); f32 gmm_forward
-    (the forward and dlhs) the three-pass TF32 kernel (csrc/gmm_f32.cu),
-    f32 tgmm the CUDA-core kernel (csrc/gmm.cu): by dtype and kernel."""
+    (the forward and dlhs) and f32 tgmm the three-pass TF32 kernels
+    (csrc/gmm_f32.cu): by dtype, for both kernels."""
     assert t_gmm._gmm_route(torch.bfloat16) == "wgmma"
     assert t_gmm._gmm_route(torch.bfloat16, "tgmm") == "wgmma"
     assert t_gmm._gmm_route(torch.float32) == "tf32x3"
     assert t_gmm._gmm_route(torch.float32, "gmm") == "tf32x3"
-    assert t_gmm._gmm_route(torch.float32, "tgmm") == "mma"
+    assert t_gmm._gmm_route(torch.float32, "tgmm") == "tf32x3"
 
 
 def _counts():

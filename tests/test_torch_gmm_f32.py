@@ -3,8 +3,9 @@
 cannot run.
 
 - ``_gmm_route``: f32 ``gmm_forward`` (the forward and, reading the weight
-  transposed, dlhs) takes the tf32x3 kernel; f32 ``tgmm`` stays on
-  ``csrc/gmm.cu`` (``"mma"``); bf16 takes the wgmma kernels.
+  transposed, dlhs) takes the tf32x3 kernel, and so does f32 ``tgmm``
+  (``tests/test_torch_tgmm_f32.py`` holds that kernel); bf16 takes the
+  wgmma kernels.
 - A torch model of the kernel's arithmetic, written here: every row
   block of 128 rows times its expert's weight, the contraction in 32-deep
   stages (the last one zero-filled past K), each stage's product the
@@ -49,7 +50,7 @@ K, N = 136, 200
 def test_gmm_route_gives_f32_gmm_the_tf32x3_kernel():
     assert t_gmm._gmm_route(torch.float32, "gmm") == "tf32x3"
     assert t_gmm._gmm_route(torch.float32) == "tf32x3"
-    assert t_gmm._gmm_route(torch.float32, "tgmm") == "mma"
+    assert t_gmm._gmm_route(torch.float32, "tgmm") == "tf32x3"
     assert t_gmm._gmm_route(torch.bfloat16, "gmm") == "wgmma"
     assert t_gmm._gmm_route(torch.bfloat16, "tgmm") == "wgmma"
 

@@ -101,6 +101,33 @@ def test_paged_f32_launches_take_the_tf32x3_route(name):
     assert sq <= min(lens) and max(lens) <= n_blocks * 32
 
 
+@pytest.mark.parametrize("dtype,name", [
+    (torch.bfloat16, n) for n in kernel_breakdown.PAGED_SMALL_LAUNCHES] + [
+    (torch.float32, n) for n in kernel_breakdown.PAGED_SMALL_F32_LAUNCHES])
+def test_paged_small_launches_take_their_tensor_core_route(dtype, name):
+    """Every launch the head-dim-16 breakdowns time is a shape that the
+    route of its kernel takes (bf16: decode; f32: tf32x3), with its
+    queries' positions inside its table."""
+    launches = (kernel_breakdown.PAGED_SMALL_LAUNCHES
+                if dtype == torch.bfloat16
+                else kernel_breakdown.PAGED_SMALL_F32_LAUNCHES)
+    h, kv, lens, sq, n_blocks = launches[name]
+    assert paged_attn._route(sq, h // kv, kernel_breakdown.SMALL_HEAD_DIM,
+                             dtype, False) == (
+        "decode" if dtype == torch.bfloat16 else "tf32x3")
+    assert sq <= min(lens) and max(lens) <= n_blocks * 32
+
+
+@pytest.mark.parametrize("name", list(kernel_breakdown.TGMM_F32_LAUNCHES))
+def test_tgmm_f32_launches_are_phase_g_layouts(name):
+    """The weight-gradient breakdown's layouts hold 16,384 rows over 8
+    experts, and the skewed and one-expert ones leave an expert empty."""
+    kind, k, n = kernel_breakdown.TGMM_F32_LAUNCHES[name]
+    sizes = kernel_breakdown._gmm_sizes(kind)
+    assert len(sizes) == 8 and sum(sizes) == 16384
+    assert (0 in sizes) == (kind != "router") and k % 8 == n % 8 == 0
+
+
 @pytest.mark.parametrize("kernel", list(kernel_breakdown.KERNELS))
 def test_breakdown_bindings_match_the_c_entry_points(kernel):
     spec = kernel_breakdown.KERNELS[kernel]

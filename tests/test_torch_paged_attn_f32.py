@@ -2,11 +2,11 @@
 (``csrc/paged_attn_f32.cu``, the ``"tf32x3"`` route) on the CPU, where the
 kernel cannot run.
 
-- ``_route``: f32 q at head_dim 64 and 128 takes the tf32x3 kernel at
-  every row count (decode, verify windows, chunks), fp and int8 pools; f32
-  q at other head dims keeps the split kernel. ``_tf32x3_splits``: CTAs a
-  (row, KV head, row tile) from the batch, the KV heads, the row tiles and
-  the SM count, never from the table width.
+- ``_route``: f32 q at head_dim 16, 32, 64 and 128 takes the tf32x3
+  kernel at every row count (decode, verify windows, chunks), fp and int8
+  pools; f32 q at other head dims keeps the split kernel.
+  ``_tf32x3_splits``: CTAs a (row, KV head, row tile) from the batch, the
+  KV heads, the row tiles and the SM count, never from the table width.
 - A torch model of the kernel's arithmetic, written here: the flattened
   (position, group head) rows of a KV head cut into 16-row tiles up to 64
   rows, 64-row tiles above; each (row, KV head, row tile) split over
@@ -28,10 +28,13 @@ kernel cannot run.
   against the port's plain version at phase A's f32 limit
   (``chip_smoke.py`` ``TOL[torch.float32]`` = 1e-4 absolute). Cases:
   head_dim 64 and 128; groups 1, 4 and 8; decode, verify windows of 5 and
-  8, chunks of 96 and 512 rows; live lengths that cut a 32-key tile and a
-  page; a fully masked query row and a batch row that sees nothing
-  (exactly 0); at the card's 132 SMs and at 8. Stale K/V past each
-  cursor and garbage in the scratch page change no bit of the model.
+  8, chunks of 96 and 512 rows; at head_dim 16 the serve CLI's tiny
+  preset (4/2 heads: an 8-slot decode and a 128-query prefill, 256 rows)
+  and at 32 decode and a verify window of 8; live lengths that cut a
+  32-key tile and a page; a fully masked query row and a batch row that
+  sees nothing (exactly 0); at the card's 132 SMs and at 8. Stale K/V
+  past each cursor and garbage in the scratch page change no bit of the
+  model.
 - The same model with one TF32 pass (``a_hi.b_hi`` alone) exceeds that
   limit: the test can tell the split from its absence.
 - CPU tensors take the plain version and count no launch on the route.
@@ -74,6 +77,10 @@ F32_TOL = 1e-4                       # chip_smoke.py TOL[torch.float32]
     (512, 4, 128),                   # phase A's 512-query chunk
     (15, 4, 128),                    # a short chunk: 60 rows
     (24, 4, 64),
+    (1, 2, 16),                      # the tiny preset's decode
+    (128, 2, 16),                    # and its 128-query prefill
+    (8, 2, 32),
+    (512, 4, 32),
 ])
 def test_f32_q_takes_the_tf32x3_route(sq, group, hd, quant):
     assert paged_attn._route(sq, group, hd, torch.float32,
@@ -262,6 +269,11 @@ MODEL_CASES = {
     "chunk96": (1, 24, 8, 2, 8, 32, 6, 128, [150]),
     "chunk512": (1, 64, 16, 2, 8, 32, 6, 64, [170]),
     "masked": (2, 2, 8, 2, 8, 32, 3, 64, [50, 70]),
+    "tiny_decode": (8, 1, 4, 2, 40, 32, 4, 16,
+                    [41, 77, 100, 128, 33, 64, 90, 120]),
+    "tiny_prefill128": (1, 128, 4, 2, 8, 32, 5, 16, [128]),
+    "hd32_decode": (3, 1, 4, 2, 12, 32, 4, 32, [1, 33, 100]),
+    "hd32_verify8": (2, 8, 4, 2, 12, 32, 4, 32, [60, 120]),
 }
 
 

@@ -3,14 +3,18 @@
 
 - ``_route``: the engine's decode shapes (one query at groups 3, 4 and 8,
   head_dim 64 and 128, fp and int8 pools), speculative verify windows and
-  short chunks (``sq x group <= 64``) take the decode kernel; other head
-  dims take the split kernel, in bf16 and in f32 (f32 q at head_dim 64 and
-  128 takes the tf32x3 kernel: ``tests/test_torch_paged_attn_f32.py``).
+  short chunks (``sq x group <= 64``) take the decode kernel, and so does
+  bf16 at head_dim 16 and 32 at every row count (the serve CLI's drafts);
+  other head dims (8, 24, 80, 256) take the split kernel, in bf16 and in
+  f32 (f32 q at head_dim 16-128 takes the tf32x3 kernel:
+  ``tests/test_torch_paged_attn_f32.py``).
 - A torch model of the kernel's arithmetic, written here: the flattened
   (position, group head) rows of a KV head cut into 16-row tiles, each
   (row, KV head, row tile) split over ``_decode_splits`` CTAs, each CTA an
   equal share of the row's live 16-key tiles (the live length set by the
-  largest cursor of the whole row, so every row tile splits it alike),
+  largest cursor of the whole row, so every row tile splits it alike; past
+  64 queries, at head_dim 16/32, by the largest cursor of the tile's own
+  rows),
   its four warps walking every fourth tile of that share with their own
   online softmax (log2 domain), the warps' states merged in warp order
   and the CTAs' states in CTA order. fp rounds p to bf16 at the warp's
@@ -22,9 +26,12 @@
   and one; a row of one key, split over 8 CTAs of which 7 have none; a
   fully masked row (exactly 0); verify windows of 4 to 15 (16 to 60 rows,
   one to four row tiles, the last one partly padding), a group of 8, and
-  40 queries of one head each (cursors past the warp's 32 lanes). Each
-  case runs at the card's 132 SMs and at 8, where a warp walks several
-  tiles.
+  40 queries of one head each (cursors past the warp's 32 lanes); at
+  head_dim 16 the micro draft's 2/1 heads (decode, a verify window of 4,
+  a chunk of 80 queries: 160 rows, each tile its own key range) and the
+  tiny preset's 4/2 (a chunk of 40 queries, 80 rows, the row's range),
+  at head_dim 32 decode and a verify window. Each case runs at the card's
+  132 SMs and at 8, where a warp walks several tiles.
 - CPU tensors take the plain version and count no launch on any route.
 
 The kernel itself is held to the plain version on the card
@@ -81,12 +88,27 @@ def test_engine_decode_shapes_take_the_decode_route(sq, group, hd, quant):
     (1, 4, 80, torch.float32),        # f32 q at another head dim
     (1, 4, 80, torch.bfloat16),       # other head dims
     (1, 4, 256, torch.bfloat16),
-    (1, 4, 16, torch.bfloat16),
-    (8, 4, 16, torch.float32),        # a verify window of 8, f32 q at 16
+    (1, 4, 24, torch.bfloat16),
+    (8, 4, 8, torch.float32),         # a verify window of 8, f32 q at 8
     (8, 4, 80, torch.bfloat16),       # and at another head dim
 ])
 def test_other_shapes_keep_the_split_route(sq, group, hd, dtype, quant):
     assert paged_attn._route(sq, group, hd, dtype, quant) == "split"
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("sq,group,hd", [
+    (1, 2, 16),                       # the micro draft's decode
+    (4, 2, 16),                       # its verify window at spec_k 3
+    (512, 2, 16),                     # its 512-token prefill chunk
+    (1, 2, 32),
+    (40, 2, 32),                      # 80 rows: past one 64-row span
+    (128, 4, 32),
+])
+def test_head_dims_16_and_32_take_the_decode_route_at_every_row_count(
+        sq, group, hd, quant):
+    assert paged_attn._route(sq, group, hd, torch.bfloat16,
+                             quant) == "decode"
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
@@ -164,12 +186,17 @@ def kernel_model(q, pool_k, pool_v, tables, positions, k_scale=None,
         qa = qa.reshape(hkv, rows, hd)
         cura = positions[i].long().repeat_interleave(group)      # [rows]
         res = torch.zeros(hkv, rows, hd)
-        # Each 16-row tile of the KV head is a call of its own.
+        # Each 16-row tile of the KV head is a call of its own. Past 64
+        # queries each tile reads up to its own rows' largest cursor.
         for r0 in range(0, rows, RT):
             tile = slice(r0, min(r0 + RT, rows))
+            lim, n_tiles = lims[i], tiles[i]
+            if sq > 64:
+                lim = min(int(cura[tile].max()) + 1, width)
+                n_tiles = -(-lim // KT) if lim > 0 else 0
             res[:, tile] = _tile_model(
                 qa[:, tile], cura[tile], k, v, (ks, vs) if quant else None,
-                lims[i], tiles[i], cnt, sl)
+                lim, n_tiles, cnt, sl)
         out[i] = res.reshape(hkv, sq, group, hd).permute(1, 0, 2, 3).reshape(
             sq, h, hd)
     return out.to(q.dtype)
@@ -280,6 +307,12 @@ MODEL_CASES = {
     "group8_verify5": (2, 5, 16, 2, 12, 32, 4, 128, [45, 77]),
     "group1_w40": (2, 40, 8, 8, 14, 16, 6, 128, [60, 90]),
     "pad_tile": (2, 9, 32, 8, 12, 32, 4, 128, [37, 100]),
+    "micro_decode": (4, 1, 2, 1, 12, 32, 4, 16, [1, 33, 100, 64]),
+    "micro_verify4": (2, 4, 2, 1, 12, 32, 4, 16, [40, 100]),
+    "micro_chunk80": (1, 80, 2, 1, 8, 32, 5, 16, [130]),
+    "tiny_chunk40": (2, 40, 4, 2, 12, 32, 4, 16, [45, 120]),
+    "hd32_decode": (3, 1, 4, 2, 12, 32, 4, 32, [1, 32, 97]),
+    "hd32_verify8": (2, 8, 4, 2, 12, 32, 4, 32, [60, 120]),
 }
 
 

@@ -4,9 +4,10 @@
 - ``_route``: the engine's prefill chunks (bf16, 32-512 queries, Llama-3
   8B's 32/8 heads at head_dim 128, the small preset's 12/4 at 64) take
   the prefill kernel; bf16 decode and up to 64 rows (one 64-row tile)
-  per KV head take the decode kernel; other head dims take the split
-  kernel, in bf16 and in f32 (f32 q at head_dim 64 and 128 takes the
-  tf32x3 kernel: ``tests/test_torch_paged_attn_f32.py``).
+  per KV head take the decode kernel, and so does every bf16 chunk at
+  head_dim 16 and 32; other head dims (8, 24, 80, 256) take the split
+  kernel, in bf16 and in f32 (f32 q at head_dim 16-128 takes the tf32x3
+  kernel: ``tests/test_torch_paged_attn_f32.py``).
 - A torch model of the kernel's arithmetic, written here, tile by tile
   over 64-key tiles as the kernel walks them, against the JAX Pallas
   kernel in interpret mode at Llama-3 8B's heads cut to a few pages:
@@ -67,12 +68,26 @@ def test_decode_shapes_take_the_decode_route(sq, group, hd, dtype, quant):
     (512, 4, 8, torch.bfloat16),      # other head dims
     (512, 4, 80, torch.bfloat16),
     (512, 4, 256, torch.bfloat16),
-    (15, 4, 16, torch.float32),       # a short chunk, f32 q at 16
+    (15, 4, 24, torch.float32),       # a short chunk, f32 q at 24
     (21, 3, 80, torch.bfloat16),      # and at another head dim
 ])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 def test_other_shapes_take_the_split_route(sq, group, hd, dtype, quant):
     assert paged_attn._route(sq, group, hd, dtype, quant) == "split"
+
+
+@pytest.mark.parametrize("sq,group,hd,dtype,want", [
+    (512, 2, 16, torch.bfloat16, "decode"),   # the micro draft's chunk
+    (512, 4, 32, torch.bfloat16, "decode"),
+    (21, 3, 32, torch.bfloat16, "decode"),
+    (128, 2, 16, torch.float32, "tf32x3"),    # the tiny preset's prefill
+    (15, 4, 16, torch.float32, "tf32x3"),
+    (512, 4, 32, torch.float32, "tf32x3"),
+])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_chunks_at_head_dims_16_and_32_take_a_tensor_core_route(
+        sq, group, hd, dtype, want, quant):
+    assert paged_attn._route(sq, group, hd, dtype, quant) == want
 
 
 def _case(rng, b, sq, h, hkv, pages, bt, nb, hd):
