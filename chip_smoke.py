@@ -278,6 +278,37 @@ Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
    path's attention shape that route's backward is within phase D's limit
    of the plain version.
 
+R. The serving engine's in-process scale-out surface (run after P). R1:
+   phase B's workload at full Llama-3 8B (bf16, random weights from seed
+   0) disaggregated: one ``prefill_only`` engine and two decode engines
+   with B's settings on one shared model, through the
+   ``DisaggCoordinator``. Every request finishes with "length"; the
+   prefill engine's paged launches are all on the prefill route (layers x
+   chunks) and the decode engines' all on the decode route (layers x
+   their decode iterations), split 0, counted engine by engine; the pages
+   shipped equal the sum of ceil(kv_len / 32); no fallback; no engine
+   holds a page after shutdown; the first token equals B's wherever
+   phase C's margin rule decides it. Reports the streams and tokens equal
+   to B's (a reading), export and import ms a request, bytes and GB/s,
+   decode tokens/s and peak memory. R2: f32 at 8B width and 4 layers (C's
+   kernel path): the disaggregated streams equal a unified engine's,
+   greedy and sampled; a greedy and a sampled request exported at decode
+   cursor 8 and imported into another engine equal the uninterrupted
+   run; a ``ServeGateway`` over two replicas with r0 killed mid-decode
+   through ``gateway_dispatch``: every greedy stream equals the unified
+   engine's, at least one migration; ``drain_replica`` mid-decode moves
+   the decoding requests by shipped pages; every paged launch on tf32x3,
+   none on split. R3: ``run_storm`` over the serve CLI's tiny preset
+   (f32, head_dim 16) at seed 1, 48 steps, as a gateway of two replicas
+   and as one prefill and two decode engines: zero violations, greedy
+   streams checked against the unfaulted oracle, faults fired at
+   ``serve_decode`` and ``gateway_dispatch``, every paged launch on
+   tf32x3 at head_dim 16. R4: the train CLI's tiny preset takes 2 steps
+   on the card as its own process and writes a checkpoint;
+   ``examples/generate_llama_torch.py`` generates 32 greedy tokens from
+   it, equal to ``generate`` on the restored params. Each sub-run logs
+   ``since_start_s``.
+
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
 one JSON line per phase, a ``{"kernels": [...]}`` line, and last
@@ -958,11 +989,12 @@ def _timed(engine, name, acc):
     setattr(engine, name, wrapper)
 
 
-def _serve_phase(phase, dev, quant: bool):
+def _serve_phase(phase, dev, quant: bool, first_logits=None):
     """Phases B and J: ``ServeEngine`` at full Llama-3 8B width and depth,
     bf16 random weights from seed 0, serving ``_requests``; J with int8 KV
     pages and int8 weights. Checks the outputs, the pool, and the paged
-    kernel's launches by branch; returns the result and the streams."""
+    kernel's launches by branch; returns the result and the streams.
+    ``first_logits`` (a dict) keeps each request's first-token logits."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
@@ -986,6 +1018,8 @@ def _serve_phase(phase, dev, quant: bool):
     check(quant_lib.is_quantized(model) == quant,
           f"weights quantized: {quant_lib.is_quantized(model)}")
     torch.cuda.reset_peak_memory_stats()
+    if first_logits is not None:
+        _first_logits(eng, first_logits)
     acc = {"_prefill": 0.0, "_decode_step": 0.0}
     for name in acc:
         _timed(eng, name, acc)
@@ -1066,11 +1100,16 @@ def _zero_counts(attn) -> None:
 
 
 def phase_b(dev):
-    result, streams, eng = _serve_phase("B", dev, quant=False)
+    store = {}
+    result, streams, eng = _serve_phase("B", dev, quant=False,
+                                        first_logits=store)
+    # Phase R1 holds its first tokens to these (the profiles below admit
+    # requests of their own).
+    first_logits = {k: v.cpu() for k, v in store.items()}
     log(result)
     decode_profile("B", eng, result["layers"])
     result["prefill_profile"] = prefill_profile("B", eng, result["layers"])
-    return result, streams
+    return result, streams, first_logits
 
 
 def phase_j(dev, b_streams):
@@ -2185,6 +2224,427 @@ def _exact_gates(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------- phase R
+
+R_STORM = dict(seed=1, steps=48, failures_to_trip=2, fault_rate=(0.1, 0.4))
+R_HOP_AT = 8          # decode iterations before R2's export
+R_GEN_NEW = 32
+
+
+def _count_step_routes(eng, counts):
+    """Accumulate in ``counts`` the paged launches by route of each of
+    ``eng``'s steps (the fleet steps its engines one after another, so the
+    global counters' change across a step is that engine's)."""
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    attn = paged_attn.paged_decode_attention
+    step = eng.step
+
+    def wrapper():
+        before = _route_counts(attn)
+        out = step()
+        for k, v in _route_counts(attn).items():
+            counts[k] = counts.get(k, 0) + v - before[k]
+        return out
+
+    eng.step = wrapper
+
+
+def _timed_ship(eng, name, rows):
+    """Wrap ``eng.export_request_kv`` or ``import_request_kv`` to append
+    (request id, ms, bytes, pages) to ``rows``, synchronized both sides."""
+    fn = getattr(eng, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        blob = out if name == "export_request_kv" else a[0]
+        rows.append({"request_id": blob["request_id"], "ms": ms,
+                     "bytes": sum(p.nbytes for p in blob["pages"]),
+                     "pages": blob["n_pages"],
+                     "prefill_chunks": blob["prefill_chunks"],
+                     "kv_len": blob["kv_len"]})
+        return out
+
+    setattr(eng, name, wrapper)
+
+
+def _ship_summary(rows) -> dict:
+    ms = [r["ms"] for r in rows]
+    nbytes = sum(r["bytes"] for r in rows)
+    return {"count": len(rows), "ms_per_request": ms,
+            "ms_mean": float(np.mean(ms)) if ms else None,
+            "bytes": nbytes, "pages": sum(r["pages"] for r in rows),
+            "gb_per_s": nbytes / (sum(ms) * 1e-3) / 1e9 if ms else None}
+
+
+def _r1(dev, b_streams, b_logits, started):
+    """R1: B's workload disaggregated at full Llama-3 8B (bf16, seed 0):
+    one prefill-only engine and two decode engines on one shared model,
+    B's settings, through the ``DisaggCoordinator``."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+    from k8s_distributed_deeplearning_torch.serve.disagg import (
+        DisaggCoordinator, PrefillWorker)
+
+    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    engines = {rid: ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                                device=dev, replica_id=rid,
+                                prefill_only=rid == "p0")
+               for rid in ("p0", "d0", "d1")}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    logits = {}
+    _first_logits(engines["p0"], logits)
+    counts = {rid: {} for rid in engines}
+    acc = {"_decode_step": 0.0}
+    exports, imports = [], []
+    for rid, eng in engines.items():
+        _count_step_routes(eng, counts[rid])
+        if rid == "p0":
+            _timed_ship(eng, "export_request_kv", exports)
+        else:
+            _timed(eng, "_decode_step", acc)
+            _timed_ship(eng, "import_request_kv", imports)
+    coord = DisaggCoordinator([engines["d0"], engines["d1"]],
+                              [PrefillWorker(engines["p0"])])
+    reqs = _requests(cfg.vocab_size, 32, sampled=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = coord.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(outs) == 8 and all(o.finish_reason == "length"
+                                 and len(o.tokens) == 32 for o in outs),
+          f"R1: {[(o.finish_reason, len(o.tokens)) for o in outs]}")
+    layers = cfg.n_layers
+    chunks = sum(r["prefill_chunks"] for r in exports)
+    steps = {rid: engines[rid].stats.steps for rid in ("d0", "d1")}
+    want = {"p0": {"decode": 0, "prefill": layers * chunks, "tf32x3": 0,
+                   "split": 0, "int8": 0}}
+    for rid, n in steps.items():
+        want[rid] = {"decode": layers * n, "prefill": 0, "tf32x3": 0,
+                     "split": 0, "int8": 0}
+    check(counts == want and chunks > 0 and all(steps.values()),
+          f"R1 launches by engine and route {counts}: want {want} "
+          f"(layers x prefill chunks {chunks} on p0, layers x decode "
+          f"iterations {steps} on each decode engine)")
+    prompt_pages = sum(-(-len(r.prompt) // PAGE) for r in reqs)
+    shipped = sum(r["pages"] for r in exports)
+    check(shipped == prompt_pages == sum(r["pages"] for r in imports)
+          and coord.stats.disagg_fallbacks == 0,
+          f"R1: {shipped} pages exported, {prompt_pages} = sum of "
+          f"ceil(kv_len / {PAGE}) wanted, fallbacks "
+          f"{coord.stats.disagg_fallbacks}")
+    rids = sorted(b_logits)
+    decided, same = _first_token_rule(
+        torch.cat([logits[r] for r in rids]),
+        torch.cat([b_logits[r].to(dev) for r in rids]))
+    check(bool(same[decided].all()),
+          "R1: a first token differs from B's where the margin decides it")
+    streams = {o.request_id: o.tokens for o in outs}
+    decode_tokens = sum(engines[r].stats.decode_tokens for r in ("d0", "d1"))
+    result = {
+        "phase": "R1", "model": "llama3-8b", "layers": layers,
+        "dtype": "bfloat16", "engines": "p0 prefill-only, d0 + d1 decode",
+        "slots": 4, "prefill_chunk_tokens": 512, "requests": 8,
+        "setup_s": setup_s, "wall_s": wall, "route_launches": counts,
+        "prefill_chunks": chunks, "decode_iterations": steps,
+        "pages_shipped": shipped, "export": _ship_summary(exports),
+        "import": _ship_summary(imports),
+        "decode_tokens_per_s": decode_tokens / acc["_decode_step"],
+        "decode_s": acc["_decode_step"],
+        "decode_iteration_ms": acc["_decode_step"] / sum(steps.values())
+        * 1e3,
+        "first_token_decided": decided.tolist(),
+        "first_token_equal": same.tolist(),
+        "streams_equal_b": sum(streams[r] == b_streams[r] for r in streams),
+        "tokens_equal_b": sum(a == b for r in streams
+                              for a, b in zip(streams[r], b_streams[r])),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "since_start_s": time.perf_counter() - started}
+    for rid, eng in engines.items():
+        result[f"{rid}_pages_after"] = _clean_after(eng, f"R1 {rid}")
+    log(result)
+    del model, engines, coord
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _f32_fleet(model, dev, n, **kw):
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+
+    return [ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                        device=dev, replica_id=f"r{i}", **kw)
+            for i in range(n)]
+
+
+def _r2(dev, started):
+    """R2: f32 at 8B width and 4 layers (C's kernel path): disaggregated
+    streams, a hop at decode cursor 8, a gateway with a replica killed
+    mid-decode and a drain, each against a unified engine's streams."""
+    from k8s_distributed_deeplearning_torch import faults
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve.disagg import (
+        DisaggCoordinator, PrefillWorker)
+    from k8s_distributed_deeplearning_torch.serve.gateway import (
+        ServeGateway)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = paged_attn.paged_decode_attention
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
+                                 dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    reqs = _requests(cfg.vocab_size, 16, sampled=True)
+    greedy = [r for r in reqs if r.sampling.temperature <= 0.0]
+    result = {"phase": "R2", "model": "llama3-8b width, 4 layers",
+              "dtype": "float32", "route_launches": {}}
+    _zero_counts(attn)
+    (ref_eng,) = _f32_fleet(model, dev, 1)
+    oracle = {o.request_id: o.tokens for o in ref_eng.run(_copy(reqs))}
+    result["route_launches"]["unified"] = _route_counts(attn)
+    _clean_after(ref_eng, "R2 unified")
+
+    # Disaggregated: one prefill-only and two decode engines.
+    _zero_counts(attn)
+    pre = _f32_fleet(model, dev, 1, prefill_only=True)[0]
+    dec = _f32_fleet(model, dev, 2)
+    coord = DisaggCoordinator(dec, [PrefillWorker(pre)])
+    got = {o.request_id: o.tokens for o in coord.run(_copy(reqs))}
+    result["route_launches"]["disagg"] = _route_counts(attn)
+    result["disagg_streams_equal"] = {r: got[r] == oracle[r] for r in oracle}
+    result["disagg_fallbacks"] = coord.stats.disagg_fallbacks
+    check(all(result["disagg_streams_equal"].values())
+          and coord.stats.disagg_fallbacks == 0,
+          f"R2 disagg streams differ from the unified engine's "
+          f"{result['disagg_streams_equal']}")
+    for e in [pre] + dec:
+        _clean_after(e, "R2 disagg")
+
+    # One request exported at decode cursor 8 and imported elsewhere,
+    # greedy (r0) and sampled (r2).
+    _zero_counts(attn)
+    hop = {}
+    for rid in ("r0", "r2"):
+        a, b = _f32_fleet(model, dev, 2)
+        (req,) = _copy([r for r in reqs if r.request_id == rid])
+        a.submit(req)
+        while not a.occupied_slots() or a.stats.steps < R_HOP_AT:
+            a.step()
+        blob = a.export_request_kv(rid)
+        check(b.can_import(blob), f"R2 hop {rid}: import refused")
+        b.import_request_kv(blob, request=req)
+        (out,) = b.run()
+        hop[rid] = {"cursor": len(blob["emitted"]) - 1,
+                    "pages": blob["n_pages"],
+                    "equal": out.tokens == oracle[rid]}
+        for e in (a, b):
+            _clean_after(e, f"R2 hop {rid}")
+    result["route_launches"]["hop"] = _route_counts(attn)
+    result["hop"] = hop
+    check(all(h["equal"] and h["cursor"] == R_HOP_AT for h in hop.values()),
+          f"R2 hop at decode cursor {R_HOP_AT}: {hop}")
+
+    # A gateway over two replicas, r0 killed mid-decode at
+    # gateway_dispatch: its live requests migrate by resubmission.
+    _zero_counts(attn)
+    fleet = _f32_fleet(model, dev, 2)
+    gw = ServeGateway(fleet, failures_to_trip=1)
+    for r in _copy(greedy):
+        gw.submit(r)
+    outs = []
+    while not fleet[0].stats.steps >= 4:
+        outs.extend(gw.step())
+    faults.activate(faults.FaultPlan((faults.Fault(
+        site="gateway_dispatch", action="ioerror", step=0,
+        attempt=None),)))
+    try:
+        outs.extend(gw.step())
+    finally:
+        fired = list(faults.active().fired)
+        faults.deactivate()
+    outs.extend(gw.run())
+    kill = {"fired": fired, "breaker": gw.breaker_state("r0"),
+            "gateway_migrations": gw.stats.gateway_migrations,
+            "streams_equal": {o.request_id: o.tokens == oracle[o.request_id]
+                              for o in outs},
+            "finish_reasons": sorted({o.finish_reason for o in outs})}
+    result["route_launches"]["gateway_kill"] = _route_counts(attn)
+    result["gateway_kill"] = kill
+    check(len(outs) == len(greedy) and all(kill["streams_equal"].values())
+          and kill["gateway_migrations"] >= 1
+          and kill["finish_reasons"] == ["length"],
+          f"R2 gateway kill: {kill}")
+    for e in fleet:
+        _clean_after(e, "R2 gateway kill")
+
+    # drain_replica mid-decode: decoding requests move by shipped pages.
+    _zero_counts(attn)
+    fleet = _f32_fleet(model, dev, 2)
+    gw = ServeGateway(fleet)
+    for r in _copy(greedy[:4]):
+        gw.submit(r)
+    outs = []
+    while fleet[0].stats.steps < 2:      # r0 decoding: pages to ship
+        outs.extend(gw.step())
+    gw.drain_replica("r0")
+    outs.extend(gw.run())
+    s = gw.stats
+    drain = {"exports": sum(e.stats.disagg_exports for e in fleet),
+             "imports": sum(e.stats.disagg_imports for e in fleet),
+             "gateway_migrations": s.gateway_migrations,
+             "streams_equal": {o.request_id: o.tokens == oracle[o.request_id]
+                               for o in outs}}
+    result["route_launches"]["gateway_drain"] = _route_counts(attn)
+    result["gateway_drain"] = drain
+    check(drain["exports"] == drain["imports"] >= 1
+          and len(outs) == 4 and all(drain["streams_equal"].values()),
+          f"R2 drain: {drain}")
+    for e in fleet:
+        _clean_after(e, "R2 gateway drain")
+    routes = result["route_launches"]
+    check(all(v["tf32x3"] > 0 and v["decode"] == v["prefill"] == v["split"]
+              == v["int8"] == 0 for v in routes.values()),
+          f"R2 launches by run {routes}: every paged launch on tf32x3")
+    result["since_start_s"] = time.perf_counter() - started
+    log(result)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _r3(dev, started):
+    """R3: the chaos soak over the serve CLI's tiny preset (f32, head_dim
+    16) on the card, as a gateway of two replicas and as one prefill and
+    two decode engines, at ``R_STORM``'s seed."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+    from k8s_distributed_deeplearning_torch.serve import storm
+
+    attn = paged_attn.paged_decode_attention
+    cfg = llama.config_tiny(max_seq_len=512, dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    out = {"phase": "R3", "model": "config_tiny (the serve CLI's tiny "
+           "preset, head_dim 16)", "dtype": "float32"}
+    fired = set()
+    for topo, prefill in (("gateway", 0), ("disagg", 1)):
+        scfg = storm.StormConfig(prefill=prefill, vocab=cfg.vocab_size,
+                                 **R_STORM)
+
+        def make(i, **kw):
+            return ServeEngine(model, num_slots=4, max_queue=scfg.max_queue,
+                               tenants=scfg.tenant_configs(), device=dev,
+                               replica_id=f"s{i}" if i >= 0 else "oracle",
+                               **kw)
+
+        _zero_counts(attn)
+        t0 = time.perf_counter()
+        rep = storm.run_storm(scfg, make_engine=make,
+                              make_prefill_engine=lambda i: make(
+                                  i, prefill_only=True))
+        torch.cuda.synchronize()
+        doc = rep.to_dict()
+        doc.pop("plan_json")
+        doc["fired"] = {f"{s}:{a}": sum(1 for x in rep.fired
+                                        if x == (s, a))
+                        for s, a in sorted(set(rep.fired))}
+        routes = _route_counts(attn)
+        routes["small"] = attn.launches_small
+        out[topo] = {**doc, "wall_s": time.perf_counter() - t0,
+                     "route_launches": routes}
+        fired |= set(rep.distinct_sites)
+        check(rep.violations == [] and rep.parity_checked > 0
+              and rep.submitted == rep.finished > 0,
+              f"R3 {topo}: {rep.violations[:3]}, parity checked "
+              f"{rep.parity_checked}")
+        check(routes["tf32x3"] == routes["small"] > 0
+              and routes["split"] == 0,
+              f"R3 {topo} launches by route {routes}: every one on tf32x3 "
+              "at head_dim 16")
+    check({"serve_decode", "gateway_dispatch"} <= fired,
+          f"R3: faults fired at {sorted(fired)}")
+    out["since_start_s"] = time.perf_counter() - started
+    log(out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _r4(dev, started, tmp: Path):
+    """R4: the train CLI's tiny preset takes 2 steps on the card (its own
+    process, as a user runs it) and writes a checkpoint;
+    ``examples/generate_llama_torch.py`` generates from it; its tokens
+    equal ``generate`` on the restored params."""
+    import argparse
+    import importlib.util
+    import io
+    from contextlib import redirect_stdout
+
+    from k8s_distributed_deeplearning_torch.models import generate, llama
+    from k8s_distributed_deeplearning_torch.train import cli as train_cli
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+
+    ck = str(tmp / "r4_checkpoints")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_distributed_deeplearning_torch.train",
+         "--preset", "tiny", "--num-steps", "2", "--batch-size", "4",
+         "--seq-len", "64", "--checkpoint-dir", ck, "--no-eval"],
+        cwd=str(REPO), capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    check(proc.returncode == 0, f"R4 train CLI exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    train_s = time.perf_counter() - t0
+    spec = importlib.util.spec_from_file_location(
+        "generate_llama_torch", REPO / "examples" / "generate_llama_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with redirect_stdout(io.StringIO()):
+        got = example.main(["--checkpoint-dir", ck, "--max-new-tokens",
+                            str(R_GEN_NEW)])
+    params, step = Checkpointer(ck).restore_params(device=dev)
+    cfg = train_cli.build_config(argparse.Namespace(
+        preset="tiny", seq_len=None, dtype="float32", remat=False,
+        attention="xla"))
+    model = llama.LlamaLM(cfg, device=dev)
+    model.load_state_dict(params, strict=False)
+    want = generate.generate(model, torch.zeros((1, 1), dtype=torch.int32),
+                             max_new_tokens=R_GEN_NEW)[0].tolist()
+    out = {"phase": "R4", "checkpoint_step": step,
+           "example_step": got["step"], "train_s": train_s,
+           "tokens": got["tokens"], "tokens_equal": got["tokens"] == want,
+           "since_start_s": time.perf_counter() - started}
+    log(out)
+    check(step == got["step"] == 2 and len(got["tokens"]) == R_GEN_NEW
+          and got["tokens"] == want,
+          f"R4: the example's tokens differ from generate: {out}")
+    return out
+
+
+def phase_r(dev, b_streams, b_logits, started, tmp: Path):
+    """The serving engine's in-process scale-out surface on the card: R1
+    disaggregated serving at full 8B, R2 the f32 exact gates of shipping,
+    hop and failover, R3 the chaos soak, R4 the generate example."""
+    return {"r1": _r1(dev, b_streams, b_logits, started),
+            "r2": _r2(dev, started), "r3": _r3(dev, started),
+            "r4": _r4(dev, started, tmp)}
 
 
 # ------------------------------------------------------------- phase L/M
@@ -4305,8 +4765,26 @@ def _p_launches(p_result, route) -> dict:
     return {k: v[route] for k, v in paths.items()}
 
 
+def _r_launches(r_result, route, small) -> dict:
+    """Phase R's launches of one route, by sub-run (each counted from 0):
+    R1 by engine, R2 by run, R3 by topology. Only R3 runs at head_dim 16
+    (the tiny preset in f32, its launches counted in ``small``), so the
+    head_dim-16/32 entries take those and the others the rest."""
+    runs = {f"R1 {rid}": v for rid, v in
+            r_result["r1"]["route_launches"].items()}
+    runs.update({f"R2 {k}": v for k, v in
+                 r_result["r2"]["route_launches"].items()})
+    runs.update({f"R3 {topo}": r_result["r3"][topo]["route_launches"]
+                 for topo in ("gateway", "disagg")})
+    out = {}
+    for name, v in runs.items():
+        part = v.get("small", 0) if route == "tf32x3" else 0
+        out[name] = part if small else v[route] - part
+    return out
+
+
 def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
-                   k_result, p_result, verify_cases):
+                   k_result, p_result, verify_cases, r_result):
     """Kernel-line entries of the paged kernels, by kernel, head dims and
     branch. The decode kernel's representative case at head_dim 64/128 is
     decode in bf16, the prefill kernel's 512 queries at offset 1024 in
@@ -4321,7 +4799,10 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
     representative), with its launches in those runs: 0. Each fp entry of
     a head_dim 64/128 kernel also carries phase P's launches by path (the
     prefix cache, the speculative runs; for tf32x3 its f32 exact gates);
-    P's verify windows join the entry of their route and branch."""
+    P's verify windows join the entry of their route and branch. Each fp
+    entry carries phase R's launches by sub-run (``launches_r``): the
+    disaggregated engines (R1), the f32 fleet runs (R2), the soak (R3);
+    the int8 entries none (R serves fp pools)."""
     out = []
     keys = ("case", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -4397,6 +4878,9 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
                     if k in c} for c in mine]})
             if not int8 and not small:
                 out[-1]["launches_p"] = _p_launches(p_result, route)
+            out[-1]["launches_r"] = (
+                {} if int8 else _r_launches(r_result, route, small))
+            out[-1]["launches_in"] += "; R by sub-run in launches_r"
             if not small:
                 out[-1]["cases"] += [
                     {k: c[k] for k in keys + extra + (
@@ -4513,11 +4997,14 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     cases = timed("A", phase_a, dev, flush)
     int8_cases = timed("A_int8", phase_a_int8, dev, flush)
-    b, b_streams = timed("B", phase_b, dev)
+    b, b_streams, b_logits = timed("B", phase_b, dev)
     j = timed("J", phase_j, dev, b_streams)
     c = timed("C", phase_c, dev)
     k = timed("K", phase_k, dev)
     p, verify = timed("P", phase_p, dev, flush)
+    with tempfile.TemporaryDirectory() as tmp:
+        r = timed("R", phase_r, dev, b_streams, b_logits, started,
+                  Path(tmp))
     timed("L", phase_l, dev)
     flash_rows = timed("D", phase_d, dev, flush)
     gmm_rows = timed("G", phase_g, dev, flush)
@@ -4537,7 +5024,7 @@ def main() -> int:
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,
-                                   verify)
+                                   verify, r)
          + _flash_entries(flash_rows, e, f, q)
          + _gmm_entries(gmm_rows, h, i, m)})
     log({"ok": True, "device": {"platform": "gpu",

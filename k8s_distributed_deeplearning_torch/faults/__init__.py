@@ -1,0 +1,26 @@
+"""Deterministic fault injection: the port's own copy of
+``k8s_distributed_deeplearning_tpu/faults/``.
+
+A plan's JSON and its validation equal the JAX package's, so one plan file
+drives both packages. The serving sites have callers in the port
+(``serve_decode`` in ``serve/engine.py``, ``gateway_dispatch`` in
+``serve/gateway.py``, ``transport_pages`` on the in-process KV shipping
+path of ``serve/disagg.py``); the training, executor, wire-transport and
+autoscale sites validate but have no caller yet (ROADMAP.md).
+"""
+
+from k8s_distributed_deeplearning_torch.faults.inject import (  # noqa: F401
+    ATTEMPT_ENV,
+    FAULT_PLAN_ENV,
+    FaultInjector,
+    activate,
+    active,
+    add_fire_hook,
+    deactivate,
+)
+from k8s_distributed_deeplearning_torch.faults.plan import (  # noqa: F401
+    ACTIONS,
+    SITES,
+    Fault,
+    FaultPlan,
+)

@@ -15,14 +15,66 @@ random prefix before every prompt (the prefix cache's workload,
 ``--prefix-cache-mb``); ``--tenants`` assigns the requests to the
 configured tenants in turn. Weights are random, drawn from ``--seed`` (the
 draft's from ``--seed + 1``), as in the JAX CLI's presets. Runs on the GPU
-unless ``--device cpu`` is given. Of the JAX CLI's flags this has the
-single engine's: no replicas, gateway, transport, tensor parallelism,
-tracing or autoscaling.
+unless ``--device cpu`` is given.
+
+The in-process fleet: ``--replicas N`` runs N engines on one shared model
+behind the failover gateway (``serve/gateway.py``, ``--hedge-after-s``);
+``--disagg-prefill N`` puts N prefill-only engines in front of them
+through the ``DisaggCoordinator`` (``serve/disagg.py``). ``--flight-ring``
+keeps a flight recorder over every engine and the gateway
+(``--flight-dir`` for its dumps). SIGTERM drains every replica: the
+unsubmitted tail is shed, what the fleet holds finishes, one
+``replica_drained`` line a replica, exit 0. Not ported yet, and raising:
+tensor parallelism (``--tp``), the wire transport (``--replica-server``,
+``--replica-endpoints``, ``--replica-discovery-dir``,
+``--prefill-endpoints``, ``--role``) and the autoscaler
+(``--autoscale*``); nor tracing.
 """
 from __future__ import annotations
 
 import argparse
 import os
+
+_UNPORTED = (
+    ("tp", "--tp", "tensor-parallel serving"),
+    ("replica_server", "--replica-server", "the wire transport "
+     "(serve/transport.py)"),
+    ("replica_endpoints", "--replica-endpoints", "the wire transport "
+     "(serve/transport.py)"),
+    ("replica_discovery_dir", "--replica-discovery-dir", "the wire "
+     "transport (serve/transport.py)"),
+    ("prefill_endpoints", "--prefill-endpoints", "the wire transport "
+     "(serve/transport.py)"),
+    ("role", "--role", "the replica server (serve/transport.py)"),
+    ("autoscale", "--autoscale", "the autoscaler (serve/autoscale.py)"),
+    ("autoscale_min", "--autoscale-min", "the autoscaler "
+     "(serve/autoscale.py)"),
+    ("autoscale_max", "--autoscale-max", "the autoscaler "
+     "(serve/autoscale.py)"),
+    ("autoscale_interval_s", "--autoscale-interval-s", "the autoscaler "
+     "(serve/autoscale.py)"),
+    ("autoscale_up_cooldown_s", "--autoscale-up-cooldown-s", "the "
+     "autoscaler (serve/autoscale.py)"),
+    ("autoscale_down_cooldown_s", "--autoscale-down-cooldown-s", "the "
+     "autoscaler (serve/autoscale.py)"),
+    ("autoscale_brownout", "--autoscale-brownout", "the autoscaler "
+     "(serve/autoscale.py)"),
+    ("autoscale_k8s_job", "--autoscale-k8s-job", "the autoscaler "
+     "(serve/autoscale.py)"),
+    ("autoscale_k8s_namespace", "--autoscale-k8s-namespace", "the "
+     "autoscaler (serve/autoscale.py)"),
+    ("autoscale_endpoint_template", "--autoscale-endpoint-template", "the "
+     "autoscaler (serve/autoscale.py)"),
+)
+
+
+def _unported(args) -> None:
+    """Raise for a JAX CLI flag whose subsystem the port lacks yet."""
+    for attr, flag, what in _UNPORTED:
+        if getattr(args, attr) not in (None, False, 0):
+            raise NotImplementedError(
+                f"{flag}: {what} is not ported to PyTorch yet "
+                "(ROADMAP.md)")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -34,6 +86,48 @@ def main(argv: list[str] | None = None) -> int:
                          "of width 768 in bf16")
     ap.add_argument("--max-seq-len", type=int, default=512)
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run this many in-process engine replicas on one "
+                         "shared model behind the failover gateway "
+                         "(serve/gateway.py): health-routed dispatch, "
+                         "per-replica circuit breakers, and in-flight "
+                         "migration off sick/draining replicas. 1 = a bare "
+                         "engine (no gateway)")
+    ap.add_argument("--hedge-after-s", type=float, default=None,
+                    metavar="S",
+                    help="gateway only: duplicate a request's dispatch on "
+                         "a second replica when its first token is still "
+                         "missing after S seconds (first stream wins, "
+                         "loser is cancelled); omitted = no hedging")
+    ap.add_argument("--disagg-prefill", type=int, default=0, metavar="N",
+                    help="in-process disagg: run N prefill-only engines "
+                         "in front of the --replicas decode engines and "
+                         "route through the DisaggCoordinator (0 = off)")
+    ap.add_argument("--flight-ring", type=int, default=0, metavar="N",
+                    help="black-box flight recorder: keep the last N "
+                         "per-step engine/gateway snapshots in memory and "
+                         "dump them as JSONL on breaker trip, drain "
+                         "completion, SIGTERM or injected fault (0 = off)")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="directory for flight-recorder dump files "
+                         "(requires --flight-ring; omitted = dumps stay "
+                         "in memory)")
+    for flag, kind in (("--tp", int), ("--replica-endpoints", str),
+                       ("--replica-discovery-dir", str),
+                       ("--prefill-endpoints", str), ("--role", str),
+                       ("--autoscale-min", int), ("--autoscale-max", int),
+                       ("--autoscale-interval-s", float),
+                       ("--autoscale-up-cooldown-s", float),
+                       ("--autoscale-down-cooldown-s", float),
+                       ("--autoscale-brownout", str),
+                       ("--autoscale-k8s-job", str),
+                       ("--autoscale-k8s-namespace", str),
+                       ("--autoscale-endpoint-template", str)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help="not ported yet: raises when given")
+    for flag in ("--replica-server", "--autoscale"):
+        ap.add_argument(flag, action="store_true",
+                        help="not ported yet: raises when given")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission queue bound (default: --requests)")
@@ -90,6 +184,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    _unported(args)
     p_lo, p_hi = args.prompt_len
     o_lo, o_hi = args.out_len
     if args.prefix_cache_mb < 0:
@@ -104,6 +199,11 @@ def main(argv: list[str] | None = None) -> int:
                  f"--spec-k {args.spec_k})")
     if args.spec_k < 0:
         ap.error(f"--spec-k must be >= 1 (0 = off), got {args.spec_k}")
+    if args.replicas < 1:
+        ap.error(f"--replicas must be >= 1, got {args.replicas}")
+    if args.disagg_prefill < 0:
+        ap.error(f"--disagg-prefill must be >= 0, got "
+                 f"{args.disagg_prefill}")
     if args.shared_prefix_len + p_hi + o_hi > args.max_seq_len:
         ap.error(f"shared-prefix-len ({args.shared_prefix_len}) + "
                  f"prompt-len hi ({p_hi}) + out-len hi ({o_hi}) exceeds "
@@ -117,11 +217,14 @@ def main(argv: list[str] | None = None) -> int:
         except (OSError, ValueError) as e:
             ap.error(f"--tenants: {e}")
 
+    import signal
+    from collections import deque
+
     import numpy as np
     import torch
 
     from k8s_distributed_deeplearning_torch.models import llama
-    from k8s_distributed_deeplearning_torch.serve import (Request,
+    from k8s_distributed_deeplearning_torch.serve import (QueueFull, Request,
                                                           SamplingParams,
                                                           ServeEngine)
     from k8s_distributed_deeplearning_torch.utils.metrics import (
@@ -134,6 +237,7 @@ def main(argv: list[str] | None = None) -> int:
     else:
         cfg = llama.config_tiny(max_seq_len=args.max_seq_len,
                                 dtype=torch.float32)
+    # One model, its weights held once, for every engine of the fleet.
     model = llama.LlamaLM(cfg, device=args.device, seed=args.seed)
     draft = None
     if args.draft_model is not None:
@@ -150,33 +254,101 @@ def main(argv: list[str] | None = None) -> int:
                 vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
                 dtype=cfg.dtype)
         draft = llama.LlamaLM(dcfg, device=args.device, seed=args.seed + 1)
+    logger = MetricsLogger(job="serve", path=args.metrics_path)
+    flight = None
+    if args.flight_ring:
+        from k8s_distributed_deeplearning_torch.telemetry.flight import (
+            FlightRecorder)
+        # ONE recorder shared by every replica and the gateway: a dump is
+        # the whole process's flight path, sources interleaved.
+        flight = FlightRecorder(args.flight_ring, dump_dir=args.flight_dir,
+                                logger=logger, job="serve")
+    # ONE ServingStats shared by every engine and the front, so the
+    # summary is the fleet's.
     stats = ServingStats()
-    engine = ServeEngine(
-        model, num_slots=args.slots,
-        max_queue=args.max_queue or args.requests, eos_id=args.eos_id,
-        prefill_chunk_tokens=args.prefill_chunk_tokens or None,
-        prefix_cache_mb=args.prefix_cache_mb or None,
-        kv_pool_pages=args.kv_pool_pages or None, tenants=tenant_cfgs,
-        stats=stats, device=args.device, draft_model=draft,
-        spec_k=args.spec_k, kv_quant=args.kv_quant,
-        weight_quant=args.weight_quant)
+
+    def make_engine(**kw):
+        return ServeEngine(
+            model, num_slots=args.slots,
+            max_queue=args.max_queue or args.requests, eos_id=args.eos_id,
+            prefill_chunk_tokens=args.prefill_chunk_tokens or None,
+            prefix_cache_mb=args.prefix_cache_mb or None,
+            kv_pool_pages=args.kv_pool_pages or None, tenants=tenant_cfgs,
+            stats=stats, device=args.device, kv_quant=args.kv_quant,
+            weight_quant=args.weight_quant, flight=flight,
+            request_log=logger, **kw)
+
+    engines = [make_engine(draft_model=draft, spec_k=args.spec_k,
+                           replica_id=(f"r{i}" if args.replicas > 1
+                                       else None))
+               for i in range(args.replicas)]
+    engine = engines[0]
+    front = engine
+    if args.disagg_prefill:
+        from k8s_distributed_deeplearning_torch.serve.disagg import (
+            DisaggCoordinator, PrefillWorker)
+        front = DisaggCoordinator(
+            engines, [PrefillWorker(make_engine(prefill_only=True,
+                                                replica_id=f"p{i}"))
+                      for i in range(args.disagg_prefill)],
+            stats=stats, logger=logger)
+    elif args.replicas > 1:
+        from k8s_distributed_deeplearning_torch.serve.gateway import (
+            ServeGateway)
+        front = ServeGateway(engines, stats=stats, logger=logger,
+                             hedge_after_s=args.hedge_after_s,
+                             flight=flight)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size, size=args.shared_prefix_len)
     tenant_ids = engine.queue.tenant_ids()
-    reqs = []
+    feed = deque()
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=int(rng.integers(p_lo, p_hi + 1)))
-        reqs.append(Request(prompt=np.concatenate([shared, prompt]).astype(
+        feed.append(Request(prompt=np.concatenate([shared, prompt]).astype(
                                 np.int32),
                             max_new_tokens=int(rng.integers(o_lo, o_hi + 1)),
                             sampling=sampling, seed=args.seed + i,
                             tenant=tenant_ids[i % len(tenant_ids)]))
-    logger = MetricsLogger(job="serve", path=args.metrics_path)
-    for out in engine.run(reqs):
-        logger.emit("serve_request", request_id=out.request_id,
+
+    # SIGTERM -> cooperative drain -> exit 0. The handler only flips drain
+    # mode; the loop below sheds the unsubmitted tail and steps until
+    # everything held has finished.
+    drain_requested = False
+
+    def _on_sigterm(signum, frame):
+        nonlocal drain_requested
+        drain_requested = True
+        if flight is not None:
+            flight.dump("sigterm")
+        if not args.disagg_prefill:
+            # Coordinator mode only stops feeding: draining the decode
+            # engines would strand pages the prefill workers export.
+            for e in engines:
+                e.drain()
+
+    try:
+        previous = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        previous = None          # not the main thread: no handler
+    try:
+        while feed or front.busy():
+            if drain_requested and feed:
+                feed.clear()     # draining: the unsubmitted tail is shed
+            while feed:
+                try:
+                    front.submit(feed[0])
+                except QueueFull:
+                    logger.emit("sched_shed", tenant=feed[0].tenant,
+                                request_id=feed[0].request_id,
+                                retried=True)
+                    break
+                feed.popleft()
+            for out in front.step():
+                logger.emit(
+                    "serve_request", request_id=out.request_id,
                     prompt_len=out.prompt_len, new_tokens=len(out.tokens),
                     finish_reason=out.finish_reason,
                     cached_prompt_tokens=out.cached_prompt_tokens,
@@ -184,6 +356,14 @@ def main(argv: list[str] | None = None) -> int:
                     ttft_ms=(round(out.ttft_s * 1e3, 3)
                              if out.ttft_s is not None else None),
                     latency_ms=round(out.latency_s * 1e3, 3))
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+    if drain_requested:
+        for e in engines:
+            logger.emit("replica_drained",
+                        replica=e.replica_id if e.replica_id is not None
+                        else "r0")
     summ = stats.summary()
     if args.spec_k:
         logger.emit("spec_summary", draft=args.draft_model,
@@ -193,14 +373,16 @@ def main(argv: list[str] | None = None) -> int:
                     spec_acceptance_rate=summ["spec_acceptance_rate"],
                     spec_accept_hist=summ["spec_accept_hist"])
     if tenant_cfgs is not None:
-        for tid, t in engine.queue.snapshot()["tenants"].items():
-            logger.emit("sched_tenant_summary", tenant=tid, **t)
+        for e in engines:
+            for tid, t in e.queue.snapshot()["tenants"].items():
+                logger.emit("sched_tenant_summary", tenant=tid,
+                            replica=e.replica_id, **t)
     if args.kv_quant or args.weight_quant:
         logger.emit("quant_summary", kv_quant=args.kv_quant,
                     weight_quant=args.weight_quant,
                     kv_quant_bytes_saved=summ["kv_quant_bytes_saved"],
                     weight_quant_bytes_saved=summ["weight_quant_bytes_saved"])
     logger.emit("serve_summary", num_slots=args.slots, preset=args.preset,
-                replicas=1, device=str(engine.device), **summ)
+                replicas=args.replicas, device=str(engine.device), **summ)
     logger.close()
     return 0

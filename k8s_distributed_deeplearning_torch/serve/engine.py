@@ -49,9 +49,21 @@ JAX engine runs its compiled programs.
   KV pages with per-token-per-head f32 scales, read by the int8 branch of
   the paged-attention kernels; per-channel int8 matmul weights
   (``serve/quant.py``), dequantized at use.
+- KV page shipping (``serve/disagg.py``, ``serve/gateway.py``): a slot's
+  written pages move BY VALUE between engines. :meth:`export_request_kv`
+  gathers them by index on the device and makes one host copy a pool
+  tensor; :meth:`import_request_kv` copies them in and scatters them with
+  ``index_copy_`` into fresh pages tagged ``imported``, and decode resumes
+  from the shipped cursor with the request's generator state. A
+  ``prefill_only`` engine exports every slot the step its admission
+  completes (:meth:`take_exports`) and never decodes.
+- Observability: ``replica_id`` names the engine in its messages and
+  events; ``flight`` (``telemetry/flight.py``) takes a snapshot a step and
+  dumps on a finished drain, a leak or an injected fault; the
+  ``serve_decode`` fault site fires before each decode launch; a leak
+  check emits ``kv_page_leak`` on ``request_log``.
 
-Not ported yet: tensor parallelism, KV export/import, the prefill-only
-role, the flight recorder, request traces and fault sites.
+Not ported yet: tensor parallelism and request traces.
 """
 from __future__ import annotations
 
@@ -63,12 +75,13 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from k8s_distributed_deeplearning_torch import faults as _faults
 from k8s_distributed_deeplearning_torch.models import generate
 from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
 from k8s_distributed_deeplearning_torch.serve.page_pool import PagePool
 from k8s_distributed_deeplearning_torch.serve.prefix_cache import PrefixCache
 from k8s_distributed_deeplearning_torch.serve.request import (
-    EngineDraining, QueueFull, Request, RequestOutput)
+    EngineDraining, QueueFull, Request, RequestOutput, SamplingParams)
 from k8s_distributed_deeplearning_torch.serve.sched import (
     TenantConfig, TenantScheduler)
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
@@ -108,7 +121,7 @@ class _InFlight:
 
     __slots__ = ("req", "tokens", "t_submit", "t_admit", "t_first",
                  "cached_prompt_tokens", "prefill_chunks", "grow_left",
-                 "spec_proposed", "spec_accepted")
+                 "spec_proposed", "spec_accepted", "imported")
 
     def __init__(self, req: Request, first_token: int, t_admit: float,
                  t_first: float, prefill_chunks: int, grow_left: int,
@@ -123,6 +136,9 @@ class _InFlight:
         self.grow_left = grow_left   # reserved-but-unallocated decode pages
         self.spec_proposed = 0       # draft tokens proposed for the request
         self.spec_accepted = 0       # draft tokens accepted AND emitted
+        # Adopted by import_request_kv: it never popped this engine's
+        # queue, so no scheduler slot is owed back.
+        self.imported = False
 
 
 class _PendingPrefill:
@@ -194,7 +210,17 @@ class ServeEngine:
     (:func:`serve.quant.quantize_model`, one scale per channel shared
     across layers, as the JAX engine's scanned params): the fp weights are
     gone afterwards. Both modes change the models themselves, where the
-    JAX engine clones its models and keeps their params.
+    JAX engine clones its models and keeps their params. Engines may share
+    one model (its weights held once, as the JAX engines share
+    ``params``), and then share its modes: a model already quantized is
+    not quantized again, and an engine asking for fp weights or fp KV of a
+    model set to int8 raises.
+
+    ``replica_id`` names the engine in a fleet; ``prefill_only`` makes it
+    a disaggregated prefill worker (its admitted slots are exported, see
+    :meth:`take_exports`; not with ``spec_k``); ``flight`` is a
+    :class:`telemetry.flight.FlightRecorder`; ``request_log`` a
+    ``MetricsLogger``-shaped ``emit`` target for ``kv_page_leak``.
     """
 
     def __init__(self, model, *, num_slots: int = 8, max_queue: int = 256,
@@ -209,7 +235,10 @@ class ServeEngine:
                  device: str | torch.device = "cuda",
                  draft_model=None, spec_k: int = 0,
                  kv_quant: str | None = None,
-                 weight_quant: str | None = None):
+                 weight_quant: str | None = None,
+                 replica_id: str | None = None,
+                 prefill_only: bool = False,
+                 flight=None, request_log=None):
         dev = resolve_device(device)
         if num_slots < 2:
             raise ValueError(f"num_slots must be >= 2, got {num_slots}")
@@ -243,6 +272,12 @@ class ServeEngine:
                 "speculative decoding needs BOTH a draft model and "
                 f"spec_k >= 1 (got draft_model={draft_model!r}, "
                 f"spec_k={spec_k})")
+        if prefill_only and spec_k:
+            raise ValueError(
+                "prefill_only is incompatible with speculative decoding "
+                "(spec_k > 0): exported KV blobs carry only the target "
+                "arena, and a prefill worker never decodes — run the "
+                "draft on the decode workers instead")
         if draft_model is not None:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -258,6 +293,19 @@ class ServeEngine:
                     f"max_seq_len ({cfg.max_seq_len}) — the draft cache "
                     "shares the target's block tables and must cover every "
                     "position")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            if m is None:
+                continue
+            if kv_quant is None and m.cfg.kv_quant is not None:
+                raise ValueError(
+                    f"{what} is set to kv_quant={m.cfg.kv_quant!r} (an "
+                    "engine on the same model asked for it): engines "
+                    "sharing a model share its kv_quant")
+            if weight_quant is None and quant_lib.is_quantized(m):
+                raise ValueError(
+                    f"{what}'s weights are int8 (an engine on the same "
+                    "model quantized them): engines sharing a model share "
+                    "its weight_quant")
         self.model = model
         self.draft_model = draft_model
         self.spec_k = int(spec_k)
@@ -274,6 +322,17 @@ class ServeEngine:
         self.queue = TenantScheduler(tenants, default_max_queue=max_queue)
         self._draining = False
         self._drain_finalized = False
+        self.replica_id = replica_id
+        self.request_log = request_log
+        self.flight = flight
+        self._last_decode_ms: float | None = None
+        self._last_prefill_ms: float | None = None
+        if flight is not None:
+            # Dump the ring when a fault fires anywhere in the process,
+            # before the fault's action runs (weakly held).
+            _faults.add_fire_hook(self)
+        self.prefill_only = bool(prefill_only)
+        self._exports: list[dict] = []
         bt = (prefix_block_tokens if prefix_block_tokens is not None
               else min_bucket)
         if bt < 1 or bt > self.max_seq_len:
@@ -305,9 +364,10 @@ class ServeEngine:
                                                     kv_quant=kv_quant))
         weight_saved = 0
         if weight_quant == "int8":
-            fp_nbytes = quant_lib.params_nbytes(model)
+            fp_nbytes = quant_lib.fp_nbytes(model)
             for m in models:
-                quant_lib.quantize_model(m)
+                if not quant_lib.is_quantized(m):   # shared, done already
+                    quant_lib.quantize_model(m)
             weight_saved = fp_nbytes - quant_lib.quantized_nbytes(model)
         self._cache = self._init_pool(model.cfg)
         self._draft_cache = (self._init_pool(draft_model.cfg)
@@ -406,8 +466,8 @@ class ServeEngine:
         kept and its tenant's rate and round-robin cost already paid."""
         if self._draining:
             raise EngineDraining(
-                f"engine is draining — admitting nothing new "
-                f"(request {req.request_id})")
+                f"engine{self._named()} is draining — admitting nothing "
+                f"new (request {req.request_id})")
         n = len(req.prompt)
         if n < 1:
             raise ValueError("empty prompt")
@@ -434,9 +494,13 @@ class ServeEngine:
             self.queue.submit(req)
         return req.request_id
 
+    def _named(self) -> str:
+        return f" {self.replica_id!r}" if self.replica_id else ""
+
     def busy(self) -> bool:
-        """True while queued requests, prefills or occupied slots remain."""
-        return bool(len(self.queue) or self._pending
+        """True while queued requests, prefills, occupied slots or (on a
+        prefill-only engine) exports not yet taken remain."""
+        return bool(len(self.queue) or self._pending or self._exports
                     or any(s is not None for s in self._slots))
 
     def occupied_slots(self) -> int:
@@ -491,6 +555,286 @@ class ServeEngine:
                 return self._finish(slot, reason)
         return None
 
+    # ---------------------------------------------- KV page shipping API
+    # A request's KV pages move BY VALUE between engines: a gather by page
+    # index on the device and one host copy a pool tensor on the exporter,
+    # a copy in and an ``index_copy_`` into fresh pages on the importer.
+    # The pools never share device memory, and the blob survives the
+    # exporter (the wire codec is serve/disagg.py's). Works at any decode
+    # cursor: the prefill->decode handoff exports right after admission,
+    # the gateway's drain path mid-decode.
+    #
+    # Blob layout (the port's own; a JAX engine's blob does not import):
+    # ``pages`` is one host array a pool tensor, in the order of
+    # ``self._cache`` flattened: layer 0's (pool_k, pool_v) or, under int8
+    # KV, (pool_k, pool_v, k_scale, v_scale), then layer 1's, ...; each
+    # holds the slot's ``n_pages`` written pages in table order,
+    # ``[n_pages, page_tokens, ...]``. bf16 pages travel as their raw
+    # int16 view (numpy has no bfloat16); ``page_dtypes`` names each
+    # tensor's torch dtype. ``generator_state`` is the slot's
+    # ``torch.Generator.get_state()`` (uint8; None for a greedy request)
+    # and ``generator_device`` the device type it was drawn on.
+
+    def take_exports(self) -> list[dict]:
+        """Hand over (and clear) the export blobs a prefill-only engine
+        staged: the coordinator's pickup after each :meth:`step`."""
+        out, self._exports = self._exports, []
+        return out
+
+    def export_request_kv(self, request_id: str) -> dict:
+        """Stage an occupied slot's KV state on the host and release the
+        slot WITHOUT finishing the request: it continues on whichever
+        engine imports the blob. The blob carries what the decode needs
+        to resume the same stream: prompt and emitted tokens, the KV
+        cursor, the next input token, the sampling registers and the
+        generator state, and the written pages of every pool tensor by
+        value. Raises KeyError for a request not in a decode slot (queued
+        or mid-prefill requests have nothing worth shipping) and
+        ValueError on a speculative engine (the draft arena is not
+        shipped)."""
+        if self.spec_k:
+            raise ValueError(
+                "export_request_kv on a speculative engine: the draft "
+                "arena's KV is not shipped, so the import side could not "
+                "verify drafts — disable spec_k or migrate by token "
+                "resubmission instead")
+        slot = next((i for i, fl in enumerate(self._slots)
+                     if fl is not None
+                     and fl.req.request_id == request_id), None)
+        if slot is None:
+            raise KeyError(
+                f"request {request_id!r} does not occupy a decode slot "
+                "(only admitted requests have KV pages to export)")
+        fl = self._slots[slot]
+        req, sp = fl.req, fl.req.sampling
+        kv_len = int(self._kv_lens[slot])
+        nb = -(-kv_len // self.page_tokens)
+        idx = self._host_to_device(self._tables[slot, :nb].astype(np.int64))
+        staged, dtypes = [], []
+        for t in self._pool_tensors():
+            rows = t.index_select(0, idx)
+            if rows.dtype == torch.bfloat16:
+                rows = rows.view(torch.int16)
+            staged.append(rows.cpu().numpy())
+            dtypes.append(str(t.dtype).removeprefix("torch."))
+        gen = self._gens[slot]
+        blob = {
+            "request_id": req.request_id,
+            "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            "emitted": [int(t) for t in fl.tokens],
+            "kv_len": kv_len,
+            "next_token": int(self._tokens[slot]),
+            "generator_state": (gen.get_state().numpy().copy()
+                                if gen is not None else None),
+            "generator_device": (self.device.type if gen is not None
+                                 else None),
+            "temperature": float(sp.temperature),
+            "top_k": int(sp.top_k),
+            "top_p": float(sp.top_p),
+            "seed": int(req.seed),
+            "tenant": req.tenant,
+            "deadline_s": req.deadline_s,
+            "trace_id": req.trace_id,
+            "t_submit": fl.t_submit,
+            "t_admit": fl.t_admit,
+            "t_first": fl.t_first,
+            "cached_prompt_tokens": fl.cached_prompt_tokens,
+            "prefill_chunks": fl.prefill_chunks,
+            "page_tokens": self.page_tokens,
+            "n_pages": nb,
+            "kv_quant": self.kv_quant,
+            "page_dtypes": dtypes,
+            "pages": staged,
+        }
+        # Release the slot WITHOUT the terminal path: no on_finish, no
+        # completion record; the request lives on elsewhere.
+        self._clear_slot(slot)
+        self._release_slot_pages(slot, fl.grow_left)
+        if not fl.imported:
+            self.queue.release(req)
+        self.stats.record_disagg_export(
+            pages=nb, nbytes=sum(a.nbytes for a in staged))
+        self._record_pool_gauges()
+        return blob
+
+    def _pool_tensors(self) -> list[torch.Tensor]:
+        """The target arena's tensors in blob order."""
+        return [t for layer in self._cache for t in layer]
+
+    def _free_slot(self) -> int | None:
+        for slot in range(self.num_slots):
+            if self._slots[slot] is None and slot not in self._pending:
+                return slot
+        return None
+
+    def _import_need(self, blob: dict) -> tuple[int, int]:
+        """(shipped pages, growth reservation) an import costs. Growth is
+        recomputed from the request: the exporter may have claimed growth
+        pages it never wrote, and those are not shipped."""
+        nb = int(blob["n_pages"])
+        total = -(-(len(blob["prompt"]) + int(blob["max_new_tokens"]) - 1)
+                  // self.page_tokens)
+        return nb, max(0, total - nb)
+
+    def _generator_mismatch(self, blob: dict) -> bool:
+        return (blob.get("generator_state") is not None
+                and blob.get("generator_device") != self.device.type)
+
+    def can_import(self, blob: dict) -> bool:
+        """True when :meth:`import_request_kv` would succeed right now: not
+        draining, the page geometry, KV mode and generator device match, a
+        slot is free, and the pool covers the shipped pages plus the
+        remaining growth (evicting unpinned trie pages if that closes the
+        gap)."""
+        if (self._draining or self.spec_k
+                or int(blob["page_tokens"]) != self.page_tokens
+                or blob.get("kv_quant") != self.kv_quant
+                or self._generator_mismatch(blob)):
+            return False
+        if (len(blob["prompt"]) + int(blob["max_new_tokens"])
+                > self.max_seq_len):
+            return False
+        if self._free_slot() is None:
+            return False
+        nb, grow = self._import_need(blob)
+        while self.pool.available() < nb + grow:
+            if (self.prefix_cache is None
+                    or not self.prefix_cache.evict_lru_unpinned()):
+                return False
+        return True
+
+    def import_request_kv(self, blob: dict,
+                          request: Request | None = None) -> int:
+        """Adopt an exported request: allocate pages tagged ``imported``,
+        scatter the staged KV into them, install the slot's registers and
+        generator state, and resume decoding at the shipped cursor (the
+        uninterrupted stream, greedy or sampled). *request* is the live
+        Request to attach (the in-process path passes it, so streaming
+        callbacks survive the hop); None rebuilds one from the blob.
+        Emitted tokens are not fired again. Returns the slot; raises
+        EngineDraining, ValueError or RuntimeError when the blob cannot be
+        adopted here (gate with :meth:`can_import`), with the pool left as
+        it was."""
+        if self._draining:
+            raise EngineDraining(
+                f"engine{self._named()} is draining — importing nothing "
+                f"new (request {blob.get('request_id')})")
+        if self.spec_k:
+            raise ValueError(
+                "import_request_kv on a speculative engine: the blob "
+                "carries no draft-arena KV to verify drafts against")
+        if int(blob["page_tokens"]) != self.page_tokens:
+            raise ValueError(
+                f"page geometry mismatch: blob pages hold "
+                f"{blob['page_tokens']} tokens, this pool's hold "
+                f"{self.page_tokens} — disagg roles must share "
+                "prefix_block_tokens/min_bucket")
+        if blob.get("kv_quant") != self.kv_quant:
+            raise ValueError(
+                f"kv_quant mismatch: blob pages are "
+                f"{blob.get('kv_quant') or 'fp'}, this pool is "
+                f"{self.kv_quant or 'fp'} — disagg roles must share "
+                "kv_quant (pages ship as raw arena values)")
+        if self._generator_mismatch(blob):
+            raise ValueError(
+                f"generator mismatch: the blob's sampling state was drawn "
+                f"on {blob.get('generator_device')!r}, this engine draws "
+                f"on {self.device.type!r} — a generator's state does not "
+                "carry across device types")
+        emitted = [int(t) for t in blob["emitted"]]
+        if not emitted:
+            raise ValueError("blob has no emitted tokens — nothing was "
+                             "admitted, resubmit the prompt instead")
+        req = request if request is not None else _request_from_blob(blob)
+        n = len(req.prompt)
+        if self.eos_id is not None and emitted[-1] == self.eos_id:
+            raise ValueError(
+                f"request {req.request_id} already emitted EOS — it is "
+                "terminal, not importable")
+        if len(emitted) >= req.max_new_tokens:
+            raise ValueError(
+                f"request {req.request_id} already emitted "
+                f"{len(emitted)}/{req.max_new_tokens} tokens — terminal, "
+                "not importable")
+        if n + req.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({n}) + max_new_tokens ({req.max_new_tokens}) "
+                f"exceeds this engine's max_seq_len ({self.max_seq_len})")
+        slot = self._free_slot()
+        if slot is None:
+            raise RuntimeError("no free slot to import into — gate with "
+                               "can_import()")
+        nb, grow = self._import_need(blob)
+        while self.pool.available() < nb + grow:
+            if (self.prefix_cache is None
+                    or not self.prefix_cache.evict_lru_unpinned()):
+                raise RuntimeError(
+                    f"pool cannot cover import: need {nb} shipped + "
+                    f"{grow} growth pages, {self.pool.available()} "
+                    "available — gate with can_import()")
+        tensors = self._pool_tensors()
+        staged = blob["pages"]
+        if len(staged) != len(tensors):
+            raise ValueError(
+                f"blob has {len(staged)} pool tensors, this engine's pool "
+                f"has {len(tensors)} — different model geometry")
+        pages = self.pool.alloc(nb, owner="imported")
+        self.pool.reserve(grow)
+        try:
+            vals = []
+            for t, arr, name in zip(tensors, staged, blob["page_dtypes"]):
+                want = (nb,) + tuple(t.shape[1:])
+                if tuple(arr.shape) != want or name != str(
+                        t.dtype).removeprefix("torch."):
+                    raise ValueError(
+                        f"staged pool tensor {name} {tuple(arr.shape)} != "
+                        f"this pool's {t.dtype} {want} — different model "
+                        "geometry or dtype")
+                v = torch.from_numpy(np.ascontiguousarray(arr))
+                vals.append(v.view(t.dtype) if t.dtype == torch.bfloat16
+                            else v)
+            idx = self._host_to_device(np.asarray(pages, np.int64))
+            for t, v in zip(tensors, vals):
+                t.index_copy_(0, idx, v.to(self.device))
+        except Exception:
+            # Roll the allocation back before raising: a rejected import
+            # leaves the pool as it was and the engine serving.
+            for page in pages:
+                self.pool.deref(int(page))
+            self.pool.unreserve(grow)
+            raise
+        row = self._tables[slot]
+        row[:] = 0
+        row[:nb] = pages
+        now = time.perf_counter()
+        fl = _InFlight(req, emitted[0], float(blob.get("t_admit") or now),
+                       float(blob.get("t_first") or now),
+                       int(blob.get("prefill_chunks", 0)), grow,
+                       cached_prompt_tokens=int(
+                           blob.get("cached_prompt_tokens", 0)))
+        fl.tokens = emitted
+        fl.imported = True
+        fl.t_submit = float(blob.get("t_submit") or now)
+        req._t_submit = fl.t_submit
+        req._finished = False        # re-arm the exactly-once latch
+        gen = None
+        if blob.get("generator_state") is not None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(torch.from_numpy(np.asarray(
+                blob["generator_state"], np.uint8).copy()))
+        self._slots[slot] = fl
+        self._tokens[slot] = int(blob["next_token"])
+        self._kv_lens[slot] = int(blob["kv_len"])
+        self._temps[slot] = req.sampling.temperature
+        self._top_ks[slot] = req.sampling.top_k
+        self._top_ps[slot] = req.sampling.top_p
+        self._gens[slot] = gen
+        self.stats.record_disagg_import(
+            pages=nb, nbytes=sum(int(np.asarray(a).nbytes) for a in staged))
+        self._record_pool_gauges()
+        return slot
+
     def step(self) -> list[RequestOutput]:
         """One serving iteration: cancel expired requests, admit queued
         requests into free slots (page budget permitting), run at most
@@ -509,6 +853,8 @@ class ServeEngine:
             outputs.append(self._timeout_unadmitted(req))
         self.last_step_prefill_tokens = 0
         self._step_prefill_budget = self.prefill_chunk_tokens
+        flight_on = self.flight is not None and self.flight.enabled
+        t_pf = time.perf_counter() if flight_on else 0.0
         # A request that finishes AT admission frees its slot and pages for
         # the next queued one within the same iteration, budget permitting.
         while True:
@@ -516,6 +862,19 @@ class ServeEngine:
             freed = self._run_prefills(outputs)
             if not (freed and len(self.queue)):
                 break
+        if flight_on and self.last_step_prefill_tokens:
+            self._last_prefill_ms = round(
+                (time.perf_counter() - t_pf) * 1e3, 3)
+        if self.prefill_only:
+            # The prefill role: every slot that completed admission this
+            # step is exported instead of decoded (a request that finished
+            # AT admission is terminal in ``outputs`` and never ships).
+            for fl in self._slots:
+                if fl is not None:
+                    self._exports.append(
+                        self.export_request_kv(fl.req.request_id))
+            self._step_epilogue()
+            return outputs
         active = self.occupied_slots()
         if active == 0:
             self._step_epilogue()
@@ -539,10 +898,23 @@ class ServeEngine:
                 if self._tables[slot, blk] == 0:
                     self._tables[slot, blk] = self.pool.alloc_reserved(1)[0]
                     fl.grow_left -= 1
+        inj = _faults.active()
+        if inj is not None:
+            inj.fire("serve_decode")
+        t_dec = time.perf_counter() if flight_on else 0.0
         if self.spec_k:
             self._spec_decode(active, outputs)
-            self._step_epilogue()
-            return outputs
+        else:
+            self._plain_decode(active, outputs)
+        if flight_on:
+            self._last_decode_ms = round(
+                (time.perf_counter() - t_dec) * 1e3, 3)
+        self._step_epilogue()
+        return outputs
+
+    def _plain_decode(self, active: int,
+                      outputs: list[RequestOutput]) -> None:
+        """One token for every occupied slot."""
         nxt = self._decode_step()
         self.stats.record_step(active, self.num_slots)
         for slot, fl in enumerate(self._slots):
@@ -560,8 +932,6 @@ class ServeEngine:
                 outputs.append(self._finish(slot, "eos"))
             elif len(fl.tokens) >= fl.req.max_new_tokens:
                 outputs.append(self._finish(slot, "length"))
-        self._step_epilogue()
-        return outputs
 
     def _spec_decode(self, active: int,
                      outputs: list[RequestOutput]) -> None:
@@ -776,12 +1146,34 @@ class ServeEngine:
                                   by_owner=self.pool.owners_summary())
 
     def _step_epilogue(self) -> None:
-        """Every :meth:`step` return: refresh the pool gauges, and once a
-        draining engine has no work left, check it for page leaks."""
+        """Every :meth:`step` return: refresh the pool gauges, append the
+        step's flight snapshot, and once a draining engine has no work
+        left, check it for page leaks and dump the flight ring."""
         self._record_pool_gauges()
+        fr = self.flight
+        if fr is not None and fr.enabled:
+            s = self.stats
+            fr.record(
+                f"engine:{self.replica_id or 'serve'}",
+                step=s.steps,
+                queued=len(self.queue),
+                tenant_depths=self.queue.depths(),
+                pending_prefills=len(self._pending),
+                occupied_slots=self.occupied_slots(),
+                pool={"used": s.kv_pages_used, "total": s.kv_pages_total,
+                      "shared": s.kv_pages_shared,
+                      "reserved": self.pool.reserved},
+                pool_owners=dict(s.kv_pages_by_owner),
+                spec_proposed=s.spec_proposed_tokens,
+                spec_accepted=s.spec_accepted_tokens,
+                last_decode_ms=self._last_decode_ms,
+                last_prefill_ms=self._last_prefill_ms,
+                draining=self._draining)
         if self._draining and not self._drain_finalized and not self.busy():
             self._drain_finalized = True
-            self._check_page_leaks("drain")
+            leak = self._check_page_leaks("drain")
+            if fr is not None:
+                fr.dump("drain", extra=self._flight_extra(leak))
 
     def _release_trie_page(self, page: int) -> None:
         """Trie eviction: drop the trie's reference and, when a slot still
@@ -794,8 +1186,9 @@ class ServeEngine:
         """Once every request is terminal nothing is pinned: empty the
         prefix trie (a cache is retention, not a leak), then any page
         still live or reservation outstanding is an accounting leak.
-        A leak is counted in ``stats`` (``kv_page_leaks``) and its record
-        (by-owner counts; ``pool.held_pages()`` names the pages) is
+        A leak emits ``kv_page_leak`` on ``request_log`` (origin, replica,
+        pages leaked and reserved, by-owner counts, the pages held), is
+        counted in ``stats`` (``kv_page_leaks``) and its record is
         returned; None when the pool is clean."""
         if self.prefix_cache is not None:
             while self.prefix_cache.evict_lru_unpinned():
@@ -805,11 +1198,33 @@ class ServeEngine:
         if not c["pages_used"] and not self.pool.reserved:
             return None
         leak = {"origin": origin,
+                "replica": self.replica_id,
                 "pages_leaked": c["pages_used"],
                 "pages_reserved": self.pool.reserved,
-                "by_owner": self.pool.owners_summary()}
+                "by_owner": self.pool.owners_summary(),
+                "pages_held": self.pool.held_pages()}
+        if self.request_log is not None:
+            self.request_log.emit("kv_page_leak", **leak)
         self.stats.record_page_leak(leak)
         return leak
+
+    def _flight_extra(self, leak: dict | None = None) -> dict:
+        """Terminal context for a flight-dump header: who holds the pool,
+        by owner class and by page."""
+        extra = {"replica": self.replica_id,
+                 "pool": self.pool.counters(),
+                 "pages_by_owner": self.pool.owners_summary(),
+                 "pages_held": self.pool.held_pages()}
+        if leak is not None:
+            extra["leak"] = leak
+        return extra
+
+    def _on_fault(self, site: str, action: str) -> None:
+        """``faults.add_fire_hook`` callback: an injected fault is about to
+        run (``exit`` never returns), so dump the ring now."""
+        if self.flight is not None:
+            self.flight.dump("fault", extra={
+                "site": site, "action": action, **self._flight_extra()})
 
     def _timeout_unadmitted(self, req: Request) -> RequestOutput:
         now = time.perf_counter()
@@ -1025,6 +1440,17 @@ class ServeEngine:
             prefill_chunks=fl.prefill_chunks,
             spec_proposed=fl.spec_proposed,
             spec_accepted=fl.spec_accepted)
+        self._clear_slot(slot)
+        self._release_slot_pages(slot, fl.grow_left)
+        self.stats.record_completion(latency_s=out.latency_s,
+                                     n_tokens=len(out.tokens), reason=reason)
+        if not fl.imported:
+            self.queue.release(fl.req)
+        self._notify_finish(fl.req, reason)
+        return out
+
+    def _clear_slot(self, slot: int) -> None:
+        """Reset a decode slot's registers to a free rider's."""
         self._slots[slot] = None
         self._tokens[slot] = self.pad_id
         self._kv_lens[slot] = 0
@@ -1032,9 +1458,19 @@ class ServeEngine:
         self._top_ks[slot] = 0
         self._top_ps[slot] = 1.0
         self._gens[slot] = None
-        self._release_slot_pages(slot, fl.grow_left)
-        self.stats.record_completion(latency_s=out.latency_s,
-                                     n_tokens=len(out.tokens), reason=reason)
-        self.queue.release(fl.req)
-        self._notify_finish(fl.req, reason)
-        return out
+
+
+def _request_from_blob(blob: dict) -> Request:
+    """The Request an importer rebuilds from an export blob when the
+    caller attaches none (``serve/disagg.py`` ``request_from_blob``)."""
+    return Request(
+        prompt=[int(t) for t in blob["prompt"]],
+        max_new_tokens=int(blob["max_new_tokens"]),
+        sampling=SamplingParams(temperature=float(blob["temperature"]),
+                                top_k=int(blob["top_k"]),
+                                top_p=float(blob["top_p"])),
+        request_id=str(blob["request_id"]),
+        seed=int(blob["seed"]),
+        tenant=blob.get("tenant") or "default",
+        deadline_s=blob.get("deadline_s"),
+        **({"trace_id": blob["trace_id"]} if blob.get("trace_id") else {}))

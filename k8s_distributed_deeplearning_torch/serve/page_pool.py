@@ -9,8 +9,9 @@ into many slots with no device copy and is freed only when its last holder
 lets go. Reservations make decode growth infallible: admission reserves a
 slot's worst-case growth, and :meth:`alloc_reserved` draws from it.
 
-Every live page carries an owner tag (``slot``/``trie``/``scratch``) for
-the page ledger: attribution only, the refcounts decide liveness.
+Every live page carries an owner tag (``slot``/``trie``/``draft``/
+``scratch``/``imported``) for the page ledger: attribution only, the
+refcounts decide liveness.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ import numpy as np
 
 __all__ = ["OWNERS", "PagePool"]
 
-# Owner vocabulary of the page ledger, one tag a page. A page mapped by a
-# slot and held by the trie is tagged "trie": the trie's reference
-# outlives the slot's. The draft arena shares the target's pages and
-# tables, so it owns none of its own.
-OWNERS = ("free", "slot", "trie", "scratch")
+# Owner vocabulary of the page ledger, one tag a page (the JAX package's,
+# in its order). A page mapped by a slot and held by the trie is tagged
+# "trie": the trie's reference outlives the slot's. The draft arena shares
+# the target's pages and tables, so "draft" stays 0. "imported" marks
+# pages adopted from another engine's pool (KV page shipping): the same
+# lifecycle as "slot", the provenance kept for the ledger.
+OWNERS = ("free", "slot", "trie", "draft", "scratch", "imported")
 _OWNER_CODE = {name: i for i, name in enumerate(OWNERS)}
 
 
@@ -52,8 +55,8 @@ class PagePool:
         self._free = list(range(self.num_pages - 1, 0, -1))
         self.reserved = 0
 
-    def alloc(self, n: int) -> list[int]:
-        """Pop ``n`` fresh pages (refcount 1 each), tagged ``slot``.
+    def alloc(self, n: int, owner: str = "slot") -> list[int]:
+        """Pop ``n`` fresh pages (refcount 1 each), tagged ``owner``.
         Raises on exhaustion: admission gates on :meth:`available` first,
         so this is a bug."""
         if n > len(self._free) - self.reserved:
@@ -63,10 +66,10 @@ class PagePool:
                 f"(admission must gate on available())")
         pages = [self._free.pop() for _ in range(n)]
         self._refs[pages] = 1
-        self._owner[pages] = _OWNER_CODE["slot"]
+        self._owner[pages] = _OWNER_CODE[owner]
         return pages
 
-    def alloc_reserved(self, n: int) -> list[int]:
+    def alloc_reserved(self, n: int, owner: str = "slot") -> list[int]:
         """Pop ``n`` pages against an existing reservation (decode growth)."""
         if n > self.reserved:
             raise RuntimeError(
@@ -75,7 +78,7 @@ class PagePool:
         self.reserved -= n
         pages = [self._free.pop() for _ in range(n)]
         self._refs[pages] = 1
-        self._owner[pages] = _OWNER_CODE["slot"]
+        self._owner[pages] = _OWNER_CODE[owner]
         return pages
 
     def ref(self, page: int) -> None:

@@ -125,6 +125,16 @@ def params_nbytes(model: nn.Module) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
+def fp_nbytes(model: nn.Module) -> int:
+    """Bytes of ``model``'s parameters at its fp parameter dtype: as they
+    stand, or, where the matmul weights are int8 already (a model shared
+    by several engines), as they stood before :func:`quantize_model`."""
+    fp_item = torch.finfo(model.cfg.resolved_param_dtype).bits // 8
+    return params_nbytes(model) + sum(
+        m.weight.numel() * (fp_item - 1) for _, m in _quantizable(model)
+        if m.weight.dtype == torch.int8)
+
+
 def quantized_nbytes(model: nn.Module) -> int:
     """Device bytes of the weights as they stand: parameters (int8 and
     the untouched ones) plus each distinct scale tensor once."""

@@ -1,17 +1,22 @@
 """Request/response types for the serving engine.
 
 The port's own copy of ``k8s_distributed_deeplearning_tpu/serve/
-request.py``, cut to what this engine serves: no migration or trace ids
-yet. ``temperature <= 0`` selects greedy, ``top_k == 0`` and ``top_p ==
-1.0`` mean "off".
+request.py``. ``temperature <= 0`` selects greedy, ``top_k == 0`` and
+``top_p == 1.0`` mean "off". A request carries its migration origin
+(``migrated_from``) and a ``trace_id`` minted once per logical request,
+and :meth:`Request.resume_from_tokens` is the gateway's and the disagg
+coordinator's resubmission.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Callable, Sequence
 
 _req_counter = itertools.count()
+_trace_counter = itertools.count()
+_PID_TAG = f"{os.getpid():x}"
 
 
 class QueueFull(RuntimeError):
@@ -66,6 +71,15 @@ class Request:
     tenant: str = "default"
     deadline_s: float | None = None
     on_finish: Callable[[str], None] | None = None
+    # The replica this request was migrated away from (set on a
+    # resume_from_tokens resubmission); None on a first dispatch.
+    migrated_from: str | None = None
+    # Minted once per logical request and kept across resubmissions
+    # (dataclasses.replace copies it), so a migrated request's hops share
+    # one id. Unique in the process by the counter, across processes by
+    # the pid suffix.
+    trace_id: str = dataclasses.field(
+        default_factory=lambda: f"tr-{next(_trace_counter)}-{_PID_TAG}")
     # Stamped by ServeEngine.submit (perf_counter clock).
     _t_submit: float | None = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -77,6 +91,27 @@ class Request:
     # its tenant's token bucket or DRR deficit again.
     _requeued: bool = dataclasses.field(
         default=False, repr=False, compare=False)
+
+    def resume_from_tokens(self, emitted: Sequence[int], *,
+                           migrated_from: str | None = None) -> "Request":
+        """The migration resubmission: a request that already streamed
+        *emitted* continues elsewhere as ``prompt + emitted`` with the
+        decode budget reduced by what was streamed (under greedy sampling
+        the tokens of the uninterrupted run). Identity (``request_id``,
+        ``trace_id``, ``seed``, tenant, deadline, submit time) is kept;
+        the callbacks carry over and the ``on_finish`` latch re-arms at
+        the next submit."""
+        emitted = list(emitted)
+        if len(emitted) >= self.max_new_tokens:
+            raise ValueError(
+                f"request {self.request_id} already emitted {len(emitted)} "
+                f"of {self.max_new_tokens} tokens — nothing left to resume")
+        return dataclasses.replace(
+            self,
+            prompt=list(self.prompt) + emitted,
+            max_new_tokens=self.max_new_tokens - len(emitted),
+            migrated_from=migrated_from,
+            _finished=False, _requeued=False)
 
 
 @dataclasses.dataclass

@@ -1,1 +1,3 @@
-"""Telemetry of the PyTorch port: so far only the tenants' SLO targets."""
+"""Telemetry of the PyTorch port: the tenants' SLO targets and burn-rate
+engine (``slo``), the flight recorder (``flight``) and the health policy
+the gateway routes by (``fleet``)."""

@@ -1,9 +1,10 @@
 """Structured serving and training metrics.
 
 Port of the parts of ``k8s_distributed_deeplearning_tpu/utils/metrics.py``
-the serving engine, the training loop and the CLIs use:
-:class:`ServingStats` (the methods the engine calls, and a ``summary()``
-with the JAX package's serving, prefix-cache and speculative fields), a JSON-lines :class:`MetricsLogger`
+the serving engine, the gateway, the disagg coordinator, the training loop
+and the CLIs use: :class:`ServingStats` (the methods they call, and a
+``summary()`` with the JAX package's serving, prefix-cache, gateway,
+transport, disagg and speculative fields), a JSON-lines :class:`MetricsLogger`
 with its ``train_step`` event, and :func:`mfu`.
 """
 from __future__ import annotations
@@ -102,6 +103,30 @@ class ServingStats:
         # held or reserved with every request terminal, and the last one.
         self.kv_page_leaks = 0
         self.kv_page_leak_last: dict | None = None
+        # Failover gateway (serve/gateway.py): dispatches to a replica,
+        # migrations off tripped or draining replicas, hedge dispatches,
+        # breaker trips, and requests quarantined after too many
+        # migrations.
+        self.gateway_dispatches = 0
+        self.gateway_migrations = 0
+        self.gateway_hedges = 0
+        self.gateway_breaker_trips = 0
+        self.gateway_poisoned = 0
+        # Remote-replica transport: not ported (ROADMAP.md), so these stay
+        # 0; kept because the soak's coherence check reads them.
+        self.transport_retries = 0
+        self.transport_dedup_hits = 0
+        self.transport_reconnects = 0
+        # Disaggregated prefill/decode (serve/disagg.py): KV exports
+        # staged off this engine, imports adopted into it, bytes shipped
+        # each way, unified-path fallbacks, and the coordinator's latest
+        # backlog a role.
+        self.disagg_exports = 0
+        self.disagg_imports = 0
+        self.disagg_bytes_shipped = 0
+        self.disagg_fallbacks = 0
+        self.disagg_prefill_depth = 0
+        self.disagg_decode_depth = 0
         # Speculative decoding: draft tokens proposed and accepted-and-
         # emitted, iterations run, and the accepted-draft count of each
         # slot-iteration binned (key 0..spec_k).
@@ -188,6 +213,55 @@ class ServingStats:
         self.kv_page_leaks += 1
         self.kv_page_leak_last = dict(leak)
 
+    def record_gateway_dispatch(self) -> None:
+        """One gateway dispatch (first placement, migration or hedge)."""
+        self._tick()
+        self.gateway_dispatches += 1
+
+    def record_gateway_migration(self) -> None:
+        """One live request moved off a tripped or draining replica."""
+        self._tick()
+        self.gateway_migrations += 1
+
+    def record_gateway_hedge(self) -> None:
+        """One duplicate dispatch for a request still without its first
+        token."""
+        self._tick()
+        self.gateway_hedges += 1
+
+    def record_gateway_breaker_trip(self) -> None:
+        """One replica's circuit breaker opened."""
+        self._tick()
+        self.gateway_breaker_trips += 1
+
+    def record_gateway_poisoned(self) -> None:
+        """One request spent its migration budget and ended "poisoned"."""
+        self._tick()
+        self.gateway_poisoned += 1
+
+    def record_disagg_export(self, pages: int, nbytes: int) -> None:
+        """One request's KV pages staged off this engine."""
+        self._tick()
+        self.disagg_exports += 1
+        self.disagg_bytes_shipped += int(nbytes)
+
+    def record_disagg_import(self, pages: int, nbytes: int) -> None:
+        """One exported request adopted into this engine's pool."""
+        self._tick()
+        self.disagg_imports += 1
+        self.disagg_bytes_shipped += int(nbytes)
+
+    def record_disagg_fallback(self) -> None:
+        """One request routed down the unified decode-local prefill
+        path."""
+        self._tick()
+        self.disagg_fallbacks += 1
+
+    def record_disagg_depth(self, prefill: int, decode: int) -> None:
+        """The coordinator's latest backlog a role; a gauge, no tick."""
+        self.disagg_prefill_depth = int(prefill)
+        self.disagg_decode_depth = int(decode)
+
     def record_quant(self, kv_quant: str | None, weight_quant: str | None,
                      kv_bytes_saved: int, weight_bytes_saved: int) -> None:
         """The engine's quantization modes and bytes saved; set at
@@ -247,6 +321,20 @@ class ServingStats:
             "kv_pages_by_owner": dict(self.kv_pages_by_owner),
             "kv_page_leaks": self.kv_page_leaks,
             "kv_page_leak_last": self.kv_page_leak_last,
+            "gateway_dispatches": self.gateway_dispatches,
+            "gateway_migrations": self.gateway_migrations,
+            "gateway_hedges": self.gateway_hedges,
+            "gateway_breaker_trips": self.gateway_breaker_trips,
+            "gateway_poisoned": self.gateway_poisoned,
+            "transport_retries": self.transport_retries,
+            "transport_dedup_hits": self.transport_dedup_hits,
+            "transport_reconnects": self.transport_reconnects,
+            "disagg_exports": self.disagg_exports,
+            "disagg_imports": self.disagg_imports,
+            "disagg_bytes_shipped": self.disagg_bytes_shipped,
+            "disagg_fallbacks": self.disagg_fallbacks,
+            "disagg_prefill_depth": self.disagg_prefill_depth,
+            "disagg_decode_depth": self.disagg_decode_depth,
             "kv_quant": self.kv_quant,
             "weight_quant": self.weight_quant,
             "kv_quant_bytes_saved": self.kv_quant_bytes_saved,

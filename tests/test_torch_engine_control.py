@@ -207,8 +207,11 @@ def test_page_leak_is_recorded_in_stats(sides, origin):
     summ = eng.stats.summary()
     assert summ["kv_page_leaks"] == 1
     assert summ["kv_page_leak_last"] == {
-        "origin": origin, "pages_leaked": 2, "pages_reserved": 1,
-        "by_owner": {"slot": 2, "trie": 0, "reserved": 1}}
+        "origin": origin, "replica": None, "pages_leaked": 2,
+        "pages_reserved": 1,
+        "by_owner": {"slot": 2, "trie": 0, "draft": 0, "imported": 0,
+                     "reserved": 1},
+        "pages_held": {"slot": sorted(stray)}}
     assert eng.pool.held_pages() == {"slot": sorted(stray)}
 
 

@@ -212,13 +212,21 @@ def test_entry_points_default_to_cuda(models):
 def _port_files():
     files = sorted((REPO / "k8s_distributed_deeplearning_torch").rglob(
         "*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "kernel_breakdown.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "kernel_breakdown.py",
+                    REPO / "examples" / "generate_llama_torch.py"]
 
 
 def test_import_scan_covers_every_subpackage():
-    """The scan reaches the training slice's subpackages too."""
-    dirs = {p.parent.name for p in _port_files()}
-    assert {"models", "ops", "serve", "utils", "train", "parallel"} <= dirs
+    """The scan reaches the training slice's subpackages, the fleet's
+    (faults, telemetry, the serving fleet modules) and the example."""
+    files = _port_files()
+    dirs = {p.parent.name for p in files}
+    assert {"models", "ops", "serve", "utils", "train", "parallel",
+            "faults", "telemetry", "examples"} <= dirs
+    names = {p.name for p in files}
+    assert {"disagg.py", "gateway.py", "storm.py", "flight.py", "fleet.py",
+            "slo.py", "plan.py", "inject.py",
+            "generate_llama_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
