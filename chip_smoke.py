@@ -308,6 +308,29 @@ R. The serving engine's in-process scale-out surface (run after P). R1:
    ``examples/generate_llama_torch.py`` generates 32 greedy tokens from
    it, equal to ``generate`` on the restored params. Each sub-run logs
    ``since_start_s``.
+S. The wire half of the serving fleet (``serve/transport.py``): replica
+   servers as processes of their own on the one card (this script started
+   with ``--s-server CONF``, a fresh interpreter each; the parent builds
+   every kernel first), driven over localhost HTTP. S1: B's workload at
+   full Llama-3 8B in bf16 through a prefill-role and a decode-role
+   server, this process the coordinator (``RemotePrefillWorker`` and a
+   ``ReplicaClient``): every request finishes, first tokens equal B's
+   where the margin decides, each server's paged launches exact by route
+   (prefill server: n_layers x prefill chunks on the prefill route;
+   decode server: n_layers x decode iterations on the decode route; split
+   0), pages picked up over ``/exports`` and shipped over ``/pages`` =
+   the sum of ceil(kv_len / 32), no fallback, no page held; reports the
+   wire's GB/s each way, decode tokens/s and each process's peak memory.
+   S2: R2's f32 configuration (8B width, 4 layers) against a unified
+   in-process engine's streams: a hop (pages exported here at decode
+   cursor 8, greedy and sampled, shipped over ``/pages``), a decode
+   server SIGKILLed mid-decode (held there by a step budget) with the
+   gateway migrating its streams, and a drain over the wire; every stream
+   equal, every paged launch in every process on tf32x3. S3: the serve
+   CLI itself, two ``--replica-server --preset small`` processes found by
+   a ``--replica-discovery-dir`` gateway; SIGTERM to the gateway, then to
+   each replica: every process exits 0, each replica prints
+   ``replica_drained``.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -2645,6 +2668,640 @@ def phase_r(dev, b_streams, b_logits, started, tmp: Path):
     return {"r1": _r1(dev, b_streams, b_logits, started),
             "r2": _r2(dev, started), "r3": _r3(dev, started),
             "r4": _r4(dev, started, tmp)}
+
+
+# ------------------------------------------------------------- phase S
+
+S_KILL_BUDGET = 10     # engine steps K0 takes before S2's kill (< 16 new)
+S_DRAIN_BUDGET = 6     # engine steps D0 takes before S2's drain
+
+
+class _StepBudget:
+    """A replica server's engine, seen through a step budget: once the
+    engine has stepped ``budget`` times, ``busy()`` is False and the
+    server's step loop idles, so the replica still holds its requests when
+    S2 kills or drains it (16 new tokens need more than ``S_KILL_BUDGET``
+    steps), however long the test takes to look."""
+
+    def __init__(self, engine, budget):
+        self._engine = engine
+        self.budget = budget
+        self.steps = 0
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def busy(self):
+        return self._engine.busy() and (self.budget is None
+                                        or self.steps < self.budget)
+
+    def step(self):
+        self.steps += 1
+        return self._engine.step()
+
+
+def s_server(conf_json: str) -> int:
+    """Phase S's replica-server process: ``python3 chip_smoke.py
+    --s-server CONF`` (CONF a JSON object). Builds Llama-3 8B (bf16, or f32
+    at ``layers`` layers) from seed 0 on the card, one 4-slot engine of
+    ``role`` (512-token chunks) behind a ``ReplicaServer`` on an ephemeral
+    port written to ``port_file``; on SIGTERM drains, then prints one JSON
+    line: paged launches by route, decode iterations, tokens and seconds,
+    memory, and what the engine shipped. ``logits`` names a file for the
+    first-token logits; ``step_budget`` caps the engine's steps."""
+    conf = json.loads(conf_json)
+    sys.path.insert(0, str(REPO))
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+    from k8s_distributed_deeplearning_torch.serve.transport import (
+        ReplicaServer)
+
+    term = []
+    signal.signal(signal.SIGTERM, lambda signum, frame: term.append(1))
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    if conf["dtype"] == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = llama.config_llama3_8b(max_seq_len=2048,
+                                     n_layers=conf["layers"],
+                                     dtype=torch.float32)
+    else:
+        cfg = llama.config_llama3_8b(max_seq_len=2048)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                      device=dev, replica_id=conf["rid"],
+                      prefill_only=conf["role"] == "prefill")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    logits = {}
+    if conf.get("logits"):
+        _first_logits(eng, logits)
+    # Each decode iteration (start, seconds, tokens: one a slot), both
+    # sides synchronized, and each adoption's end: the decode rate with
+    # and without page imports running beside it in this process.
+    iters, adopted = [], []
+    decode_step, import_kv = eng._decode_step, eng.import_request_kv
+
+    def timed_decode_step():
+        tokens = eng.occupied_slots()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_step()
+        torch.cuda.synchronize()
+        iters.append((t, time.perf_counter() - t, tokens))
+        return out
+
+    def timed_import(*a, **kw):
+        out = import_kv(*a, **kw)
+        adopted.append(time.perf_counter())
+        return out
+
+    eng._decode_step = timed_decode_step
+    eng.import_request_kv = timed_import
+    attn = paged_attn.paged_decode_attention
+    _zero_counts(attn)
+    srv = ReplicaServer(_StepBudget(eng, conf.get("step_budget")),
+                        handler_timeout=600.0, role=conf["role"]).start()
+    port_file = Path(conf["port_file"])
+    tmp = port_file.with_suffix(".tmp")
+    tmp.write_text(f"{srv.port}\n")
+    os.replace(tmp, port_file)
+    draining = False
+    while not srv.shutting_down:
+        if term and not draining:
+            srv.begin_drain()
+            draining = True
+        if draining and srv.drained:
+            break
+        time.sleep(0.01)
+    srv.close()
+    torch.cuda.synchronize()
+    st = eng.stats
+    last = max(adopted, default=0.0)
+    quiet = [(dt, n) for t, dt, n in iters if t > last]
+    if conf.get("logits"):
+        torch.save({k: v.cpu() for k, v in logits.items()}, conf["logits"])
+    print(json.dumps({
+        "s_server": conf["rid"], "role": conf["role"],
+        "dtype": conf["dtype"], "layers": cfg.n_layers,
+        "setup_s": setup_s, "resident_gb": resident,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "route_launches": _route_counts(attn),
+        "launches_small": attn.launches_small,
+        "decode_iterations": st.steps, "decode_tokens": st.decode_tokens,
+        "decode_s": sum(dt for _, dt, _ in iters),
+        "decode_after_last_import": {
+            "iterations": len(quiet), "tokens": sum(n for _, n in quiet),
+            "s": sum(dt for dt, _ in quiet)},
+        "exports": st.disagg_exports,
+        "imports": st.disagg_imports,
+        "transport_dedup_hits": st.transport_dedup_hits,
+        "pages_used_after": eng.pool.counters()["pages_used"],
+        "pages_reserved_after": eng.pool.reserved}), flush=True)
+    return 0
+
+
+def _s_spawn(tmp: Path, **conf):
+    """Start one replica-server process of phase S (a fresh interpreter:
+    no fork after CUDA is up); its output goes to files in ``tmp``."""
+    conf["port_file"] = str(tmp / f"{conf['rid']}.port")
+    out = open(tmp / f"{conf['rid']}.out", "w")
+    err = open(tmp / f"{conf['rid']}.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--s-server",
+         json.dumps(conf)], cwd=str(REPO), stdout=out, stderr=err,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    out.close()
+    err.close()
+    return {"proc": proc, "port_file": Path(conf["port_file"]),
+            "out": tmp / f"{conf['rid']}.out",
+            "err": tmp / f"{conf['rid']}.err"}
+
+
+def _s_tail(child) -> str:
+    return child["err"].read_text()[-2000:]
+
+
+def _s_ports(children: dict, timeout_s: float = 600.0) -> dict:
+    """Wait for every child's port file: rid -> port."""
+    deadline = time.perf_counter() + timeout_s
+    ports = {}
+    while len(ports) < len(children):
+        for rid, ch in children.items():
+            if rid in ports:
+                continue
+            if ch["port_file"].exists():
+                ports[rid] = int(ch["port_file"].read_text())
+            elif ch["proc"].poll() is not None:
+                check(False, f"S: replica server {rid} exited "
+                      f"{ch['proc'].returncode}: {_s_tail(ch)}")
+        check(time.perf_counter() < deadline,
+              f"S: replica servers not up in {timeout_s} s")
+        time.sleep(0.05)
+    return ports
+
+
+def _s_stop(children: dict, timeout_s: float = 300.0) -> dict:
+    """SIGTERM every live child, wait, and return rid -> (exit code, its
+    summary line or None). A child that does not exit in time is
+    killed."""
+    for ch in children.values():
+        if ch["proc"].poll() is None:
+            ch["proc"].send_signal(signal.SIGTERM)
+    out = {}
+    for rid, ch in children.items():
+        try:
+            rc = ch["proc"].wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            ch["proc"].kill()
+            rc = ch["proc"].wait()
+        summary = None
+        for line in ch["out"].read_text().splitlines():
+            if line.startswith('{"s_server"'):
+                summary = json.loads(line)
+        out[rid] = (rc, summary)
+    return out
+
+
+def _s_healthz(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=60) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _s_time_wire(client, name, rows):
+    """Wrap ``client.take_remote_exports`` or ``ship_pages`` to append a
+    row (ms, page bytes, pages, blobs, prefill chunks) for each call that
+    moved a blob; the time is the whole call: encoding, the HTTP
+    round trips, the far side's decoding and adoption."""
+    from k8s_distributed_deeplearning_torch.serve.disagg import blob_nbytes
+
+    fn = getattr(client, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        blobs = out if name == "take_remote_exports" else [a[0]]
+        if blobs:
+            rows.append({"ms": ms,
+                         "bytes": sum(blob_nbytes(b) for b in blobs),
+                         "pages": sum(int(b["n_pages"]) for b in blobs),
+                         "blobs": len(blobs),
+                         "prefill_chunks": sum(int(b["prefill_chunks"])
+                                               for b in blobs)})
+        return out
+
+    setattr(client, name, wrapper)
+
+
+def _wire_summary(rows) -> dict:
+    ms = [r["ms"] for r in rows]
+    nbytes = sum(r["bytes"] for r in rows)
+    return {"calls": len(rows), "blobs": sum(r["blobs"] for r in rows),
+            "ms_per_call": ms, "bytes": nbytes,
+            "pages": sum(r["pages"] for r in rows),
+            "gb_per_s": nbytes / (sum(ms) * 1e-3) / 1e9 if ms else None}
+
+
+def _client(port, rid):
+    from k8s_distributed_deeplearning_torch.serve.transport import (
+        ReplicaClient)
+
+    return ReplicaClient(f"127.0.0.1:{port}", replica_id=rid,
+                         timeout_s=600.0, backoff_s=0.05)
+
+
+def _s_drive(front, deadline_s: float, what: str) -> list:
+    outs = []
+    t0 = time.perf_counter()
+    while front.busy():
+        outs.extend(front.step())
+        check(time.perf_counter() - t0 < deadline_s,
+              f"{what}: did not finish in {deadline_s} s")
+        time.sleep(0.001)
+    return outs
+
+
+def _s1(b_streams, b_logits, started, tmp: Path):
+    """S1: B's workload disaggregated over the wire at full Llama-3 8B
+    (bf16, seed 0): a prefill-role and a decode-role replica-server
+    process on the one card; this process holds the coordinator with a
+    ``RemotePrefillWorker`` and a ``ReplicaClient``."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.serve import transport
+    from k8s_distributed_deeplearning_torch.serve.disagg import (
+        DisaggCoordinator, RemotePrefillWorker)
+
+    cfg = llama.config_llama3_8b(max_seq_len=2048)     # no model built here
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logits_path = tmp / "s1_logits.pt"
+    t0 = time.perf_counter()
+    children = {"sp": _s_spawn(tmp, rid="sp", role="prefill",
+                               dtype="bfloat16", logits=str(logits_path)),
+                "sd": _s_spawn(tmp, rid="sd", role="decode",
+                               dtype="bfloat16")}
+    try:
+        ports = _s_ports(children)
+        setup_s = time.perf_counter() - t0
+        pre, dec = _client(ports["sp"], "sp"), _client(ports["sd"], "sd")
+        exports, ships = [], []
+        _s_time_wire(pre, "take_remote_exports", exports)
+        _s_time_wire(dec, "ship_pages", ships)
+        coord = DisaggCoordinator([dec], [RemotePrefillWorker(pre)])
+        reqs = _requests(cfg.vocab_size, 32, sampled=True)
+        t1 = time.perf_counter()
+        for r in reqs:
+            coord.submit(r)
+        outs = _s_drive(coord, 600.0, "S1")
+        wall = time.perf_counter() - t1
+    finally:
+        summaries = _s_stop(children)
+    check(all(rc == 0 and summ is not None
+              for rc, summ in summaries.values()),
+          f"S1 replica servers: {summaries}")
+    sp, sd = summaries["sp"][1], summaries["sd"][1]
+    check(len(outs) == 8 and all(o.finish_reason == "length"
+                                 and len(o.tokens) == 32
+                                 and all(0 <= t < cfg.vocab_size
+                                         for t in o.tokens) for o in outs),
+          f"S1: {[(o.finish_reason, len(o.tokens)) for o in outs]}")
+    layers = cfg.n_layers
+    chunks = sum(r["prefill_chunks"] for r in exports)
+    want = {"sp": {"decode": 0, "prefill": layers * chunks, "tf32x3": 0,
+                   "split": 0, "int8": 0},
+            "sd": {"decode": layers * sd["decode_iterations"], "prefill": 0,
+                   "tf32x3": 0, "split": 0, "int8": 0}}
+    got = {"sp": sp["route_launches"], "sd": sd["route_launches"]}
+    check(got == want and chunks > 0 and sd["decode_iterations"] > 0,
+          f"S1 launches by process and route {got}: want {want} (layers x "
+          f"prefill chunks {chunks} in the prefill server, layers x decode "
+          f"iterations {sd['decode_iterations']} in the decode server)")
+    prompt_pages = sum(-(-len(r.prompt) // PAGE) for r in reqs)
+    wire_out, wire_in = _wire_summary(exports), _wire_summary(ships)
+    check(wire_out["pages"] == wire_in["pages"] == prompt_pages
+          and sp["exports"] == sd["imports"] == 8
+          and coord.stats.disagg_fallbacks == 0
+          and sp["pages_used_after"] == sd["pages_used_after"] == 0,
+          f"S1: pages {wire_out['pages']} picked up, {wire_in['pages']} "
+          f"shipped, {prompt_pages} = sum of ceil(kv_len / {PAGE}) wanted; "
+          f"exports {sp['exports']}, imports {sd['imports']}, fallbacks "
+          f"{coord.stats.disagg_fallbacks}, pages held after "
+          f"{sp['pages_used_after']} / {sd['pages_used_after']}")
+    logits = torch.load(logits_path)
+    rids = sorted(b_logits)
+    decided, same = _first_token_rule(
+        torch.cat([logits[r] for r in rids]),
+        torch.cat([b_logits[r] for r in rids]))
+    check(bool(same[decided].all()),
+          "S1: a first token differs from B's where the margin decides it")
+    streams = {o.request_id: o.tokens for o in outs}
+    result = {
+        "phase": "S1", "model": "llama3-8b", "layers": layers,
+        "dtype": "bfloat16",
+        "processes": "sp prefill-role server, sd decode-role server, this "
+                     "process the coordinator",
+        "slots": 4, "prefill_chunk_tokens": 512, "requests": 8,
+        "setup_s": setup_s, "wall_s": wall,
+        "route_launches": got, "prefill_chunks": chunks,
+        "decode_iterations": sd["decode_iterations"],
+        "pages_shipped": wire_in["pages"],
+        "exports_wire": wire_out, "pages_wire": wire_in,
+        "pages_chunk_chars": transport.PAGES_CHUNK_CHARS,
+        "decode_tokens_per_s": sd["decode_tokens"] / sd["decode_s"],
+        "decode_iteration_ms": sd["decode_s"] / sd["decode_iterations"]
+        * 1e3,
+        "decode_after_last_import": {
+            **sd["decode_after_last_import"],
+            "tokens_per_s": (sd["decode_after_last_import"]["tokens"]
+                             / sd["decode_after_last_import"]["s"]
+                             if sd["decode_after_last_import"]["s"]
+                             else None)},
+        "first_token_decided": decided.tolist(),
+        "first_token_equal": same.tolist(),
+        "streams_equal_b": sum(streams[r] == b_streams[r] for r in streams),
+        "tokens_equal_b": sum(a == b for r in streams
+                              for a, b in zip(streams[r], b_streams[r])),
+        "peak_memory_gb": {"sp": sp["peak_memory_gb"],
+                           "sd": sd["peak_memory_gb"],
+                           "coordinator":
+                           torch.cuda.max_memory_allocated() / 2 ** 30},
+        "resident_gb": {"sp": sp["resident_gb"], "sd": sd["resident_gb"]},
+        "server_setup_s": {"sp": sp["setup_s"], "sd": sd["setup_s"]},
+        "since_start_s": time.perf_counter() - started}
+    log(result)
+    return result
+
+
+def _s2(dev, started, tmp: Path):
+    """S2: f32 at 8B width and 4 layers (R2's configuration) over the
+    wire, against a unified in-process engine's streams: a hop (pages
+    shipped over ``/pages`` at decode cursor 8), a decode replica-server
+    process killed mid-decode with the gateway migrating its streams, and
+    a drain over the wire. Four decode-role servers: H (the hop's
+    target), K0 and D0 (the kill's and the drain's victims, each held
+    mid-flight by a step budget) and K1 (the survivor of both)."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve.disagg import (
+        request_from_blob)
+    from k8s_distributed_deeplearning_torch.serve.gateway import (
+        ServeGateway)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = paged_attn.paged_decode_attention
+    conf = dict(role="decode", dtype="float32", layers=4)
+    t0 = time.perf_counter()
+    # Started first: they build their models while this process runs the
+    # oracle.
+    children = {"H": _s_spawn(tmp, rid="H", **conf),
+                "K0": _s_spawn(tmp, rid="K0", step_budget=S_KILL_BUDGET,
+                               **conf),
+                "K1": _s_spawn(tmp, rid="K1", **conf),
+                "D0": _s_spawn(tmp, rid="D0", step_budget=S_DRAIN_BUDGET,
+                               **conf)}
+    result = {"phase": "S2", "model": "llama3-8b width, 4 layers",
+              "dtype": "float32", "route_launches": {}}
+    try:
+        cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
+                                     dtype=torch.float32)
+        model = llama.LlamaLM(cfg, device=dev, seed=0)
+        reqs = _requests(cfg.vocab_size, 16, sampled=True)
+        greedy = [r for r in reqs if r.sampling.temperature <= 0.0]
+        _zero_counts(attn)
+        (ref_eng,) = _f32_fleet(model, dev, 1)
+        oracle = {o.request_id: o.tokens
+                  for o in ref_eng.run(_copy(reqs))}
+        _clean_after(ref_eng, "S2 unified")
+        ports = _s_ports(children)
+        result["setup_s"] = time.perf_counter() - t0
+        cl = {rid: _client(port, rid) for rid, port in ports.items()}
+
+        # The hop: exported here at decode cursor 8, shipped over /pages
+        # into H, streamed back over /poll; greedy r0 and sampled r2.
+        hop = {}
+        for rid in ("r0", "r2"):
+            (a,) = _f32_fleet(model, dev, 1)
+            (req,) = _copy([r for r in reqs if r.request_id == rid])
+            a.submit(req)
+            while not a.occupied_slots() or a.stats.steps < R_HOP_AT:
+                a.step()
+            blob = a.export_request_kv(rid)
+            got, fin = [], []
+            r = request_from_blob(blob)
+            r.on_token, r.on_finish = got.append, fin.append
+            t1 = time.perf_counter()
+            body = cl["H"].ship_pages(blob, req=r)
+            ship_ms = (time.perf_counter() - t1) * 1e3
+            t1 = time.perf_counter()
+            while not fin:
+                cl["H"].step()
+                check(time.perf_counter() - t1 < 300, f"S2 hop {rid}")
+                time.sleep(0.001)
+            hop[rid] = {"cursor": len(blob["emitted"]) - 1,
+                        "pages": blob["n_pages"], "ship_ms": ship_ms,
+                        "adopted": body["adopted"], "finish": fin,
+                        "equal": list(blob["emitted"]) + got
+                        == oracle[rid]}
+            _clean_after(a, f"S2 hop {rid}")
+        result["hop"] = hop
+        result["route_launches"]["this_process"] = _route_counts(attn)
+        check(all(h["equal"] and h["cursor"] == R_HOP_AT
+                  and h["finish"] == ["length"] for h in hop.values()),
+              f"S2 hop at decode cursor {R_HOP_AT}: {hop}")
+
+        # The kill: K0 stops stepping after S_KILL_BUDGET steps (every
+        # request on it is mid-decode), then its process is SIGKILLed.
+        for c in cl.values():
+            c.retries = 1
+        gw = ServeGateway([cl["K0"], cl["K1"]], failures_to_trip=1)
+        for r in _copy(greedy):
+            gw.submit(r)
+        outs = []
+        t1 = time.perf_counter()
+        while _s_healthz(ports["K0"])["steps"] < S_KILL_BUDGET:
+            outs.extend(gw.step())
+            check(time.perf_counter() - t1 < 300,
+                  "S2 kill: K0 did not reach its step budget")
+            time.sleep(0.005)
+        on_k0 = sorted({st.req.request_id
+                        for st in cl["K0"]._streams.values()})
+        check(bool(on_k0), "S2 kill: no request on K0")
+        children["K0"]["proc"].kill()
+        children["K0"]["proc"].wait()
+        outs.extend(_s_drive(gw, 600.0, "S2 kill"))
+        kill = {"on_k0": on_k0, "breaker": gw.breaker_state("K0"),
+                "breaker_trips": gw.stats.gateway_breaker_trips,
+                "gateway_migrations": gw.stats.gateway_migrations,
+                "streams_equal": {o.request_id: o.tokens
+                                  == oracle[o.request_id] for o in outs},
+                "finish_reasons": sorted({o.finish_reason for o in outs})}
+        result["kill"] = kill
+        check(len(outs) == len(greedy)
+              and all(kill["streams_equal"].values())
+              and kill["gateway_migrations"] >= len(on_k0)
+              and kill["finish_reasons"] == ["length"],
+              f"S2 kill: {kill}")
+
+        # The drain: D0 stops stepping after S_DRAIN_BUDGET steps, then
+        # drains over the wire; its streams move to K1 by resubmission.
+        gw = ServeGateway([cl["D0"], cl["K1"]])
+        for r in _copy(greedy[:4]):
+            gw.submit(r)
+        on_d0 = sorted({st.req.request_id
+                        for st in cl["D0"]._streams.values()})
+        check(bool(on_d0), "S2 drain: no request on D0")
+        outs = []
+        t1 = time.perf_counter()
+        while _s_healthz(ports["D0"])["steps"] < S_DRAIN_BUDGET:
+            outs.extend(gw.step())
+            check(time.perf_counter() - t1 < 300,
+                  "S2 drain: D0 did not reach its step budget")
+            time.sleep(0.005)
+        gw.drain_replica("D0")
+        outs.extend(_s_drive(gw, 600.0, "S2 drain"))
+        drain = {"on_d0": on_d0, "draining": cl["D0"].draining,
+                 "gateway_migrations": gw.stats.gateway_migrations,
+                 "streams_equal": {o.request_id: o.tokens
+                                   == oracle[o.request_id] for o in outs}}
+        result["drain"] = drain
+        check(len(outs) == 4 and drain["draining"]
+              and drain["gateway_migrations"] >= len(on_d0)
+              and all(drain["streams_equal"].values()),
+              f"S2 drain: {drain}")
+        del model
+    finally:
+        summaries = _s_stop(children)
+    pages_after = {}
+    for rid in ("H", "K1", "D0"):
+        rc, summ = summaries[rid]
+        check(rc == 0 and summ is not None, f"S2 {rid}: exit {rc}")
+        result["route_launches"][rid] = summ["route_launches"]
+        pages_after[rid] = summ["pages_used_after"]
+    result["pages_used_after"] = pages_after
+    result["K0_exit"] = summaries["K0"][0]        # SIGKILLed: no summary
+    routes = result["route_launches"]
+    check(all(v["tf32x3"] > 0 and v["decode"] == v["prefill"] == v["split"]
+              == v["int8"] == 0 for v in routes.values())
+          and not any(pages_after.values()),
+          f"S2 launches by process {routes}: every paged launch on "
+          f"tf32x3; pages held after {pages_after}")
+    result["since_start_s"] = time.perf_counter() - started
+    log(result)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+S3_CLI = [sys.executable, "-u", "-m",
+          "k8s_distributed_deeplearning_torch.serve", "--preset", "small"]
+
+
+def _s3_replicas(tmp: Path) -> list:
+    """S3's two replica-server processes, started early (during S2):
+    ``--replica-server --preset small`` on ephemeral ports, with heartbeat
+    beacons in ``tmp/s3_hb``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return [subprocess.Popen(
+        S3_CLI + ["--replica-server", "--metrics-port", "0",
+                  "--port-file", str(tmp / f"s3-{i}.port"),
+                  "--heartbeat-dir", str(tmp / "s3_hb"),
+                  "--replica-rank", str(i), "--max-queue", "1"],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+
+
+def _s3(started, tmp: Path, procs: list):
+    """S3: the serve CLI itself, as a user runs it: the two replica-server
+    processes of :func:`_s3_replicas` and a gateway process that finds
+    them by their beacons; SIGTERM to the gateway, then to each replica:
+    every process exits 0, and each replica prints ``replica_drained``."""
+    hb = tmp / "s3_hb"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    try:
+        deadline = time.perf_counter() + 300
+        for i, p in enumerate(procs):
+            pf = tmp / f"s3-{i}.port"
+            while not (pf.exists() and pf.read_text().strip()):
+                check(p.poll() is None and time.perf_counter() < deadline,
+                      f"S3 replica {i} not up: {p.poll()}")
+                time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        gw = subprocess.Popen(
+            S3_CLI + ["--replica-discovery-dir", str(hb), "--requests", "64"],
+            cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(gw)
+        lines = []
+        while time.perf_counter() < deadline:
+            line = gw.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if '"serve_request"' in line:
+                break
+        check(bool(lines) and '"serve_request"' in lines[-1],
+              f"S3 gateway: {''.join(lines)[-2000:]}")
+        gw.send_signal(signal.SIGTERM)
+        rest, gerr = gw.communicate(timeout=300)
+        gout = "".join(lines) + rest
+        outs = []
+        for p in procs[:2]:
+            p.send_signal(signal.SIGTERM)
+        for p in procs[:2]:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reasons: dict = {}
+    for line in gout.splitlines():
+        if '"serve_request"' in line:
+            why = json.loads(line)["finish_reason"]
+            reasons[why] = reasons.get(why, 0) + 1
+    result = {"phase": "S3", "preset": "small",
+              "exit_codes": [p.returncode for p in procs],
+              "gateway_finish_reasons": reasons,
+              "replica_drained": [o.count('"replica_drained"')
+                                  for o, _ in outs],
+              "replica_summaries": [o.count('"serve_summary"')
+                                    for o, _ in outs],
+              "replicas_wait_s": up_s, "wall_s": time.perf_counter() - t0,
+              "since_start_s": time.perf_counter() - started}
+    log(result)
+    check(result["exit_codes"] == [0, 0, 0],
+          f"S3 exit codes {result['exit_codes']}: gateway {gerr[-1500:]}; "
+          f"replicas {[e[-800:] for _, e in outs]}")
+    check(result["replica_drained"] == [1, 1]
+          and result["replica_summaries"] == [1, 1]
+          and '"serve_summary"' in gout, f"S3: {result}")
+    return result
+
+
+def phase_s(dev, b_streams, b_logits, started, tmp: Path):
+    """The wire half of the serving fleet on the card, over localhost
+    HTTP between processes: S1 disaggregated serving at full 8B, S2 the
+    f32 exact gates of a hop, a kill and a drain, S3 the serve CLI."""
+    s1 = _s1(b_streams, b_logits, started, tmp)
+    s3_procs = _s3_replicas(tmp)
+    try:
+        s2 = _s2(dev, started, tmp)
+    except BaseException:
+        for p in s3_procs:
+            p.kill()
+            p.wait()
+        raise
+    return {"s1": s1, "s2": s2, "s3": _s3(started, tmp, s3_procs)}
 
 
 # ------------------------------------------------------------- phase L/M
@@ -5005,6 +5662,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         r = timed("R", phase_r, dev, b_streams, b_logits, started,
                   Path(tmp))
+        timed("S", phase_s, dev, b_streams, b_logits, started, Path(tmp))
     timed("L", phase_l, dev)
     flash_rows = timed("D", phase_d, dev, flush)
     gmm_rows = timed("G", phase_g, dev, flush)
@@ -5034,4 +5692,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--s-server":
+        sys.exit(s_server(sys.argv[2]))
     sys.exit(main())

@@ -4,8 +4,9 @@
 A plan's JSON and its validation equal the JAX package's, so one plan file
 drives both packages. The serving sites have callers in the port
 (``serve_decode`` in ``serve/engine.py``, ``gateway_dispatch`` in
-``serve/gateway.py``, ``transport_pages`` on the in-process KV shipping
-path of ``serve/disagg.py``); the training, executor, wire-transport and
+``serve/gateway.py``, ``transport_send`` and ``transport_recv`` in
+``serve/transport.py``, ``transport_pages`` there and on the in-process
+KV shipping path of ``serve/disagg.py``); the training, executor and
 autoscale sites validate but have no caller yet (ROADMAP.md).
 """
 

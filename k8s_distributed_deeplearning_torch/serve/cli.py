@@ -24,11 +24,30 @@ through the ``DisaggCoordinator`` (``serve/disagg.py``). ``--flight-ring``
 keeps a flight recorder over every engine and the gateway
 (``--flight-dir`` for its dumps). SIGTERM drains every replica: the
 unsubmitted tail is shed, what the fleet holds finishes, one
-``replica_drained`` line a replica, exit 0. Not ported yet, and raising:
-tensor parallelism (``--tp``), the wire transport (``--replica-server``,
-``--replica-endpoints``, ``--replica-discovery-dir``,
-``--prefill-endpoints``, ``--role``) and the autoscaler
-(``--autoscale*``); nor tracing.
+``replica_drained`` line a replica, exit 0.
+
+The wire fleet (``serve/transport.py``): ``--replica-server`` runs ONE
+engine as a replica-server process whose transport routes share the
+metrics exporter on ``--metrics-port`` (0 = ephemeral, written to
+``--port-file``); ``--heartbeat-dir`` advertises its address and
+``--role`` (decode or prefill) in heartbeat files, ``--replica-rank``
+names it and ``--advertise-host`` is the host peers dial. SIGTERM drains
+it, prints ``replica_drained`` and ``serve_summary`` and exits 0.
+``--replica-endpoints`` or ``--replica-discovery-dir`` run the gateway
+over such processes instead of local engines (no model is built here);
+with ``--disagg`` a coordinator routes prompts through prefill-role
+servers (``--prefill-endpoints``, or discovered by role) and ships their
+KV pages to the decode fleet over ``/pages``.
+
+Telemetry: ``--metrics-port`` serves ``/metrics``, ``/healthz`` and
+``/readyz`` (``telemetry/exporter.py``); ``--trace`` puts the engines'
+spans on the JSONL stream; ``--request-trace-sample`` emits one
+``request_trace`` event for that share of finished requests;
+``--debug-dir`` turns on ``/debug/spans`` and ``/debug/profile``
+(``torch.profiler`` traces into the directory).
+
+Not ported yet, and raising: tensor parallelism (``--tp``) and the
+autoscaler (``--autoscale*``).
 """
 from __future__ import annotations
 
@@ -37,15 +56,6 @@ import os
 
 _UNPORTED = (
     ("tp", "--tp", "tensor-parallel serving"),
-    ("replica_server", "--replica-server", "the wire transport "
-     "(serve/transport.py)"),
-    ("replica_endpoints", "--replica-endpoints", "the wire transport "
-     "(serve/transport.py)"),
-    ("replica_discovery_dir", "--replica-discovery-dir", "the wire "
-     "transport (serve/transport.py)"),
-    ("prefill_endpoints", "--prefill-endpoints", "the wire transport "
-     "(serve/transport.py)"),
-    ("role", "--role", "the replica server (serve/transport.py)"),
     ("autoscale", "--autoscale", "the autoscaler (serve/autoscale.py)"),
     ("autoscale_min", "--autoscale-min", "the autoscaler "
      "(serve/autoscale.py)"),
@@ -75,6 +85,18 @@ def _unported(args) -> None:
             raise NotImplementedError(
                 f"{flag}: {what} is not ported to PyTorch yet "
                 "(ROADMAP.md)")
+
+
+def _drain_status(engines) -> dict:
+    """/healthz body for the serving process: ``status`` is the preStop
+    hook's one-word answer — "ok" until drain() is called, "draining"
+    while any replica still holds work, "drained" once everything
+    finished (safe to kill)."""
+    draining = any(e.draining for e in engines)
+    drained = all(e.drained for e in engines)
+    return {"status": ("drained" if draining and drained
+                       else "draining" if draining else "ok"),
+            "draining": draining, "drained": drained}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -112,9 +134,60 @@ def main(argv: list[str] | None = None) -> int:
                     help="directory for flight-recorder dump files "
                          "(requires --flight-ring; omitted = dumps stay "
                          "in memory)")
-    for flag, kind in (("--tp", int), ("--replica-endpoints", str),
-                       ("--replica-discovery-dir", str),
-                       ("--prefill-endpoints", str), ("--role", str),
+    ap.add_argument("--replica-server", action="store_true",
+                    help="run ONE engine as a standalone replica-server "
+                         "process (serve/transport.py): the transport "
+                         "endpoints (/submit /poll /cancel /drain /pages "
+                         "/exports /shutdown) share the /metrics exporter "
+                         "on --metrics-port, a remote gateway drives the "
+                         "workload, and SIGTERM drains then exits 0")
+    ap.add_argument("--port-file", default=None, metavar="PATH",
+                    help="replica-server only: write the bound port here "
+                         "once listening (use with --metrics-port 0 for "
+                         "an ephemeral port)")
+    ap.add_argument("--heartbeat-dir", default=None, metavar="DIR",
+                    help="replica-server only: advertise this replica's "
+                         "metrics_addr and role through heartbeat files "
+                         "in DIR (the gateway's --replica-discovery-dir "
+                         "reads the same directory)")
+    ap.add_argument("--replica-rank", type=int, default=0,
+                    help="replica-server only: heartbeat rank / identity "
+                         "of this replica process")
+    ap.add_argument("--advertise-host", default="127.0.0.1",
+                    help="replica-server only: host written into the "
+                         "advertised metrics_addr (the address peers "
+                         "dial, not the bind address)")
+    ap.add_argument("--role", choices=["decode", "prefill"],
+                    default="decode",
+                    help="replica-server only: disagg serving role. "
+                         "decode = the normal engine; prefill = admission "
+                         "+ prefill only, finished prompt KV pages are "
+                         "exported over /exports for a coordinator to "
+                         "ship to a decode replica")
+    ap.add_argument("--disagg", action="store_true",
+                    help="remote coordinator mode (needs "
+                         "--replica-endpoints or --replica-discovery-dir): "
+                         "route prompts through prefill-role replica "
+                         "servers and ship their finished KV pages to the "
+                         "least-loaded decode replica over /pages; with no "
+                         "healthy prefill worker requests take unified "
+                         "decode-local prefill")
+    ap.add_argument("--prefill-endpoints", default=None, metavar="LIST",
+                    help="with --disagg: static comma-separated host:port "
+                         "list of prefill-role replica servers (with "
+                         "--replica-discovery-dir they are discovered by "
+                         "their role beacon instead)")
+    ap.add_argument("--replica-endpoints", default=None, metavar="LIST",
+                    help="run the gateway over REMOTE replica-server "
+                         "processes at these comma-separated host:port "
+                         "endpoints instead of local engines (no model is "
+                         "built)")
+    ap.add_argument("--replica-discovery-dir", default=None, metavar="DIR",
+                    help="like --replica-endpoints, but discover the fleet "
+                         "from heartbeat files carrying metrics_addr "
+                         "(written by replica servers started with "
+                         "--heartbeat-dir DIR)")
+    for flag, kind in (("--tp", int),
                        ("--autoscale-min", int), ("--autoscale-max", int),
                        ("--autoscale-interval-s", float),
                        ("--autoscale-up-cooldown-s", float),
@@ -125,9 +198,8 @@ def main(argv: list[str] | None = None) -> int:
                        ("--autoscale-endpoint-template", str)):
         ap.add_argument(flag, type=kind, default=None,
                         help="not ported yet: raises when given")
-    for flag in ("--replica-server", "--autoscale"):
-        ap.add_argument(flag, action="store_true",
-                        help="not ported yet: raises when given")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="not ported yet: raises when given")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission queue bound (default: --requests)")
@@ -180,6 +252,22 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-path", default=None,
                     help="also append the JSON lines to this file")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics (+ /healthz, /readyz) "
+                         "on this port; serving gauges update per scrape")
+    ap.add_argument("--trace", action="store_true",
+                    help="emit span events (admission/prefill/decode) "
+                         "through the JSONL stream")
+    ap.add_argument("--request-trace-sample", type=float, default=0.0,
+                    metavar="FRAC",
+                    help="emit one request_trace lifecycle event for this "
+                         "fraction of finished requests, chosen by a hash "
+                         "of the request id (0 = off, 1 = every request)")
+    ap.add_argument("--debug-dir", default=None, metavar="DIR",
+                    help="enable the exporter's debug surface (requires "
+                         "--metrics-port): /debug/spans serves a ring of "
+                         "recent spans, /debug/profile?ms=N captures a "
+                         "torch.profiler trace into DIR")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -204,7 +292,70 @@ def main(argv: list[str] | None = None) -> int:
     if args.disagg_prefill < 0:
         ap.error(f"--disagg-prefill must be >= 0, got "
                  f"{args.disagg_prefill}")
-    if args.shared_prefix_len + p_hi + o_hi > args.max_seq_len:
+    if args.kv_pool_pages < 0:
+        ap.error(f"--kv-pool-pages must be >= 0, got {args.kv_pool_pages}")
+    if not 0.0 <= args.request_trace_sample <= 1.0:
+        ap.error(f"--request-trace-sample must be in [0, 1], got "
+                 f"{args.request_trace_sample}")
+    if args.debug_dir is not None and args.metrics_port is None:
+        ap.error("--debug-dir requires --metrics-port (the debug surface "
+                 "rides the metrics exporter)")
+    remote = (args.replica_endpoints is not None
+              or args.replica_discovery_dir is not None)
+    if args.replica_endpoints is not None and args.replica_discovery_dir:
+        ap.error("--replica-endpoints and --replica-discovery-dir are "
+                 "mutually exclusive (static list vs heartbeat discovery)")
+    if args.replica_server and remote:
+        ap.error("--replica-server runs the engine side; "
+                 "--replica-endpoints/--replica-discovery-dir run the "
+                 "gateway side — pick one per process")
+    if args.replica_server and args.replicas != 1:
+        ap.error("--replica-server wraps exactly one engine per process "
+                 f"(got --replicas {args.replicas}); scale out by "
+                 "starting more replica-server processes")
+    if args.replica_server and args.metrics_port is None:
+        ap.error("--replica-server requires --metrics-port (the transport "
+                 "endpoints ride the metrics exporter; 0 = ephemeral "
+                 "with --port-file)")
+    if args.port_file is not None and not args.replica_server:
+        ap.error("--port-file only makes sense with --replica-server")
+    if args.heartbeat_dir is not None and not args.replica_server:
+        ap.error("--heartbeat-dir only makes sense with --replica-server "
+                 "(gateways discover via --replica-discovery-dir)")
+    if args.role != "decode" and not args.replica_server:
+        ap.error("--role only makes sense with --replica-server (the "
+                 "coordinator side learns roles from heartbeat beacons)")
+    if args.role == "prefill" and args.spec_k:
+        ap.error("--role prefill runs admission + prefill only; "
+                 "speculative decoding is a decode-side knob")
+    if args.disagg and not remote:
+        ap.error("--disagg needs a remote decode fleet "
+                 "(--replica-endpoints or --replica-discovery-dir); "
+                 "use --disagg-prefill N for in-process disagg")
+    if args.prefill_endpoints is not None and not args.disagg:
+        ap.error("--prefill-endpoints only makes sense with --disagg")
+    if (args.prefill_endpoints is not None
+            and args.replica_discovery_dir is not None):
+        ap.error("--prefill-endpoints is the static alternative to "
+                 "role-heartbeat discovery; with --replica-discovery-dir "
+                 "the prefill fleet is discovered from the same directory")
+    if args.disagg_prefill and (remote or args.replica_server):
+        ap.error("--disagg-prefill runs in-process prefill engines; use "
+                 "--disagg for a remote fleet, or start prefill replica "
+                 "servers with --role prefill")
+    if (args.disagg or args.disagg_prefill) \
+            and args.hedge_after_s is not None:
+        ap.error("--hedge-after-s is a gateway knob; the disagg "
+                 "coordinator does not hedge")
+    if remote and args.draft_model is not None:
+        ap.error("speculative decoding is an engine-side knob: pass "
+                 "--draft-model to the replica-server processes, not the "
+                 "remote gateway")
+    # A replica server generates no workload of its own (the gateway
+    # shapes every request it serves), so the workload bounds apply to
+    # the driving modes only.
+    if (not args.replica_server and args.shared_prefix_len + p_hi + o_hi
+            > args.max_seq_len):
         ap.error(f"shared-prefix-len ({args.shared_prefix_len}) + "
                  f"prompt-len hi ({p_hi}) + out-len hi ({o_hi}) exceeds "
                  f"--max-seq-len ({args.max_seq_len})")
@@ -218,6 +369,7 @@ def main(argv: list[str] | None = None) -> int:
             ap.error(f"--tenants: {e}")
 
     import signal
+    import time
     from collections import deque
 
     import numpy as np
@@ -227,8 +379,14 @@ def main(argv: list[str] | None = None) -> int:
     from k8s_distributed_deeplearning_torch.serve import (QueueFull, Request,
                                                           SamplingParams,
                                                           ServeEngine)
+    from k8s_distributed_deeplearning_torch.utils.device import (
+        resolve_device)
     from k8s_distributed_deeplearning_torch.utils.metrics import (
         MetricsLogger, ServingStats)
+
+    # Every mode runs on the card unless --device cpu asks otherwise, the
+    # remote gateway (which builds no model) included.
+    resolve_device(args.device)
 
     if args.preset == "small":
         cfg = llama.config_tiny(
@@ -237,8 +395,10 @@ def main(argv: list[str] | None = None) -> int:
     else:
         cfg = llama.config_tiny(max_seq_len=args.max_seq_len,
                                 dtype=torch.float32)
-    # One model, its weights held once, for every engine of the fleet.
-    model = llama.LlamaLM(cfg, device=args.device, seed=args.seed)
+    # One model, its weights held once, for every engine of the fleet (a
+    # remote gateway builds none).
+    model = (None if remote
+             else llama.LlamaLM(cfg, device=args.device, seed=args.seed))
     draft = None
     if args.draft_model is not None:
         # Draft presets take the target's vocab, max_seq_len and dtype:
@@ -263,6 +423,14 @@ def main(argv: list[str] | None = None) -> int:
         # the whole process's flight path, sources interleaved.
         flight = FlightRecorder(args.flight_ring, dump_dir=args.flight_dir,
                                 logger=logger, job="serve")
+    tracer = None
+    if args.trace or args.debug_dir is not None:
+        from k8s_distributed_deeplearning_torch.telemetry.trace import Tracer
+        # --debug-dir without --trace: a record-only tracer (no logger)
+        # still fills the ring behind /debug/spans without putting span
+        # events on the JSONL stream.
+        tracer = Tracer(logger if args.trace else None,
+                        ring_size=512 if args.debug_dir is not None else 0)
     # ONE ServingStats shared by every engine and the front, so the
     # summary is the fleet's.
     stats = ServingStats()
@@ -276,18 +444,66 @@ def main(argv: list[str] | None = None) -> int:
             kv_pool_pages=args.kv_pool_pages or None, tenants=tenant_cfgs,
             stats=stats, device=args.device, kv_quant=args.kv_quant,
             weight_quant=args.weight_quant, flight=flight,
-            request_log=logger, **kw)
+            request_log=logger, tracer=tracer, **kw)
 
-    engines = [make_engine(draft_model=draft, spec_k=args.spec_k,
-                           replica_id=(f"r{i}" if args.replicas > 1
-                                       else None))
-               for i in range(args.replicas)]
-    engine = engines[0]
+    engines = [] if remote else [
+        make_engine(draft_model=draft, spec_k=args.spec_k,
+                    request_trace_sample=args.request_trace_sample,
+                    prefill_only=args.role == "prefill",
+                    replica_id=(f"r{i}" if args.replicas > 1 else None))
+        for i in range(args.replicas)]
+    engine = engines[0] if engines else None
     front = engine
-    if args.disagg_prefill:
+    clients = gateway = coordinator = None
+    if remote:
+        from k8s_distributed_deeplearning_torch.serve.gateway import (
+            ServeGateway)
+        from k8s_distributed_deeplearning_torch.serve.transport import (
+            ReplicaClient, discover_replica_clients)
+        kw = dict(stats=stats, logger=logger, flight=flight)
+        if args.replica_discovery_dir is not None:
+            clients = discover_replica_clients(args.replica_discovery_dir,
+                                               **kw)
+            if not clients:
+                ap.error(f"--replica-discovery-dir "
+                         f"{args.replica_discovery_dir}: no heartbeat "
+                         f"advertises a metrics_addr (are the replica "
+                         f"servers up, with --heartbeat-dir?)")
+        else:
+            clients = [ReplicaClient(ep.strip(), **kw)
+                       for ep in args.replica_endpoints.split(",")
+                       if ep.strip()]
+            if not clients:
+                ap.error("--replica-endpoints: empty endpoint list")
+        if args.hedge_after_s is not None and len(clients) < 2:
+            ap.error("--hedge-after-s needs >= 2 remote replicas")
+        if args.disagg:
+            # Coordinator mode replaces the gateway: decode clients take
+            # dispatches, prefill-role clients (possibly none: then every
+            # request takes the unified fallback) feed them pages.
+            from k8s_distributed_deeplearning_torch.serve.disagg import (
+                DisaggCoordinator, RemotePrefillWorker)
+            if args.prefill_endpoints is not None:
+                prefill_clients = [
+                    ReplicaClient(ep.strip(), **kw)
+                    for ep in args.prefill_endpoints.split(",")
+                    if ep.strip()]
+            elif args.replica_discovery_dir is not None:
+                prefill_clients = discover_replica_clients(
+                    args.replica_discovery_dir, role="prefill", **kw)
+            else:
+                prefill_clients = []
+            front = coordinator = DisaggCoordinator(
+                clients, [RemotePrefillWorker(c) for c in prefill_clients],
+                stats=stats, logger=logger)
+        else:
+            front = gateway = ServeGateway(
+                clients, stats=stats, logger=logger,
+                hedge_after_s=args.hedge_after_s, flight=flight)
+    elif args.disagg_prefill:
         from k8s_distributed_deeplearning_torch.serve.disagg import (
             DisaggCoordinator, PrefillWorker)
-        front = DisaggCoordinator(
+        front = coordinator = DisaggCoordinator(
             engines, [PrefillWorker(make_engine(prefill_only=True,
                                                 replica_id=f"p{i}"))
                       for i in range(args.disagg_prefill)],
@@ -295,14 +511,123 @@ def main(argv: list[str] | None = None) -> int:
     elif args.replicas > 1:
         from k8s_distributed_deeplearning_torch.serve.gateway import (
             ServeGateway)
-        front = ServeGateway(engines, stats=stats, logger=logger,
-                             hedge_after_s=args.hedge_after_s,
-                             flight=flight)
+        front = gateway = ServeGateway(engines, stats=stats, logger=logger,
+                                       hedge_after_s=args.hedge_after_s,
+                                       flight=flight)
+    # What the probes report on: the clients' cached replica states in
+    # remote mode, the engines themselves otherwise.
+    status_objs = clients if clients is not None else engines
+    # SIGTERM -> cooperative drain -> exit 0. The handler only flips drain
+    # mode; the loops below dump the flight ring, start the drain, shed
+    # the unsubmitted tail and step until everything held has finished.
+    # Nothing else runs in the handler: it interrupts the main thread
+    # anywhere, an event's write included.
+    drain_requested = False
+
+    def _on_sigterm(signum, frame):
+        nonlocal drain_requested
+        drain_requested = True
+
+    def _begin_drain() -> None:
+        if flight is not None:
+            flight.dump("sigterm")
+        if coordinator is not None:
+            # Coordinator mode only stops feeding: draining the decode
+            # side would strand pages the prefill workers export.
+            return
+        if gateway is not None and clients is not None:
+            # Remote fleet: drain THROUGH the gateway so queued work
+            # migrates between replicas instead of dying with this
+            # process's view of them.
+            for rid in gateway.replica_ids():
+                gateway.drain_replica(rid)
+        else:
+            for e in engines:
+                e.drain()
+
+    try:
+        previous = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        previous = None          # not the main thread: no handler
+
+    if args.replica_server:
+        # Engine side of the wire: no local workload, a remote gateway
+        # submits over the transport routes. Blocks until /shutdown, or
+        # until a SIGTERM-started drain has finished.
+        from k8s_distributed_deeplearning_torch.serve.transport import (
+            ReplicaServer)
+        engine.replica_id = engine.replica_id or f"r{args.replica_rank}"
+        server = ReplicaServer(
+            engine, host="0.0.0.0", port=args.metrics_port,
+            advertise_host=args.advertise_host, logger=logger,
+            heartbeat_dir=args.heartbeat_dir, rank=args.replica_rank,
+            role=args.role, flight=flight).start()
+        try:
+            if args.port_file:
+                with open(args.port_file, "w") as f:
+                    f.write(f"{server.port}\n")
+            logger.emit("start", role="replica_server", port=server.port,
+                        replica=engine.replica_id, preset=args.preset,
+                        serve_role=args.role, num_slots=args.slots,
+                        device=str(engine.device))
+            draining = False
+            while not server.shutting_down:
+                if drain_requested and not draining:
+                    if flight is not None:
+                        flight.dump("sigterm")
+                    server.begin_drain()
+                    draining = True
+                if draining and server.drained:
+                    break
+                time.sleep(0.02)
+            logger.emit("replica_drained", replica=engine.replica_id)
+            logger.emit("serve_summary", num_slots=args.slots,
+                        preset=args.preset, replicas=1,
+                        device=str(engine.device), **stats.summary())
+        finally:
+            server.close()
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+            logger.close()
+        return 0
+
+    exporter = None
+    if args.metrics_port is not None:
+        from k8s_distributed_deeplearning_torch.telemetry import bridge
+        from k8s_distributed_deeplearning_torch.telemetry.exporter import (
+            MetricsExporter)
+        from k8s_distributed_deeplearning_torch.telemetry.registry import (
+            MetricsRegistry)
+        registry = MetricsRegistry()
+        bridge.serving_collector(registry, stats)
+        if gateway is not None:
+            bridge.gateway_collector(registry, gateway)
+        elif engine is not None and coordinator is None:
+            # Per-tenant labeled gauges are per scheduler: one engine
+            # only (with replicas the labels would collide).
+            bridge.sched_collector(registry, engine.queue)
+        exporter = MetricsExporter(
+            registry, port=args.metrics_port,
+            tracer=tracer if args.debug_dir is not None else None,
+            profile_dir=args.debug_dir, flight=flight,
+            healthz=lambda: _drain_status(status_objs),
+            # Readiness splits from liveness: 503 the moment a drain
+            # starts (stop routing here), /healthz stays 200.
+            readyz=lambda: {
+                "ready": not any(e.draining for e in status_objs),
+                **_drain_status(status_objs)}).start()
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size, size=args.shared_prefix_len)
-    tenant_ids = engine.queue.tenant_ids()
+    if engine is not None:
+        tenant_ids = engine.queue.tenant_ids()
+    elif tenant_cfgs is not None:
+        # Remote mode: admission control lives replica-side; the feed
+        # only tags requests with the ids.
+        tenant_ids = [c.tenant_id for c in tenant_cfgs]
+    else:
+        tenant_ids = ["default"]
     feed = deque()
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
@@ -313,28 +638,12 @@ def main(argv: list[str] | None = None) -> int:
                             sampling=sampling, seed=args.seed + i,
                             tenant=tenant_ids[i % len(tenant_ids)]))
 
-    # SIGTERM -> cooperative drain -> exit 0. The handler only flips drain
-    # mode; the loop below sheds the unsubmitted tail and steps until
-    # everything held has finished.
-    drain_requested = False
-
-    def _on_sigterm(signum, frame):
-        nonlocal drain_requested
-        drain_requested = True
-        if flight is not None:
-            flight.dump("sigterm")
-        if not args.disagg_prefill:
-            # Coordinator mode only stops feeding: draining the decode
-            # engines would strand pages the prefill workers export.
-            for e in engines:
-                e.drain()
-
-    try:
-        previous = signal.signal(signal.SIGTERM, _on_sigterm)
-    except ValueError:
-        previous = None          # not the main thread: no handler
+    draining = False
     try:
         while feed or front.busy():
+            if drain_requested and not draining:
+                _begin_drain()
+                draining = True
             if drain_requested and feed:
                 feed.clear()     # draining: the unsubmitted tail is shed
             while feed:
@@ -356,9 +665,14 @@ def main(argv: list[str] | None = None) -> int:
                     ttft_ms=(round(out.ttft_s * 1e3, 3)
                              if out.ttft_s is not None else None),
                     latency_ms=round(out.latency_s * 1e3, 3))
+            if clients is not None:
+                # The replicas step on their own: poll, not spin.
+                time.sleep(0.002)
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
+    if drain_requested and not draining:
+        _begin_drain()           # the signal came with the last step
     if drain_requested:
         for e in engines:
             logger.emit("replica_drained",
@@ -383,6 +697,11 @@ def main(argv: list[str] | None = None) -> int:
                     kv_quant_bytes_saved=summ["kv_quant_bytes_saved"],
                     weight_quant_bytes_saved=summ["weight_quant_bytes_saved"])
     logger.emit("serve_summary", num_slots=args.slots, preset=args.preset,
-                replicas=args.replicas, device=str(engine.device), **summ)
+                replicas=len(clients) if clients is not None
+                else args.replicas,
+                device=str(engine.device) if engine is not None
+                else "remote", **summ)
     logger.close()
+    if exporter is not None:
+        exporter.stop()
     return 0

@@ -1,19 +1,22 @@
 """graftsplit: disaggregated prefill/decode serving with KV page shipping.
 
 The port's own copy of ``k8s_distributed_deeplearning_tpu/serve/
-disagg.py``, in-process half. Prefill is compute-bound and wants big
-chunks; decode is latency-bound and wants nothing else on the card. This
-module splits the two phases across engines and ships a finished
-prompt's KV pages between them:
+disagg.py``. Prefill is compute-bound and wants big chunks; decode is
+latency-bound and wants nothing else on the card. This module splits the
+two phases across engines (and, over ``serve/transport.py``, across
+processes) and ships a finished prompt's KV pages between them:
 
 - **Prefill role.** A :class:`ServeEngine` built with
   ``prefill_only=True`` admits and prefills, then exports the request's
   written pages BY VALUE instead of entering decode; :class:`PrefillWorker`
-  wraps it (``submit`` / ``step`` / ``take_exports`` / ``load``).
-- **Decode role.** Any ordinary engine adopts the blob with
-  ``import_request_kv``: pages land under the pool's ``imported`` owner
-  tag, and decode resumes from the shipped cursor (next token, sampling
-  registers and the generator state travel in the blob).
+  (in-process) and :class:`RemotePrefillWorker` (a ``ReplicaClient`` to a
+  ``role="prefill"`` replica server) wrap the two transports behind one
+  surface (``submit`` / ``step`` / ``take_exports`` / ``load``).
+- **Decode role.** Any ordinary engine (or a ``ReplicaClient`` to one)
+  adopts the blob with ``import_request_kv``: pages land under the pool's
+  ``imported`` owner tag, and decode resumes from the shipped cursor
+  (next token, sampling registers and the generator state travel in the
+  blob).
 - **Coordinator.** :class:`DisaggCoordinator` routes prompts to the
   least-loaded live prefill worker, hands each export to the least-loaded
   decode engine that can adopt it, and **falls back to the unified
@@ -21,11 +24,19 @@ prompt's KV pages between them:
   decode engine can adopt**: disaggregation is a performance mode, never
   an availability dependency.
 
+Exactly-once across the wire: transfers carry a deterministic key
+(``request_id:kv_len``); the server's transfer ledger answers duplicates
+with the original adoption result, so a retry after an ambiguous failure
+can never double-adopt, and an abandoned partial transfer holds only
+bytes, never pool pages.
+
 The wire codec lives here (:func:`encode_blob` / :func:`decode_blob`); the
-blob's layout is the engine's (``serve/engine.py``, "Blob layout").
-``RemotePrefillWorker`` and the coordinator's wire targets wait for
-``serve/transport.py`` (ROADMAP.md); the in-process shipping path fires
-the ``transport_pages`` fault site as the JAX one does.
+blob's layout is the engine's (``serve/engine.py``, "Blob layout"), the
+port's own, so a blob does not cross packages. This module does not
+import the transport: workers and decode targets are duck-typed. The
+``transport_pages`` fault site fires on the in-process shipping path here
+and, for wire targets, inside ``ReplicaClient`` before each ``/pages``
+chunk.
 """
 from __future__ import annotations
 
@@ -144,13 +155,41 @@ class PrefillWorker:
 
 
 class RemotePrefillWorker:
-    """Prefill role over the wire transport: not ported yet."""
+    """Prefill role over the wire: a ``ReplicaClient`` against a
+    ``role="prefill"`` replica server. ``step()`` polls the token stream
+    (the first token comes from the prefill side) and ``take_exports``
+    drains the server's ack-retained export hold exactly once per blob.
+
+    One poll follows every pickup that returned blobs. The server's step
+    loop runs on its own, so a prefill can finish (its first token
+    appended, its blob staged) between this worker's poll and its
+    ``/exports`` call; shipping that blob before the first token is
+    polled would let the decode side's tokens reach the client ahead of
+    it. The server marks a record ``exported`` only after its tokens are
+    in, so the poll after the pickup delivers every exported request's
+    first token (and its handoff terminal) before the coordinator ships
+    the blob."""
 
     def __init__(self, client, *, worker_id: str | None = None):
-        raise NotImplementedError(
-            "RemotePrefillWorker needs serve/transport.py, which is not "
-            "ported to PyTorch yet (ROADMAP.md); use PrefillWorker over an "
-            "in-process prefill_only engine")
+        self.client = client
+        self.worker_id = worker_id or (
+            client.replica_id or client.endpoint)
+        self.alive = True
+
+    def submit(self, req: Request, *, requeue: bool = False) -> None:
+        self.client.submit(req, requeue=requeue)
+
+    def step(self) -> None:
+        self.client.step()
+
+    def take_exports(self) -> list[dict]:
+        blobs = self.client.take_remote_exports()
+        if blobs:
+            self.client.step()
+        return blobs
+
+    def load(self) -> int:
+        return self.client.load()
 
 
 # ------------------------------------------------------------ coordinator
@@ -184,9 +223,10 @@ class DisaggCoordinator:
     least-loaded decode worker, and falls back to unified decode-local
     prefill whenever disaggregation cannot make progress.
 
-    *decode_workers*: in-process :class:`ServeEngine` instances (they
-    adopt via ``import_request_kv``). *prefill_workers*:
-    :class:`PrefillWorker`.
+    *decode_workers*: in-process :class:`ServeEngine` instances (adopt
+    via ``import_request_kv``) and/or ``ReplicaClient`` proxies (adopt
+    via ``ship_pages`` over the ``/pages`` route), mixed freely.
+    *prefill_workers*: :class:`PrefillWorker` / :class:`RemotePrefillWorker`.
     An empty prefill fleet is legal and IS the unified path — the
     coordinator then behaves like a tiny load-balancing front end.
 
@@ -356,31 +396,53 @@ class DisaggCoordinator:
     # ---------------------------------------------------------- shipping
 
     def _ship(self, blob: dict) -> None:
-        """Hand one export to the least-loaded decode engine that can
-        adopt it, with the live Request attached (streaming callbacks
-        survive the hop). Nobody adopting -> unified fallback."""
+        """Hand one export to the least-loaded decode worker that can
+        adopt it. In-process adoption is direct (live Request attached,
+        streaming callbacks survive the hop); wire adoption goes through
+        ``ship_pages`` with the deterministic transfer key — an
+        ambiguous failure retries the SAME target and key once (the
+        server's ledger dedups), never a second target, so adoption stays
+        exactly-once. Nobody adopting -> unified fallback."""
         rid = str(blob["request_id"])
         e = self._entries.get(rid)
         req = e.req if e is not None else None
         inj = _faults.active()
         for d in self._rank_decode():
-            if not d.can_import(blob):
-                continue
-            if inj is not None:
-                # The in-process analog of the wire path's page hop: the
-                # chaos soak severs KV shipping here. A lost transfer
-                # costs only the shipping win: the blob is host memory,
-                # so the unified fallback re-prefills and the client
-                # stream splices on (the availability contract).
+            if hasattr(d, "import_request_kv"):
+                if not d.can_import(blob):
+                    continue
+                if inj is not None:
+                    # The in-process analog of the wire path's /pages hop
+                    # (ReplicaClient fires this site per chunk): the chaos
+                    # soak severs KV shipping here too. A lost transfer
+                    # costs only the shipping win: the blob is host
+                    # memory, so the unified fallback re-prefills and the
+                    # client stream splices on (the availability
+                    # contract).
+                    try:
+                        inj.fire("transport_pages")
+                    except OSError:
+                        self._fallback(e, why="pages_transport_fault")
+                        return
                 try:
-                    inj.fire("transport_pages")
+                    d.import_request_kv(blob, request=req)
+                except (EngineDraining, ValueError, RuntimeError):
+                    continue
+            else:
+                key = transfer_key(blob)
+                try:
+                    d.ship_pages(blob, req=req, transfer_key=key)
+                except (QueueFull, EngineDraining, ValueError):
+                    continue          # definitive no: try the next peer
                 except OSError:
-                    self._fallback(e, why="pages_transport_fault")
-                    return
-            try:
-                d.import_request_kv(blob, request=req)
-            except (EngineDraining, ValueError, RuntimeError):
-                continue
+                    # Ambiguous: the transfer may have landed. Retry the
+                    # SAME target with the SAME key (the ledger answers a
+                    # duplicate with the original result); a different
+                    # target here could decode the request twice.
+                    try:
+                        d.ship_pages(blob, req=req, transfer_key=key)
+                    except Exception:   # noqa: BLE001 — still down
+                        break           # fallback, never a second target
             if e is not None:
                 e.worker = None
                 e.shipped = True

@@ -61,14 +61,21 @@ JAX engine runs its compiled programs.
   events; ``flight`` (``telemetry/flight.py``) takes a snapshot a step and
   dumps on a finished drain, a leak or an injected fault; the
   ``serve_decode`` fault site fires before each decode launch; a leak
-  check emits ``kv_page_leak`` on ``request_log``.
+  check emits ``kv_page_leak`` on ``request_log``. ``tracer``
+  (``telemetry/trace.py``) times the spans ``admission``, ``prefill`` (one
+  a chunk) and ``decode`` (one an iteration, its host sync included) at
+  the JAX engine's sites; ``request_trace_sample`` emits one
+  ``request_trace`` event a finished request for that share of request
+  ids, chosen by a hash of the id (the JAX engine's rule, so the same
+  requests are traced by either package).
 
-Not ported yet: tensor parallelism and request traces.
+Not ported yet: tensor parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from collections import deque
 from typing import Iterable
 
@@ -84,8 +91,11 @@ from k8s_distributed_deeplearning_torch.serve.request import (
     EngineDraining, QueueFull, Request, RequestOutput, SamplingParams)
 from k8s_distributed_deeplearning_torch.serve.sched import (
     TenantConfig, TenantScheduler)
+from k8s_distributed_deeplearning_torch.telemetry.trace import Tracer
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
 from k8s_distributed_deeplearning_torch.utils.metrics import ServingStats
+
+_NULL_TRACER = Tracer(enabled=False)
 
 
 def _set_cfg(model, cfg) -> None:
@@ -220,7 +230,11 @@ class ServeEngine:
     a disaggregated prefill worker (its admitted slots are exported, see
     :meth:`take_exports`; not with ``spec_k``); ``flight`` is a
     :class:`telemetry.flight.FlightRecorder`; ``request_log`` a
-    ``MetricsLogger``-shaped ``emit`` target for ``kv_page_leak``.
+    ``MetricsLogger``-shaped ``emit`` target for ``kv_page_leak`` and
+    ``request_trace`` (default: the tracer's logger). ``tracer`` is a
+    :class:`telemetry.trace.Tracer` for the engine's spans (None = off);
+    ``request_trace_sample`` in [0, 1] is the share of request ids whose
+    finish emits a ``request_trace`` event (0 = none).
     """
 
     def __init__(self, model, *, num_slots: int = 8, max_queue: int = 256,
@@ -238,10 +252,16 @@ class ServeEngine:
                  weight_quant: str | None = None,
                  replica_id: str | None = None,
                  prefill_only: bool = False,
-                 flight=None, request_log=None):
+                 flight=None, request_log=None,
+                 tracer: Tracer | None = None,
+                 request_trace_sample: float = 0.0):
         dev = resolve_device(device)
         if num_slots < 2:
             raise ValueError(f"num_slots must be >= 2, got {num_slots}")
+        if not 0.0 <= request_trace_sample <= 1.0:
+            raise ValueError(
+                f"request_trace_sample must be in [0, 1], got "
+                f"{request_trace_sample}")
         for what, mode in (("kv_quant", kv_quant),
                            ("weight_quant", weight_quant)):
             if mode not in (None, "int8"):
@@ -323,7 +343,10 @@ class ServeEngine:
         self._draining = False
         self._drain_finalized = False
         self.replica_id = replica_id
-        self.request_log = request_log
+        self.tracer = tracer if tracer is not None else _NULL_TRACER
+        self.request_trace_sample = float(request_trace_sample)
+        self.request_log = (request_log if request_log is not None
+                            else self.tracer.logger)
         self.flight = flight
         self._last_decode_ms: float | None = None
         self._last_prefill_ms: float | None = None
@@ -545,6 +568,7 @@ class ServeEngine:
                 ttft_s=None, latency_s=now - t0)
             self.stats.record_completion(latency_s=out.latency_s,
                                          n_tokens=0, reason=reason)
+            self._emit_request_trace(req, out)
             self._notify_finish(req, reason)
             return out
         for slot in list(self._pending):
@@ -915,7 +939,8 @@ class ServeEngine:
     def _plain_decode(self, active: int,
                       outputs: list[RequestOutput]) -> None:
         """One token for every occupied slot."""
-        nxt = self._decode_step()
+        with self.tracer.span("decode", active=active):
+            nxt = self._decode_step()
         self.stats.record_step(active, self.num_slots)
         for slot, fl in enumerate(self._slots):
             if fl is None:
@@ -941,10 +966,11 @@ class ServeEngine:
         target's selection after them (1 to spec_k + 1 tokens); the
         cursor advance is the accept, and rejected positions stay past
         it, never attended, rewritten by the next window."""
-        window = self._spec_draft_step()
-        sel, states = self._spec_verify_step(window)
-        window = window.cpu().numpy()
-        sel = sel.cpu().numpy()
+        with self.tracer.span("decode", active=active, spec_k=self.spec_k):
+            window = self._spec_draft_step()
+            sel, states = self._spec_verify_step(window)
+            window = window.cpu().numpy()
+            sel = sel.cpu().numpy()
         matches = (window[:, 1:] == sel[:, :-1]).astype(np.int32)
         acc = np.cumprod(matches, axis=1).sum(axis=1)
         emitted_total = 0
@@ -1024,10 +1050,12 @@ class ServeEngine:
         now = time.perf_counter()
         for req in self.queue.drain():
             t0 = req._t_submit if req._t_submit is not None else now
-            outs.append(RequestOutput(
+            out = RequestOutput(
                 request_id=req.request_id, prompt_len=len(req.prompt),
                 tokens=[], finish_reason="aborted", queue_s=now - t0,
-                ttft_s=None, latency_s=now - t0))
+                ttft_s=None, latency_s=now - t0)
+            outs.append(out)
+            self._emit_request_trace(req, out)
             self._notify_finish(req, "aborted")
         for slot in list(self._pending):
             outs.append(self._cancel_pending(slot, "aborted"))
@@ -1229,11 +1257,59 @@ class ServeEngine:
     def _timeout_unadmitted(self, req: Request) -> RequestOutput:
         now = time.perf_counter()
         t0 = req._t_submit if req._t_submit is not None else now
-        self._notify_finish(req, "timeout")
-        return RequestOutput(
+        out = RequestOutput(
             request_id=req.request_id, prompt_len=len(req.prompt),
             tokens=[], finish_reason="timeout", queue_s=now - t0,
             ttft_s=None, latency_s=now - t0)
+        self._emit_request_trace(req, out)
+        self._notify_finish(req, "timeout")
+        return out
+
+    def _sampled(self, request_id: str) -> bool:
+        """Whether *request_id*'s finish is traced: a pure hash of the id
+        (crc32, the JAX engine's rule), so the same request traces, or
+        does not, on every replica and rerun."""
+        s = self.request_trace_sample
+        if s <= 0.0 or self.request_log is None:
+            return False
+        if s >= 1.0:
+            return True
+        return zlib.crc32(request_id.encode()) < s * 2 ** 32
+
+    def _emit_request_trace(self, req: Request, out: RequestOutput) -> None:
+        """The lifecycle funnel: every terminal path (``_finish``,
+        ``_cancel_pending``, ``_timeout_unadmitted``, a queued cancel and
+        shutdown's queued drain) lands here with its RequestOutput; a
+        sampled request emits one ``request_trace`` event with the JAX
+        engine's fields."""
+        if not self._sampled(out.request_id):
+            return
+        n = len(out.tokens)
+        self.request_log.emit(
+            "request_trace",
+            request_id=out.request_id,
+            trace_id=req.trace_id,
+            replica=self.replica_id,
+            migrated_from=req.migrated_from,
+            tenant=req.tenant,
+            priority=self.queue.priority_of(req.tenant),
+            prompt_len=out.prompt_len,
+            cached_prompt_tokens=out.cached_prompt_tokens,
+            prefill_chunks=out.prefill_chunks,
+            queue_ms=round(out.queue_s * 1e3, 3),
+            ttft_ms=(round(out.ttft_s * 1e3, 3)
+                     if out.ttft_s is not None else None),
+            latency_ms=round(out.latency_s * 1e3, 3),
+            new_tokens=n,
+            decode_steps=max(0, n - 1),
+            tokens_per_s=(round(n / out.latency_s, 1)
+                          if n and out.latency_s > 0 else None),
+            spec_proposed=out.spec_proposed,
+            spec_accepted=out.spec_accepted,
+            kv_quant=self.kv_quant,
+            weight_quant=self.weight_quant,
+            finish_reason=out.finish_reason)
+        self.stats.record_request_trace()
 
     def _bucket(self, n: int) -> int:
         b = self.min_bucket
@@ -1279,17 +1355,18 @@ class ServeEngine:
         bt = self.page_tokens
         hit, nodes = 0, []
         table = np.zeros(self.table_cols, np.int32)
-        if self.prefix_cache is not None:
-            hit, nodes = self.prefix_cache.acquire(prompt.tolist())
-            self.stats.record_prefix_lookup(hit, n)
-            for j, node in enumerate(nodes):
-                self.pool.ref(node.page)
-                table[j] = node.page
-        n_prompt_blocks = -(-n // bt)
-        table[hit // bt:n_prompt_blocks] = self.pool.alloc(
-            n_prompt_blocks - hit // bt)
-        grow = -(-(n + req.max_new_tokens - 1) // bt) - n_prompt_blocks
-        self.pool.reserve(grow)
+        with self.tracer.span("admission", prompt_len=n, slot=slot):
+            if self.prefix_cache is not None:
+                hit, nodes = self.prefix_cache.acquire(prompt.tolist())
+                self.stats.record_prefix_lookup(hit, n)
+                for j, node in enumerate(nodes):
+                    self.pool.ref(node.page)
+                    table[j] = node.page
+            n_prompt_blocks = -(-n // bt)
+            table[hit // bt:n_prompt_blocks] = self.pool.alloc(
+                n_prompt_blocks - hit // bt)
+            grow = -(-(n + req.max_new_tokens - 1) // bt) - n_prompt_blocks
+            self.pool.reserve(grow)
         self._pending[slot] = _PendingPrefill(req, prompt, hit, nodes,
                                               t_pop, grow, table)
         t0 = req._t_submit if req._t_submit is not None else t_pop
@@ -1310,9 +1387,10 @@ class ServeEngine:
                 if c is not None and rem > c:
                     if budget is not None and budget < c:
                         break       # out of budget; resume next iteration
-                    self._prefill_both(
-                        pend.prompt[None, pend.pos:pend.pos + c],
-                        pend.table[None], pend.pos, None)
+                    with self.tracer.span("prefill", chunk=c, slot=slot):
+                        self._prefill_both(
+                            pend.prompt[None, pend.pos:pend.pos + c],
+                            pend.table[None], pend.pos, None)
                     pend.pos += c
                     pend.chunks += 1
                     self._charge_prefill(c)
@@ -1343,7 +1421,8 @@ class ServeEngine:
         req, n = pend.req, pend.n
         rem = n - pend.pos
         sp = req.sampling
-        chunk = np.full((1, self._bucket(rem)), self.pad_id, np.int32)
+        bucket = self._bucket(rem)
+        chunk = np.full((1, bucket), self.pad_id, np.int32)
         chunk[0, :rem] = pend.prompt[pend.pos:]
         # Install the row engine-wide now; the cursor moves to n below,
         # before the next decode, so rider writes land past the prompt.
@@ -1352,12 +1431,14 @@ class ServeEngine:
         if sp.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(req.seed)
-        logits = self._prefill_both(chunk, self._tables[slot:slot + 1],
-                                    pend.pos, rem - 1)
-        first = int(_sample_slots(
-            logits, np.array([sp.temperature], np.float32),
-            np.array([sp.top_k], np.int32), np.array([sp.top_p], np.float32),
-            [gen])[0])
+        with self.tracer.span("prefill", bucket=bucket, slot=slot,
+                              cached=pend.hit_tokens):
+            logits = self._prefill_both(chunk, self._tables[slot:slot + 1],
+                                        pend.pos, rem - 1)
+            first = int(_sample_slots(
+                logits, np.array([sp.temperature], np.float32),
+                np.array([sp.top_k], np.int32),
+                np.array([sp.top_p], np.float32), [gen])[0])
         if self.prefix_cache is not None:
             # The trie takes its own reference on each new whole prompt
             # block's page: the K/V outlives the slot, and later requests
@@ -1424,6 +1505,7 @@ class ServeEngine:
         self.stats.record_completion(latency_s=out.latency_s, n_tokens=0,
                                      reason=reason)
         self.queue.release(pend.req)
+        self._emit_request_trace(pend.req, out)
         self._notify_finish(pend.req, reason)
         return out
 
@@ -1446,6 +1528,7 @@ class ServeEngine:
                                      n_tokens=len(out.tokens), reason=reason)
         if not fl.imported:
             self.queue.release(fl.req)
+        self._emit_request_trace(fl.req, out)
         self._notify_finish(fl.req, reason)
         return out
 

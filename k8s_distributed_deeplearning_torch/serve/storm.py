@@ -29,7 +29,9 @@ function of (seed, config). Topologies: a :class:`ServeGateway` over N
 decode replicas, or with ``prefill > 0`` a :class:`DisaggCoordinator`
 with in-process prefill workers (KV page shipping under fire). The
 autoscaled topology waits for ``serve/autoscale.py`` (ROADMAP.md) and
-raises. Engines come from a factory::
+raises. ``--metrics-port`` serves the storm gauges
+(``telemetry/bridge.py`` ``storm_collector``) while the soak runs. Engines
+come from a factory::
 
     python -m k8s_distributed_deeplearning_torch.serve.storm --device cpu \
         --steps 48 --max-seq-len 128
@@ -728,7 +730,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--prefill", type=int, default=0,
                     help="prefill workers (>0 swaps in the disagg front)")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="not ported yet: raises when given")
+                    help="serve /metrics with the storm gauges while "
+                         "the soak runs")
     ap.add_argument("--report-json", default=None,
                     help="write the StormReport as JSON to this path")
     ap.add_argument("--flight-ring", type=int, default=0)
@@ -751,10 +754,6 @@ def main(argv: list[str] | None = None) -> int:
         raise NotImplementedError(
             "--autoscale: serve/autoscale.py is not ported to PyTorch yet "
             "(ROADMAP.md)")
-    if args.metrics_port is not None:
-        raise NotImplementedError(
-            "--metrics-port: the metrics exporter is not ported to PyTorch "
-            "yet (ROADMAP.md)")
 
     import torch
 
@@ -804,9 +803,52 @@ def main(argv: list[str] | None = None) -> int:
                            flight=flight, device=args.device)
 
     cfg = dataclasses.replace(cfg, vocab=mcfg.vocab_size)
-    report = run_storm(cfg, make_engine=make_engine,
-                       make_prefill_engine=make_prefill_engine,
-                       logger=logger, flight=flight)
+    server = None
+    on_monitor = None
+    if args.metrics_port is not None:
+        # Live observability for a long soak: the storm gauges behind
+        # /metrics, the same exporter the serving CLI uses.
+        from k8s_distributed_deeplearning_torch.telemetry import bridge
+        from k8s_distributed_deeplearning_torch.telemetry.exporter import (
+            MetricsExporter)
+        from k8s_distributed_deeplearning_torch.telemetry.registry import (
+            MetricsRegistry)
+        registry = MetricsRegistry()
+        monitor_box: list = []
+        inj_box: list = []
+
+        class _Lazy:
+            """The monitor exists only inside run_storm: the collector's
+            reads go through this late-bound box (filled by run_storm's
+            on_monitor hook once the soak starts)."""
+            violations = property(
+                lambda self: monitor_box[0].violations
+                if monitor_box else [])
+
+            def in_flight(self):
+                return monitor_box[0].in_flight() if monitor_box else 0
+
+            def submitted_total(self):
+                return (monitor_box[0].submitted_total()
+                        if monitor_box else 0)
+
+        class _LazyInj:
+            fired = property(
+                lambda self: inj_box[0].fired if inj_box else [])
+
+        on_monitor = (lambda mon, inj:
+                      (monitor_box.append(mon), inj_box.append(inj)))
+        bridge.storm_collector(registry, _Lazy(), injector=_LazyInj())
+        server = MetricsExporter(registry, port=args.metrics_port,
+                                 flight=flight).start()
+    try:
+        report = run_storm(cfg, make_engine=make_engine,
+                           make_prefill_engine=make_prefill_engine,
+                           logger=logger, flight=flight,
+                           on_monitor=on_monitor)
+    finally:
+        if server is not None:
+            server.stop()
     doc = report.to_dict()
     if args.report_json:
         with open(args.report_json, "w") as f:

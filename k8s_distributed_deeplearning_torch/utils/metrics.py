@@ -1,22 +1,30 @@
 """Structured serving and training metrics.
 
 Port of the parts of ``k8s_distributed_deeplearning_tpu/utils/metrics.py``
-the serving engine, the gateway, the disagg coordinator, the training loop
-and the CLIs use: :class:`ServingStats` (the methods they call, and a
-``summary()`` with the JAX package's serving, prefix-cache, gateway,
-transport, disagg and speculative fields), a JSON-lines :class:`MetricsLogger`
-with its ``train_step`` event, and :func:`mfu`.
+the serving engine, the gateway, the disagg coordinator, the wire
+transport, the training loop and the CLIs use: :class:`ServingStats` (the
+methods they call, and a ``summary()`` with the JAX package's serving,
+prefix-cache, request-trace, gateway, transport, disagg and speculative
+fields), a JSON-lines :class:`MetricsLogger` with its ``train_step`` event,
+and :func:`mfu`.
 """
 from __future__ import annotations
 
+import functools
 import json
 import sys
+import threading
 import time
 from typing import IO, Any
 
 
 class MetricsLogger:
-    """Emit one JSON object per event to stdout and optionally a file."""
+    """Emit one JSON object per event to stdout and optionally a file.
+
+    Each event is ONE write of the line and its newline, under a lock:
+    a replica server emits from its handler and step threads at once, and
+    ``print`` writes the newline separately, so two events could share a
+    line."""
 
     def __init__(self, stream: IO[str] | None = None,
                  path: str | None = None, job: str = "serve",
@@ -26,17 +34,20 @@ class MetricsLogger:
         self.job = job
         self._file = open(path, "a") if (path and enabled) else None
         self._t0 = time.monotonic()
+        self._lock = threading.Lock()
 
     def emit(self, event: str, **fields: Any) -> None:
         if not self.enabled:
             return
         rec = {"event": event, "job": self.job,
                "elapsed_s": round(time.monotonic() - self._t0, 3), **fields}
-        line = json.dumps(rec, default=repr)
-        print(line, file=self.stream, flush=True)
-        if self._file:
-            self._file.write(line + "\n")
-            self._file.flush()
+        line = json.dumps(rec, default=repr) + "\n"
+        with self._lock:
+            self.stream.write(line)
+            self.stream.flush()
+            if self._file:
+                self._file.write(line)
+                self._file.flush()
 
     def train_step(self, step: int, loss: float, step_time_ms: float,
                    examples_per_sec: float, per_device: float,
@@ -67,6 +78,19 @@ def mfu(flops_per_example: float, examples_per_sec: float, num_devices: int,
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
+def _locked(method):
+    """Run *method* under ``self._lock``. ServingStats is written by the
+    engine/gateway step path and read mid-step by exporter collector
+    threads (``summary()``); the RLock makes each record/summary atomic —
+    RLock, not Lock, because ``summary()`` reads the ``total_tokens``
+    property on the same thread."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return wrapper
+
+
 class ServingStats:
     """Aggregates the engine's observations into tokens/sec, TTFT and
     latency percentiles, and mean slot occupancy. The clock runs from the
@@ -75,6 +99,7 @@ class ServingStats:
     """
 
     def __init__(self):
+        self._lock = threading.RLock()
         self.t_start: float | None = None
         self.t_last: float | None = None
         self.steps = 0
@@ -94,6 +119,8 @@ class ServingStats:
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         self.prefix_evictions = 0
+        # Sampled request_trace lifecycle events emitted.
+        self.request_traces = 0
         self.kv_pages_total = 0
         self.kv_pages_used = 0
         self.kv_pages_shared = 0
@@ -112,8 +139,10 @@ class ServingStats:
         self.gateway_hedges = 0
         self.gateway_breaker_trips = 0
         self.gateway_poisoned = 0
-        # Remote-replica transport: not ported (ROADMAP.md), so these stay
-        # 0; kept because the soak's coherence check reads them.
+        # Remote-replica transport (serve/transport.py): calls retried
+        # after a transient failure, submits and page transfers the
+        # replica server deduplicated, and streams resumed after failed
+        # polls.
         self.transport_retries = 0
         self.transport_dedup_hits = 0
         self.transport_reconnects = 0
@@ -148,16 +177,19 @@ class ServingStats:
             self.t_start = now
         self.t_last = now
 
+    @_locked
     def record_admission(self, queue_s: float, prompt_len: int) -> None:
         self._tick()
         self.admitted += 1
         self.prompt_tokens += prompt_len
         self.queue_s.append(queue_s)
 
+    @_locked
     def record_first_token(self, ttft_s: float) -> None:
         self._tick()
         self.ttft_s.append(ttft_s)
 
+    @_locked
     def record_step(self, active_slots: int, num_slots: int,
                     tokens: int | None = None) -> None:
         """One decode iteration. ``tokens`` overrides the emitted-token
@@ -168,6 +200,7 @@ class ServingStats:
         self.decode_tokens += active_slots if tokens is None else int(tokens)
         self.occupancy_sum += active_slots / max(num_slots, 1)
 
+    @_locked
     def record_spec_step(self, proposed: int, accepted_counts) -> None:
         """One speculative iteration: ``proposed`` draft tokens in all,
         and each active slot's accepted-and-emitted draft count."""
@@ -179,6 +212,7 @@ class ServingStats:
             self.spec_accepted_tokens += a
             self.spec_accept_hist[a] = self.spec_accept_hist.get(a, 0) + 1
 
+    @_locked
     def record_prefix_lookup(self, hit_tokens: int,
                              prompt_tokens: int) -> None:
         """One prefix-cache lookup at admission: ``hit_tokens`` of the
@@ -191,10 +225,12 @@ class ServingStats:
         self.prefix_hit_tokens += hit_tokens
         self.prefix_lookup_tokens += prompt_tokens
 
+    @_locked
     def record_prefix_evictions(self, n_blocks: int) -> None:
         self._tick()
         self.prefix_evictions += n_blocks
 
+    @_locked
     def record_kv_pool(self, pages_total: int, pages_used: int,
                        pages_shared: int,
                        by_owner: dict | None = None) -> None:
@@ -207,61 +243,99 @@ class ServingStats:
         if by_owner is not None:
             self.kv_pages_by_owner = {k: int(v) for k, v in by_owner.items()}
 
+    @_locked
     def record_page_leak(self, leak: dict) -> None:
         """A leak check found an accounting leak; ``leak`` is the engine's
         record (origin, pages leaked and reserved, by-owner counts)."""
         self.kv_page_leaks += 1
         self.kv_page_leak_last = dict(leak)
 
+    @_locked
+    def record_request_trace(self) -> None:
+        """One sampled ``request_trace`` lifecycle event was emitted."""
+        self._tick()
+        self.request_traces += 1
+
+    @_locked
+    def record_transport_retry(self) -> None:
+        """One remote-replica transport call retried after a transient
+        failure (connection error / timeout / injected network fault)."""
+        self._tick()
+        self.transport_retries += 1
+
+    @_locked
+    def record_transport_dedup(self) -> None:
+        """One retried submit (or page chunk) was deduplicated by the
+        replica server: it had landed but its response was lost."""
+        self._tick()
+        self.transport_dedup_hits += 1
+
+    @_locked
+    def record_transport_reconnect(self) -> None:
+        """One token stream resumed from its emitted-token cursor after one
+        or more failed polls."""
+        self._tick()
+        self.transport_reconnects += 1
+
+    @_locked
     def record_gateway_dispatch(self) -> None:
         """One gateway dispatch (first placement, migration or hedge)."""
         self._tick()
         self.gateway_dispatches += 1
 
+    @_locked
     def record_gateway_migration(self) -> None:
         """One live request moved off a tripped or draining replica."""
         self._tick()
         self.gateway_migrations += 1
 
+    @_locked
     def record_gateway_hedge(self) -> None:
         """One duplicate dispatch for a request still without its first
         token."""
         self._tick()
         self.gateway_hedges += 1
 
+    @_locked
     def record_gateway_breaker_trip(self) -> None:
         """One replica's circuit breaker opened."""
         self._tick()
         self.gateway_breaker_trips += 1
 
+    @_locked
     def record_gateway_poisoned(self) -> None:
         """One request spent its migration budget and ended "poisoned"."""
         self._tick()
         self.gateway_poisoned += 1
 
+    @_locked
     def record_disagg_export(self, pages: int, nbytes: int) -> None:
         """One request's KV pages staged off this engine."""
         self._tick()
         self.disagg_exports += 1
         self.disagg_bytes_shipped += int(nbytes)
 
+    @_locked
     def record_disagg_import(self, pages: int, nbytes: int) -> None:
         """One exported request adopted into this engine's pool."""
         self._tick()
         self.disagg_imports += 1
         self.disagg_bytes_shipped += int(nbytes)
 
+    @_locked
     def record_disagg_fallback(self) -> None:
         """One request routed down the unified decode-local prefill
         path."""
         self._tick()
         self.disagg_fallbacks += 1
 
+    @_locked
     def record_disagg_depth(self, prefill: int, decode: int) -> None:
         """The coordinator's latest backlog a role; a gauge, no tick."""
         self.disagg_prefill_depth = int(prefill)
         self.disagg_decode_depth = int(decode)
 
+    @_locked
     def record_quant(self, kv_quant: str | None, weight_quant: str | None,
                      kv_bytes_saved: int, weight_bytes_saved: int) -> None:
         """The engine's quantization modes and bytes saved; set at
@@ -271,6 +345,7 @@ class ServingStats:
         self.kv_quant_bytes_saved = int(kv_bytes_saved)
         self.weight_quant_bytes_saved = int(weight_bytes_saved)
 
+    @_locked
     def record_completion(self, latency_s: float, n_tokens: int,
                           reason: str) -> None:
         self._tick()
@@ -290,6 +365,7 @@ class ServingStats:
         s = sorted(xs)
         return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
+    @_locked
     def summary(self) -> dict:
         elapsed = ((self.t_last - self.t_start)
                    if self.t_start is not None and self.t_last is not None
@@ -315,6 +391,7 @@ class ServingStats:
             "prefix_cache_hits": self.prefix_hits,
             "prefix_cache_misses": self.prefix_misses,
             "prefix_cache_evictions": self.prefix_evictions,
+            "request_traces_sampled": self.request_traces,
             "kv_pages_total": self.kv_pages_total,
             "kv_pages_used": self.kv_pages_used,
             "kv_pages_shared": self.kv_pages_shared,

@@ -16,8 +16,19 @@ the JAX package on the same weights (tiny topology, f32, 64 positions).
   worker killed mid-chunk, no engine able to adopt) keep the streams and
   hold no page.
 - Engines sharing one model quantize its weights once.
+- Over the wire (``serve/transport.py``, real localhost HTTP): a
+  coordinator with a ``RemotePrefillWorker`` and a ``ReplicaClient``
+  decode target streams JAX's tokens and discovers workers by role; the
+  ``/pages`` ledger answers a re-sent transfer ``duplicate`` exactly
+  once; a dropped chunk is transparent; a partition falls back without a
+  double adoption; a lost ``/exports`` response re-delivers without a
+  second ship; a mid-decode hop over ``/pages`` continues the stream; and
+  an ambiguous ship failure retries the same target with the same key
+  once, never a second target (JAX's ``tests/test_disagg.py`` cases).
 """
 import json
+import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -302,8 +313,14 @@ def test_prefill_only_rejects_spec_and_remote_worker_waits(tiny):
         _mk(tiny, prefill_only=True, draft_model=tiny[2], spec_k=2)
     with pytest.raises(ValueError, match="prefill_only=True"):
         t_disagg.PrefillWorker(_mk(tiny))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_disagg.RemotePrefillWorker(object())
+    # The remote worker is ported now: it names itself after its client,
+    # as the JAX worker does.
+    client = types.SimpleNamespace(replica_id=None,
+                                   endpoint="http://127.0.0.1:9")
+    worker = t_disagg.RemotePrefillWorker(client)
+    assert worker.worker_id == "http://127.0.0.1:9" and worker.alive
+    client.replica_id = "p7"
+    assert t_disagg.RemotePrefillWorker(client).worker_id == "p7"
 
 
 def test_shared_model_quantizes_weights_once():
@@ -459,3 +476,329 @@ def test_transport_pages_fault_falls_back(tiny, prompts, refs):
     assert outs[0].tokens == refs[0]
     assert coord.stats.disagg_fallbacks == 1
     _assert_clean(pre.engine, dec)
+
+
+# ------------------------------------------------------------------ wire
+
+
+class _FakePrefill:
+    """Duck-typed prefill worker: exports one single-page blob per
+    submitted request on the next step."""
+
+    def __init__(self, worker_id="p0"):
+        self.worker_id = worker_id
+        self.alive = True
+        self._pending = []
+
+    def submit(self, req, *, requeue=False):
+        self._pending.append(req)
+
+    def step(self):
+        pass
+
+    def take_exports(self):
+        blobs = [{"request_id": r.request_id, "kv_len": len(r.prompt),
+                  "n_pages": 1, "pages": [np.zeros((4,), np.float32)]}
+                 for r in self._pending]
+        self._pending.clear()
+        return blobs
+
+    def load(self):
+        return 0
+
+
+class _FakeWireDecode:
+    """Wire-style decode target (no ``import_request_kv``, so the
+    coordinator ships through ``ship_pages`` with a transfer key)."""
+
+    def __init__(self, *, fail_ships=0):
+        self.draining = False
+        self.fail_ships = fail_ships
+        self.ship_calls = []
+        self.submitted = []
+        self._active = []
+
+    def load(self):
+        return 0
+
+    def busy(self):
+        return bool(self._active)
+
+    def ship_pages(self, blob, *, req=None, transfer_key=None):
+        self.ship_calls.append(transfer_key)
+        if self.fail_ships > 0:
+            self.fail_ships -= 1
+            raise OSError("injected: connection reset mid-transfer")
+        self._active.append(req)
+        return {"ok": True, "adopted": True}
+
+    def submit(self, req, *, requeue=False):
+        self.submitted.append(req.request_id)
+        self._active.append(req)
+
+    def step(self):
+        active, self._active = self._active, []
+        for req in active:
+            for _ in range(req.max_new_tokens):
+                req.on_token(5)
+            req.on_finish("length")
+
+
+def _fake_req(rid):
+    return TRequest(prompt=[1, 2, 3, 4], max_new_tokens=3, request_id=rid)
+
+
+def test_wire_ship_oserror_retries_same_target_same_key_once():
+    flaky, other = _FakeWireDecode(fail_ships=1), _FakeWireDecode()
+    coord = t_disagg.DisaggCoordinator([flaky, other], [_FakePrefill()])
+    outs = coord.run([_fake_req("w0")])
+    assert len(outs) == 1 and outs[0].finish_reason == "length"
+    # Ambiguous failure: the SAME target, the SAME key, once more.
+    assert flaky.ship_calls == ["w0:4", "w0:4"]
+    assert other.ship_calls == []
+    assert coord.stats.disagg_fallbacks == 0
+
+
+def test_wire_ship_double_oserror_falls_back_never_second_target():
+    dead, other = _FakeWireDecode(fail_ships=2), _FakeWireDecode()
+    coord = t_disagg.DisaggCoordinator([dead, other], [_FakePrefill()])
+    outs = coord.run([_fake_req("w1")])
+    assert len(outs) == 1 and outs[0].finish_reason == "length"
+    assert dead.ship_calls == ["w1:4", "w1:4"]
+    assert other.ship_calls == []        # a second target could decode twice
+    assert coord.stats.disagg_fallbacks == 1
+    assert dead.submitted == ["w1"]      # the fallback's normal admission
+
+
+def _wire_pair(tiny, hb_dir):
+    """One prefill-role and one decode-role port replica server on
+    ephemeral ports, with role beacons in *hb_dir*, and a client each."""
+    from k8s_distributed_deeplearning_torch.serve.transport import (
+        ReplicaClient, ReplicaServer)
+    pre_eng = _mk(tiny, prefill_only=True)
+    dec_eng = _mk(tiny)
+    pre_srv = ReplicaServer(pre_eng, role="prefill", heartbeat_dir=hb_dir,
+                            rank=0, handler_timeout=60.0).start()
+    dec_srv = ReplicaServer(dec_eng, role="decode", heartbeat_dir=hb_dir,
+                            rank=1, handler_timeout=60.0).start()
+    clients = [ReplicaClient(srv.address, replica_id=name, timeout_s=60.0,
+                             backoff_s=0.01, health_refresh_s=0.0,
+                             rng=lambda: 1.0)
+               for srv, name in ((pre_srv, "pre"), (dec_srv, "dec"))]
+    return pre_eng, dec_eng, pre_srv, dec_srv, clients[0], clients[1]
+
+
+def _drive(coord, deadline_s=120.0):
+    outs, t0 = [], time.time()
+    while coord.busy():
+        outs.extend(coord.step())
+        assert time.time() - t0 < deadline_s, "coordinator did not quiesce"
+        time.sleep(0.002)
+    return outs
+
+
+def test_wire_disagg_parity_and_role_discovery(tiny, prompts, refs,
+                                               tmp_path):
+    """Prompt -> prefill server -> ``/exports`` -> ``/pages`` -> decode
+    server: JAX's greedy tokens, each delivered once and in order (the
+    first token comes from the prefill side before the blob ships), one
+    export and one import; the role beacons keep discovery honest."""
+    from k8s_distributed_deeplearning_torch.serve.transport import (
+        discover_replica_clients)
+    from k8s_distributed_deeplearning_torch.telemetry.fleet import (
+        discover_endpoints)
+    hb = str(tmp_path)
+    pre_eng, dec_eng, pre_srv, dec_srv, pre_cli, dec_cli = _wire_pair(
+        tiny, hb)
+    try:
+        coord = t_disagg.DisaggCoordinator(
+            [dec_cli], [t_disagg.RemotePrefillWorker(pre_cli)])
+        got = {}
+        for i in (1, 2):
+            coord.submit(TRequest(
+                prompt=list(prompts[i]), max_new_tokens=MAX_NEW,
+                request_id=f"wire{i}",
+                on_token=lambda t, i=i: got.setdefault(i, []).append(t)))
+        outs = _drive(coord)
+        assert {o.request_id: o.tokens for o in outs} == {
+            "wire1": refs[1], "wire2": refs[2]}
+        assert got == {1: refs[1], 2: refs[2]}
+        assert all(o.finish_reason == "length" for o in outs)
+        assert pre_eng.stats.disagg_exports == 2
+        assert dec_eng.stats.disagg_imports == 2
+        assert coord.stats.disagg_fallbacks == 0
+        assert discover_endpoints(hb, role="decode") == [dec_srv.address]
+        assert discover_endpoints(hb, role="prefill") == [pre_srv.address]
+        assert [c.endpoint for c in discover_replica_clients(hb)] == [
+            f"http://{dec_srv.address}"]
+        _wait_clean(pre_eng, dec_eng)
+    finally:
+        pre_srv.close()
+        dec_srv.close()
+
+
+def _wait_clean(*engines, deadline_s=30.0):
+    """The servers' step loops release pages on their own threads."""
+    t0 = time.time()
+    while any(e.pool.counters()["pages_used"] or e.pool.reserved
+              for e in engines):
+        assert time.time() - t0 < deadline_s, [
+            (e.replica_id, e.pool.counters()) for e in engines]
+        time.sleep(0.01)
+
+
+def test_wire_pages_ledger_answers_duplicate_exactly_once(tiny, prompts,
+                                                          refs, tmp_path):
+    """A re-sent transfer (the same key) gets the ORIGINAL adoption
+    result back: one import, one decode stream, no second slot."""
+    _, dec_eng, pre_srv, dec_srv, _, dec_cli = _wire_pair(
+        tiny, str(tmp_path))
+    src = _mk(tiny, prefill_only=True)
+    try:
+        blob = _exported(src, TRequest(prompt=list(prompts[2]),
+                                       max_new_tokens=MAX_NEW,
+                                       request_id="led0"))
+        key = t_disagg.transfer_key(blob)
+        emitted = [int(t) for t in blob["emitted"]]
+        got, fin = [], []
+        req = t_disagg.request_from_blob(blob)
+        req.on_token = got.append
+        req.on_finish = fin.append
+        body1 = dec_cli.ship_pages(blob, req=req, transfer_key=key,
+                                   chunk_chars=4096)
+        assert body1["adopted"] and not body1.get("duplicate")
+        body2 = dec_cli.ship_pages(blob, transfer_key=key)
+        assert body2.get("duplicate") is True
+        assert body2["slot"] == body1["slot"]
+        assert dec_eng.stats.disagg_imports == 1
+        assert dec_eng.stats.transport_dedup_hits == 1
+        t0 = time.time()
+        while not fin:
+            dec_cli.step()
+            assert time.time() - t0 < 120.0
+        assert emitted + got == refs[2] and fin == ["length"]
+        _wait_clean(src, dec_eng)
+    finally:
+        pre_srv.close()
+        dec_srv.close()
+
+
+def test_wire_drop_fault_is_transparent(tiny, prompts, refs, tmp_path):
+    """``transport_pages`` drop (count=1): the chunk vanishes, the bounded
+    retry re-sends it, adoption happens once and the stream is JAX's."""
+    pre_eng, dec_eng, pre_srv, dec_srv, pre_cli, dec_cli = _wire_pair(
+        tiny, str(tmp_path))
+    try:
+        coord = t_disagg.DisaggCoordinator(
+            [dec_cli], [t_disagg.RemotePrefillWorker(pre_cli)])
+        coord.submit(TRequest(prompt=list(prompts[0]),
+                              max_new_tokens=MAX_NEW, request_id="drop0"))
+        inj = t_faults.activate(t_faults.FaultPlan((t_faults.Fault(
+            site="transport_pages", action="drop", count=1),)))
+        outs = _drive(coord)
+        assert ("transport_pages", "drop") in inj.fired
+        assert outs[0].tokens == refs[0]
+        assert dec_eng.stats.disagg_imports == 1
+        assert coord.stats.disagg_fallbacks == 0
+        _wait_clean(pre_eng, dec_eng)
+    finally:
+        dec_srv.close()
+        pre_srv.close()
+
+
+def test_wire_partition_falls_back_without_double_adopt(tiny, prompts,
+                                                        refs, tmp_path):
+    """A ``transport_pages`` partition: every ship attempt (the
+    coordinator's one same-target retry included) fails, the request
+    falls back through normal decode admission with JAX's tokens, and is
+    adopted zero times."""
+    pre_eng, dec_eng, pre_srv, dec_srv, pre_cli, dec_cli = _wire_pair(
+        tiny, str(tmp_path))
+    try:
+        coord = t_disagg.DisaggCoordinator(
+            [dec_cli], [t_disagg.RemotePrefillWorker(pre_cli)])
+        coord.submit(TRequest(prompt=list(prompts[0]),
+                              max_new_tokens=MAX_NEW, request_id="part0"))
+        t_faults.activate(t_faults.FaultPlan((t_faults.Fault(
+            site="transport_pages", action="partition", seconds=600.0),)))
+        outs = _drive(coord)
+        assert outs[0].tokens == refs[0]
+        assert outs[0].finish_reason == "length"
+        assert coord.stats.disagg_fallbacks == 1
+        assert dec_eng.stats.disagg_imports == 0, "no double adoption"
+        _wait_clean(pre_eng, dec_eng)
+    finally:
+        t_faults.deactivate()
+        dec_srv.close()
+        pre_srv.close()
+
+
+def test_wire_lost_exports_response_redelivers_once(tiny, prompts, refs,
+                                                    tmp_path):
+    """The prefill server's ``/exports`` response is lost after the
+    handler ran (``transport_recv`` drop): the hold re-delivers the blob
+    on the retry, the client hands it over once, and the stream is
+    JAX's."""
+    pre_eng, dec_eng, pre_srv, dec_srv, pre_cli, dec_cli = _wire_pair(
+        tiny, str(tmp_path))
+    try:
+        pre_cli.submit(TRequest(prompt=list(prompts[1]),
+                                max_new_tokens=MAX_NEW, request_id="ex0"))
+        t0 = time.time()
+        while pre_eng.stats.disagg_exports == 0:
+            assert time.time() - t0 < 60.0
+            time.sleep(0.005)
+        t_faults.activate(t_faults.FaultPlan((t_faults.Fault(
+            site="transport_recv", action="drop", count=1),)))
+        try:
+            blobs = pre_cli.take_remote_exports()
+        finally:
+            t_faults.deactivate()
+        assert [b["request_id"] for b in blobs] == ["ex0"]
+        assert pre_cli.stats.transport_retries == 1
+        assert pre_cli.take_remote_exports() == []      # acked, dropped
+        assert pre_srv._export_hold == {}
+        got, fin = [], []
+        req = t_disagg.request_from_blob(blobs[0])
+        req.on_token, req.on_finish = got.append, fin.append
+        dec_cli.ship_pages(blobs[0], req=req)
+        while not fin:
+            dec_cli.step()
+            assert time.time() - t0 < 120.0
+        assert [int(t) for t in blobs[0]["emitted"]] + got == refs[1]
+    finally:
+        dec_srv.close()
+        pre_srv.close()
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_wire_mid_decode_hop_equals_uninterrupted(tiny, prompts, sampled,
+                                                  tmp_path):
+    """A request exported at decode cursor 4 and shipped over ``/pages``
+    into a decode server continues the port's own uninterrupted stream,
+    greedy and sampled (the generator state travels in the blob)."""
+    sp = (TSampling(temperature=0.9, top_k=20) if sampled
+          else TSampling())
+
+    def req(**kw):
+        return TRequest(prompt=list(prompts[3]), max_new_tokens=MAX_NEW,
+                        sampling=sp, seed=11, request_id="hop0", **kw)
+
+    (want,) = _mk(tiny).run([req()])
+    _, dec_eng, pre_srv, dec_srv, _, dec_cli = _wire_pair(
+        tiny, str(tmp_path))
+    try:
+        blob = _mid_decode_blob(_mk(tiny), req(), 4)
+        assert len(blob["emitted"]) == 5       # decode cursor 4
+        got, fin = [], []
+        r = t_disagg.request_from_blob(blob)
+        r.on_token, r.on_finish = got.append, fin.append
+        assert dec_cli.ship_pages(blob, req=r, chunk_chars=65536)["adopted"]
+        t0 = time.time()
+        while not fin:
+            dec_cli.step()
+            assert time.time() - t0 < 120.0
+        assert [int(t) for t in blob["emitted"]] + got == want.tokens
+    finally:
+        pre_srv.close()
+        dec_srv.close()

@@ -6,7 +6,8 @@ drain (by shipped pages), a replica killed through ``gateway_dispatch``
 (its live requests migrate and every greedy stream equals JAX's
 ``generate``), shutdown after a migration, poison quarantine,
 ``on_finish`` exactly once a request; and the serve CLI's fleet flags,
-its refusals of the unported ones, and SIGTERM draining every replica.
+its refusals of the unported ones (tensor parallelism and the
+autoscaler), and SIGTERM draining every replica.
 """
 import io
 import json
@@ -500,11 +501,17 @@ def test_cli_fleet_flags(fleet, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--replica-server"], ["--replica-endpoints", "h:1"],
-    ["--replica-discovery-dir", "/tmp"], ["--prefill-endpoints", "h:1"],
-    ["--role", "prefill"], ["--autoscale"], ["--autoscale-max", "3"]],
+    ["--tp", "2"], ["--autoscale"], ["--autoscale-min", "2"],
+    ["--autoscale-max", "3"], ["--autoscale-interval-s", "1"],
+    ["--autoscale-up-cooldown-s", "1"], ["--autoscale-down-cooldown-s", "1"],
+    ["--autoscale-brownout", "shed_batch"], ["--autoscale-k8s-job", "j"],
+    ["--autoscale-k8s-namespace", "ns"],
+    ["--autoscale-endpoint-template", "h-{i}:1"]],
     ids=lambda f: f[0])
 def test_cli_unported_fleet_flags_raise(flags):
+    """The serve CLI's flags still without a subsystem, tensor parallelism
+    and the autoscaler, raise by name; the wire fleet's flags are ported
+    (``tests/test_torch_transport.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_cli.main(["--device", "cpu"] + flags)
 
