@@ -331,6 +331,44 @@ S. The wire half of the serving fleet (``serve/transport.py``): replica
    a ``--replica-discovery-dir`` gateway; SIGTERM to the gateway, then to
    each replica: every process exits 0, each replica prints
    ``replica_drained``.
+T. The training loop's hooks and graftscope's readers (run after O).
+   T1: E's configuration (8B width, 4 layers, bf16, remat, 4 x 2048,
+   AdamW, chunked CE) fed by a ``TokenShardBatcher`` over token shards of
+   the byte-level corpus (``write_token_shards``), 12 steps through
+   ``fit`` with every hook on: a ``Tracer`` into a JSONL file, a
+   ``HeartbeatWriter``, a ``TrainTelemetry``, a ``StepProfiler`` over
+   steps 4-6 and the ``quant_calib`` dump. Flash launches exactly E's a
+   step by route; the profiler's trace holds the three wgmma flash
+   kernels; ``train_steps_total`` renders 12; the heartbeat reads step
+   12; graftscope's readers find 12 steps, each with ``data_wait`` and
+   ``step``. Reports the losses, the step ms against E's, the critical
+   path, the profiled steps and the profiler's start and stop cost. T3
+   (on T1's model, its optimizer state freed): the dump has one entry a
+   quantizable weight under JAX's names; the model quantized with it and
+   without it (a copy) serves 4 requests of 16 new tokens with int8
+   weights and int8 KV pages: paged launches exact by route on the int8
+   branch (split 0), no page held after shutdown; the share of clipped
+   channels and the tokens against the uncalibrated engine's are
+   readings. T2: the train CLI's small preset at 1,024 tokens in bf16
+   (flash), run as rank 0 and then rank 1 on the one card, each with its
+   own tracer, JSONL and checkpoint directory (a save every 4 of 12
+   steps), one heartbeat directory, the same shards and seed, and a fault
+   plan: rank 1's ``data_wait`` stalls 2 s at steps 3 and 4, rank 0's
+   first ``shard_read`` fails once, rank 1's heartbeat stops from step
+   10. The readers attribute steps 3 and 4 to ``rank1:data_wait`` (a lag
+   above 50 ms) and the worst straggler is rank 1's data_wait; the losses are equal bitwise;
+   ``checkpoint_saved`` fires at 4, 8, 12 on each rank; the heartbeat
+   files read 12 and 9; graftscope's ``export-perfetto`` aligns both ranks
+   on step. T4: the train CLI as its own process, ``--preset tiny
+   --attention flash --dtype bfloat16 --data-path SHARDS --profile-dir
+   DIR``, 16 steps with adafactor and with lion (bf16 moment), the two
+   processes at once: exit 0,
+   ``start`` says ``sharded-streaming``, each trace holds the small flash
+   kernels (head_dim 16). T5 (inside R2's gateway kill): the replicas
+   sample every request's trace; graftscope's ``requests --json``
+   stitches each migrated request into one chain, the migrations summing
+   to the gateway's count, and ``postmortem`` renders the replicas'
+   flight dumps.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -2413,17 +2451,22 @@ def _f32_fleet(model, dev, n, **kw):
             for i in range(n)]
 
 
-def _r2(dev, started):
+def _r2(dev, started, tmp: Path):
     """R2: f32 at 8B width and 4 layers (C's kernel path): disaggregated
     streams, a hop at decode cursor 8, a gateway with a replica killed
     mid-decode and a drain, each against a unified engine's streams."""
     from k8s_distributed_deeplearning_torch import faults
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
     from k8s_distributed_deeplearning_torch.serve.disagg import (
         DisaggCoordinator, PrefillWorker)
     from k8s_distributed_deeplearning_torch.serve.gateway import (
         ServeGateway)
+    from k8s_distributed_deeplearning_torch.telemetry.flight import (
+        FlightRecorder)
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        MetricsLogger)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2482,9 +2525,20 @@ def _r2(dev, started):
           f"R2 hop at decode cursor {R_HOP_AT}: {hop}")
 
     # A gateway over two replicas, r0 killed mid-decode at
-    # gateway_dispatch: its live requests migrate by resubmission.
+    # gateway_dispatch: its live requests migrate by resubmission. Every
+    # request's trace is sampled into its replica's JSONL, and each
+    # replica keeps a flight recorder (phase T5 reads both).
     _zero_counts(attn)
-    fleet = _f32_fleet(model, dev, 2)
+    trace_logs = [tmp / f"r2_r{i}.jsonl" for i in range(2)]
+    trace_files = [open(p, "w") for p in trace_logs]
+    flight_dir = tmp / "r2_flight"
+    fleet = [ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                         device=dev, replica_id=f"r{i}",
+                         request_trace_sample=1.0,
+                         request_log=MetricsLogger(stream=f, job=f"r{i}"),
+                         flight=FlightRecorder(64, dump_dir=str(flight_dir),
+                                               job=f"r{i}"))
+             for i, f in enumerate(trace_files)]
     gw = ServeGateway(fleet, failures_to_trip=1)
     for r in _copy(greedy):
         gw.submit(r)
@@ -2513,6 +2567,9 @@ def _r2(dev, started):
           f"R2 gateway kill: {kill}")
     for e in fleet:
         _clean_after(e, "R2 gateway kill")
+    for f in trace_files:
+        f.close()
+    result["t5"] = _t5(trace_logs, flight_dir, kill)
 
     # drain_replica mid-decode: decoding requests move by shipped pages.
     _zero_counts(attn)
@@ -2666,7 +2723,7 @@ def phase_r(dev, b_streams, b_logits, started, tmp: Path):
     disaggregated serving at full 8B, R2 the f32 exact gates of shipping,
     hop and failover, R3 the chaos soak, R4 the generate example."""
     return {"r1": _r1(dev, b_streams, b_logits, started),
-            "r2": _r2(dev, started), "r3": _r3(dev, started),
+            "r2": _r2(dev, started, tmp), "r3": _r3(dev, started),
             "r4": _r4(dev, started, tmp)}
 
 
@@ -4671,11 +4728,16 @@ def phase_e(dev):
         "E", dev, {"model": "llama3-8b width"}, cfg, batch_size=4, seq=2048,
         lr=3e-4, chunked=True,
         flops_tok=llama.flops_per_token(cfg, seq_len=2048),
-        # Forward 2 x layers: remat "dots" recomputes the flash forward.
-        # bf16 at head_dim 128 takes the wgmma route throughout.
-        per_step={"flash_fwd": 2 * n, "flash_fwd_wgmma": 2 * n,
-                  "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                  "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n})
+        per_step=_e_per_step(n))
+
+
+def _e_per_step(n: int) -> dict:
+    """Phase E's flash launches a step at ``n`` layers. Forward 2 x
+    layers: remat "dots" recomputes the flash forward. bf16 at head_dim
+    128 takes the wgmma route throughout."""
+    return {"flash_fwd": 2 * n, "flash_fwd_wgmma": 2 * n,
+            "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n}
 
 
 def _moe_slice():
@@ -5005,6 +5067,519 @@ def phase_q(dev):
     result = {"phase": "Q", "model": "train --preset tiny --seq-len 1024",
               "batch": batch_size, "seq_len": seq, "steps": Q_STEPS,
               "layers": cfg.n_layers, "head_dim": hd, **out}
+    log(result)
+    return result
+
+
+# ------------------------------------------------------------- phase T
+
+T_STEPS = 12               # T1 and T2: steps through fit
+T_LOG_EVERY = 4
+T_PROFILE = (4, 3)         # T1's StepProfiler: start step, steps traced
+# T2: rank 1's data_wait stall at steps 3 and 4. Step 4 also holds a save
+# of the small preset's state (1.5 GB: snapshot, write, MD5), whose time
+# differs between the two ranks' runs by up to 0.92 s (80-922 ms in three
+# runs on the card): a stall must exceed that to be the step's culprit.
+T_STALL_S = 2.0
+T_STRAGGLER_MS = 50.0      # T2: a straggler lags the median by more
+T_CKPT_EVERY = 4           # T2: saves at 4, 8 and 12
+T_HB_STOP = 10             # T2: rank 1's heartbeat silent from step 10
+T_CLI_STEPS = 16           # T4: the CLI's profile window is steps 10-14
+T_SERVE_NEW = 16           # T3: new tokens a request
+
+
+def _graftscope(*argv) -> tuple[int, str, str]:
+    """The port's graftscope CLI in a fresh interpreter, as it runs over
+    copied logs (it imports no torch)."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "k8s_distributed_deeplearning_torch.telemetry.graftscope",
+         *map(str, argv)], capture_output=True, text=True, timeout=300,
+        cwd=REPO)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _trace_kernels(path: Path) -> dict:
+    """Kernel launches by class (``_kernel_class``) in a Chrome trace
+    written by ``utils/profiling.py``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            cls = _kernel_class(e.get("name", ""))
+            out[cls] = out.get(cls, 0) + 1
+    return out
+
+
+def _t_shards(tmp: Path) -> Path:
+    """The byte-level corpus of the repo as uint16 token shards."""
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    tokens = data_lib.load_tokens(str(REPO / "data" / "corpus"
+                                      / "pydocs.txt.gz"))
+    out = tmp / "shards"
+    data_lib.write_token_shards(tokens, str(out), shard_tokens=1 << 18,
+                                dtype="uint16")
+    return out
+
+
+def _events(path: Path, event: str) -> list[dict]:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("event") == event]
+
+
+def _record_fires(inj, calls: list) -> None:
+    """Record every ``fire(site, step=)`` call of the injector ``inj``."""
+    fire = inj.fire
+
+    def recorded(site, *, step=None, path=None):
+        calls.append((site, step))
+        return fire(site, step=step, path=path)
+
+    inj.fire = recorded
+
+
+def _t1(dev, tmp: Path, shards: Path, e_result: dict):
+    """T1: E's configuration through ``fit`` with every hook on. Returns
+    the log line, the trained model and the calibration dump's path."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.telemetry import bridge
+    from k8s_distributed_deeplearning_torch.telemetry import timeline
+    from k8s_distributed_deeplearning_torch.telemetry.heartbeat import (
+        HeartbeatWriter, read_heartbeats)
+    from k8s_distributed_deeplearning_torch.telemetry.registry import (
+        MetricsRegistry)
+    from k8s_distributed_deeplearning_torch.telemetry.trace import Tracer
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import loop
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        MetricsLogger)
+    from k8s_distributed_deeplearning_torch.utils.profiling import (
+        StepProfiler)
+
+    cfg = llama.config_llama3_8b(n_layers=4, max_seq_len=2048,
+                                 param_dtype=torch.float32)
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, optimizer, state, step_fn = _train_setup(cfg, dev, lr=3e-4)
+    batcher = data_lib.TokenShardBatcher(str(shards), 4, 2048, seed=0,
+                                         vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log_path, hb_dir = tmp / "t1.jsonl", tmp / "t1_hb"
+    prof_dir, calib = tmp / "t1_prof", tmp / "t1_calib.json"
+    registry = MetricsRegistry()
+    profiler = StepProfiler(str(prof_dir), start_step=T_PROFILE[0],
+                            num_steps=T_PROFILE[1])
+    hook_ms = {}
+    hook = profiler.step_hook
+
+    def timed_hook(step):
+        t = time.perf_counter()
+        hook(step)
+        hook_ms[step] = (time.perf_counter() - t) * 1e3
+
+    profiler.step_hook = timed_hook
+    losses = []
+
+    def recording(state, batch, seed):
+        state, loss, aux = step_fn(state, batch, seed)
+        losses.append(loss.detach())
+        return state, loss, aux
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        metrics = MetricsLogger(stream=f, job="train")
+        state = loop.fit(
+            recording, state, batcher.iter_from, T_STEPS, rng=1,
+            metrics=metrics, log_every=T_LOG_EVERY, global_batch_size=4,
+            tracer=Tracer(metrics, rank=0),
+            heartbeat=HeartbeatWriter(str(hb_dir), 0),
+            telemetry=bridge.TrainTelemetry(registry), profiler=profiler,
+            quant_calib=str(calib), model=model)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {k: v * T_STEPS for k, v in _e_per_step(n).items()}
+    want = {k: want.get(k, 0) for k in launches}
+    check(launches == want, f"T1 launches {launches} != {want} over "
+          f"{T_STEPS} steps (E's a step)")
+    loss_f = [float(x) for x in losses]
+    check(len(loss_f) == T_STEPS and all(np.isfinite(loss_f)),
+          f"T1 losses {loss_f}")
+    traced = _trace_kernels(prof_dir / "trace.json")
+    check(all(traced.get(k, 0) > 0 for k in
+              ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")),
+          f"T1 profiler trace kernels {traced}: want the three wgmma "
+          "flash kernels")
+    found = re.search(r"^train_steps_total (\S+)$", registry.render(), re.M)
+    check(found is not None and float(found.group(1)) == T_STEPS,
+          f"T1 train_steps_total renders {found and found.group(1)}")
+    beats = read_heartbeats(str(hb_dir))
+    check([(b["rank"], b["step"]) for b in beats] == [(0, T_STEPS)],
+          f"T1 heartbeat files {beats}")
+    parsed = timeline.parse_files([str(log_path)])
+    tl = timeline.build_step_timelines(parsed)
+    check(sorted(tl) == list(range(T_STEPS))
+          and all({"data_wait", "step"} <= set(tl[s][0].components)
+                  for s in tl), f"T1 step records {sorted(tl)}")
+    rc, out, err = _graftscope("steps", log_path, "--json")
+    check(rc == 0, f"T1 graftscope steps: rc {rc} {err[-2000:]}")
+    steps_json = json.loads(out)
+    check(steps_json["steps"] == T_STEPS and steps_json["ranks"] == [0],
+          f"T1 graftscope steps --json: {steps_json}")
+    path = steps_json["critical_path_ms"]
+    total = sum(path.values()) or 1.0
+    train_steps = _events(log_path, "train_step")
+    result = {
+        "phase": "T1", "model": "llama3-8b width", "layers": n,
+        "batch": 4, "seq_len": 2048, "steps": T_STEPS, "setup_s": setup_s,
+        "data": "sharded-streaming", "num_windows": batcher.num_windows,
+        "wall_s": wall, "launches": {k: v for k, v in launches.items() if v},
+        "losses_at_log_steps": {e["step"]: e["loss"] for e in train_steps},
+        "step_ms_by_log_window": {e["step"]: e["step_time_ms"]
+                                  for e in train_steps},
+        "step_ms_after_profiler": train_steps[-1]["step_time_ms"],
+        "e_step_ms": e_result["step_ms"],
+        "hooks_cost_share": (train_steps[-1]["step_time_ms"]
+                             / e_result["step_ms"] - 1.0),
+        "critical_path_ms": path,
+        "critical_path_share": {k: v / total for k, v in path.items()},
+        "step_wall_ms": {s: tl[s][0].wall_ms for s in sorted(tl)},
+        "data_wait_ms": {s: tl[s][0].components["data_wait"]
+                         for s in sorted(tl)},
+        "profiled_steps_wall_ms": {s: tl[s][0].wall_ms for s in range(
+            T_PROFILE[0], T_PROFILE[0] + T_PROFILE[1])},
+        "profiler_start_ms": hook_ms.get(T_PROFILE[0]),
+        "profiler_stop_ms": hook_ms.get(sum(T_PROFILE)),
+        "profiler_trace_kernels": {k: v for k, v in traced.items()
+                                   if k.startswith("flash")},
+        "profiler_trace_mb": (prof_dir / "trace.json").stat().st_size / 2**20,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(result)
+    del optimizer, state, step_fn, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, model, calib
+
+
+def _t3(dev, model, calib_path: Path) -> dict:
+    """T3: T1's model quantized with its own calibration dump (and a copy
+    without it) serving with int8 weights and int8 KV pages."""
+    import copy
+
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import (Request,
+                                                          ServeEngine)
+    from k8s_distributed_deeplearning_torch.serve import quant
+
+    cfg = model.cfg
+    calib = quant.load_calibration(str(calib_path))
+    names = {quant.jax_path_name(name) for name, _ in
+             quant._quantizable(model)}
+    check(set(calib["weights"]) == names and len(names) == 7,
+          f"T3 dump keys {sorted(calib['weights'])} != {sorted(names)}")
+    raw = quant.calibration_absmax(model)
+    channels = sum(len(v) for v in raw.values())
+    clipped = sum(int(c < r) for k in raw
+                  for c, r in zip(calib["weights"][k], raw[k]))
+    plain = copy.deepcopy(model)
+    with torch.no_grad():
+        quant.quantize_model(model, calibration=calib)
+        quant.quantize_model(plain)
+    scales_equal = all(
+        torch.equal(a.weight_scale, b.weight_scale)
+        for (_, a), (_, b) in zip(quant._quantizable(model),
+                                  quant._quantizable(plain)))
+    rng = np.random.default_rng(11)
+    reqs = [(f"q{i}", rng.integers(0, cfg.vocab_size, int(n)).astype(
+        np.int32)) for i, n in enumerate((200, 600, 1100, 1500))]
+    attn = paged_attn.paged_decode_attention
+    streams, result = {}, {"phase": "T3", "model": "T1's, int8"}
+    for label, m in (("calibrated", model), ("uncalibrated", plain)):
+        eng = ServeEngine(m, num_slots=4, prefill_chunk_tokens=512,
+                          device=dev, kv_quant="int8", weight_quant="int8")
+        _zero_counts(attn)
+        t0 = time.perf_counter()
+        outs = eng.run([Request(prompt=p, max_new_tokens=T_SERVE_NEW,
+                                request_id=rid) for rid, p in reqs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summ = eng.stats.summary()
+        chunks = sum(o.prefill_chunks for o in outs)
+        routes = {"decode": attn.launches_decode_int8,
+                  "prefill": attn.launches_prefill_int8,
+                  "split": (attn.launches_int8 - attn.launches_prefill_int8
+                            - attn.launches_decode_int8),
+                  "fp": attn.launches}
+        want = {"decode": cfg.n_layers * summ["decode_steps"],
+                "prefill": cfg.n_layers * chunks, "split": 0, "fp": 0}
+        check(len(outs) == 4 and all(
+            o.finish_reason == "length" and len(o.tokens) == T_SERVE_NEW
+            and all(0 <= t < cfg.vocab_size for t in o.tokens)
+            for o in outs), f"T3 {label}: outputs")
+        check(routes == want, f"T3 {label}: paged launches {routes} != "
+              f"{want}")
+        streams[label] = {o.request_id: o.tokens for o in outs}
+        result[label] = {"route_launches": routes, "wall_s": wall,
+                         "decode_iterations": summ["decode_steps"],
+                         "prefill_chunks": chunks,
+                         **_clean_after(eng, f"T3 {label}")}
+    same = sum(a == b for rid in streams["calibrated"] for a, b in zip(
+        streams["calibrated"][rid], streams["uncalibrated"][rid]))
+    result.update({
+        "dump_entries": len(calib["weights"]), "channels": channels,
+        "clipped_channels": clipped, "clipped_share": clipped / channels,
+        "scales_equal_uncalibrated": scales_equal,
+        "tokens_equal_uncalibrated": same,
+        "tokens_compared": 4 * T_SERVE_NEW})
+    log(result)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _t2(dev, tmp: Path, shards: Path) -> dict:
+    """T2: the small preset's training run as rank 0 then rank 1, with
+    faults, read back by graftscope."""
+    from k8s_distributed_deeplearning_torch import faults
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.telemetry import timeline
+    from k8s_distributed_deeplearning_torch.telemetry.heartbeat import (
+        HeartbeatWriter, read_heartbeats)
+    from k8s_distributed_deeplearning_torch.telemetry.trace import Tracer
+    from k8s_distributed_deeplearning_torch.train import cli
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+    from k8s_distributed_deeplearning_torch.train import loop
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        MetricsLogger)
+
+    cfg = llama.config_tiny(**{**cli.PRESETS["small"],
+                               "dtype": torch.bfloat16,
+                               "param_dtype": torch.float32,
+                               "max_seq_len": 1024})
+    batch, seq = 4, 1024
+    plan = faults.FaultPlan((
+        faults.Fault(site="data_wait", action="stall", rank=1, after=3,
+                     count=2, seconds=T_STALL_S),
+        faults.Fault(site="shard_read", action="ioerror", rank=0, count=1),
+        faults.Fault(site="heartbeat", action="stop", rank=1,
+                     step=T_HB_STOP)))
+    hb_dir = tmp / "t2_hb"
+
+    def batcher():
+        return data_lib.TokenShardBatcher(str(shards), batch, seq, seed=0,
+                                          vocab_size=cfg.vocab_size)
+
+    # A throwaway run first: the first steps of a shape in this process
+    # pay one-time costs that rank 0 alone would carry.
+    _, _, state, step_fn = _train_setup(cfg, dev, lr=3e-4)
+    loop.fit(step_fn, state, batcher().iter_from, 2, rng=1, log_every=0)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, logs = {}, []
+    for rank in (0, 1):
+        _, _, state, step_fn = _train_setup(cfg, dev, lr=3e-4)
+        losses, fires = [], []
+
+        def recording(state, b, seed, step_fn=step_fn, losses=losses):
+            state, loss, aux = step_fn(state, b, seed)
+            losses.append(loss.detach())
+            return state, loss, aux
+
+        log_path = tmp / f"t2_rank{rank}.jsonl"
+        logs.append(log_path)
+        ck = Checkpointer(str(tmp / f"t2_ck{rank}"), max_to_keep=1)
+        _record_fires(faults.activate(plan, rank=rank), fires)
+        t0 = time.perf_counter()
+        try:
+            with open(log_path, "w") as f:
+                metrics = MetricsLogger(stream=f, job="train")
+                loop.fit(recording, state, batcher().iter_from, T_STEPS,
+                         rng=1, metrics=metrics, checkpointer=ck,
+                         checkpoint_every=T_CKPT_EVERY,
+                         log_every=T_LOG_EVERY,
+                         tracer=Tracer(metrics, rank=rank),
+                         heartbeat=HeartbeatWriter(str(hb_dir), rank))
+                torch.cuda.synchronize()
+        finally:
+            fired = [site for site, _ in faults.active().fired]
+            faults.deactivate()
+            ck.close()
+        ranks[rank] = {
+            "wall_s": time.perf_counter() - t0,
+            "losses": [float(x) for x in losses],
+            "checkpoint_saved_at": [s for site, s in fires
+                                    if site == "checkpoint_saved"],
+            "faults_fired": fired}
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    for rank, path in enumerate(logs):
+        ranks[rank]["saves"] = [
+            {k: e.get(k) for k in ("step", "snapshot_ms", "write_ms",
+                                   "manifest_ms", "save_ms")}
+            for e in _events(path, "checkpoint")]
+    losses_equal = ranks[0]["losses"] == ranks[1]["losses"]
+    beats = {b["rank"]: b["step"] for b in read_heartbeats(str(hb_dir))}
+    parsed = timeline.parse_files([str(p) for p in logs])
+    tl = timeline.build_step_timelines(parsed)
+    attrs = timeline.attribute_stragglers(tl)
+    by_step = {a.step: a for a in attrs}
+    summary = timeline.straggler_summary(attrs, T_STRAGGLER_MS, 1.2)
+    trace_path = tmp / "t2_trace.json"
+    rc, out, err = _graftscope("export-perfetto", *logs, "-o", trace_path)
+    events = []
+    if rc == 0:
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    ends = {e["pid"]: e["ts"] + e["dur"] for e in events
+            if e["ph"] == "X" and e["name"] == "step"
+            and e["args"].get("step") == 0}
+    result = {
+        "phase": "T2", "model": "train --preset small --seq-len 1024",
+        "dtype": "bfloat16", "batch": batch, "seq_len": seq,
+        "steps": T_STEPS, "stall_s": T_STALL_S, "ranks": ranks,
+        "losses_bitwise_equal": losses_equal, "heartbeats": beats,
+        "stragglers": summary,
+        "attributions": {a.step: {
+            "rank": a.slowest_rank, "span": a.span, "lag_ms": a.lag_ms,
+            "wall_ms": a.wall_ms, "span_excess_ms": a.span_excess_ms,
+            "straggler": a.is_straggler(T_STRAGGLER_MS, 1.2)}
+            for a in attrs},
+        "components_ms": {s: {r: rec.breakdown() for r, rec in tl[s].items()}
+                          for s in (3, 4)},
+        "critical_path_ms": timeline.critical_path(tl),
+        "perfetto_events": len(events), "perfetto_step0_end_us": ends}
+    log(result)
+    for rank, r in ranks.items():
+        check(r["checkpoint_saved_at"] == [4, 8, 12],
+              f"T2 rank {rank}: checkpoint_saved fired at "
+              f"{r['checkpoint_saved_at']}")
+    check(ranks[0]["faults_fired"] == ["shard_read"]
+          and ranks[1]["faults_fired"] == ["data_wait", "data_wait"],
+          f"T2 faults fired {[r['faults_fired'] for r in ranks.values()]}")
+    check(all(np.isfinite(ranks[0]["losses"])), "T2 losses not finite")
+    check(losses_equal, "T2 losses differ between the ranks")
+    check(beats == {0: T_STEPS, 1: T_HB_STOP - 1},
+          f"T2 heartbeat files {beats}")
+    for step in (3, 4):
+        a = by_step[step]
+        check(a.slowest_rank == 1 and a.span == "data_wait"
+              and a.lag_ms > T_STRAGGLER_MS,
+              f"T2 step {step} attributed to {vars(a)}")
+    check(summary["worst"] is not None
+          and (summary["worst"]["rank"], summary["worst"]["span"])
+          == (1, "data_wait"), f"T2 straggler summary {summary}")
+    check(rc == 0, f"T2 export-perfetto: rc {rc} {err[-2000:]}")
+    check(set(ends) == {0, 1} and abs(ends[0] - ends[1]) <= 1.0,
+          f"T2 perfetto: step 0 ends at {ends} (us)")
+    return result
+
+
+def _t4(tmp: Path, shards: Path) -> dict:
+    """T4: the train CLI on the card as its own process, streaming the
+    shards and tracing steps 10-14, with adafactor and with lion (the two
+    processes at once: the tiny preset leaves the card nearly idle)."""
+    runs = {}
+    t0 = time.perf_counter()
+    for opt, extra in (("adafactor", []),
+                       ("lion", ["--moment-dtype", "bfloat16"])):
+        cmd = [sys.executable, "-m", "k8s_distributed_deeplearning_torch.train",
+               "--preset", "tiny", "--attention", "flash", "--dtype",
+               "bfloat16", "--data-path", str(shards), "--profile-dir",
+               str(tmp / f"t4_prof_{opt}"), "--num-steps", str(T_CLI_STEPS),
+               "--log-every", "4", "--checkpoint-dir",
+               str(tmp / f"t4_ck_{opt}"), "--optimizer", opt, *extra]
+        runs[opt] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=REPO)
+    outs = {}
+    try:
+        for opt, proc in runs.items():
+            outs[opt] = proc.communicate(timeout=600)
+    finally:
+        for proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    out = {}
+    for opt, (stdout, stderr) in outs.items():
+        rc = runs[opt].returncode
+        check(rc == 0, f"T4 {opt}: rc {rc}\n{stderr[-3000:]}")
+        events = [json.loads(x) for x in stdout.splitlines()
+                  if x.startswith("{")]
+        start = next(e for e in events if e["event"] == "start")
+        check(start.get("data") == "sharded-streaming",
+              f"T4 {opt}: start event {start}")
+        traced = _trace_kernels(tmp / f"t4_prof_{opt}" / "trace.json")
+        check(all(traced.get(k, 0) > 0 for k in
+                  ("flash_fwd_small", "flash_dq_small", "flash_dkv_small")),
+              f"T4 {opt}: trace kernels {traced}")
+        out[opt] = {
+            "num_windows": start["num_windows"],
+            "losses": {e["step"]: e["loss"] for e in events
+                       if e["event"] == "train_step"},
+            "step_ms": {e["step"]: e["step_time_ms"] for e in events
+                        if e["event"] == "train_step"},
+            "trace_kernels": {k: v for k, v in traced.items()
+                              if k.startswith("flash")}}
+    result = {"phase": "T4", "cli": "train --preset tiny --attention flash "
+              "--dtype bfloat16", "steps": T_CLI_STEPS, "wall_s": wall,
+              **out}
+    log(result)
+    return result
+
+
+def phase_t(dev, tmp: Path, e_result: dict) -> dict:
+    """The training loop's hooks and graftscope's readers: T1 (and T3 on
+    its model), T2, T4."""
+    t0 = time.perf_counter()
+    shards = _t_shards(tmp)
+    t1, model, calib = _t1(dev, tmp, shards, e_result)
+    t3 = _t3(dev, model, calib)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = _t2(dev, tmp, shards)
+    t4 = _t4(tmp, shards)
+    return {"t1": t1, "t2": t2, "t3": t3, "t4": t4,
+            "seconds": time.perf_counter() - t0}
+
+
+def _t5(logs: list, flight_dir: Path, kill: dict) -> dict:
+    """T5: graftscope over R2's gateway kill: every sampled request trace
+    of both replicas stitched on its trace id, and the flight dumps."""
+    rc, out, err = _graftscope("requests", *logs, "--json")
+    check(rc == 0, f"T5 graftscope requests: rc {rc} {err[-2000:]}")
+    doc = json.loads(out)
+    migrated = doc["migrated"]
+    migrations = sum(j["migrations"] for j in migrated)
+    check(migrations == kill["gateway_migrations"] >= 1
+          and all(j["finish_reason"] == "length"
+                  and j["replicas"][0] == "r0" for j in migrated),
+          f"T5 stitched journeys {[(j['trace_id'], j['replicas']) for j in migrated]}"
+          f": {migrations} migrations, the gateway counted "
+          f"{kill['gateway_migrations']}")
+    dumps = sorted(flight_dir.glob("flight-*.jsonl"))
+    check(len(dumps) >= 1, f"T5 no flight dump in {flight_dir}")
+    rc, text, err = _graftscope("postmortem", *dumps)
+    check(rc == 0 and text.count("flight dump ") == len(dumps),
+          f"T5 postmortem: rc {rc} {err[-2000:]}")
+    result = {"phase": "T5", "request_traces": doc["requests"],
+              "journeys": doc["journeys"], "migrated": len(migrated),
+              "migrations": migrations,
+              "gateway_migrations": kill["gateway_migrations"],
+              "flight_dumps": [p.name for p in dumps],
+              "postmortem_lines": len(text.splitlines())}
     log(result)
     return result
 
@@ -5679,6 +6254,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             timed("N", phase_n, dev, Path(tmp))
             timed("O", phase_o, dev, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            timed("T", phase_t, dev, Path(tmp), e)
     finally:
         distributed.shutdown()
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,

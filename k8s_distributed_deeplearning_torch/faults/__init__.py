@@ -2,12 +2,15 @@
 ``k8s_distributed_deeplearning_tpu/faults/``.
 
 A plan's JSON and its validation equal the JAX package's, so one plan file
-drives both packages. The serving sites have callers in the port
-(``serve_decode`` in ``serve/engine.py``, ``gateway_dispatch`` in
-``serve/gateway.py``, ``transport_send`` and ``transport_recv`` in
-``serve/transport.py``, ``transport_pages`` there and on the in-process
-KV shipping path of ``serve/disagg.py``); the training, executor and
-autoscale sites validate but have no caller yet (ROADMAP.md).
+drives both packages. The training sites have callers in the port
+(``step``, ``data_wait``, ``checkpoint_saved`` and ``heartbeat`` in
+``train/loop.py``, ``shard_read`` in ``train/data.py``), and so do the
+serving sites (``serve_decode`` in ``serve/engine.py``,
+``gateway_dispatch`` in ``serve/gateway.py``, ``transport_send`` and
+``transport_recv`` in ``serve/transport.py``, ``transport_pages`` there
+and on the in-process KV shipping path of ``serve/disagg.py``); the
+executor and autoscale sites validate but have no caller yet
+(ROADMAP.md).
 """
 
 from k8s_distributed_deeplearning_torch.faults.inject import (  # noqa: F401

@@ -3,9 +3,9 @@
 The port's own copy of ``k8s_distributed_deeplearning_tpu/faults/plan.py``,
 unchanged in behaviour: the sites, actions, JSON and validation are the
 JAX package's, so a plan file is shared across the two packages. The
-locations below are the JAX package's; in the port only the serving sites
-``serve_decode``, ``gateway_dispatch``, ``transport_send``,
-``transport_recv`` and ``transport_pages`` have a caller yet.
+locations below are the JAX package's; in the port every site has its
+caller at the same point but ``executor`` and ``autoscale_actuate``,
+whose subsystems are not ported yet.
 
 A :class:`FaultPlan` is a JSON-serializable list of :class:`Fault` records.
 It travels as the ``TPUJOB_FAULT_PLAN`` env var (inline JSON, or ``@/path``

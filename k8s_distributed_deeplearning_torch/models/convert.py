@@ -17,7 +17,7 @@ both. An MoE block's ``mlp`` holds ``router`` [D, E], ``w_gate`` and
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -96,6 +96,55 @@ def from_flax_params(cfg: TransformerConfig,
         sd["head.lm_head.weight"] = t(_leaf(
             params["head"]["lm_head"]["kernel"]).T)
     return sd
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def flax_layout(cfg: TransformerConfig, scan_layers: bool = True
+                ) -> Callable[[str], tuple]:
+    """The flax leaf behind each of the port's ``LlamaLM``/``MoELM``
+    parameter names, for an optimizer whose arithmetic runs per leaf
+    (adafactor's block RMS and factored statistics): ``name -> (leaf path,
+    stacked, to_flax, from_flax)``. Under ``scan_layers`` (the JAX default)
+    one leaf stacks a block parameter of every layer along a new leading
+    axis (``stacked``); ``to_flax`` takes one layer's tensor to the flax
+    kernel's layout (q/k/v ``[D, H, hd]``, o_proj ``[H, hd, D]``, the MLP
+    and head ``[in, out]``) and ``from_flax`` takes it back. A name this
+    map does not know is a leaf of its own, as it stands."""
+    hd = cfg.resolved_head_dim
+    qkv = (lambda w: w.T.reshape(w.shape[1], -1, hd),
+           lambda u: u.reshape(u.shape[0], -1).T)
+    out = (lambda w: w.T.reshape(-1, hd, w.shape[0]),
+           lambda u: u.reshape(-1, u.shape[-1]).T)
+    dense = (lambda w: w.T, lambda u: u.T)
+    plain = (_identity, _identity)
+    fixed = {"transformer.tok_embed.weight":
+             ("transformer/tok_embed/embedding", plain),
+             "transformer.final_norm.scale":
+             ("transformer/final_norm/scale", plain),
+             "head.lm_head.weight": ("head/lm_head/kernel", dense)}
+
+    def layout(name: str) -> tuple:
+        if name in fixed:
+            leaf, (to, frm) = fixed[name]
+            return leaf, False, to, frm
+        parts = name.split(".")
+        if parts[:2] != ["transformer", "blocks"] or len(parts) < 4:
+            return name, False, _identity, _identity
+        layer, rest = parts[2], parts[3:]
+        to, frm = plain
+        if rest[-1] == "weight":
+            rest = rest[:-1] + ["kernel"]
+            to, frm = (qkv if rest[-2] in ("q_proj", "k_proj", "v_proj")
+                       else out if rest[-2] == "o_proj" else dense)
+        if scan_layers:
+            return ("/".join(["transformer", "blocks", *rest]), True, to,
+                    frm)
+        return ("/".join(["transformer", f"block_{layer}", *rest]), False,
+                to, frm)
+    return layout
 
 
 def mnist_from_flax(params: Mapping) -> dict[str, torch.Tensor]:

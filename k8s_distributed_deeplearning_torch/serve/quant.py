@@ -63,6 +63,40 @@ def _channels(name: str, m: Dense, head_dim: int) -> int:
 
 
 @torch.no_grad()
+def _group_absmax(model: nn.Module, scan_layers: bool
+                  ) -> dict[str, tuple[list[Dense], int, torch.Tensor]]:
+    """Per JAX leaf path: the :class:`Dense` modules sharing that leaf,
+    its channel count and the f32 absmax over every axis of the flax
+    kernel but its last (see the module docstring)."""
+    head_dim = model.cfg.resolved_head_dim
+    groups: dict[str, list[tuple[str, Dense]]] = {}
+    for name, m in _quantizable(model):
+        if m.weight.dtype == torch.int8:
+            raise ValueError(f"{name} is already quantized")
+        groups.setdefault(jax_path_name(name, scan_layers), []).append(
+            (name, m))
+    out = {}
+    for path, members in groups.items():
+        c = _channels(members[0][0], members[0][1], head_dim)
+        absmax = None
+        for _, m in members:
+            # abs and max are exact in any float dtype: no f32 copy here.
+            a = m.weight.abs().amax(1).float().view(-1, c).amax(0)
+            absmax = a if absmax is None else torch.maximum(absmax, a)
+        out[path] = ([m for _, m in members], c, absmax)
+    return out
+
+
+def calibration_absmax(model: nn.Module, *, scan_layers: bool = True
+                       ) -> dict[str, list[float]]:
+    """The weight half of a calibration dump for ``model``: per JAX
+    parameter path, the per-channel absmax, the values JAX's
+    ``dump_quant_calibration`` writes for the same weights."""
+    return {path: absmax.cpu().tolist() for path, (_, _, absmax)
+            in _group_absmax(model, scan_layers).items()}
+
+
+@torch.no_grad()
 def quantize_model(model: nn.Module, calibration: dict | None = None, *,
                    scan_layers: bool = True) -> None:
     """Quantize ``model``'s matmul weights to int8 in place.
@@ -74,27 +108,15 @@ def quantize_model(model: nn.Module, calibration: dict | None = None, *,
     round half to even, with the scale tensor shared by the group. A
     layer's fp weight is released as soon as its int8 copy exists."""
     calib = (calibration or {}).get("weights", {})
-    head_dim = model.cfg.resolved_head_dim
-    groups: dict[str, list[tuple[str, Dense]]] = {}
-    for name, m in _quantizable(model):
-        if m.weight.dtype == torch.int8:
-            raise ValueError(f"{name} is already quantized")
-        groups.setdefault(jax_path_name(name, scan_layers), []).append(
-            (name, m))
-    for path, members in groups.items():
-        c = _channels(members[0][0], members[0][1], head_dim)
-        absmax = None
-        for _, m in members:
-            # abs and max are exact in any float dtype: no f32 copy here.
-            a = m.weight.abs().amax(1).float().view(-1, c).amax(0)
-            absmax = a if absmax is None else torch.maximum(absmax, a)
+    for path, (members, c, absmax) in _group_absmax(
+            model, scan_layers).items():
         cal = calib.get(path)
         if cal is not None:
             absmax = torch.minimum(absmax, torch.as_tensor(
                 cal, dtype=torch.float32, device=absmax.device).reshape(c))
         scale = absmax / 127.0
         div = torch.where(scale > 0.0, scale, 1.0)[None, :, None]
-        for _, m in members:
+        for m in members:
             w = m.weight
             q = w.to(torch.float32, copy=True).view(-1, c, w.shape[1])
             q = q.div_(div).round_().clamp_(-127, 127)

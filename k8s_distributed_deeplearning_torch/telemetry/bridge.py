@@ -1,17 +1,19 @@
 """Bridges between existing state and the Prometheus registry.
 
-The port's own copy of part of ``k8s_distributed_deeplearning_torch/
-telemetry/bridge.py``: the host and device probes and the serving,
-storm, scheduler, gateway and heartbeat collectors, with the JAX package's
-metric family names, so the fleet plane and dashboards read either
-package. The registry (:mod:`telemetry.registry`) is deliberately dumb —
+The port's own copy of part of ``k8s_distributed_deeplearning_tpu/
+telemetry/bridge.py``: the host and device probes, the train loop's gauge
+set (``TrainTelemetry``) and the serving, storm, scheduler, gateway and
+heartbeat collectors, with the JAX package's metric family names (device
+memory too stays ``jax_device_bytes``, its values from
+``torch.cuda.memory_stats``), so the fleet plane and dashboards read
+either package. The registry (:mod:`telemetry.registry`) is deliberately dumb —
 names and numbers; this module owns the *semantics*: how
 :class:`utils.metrics.ServingStats` maps onto the scrape surface, and the
 host/device resource probes (RSS from ``/proc``, device memory from
 ``torch.cuda.memory_stats``). Everything here degrades to a no-op off
 Linux / without a CUDA device — a scrape must never crash the workload.
-``TrainTelemetry``, ``tp_collector`` and ``autoscale_collector`` wait for
-the subsystems they read (ROADMAP.md).
+``tp_collector`` and ``autoscale_collector`` wait for the subsystems they
+read (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -59,6 +61,50 @@ def device_memory_stats() -> dict[str, int]:
         return totals
     except Exception:
         return {}
+
+
+class TrainTelemetry:
+    """The train loop's gauge set, updated at the existing ``log_every``
+    cadence (the loss fetch is already the host sync point — piggybacking
+    there adds no extra device round-trip)."""
+
+    def __init__(self, registry: MetricsRegistry, rank: int = 0):
+        self.registry = registry
+        self.rank = rank
+        self.steps = registry.counter(
+            "train_steps_total", "optimizer steps completed")
+        self.step_time = registry.gauge(
+            "train_step_time_ms", "mean step wall time over the last window")
+        self.examples = registry.gauge(
+            "train_examples_per_sec", "global examples (or tokens) per sec")
+        self.loss = registry.gauge("train_loss", "last logged training loss")
+        self.mfu = registry.gauge(
+            "train_mfu", "model FLOPs utilization (0..1)")
+        self.checkpoints = registry.counter(
+            "train_checkpoints_total", "checkpoint writes")
+        self.rss = registry.gauge(
+            "process_resident_memory_bytes", "host RSS of this process")
+        self.dev_mem = registry.gauge(
+            "jax_device_bytes", "summed local-device allocator stats",
+            labelnames=("stat",))
+
+    def on_log(self, *, steps_in_window: int, loss: float,
+               step_time_ms: float, examples_per_sec: float,
+               mfu: float | None) -> None:
+        self.steps.inc(steps_in_window)
+        self.step_time.set(step_time_ms)
+        self.examples.set(examples_per_sec)
+        self.loss.set(loss)
+        if mfu is not None:
+            self.mfu.set(mfu)
+        rss = host_rss_bytes()
+        if rss is not None:
+            self.rss.set(rss)
+        for k, v in device_memory_stats().items():
+            self.dev_mem.labels(stat=k).set(v)
+
+    def on_checkpoint(self) -> None:
+        self.checkpoints.inc()
 
 
 def serving_collector(registry: MetricsRegistry,

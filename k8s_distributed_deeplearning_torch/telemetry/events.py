@@ -77,8 +77,6 @@ EVENTS: dict[str, str] = {
                     "accepted-per-step histogram",
     "quant_summary": "end-of-run graftquant aggregate: active kv/weight "
                      "quant modes and the HBM bytes each saved vs fp",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (the train loop's quant dump, ROADMAP.md); kept so the registry is JAX's.
     "quant_calib": "the training loop wrote a graftquant calibration "
                    "dump (per-channel weight absmax stats; path and "
                    "entry count attached)",

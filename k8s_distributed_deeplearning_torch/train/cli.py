@@ -18,20 +18,26 @@ ragged`` runs the experts as grouped matmuls on the CUDA kernels. Rank 0
 checkpoints to ``--checkpoint-dir`` (default ``./checkpoints``, every
 ``--checkpoint-every`` steps and at the end), a run restores from the
 newest good step there, and SIGTERM checkpoints and stops
-(``train/checkpoint.py``, ``train/preemption.py``). Sharded,
-expert-parallel and pipelined training (``--fsdp``, ``--tp``, ``--sp``,
-``--ep``, ``--pp``) and the profiler are not ported yet and raise.
+(``train/checkpoint.py``, ``train/preemption.py``). ``--data-path DIR``
+streams a directory of token shards (``train/data.py``
+``write_token_shards`` / ``TokenShardBatcher``, memory-mapped; the final
+shard's tail is the held-out eval set); ``--profile-dir DIR`` traces steps
+10-14 on the primary into ``DIR/trace.json`` (``utils/profiling.py``
+``StepProfiler``). Sharded, expert-parallel and pipelined training
+(``--fsdp``, ``--tp``, ``--sp``, ``--ep``, ``--pp``) are not ported yet
+and raise.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 import torch
 
 from k8s_distributed_deeplearning_torch import config as cfg_lib
-from k8s_distributed_deeplearning_torch.models import llama
+from k8s_distributed_deeplearning_torch.models import convert, llama
 from k8s_distributed_deeplearning_torch.models import moe as moe_lib
 from k8s_distributed_deeplearning_torch.parallel import distributed
 from k8s_distributed_deeplearning_torch.parallel import data_parallel as dp
@@ -43,6 +49,7 @@ from k8s_distributed_deeplearning_torch.train.preemption import (
 from k8s_distributed_deeplearning_torch.utils.device import resolve_device
 from k8s_distributed_deeplearning_torch.utils.metrics import (
     H100_PEAK_FLOPS, MetricsLogger)
+from k8s_distributed_deeplearning_torch.utils.profiling import StepProfiler
 
 PRESETS = {
     # name: overrides on llama.config_tiny / config_llama3_8b
@@ -82,9 +89,6 @@ def _unported(args) -> None:
                 f"{flag} {value}: sharded, context-parallel, "
                 "expert-parallel and pipelined training are not ported to "
                 "PyTorch yet (ROADMAP.md)")
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile-dir: the step profiler is not "
-                                  "ported to PyTorch yet (ROADMAP.md)")
 
 
 def parse_args(argv: list[str] | None) -> argparse.Namespace:
@@ -121,8 +125,8 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint each block")
     parser.add_argument("--data-path", type=str, default=None,
-                        help="byte-level corpus file; default synthetic "
-                        "tokens")
+                        help="byte-level corpus file, or a directory of "
+                        "token shards to stream; default synthetic tokens")
     parser.add_argument("--pack", action="store_true",
                         help="pack documents into rows with segment ids")
     parser.add_argument("--pack-sep-id", type=int, default=None)
@@ -140,7 +144,8 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
                         default="constant")
     parser.add_argument("--warmup-steps", type=int, default=0)
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="not ported yet: raises when given")
+                        help="trace steps 10-14 (host ops and the card's "
+                        "kernels) into DIR/trace.json on the primary")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.set_defaults(grad_clip=1.0)
     return parser.parse_args(argv)
@@ -192,7 +197,8 @@ def _train(args, conf, device) -> dict:
         args.optimizer,
         optim.make_schedule(args.schedule, conf.lr, conf.num_steps,
                             args.warmup_steps),
-        grad_clip=args.grad_clip or None, moment_dtype=args.moment_dtype)
+        grad_clip=args.grad_clip or None, moment_dtype=args.moment_dtype,
+        layout=convert.flax_layout(model_cfg))
 
     def loss(batch, gen):
         if moe_cfg is not None:
@@ -207,24 +213,46 @@ def _train(args, conf, device) -> dict:
                    else dp.Reduction.AVERAGE),
         microbatches=conf.grad_accum)
 
-    tokens = data_lib.load_tokens(args.data_path,
-                                  vocab_size=model_cfg.vocab_size,
-                                  seed=conf.seed)
-    # The corpus tail is held out for eval, disjoint from every epoch.
-    n_eval = max(2 * (seq_len + 1), int(0.05 * len(tokens)))
-    eval_tokens, tokens = tokens[-n_eval:], tokens[:-n_eval]
     extra = {}
-    if args.pack:
-        docs = data_lib.split_documents(tokens, args.pack_sep_id,
-                                        seed=conf.seed)
-        batcher = data_lib.PackedTokenBatcher(
-            docs, per_host, seq_len, seed=conf.seed, process_index=rank,
-            num_processes=world)
-        extra["packing_efficiency"] = round(batcher.packing_efficiency, 4)
+    if args.data_path and os.path.isdir(args.data_path):
+        # A directory of token shards: the streaming path (memory-mapped,
+        # resident = touched pages). The final shard's tail is the eval set.
+        if args.pack:
+            raise ValueError(
+                "--pack needs an in-memory corpus (document packing is a "
+                "whole-corpus host pass): pass --data-path FILE, not a "
+                "shard directory")
+        probe = data_lib.TokenShardBatcher(
+            args.data_path, per_host, seq_len, seed=conf.seed,
+            vocab_size=model_cfg.vocab_size)
+        n_eval = max(2 * (seq_len + 1),
+                     min(probe.final_shard_tokens // 10, 64 * seq_len))
+        batcher = data_lib.TokenShardBatcher(
+            args.data_path, per_host, seq_len, seed=conf.seed,
+            process_index=rank, num_processes=world, hold_out_tail=n_eval,
+            vocab_size=model_cfg.vocab_size)
+        eval_tokens = batcher.tail_tokens()
+        extra = {"data": "sharded-streaming",
+                 "num_windows": batcher.num_windows}
     else:
-        batcher = data_lib.TokenBatcher(tokens, per_host, seq_len,
-                                        seed=conf.seed, process_index=rank,
-                                        num_processes=world)
+        tokens = data_lib.load_tokens(args.data_path,
+                                      vocab_size=model_cfg.vocab_size,
+                                      seed=conf.seed)
+        # The corpus tail is held out for eval, disjoint from every epoch.
+        n_eval = max(2 * (seq_len + 1), int(0.05 * len(tokens)))
+        eval_tokens, tokens = tokens[-n_eval:], tokens[:-n_eval]
+        if args.pack:
+            docs = data_lib.split_documents(tokens, args.pack_sep_id,
+                                            seed=conf.seed)
+            batcher = data_lib.PackedTokenBatcher(
+                docs, per_host, seq_len, seed=conf.seed, process_index=rank,
+                num_processes=world)
+            extra["packing_efficiency"] = round(
+                batcher.packing_efficiency, 4)
+        else:
+            batcher = data_lib.TokenBatcher(
+                tokens, per_host, seq_len, seed=conf.seed,
+                process_index=rank, num_processes=world)
 
     eval_batcher = None
     eval_b = min(per_host, ((len(eval_tokens) - 1) // seq_len) // world)
@@ -269,6 +297,9 @@ def _train(args, conf, device) -> dict:
                         best_mode="min", async_save=conf.async_checkpoint,
                         metrics=metrics)
     preemption = PreemptionHandler.install()
+    profiler = (StepProfiler(args.profile_dir, start_step=10, num_steps=5,
+                             enabled=distributed.is_primary())
+                if args.profile_dir else None)
     prefetchers: list = []
 
     def batches(start_step: int):
@@ -284,7 +315,7 @@ def _train(args, conf, device) -> dict:
             global_batch_size=conf.batch_size, flops_per_example=flops,
             peak_flops=(H100_PEAK_FLOPS[args.dtype]
                         if device.type == "cuda" else None),
-            preemption=preemption,
+            preemption=preemption, profiler=profiler,
             eval_every=conf.eval_every,
             eval_fn=(lambda s: {"loss": eval_loss(s)})
             if conf.eval_every else None)

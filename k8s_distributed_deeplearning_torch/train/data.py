@@ -7,7 +7,10 @@ behaviour: the same seed gives the same batches. One global permutation
 per epoch (seeded, identical on every process), each process takes a
 disjoint stride slice, and ``batch_at(step)`` is stateless. Nothing is
 downloaded: MNIST is read from idx files already on disk (the JAX
-package's ``fetch_mnist`` is not copied), or a stand-in is made.
+package's ``fetch_mnist`` is not copied), or a stand-in is made. Large
+corpora stream from a directory of pre-tokenized shards
+(:func:`write_token_shards`, :class:`TokenShardBatcher`), byte-identical
+to the JAX package's files.
 """
 from __future__ import annotations
 
@@ -15,9 +18,14 @@ import gzip
 import hashlib
 import os
 import struct
-from typing import Iterator, Mapping
+import sys
+import time
+from typing import Callable, Iterator, Mapping
 
 import numpy as np
+
+from k8s_distributed_deeplearning_torch import faults as _faults
+from k8s_distributed_deeplearning_torch.utils.retry import retry_transient
 
 PyTree = dict
 
@@ -237,6 +245,34 @@ def load_tokens(path: str | None, *, num_tokens: int = 1 << 17,
     return synthetic_tokens(num_tokens, vocab_size, seed)
 
 
+# Raw little-endian shard files: "<name>.<dtype>.bin"; .npy keeps its own
+# header. uint16 is the natural on-disk width for sub-65k vocabularies
+# (llama's 32000), uint8 for byte-level.
+_SHARD_DTYPES = {"uint8": np.uint8, "uint16": np.uint16, "int32": np.int32}
+
+
+def write_token_shards(tokens: np.ndarray, out_dir: str, *,
+                       shard_tokens: int = 1 << 24,
+                       dtype: str = "uint16") -> list[str]:
+    """Split a token stream into numbered shard files for
+    :class:`TokenShardBatcher` (raw little-endian, dtype in the filename).
+    The offline tokenize-once step of the streaming path."""
+    if dtype not in _SHARD_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_SHARD_DTYPES)}")
+    np_dtype = _SHARD_DTYPES[dtype]
+    info = np.iinfo(np_dtype)
+    if tokens.min() < info.min or tokens.max() > info.max:
+        raise ValueError(f"token ids outside {dtype} range")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, start in enumerate(range(0, len(tokens), shard_tokens)):
+        p = os.path.join(out_dir, f"shard_{i:05d}.{dtype}.bin")
+        tokens[start:start + shard_tokens].astype(
+            np.dtype(np_dtype).newbyteorder("<")).tofile(p)
+        paths.append(p)
+    return paths
+
+
 class _EpochShardedBatcher:
     """Shared scaffolding for the stateless batchers: one global permutation
     per epoch (seeded, identical on every host), per-host disjoint stride
@@ -427,6 +463,137 @@ class PackedTokenBatcher(_EpochShardedBatcher):
         return {"tokens": self.rows_tokens[sel],
                 "segment_ids": segs,
                 "mask": (segs != self.PAD_SEGMENT).astype(np.float32)}
+
+
+class TokenShardBatcher(_EpochShardedBatcher):
+    """Streaming LM batches over a DIRECTORY of pre-tokenized shards —
+    the large-corpus path: shards are memory-mapped lazily, so resident
+    memory is the touched pages of the current batches, not the corpus.
+
+    Accepts ``shard_*.{uint8,uint16,int32}.bin`` (raw little-endian, see
+    :func:`write_token_shards`) and ``*.npy`` files, sorted by filename
+    for a stable global order. The window index space spans all shards
+    (windows never cross a shard boundary; each shard's sub-window tail
+    is dropped). Epoch shuffling, per-process disjoint striding, and the
+    stateless ``batch_at``/``iter_from`` replay-free-resume contract are
+    inherited from the same scaffolding as :class:`TokenBatcher` — a
+    restored step addresses exactly the batch it would have seen. A batch
+    is ``{"tokens": [B, S+1] int32}`` in host memory, copied out of the
+    maps (a window of a map is not contiguous host RAM to pin).
+    """
+
+    def __init__(self, data_dir: str, batch_size: int, seq_len: int,
+                 seed: int = 0, process_index: int = 0,
+                 num_processes: int = 1, hold_out_tail: int = 0,
+                 vocab_size: int | None = None, io_retries: int = 2,
+                 io_backoff_s: float = 0.05,
+                 sleep: Callable[[float], None] = time.sleep):
+        """*hold_out_tail* excludes the last N tokens of the final shard
+        from the training window space (the held-out eval slice — read it
+        via :meth:`tail_tokens`; without the exclusion, eval tokens would
+        also appear in training epochs). *vocab_size* (when given) range-
+        checks the FIRST and LAST shard's token ids — cheap relative to a
+        full-corpus scan, and catches the common corruptions (wrong
+        tokenizer, wrong dtype decode, truncation garbage) at both ends
+        instead of letting the embedding gather clamp them silently.
+
+        *io_retries*/*io_backoff_s*: a batch read that raises ``OSError``
+        (network-filesystem blip on a mmap page fault, or the injected
+        ``shard_read`` fault) is retried with bounded exponential backoff
+        before the error surfaces — transient IO must cost latency, not
+        the job."""
+        if seq_len <= 0:
+            raise ValueError("seq_len must be positive")
+        names = sorted(n for n in os.listdir(data_dir)
+                       if n.endswith(".bin") or n.endswith(".npy"))
+        if not names:
+            raise FileNotFoundError(
+                f"no token shards (*.bin / *.npy) in {data_dir!r}")
+        self.seq_len = seq_len
+        self._shards: list[np.ndarray] = []
+        for n in names:
+            p = os.path.join(data_dir, n)
+            if n.endswith(".npy"):
+                arr = np.load(p, mmap_mode="r")
+            else:
+                stem = n[:-len(".bin")]
+                suffix = stem.rsplit(".", 1)[-1]
+                if suffix not in _SHARD_DTYPES:
+                    raise ValueError(
+                        f"shard {n!r}: name must encode its dtype as "
+                        f"<name>.<dtype>.bin with dtype one of "
+                        f"{sorted(_SHARD_DTYPES)}")
+                arr = np.memmap(p, dtype=np.dtype(
+                    _SHARD_DTYPES[suffix]).newbyteorder("<"), mode="r")
+            if arr.ndim != 1:
+                raise ValueError(f"shard {n!r} must be 1-D, got {arr.shape}")
+            self._shards.append(arr)
+        if vocab_size is not None:
+            for i in sorted({0, len(self._shards) - 1}):
+                arr = self._shards[i]
+                if arr.size and (int(arr.min()) < 0
+                                 or int(arr.max()) >= vocab_size):
+                    raise ValueError(
+                        f"shard {names[i]!r}: token ids outside "
+                        f"[0, {vocab_size}) (min {int(arr.min())}, max "
+                        f"{int(arr.max())}) — out-of-range ids would clamp "
+                        "silently in the embedding gather")
+        self.hold_out_tail = hold_out_tail
+        if hold_out_tail and hold_out_tail >= len(self._shards[-1]):
+            raise ValueError(
+                f"hold_out_tail={hold_out_tail} consumes the whole final "
+                f"shard ({len(self._shards[-1])} tokens)")
+        # Global window index space: windows per shard, cumulative bounds
+        # (the final shard's held-out tail is outside the window space).
+        lens = [len(s) for s in self._shards]
+        lens[-1] -= hold_out_tail
+        per_shard = np.array([max(0, (n - 1) // seq_len) for n in lens])
+        self._cum = np.concatenate([[0], np.cumsum(per_shard)])
+        total = int(self._cum[-1])
+        if total < 1:
+            raise ValueError(
+                f"shards in {data_dir!r} too small for seq_len={seq_len}")
+        self._io_retries = io_retries
+        self._io_backoff_s = io_backoff_s
+        self._io_sleep = sleep
+        super().__init__(total, batch_size, seed, process_index,
+                         num_processes, what="windows")
+
+    @property
+    def num_windows(self) -> int:
+        return self.num_items
+
+    @property
+    def final_shard_tokens(self) -> int:
+        """Token count of the last shard (callers size ``hold_out_tail``
+        from it without touching internals)."""
+        return len(self._shards[-1])
+
+    def tail_tokens(self) -> np.ndarray:
+        """The held-out eval slice (requires ``hold_out_tail > 0``)."""
+        if not self.hold_out_tail:
+            raise ValueError("constructed without hold_out_tail")
+        return np.asarray(self._shards[-1][-self.hold_out_tail:], np.int32)
+
+    def _make_batch(self, sel: np.ndarray) -> PyTree:
+        def read() -> PyTree:
+            inj = _faults.active()
+            if inj is not None:
+                inj.fire("shard_read")
+            out = np.empty((len(sel), self.seq_len + 1), np.int32)
+            shard_of = np.searchsorted(self._cum, sel, side="right") - 1
+            for i, (w, s) in enumerate(zip(sel, shard_of)):
+                off = (int(w) - int(self._cum[s])) * self.seq_len
+                out[i] = self._shards[s][off:off + self.seq_len + 1]
+            return {"tokens": out}
+
+        def warn(attempt: int, exc: BaseException, delay: float) -> None:
+            print(f"shard read failed (attempt {attempt}): {exc}; "
+                  f"retrying in {delay:.2f}s", file=sys.stderr, flush=True)
+
+        return retry_transient(
+            read, retries=self._io_retries, backoff_s=self._io_backoff_s,
+            sleep=self._io_sleep, on_retry=warn)
 
 
 class ShardedBatcher(_EpochShardedBatcher):

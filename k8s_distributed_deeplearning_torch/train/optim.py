@@ -12,15 +12,32 @@ moment in bf16 (the Python scalar taken in the moment's dtype, as JAX's
 weak typing takes it), the new moment is formed and used in f32, and it is
 stored rounded.
 
+Adafactor is ``optax.adafactor(lr)`` as the JAX factory calls it: the
+second-moment decay ``1 - (count + 1)^-0.8``, factored row and column
+statistics (``v_row``, ``v_col``) for a tensor whose two largest dims are
+both >= 128 and the full ``v`` otherwise (the unused ones a one-element
+placeholder, as in optax's state), ``eps1`` 1e-30 added to the squared
+gradient, each tensor's update clipped to RMS 1, scaled by the learning
+rate and by the parameter's RMS (at least 1e-3), no momentum and no weight
+decay. Its statistics are formed in f32 and stored in the parameter's
+dtype. Those RMS and factoring rules act per optax leaf, so given a
+``layout`` (``models/convert.py`` ``flax_layout``) the port forms each
+JAX leaf from its tensors, in the flax kernel's layout and stacked over
+the layers when the JAX model scans them (its default), and keys the
+statistics by the leaf's path; without one each tensor is a leaf.
+Lion is ``optax.lion(lr, weight_decay=...)`` (b1 0.9, b2 0.99): the update
+``sign((1 - b1) g + b1 mu)`` plus the decoupled decay, the moment ``mu``
+in ``moment_dtype`` when given.
+
 Parameters are updated in place, one leaf at a time, so the update's
 temporaries never exceed one leaf (the JAX step returns new arrays).
-``adafactor`` and ``lion`` are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 SCHEDULES = ("constant", "cosine", "linear")
@@ -89,9 +106,40 @@ def _decayed(decay: float, t: torch.Tensor) -> torch.Tensor:
 _MOMENT_DTYPES = {None: None, "float32": torch.float32,
                   "bfloat16": torch.bfloat16}
 
+# optax.adafactor's defaults.
+_FACTOR_MIN_DIM = 128
+_AF_DECAY_RATE = 0.8
+_AF_EPS1 = 1e-30
+_AF_CLIP = 1.0
+_AF_EPS2 = 1e-3
+# optax.lion's betas.
+_LION_B1, _LION_B2 = 0.9, 0.99
+
+
+def _factored_dims(shape: tuple) -> tuple[int, int] | None:
+    """optax ``_factored_dims``: the axes of the two largest dims
+    (second-largest first), or None when a tensor has fewer than two dims
+    or its second-largest is under 128. ``np.argsort`` breaks ties as
+    optax's does."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _rms(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(t.float() * t.float()))
+
 
 class Optimizer:
-    """One of adam / adamw / sgd with optional global-norm clipping.
+    """One of adam / adamw / sgd / adafactor / lion with optional
+    global-norm clipping.
 
     ``init(params)`` returns the state for a ``{name: tensor}`` dict;
     ``apply(params, grads, state)`` updates ``params`` in place from
@@ -100,8 +148,10 @@ class Optimizer:
     def __init__(self, name: str, lr: Schedule | float, *,
                  weight_decay: float, grad_clip: float | None,
                  momentum: float, moment_dtype: str | None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 layout: Callable[[str], tuple] | None = None):
         self.name = name
+        self.layout = layout
         self.lr = lr
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -119,6 +169,29 @@ class Optimizer:
         if self.name == "sgd":
             return {"count": 0, "trace": {
                 n: zeros(p, self.moment_dtype) for n, p in params.items()}}
+        if self.name == "lion":
+            return {"count": 0, "mu": {n: zeros(p, self.moment_dtype)
+                                       for n, p in params.items()}}
+        if self.name == "adafactor":
+            state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+            for leaf, (stacked, members) in self._leaves(params).items():
+                p = params[members[0][0]]
+                shape = members[0][1](p).shape
+                shape = (len(members), *shape) if stacked else tuple(shape)
+                dims = _factored_dims(shape)
+                one = p.new_zeros((1,))
+                if dims is None:
+                    row, col, full = one, one.clone(), p.new_zeros(shape)
+                else:
+                    d1, d0 = dims
+                    row = p.new_zeros([s for i, s in enumerate(shape)
+                                       if i != d0])
+                    col = p.new_zeros([s for i, s in enumerate(shape)
+                                       if i != d1])
+                    full = one
+                state["v_row"][leaf], state["v_col"][leaf] = row, col
+                state["v"][leaf] = full
+            return state
         return {"count": 0,
                 "mu": {n: zeros(p, self.moment_dtype)
                        for n, p in params.items()},
@@ -130,6 +203,24 @@ class Optimizer:
         return torch.sqrt(sum((g.float() * g.float()).sum()
                               for g in grads.values()))
 
+    def _leaves(self, params: dict) -> dict[str, tuple[bool, list]]:
+        """Adafactor's blocks: ``{leaf: (stacked, [(name, to_flax,
+        from_flax), ...])}`` from ``layout``; without one, every tensor is
+        a block of its own, as it stands."""
+        leaves: dict[str, tuple[bool, list]] = {}
+        for name in params:
+            leaf, stacked, to, frm = (
+                self.layout(name) if self.layout is not None
+                else (name, False, _identity, _identity))
+            leaves.setdefault(leaf, (stacked, []))[1].append((name, to, frm))
+        return leaves
+
+    def _clipped(self, g: torch.Tensor, norm) -> torch.Tensor:
+        if norm is None:
+            return g
+        return torch.where(norm < self.grad_clip, g,
+                           g / norm.to(g.dtype) * self.grad_clip)
+
     @torch.no_grad()
     def apply(self, params: dict[str, torch.Tensor],
               grads: dict[str, torch.Tensor], state: dict) -> dict:
@@ -137,15 +228,22 @@ class Optimizer:
         step_size = -self.learning_rate(count)
         norm = self.global_norm(grads) if self.grad_clip else None
         new = {"count": count + 1}
-        for key in ("mu", "nu", "trace"):
+        for key in ("mu", "nu", "trace", "v_row", "v_col", "v"):
             if key in state:
                 new[key] = {}
+        if self.name == "adafactor":
+            self._apply_adafactor(params, grads, state, new, norm,
+                                  -step_size)
+            return new
         for name, p in params.items():
-            g = grads[name]
-            if norm is not None:
-                g = torch.where(norm < self.grad_clip, g,
-                                g / norm.to(g.dtype) * self.grad_clip)
-            if self.name == "sgd":
+            g = self._clipped(grads[name], norm)
+            if self.name == "lion":
+                mu_s = state["mu"][name]
+                u = torch.sign((1 - _LION_B1) * g + _decayed(_LION_B1, mu_s))
+                mu = (1 - _LION_B2) * g + _decayed(_LION_B2, mu_s)
+                new["mu"][name] = mu.to(mu_s.dtype)
+                u.add_(self.weight_decay * p)
+            elif self.name == "sgd":
                 trace = state["trace"][name]
                 tr = g + _decayed(self.momentum, trace)
                 u = g + self.momentum * tr
@@ -166,18 +264,77 @@ class Optimizer:
             p.add_(u.mul_(step_size).to(p.dtype))
         return new
 
+    def _apply_adafactor(self, params, grads, state, new, norm,
+                         lr: float) -> None:
+        """optax ``adafactor`` one block at a time: a block (a flax leaf,
+        the layers' tensors stacked when scanned) is formed in f32 in the
+        flax layout, updated, and taken back to each parameter."""
+        # optax takes the decay rate in f32.
+        decay = float(np.float32(1.0) - np.float32(state["count"] + 1)
+                      ** np.float32(-_AF_DECAY_RATE))
+        for leaf, (stacked, members) in self._leaves(params).items():
+            def block(tensors):
+                parts = [to(t.float()) for (_, to, _), t in
+                         zip(members, tensors)]
+                return torch.stack(parts) if stacked else parts[0]
+
+            g = block([self._clipped(grads[n], norm) for n, _, _ in members])
+            p = block([params[n] for n, _, _ in members])
+            u = self._adafactor(leaf, g, state, new, decay)
+            # scale_by_learning_rate, scale_by_param_block_rms, scale(-1).
+            rms = _rms(p)
+            u.mul_(lr).mul_(torch.where(rms <= _AF_EPS2, _AF_EPS2,
+                                        rms)).neg_()
+            for i, (n, _, frm) in enumerate(members):
+                params[n].add_(frm(u[i] if stacked else u).to(
+                    params[n].dtype))
+
+    @staticmethod
+    def _adafactor(leaf: str, g: torch.Tensor, state: dict, new: dict,
+                   decay: float) -> torch.Tensor:
+        """optax ``scale_by_factored_rms`` then ``clip_by_block_rms(1)``
+        for one block ``g`` (f32); the new statistics go into ``new``.
+        Returns the update in f32."""
+        grad_sqr = g * g + _AF_EPS1
+        row, col, full = (state[k][leaf] for k in ("v_row", "v_col", "v"))
+        dims = _factored_dims(tuple(g.shape))
+        if dims is None:
+            v = (decay * full.float() + (1.0 - decay) * grad_sqr).to(
+                full.dtype)
+            new["v_row"][leaf], new["v_col"][leaf] = row, col
+            new["v"][leaf] = v
+            u = g * v.float() ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = (decay * row.float() + (1.0 - decay)
+                     * grad_sqr.mean(dim=d0)).to(row.dtype)
+            v_col = (decay * col.float() + (1.0 - decay)
+                     * grad_sqr.mean(dim=d1)).to(col.dtype)
+            new["v_row"][leaf], new["v_col"][leaf] = v_row, v_col
+            new["v"][leaf] = full
+            r = v_row.float()
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (r / r.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            col_factor = v_col.float() ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        return u.div_(torch.clamp(_rms(u) / _AF_CLIP, min=1.0))
+
 
 def make_optimizer(name: str, lr: Schedule | float, *,
                    weight_decay: float = 0.1,
                    grad_clip: float | None = 1.0, momentum: float = 0.9,
-                   moment_dtype: str | None = None) -> Optimizer:
+                   moment_dtype: str | None = None,
+                   layout: Callable[[str], tuple] | None = None
+                   ) -> Optimizer:
     """Optimizer with optional global-norm clipping; *lr* may be a float or
     a schedule. ``moment_dtype="bfloat16"`` stores the first moment (adam's
-    mu, sgd's momentum trace) in bf16; adam's second moment stays f32."""
-    if name in ("adafactor", "lion"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to PyTorch yet (ROADMAP.md, "
-            "queue 1): use adam, adamw or sgd")
+    mu, lion's moment, sgd's momentum trace) in bf16; adam's second moment
+    stays f32, and adafactor ignores it. Adafactor takes no weight decay
+    (as the JAX factory: optax applies its decay after the learning rate,
+    and an adamw-style 0.1 would collapse the parameters). *layout*
+    (``models/convert.py`` ``flax_layout``) names the flax leaf behind each
+    parameter, so adafactor's per-block arithmetic runs on the JAX model's
+    blocks; the elementwise optimizers ignore it."""
     if name not in OPTIMIZERS:
         raise ValueError(f"optimizer {name!r} not in {OPTIMIZERS}")
     if moment_dtype not in _MOMENT_DTYPES:
@@ -185,4 +342,4 @@ def make_optimizer(name: str, lr: Schedule | float, *,
                          f"{moment_dtype!r}")
     return Optimizer(name, lr, weight_decay=weight_decay,
                      grad_clip=grad_clip or None, momentum=momentum,
-                     moment_dtype=moment_dtype)
+                     moment_dtype=moment_dtype, layout=layout)

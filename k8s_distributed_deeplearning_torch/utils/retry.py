@@ -4,8 +4,9 @@ The port's own copy of ``k8s_distributed_deeplearning_tpu/utils/retry.py``,
 unchanged: the same schedule for the same ``rng``.
 
 In the port its consumers are the serving transport
-(``serve/transport.py``'s remote-replica HTTP calls) and the fleet
-scraper (``telemetry/fleet.py``). The shape is
+(``serve/transport.py``'s remote-replica HTTP calls), the fleet scraper
+(``telemetry/fleet.py``) and the token-shard reads
+(``train/data.py`` ``TokenShardBatcher``). The shape is
 deliberately strict:
 
 - bounded — ``retries`` extra attempts, never a forever-loop against a

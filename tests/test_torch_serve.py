@@ -220,7 +220,8 @@ def test_import_scan_covers_every_subpackage():
     """The scan reaches the training slice's subpackages, the fleet's
     (faults, telemetry, the serving fleet modules), the wire half's
     (transport, retry, the registry, exporter, heartbeat, tracer, events,
-    bridge and profiling modules) and the example."""
+    bridge and profiling modules), graftscope's readers (timeline and
+    its CLI) and the example."""
     files = _port_files()
     dirs = {p.parent.name for p in files}
     assert {"models", "ops", "serve", "utils", "train", "parallel",
@@ -229,8 +230,8 @@ def test_import_scan_covers_every_subpackage():
     assert {"disagg.py", "gateway.py", "storm.py", "flight.py", "fleet.py",
             "slo.py", "plan.py", "inject.py", "transport.py", "retry.py",
             "registry.py", "exporter.py", "heartbeat.py", "trace.py",
-            "events.py", "bridge.py", "profiling.py",
-            "generate_llama_torch.py"} <= names
+            "events.py", "bridge.py", "profiling.py", "timeline.py",
+            "graftscope.py", "generate_llama_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -7,9 +7,14 @@ Config: ``config_tiny`` (dim 64, 2 layers, 4 q heads, 2 KV heads, vocab
 256) in float32 with f32 params on both sides. Tolerances: losses 1e-5
 and gradients 1e-5 absolute / 1e-4 relative (f32 on both sides, sums in
 different orders; observed differences ~1e-7); optimizer states 1e-6 /
-1e-5 (optax's f32 bias corrections against the port's float64 ones); the
-batchers are held to exact equality.
+1e-5 (optax's f32 bias corrections against the port's float64 ones);
+adafactor per tensor (L2 distance over the change <= 1e-4, as the adam
+steps of the training checks) with its statistics to 1e-5, and lion per
+element to 1e-6 apart from sign ties; the batchers, the token-shard files
+and the refusals' messages are held to exact equality.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -229,10 +234,269 @@ def test_optimizer_steps_match_optax(case):
                                    atol=1e-6, rtol=1e-5, err_msg=k)
 
 
-def test_unported_optimizers_raise():
-    for name in ("adafactor", "lion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_optim.make_optimizer(name, 0.1)
+# Tensors for adafactor's two branches: factored (two dims >= 128, in
+# 2-D and 3-D, square) and unfactored (a small matrix, a vector).
+_AF_SHAPES = {"fac2": (256, 160), "fac3": (130, 3, 200), "square": (128, 128),
+              "small": (100, 64), "vec": (64,)}
+
+
+def _change_distance(got, want, start):
+    """||got - want|| over ||want - start||: the per-tensor rule the adam
+    steps are held to (an update's rounding is amplified where a moment
+    is near its epsilon)."""
+    return (np.linalg.norm(got - want)
+            / max(np.linalg.norm(want - start), 1e-30))
+
+
+def _lion_close(got, want, mu, g, b1=0.9):
+    """Lion's update is a sign: per element within 1e-6, apart from sign
+    ties where |b1 mu + (1 - b1) g| < 1e-7. With a bf16 moment, ``b1 *
+    mu`` is rounded to bf16 by optax run eagerly (and by the port), but a
+    jitted XLA step keeps the product in f32: an element whose sign the
+    two evaluations disagree on is a tie too."""
+    mu = torch.as_tensor(mu)
+    b1_t = torch.tensor(b1, dtype=mu.dtype)
+    g = (1 - b1) * torch.as_tensor(g)
+    rounded = ((mu * b1_t).float() + g).numpy()
+    kept = (mu.float() * b1_t.float() + g).numpy()
+    tie = ((np.abs(rounded) < 1e-7) | (np.abs(kept) < 1e-7)
+           | (np.sign(rounded) != np.sign(kept)))
+    np.testing.assert_allclose(got[~tie], want[~tie], atol=1e-6, rtol=0)
+
+
+# (optimizer, moment_dtype, schedule, warmup)
+NEW_OPT_CASES = [("adafactor", None, "constant", 0),
+                 ("adafactor", None, "cosine", 2),
+                 ("lion", None, "constant", 0),
+                 ("lion", "bfloat16", "linear", 2)]
+
+
+@pytest.mark.parametrize("case", NEW_OPT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_adafactor_and_lion_steps_match_optax(case):
+    """Four clipped steps from the same params and gradients against
+    ``optax`` through JAX's ``make_optimizer``: adafactor per tensor on
+    factored and unfactored tensors (its ``v_row``/``v_col``/``v`` state
+    by optax's field names and shapes), lion per element with its
+    moment in f32 or bf16."""
+    name, mdt, sched, warmup = case
+    rng = np.random.default_rng(6)
+    params = {k: (0.1 * rng.standard_normal(s)).astype(np.float32)
+              for k, s in _AF_SHAPES.items()}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in params.items()} for _ in range(4)]
+    tx = j_optim.make_optimizer(
+        name, j_optim.make_schedule(sched, 0.01, 8, warmup), grad_clip=1.0,
+        moment_dtype=mdt)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jp)
+    opt = t_optim.make_optimizer(
+        name, t_optim.make_schedule(sched, 0.01, 8, warmup), grad_clip=1.0,
+        moment_dtype=mdt)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = opt.init(tp)
+    for g in grads:
+        before = {k: np.asarray(jp[k]) for k in jp}
+        jmu = None
+        if name == "lion":
+            jmu = {k: torch.from_numpy(np.array(v, np.float32)).to(
+                torch.bfloat16 if mdt else torch.float32)
+                for k, v in jstate[1][0].mu.items()}
+        upd, jstate = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        tstate = opt.apply(tp, {k: torch.from_numpy(v) for k, v in g.items()},
+                           tstate)
+        if name == "lion":
+            # Compare this step's update alone (from the same start).
+            norm = np.sqrt(sum((v * v).sum() for v in g.values()))
+            for k in params:
+                gk = g[k] * min(1.0, 1.0 / norm)
+                _lion_close(tp[k].numpy() - before[k],
+                            np.asarray(jp[k]) - before[k], jmu[k], gk)
+                tp[k].copy_(torch.from_numpy(np.array(jp[k])))
+    inner = jstate[1]
+    if name == "adafactor":
+        fac = inner[0]
+        for k in params:
+            assert _change_distance(tp[k].numpy(), np.asarray(jp[k]),
+                                    params[k]) <= 1e-4, k
+            for field in ("v_row", "v_col", "v"):
+                want = np.asarray(getattr(fac, field)[k])
+                got = tstate[field][k]
+                assert tuple(got.shape) == want.shape, (k, field)
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                           atol=1e-12, err_msg=(k, field))
+        assert tstate["count"] == int(fac.count) == 4
+    else:
+        mu = inner[0].mu
+        for k in params:
+            assert tstate["mu"][k].dtype == (torch.bfloat16 if mdt
+                                             else torch.float32)
+            np.testing.assert_allclose(tstate["mu"][k].float().numpy(),
+                                       np.asarray(mu[k], np.float32),
+                                       atol=1e-6, rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("scan_layers", [True, False],
+                         ids=["scanned", "unrolled"])
+def test_adafactor_runs_on_the_jax_models_leaves(scan_layers):
+    """At head_dim 128 every kernel is factored: three steps of random
+    gradients on a flax Llama's own leaves (layers stacked when scanned)
+    through optax, and on the converted parameters through the port with
+    ``flax_layout``: every parameter per tensor, and the factored
+    statistics by JAX leaf path and shape."""
+    jcfg = j_llama.config_tiny(dtype=jnp.float32, dim=256, n_heads=2,
+                               n_kv_heads=1, mlp_dim=512,
+                               scan_layers=scan_layers)
+    jp = j_llama.LlamaLM(jcfg).init(jax.random.key(1),
+                                    jnp.zeros((1, 8), jnp.int32))["params"]
+    jp = jax.tree.map(lambda x: x, jp)
+    tcfg = t_llama.config_tiny(dtype=torch.float32, dim=256, n_heads=2,
+                               n_kv_heads=1, mlp_dim=512)
+    tp = {k: v.clone() for k, v in
+          t_convert.from_flax_params(tcfg, jp).items()}
+    start = {k: v.clone() for k, v in tp.items()}
+    tx = j_optim.make_optimizer("adafactor", 0.01, grad_clip=1.0)
+    jstate = tx.init(jp)
+    opt = t_optim.make_optimizer(
+        "adafactor", 0.01, grad_clip=1.0,
+        layout=t_convert.flax_layout(tcfg, scan_layers=scan_layers))
+    tstate = opt.init(tp)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        jg = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(
+            np.shape(x)).astype(np.float32)), jp)
+        upd, jstate = tx.update(jg, jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        tstate = opt.apply(tp, t_convert.from_flax_params(tcfg, jg), tstate)
+    want = t_convert.from_flax_params(tcfg, jp)
+    for k in tp:
+        assert _change_distance(tp[k].numpy(), want[k].numpy(),
+                                start[k].numpy()) <= 1e-4, k
+    fac = jstate[1][0]
+    leaves = {"/".join(q.key for q in path if hasattr(q, "key")): leaf
+              for path, leaf in jax.tree_util.tree_flatten_with_path(
+                  fac.v_row)[0]}
+    assert sorted(leaves) == sorted(tstate["v_row"])
+    factored = 0
+    for leaf, row in leaves.items():
+        got = tstate["v_row"][leaf]
+        assert tuple(got.shape) == row.shape, leaf
+        factored += row.shape != (1,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(row), rtol=1e-5,
+                                   atol=1e-12, err_msg=leaf)
+    # The norm scales alone are unfactored: stacked [2, 256] (or [256]
+    # each) have no second dim of 128.
+    assert factored == len(leaves) - (3 if scan_layers else 5)
+
+
+@pytest.mark.parametrize("name,mdt", [("adafactor", None), ("lion", None),
+                                      ("lion", "bfloat16")])
+def test_new_optimizer_state_saves_and_restores_bitwise(name, mdt, tmp_path):
+    """Two steps, a save through the port's ``Checkpointer``, a restore
+    into a fresh state, two more steps: bit for bit the four steps of an
+    unbroken run."""
+    from k8s_distributed_deeplearning_torch.train.checkpoint import (
+        Checkpointer)
+    rng = np.random.default_rng(8)
+    params = {k: (0.1 * rng.standard_normal(s)).astype(np.float32)
+              for k, s in _AF_SHAPES.items()}
+    grads = [{k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+        np.float32)) for k, v in params.items()} for _ in range(4)]
+    opt = t_optim.make_optimizer(name, 0.01, grad_clip=1.0,
+                                 moment_dtype=mdt)
+
+    def fresh():
+        p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        return t_dp.init_state(p, opt)
+
+    def steps(state, gs):
+        for g in gs:
+            state = state._replace(
+                opt_state=opt.apply(state.params, g, state.opt_state),
+                step=state.step + 1)
+        return state
+
+    unbroken = steps(fresh(), grads)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(2, steps(fresh(), grads[:2]))
+    ck.close()
+    restored, step = Checkpointer(str(tmp_path / "ck")).restore_latest(
+        fresh())
+    assert step == 2
+    resumed = steps(restored, grads[2:])
+    for k in params:
+        assert torch.equal(resumed.params[k], unbroken.params[k]), k
+    flat = lambda st: {(f, k): v for f, d in st.items()
+                       if isinstance(d, dict) for k, v in d.items()}
+    a, b = flat(resumed.opt_state), flat(unbroken.opt_state)
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert resumed.opt_state["count"] == 4
+
+
+@pytest.mark.parametrize("name,mdt", [("adafactor", None), ("lion", None),
+                                      ("lion", "bfloat16")])
+def test_new_optimizers_train_tiny_as_jax(name, mdt, jparams, world_of_one):
+    """Four clipped steps of the tiny preset (chunked CE) through the
+    port's train step against JAX's ``make_train_step`` with the same
+    optimizer from ``make_optimizer``. Each step starts from JAX's
+    parameters (both updates normalise the gradient, so a 1e-7 gradient
+    difference near zero would otherwise compound): the loss, then each
+    step's change of every parameter through the converter, adafactor
+    per tensor and lion per element apart from its sign ties (lion's
+    moment, too, starts each step from JAX's)."""
+    tokens = j_data.synthetic_tokens(4096, vocab_size=256, seed=0)
+    batcher = j_data.TokenBatcher(tokens, 4, 32, seed=0)
+    jmodel = _jax_model()
+    tx = j_optim.make_optimizer(name, 1e-3, grad_clip=1.0, moment_dtype=mdt)
+    mesh = j_mesh.make_mesh({"data": 1}, devices=jax.devices()[:1])
+    jstate = j_dp.init_state(jparams, tx, mesh)
+    jstep = j_dp.make_train_step(
+        lambda p, b, r: j_llama.loss_fn(jmodel, p, b, r, chunked=True,
+                                        chunk_size=16), tx, mesh)
+    tmodel = _port_model(jparams)
+    opt = t_optim.make_optimizer(name, 1e-3, grad_clip=1.0, moment_dtype=mdt,
+                                 layout=t_convert.flax_layout(tmodel.cfg))
+    state = t_dp.init_state(dict(tmodel.named_parameters()), opt)
+    loss_of = lambda b, g: t_llama.loss_fn(tmodel, b, g, chunked=True,
+                                           chunk_size=16)
+    train = t_dp.make_train_step(loss_of, opt)
+    for i in range(4):
+        batch = batcher.batch_at(i)
+        start = t_convert.from_flax_params(tmodel.cfg, jstate.params)
+        with torch.no_grad():
+            for n, p in tmodel.named_parameters():
+                p.copy_(start[n])
+        if name == "lion":
+            # JAX's moment too: a bf16 moment one rounding apart would
+            # flip signs well above the tie threshold.
+            jmu = t_convert.from_flax_params(tmodel.cfg, jax.tree.map(
+                lambda m: np.asarray(m, np.float32),
+                jstate.opt_state[1][0].mu))
+            for n, m in state.opt_state["mu"].items():
+                m.copy_(jmu[n])
+            # The gradient the step will take, clipped, for the tie mask.
+            loss, _ = loss_of({"tokens": torch.from_numpy(
+                batch["tokens"])}, None)
+            grads = dict(zip(state.params, torch.autograd.grad(
+                loss, list(state.params.values()))))
+            norm = float(opt.global_norm(grads))
+            mu = {n: state.opt_state["mu"][n].clone() for n in grads}
+        state, loss, _ = train(state, batch, i)
+        jstate, jloss, _ = jstep(
+            jstate, {"tokens": jnp.asarray(batch["tokens"])},
+            jax.random.key(i))
+        np.testing.assert_allclose(float(loss), float(jloss), **LOSS_TOL)
+        want = t_convert.from_flax_params(tmodel.cfg, jstate.params)
+        for n, p in tmodel.named_parameters():
+            got = p.detach().numpy() - start[n].numpy()
+            w = want[n].numpy() - start[n].numpy()
+            if name == "adafactor":
+                assert _change_distance(got, w, 0 * w) <= 1e-4, (i, n)
+            else:
+                g = grads[n].numpy() * min(1.0, 1.0 / norm)
+                _lion_close(got, w, mu[n], g)
 
 
 def test_token_batchers_match_jax():
@@ -257,6 +521,107 @@ def test_token_batchers_match_jax():
     for step in range(3):
         for k, v in jp.batch_at(step).items():
             np.testing.assert_array_equal(tp.batch_at(step)[k], v)
+
+
+@pytest.mark.parametrize("dtype,shard_tokens", [("uint8", 1500),
+                                                 ("uint16", 2048),
+                                                 ("int32", 5000)])
+def test_write_token_shards_byte_equal_to_jax(dtype, shard_tokens, tmp_path):
+    tokens = j_data.synthetic_tokens(5000, vocab_size=250, seed=4)
+    got = t_data.write_token_shards(tokens, str(tmp_path / "t"),
+                                    shard_tokens=shard_tokens, dtype=dtype)
+    want = j_data.write_token_shards(tokens, str(tmp_path / "j"),
+                                     shard_tokens=shard_tokens, dtype=dtype)
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want]
+    for a, b in zip(got, want):
+        assert open(a, "rb").read() == open(b, "rb").read()
+
+
+def _shard_dir(tmp_path):
+    """Three raw uint16 shards and one .npy shard, ids below 32000."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 32000, size=7000).astype(np.int32)
+    d = tmp_path / "shards"
+    j_data.write_token_shards(tokens[:6000], str(d), shard_tokens=2100,
+                              dtype="uint16")
+    np.save(d / "zz_tail.npy", tokens[6000:])
+    return str(d), tokens
+
+
+@pytest.mark.parametrize("hold_out", [0, 300], ids=["all", "held_out"])
+@pytest.mark.parametrize("world", [1, 2])
+def test_token_shard_batcher_equals_jax(world, hold_out, tmp_path):
+    """Every step of two epochs, per process: the same windows as JAX's
+    ``TokenShardBatcher`` (memory-mapped raw and .npy shards), the same
+    window count, final shard size and held-out tail."""
+    d, tokens = _shard_dir(tmp_path)
+    for pid in range(world):
+        kw = dict(seed=5, process_index=pid, num_processes=world,
+                  hold_out_tail=hold_out, vocab_size=32000)
+        jb = j_data.TokenShardBatcher(d, 3, 40, **kw)
+        tb = t_data.TokenShardBatcher(d, 3, 40, **kw)
+        assert tb.num_windows == jb.num_windows
+        assert tb.batches_per_epoch == jb.batches_per_epoch
+        assert tb.final_shard_tokens == jb.final_shard_tokens == 1000
+        for step in range(2 * jb.batches_per_epoch):
+            got = tb.batch_at(step)["tokens"]
+            assert got.dtype == np.int32 and got.shape == (3, 41)
+            np.testing.assert_array_equal(got, jb.batch_at(step)["tokens"])
+        if hold_out:
+            np.testing.assert_array_equal(tb.tail_tokens(),
+                                          tokens[-hold_out:])
+            np.testing.assert_array_equal(tb.tail_tokens(),
+                                          jb.tail_tokens())
+        it = tb.iter_from(7)
+        np.testing.assert_array_equal(next(it)["tokens"],
+                                      tb.batch_at(7)["tokens"])
+
+
+def _refusal(fn):
+    try:
+        fn()
+    except (ValueError, FileNotFoundError) as e:
+        return type(e).__name__, str(e)
+    raise AssertionError("no refusal")
+
+
+def test_token_shard_refusals_equal_jax(tmp_path):
+    """Each refusal (vocab range at either end, a shard name without its
+    dtype, an empty or too-small directory, a 2-D shard, a tail that eats
+    the last shard, writer dtype and range) has JAX's type and message."""
+    d, _ = _shard_dir(tmp_path)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    badname = tmp_path / "badname"
+    badname.mkdir()
+    np.arange(100, dtype=np.uint16).tofile(badname / "shard_0.float16.bin")
+    twod = tmp_path / "twod"
+    twod.mkdir()
+    np.save(twod / "a.npy", np.zeros((4, 4), np.int32))
+    hi = tmp_path / "hi"
+    j_data.write_token_shards(np.array([1, 2, 3] * 300 + [999]), str(hi),
+                              shard_tokens=500, dtype="uint16")
+    cases = [
+        lambda m: m.TokenShardBatcher(d, 2, 32, vocab_size=1000),
+        lambda m: m.TokenShardBatcher(str(hi), 2, 32, vocab_size=999),
+        lambda m: m.TokenShardBatcher(str(badname), 2, 32),
+        lambda m: m.TokenShardBatcher(str(empty), 2, 32),
+        lambda m: m.TokenShardBatcher(str(twod), 2, 32),
+        lambda m: m.TokenShardBatcher(d, 2, 32, hold_out_tail=1000),
+        lambda m: m.TokenShardBatcher(d, 2, 5000),
+        lambda m: m.TokenShardBatcher(d, 2, 0),
+        lambda m: m.TokenShardBatcher(d, 0, 32),
+        lambda m: m.TokenShardBatcher(d, 400, 32, num_processes=2),
+        lambda m: m.TokenShardBatcher(d, 2, 32).tail_tokens(),
+        lambda m: m.write_token_shards(np.arange(5), str(tmp_path / "w"),
+                                       dtype="int64"),
+        lambda m: m.write_token_shards(np.array([0, 300]),
+                                       str(tmp_path / "w"), dtype="uint8"),
+    ]
+    for i, case in enumerate(cases):
+        assert _refusal(lambda: case(t_data)) == \
+            _refusal(lambda: case(j_data)), i
 
 
 @pytest.fixture
