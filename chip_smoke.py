@@ -369,6 +369,41 @@ T. The training loop's hooks and graftscope's readers (run after O).
    stitches each migrated request into one chain, the migrations summing
    to the gateway's count, and ``postmortem`` renders the replicas'
    flight dumps.
+U. The fleet controller (``serve/autoscale.py``) and the launch layer
+   (``launch/``), run after T. U1: phase B's workload at full Llama-3 8B
+   (bf16, seed 0), two arrivals a gateway iteration, through a
+   ``ServeGateway`` and a ``FleetController`` over an
+   ``EngineFactoryBackend`` whose engines (B's settings) share one model,
+   on a clock the phase steps (1 to 3 replicas): the queue scales the
+   fleet up and the idle tail drains it back to one; every request
+   finishes, launches exact by engine and route (decode and prefill only,
+   split 0), first tokens equal B's where the margin decides, no page
+   held, and the peak memory grows by no more than the added engines'
+   KV pools + 2 GiB (the weights are not copied). Reports the decisions,
+   each actuation's ms, migrations and decode tokens/s. U2: R2's f32
+   model (8B width, 4 layers) on 2-slot engines with a chat (interactive)
+   and a bulk (batch) tenant: a scale-up mid-stream, the brownout ladder
+   walked up at the ceiling (``shed_batch`` refuses the bulk tenant and
+   nothing else) and unwound to ``autoscale_restored``, r0 killed through
+   ``gateway_dispatch`` and replaced, drains on the way down (the Job
+   controller's victim, the newest replica, one request moved by its
+   pages): all 13 streams equal a unified engine's, every paged launch on
+   tf32x3. U3: ``LocalProcessBackend`` spawns the port's replica servers
+   (``launch serve --replica-server``, the serve CLI's small preset) on
+   the card; the fleet goes 1 -> 2 -> 1, ``heartbeat_discoverer`` finds
+   each new server once, each child exits 0 and prints
+   ``replica_drained``, ``autoscale_summary`` is emitted. U4: ``launch
+   render`` and ``validate`` of the GPU manifests (``nvidia.com/gpu``, no
+   ``google.com/tpu``); then ``examples/train_mnist_torch.py`` through the
+   rendered job, one worker on phase N's synthetic set, a checkpoint
+   every 10 of 60 steps: ``launch run-local`` whole, and a run whose rank
+   0 an ``executor`` fault SIGKILLs while it stalls past its step-20
+   checkpoint, restarted by ``run_elastic`` from the newest step on disk;
+   the final params and moments held to phase N's rule. One card: the
+   multi-worker gang runs on the CPU only (NCCL refuses two ranks on one
+   device). U5: ``launch storm --autoscale`` at the tiny preset, 48
+   steps, seed 6 (at seed 1 the plan's ``autoscale_actuate`` fault never
+   fires): zero violations, ``autoscale_actuate`` fired.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -1662,9 +1697,10 @@ def _f32_want(want: dict) -> dict:
     return {**{k: 0 for k in want}, "tf32x3": sum(want.values())}
 
 
-def _first_logits(engine, store):
+def _first_logits(engine, store, keep_first=False):
     """Keep, by request id, the logits the final prefill chunk samples
-    each request's first token from."""
+    each request's first token from (with ``keep_first``, the first such
+    prefill's: a request resubmitted by a migration prefills again)."""
     prefill, finish = engine._prefill, engine._finish_admission
     current = {}
 
@@ -1674,7 +1710,8 @@ def _first_logits(engine, store):
 
     def wrapper(chunk, table, start, logits_index, **kw):
         out = prefill(chunk, table, start, logits_index, **kw)
-        if logits_index is not None and not kw.get("draft"):
+        if logits_index is not None and not kw.get("draft") and not (
+                keep_first and current["rid"] in store):
             store[current["rid"]] = out.float()
         return out
 
@@ -6187,6 +6224,673 @@ def _entry_name(mangled: str) -> str:
     return mangled
 
 
+# ------------------------------------------------------------- phase U
+
+# U1's and U2's controller policy, on a clock the phase steps: one
+# second a control round.
+U_POLICY = dict(min_replicas=1, max_replicas=3, interval_s=0.0,
+                up_cooldown_s=2.0, down_cooldown_s=4.0, sustain_rounds=1)
+U_ARRIVALS = 2         # U1: B's requests arrive two a gateway iteration
+U_MEM_SLACK_GB = 2.0   # U1: peak growth allowed beyond the added KV pools
+U2_NEW = 16
+U2_TENANTS = json.dumps({"tenants": [{"id": "chat",
+                                      "priority": "interactive"},
+                                     {"id": "bulk", "priority": "batch"}]})
+U3_REQUESTS = 16       # 12 before the scale-up, 4 after
+U4_STEPS = 60          # MNIST steps a run (batch 100, phase N's set)
+U4_CKPT_EVERY = 10
+U4_STALL_STEP = 25     # rank 0 stalls here (600 s) ...
+U4_KILL_S = 30.0       # ... and the executor SIGKILLs it this long after
+#                        spawn: past its step-20 checkpoint
+U5_STORM = ["--seed", "6", "--steps", "48", "--preset", "tiny",
+            "--autoscale"]
+
+
+class _UEvents:
+    """A ``MetricsLogger``-shaped event sink: (event, fields) in order."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event, **fields):
+        self.events.append((event, fields))
+
+    def names(self):
+        return [e for e, _ in self.events]
+
+
+def _count_calls(eng, calls):
+    """Count ``eng``'s target prefill chunks and decode iterations in
+    ``calls`` (a draft's prefill is not the target's)."""
+    prefill, decode = eng._prefill, eng._decode_step
+
+    def prefill_wrapper(*a, **kw):
+        if not kw.get("draft"):
+            calls["_prefill"] += 1
+        return prefill(*a, **kw)
+
+    def decode_wrapper(*a, **kw):
+        calls["_decode_step"] += 1
+        return decode(*a, **kw)
+
+    eng._prefill, eng._decode_step = prefill_wrapper, decode_wrapper
+
+
+def _pool_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size()
+               for layer in eng._cache for t in layer)
+
+
+def _u_round(ctl, clk, decisions, ms):
+    """One control round at the next second of the phase's clock, timed
+    (synchronized both sides); a non-hold decision is kept, and a round
+    that retires a drained replica (remove and stop) is timed as
+    ``finalize``."""
+    clk[0] += 1.0
+    pending = ctl.snapshot()["pending_removals"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = ctl.control_round(clk[0])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    if d["decision"] != "hold":
+        decisions.append(d)
+        ms.setdefault(d["decision"], []).append(dt)
+    elif ctl.snapshot()["pending_removals"] < pending:
+        ms.setdefault("finalize", []).append(dt)
+    return d
+
+
+def _u1(dev, b_logits, started):
+    """U1: phase B's workload through a ``ServeGateway`` and a
+    ``FleetController`` over an ``EngineFactoryBackend`` at full Llama-3
+    8B (bf16, seed 0): every replica an engine with B's settings on one
+    shared model."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+    from k8s_distributed_deeplearning_torch.serve.autoscale import (
+        EngineFactoryBackend, FleetController)
+    from k8s_distributed_deeplearning_torch.serve.gateway import (
+        ServeGateway)
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        ServingStats)
+
+    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    engines, counts, calls, logits = {}, {}, {}, {}
+    acc = {"_decode_step": 0.0}
+
+    def make():
+        rid = f"r{len(engines)}"
+        eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                          device=dev, replica_id=rid)
+        counts[rid] = {}
+        calls[rid] = {"_prefill": 0, "_decode_step": 0}
+        _first_logits(eng, logits, keep_first=True)
+        _count_step_routes(eng, counts[rid])
+        _timed(eng, "_decode_step", acc)
+        _count_calls(eng, calls[rid])
+        engines[rid] = eng
+        return eng
+
+    stats, events = ServingStats(), _UEvents()
+    gw = ServeGateway([make()], stats=stats, logger=events)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clk = [0.0]
+    ctl = FleetController(gw, EngineFactoryBackend(make), logger=events,
+                          clock=lambda: clk[0], **U_POLICY)
+    reqs = _requests(cfg.vocab_size, 32, sampled=True)
+    feed = list(_copy(reqs))
+    outs, decisions, ms = [], [], {}
+    most = 1
+    t0 = time.perf_counter()
+    for _ in range(4000):
+        for _ in range(U_ARRIVALS):
+            if feed:
+                gw.submit(feed.pop(0))
+        outs.extend(gw.step())
+        _u_round(ctl, clk, decisions, ms)
+        most = max(most, len(gw.replica_ids()))
+        snap = ctl.snapshot()
+        if (not feed and not gw.busy() and snap["actual_replicas"] == 1
+                and snap["pending_removals"] == 0
+                and len(gw.replica_ids()) == 1):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kinds = [d["decision"] for d in decisions]
+    check(len(outs) == 8 and all(o.finish_reason == "length"
+                                 and len(o.tokens) == 32 for o in outs),
+          f"U1: {[(o.request_id, o.finish_reason, len(o.tokens)) for o in outs]}")
+    check(most <= 3 and "up" in kinds and "down" in kinds
+          and len(gw.replica_ids()) == 1,
+          f"U1 decisions {kinds}, at most {most} replicas, ends with "
+          f"{gw.replica_ids()}")
+    layers = cfg.n_layers
+    want = {rid: {"decode": layers * c["_decode_step"],
+                  "prefill": layers * c["_prefill"], "tf32x3": 0,
+                  "split": 0, "int8": 0} for rid, c in calls.items()}
+    check(all(counts[rid].get(k, 0) == v for rid in want
+              for k, v in want[rid].items())
+          and sum(c["_prefill"] for c in calls.values()) > 0,
+          f"U1 launches by engine and route {counts}: want {want}")
+    rids = sorted(b_logits)
+    decided, same = _first_token_rule(
+        torch.cat([logits[r] for r in rids]),
+        torch.cat([b_logits[r].to(dev) for r in rids]))
+    check(bool(same[decided].all()),
+          "U1: a first token differs from B's where the margin decides it")
+    added = sum(_pool_bytes(e) for rid, e in engines.items() if rid != "r0")
+    growth = peak - base
+    check(growth <= added + U_MEM_SLACK_GB * 2 ** 30,
+          f"U1: peak memory grew {growth / 2 ** 30:.2f} GiB, more than the "
+          f"added engines' KV pools ({added / 2 ** 30:.2f} GiB) + "
+          f"{U_MEM_SLACK_GB} GiB: are the weights copied?")
+    decode_tokens = sum(e.stats.decode_tokens for e in engines.values())
+    result = {
+        "phase": "U1", "model": "llama3-8b", "layers": layers,
+        "dtype": "bfloat16", "slots": 4, "prefill_chunk_tokens": 512,
+        "requests": 8, "policy": U_POLICY, "arrivals_per_iteration":
+        U_ARRIVALS, "decisions": decisions, "engines_built": len(engines),
+        "most_replicas": most, "actuation_ms": ms,
+        "migrations": stats.gateway_migrations, "wall_s": wall,
+        "decode_tokens_per_s": decode_tokens / acc["_decode_step"],
+        "route_launches": counts, "calls": calls,
+        "first_token_decided": decided.tolist(),
+        "first_token_equal": same.tolist(),
+        "kv_pool_gb_per_engine": _pool_bytes(engines["r0"]) / 2 ** 30,
+        "peak_growth_gb": growth / 2 ** 30,
+        "added_pools_gb": added / 2 ** 30,
+        "events": [e for e in events.names() if e.startswith(
+            ("autoscale_", "gateway_replica_"))]}
+    for rid, eng in engines.items():
+        result[f"{rid}_pages_after"] = _clean_after(eng, f"U1 {rid}")
+    result["since_start_s"] = time.perf_counter() - started
+    log(result)
+    del model, engines, gw, ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _u2_requests(vocab):
+    from k8s_distributed_deeplearning_torch.serve import Request
+
+    rng = np.random.default_rng(2)
+    return [Request(prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=U2_NEW, request_id=f"u{i}",
+                    tenant="chat")
+            for i, n in enumerate(rng.integers(100, 1501, 13))]
+
+
+def _u2(dev, started):
+    """U2: R2's f32 model (8B width, 4 layers) behind the controller: a
+    scale-up mid-stream, the brownout ladder walked up at max and unwound,
+    a replica killed through ``gateway_dispatch`` and replaced, drains on
+    the way down; every stream against a unified engine's."""
+    from k8s_distributed_deeplearning_torch import faults
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+    from k8s_distributed_deeplearning_torch.serve import (
+        QueueFull, Request, ServeEngine, parse_tenants)
+    from k8s_distributed_deeplearning_torch.serve.autoscale import (
+        EngineFactoryBackend, FleetController, K8sParallelismBackend)
+    from k8s_distributed_deeplearning_torch.serve.gateway import (
+        ServeGateway)
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        ServingStats)
+
+    class NewestFirst(EngineFactoryBackend):
+        # A Job controller's victim: the highest replica index (the
+        # newest engine, which is still decoding when the fleet shrinks).
+        victim_rid = K8sParallelismBackend.victim_rid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = paged_attn.paged_decode_attention
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=4,
+                                 dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    tenants = parse_tenants(U2_TENANTS)
+    reqs = _u2_requests(cfg.vocab_size)
+    _zero_counts(attn)
+    ref = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                      device=dev, tenants=tenants)
+    oracle = {o.request_id: o.tokens for o in ref.run(_copy(reqs))}
+    ref_routes = _route_counts(attn)
+    _clean_after(ref, "U2 unified")
+    # The fleet's launches from here on, counted apart from the reference's.
+    _zero_counts(attn)
+    engines, counts, calls = {}, {}, {}
+
+    def make():
+        rid = f"r{len(engines)}"
+        eng = ServeEngine(model, num_slots=2, prefill_chunk_tokens=512,
+                          device=dev, tenants=tenants, replica_id=rid)
+        counts[rid] = {}
+        calls[rid] = {"_prefill": 0, "_decode_step": 0}
+        _count_step_routes(eng, counts[rid])
+        _count_calls(eng, calls[rid])
+        engines[rid] = eng
+        return eng
+
+    stats, events = ServingStats(), _UEvents()
+    gw = ServeGateway([make(), make()], stats=stats, logger=events,
+                      failures_to_trip=1, hedge_after_s=600.0)
+    clk = [0.0]
+    ctl = FleetController(
+        gw, NewestFirst(make), logger=events, clock=lambda: clk[0],
+        **{**U_POLICY, "up_cooldown_s": 1.0, "down_cooldown_s": 1.0,
+           "unhealthy_rounds": 1})
+    decisions, ms, outs = [], {}, []
+    refused = {}
+    feed = _copy(reqs)
+    for r in feed[:8]:                 # 8 on 4 slots: load 2.0 a slot
+        gw.submit(r)
+    for _ in range(2):
+        outs.extend(gw.step())
+    up = _u_round(ctl, clk, decisions, ms)
+    for r in feed[8:12]:               # 12 on 6 slots: over at the ceiling
+        gw.submit(r)
+    outs.extend(gw.step())
+    ladder = []
+    for _ in range(3):
+        d = _u_round(ctl, clk, decisions, ms)
+        ladder.append((d["decision"], d.get("stage")))
+        if d.get("stage") == "shed_batch":
+            try:
+                gw.submit(Request(prompt=[1, 2, 3], max_new_tokens=2,
+                                  tenant="bulk", request_id="bulk0"))
+                refused["bulk"] = None
+            except QueueFull as e:
+                refused["bulk"] = str(e)
+            gw.submit(feed[12])        # chat still admitted under shed
+            refused["chat"] = None
+        levers = (gw.shed_classes, gw.hedge_after_s, gw.max_live_requests)
+        ladder.append(repr(levers))
+    # r0 dies mid-decode: its requests migrate, the controller replaces it.
+    faults.activate(faults.FaultPlan((faults.Fault(
+        site="gateway_dispatch", action="ioerror", step=0,
+        attempt=None),)))
+    try:
+        outs.extend(gw.step())
+    finally:
+        fired = list(faults.active().fired)
+        faults.deactivate()
+    most = len(gw.replica_ids())
+    for _ in range(4000):
+        outs.extend(gw.step())
+        _u_round(ctl, clk, decisions, ms)
+        most = max(most, len(gw.replica_ids()))
+        snap = ctl.snapshot()
+        if (not gw.busy() and snap["brownout_level"] == 0
+                and snap["actual_replicas"] == 1
+                and snap["pending_removals"] == 0
+                and len(gw.replica_ids()) == 1):
+            break
+    kinds = [d["decision"] for d in decisions]
+    names = events.names()
+    routes = _route_counts(attn)
+    streams = {o.request_id: o.tokens for o in outs}
+    result = {
+        "phase": "U2", "model": "llama3-8b width, 4 layers",
+        "dtype": "float32", "slots": 2, "requests": len(reqs),
+        "first_round": up["decision"], "ladder": ladder,
+        "refused_under_shed": refused, "kill_fired": fired,
+        "decisions": kinds, "most_replicas": most,
+        "engines_built": len(engines),
+        "migrations": stats.gateway_migrations,
+        "page_exports": sum(e.stats.disagg_exports
+                            for e in engines.values()),
+        "streams_equal": {r: streams.get(r) == oracle[r] for r in oracle},
+        "route_launches": routes, "route_launches_by_engine": counts,
+        "calls": calls, "unified_route_launches": ref_routes,
+        "actuation_ms": ms,
+        "events": [e for e in names if e.startswith("autoscale_")]}
+    log(result)
+    check(up["decision"] == "up" and [x for x in ladder
+                                      if isinstance(x, tuple)] == [
+        ("brownout", "shed_batch"), ("brownout", "no_hedge"),
+        ("brownout", "tight_admission")],
+          f"U2: first round {up['decision']}, ladder {ladder}")
+    check(refused.get("bulk") is not None
+          and "is shed (brownout)" in refused["bulk"]
+          and "chat" in refused, f"U2 shed_batch refusals: {refused}")
+    check(len(streams) == len(reqs)
+          and all(result["streams_equal"].values()),
+          f"U2 streams against the unified engine: "
+          f"{result['streams_equal']}")
+    check("replace" in kinds and "restore" in kinds and "down" in kinds
+          and most <= 3 and stats.gateway_migrations >= 1
+          and result["page_exports"] >= 1,
+          f"U2 decisions {kinds}, at most {most} replicas, migrations "
+          f"{stats.gateway_migrations}, requests drained by their pages "
+          f"{result['page_exports']}")
+    check(names.count("autoscale_brownout") == 3
+          and names.count("autoscale_restored") == 1
+          and names.index("autoscale_restored") > max(
+              i for i, n in enumerate(names) if n == "autoscale_brownout"),
+          f"U2 events {result['events']}")
+    check((gw.shed_classes, gw.hedge_after_s, gw.max_live_requests)
+          == (frozenset(), 600.0, None), "U2: the levers are not restored")
+    layers = cfg.n_layers
+    want = {rid: {"tf32x3": layers * (c["_prefill"] + c["_decode_step"]),
+                  "decode": 0, "prefill": 0, "split": 0, "int8": 0}
+            for rid, c in calls.items()}
+    check(all(counts[rid].get(k, 0) == v for rid in want
+              for k, v in want[rid].items())
+          and routes == {k: sum(w[k] for w in want.values())
+                         for k in routes}
+          and sum(c["_prefill"] for c in calls.values()) > 0,
+          f"U2 launches by engine and route {counts} (in all {routes}): "
+          f"want {want}, every paged launch on tf32x3")
+    for rid, eng in engines.items():
+        _clean_after(eng, f"U2 {rid}")
+    result["since_start_s"] = time.perf_counter() - started
+    del model, engines, gw, ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _logged_process_backend(log_dir: Path, **kw):
+    """A ``LocalProcessBackend`` that keeps each child's output in
+    ``log_dir/replica-<rank>.log`` and each child's exit code, by replica
+    id, in ``returncodes`` (the backend itself discards both)."""
+    from unittest import mock
+
+    from k8s_distributed_deeplearning_torch.serve.autoscale import (
+        LocalProcessBackend)
+
+    class Logged(LocalProcessBackend):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.returncodes = {}
+            self._all = {}
+
+        def start_replica(self):
+            log_dir.mkdir(parents=True, exist_ok=True)
+            popen = subprocess.Popen
+            with open(log_dir / f"replica-{self._next_rank}.log", "w") as f:
+                def logged(cmd, **_):
+                    return popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+
+                with mock.patch.object(subprocess, "Popen", logged):
+                    client = super().start_replica()
+            self._all[client.replica_id] = self._procs[client.replica_id]
+            return client
+
+        def _record(self):
+            self.returncodes = {rid: p.returncode
+                                for rid, p in sorted(self._all.items())}
+
+        def stop_replica(self, rid, engine):
+            super().stop_replica(rid, engine)
+            self._record()
+
+        def reap_all(self):
+            super().reap_all()
+            self._record()
+
+    return Logged(**kw)
+
+
+def _u3(started, tmp: Path):
+    """U3: ``LocalProcessBackend`` spawns the port's replica servers on the
+    card (``launch serve --replica-server``, the serve CLI's small preset)
+    and the controller takes the fleet from 1 to 2 and back to 1;
+    ``heartbeat_discoverer`` finds each new server once."""
+    from k8s_distributed_deeplearning_torch.serve import Request
+    from k8s_distributed_deeplearning_torch.serve.autoscale import (
+        FleetController, heartbeat_discoverer)
+    from k8s_distributed_deeplearning_torch.serve.gateway import (
+        ServeGateway)
+    from k8s_distributed_deeplearning_torch.utils.metrics import (
+        MetricsLogger, ServingStats)
+
+    hb, logs = tmp / "u3_hb", tmp / "u3_logs"
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(REPO)
+    # Each load read scrapes the server's /metrics afresh: the controller
+    # must see the queue the submissions built, not a cached snapshot.
+    backend = _logged_process_backend(
+        logs, heartbeat_dir=str(hb), preset="small", slots=4,
+        client_kwargs={"health_refresh_s": 0.0})
+    discover = heartbeat_discoverer(str(hb), stale_after_s=None)
+    summary_path = tmp / "u3_events.jsonl"
+    t0 = time.perf_counter()
+    found, decisions, ms, outs = [], [], {}, []
+    try:
+        first = backend.start_replica()
+        spawn_s = [time.perf_counter() - t0]
+        found.append([c.endpoint for c in discover([])])
+        stats = ServingStats()
+        with open(summary_path, "w") as f:
+            logger = MetricsLogger(stream=f, job="u3")
+            gw = ServeGateway([first], stats=stats, logger=logger)
+            clk = [0.0]
+            ctl = FleetController(gw, backend, logger=logger,
+                                  clock=lambda: clk[0],
+                                  **{**U_POLICY, "max_replicas": 2})
+            rng = np.random.default_rng(3)
+            reqs = [Request(prompt=rng.integers(0, 32000, 64).astype(
+                np.int32), max_new_tokens=16, request_id=f"w{i}")
+                for i in range(U3_REQUESTS)]
+            for r in reqs[:12]:        # 12 on 4 slots: load 3.0 a slot
+                gw.submit(r)
+            t1 = time.perf_counter()
+            _u_round(ctl, clk, decisions, ms)
+            spawn_s.append(time.perf_counter() - t1)
+            found.append([c.endpoint for c in discover([])])
+            found.append([c.endpoint for c in discover([])])
+            for r in reqs[12:]:        # the newcomer can take these
+                gw.submit(r)
+            routed = {rid: gw.replica_engine(rid).load()
+                      for rid in gw.replica_ids()}
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                outs.extend(gw.step())
+                if not gw.busy():
+                    # Idle: the control rounds drain one server out.
+                    _u_round(ctl, clk, decisions, ms)
+                    snap = ctl.snapshot()
+                    if (snap["actual_replicas"] == 1
+                            and snap["pending_removals"] == 0
+                            and len(gw.replica_ids()) == 1):
+                        break
+                time.sleep(0.005)
+            logger.emit("autoscale_summary", **ctl.snapshot())
+            last = gw.replica_ids()[0]
+            backend.stop_replica(last, gw.replica_engine(last))
+            logger.close()
+    finally:
+        backend.reap_all()
+        if old is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old
+    drained = {p.name: p.read_text().count('"event": "replica_drained"')
+               for p in sorted(logs.glob("replica-*.log"))}
+    events = [json.loads(line) for line in summary_path.read_text()
+              .splitlines()]
+    summ = [e for e in events if e["event"] == "autoscale_summary"]
+    result = {"phase": "U3", "preset": "small", "decisions":
+              [d["decision"] for d in decisions],
+              "discovered": found, "spawn_s": spawn_s,
+              "requests_finished": len(outs),
+              "finish_reasons": sorted({o.finish_reason for o in outs}),
+              "routed_after_up": routed,
+              "returncodes": backend.returncodes,
+              "replica_drained": drained, "actuation_ms": ms,
+              "autoscale_summary": summ[-1] if summ else None,
+              "wall_s": time.perf_counter() - t0,
+              "since_start_s": time.perf_counter() - started}
+    log(result)
+    check(found[0] == [first.endpoint] and len(found[1]) == 1
+          and found[1] != found[0] and found[2] == [],
+          f"U3 discovery: {found}")
+    check(result["decisions"][:1] == ["up"] and "down" in result["decisions"]
+          and len(outs) == U3_REQUESTS
+          and result["finish_reasons"] == ["length"], f"U3: {result}")
+    check(backend.returncodes == {"r0": 0, "r1": 0}
+          and list(drained.values()) == [1, 1] and summ,
+          f"U3 children: exit codes {backend.returncodes}, "
+          f"replica_drained {drained}, autoscale_summary {bool(summ)}")
+    return result
+
+
+def _u4(started, tmp: Path):
+    """U4: ``launch render``/``validate`` of the GPU manifests; then the
+    MNIST worker script through the rendered job on the card, one
+    worker: a run whole, and a run whose rank 0 the ``executor`` fault
+    SIGKILLs after its first checkpoint, restarted by ``run_elastic``."""
+    import io
+    import threading
+    from contextlib import redirect_stdout
+
+    from k8s_distributed_deeplearning_torch.config import JobConfig
+    from k8s_distributed_deeplearning_torch.launch import __main__ as launch
+    from k8s_distributed_deeplearning_torch.launch import elastic
+    from k8s_distributed_deeplearning_torch.utils import ckpt as ckpt_paths
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc_render = launch.main(["render", "--workers", "2",
+                                 "--serve-replicas", "2", "--storm-steps",
+                                 "10", "--", "--num-steps", "600"])
+        rc_validate = launch.main(["validate", "--workers", "2",
+                                   "--serve-replicas", "2"])
+    text = buf.getvalue()
+    check(rc_render == rc_validate == 0 and "nvidia.com/gpu" in text
+          and "google.com/tpu" not in text
+          and "offline validation: OK" in text,
+          f"U4 render {rc_render}, validate {rc_validate}: {text[-500:]}")
+
+    def args(ck):
+        return ["--num-steps", str(U4_STEPS), "--batch-size", "100",
+                "--checkpoint-dir", str(ck), "--checkpoint-every",
+                str(U4_CKPT_EVERY), "--log-every", "10", "--no-eval"]
+
+    env = {"PYTHONPATH": str(REPO)}
+    whole, killed = tmp / "u4_whole", tmp / "u4_killed"
+    unkilled = {}
+
+    def run_whole():
+        t = time.perf_counter()
+        unkilled["proc"] = subprocess.run(
+            [sys.executable, "-m", "k8s_distributed_deeplearning_torch.launch",
+             "run-local", "--workers", "1", "--max-restarts", "1",
+             "--timeout", "300", "--"] + args(whole),
+            cwd=str(REPO), capture_output=True, text=True, timeout=400,
+            env=dict(os.environ, **env))
+        unkilled["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=run_whole)
+    th.start()
+    plan = json.dumps({"faults": [
+        {"site": "step", "action": "stall", "rank": 0,
+         "step": U4_STALL_STEP, "seconds": 600},
+        {"site": "executor", "action": "exit", "rank": 0,
+         "seconds": U4_KILL_S}]})
+    on_disk = []
+    t0 = time.perf_counter()
+    try:
+        res, restarts = elastic.run_elastic(
+            JobConfig(num_workers=1, fault_plan=plan,
+                      script_args=args(killed)),
+            max_restarts=1, timeout=300, cwd=str(REPO), extra_env=env,
+            checkpoint_dir=str(killed),
+            on_restart=lambda n, c: on_disk.append(
+                ckpt_paths.latest_step_on_disk(str(killed))))
+    finally:
+        th.join()
+    elastic_s = time.perf_counter() - t0
+    proc = unkilled["proc"]
+    check(proc.returncode == 0, f"U4 unkilled run-local exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    ev = [json.loads(line) for line in res[0].stdout.splitlines()
+          if line.startswith("{")]
+    restore = [e["step"] for e in ev if e["event"] == "restore"]
+    check(restarts == 1 and res[0].returncode == 0 and on_disk
+          and on_disk[0] is not None and on_disk[0] >= U4_CKPT_EVERY
+          and restore == on_disk,
+          f"U4: restarts {restarts}, exit {res[0].returncode}, newest step "
+          f"on disk at the restart {on_disk}, restored at {restore}")
+
+    def state(d):
+        return _tensor_leaves(torch.load(Path(d) / str(U4_STEPS) /
+                                         "state.pt", weights_only=True))
+
+    def again():
+        ck = tmp / "u4_again"
+        (r,) = elastic.run_elastic(JobConfig(num_workers=1,
+                                             script_args=args(ck)),
+                                   timeout=300, cwd=str(REPO),
+                                   extra_env=env)[0]
+        check(r.returncode == 0, f"U4 repeat exit {r.returncode}")
+        return state(ck)
+
+    rule = _repeat_rule("U4", state(whole), state(killed), again)
+    result = {"phase": "U4", "workers": 1, "steps": U4_STEPS,
+              "checkpoint_every": U4_CKPT_EVERY,
+              "stall_step": U4_STALL_STEP, "kill_after_s": U4_KILL_S,
+              "restarts": restarts, "step_on_disk_at_restart": on_disk,
+              "restored_at": restore, "elastic_s": elastic_s,
+              "unkilled_s": unkilled["s"], "final_params": rule,
+              "since_start_s": time.perf_counter() - started}
+    log(result)
+    return result
+
+
+def _u5(started, tmp: Path):
+    """U5: ``launch storm --autoscale`` at the tiny preset on the card."""
+    import io
+    from contextlib import redirect_stdout
+
+    from k8s_distributed_deeplearning_torch.launch import __main__ as launch
+    from k8s_distributed_deeplearning_torch.ops import paged_attn
+
+    attn = paged_attn.paged_decode_attention
+    report = tmp / "u5_report.json"
+    _zero_counts(attn)
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()):
+        rc = launch.main(["storm", *U5_STORM, "--report-json", str(report)])
+    doc = json.loads(report.read_text())
+    fired = {f"{s}:{a}": sum(1 for x in doc["fired"] if x == [s, a])
+             for s, a in sorted({tuple(x) for x in doc["fired"]})}
+    routes = _route_counts(attn)
+    result = {"phase": "U5", "argv": U5_STORM, "rc": rc,
+              "violations": doc["violations"], "fired": fired,
+              "submitted": doc["submitted"], "finished": doc["finished"],
+              "migrations": doc["migrations"], "route_launches": routes,
+              "wall_s": time.perf_counter() - t0,
+              "since_start_s": time.perf_counter() - started}
+    log(result)
+    check(rc == 0 and doc["violations"] == []
+          and doc["submitted"] == doc["finished"] > 0
+          and any(k.startswith("autoscale_actuate:") for k in fired),
+          f"U5: {result}")
+    check(routes["tf32x3"] > 0 and routes["split"] == 0,
+          f"U5 launches by route {routes}")
+    return result
+
+
+def phase_u(dev, b_logits, started, tmp: Path):
+    """The fleet controller and the launch layer on the card: U1 the
+    autoscaled gateway at full 8B, U2 its f32 exact gates, U3 replica
+    servers spawned and reaped, U4 the launch layer's render, validate
+    and elastic restart, U5 the autoscaled soak."""
+    return {"u1": _u1(dev, b_logits, started), "u2": _u2(dev, started),
+            "u3": _u3(started, tmp), "u4": _u4(started, tmp),
+            "u5": _u5(started, tmp)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6258,6 +6962,8 @@ def main() -> int:
             timed("T", phase_t, dev, Path(tmp), e)
     finally:
         distributed.shutdown()
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("U", phase_u, dev, b_logits, started, Path(tmp))
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,
                                    verify, r)
          + _flash_entries(flash_rows, e, f, q)

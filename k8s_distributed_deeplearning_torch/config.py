@@ -1,16 +1,22 @@
-"""Typed training configuration and its CLI flags.
+"""Typed training and job configuration, and the training CLI flags.
 
 Own copy of the part of ``k8s_distributed_deeplearning_tpu/config.py``
-that the training CLIs use: :class:`TrainConfig` (the reference's
-defaults: lr 0.001, 20000 steps, batch size 100, Adasum off, dropout 0.5,
-rank-0 checkpoints in ``./checkpoints`` every 1000 steps) with the
-Horovod LR and step rules, and :func:`add_train_flags`.
+that the training CLIs and the launch layer use: :class:`TrainConfig`
+(the reference's defaults: lr 0.001, 20000 steps, batch size 100, Adasum
+off, dropout 0.5, rank-0 checkpoints in ``./checkpoints`` every 1000
+steps) with the Horovod LR and step rules, :func:`add_train_flags`, and
+:class:`JobConfig`, the cluster job's shape that ``launch/render.py``
+turns into manifests. ``JobConfig`` keeps the JAX package's fields and
+defaults but for the accelerator: each worker pod claims
+``gpus_per_worker`` NVIDIA cards (``nvidia.com/gpu``) on nodes labelled
+``cloud.google.com/gke-accelerator: <gpu_accelerator>`` in place of a TPU
+slice's topology, and the image and script are the port's.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -58,6 +64,93 @@ class TrainConfig:
         """Total optimizer steps for this world size
         (``tensorflow_mnist.py:146``)."""
         return self.num_steps // world_size
+
+
+@dataclass
+class JobConfig:
+    """Cluster job shape: the MPIJob-manifest knobs
+    (``tensorflow-mnist.yaml:6,44``, ``deploy_stack.sh:8-10,57,90``) for
+    GPU nodes. Every field but the accelerator's is the JAX package's,
+    with its default; the comments say which rendered env var or flag
+    each one becomes and what ``launch/validate.py`` checks offline."""
+
+    name: str = "tpu-mnist"
+    namespace: str = "ml-ops"
+    num_workers: int = 2
+    gpus_per_worker: int = 1         # nvidia.com/gpu limit of each pod
+    gpu_accelerator: str = "nvidia-h100-80gb"  # gke-accelerator node label
+    image: str = "k8s-distributed-deeplearning-torch:latest"
+    script: str = "examples/train_mnist_torch.py"
+    script_args: list[str] = field(default_factory=list)
+    cpu: str = "2"                   # worker resources (tensorflow-mnist.yaml:49-53)
+    memory: str = "4Gi"
+    coordinator_port: int = 8476
+    metrics_port: int = 9090         # Prometheus /metrics (+ /healthz) scrape
+    clean_pod_policy: str = "Running"  # tensorflow-mnist.yaml:8
+    # Fault-injection plan carried into every worker as $TPUJOB_FAULT_PLAN
+    # (inline JSON, or "@/path" to a mounted file; faults/plan.py). None
+    # renders no env.
+    fault_plan: str | None = None
+    # Multi-tenant scheduler config for serving workers as
+    # $TPUJOB_TENANTS (inline JSON or "@/path"; serve/sched/tenant.py).
+    tenants: str | None = None
+    # Fleet scrape targets as $TPUJOB_FLEET_ENDPOINTS (comma-separated
+    # host:port /metrics targets; telemetry/fleet.py).
+    fleet_endpoints: str | None = None
+    # Pod terminationGracePeriodSeconds: the SIGTERM -> SIGKILL window the
+    # serving drain and the training preemption checkpoint run inside.
+    # None renders no field (the k8s default, 30 s).
+    termination_grace_s: int | None = None
+    # Speculative decoding for serving workers: $TPUJOB_DRAFT_MODEL and
+    # $TPUJOB_SPEC_K, both or neither (validate.py checks the pair).
+    draft_model: str | None = None
+    spec_k: int | None = None
+    # Flight recorder for serving workers: $TPUJOB_FLIGHT_RING and
+    # $TPUJOB_FLIGHT_DIR (a dir without a ring records nothing).
+    flight_ring: int | None = None
+    flight_dir: str | None = None
+    # Remote serving (serve/transport.py): an Indexed Job of replica-server
+    # pods behind a headless Service and a one-pod gateway Job that
+    # dispatches to them over HTTP, probes split /readyz vs /healthz.
+    serve_replicas: int | None = None
+    # Disaggregated serving (serve/disagg.py): a prefill tier of
+    # replica-server pods (--role prefill) and the gateway pod as the
+    # disagg coordinator. Requires serve_replicas.
+    serve_prefill_replicas: int | None = None
+    serve_preset: str = "tiny"       # model preset for both serving roles
+    serve_slots: int | None = None   # per-replica decode slots (None = CLI default)
+    # Tensor-parallel width per serving replica: the replica Job requests
+    # this many cards and the CLI gets --tp. The port's serve CLI refuses
+    # --tp at every value (ROADMAP.md), so validate.py reports any
+    # serve_tp, 1 included.
+    serve_tp: int | None = None
+    # preStop sleep (seconds) before SIGTERM, so the routing layer stops
+    # sending new requests first; must be < termination_grace_s.
+    pre_stop_sleep_s: int | None = None
+    # Elastic serving (serve/autoscale.py): with autoscale_max set the
+    # gateway runs the fleet controller (serve/cli.py --autoscale),
+    # rendered as $TPUJOB_AUTOSCALE_{MIN,MAX,UP_COOLDOWN_S,
+    # DOWN_COOLDOWN_S,BROWNOUT}; validate.py checks min <= max, positive
+    # cooldowns and known brownout stage names.
+    autoscale_min: int | None = None
+    autoscale_max: int | None = None
+    autoscale_up_cooldown_s: float | None = None
+    autoscale_down_cooldown_s: float | None = None
+    autoscale_brownout: str | None = None  # comma-separated stage names
+    # Chaos soak (serve/storm.py): a one-pod "serve-storm" Job running
+    # ``launch storm`` for storm_steps steps; storm_seed is the replay
+    # key, storm_fault_rate the upper per-visit firing probability.
+    storm_steps: int | None = None
+    storm_seed: int | None = None
+    storm_fault_rate: float | None = None
+    # Quantized serving: $TPUJOB_KV_QUANT / $TPUJOB_WEIGHT_QUANT ("int8")
+    # on every serving role; validate.py sizes the int8 pool.
+    kv_quant: str | None = None
+    weight_quant: str | None = None
+
+    def chips_per_worker(self) -> int:
+        """Cards each worker pod requests (``nvidia.com/gpu``)."""
+        return self.gpus_per_worker
 
 
 def add_train_flags(parser: argparse.ArgumentParser) -> None:

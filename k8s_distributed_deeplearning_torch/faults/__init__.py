@@ -8,9 +8,10 @@ drives both packages. The training sites have callers in the port
 serving sites (``serve_decode`` in ``serve/engine.py``,
 ``gateway_dispatch`` in ``serve/gateway.py``, ``transport_send`` and
 ``transport_recv`` in ``serve/transport.py``, ``transport_pages`` there
-and on the in-process KV shipping path of ``serve/disagg.py``); the
-executor and autoscale sites validate but have no caller yet
-(ROADMAP.md).
+and on the in-process KV shipping path of ``serve/disagg.py``), and so do
+``executor`` (``launch/local_executor.py``, a killer outside the worker)
+and ``autoscale_actuate`` (``serve/autoscale.py``, before every backend
+call).
 """
 
 from k8s_distributed_deeplearning_torch.faults.inject import (  # noqa: F401

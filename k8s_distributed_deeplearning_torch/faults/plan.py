@@ -4,8 +4,7 @@ The port's own copy of ``k8s_distributed_deeplearning_tpu/faults/plan.py``,
 unchanged in behaviour: the sites, actions, JSON and validation are the
 JAX package's, so a plan file is shared across the two packages. The
 locations below are the JAX package's; in the port every site has its
-caller at the same point but ``executor`` and ``autoscale_actuate``,
-whose subsystems are not ported yet.
+caller at the same point.
 
 A :class:`FaultPlan` is a JSON-serializable list of :class:`Fault` records.
 It travels as the ``TPUJOB_FAULT_PLAN`` env var (inline JSON, or ``@/path``

@@ -46,8 +46,18 @@ spans on the JSONL stream; ``--request-trace-sample`` emits one
 ``--debug-dir`` turns on ``/debug/spans`` and ``/debug/profile``
 (``torch.profiler`` traces into the directory).
 
-Not ported yet, and raising: tensor parallelism (``--tp``) and the
-autoscaler (``--autoscale*``).
+The elastic fleet (``serve/autoscale.py``): ``--autoscale`` runs the
+fleet controller over the gateway (forced even at one replica), scaling
+between ``--autoscale-min`` and ``--autoscale-max`` on fast-window SLO
+burn or queue pressure, with drain-backed scale-down and the brownout
+ladder (``--autoscale-brownout``) at the ceiling. Its backend is local
+engines on the shared model, or with ``--replica-discovery-dir``
+replica-server processes it spawns (``launch serve --replica-server``),
+or with ``--autoscale-k8s-job`` a patch of the replica Job's parallelism
+through kubectl (``--autoscale-endpoint-template`` names a new pod's
+endpoint). An ``autoscale_summary`` line follows ``serve_summary``.
+
+Not ported yet, and raising: tensor parallelism (``--tp``).
 """
 from __future__ import annotations
 
@@ -56,25 +66,6 @@ import os
 
 _UNPORTED = (
     ("tp", "--tp", "tensor-parallel serving"),
-    ("autoscale", "--autoscale", "the autoscaler (serve/autoscale.py)"),
-    ("autoscale_min", "--autoscale-min", "the autoscaler "
-     "(serve/autoscale.py)"),
-    ("autoscale_max", "--autoscale-max", "the autoscaler "
-     "(serve/autoscale.py)"),
-    ("autoscale_interval_s", "--autoscale-interval-s", "the autoscaler "
-     "(serve/autoscale.py)"),
-    ("autoscale_up_cooldown_s", "--autoscale-up-cooldown-s", "the "
-     "autoscaler (serve/autoscale.py)"),
-    ("autoscale_down_cooldown_s", "--autoscale-down-cooldown-s", "the "
-     "autoscaler (serve/autoscale.py)"),
-    ("autoscale_brownout", "--autoscale-brownout", "the autoscaler "
-     "(serve/autoscale.py)"),
-    ("autoscale_k8s_job", "--autoscale-k8s-job", "the autoscaler "
-     "(serve/autoscale.py)"),
-    ("autoscale_k8s_namespace", "--autoscale-k8s-namespace", "the "
-     "autoscaler (serve/autoscale.py)"),
-    ("autoscale_endpoint_template", "--autoscale-endpoint-template", "the "
-     "autoscaler (serve/autoscale.py)"),
 )
 
 
@@ -187,19 +178,52 @@ def main(argv: list[str] | None = None) -> int:
                          "from heartbeat files carrying metrics_addr "
                          "(written by replica servers started with "
                          "--heartbeat-dir DIR)")
-    for flag, kind in (("--tp", int),
-                       ("--autoscale-min", int), ("--autoscale-max", int),
-                       ("--autoscale-interval-s", float),
-                       ("--autoscale-up-cooldown-s", float),
-                       ("--autoscale-down-cooldown-s", float),
-                       ("--autoscale-brownout", str),
-                       ("--autoscale-k8s-job", str),
-                       ("--autoscale-k8s-namespace", str),
-                       ("--autoscale-endpoint-template", str)):
-        ap.add_argument(flag, type=kind, default=None,
-                        help="not ported yet: raises when given")
-    ap.add_argument("--autoscale", action="store_true",
+    ap.add_argument("--tp", type=int, default=None,
                     help="not ported yet: raises when given")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="run the SLO-driven fleet controller "
+                         "(serve/autoscale.py) over the gateway: scale "
+                         "the replica set between --autoscale-min and "
+                         "--autoscale-max on fast-window SLO burn / "
+                         "queue pressure (drain-safe scale-down, zero "
+                         "lost requests) and walk the reversible "
+                         "brownout ladder at max scale")
+    ap.add_argument("--autoscale-min", type=int, default=1,
+                    help="elastic floor: never drain below this many "
+                         "replicas")
+    ap.add_argument("--autoscale-max", type=int, default=4,
+                    help="elastic ceiling: at this many replicas, "
+                         "sustained overload escalates the brownout "
+                         "ladder instead of adding capacity")
+    ap.add_argument("--autoscale-interval-s", type=float, default=0.5,
+                    metavar="S",
+                    help="minimum seconds between control rounds")
+    ap.add_argument("--autoscale-up-cooldown-s", type=float, default=2.0,
+                    metavar="S",
+                    help="minimum seconds between scale-up (or brownout "
+                         "escalation) actuations")
+    ap.add_argument("--autoscale-down-cooldown-s", type=float,
+                    default=5.0, metavar="S",
+                    help="minimum seconds between scale-down (or "
+                         "brownout de-escalation) actuations")
+    ap.add_argument("--autoscale-brownout", default=None, metavar="LIST",
+                    help="comma-separated brownout ladder stages in "
+                         "escalation order (default: shed_batch,"
+                         "no_hedge,tight_admission)")
+    ap.add_argument("--autoscale-k8s-job", default=None, metavar="NAME",
+                    help="actuate by patching this Indexed replica "
+                         "Job's parallelism through kubectl instead of "
+                         "spawning local processes (the rendered "
+                         "gateway role passes this)")
+    ap.add_argument("--autoscale-k8s-namespace", default="default",
+                    help="namespace of --autoscale-k8s-job")
+    ap.add_argument("--autoscale-endpoint-template", default=None,
+                    metavar="FMT",
+                    help="host:port format string with an {i} "
+                         "completion-index placeholder — how the k8s "
+                         "backend names the endpoint of a freshly "
+                         "scaled-up replica pod (Indexed-Job DNS is "
+                         "deterministic)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission queue bound (default: --requests)")
@@ -343,6 +367,11 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--disagg-prefill runs in-process prefill engines; use "
                  "--disagg for a remote fleet, or start prefill replica "
                  "servers with --role prefill")
+    if (args.disagg or args.disagg_prefill) and args.autoscale:
+        ap.error("--disagg and --autoscale are not yet composable in "
+                 "one process: the controller actuates through the "
+                 "gateway, which the disagg coordinator replaces (run "
+                 "per-role controllers instead)")
     if (args.disagg or args.disagg_prefill) \
             and args.hedge_after_s is not None:
         ap.error("--hedge-after-s is a gateway knob; the disagg "
@@ -351,6 +380,43 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("speculative decoding is an engine-side knob: pass "
                  "--draft-model to the replica-server processes, not the "
                  "remote gateway")
+    if args.autoscale:
+        if args.replica_server:
+            ap.error("--autoscale runs gateway-side; a replica-server "
+                     "is the thing being scaled")
+        if args.autoscale_min < 1:
+            ap.error(f"--autoscale-min must be >= 1, got "
+                     f"{args.autoscale_min}")
+        if args.autoscale_max < args.autoscale_min:
+            ap.error(f"--autoscale-min ({args.autoscale_min}) must be "
+                     f"<= --autoscale-max ({args.autoscale_max})")
+        if args.autoscale_up_cooldown_s <= 0 \
+                or args.autoscale_down_cooldown_s <= 0:
+            ap.error("autoscale cooldowns must be > 0")
+        if args.autoscale_brownout is not None:
+            # Literal copy of serve.autoscale.BROWNOUT_STAGE_NAMES so a
+            # typo dies with usage text before the heavy imports; a
+            # test keeps the two tuples identical.
+            known = ("shed_batch", "no_hedge", "tight_admission")
+            for stage in args.autoscale_brownout.split(","):
+                if stage.strip() not in known:
+                    ap.error(f"--autoscale-brownout stage "
+                             f"{stage.strip()!r} is not one of {known}")
+        if args.autoscale_k8s_job is not None and not remote:
+            ap.error("--autoscale-k8s-job needs the remote gateway "
+                     "(--replica-endpoints/--replica-discovery-dir): "
+                     "the k8s backend scales replica-server pods")
+        if args.replica_endpoints is not None \
+                and args.autoscale_k8s_job is None:
+            ap.error("--autoscale over a static --replica-endpoints "
+                     "list has nothing to start/stop replicas with; "
+                     "pass --autoscale-k8s-job, or use "
+                     "--replica-discovery-dir for the local process "
+                     "backend")
+    elif args.autoscale_k8s_job is not None \
+            or args.autoscale_endpoint_template is not None:
+        ap.error("--autoscale-k8s-job/--autoscale-endpoint-template "
+                 "only make sense with --autoscale")
     # A replica server generates no workload of its own (the gateway
     # shapes every request it serves), so the workload bounds apply to
     # the driving modes only.
@@ -450,7 +516,8 @@ def main(argv: list[str] | None = None) -> int:
         make_engine(draft_model=draft, spec_k=args.spec_k,
                     request_trace_sample=args.request_trace_sample,
                     prefill_only=args.role == "prefill",
-                    replica_id=(f"r{i}" if args.replicas > 1 else None))
+                    replica_id=(f"r{i}" if args.replicas > 1 or args.autoscale
+                                else None))
         for i in range(args.replicas)]
     engine = engines[0] if engines else None
     front = engine
@@ -508,7 +575,9 @@ def main(argv: list[str] | None = None) -> int:
                                                 replica_id=f"p{i}"))
                       for i in range(args.disagg_prefill)],
             stats=stats, logger=logger)
-    elif args.replicas > 1:
+    elif args.replicas > 1 or args.autoscale:
+        # --autoscale forces the gateway even at one replica: the
+        # controller actuates through its dynamic membership.
         from k8s_distributed_deeplearning_torch.serve.gateway import (
             ServeGateway)
         front = gateway = ServeGateway(engines, stats=stats, logger=logger,
@@ -517,6 +586,76 @@ def main(argv: list[str] | None = None) -> int:
     # What the probes report on: the clients' cached replica states in
     # remote mode, the engines themselves otherwise.
     status_objs = clients if clients is not None else engines
+
+    controller = autoscale_backend = slo = None
+    if args.autoscale:
+        from k8s_distributed_deeplearning_torch.serve.autoscale import (
+            EngineFactoryBackend, FleetController, K8sParallelismBackend,
+            LocalProcessBackend, default_brownout_stages,
+            heartbeat_discoverer)
+        from k8s_distributed_deeplearning_torch.telemetry.slo import (
+            SLOEngine, SLOTarget, objectives_from_tenants)
+        objectives = (objectives_from_tenants(tenant_cfgs)
+                      if tenant_cfgs is not None else {})
+        if not objectives:
+            # No tenant slo blocks: a 99%-over-60s objective a tenant
+            # (fast window 5 s), so the burn signal is live at demo
+            # timescales instead of the 1 h production default.
+            ids = ([c.tenant_id for c in tenant_cfgs]
+                   if tenant_cfgs is not None else ["default"])
+            objectives = {tid: SLOTarget(availability=0.99, window_s=60.0)
+                          for tid in ids}
+        # The controller's clock: observe() stamps and evaluate()
+        # windows live on one timeline.
+        slo = SLOEngine(objectives, emit=logger.emit, clock=time.monotonic)
+        client_kwargs = dict(stats=stats, logger=logger, flight=flight)
+        if args.autoscale_k8s_job is not None:
+            from k8s_distributed_deeplearning_torch.launch.watch import (
+                Kubectl)
+            autoscale_backend = K8sParallelismBackend(
+                Kubectl(), args.autoscale_k8s_job,
+                args.autoscale_k8s_namespace,
+                initial_replicas=len(clients),
+                endpoint_template=args.autoscale_endpoint_template,
+                client_kwargs=client_kwargs)
+        elif remote:
+            # Spawned servers run on this process's device (--device).
+            autoscale_backend = LocalProcessBackend(
+                args.replica_discovery_dir, preset=args.preset,
+                slots=args.slots, client_kwargs=client_kwargs,
+                extra_args=("--device", args.device))
+        else:
+            autoscale_backend = EngineFactoryBackend(
+                lambda: make_engine(
+                    draft_model=draft, spec_k=args.spec_k,
+                    request_trace_sample=args.request_trace_sample))
+        discover = None
+        if (args.autoscale_k8s_job is not None
+                and args.replica_discovery_dir is not None):
+            # Async membership: pods scaled up by the Job patch join
+            # when their heartbeat beacon lands in the shared dir.
+            discover = heartbeat_discoverer(args.replica_discovery_dir,
+                                            client_kwargs=client_kwargs)
+        stages = None
+        if args.autoscale_brownout is not None:
+            stages = default_brownout_stages(tuple(
+                st.strip() for st in args.autoscale_brownout.split(",")))
+        controller = FleetController(
+            gateway, autoscale_backend, slo=slo,
+            min_replicas=args.autoscale_min,
+            max_replicas=args.autoscale_max,
+            interval_s=args.autoscale_interval_s,
+            up_cooldown_s=args.autoscale_up_cooldown_s,
+            down_cooldown_s=args.autoscale_down_cooldown_s,
+            brownout_stages=stages, discover=discover, logger=logger)
+
+    def _fleet_engines():
+        # Membership is dynamic under --autoscale: the probe targets are
+        # resolved a call, not frozen at startup.
+        if controller is not None:
+            return [gateway.replica_engine(rid)
+                    for rid in gateway.replica_ids()]
+        return status_objs
     # SIGTERM -> cooperative drain -> exit 0. The handler only flips drain
     # mode; the loops below dump the flight ring, start the drain, shed
     # the unsubmitted tail and step until everything held has finished.
@@ -535,10 +674,12 @@ def main(argv: list[str] | None = None) -> int:
             # Coordinator mode only stops feeding: draining the decode
             # side would strand pages the prefill workers export.
             return
-        if gateway is not None and clients is not None:
-            # Remote fleet: drain THROUGH the gateway so queued work
-            # migrates between replicas instead of dying with this
-            # process's view of them.
+        if gateway is not None and (clients is not None
+                                    or controller is not None):
+            # Remote or elastic fleet: drain THROUGH the gateway so
+            # queued work migrates between replicas instead of dying with
+            # this process's view of them (under --autoscale the startup
+            # `engines` list is stale anyway).
             for rid in gateway.replica_ids():
                 gateway.drain_replica(rid)
         else:
@@ -602,6 +743,8 @@ def main(argv: list[str] | None = None) -> int:
         bridge.serving_collector(registry, stats)
         if gateway is not None:
             bridge.gateway_collector(registry, gateway)
+            if controller is not None:
+                bridge.autoscale_collector(registry, controller)
         elif engine is not None and coordinator is None:
             # Per-tenant labeled gauges are per scheduler: one engine
             # only (with replicas the labels would collide).
@@ -610,12 +753,12 @@ def main(argv: list[str] | None = None) -> int:
             registry, port=args.metrics_port,
             tracer=tracer if args.debug_dir is not None else None,
             profile_dir=args.debug_dir, flight=flight,
-            healthz=lambda: _drain_status(status_objs),
+            healthz=lambda: _drain_status(_fleet_engines()),
             # Readiness splits from liveness: 503 the moment a drain
             # starts (stop routing here), /healthz stays 200.
             readyz=lambda: {
-                "ready": not any(e.draining for e in status_objs),
-                **_drain_status(status_objs)}).start()
+                "ready": not any(e.draining for e in _fleet_engines()),
+                **_drain_status(_fleet_engines())}).start()
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     rng = np.random.default_rng(args.seed)
@@ -629,16 +772,21 @@ def main(argv: list[str] | None = None) -> int:
     else:
         tenant_ids = ["default"]
     feed = deque()
+    tenant_of = {}          # request_id -> tenant, for the SLO feed
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=int(rng.integers(p_lo, p_hi + 1)))
-        feed.append(Request(prompt=np.concatenate([shared, prompt]).astype(
-                                np.int32),
-                            max_new_tokens=int(rng.integers(o_lo, o_hi + 1)),
-                            sampling=sampling, seed=args.seed + i,
-                            tenant=tenant_ids[i % len(tenant_ids)]))
+        req = Request(prompt=np.concatenate([shared, prompt]).astype(
+                          np.int32),
+                      max_new_tokens=int(rng.integers(o_lo, o_hi + 1)),
+                      sampling=sampling, seed=args.seed + i,
+                      tenant=tenant_ids[i % len(tenant_ids)])
+        tenant_of[req.request_id] = req.tenant
+        feed.append(req)
+    slo_finished = {}       # tenant -> cumulative {reason: count}
 
     draining = False
+    finished_loop = False
     try:
         while feed or front.busy():
             if drain_requested and not draining:
@@ -665,12 +813,28 @@ def main(argv: list[str] | None = None) -> int:
                     ttft_ms=(round(out.ttft_s * 1e3, 3)
                              if out.ttft_s is not None else None),
                     latency_ms=round(out.latency_s * 1e3, 3))
+                if controller is not None:
+                    by = slo_finished.setdefault(
+                        tenant_of.get(out.request_id, "default"), {})
+                    by[out.finish_reason] = by.get(out.finish_reason, 0) + 1
+            if controller is not None and not drain_requested:
+                # The serving loop is the scrape cadence: cumulative
+                # finish counts feed the burn windows, then the control
+                # loop takes its (self-rate-limited) round.
+                slo.observe(finished=slo_finished)
+                controller.maybe_round()
             if clients is not None:
                 # The replicas step on their own: poll, not spin.
                 time.sleep(0.002)
+        finished_loop = True
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
+        if not finished_loop and controller is not None:
+            # A failed run reaps the replica servers it spawned too.
+            reap = getattr(autoscale_backend, "reap_all", None)
+            if reap is not None:
+                reap()
     if drain_requested and not draining:
         _begin_drain()           # the signal came with the last step
     if drain_requested:
@@ -701,6 +865,11 @@ def main(argv: list[str] | None = None) -> int:
                 else args.replicas,
                 device=str(engine.device) if engine is not None
                 else "remote", **summ)
+    if controller is not None:
+        logger.emit("autoscale_summary", **controller.snapshot())
+        reap = getattr(autoscale_backend, "reap_all", None)
+        if reap is not None:
+            reap()               # LocalProcessBackend child teardown
     logger.close()
     if exporter is not None:
         exporter.stop()

@@ -32,9 +32,13 @@ request lifecycle and treats each replica as a disposable executor:
   loser is cancelled (engine reason ``hedge_lost``).
 - **Drain** (:meth:`drain_replica`), **poison quarantine** (a request
   that has used ``max_migrations`` ends "poisoned") and :meth:`snapshot`.
-  The membership is fixed at construction: the JAX gateway's
-  ``add_replica``/``remove_replica`` and brownout levers serve the
-  autoscaler, which is not ported yet (ROADMAP.md).
+- **Dynamic membership**: :meth:`add_replica` folds a new engine into
+  the running gateway (breaker and health state created at runtime, the
+  next submit can route to it); :meth:`remove_replica` retires one
+  through the drain+migrate path and drops its state with it. This is
+  the surface ``serve/autoscale.py`` drives, along with two reversible
+  brownout levers: ``shed_classes`` (tenant priority classes refused at
+  the door) and ``max_live_requests`` (an admission cap).
 
 Chaos surface: the ``gateway_dispatch`` fault site fires before each
 replica's step with ``step=<replica index>``, so a step-scoped plan
@@ -44,6 +48,7 @@ it straggles).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import deque
 from typing import Callable, Iterable, Sequence
@@ -202,6 +207,12 @@ class ServeGateway:
         if flight is not None:
             _faults.add_fire_hook(self)
         self._clock = clock
+        # Guards the membership structures (_replicas/_by_rid/_next_index)
+        # only: the injector's fire hook and the exporter's collector
+        # threads read them mid-step via _flight_extra/snapshot while the
+        # main thread adds/removes replicas. Engine calls stay OUTSIDE
+        # the lock — membership is copied under it, then inspected.
+        self._lock = threading.Lock()
         self._replicas: list[_Replica] = []
         self._by_rid: dict[str, _Replica] = {}
         for i, eng in enumerate(replicas):
@@ -213,6 +224,14 @@ class ServeGateway:
             h = _Replica(eng, rid, i, probe_backoff_s)
             self._replicas.append(h)
             self._by_rid[rid] = h
+        # Replica indices are MONOTONIC across the gateway's lifetime
+        # (never reused after remove_replica) so a step-scoped
+        # gateway_dispatch fault plan keeps naming the same replica.
+        self._next_index = len(self._replicas)
+        # Brownout levers (serve/autoscale.py): tenant classes shed at
+        # the door, and a cap on concurrently admitted client requests.
+        self.shed_classes: frozenset[str] = frozenset()
+        self.max_live_requests: int | None = None
         self._live: dict[str, _GwRequest] = {}     # request_id -> record
         self._completed: list[RequestOutput] = []
 
@@ -227,6 +246,17 @@ class ServeGateway:
         if req.request_id in self._live:
             raise ValueError(
                 f"request {req.request_id} is already live in the gateway")
+        if (self.max_live_requests is not None
+                and len(self._live) >= self.max_live_requests):
+            raise QueueFull(
+                f"gateway admission tightened to {self.max_live_requests} "
+                f"live requests (brownout) — retry after completions")
+        if self.shed_classes:
+            klass = self._tenant_class(req.tenant)
+            if klass in self.shed_classes:
+                raise QueueFull(
+                    f"tenant {req.tenant!r} class {klass!r} is shed "
+                    f"(brownout) — retry after the fleet recovers")
         g = _GwRequest(req, self._clock())
         exclude: set[str] = set()
         while True:
@@ -329,8 +359,83 @@ class ServeGateway:
                 break
         return outputs
 
+    def add_replica(self, engine, *, rid: str | None = None) -> str:
+        """Fold a new replica into the running gateway: breaker and
+        health state are created fresh (CLOSED, zero failures) and the
+        very next :meth:`submit`/:meth:`step` can route to it. Returns
+        the replica id. Raises ValueError on a duplicate id."""
+        if rid is None:
+            rid = getattr(engine, "replica_id", None)
+        with self._lock:
+            index = self._next_index
+            if rid is None:
+                rid = f"r{index}"
+            if rid in self._by_rid:
+                raise ValueError(f"duplicate replica_id {rid!r}")
+            self._next_index += 1
+            h = _Replica(engine, rid, index, self.probe_backoff_s)
+            self._replicas.append(h)
+            self._by_rid[rid] = h
+            n = len(self._replicas)
+        if getattr(engine, "replica_id", None) is None:
+            engine.replica_id = rid       # request_trace replica= field
+        if self.logger is not None:
+            self.logger.emit("gateway_replica_added", replica=rid,
+                             replicas=n)
+        return rid
+
+    def remove_replica(self, rid: str, *, force: bool = False) -> None:
+        """Retire one replica from the gateway: drain it (the
+        migration-backed path — queued and in-flight work moves to peers
+        with its emitted-token cursor, zero lost requests), then drop its
+        breaker/health state. Raises ValueError for an unknown id or the
+        last replica, and RuntimeError if the engine has not finished
+        draining yet (call again after more steps; ``force=True`` skips
+        both the last-replica and the drained checks — shutdown paths)."""
+        with self._lock:
+            h = self._by_rid.get(rid)
+            if h is None:
+                raise ValueError(
+                    f"unknown replica {rid!r} (have {sorted(self._by_rid)})")
+            if len(self._replicas) <= 1 and not force:
+                raise ValueError(
+                    f"refusing to remove the last replica {rid!r} "
+                    f"(force=True to tear the gateway down)")
+        if not h.draining:
+            self.drain_replica(rid)
+        if not h.engine.drained and not force:
+            raise RuntimeError(
+                f"replica {rid!r} is still draining — step the gateway "
+                f"until its engine reports drained, then remove")
+        with self._lock:
+            self._replicas.remove(h)
+            del self._by_rid[rid]
+            n = len(self._replicas)
+        if self.logger is not None:
+            self.logger.emit("gateway_replica_removed", replica=rid,
+                             replicas=n)
+
+    def replica_engine(self, rid: str):
+        """The engine behind *rid* (autoscale backends stop it after the
+        gateway has retired the membership)."""
+        return self._by_rid[rid].engine
+
     def replica_ids(self) -> list[str]:
         return [h.rid for h in self._replicas]
+
+    def _tenant_class(self, tenant: str) -> str | None:
+        """Priority class of *tenant* per the first replica scheduler
+        that knows it (TenantScheduler.priority_of); None when no
+        scheduler claims the tenant (stub engines, plain-list queues)."""
+        for h in self._replicas:
+            pr = getattr(getattr(h.engine, "queue", None),
+                         "priority_of", None)
+            if pr is None:
+                continue
+            klass = pr(tenant)
+            if klass is not None:
+                return klass
+        return None
 
     def drain_replica(self, rid: str) -> None:
         """Cooperatively drain one replica: flush its queued requests and
@@ -377,9 +482,11 @@ class ServeGateway:
         return self._by_rid[rid].state
 
     def snapshot(self) -> dict:
-        """Point-in-time view: breakers, health, load and counters."""
+        """Point-in-time gateway view: the bridge's ``gateway_collector``,
+        the CLI summary and the fleet controller read this."""
         now = self._clock()
-        members = list(self._replicas)
+        with self._lock:
+            members = list(self._replicas)
         replicas = {}
         for h in members:
             replicas[h.rid] = {
@@ -568,7 +675,8 @@ class ServeGateway:
         state plus — when a specific replica is dying — its reason and
         its pool's page ledger. getattr-guarded so stub engines/pools
         (tests) without the ledger surface still dump cleanly."""
-        members = list(self._replicas)
+        with self._lock:
+            members = list(self._replicas)
         extra: dict = {
             "breakers": {r.rid: r.state for r in members},
             "live_requests": len(self._live),

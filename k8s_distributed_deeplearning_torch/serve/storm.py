@@ -26,10 +26,11 @@ Three pieces, one seed:
 Every timing decision runs on a :class:`VirtualClock` that moves a fixed
 ``dt`` a harness step (breaker probes, stall faults), so a soak is a pure
 function of (seed, config). Topologies: a :class:`ServeGateway` over N
-decode replicas, or with ``prefill > 0`` a :class:`DisaggCoordinator`
-with in-process prefill workers (KV page shipping under fire). The
-autoscaled topology waits for ``serve/autoscale.py`` (ROADMAP.md) and
-raises. ``--metrics-port`` serves the storm gauges
+decode replicas, with ``autoscale=True`` a :class:`FleetController`
+over it (``serve/autoscale.py``: scale-up, drain-backed scale-down and the
+``autoscale_actuate`` fault site under fire), or with ``prefill > 0`` a
+:class:`DisaggCoordinator` with in-process prefill workers (KV page
+shipping under fire). ``--metrics-port`` serves the storm gauges
 (``telemetry/bridge.py`` ``storm_collector``) while the soak runs. Engines
 come from a factory::
 
@@ -522,11 +523,6 @@ def run_storm(cfg: StormConfig, *,
     (topology ``prefill > 0``); every engine built is leak-checked at
     teardown. ``on_monitor(monitor, injector)`` is called once the live
     monitor and fault injector exist."""
-    if cfg.autoscale:
-        raise NotImplementedError(
-            "StormConfig(autoscale=True): serve/autoscale.py is not ported "
-            "to PyTorch yet (ROADMAP.md); run the gateway or the disagg "
-            "topology")
     specs = generate_traffic(cfg)
     events = _EventCounter(logger)
 
@@ -562,6 +558,7 @@ def run_storm(cfg: StormConfig, *,
                                max_queue=cfg.global_queue_bound())
     from k8s_distributed_deeplearning_torch.utils.metrics import ServingStats
     stats = ServingStats()
+    controller = None
     prefill_workers: list = []
     if cfg.prefill > 0:
         from k8s_distributed_deeplearning_torch.serve.disagg import (
@@ -584,6 +581,18 @@ def run_storm(cfg: StormConfig, *,
             failures_to_trip=cfg.failures_to_trip,
             probe_backoff_s=4 * cfg.dt,
             max_probe_backoff_s=64 * cfg.dt)
+        if cfg.autoscale:
+            from k8s_distributed_deeplearning_torch.serve.autoscale import (
+                EngineFactoryBackend, FleetController)
+            controller = FleetController(
+                front, EngineFactoryBackend(
+                    lambda: _decode(len(all_engines))),
+                min_replicas=cfg.autoscale_min,
+                max_replicas=cfg.autoscale_max,
+                interval_s=4 * cfg.dt,
+                up_cooldown_s=8 * cfg.dt, down_cooldown_s=32 * cfg.dt,
+                sustain_rounds=2, load_high=1.2, load_low=0.1,
+                logger=events, clock=clock.now)
 
     # -- chaos window + drain -------------------------------------------
     inj = _inject.activate(plan, sleep=clock.sleep, clock=clock.now)
@@ -626,6 +635,8 @@ def run_storm(cfg: StormConfig, *,
                 backlog.popleft()
             for out in front.step():
                 monitor.on_output(out)
+            if controller is not None:
+                controller.maybe_round(clock.now())
             live = [e for e in all_engines]
             occupied = slots = 0
             for e in live:
@@ -724,8 +735,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--fault-rate", type=float, nargs=2,
                     default=(0.05, 0.25), metavar=("LO", "HI"))
     ap.add_argument("--max-migrations", type=int, default=8)
-    ap.add_argument("--autoscale", action="store_true",
-                    help="not ported yet: raises")
+    ap.add_argument("--autoscale", action="store_true")
     ap.add_argument("--autoscale-max", type=int, default=3)
     ap.add_argument("--prefill", type=int, default=0,
                     help="prefill workers (>0 swaps in the disagg front)")
@@ -750,11 +760,6 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--autoscale and --prefill are mutually exclusive "
                  "(the disagg coordinator replaces the gateway the "
                  "controller actuates through)")
-    if args.autoscale:
-        raise NotImplementedError(
-            "--autoscale: serve/autoscale.py is not ported to PyTorch yet "
-            "(ROADMAP.md)")
-
     import torch
 
     from k8s_distributed_deeplearning_torch.models import llama
@@ -767,6 +772,7 @@ def main(argv: list[str] | None = None) -> int:
         arrival_rate=args.arrival_rate,
         fault_rate=tuple(args.fault_rate),
         max_migrations=args.max_migrations,
+        autoscale=args.autoscale, autoscale_max=args.autoscale_max,
         prefill=args.prefill,
         prompt_len=(4, min(24, args.max_seq_len // 4)),
         out_len=(4, min(16, args.max_seq_len // 4)))

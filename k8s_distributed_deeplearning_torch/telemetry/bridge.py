@@ -12,8 +12,8 @@ names and numbers; this module owns the *semantics*: how
 host/device resource probes (RSS from ``/proc``, device memory from
 ``torch.cuda.memory_stats``). Everything here degrades to a no-op off
 Linux / without a CUDA device — a scrape must never crash the workload.
-``tp_collector`` and ``autoscale_collector`` wait for the subsystems they
-read (ROADMAP.md).
+The fleet controller's gauges come from ``autoscale_collector``;
+``tp_collector`` waits for tensor-parallel serving (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -431,6 +431,51 @@ def gateway_collector(registry: MetricsRegistry, gateway) -> None:
             r_load.labels(replica=rid).set(r["load"])
             r_draining.labels(replica=rid).set(1.0 if r["draining"] else 0.0)
         live.set(snap["live_requests"])
+
+    registry.register_collector(collect)
+
+
+def autoscale_collector(registry: MetricsRegistry, controller) -> None:
+    """Register a pull-time collector over the fleet controller's
+    :meth:`serve.autoscale.FleetController.snapshot`: desired vs actual
+    replica counts, brownout ladder level, the last decision (coded as
+    in ``serve.autoscale.DECISION_CODES``), and the per-decision
+    counters — the Grafana elastic-autoscaler panel's source."""
+    desired = registry.gauge(
+        "serve_autoscale_desired_replicas",
+        "replica count the fleet controller is driving toward")
+    actual = registry.gauge(
+        "serve_autoscale_actual_replicas",
+        "non-draining replicas currently in the gateway routing set")
+    level = registry.gauge(
+        "serve_autoscale_brownout_level",
+        "brownout ladder position: 0=normal, 1=shed_batch, "
+        "2=+no_hedge, 3=+tight_admission")
+    last = registry.gauge(
+        "serve_autoscale_last_decision",
+        "last control-round decision: 0=hold, 1=up, 2=down, 3=replace, "
+        "4=brownout, 5=restore")
+    decisions = registry.gauge(
+        "serve_autoscale_decisions_total",
+        "control-round decisions by kind", labelnames=("decision",))
+    failures = registry.gauge(
+        "serve_autoscale_actuation_failures_total",
+        "backend start/stop actuations that failed (retried on later "
+        "rounds)")
+    pending = registry.gauge(
+        "serve_autoscale_pending_removals",
+        "victims drained out but not yet retired/stopped")
+
+    def collect() -> None:
+        snap = controller.snapshot()
+        desired.set(snap["desired_replicas"])
+        actual.set(snap["actual_replicas"])
+        level.set(snap["brownout_level"])
+        last.set(snap["last_decision_code"])
+        for kind, count in snap["decisions"].items():
+            decisions.labels(decision=kind).set(float(count))
+        failures.set(snap["actuation_failures"])
+        pending.set(snap["pending_removals"])
 
     registry.register_collector(collect)
 

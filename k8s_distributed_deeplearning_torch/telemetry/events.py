@@ -49,8 +49,6 @@ EVENTS: dict[str, str] = {
                             "queue waits, sheds, expiries, slots held",
     "ckpt_quarantined": "restore found a corrupt/torn checkpoint step and "
                         "moved it aside; falling back to an older step",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (launch/, ROADMAP.md); kept so the registry is JAX's.
     "crash_loop": "consecutive restarts died without checkpoint progress; "
                   "the reconcile loop stopped early (exit codes attached)",
     "slo_alert": "a tenant's SLO burn rate crossed its fast/slow window "
@@ -96,44 +94,28 @@ EVENTS: dict[str, str] = {
     "transport_reconnect": "a replica's token stream resumed from its "
                            "emitted-token cursor after one or more failed "
                            "polls (replica and cursor positions attached)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (gateway membership, ROADMAP.md); kept so the registry is JAX's.
     "gateway_replica_added": "dynamic membership: a replica joined the "
                              "running gateway (breaker state created; "
                              "next submit can route to it)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (gateway membership, ROADMAP.md); kept so the registry is JAX's.
     "gateway_replica_removed": "dynamic membership: a drained replica was "
                                "retired from the gateway (breaker state "
                                "dropped with it)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_up": "the fleet controller added a replica: sustained "
                     "fast-window SLO burn or queue pressure (burn rate, "
                     "load per slot, desired/actual attached)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_down": "the fleet controller drained an idle replica out "
                       "(migration-backed, zero lost requests; victim and "
                       "desired/actual attached)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_replace": "the fleet controller is replacing a replica "
                          "whose composite health stayed under the floor "
                          "(or breaker stayed open) — drain out, fresh "
                          "replica in",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_brownout": "at max_replicas with burn still rising the "
                           "controller escalated the reversible "
                           "degradation ladder (level and stage attached)",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_restored": "the brownout ladder fully unwound — burn "
                           "cleared and every degradation lever is back "
                           "to normal",
-    # graftlint: disable=event-registry — no emitter in the port yet
-    # (serve/autoscale.py, ROADMAP.md); kept so the registry is JAX's.
     "autoscale_summary": "end-of-run fleet controller snapshot (rounds, "
                          "decision counts, actuation failures, final "
                          "desired/actual replicas)",

@@ -19,8 +19,8 @@ tenants`, with the JAX package's burn-rate arithmetic and alert events.
 Alert transitions are ``slo_alert`` / ``slo_recovered`` events through any
 ``MetricsLogger``-shaped ``emit``, one alert an episode. stdlib only, and
 the clock is injectable. The scheduler does not read the targets; the
-port has no caller of the engine yet (the autoscaler that drives it in
-the JAX CLI is not ported, ROADMAP.md).
+serve CLI's ``--autoscale`` feeds the engine finish counts and the fleet
+controller (``serve/autoscale.py``) reads its fast-window alerts.
 """
 from __future__ import annotations
 

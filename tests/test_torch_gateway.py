@@ -6,9 +6,10 @@ drain (by shipped pages), a replica killed through ``gateway_dispatch``
 (its live requests migrate and every greedy stream equals JAX's
 ``generate``), shutdown after a migration, poison quarantine,
 ``on_finish`` exactly once a request; and the serve CLI's fleet flags,
-its refusals of the unported ones (tensor parallelism and the
-autoscaler), and SIGTERM draining every replica.
+its refusal of the unported one (tensor parallelism), its autoscaler
+flags' checks against the JAX CLI's, and SIGTERM draining every replica.
 """
+import contextlib
 import io
 import json
 import os
@@ -509,11 +510,26 @@ def test_cli_fleet_flags(fleet, tmp_path):
     ["--autoscale-endpoint-template", "h-{i}:1"]],
     ids=lambda f: f[0])
 def test_cli_unported_fleet_flags_raise(flags):
-    """The serve CLI's flags still without a subsystem, tensor parallelism
-    and the autoscaler, raise by name; the wire fleet's flags are ported
-    (``tests/test_torch_transport.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_cli.main(["--device", "cpu"] + flags)
+    """The serve CLI's flag still without a subsystem, tensor parallelism,
+    raises by name. The autoscaler's flags are ported
+    (``tests/test_torch_autoscale.py``): each passes that gate and meets
+    the JAX CLI's own checks, here ``--replicas 0`` (or the flag's own
+    refusal), refused with the JAX CLI's message."""
+    if flags[0] == "--tp":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            t_cli.main(["--device", "cpu"] + flags)
+        return
+    from k8s_distributed_deeplearning_tpu.serve import cli as j_cli
+    said = []
+    for main, argv in ((t_cli.main, ["--device", "cpu"]), (j_cli.main, [])):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                pytest.raises(SystemExit) as ex:
+            main(argv + flags + ["--replicas", "0"])
+        assert ex.value.code == 2
+        said.append(err.getvalue().strip().splitlines()[-1]
+                    .split("error: ", 1)[1])
+    assert said[0] == said[1]
 
 
 def test_cli_sigterm_drains_replicas_and_exits_zero():

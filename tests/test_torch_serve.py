@@ -213,7 +213,8 @@ def _port_files():
     files = sorted((REPO / "k8s_distributed_deeplearning_torch").rglob(
         "*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "kernel_breakdown.py",
-                    REPO / "examples" / "generate_llama_torch.py"]
+                    REPO / "examples" / "generate_llama_torch.py",
+                    REPO / "examples" / "train_mnist_torch.py"]
 
 
 def test_import_scan_covers_every_subpackage():
@@ -221,17 +222,19 @@ def test_import_scan_covers_every_subpackage():
     (faults, telemetry, the serving fleet modules), the wire half's
     (transport, retry, the registry, exporter, heartbeat, tracer, events,
     bridge and profiling modules), graftscope's readers (timeline and
-    its CLI) and the example."""
+    its CLI), the fleet controller, the launch layer and the examples."""
     files = _port_files()
     dirs = {p.parent.name for p in files}
     assert {"models", "ops", "serve", "utils", "train", "parallel",
-            "faults", "telemetry", "examples"} <= dirs
+            "faults", "telemetry", "examples", "launch"} <= dirs
     names = {p.name for p in files}
     assert {"disagg.py", "gateway.py", "storm.py", "flight.py", "fleet.py",
             "slo.py", "plan.py", "inject.py", "transport.py", "retry.py",
             "registry.py", "exporter.py", "heartbeat.py", "trace.py",
             "events.py", "bridge.py", "profiling.py", "timeline.py",
-            "graftscope.py", "generate_llama_torch.py"} <= names
+            "graftscope.py", "generate_llama_torch.py", "autoscale.py",
+            "render.py", "validate.py", "watch.py", "elastic.py",
+            "local_executor.py", "train_mnist_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

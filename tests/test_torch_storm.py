@@ -4,8 +4,8 @@ sequence equal JAX's for the same seed; ``run_storm`` over the port's
 engines (tiny topology, f32, 64 positions) in the gateway and the disagg
 topologies holds every invariant, and its report equals JAX's
 ``run_storm`` on the same config and weights, count for count; a planted
-KV page leak is caught; the autoscaled topology raises until it is
-ported; the soak's CLI runs on the CPU.
+KV page leak is caught; the autoscaled topology runs; the soak's CLI
+runs on the CPU.
 """
 import io
 import json
@@ -213,12 +213,25 @@ def test_planted_kv_leak_is_caught(tiny):
                          for f in leaks)
 
 
-def test_autoscale_topology_raises_until_ported(tiny):
-    cfg = t_storm.StormConfig(autoscale=True, steps=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_storm.run_storm(cfg, make_engine=lambda i: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_storm.main(["--autoscale", "--device", "cpu"])
+def test_autoscale_topology_raises_until_ported(tiny, tmp_path):
+    """The autoscaled topology is ported (``serve/autoscale.py``): it no
+    longer raises. ``run_storm`` with ``autoscale=True`` holds every
+    invariant over the port's engines, and the soak's CLI runs with
+    ``--autoscale`` (the report against JAX's is in
+    ``tests/test_torch_autoscale.py``)."""
+    cfg = t_storm.StormConfig(autoscale=True, steps=8, prompt_len=(4, 8),
+                              out_len=(2, 4), vocab=256)
+    mk, _ = _engines("torch", tiny, cfg)
+    rep = t_storm.run_storm(cfg, make_engine=mk)
+    assert rep.violations == [] and rep.submitted == rep.finished > 0
+    out = tmp_path / "report.json"
+    with redirect_stdout(io.StringIO()):
+        rc = t_storm.main(["--autoscale", "--device", "cpu", "--steps", "8",
+                           "--max-seq-len", "64", "--report-json",
+                           str(out)])
+    assert rc == 0
+    doc = json.loads(out.read_text())
+    assert doc["violations"] == [] and "--autoscale" in doc["repro"]
 
 
 def test_monitor_catches_divergence_and_duplicates():

@@ -846,8 +846,8 @@ def _flags(parser) -> dict:
 def test_cli_parses_every_jax_serve_flag(monkeypatch):
     """Every flag of the JAX serve CLI is declared by the port's and
     parses there (none exits 2 with "unrecognized arguments"); of them,
-    only ``--tp`` and the ``--autoscale*`` flags still raise, naming
-    ROADMAP.md."""
+    only ``--tp`` still raises, naming ROADMAP.md (the ``--autoscale*``
+    flags are ported, ``tests/test_torch_autoscale.py``)."""
     from k8s_distributed_deeplearning_torch.serve import cli as t_cli
     from k8s_distributed_deeplearning_tpu.serve import cli as j_cli
     j_flags = _flags(_parser_of(j_cli.main, monkeypatch))
@@ -864,11 +864,9 @@ def test_cli_parses_every_jax_serve_flag(monkeypatch):
             argv = [flag] + [str(value)] * (act.nargs if isinstance(
                 act.nargs, int) else 1)
         t_parser.parse_args(argv)          # SystemExit(2) fails the test
-    unported = {f for f in t_flags if f == "--tp"
-                or f.startswith("--autoscale")}
-    assert unported == {f for f in j_flags if f == "--tp"
-                        or f.startswith("--autoscale")}
-    assert {a for _, a, _ in t_cli._UNPORTED} == unported
+    assert {a for _, a, _ in t_cli._UNPORTED} == {"--tp"}
+    for flag in (f for f in j_flags if f.startswith("--autoscale")):
+        assert t_flags[flag].default == j_flags[flag].default, flag
 
 
 def test_cli_trace_emits_spans_and_request_traces(capsys):
