@@ -44,7 +44,8 @@ A. The paged-attention kernels against their plain PyTorch version on
    their scales past each cursor and scratch-page garbage changing no
    bit; the yardstick then runs on K/V gathered and dequantized
    beforehand.
-B. The port's ``ServeEngine`` at full Llama-3 8B width and depth (bf16,
+B. The port's ``ServeEngine`` at full Llama-3 8B width and
+   ``SERVE_LAYERS`` (16) of its 32 layers, as every serving phase (bf16,
    random weights from a seed): 4 slots, 512-token prefill chunks, 8
    requests of 100-1500 prompt tokens and 32 new tokens (6 greedy, 2
    sampled). Every request finishes with in-vocabulary tokens, no pool
@@ -73,7 +74,12 @@ D. The flash-attention kernels against their plain PyTorch versions on
    (causal, offset 1536), and three packed documents by segment ids
    (causal); then at phase H's attention (B 8, S 1024, 12/4 heads,
    head_dim 64, causal), at phase Q's (B 8, S 1024, 4/2 heads, head_dim
-   16, causal) and at its head_dim-32 twin with three documents. The
+   16, causal) and at its head_dim-32 twin with three documents, and at
+   the zoo's encoders, non-causal at head_dim 64: BERT-base (B 16, S 512,
+   12/12 heads) and ViT-L/16 (B 32, S 197, 16/16 heads). In bf16 also the
+   backward's delta kernel (``csrc/flash_delta.cu``: the sum of P dP over
+   the keys) against its plain version at the f32 limit, twice bitwise,
+   and 0 on rows that see no key. The
    forward and the backward on every route: in bf16 the tensor-core
    kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
    (``"wgmma"``, head_dim 64/128) or of ``csrc/flash_small.cu``
@@ -228,8 +234,8 @@ N. The reference's own job: ``python -m
    A0's), examples/s, the MFU against the f32 peak, the save and restore
    ms and bytes, and the busy share of a profiled window of the same step
    in this process.
-O. Checkpoint and resume on the kernels: phase H's model and batches,
-   nothing cut (params and AdamW moments, ~6.3 GB). 2k unkilled steps
+O. Checkpoint and resume on the kernels: phase H's model and batches at
+   2 of its 12 layers (params and AdamW moments, ~1.5 GB). 2k unkilled steps
    (k = ``RESUME_K``); then k steps with a save at k, a fresh model from
    another seed restored from disk by ``fit``'s restore-on-start, and k
    more: losses, params and moments bitwise equal (or the repeat rule),
@@ -239,7 +245,7 @@ O. Checkpoint and resume on the kernels: phase H's model and batches,
    (NCCL at world 1 on flat f32 buffers). Reports the save and restore
    ms, GB/s and bytes, and the bucket count.
 
-P. The serving engine's host surface at Llama-3 8B (bf16, full depth,
+P. The serving engine's host surface at Llama-3 8B (bf16, 16 layers,
    random weights from seed 0, B's engine: 4 slots, 512-token chunks,
    32-token pages). P1: one warm request, then 8 requests of one
    1,024-token prefix plus 100-500-token tails (32 new), with the prefix
@@ -279,7 +285,7 @@ Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
    of the plain version.
 
 R. The serving engine's in-process scale-out surface (run after P). R1:
-   phase B's workload at full Llama-3 8B (bf16, random weights from seed
+   phase B's workload at Llama-3 8B, 16 layers (bf16, random weights from seed
    0) disaggregated: one ``prefill_only`` engine and two decode engines
    with B's settings on one shared model, through the
    ``DisaggCoordinator``. Every request finishes with "length"; the
@@ -312,7 +318,7 @@ S. The wire half of the serving fleet (``serve/transport.py``): replica
    servers as processes of their own on the one card (this script started
    with ``--s-server CONF``, a fresh interpreter each; the parent builds
    every kernel first), driven over localhost HTTP. S1: B's workload at
-   full Llama-3 8B in bf16 through a prefill-role and a decode-role
+   Llama-3 8B (16 layers) in bf16 through a prefill-role and a decode-role
    server, this process the coordinator (``RemotePrefillWorker`` and a
    ``ReplicaClient``): every request finishes, first tokens equal B's
    where the margin decides, each server's paged launches exact by route
@@ -349,8 +355,8 @@ T. The training loop's hooks and graftscope's readers (run after O).
    weights and int8 KV pages: paged launches exact by route on the int8
    branch (split 0), no page held after shutdown; the share of clipped
    channels and the tokens against the uncalibrated engine's are
-   readings. T2: the train CLI's small preset at 1,024 tokens in bf16
-   (flash), run as rank 0 and then rank 1 on the one card, each with its
+   readings. T2: the train CLI's small preset at 2 of its 12 layers, at
+   1,024 tokens in bf16 (flash), run as rank 0 and then rank 1 on the one card, each with its
    own tracer, JSONL and checkpoint directory (a save every 4 of 12
    steps), one heartbeat directory, the same shards and seed, and a fault
    plan: rank 1's ``data_wait`` stalls 2 s at steps 3 and 4, rank 0's
@@ -370,7 +376,7 @@ T. The training loop's hooks and graftscope's readers (run after O).
    to the gateway's count, and ``postmortem`` renders the replicas'
    flight dumps.
 U. The fleet controller (``serve/autoscale.py``) and the launch layer
-   (``launch/``), run after T. U1: phase B's workload at full Llama-3 8B
+   (``launch/``), run after T. U1: phase B's workload at Llama-3 8B (16 layers)
    (bf16, seed 0), two arrivals a gateway iteration, through a
    ``ServeGateway`` and a ``FleetController`` over an
    ``EngineFactoryBackend`` whose engines (B's settings) share one model,
@@ -404,6 +410,36 @@ U. The fleet controller (``serve/autoscale.py``) and the launch layer
    device). U5: ``launch storm --autoscale`` at the tiny preset, 48
    steps, seed 6 (at seed 1 the plan's ``autoscale_actuate`` fault never
    fires): zero violations, ``autoscale_actuate`` fired.
+V. The rest of the model zoo (``models/resnet.py``, ``bert.py``,
+   ``vit.py``) at the published widths and depths, bf16 compute and f32
+   params, AdamW (lr 1e-3, clip 1.0), synthetic data from seeds, run after
+   T. V1: ResNet-50 at 224², batch 64, 1000 classes, BatchNorm, conv7
+   stem, through ``make_stats_train_step``: eight steps on one batch end
+   below 0.9 x the first loss, the running statistics finite and moved;
+   a timed window (images/s, step ms, model-FLOPs share, peak memory, a
+   profiled step's busy share); one step each with ghost statistics (32 of
+   64), GroupNorm and the s2d stem, finite. Then ResNet-50 in f32 (TF32
+   off), a training forward at batch 8 with bn3 scales from the seed: the
+   card's logits and new running statistics within 1e-4 relative L2 of
+   the port's CPU forward of the same weights. V2: BERT-base MLM (12
+   layers, seq 512, batch 16, ``mask_tokens``) and V3: ViT-L/16 (24
+   layers, 224², 197 tokens, batch 32), each through
+   ``attention_impl="auto"`` (the einsum path at these lengths, as JAX's
+   rule picks) and ``"flash"``: the fixed-batch loss falls, tokens/s or
+   images/s, step ms, the model-FLOPs share, peak memory, launches exact
+   (auto: none; flash: a forward, a dQ and a dK/dV a layer, all on wgmma,
+   none on mma); then phase F_bf16's rule on one step's gradients from the
+   same weights (ViT's head drawn from the seed): each tensor's relative
+   L2 distance from the f32 einsum path, the bf16 flash path's at most
+   1.25 x the bf16 einsum path's + 2^-10. V4: BERT-base and ViT-L widths
+   at 2 layers in f32 (TF32 off), three AdamW steps through ``"flash"``
+   (every launch on tf32x3) and through the einsum path, held by phase
+   F's rule. V5: ``examples/train_zoo_torch.py`` through ``main(argv)``
+   for resnet18, vit, bert and moe at their small presets, 4 steps each;
+   then ``--model resnet18`` as its own process, SIGKILLed past step 20 of
+   40, run again: it restores the newest good step on disk and its final
+   params and BatchNorm statistics equal an unkilled run's by phase N's
+   rule.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -422,12 +458,17 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+# The serving and generation phases (A-C's model, B, J, L, P, R1, S1, U1)
+# run Llama-3 8B at its full width and 16 of its 32 layers: at 32 they
+# took 420-590 s of the run (PR 23's, PR 24's first), host-bound.
+SERVE_LAYERS = 16
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
               torch.float32: 67e12}           # f32 outside tensor cores
@@ -1086,7 +1127,8 @@ def _timed(engine, name, acc):
 
 
 def _serve_phase(phase, dev, quant: bool, first_logits=None):
-    """Phases B and J: ``ServeEngine`` at full Llama-3 8B width and depth,
+    """Phases B and J: ``ServeEngine`` at full Llama-3 8B width and
+    ``SERVE_LAYERS`` layers,
     bf16 random weights from seed 0, serving ``_requests``; J with int8 KV
     pages and int8 weights. Checks the outputs, the pool, and the paged
     kernel's launches by branch; returns the result and the streams.
@@ -1096,7 +1138,7 @@ def _serve_phase(phase, dev, quant: bool, first_logits=None):
     from k8s_distributed_deeplearning_torch.serve import ServeEngine
     from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
 
-    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=SERVE_LAYERS)
     kw = dict(kv_quant="int8", weight_quant="int8") if quant else {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1248,6 +1290,7 @@ def _kernel_class(name: str) -> str:
                      ("flash_dkv_wgmma", "flash_dkv_wgmma"),
                      ("flash_dq_tf32x3", "flash_dq_tf32x3"),
                      ("flash_dkv_tf32x3", "flash_dkv_tf32x3"),
+                     ("flash_delta", "flash_delta"),
                      ("gmm_kernel", "gmm"),         # gmm_ and tgmm_kernel
                      ("gmm_wgmma", "gmm_wgmma"),    # gmm_ and tgmm_wgmma
                      ("gmm_tf32x3", "gmm_tf32x3")):
@@ -1653,8 +1696,8 @@ def phase_k(dev):
 # 100-500-token tails, 32 new tokens; one warm request first, since a
 # prefix enters the trie only when its prefill finishes.
 P_PREFIX, P_TAILS, P_NEW = 1024, (100, 501), 32
-# 256 MiB of trie: one 32-token page over 32 layers is 4 MiB, so the
-# prefix's 32 pages take 128 MiB.
+# 256 MiB of trie: one 32-token page over 16 layers is 2 MiB, so the
+# prefix's 32 pages take 64 MiB.
 P_CACHE_MB = 256
 # The two tenants of P3, as a user's config file would give them.
 P_TENANTS = json.dumps({"tenants": [
@@ -1981,13 +2024,13 @@ def _verify_cases(dev, flush):
 def phase_p(dev, flush):
     """The engine's host surface at Llama-3 8B: P1 the prefix cache, P2
     speculative decoding, P3 request control under two tenants (bf16,
-    full depth, random weights from seed 0, B's engine settings), with
+    16 layers, random weights from seed 0, B's engine settings), with
     the exact gates at 4 layers in f32. Returns the results and the
     verify-window kernel cases."""
     from k8s_distributed_deeplearning_torch.models import llama
 
-    result = {"phase": "P", "model": "llama3-8b"}
-    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    result = {"phase": "P", "model": "llama3-8b", "layers": SERVE_LAYERS}
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     model = llama.LlamaLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -2382,7 +2425,7 @@ def _ship_summary(rows) -> dict:
 
 
 def _r1(dev, b_streams, b_logits, started):
-    """R1: B's workload disaggregated at full Llama-3 8B (bf16, seed 0):
+    """R1: B's workload disaggregated at Llama-3 8B, 16 layers (bf16, seed 0):
     one prefill-only engine and two decode engines on one shared model,
     B's settings, through the ``DisaggCoordinator``."""
     from k8s_distributed_deeplearning_torch.models import llama
@@ -2390,7 +2433,7 @@ def _r1(dev, b_streams, b_logits, started):
     from k8s_distributed_deeplearning_torch.serve.disagg import (
         DisaggCoordinator, PrefillWorker)
 
-    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2822,7 +2865,8 @@ def s_server(conf_json: str) -> int:
                                      n_layers=conf["layers"],
                                      dtype=torch.float32)
     else:
-        cfg = llama.config_llama3_8b(max_seq_len=2048)
+        cfg = llama.config_llama3_8b(max_seq_len=2048,
+                                     n_layers=SERVE_LAYERS)
     model = llama.LlamaLM(cfg, device=dev, seed=0)
     eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
                       device=dev, replica_id=conf["rid"],
@@ -3023,7 +3067,7 @@ def _s_drive(front, deadline_s: float, what: str) -> list:
 
 
 def _s1(b_streams, b_logits, started, tmp: Path):
-    """S1: B's workload disaggregated over the wire at full Llama-3 8B
+    """S1: B's workload disaggregated over the wire at Llama-3 8B, 16 layers
     (bf16, seed 0): a prefill-role and a decode-role replica-server
     process on the one card; this process holds the coordinator with a
     ``RemotePrefillWorker`` and a ``ReplicaClient``."""
@@ -3032,7 +3076,8 @@ def _s1(b_streams, b_logits, started, tmp: Path):
     from k8s_distributed_deeplearning_torch.serve.disagg import (
         DisaggCoordinator, RemotePrefillWorker)
 
-    cfg = llama.config_llama3_8b(max_seq_len=2048)     # no model built here
+    cfg = llama.config_llama3_8b(max_seq_len=2048,      # no model built here
+                                 n_layers=SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3491,12 +3536,12 @@ def _in_vocab(tokens, vocab, what):
 
 
 def phase_l(dev):
-    """Phase L: one-shot ``generate`` at Llama-3 8B, full width and depth,
+    """Phase L: one-shot ``generate`` at Llama-3 8B, full width, 16 layers,
     bf16, random weights from seed 0, on the dense cache; then the f32
     cross-checks at 4 layers."""
     from k8s_distributed_deeplearning_torch.models import generate, llama
 
-    cfg = llama.config_llama3_8b()
+    cfg = llama.config_llama3_8b(n_layers=SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     model = llama.LlamaLM(cfg, device=dev, seed=0)
     lens = [1500] + np.random.default_rng(6).integers(100, 1500, 3).tolist()
@@ -3864,7 +3909,10 @@ def _moe_f32(dev, mcfg, prompt, mask):
 # backbone's 12/4 heads at head_dim 64, 8 x 1024 tokens), then phase Q's
 # (the train CLI's tiny preset, 4/2 heads at head_dim 16, 8 x 1024
 # tokens), then the same heads at head_dim 32 with packed documents of
-# 300/400/324 tokens (the small kernels' other head dim, with segment ids).
+# 300/400/324 tokens (the small kernels' other head dim, with segment ids),
+# then the zoo's encoders, bidirectional at head_dim 64: BERT-base (B 16,
+# S 512, 12 heads) and ViT-L/16 at 224² (B 32, S 197, which no tile
+# divides, 16 heads).
 FLASH_CASES = {
     "causal": (2, 2048, 2048, H, KV, HD, True, None),
     "noncausal": (2, 2048, 2048, H, KV, HD, False, None),
@@ -3873,12 +3921,18 @@ FLASH_CASES = {
     "moe_h_causal": (8, 1024, 1024, 12, 4, 64, True, None),
     "q_tiny_causal": (8, 1024, 1024, 4, 2, 16, True, None),
     "q_hd32_docs": (8, 1024, 1024, 4, 2, 32, True, (300, 400, 324)),
+    "bert_base": (16, 512, 512, 12, 12, 64, False, None),
+    "vit_l16": (32, 197, 197, 16, 16, 64, False, None),
 }
 FLASH_REPLACES = {
     "flash_fwd": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:148",
     "flash_bwd_dq": "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:396",
     "flash_bwd_dkv":
         "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:520",
+    # Not a Pallas kernel: the wrapper's jnp reduction delta = rowsum(dO *
+    # O), which the bf16 backward computes as the sum of P dP instead.
+    "flash_bwd_delta":
+        "k8s_distributed_deeplearning_tpu/ops/pallas_flash.py:669",
 }
 # Kernel-line name -> (source, wrapper); FLASH_REPLACES names the TPU
 # kernel by wrapper. Each wrapper launches the kernel of its route: the
@@ -3900,6 +3954,7 @@ FLASH_KERNELS = {
     "flash_fwd_small": ("flash_small.cu", "flash_fwd"),
     "flash_bwd_dq_small": ("flash_small.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_small": ("flash_small.cu", "flash_bwd_dkv"),
+    "flash_bwd_delta": ("flash_delta.cu", "flash_bwd_delta"),
 }
 # Routes other than "mma", whose launches a wrapper counts apart
 # (``launches_<route>``) and whose kernel lines carry ``_<route>``.
@@ -3967,7 +4022,8 @@ def _flash_bound(kind, dtype, shape, pairs):
         base = base.removesuffix(f"_{route}")
     nbytes, mm = {"flash_fwd": (2 * qo + 2 * kvb + stat, 2),
                   "flash_bwd_dq": (3 * qo + 2 * kvb + 2 * stat, 3),
-                  "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4)}[base]
+                  "flash_bwd_dkv": (2 * qo + 4 * kvb + 2 * stat, 4),
+                  "flash_bwd_delta": (2 * qo + 2 * kvb + 2 * stat, 2)}[base]
     flops = mm * 2 * hd * h * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = (3 * flops / PEAK_TF32 if kind.endswith("_tf32x3")
@@ -4082,7 +4138,7 @@ def _blind_rows(dev):
         args = (q, k, v, do, lse, delta, segq, segk, True, hd ** -0.5)
         want = fa.flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=True, q_segment_ids=segq,
-            kv_segment_ids=segk)
+            kv_segment_ids=segk, delta=delta)
         blind = (lse <= -1e29).transpose(1, 2)       # [B, sq, H]
         unseen = torch.zeros(k.shape[:3], dtype=torch.bool, device=dev)
         unseen[1, 10:20] = True
@@ -4103,6 +4159,13 @@ def _blind_rows(dev):
                       f"key or keys no row sees differ from the plain "
                       f"version")
                 checked.append(f"{which}:{route}/{dname}")
+        if dtype == torch.bfloat16:
+            got_delta = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk,
+                                           True, hd ** -0.5)
+            torch.cuda.synchronize()
+            check(bool((got_delta[lse <= -1e29] == 0).all()),
+                  f"delta, {dname}: rows that see no key are not 0")
+            checked.append(f"delta/{dname}")
         route = fa._fwd_route(dtype, hd)
         if route != "mma":
             o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, True, hd ** -0.5)
@@ -4121,8 +4184,10 @@ def phase_d(dev, flush):
     have (bf16 at head_dim 64/128: the wgmma kernels; bf16 at 16/32: the
     small kernels; f32: the tf32x3 kernels; each beside flash_attn.cu's
     mma kernels forced) on the same inputs, and each default route launched
-    twice for bitwise equality; then rows that see no key on every
-    backward route and on every forward route but mma."""
+    twice for bitwise equality; in bf16 also the backward's delta kernel
+    (``csrc/flash_delta.cu``) against its plain version at the f32 limit,
+    twice bitwise; then rows that see no key on every backward route, on
+    every forward route but mma and on the delta kernel."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -4154,7 +4219,7 @@ def phase_d(dev, flush):
                         scale)
             want = fa.flash_attention_bwd_reference(
                 q, k, v, ref_o, ref_lse, do, causal=causal,
-                q_segment_ids=segq, kv_segment_ids=segk)
+                q_segment_ids=segq, kv_segment_ids=segk, delta=delta)
             got_dq = {route: fa.flash_bwd_dq(*bwd_args, route=route)
                       for route in lines["dq"]}
             got_dkv = {route: fa.flash_bwd_dkv(*bwd_args, route=route)
@@ -4187,10 +4252,29 @@ def phase_d(dev, flush):
                 dk, dv = got_dkv[route]
                 errs[name] = _flash_err({"dk": (dk, want[1]),
                                          "dv": (dv, want[2])}, tol)
+            if dtype == torch.bfloat16:
+                # The bf16 backward's delta (the sum of P dP) against its
+                # plain version, held to the f32 limit: both sum f32
+                # products, in different orders.
+                want_delta = fa.flash_delta_reference(
+                    q, k, v, ref_lse, do, causal=causal,
+                    q_segment_ids=segq, kv_segment_ids=segk)
+                got_delta = fa.flash_bwd_delta(q, k, v, do, ref_lse, segq,
+                                               segk, causal, scale)
+                torch.cuda.synchronize()
+                errs["flash_bwd_delta"] = _flash_err(
+                    {"delta": (got_delta[..., None], want_delta[..., None])},
+                    FLASH_TOL[torch.float32])
+                check(torch.equal(got_delta, fa.flash_bwd_delta(
+                    q, k, v, do, ref_lse, segq, segk, causal, scale)),
+                      f"{case}/{dname}: two delta launches differ")
+                del got_delta
             for name, e in errs.items():
+                lim = FLASH_TOL[torch.float32 if name == "flash_bwd_delta"
+                                else dtype]
                 check(e["tol_share"] <= 1.0,
                       f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
-                      f"<= {tol[0]} x rms + {tol[1]} x |plain|")
+                      f"<= {lim[0]} x rms + {lim[1]} x |plain|")
             # Two launches of each default route other than mma, the same
             # bits.
             repeated = []
@@ -4247,21 +4331,35 @@ def phase_d(dev, flush):
                 times[name] = (time_ms(lambda: fa.flash_bwd_dkv(
                     *bwd_args, route=route), flush, 10, host_ahead=True),
                     plain_bwd_ms, lib_fwd_bwd - lib_fwd)
+            if dtype == torch.bfloat16:
+                # No single PyTorch call computes the sum of P dP.
+                times["flash_bwd_delta"] = (time_ms(
+                    lambda: fa.flash_bwd_delta(q, k, v, do, ref_lse, segq,
+                                               segk, causal, scale),
+                    flush, 10, host_ahead=True), time_ms(
+                    lambda: fa.flash_delta_reference(
+                        q, k, v, ref_lse, do, causal=causal,
+                        q_segment_ids=segq, kv_segment_ids=segk),
+                    flush, 10), None)
             b, sq, sk, h, kv, _, _, seg_lens = shape
             for name, (ms, plain_ms, lib_ms) in times.items():
                 bound, by, parts = _flash_bound(name, dtype, shape, pairs)
                 if name.endswith("_tf32x3"):       # the mma line's bound
                     errs[name]["bound_ms_f32_cores"] = _flash_bound(
                         name.removesuffix("_tf32x3"), dtype, shape, pairs)[0]
+                lim = FLASH_TOL[torch.float32 if name == "flash_bwd_delta"
+                                else dtype]
                 rows[name].append({
                     "case": case, "dtype": dname, "shape": {
                         "B": b, "sq": sq, "sk": sk, "H": h, "kv": kv,
                         "hd": hd, "causal": causal, "segments": seg_lens},
                     "visible_pairs": pairs, **errs[name],
-                    "tol": {"atol_rms": tol[0], "rtol": tol[1]},
+                    "tol": {"atol_rms": lim[0], "rtol": lim[1]},
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "library_fwd_bwd_ms": lib_fwd_bwd,
-                    "library_backend": lib_backend,
+                    "library_fwd_bwd_ms": (None if lib_ms is None
+                                           else lib_fwd_bwd),
+                    "library_backend": (None if lib_ms is None
+                                        else lib_backend),
                     "bound_ms": bound, "bound_by": by,
                     "bound_parts_ms": parts})
                 log({"phase": "D", "kernel": name, **rows[name][-1]})
@@ -4612,6 +4710,7 @@ def _kernel_wrappers() -> dict:
     return {"paged_decode_attention": paged_attn.paged_decode_attention,
             "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_delta": fa.flash_bwd_delta,
             "gmm": gmm_ops.gmm_forward, "tgmm": gmm_ops.tgmm}
 
 
@@ -4771,24 +4870,28 @@ def phase_e(dev):
 def _e_per_step(n: int) -> dict:
     """Phase E's flash launches a step at ``n`` layers. Forward 2 x
     layers: remat "dots" recomputes the flash forward. bf16 at head_dim
-    128 takes the wgmma route throughout."""
+    128 takes the wgmma route throughout; the bf16 backward's delta kernel
+    once a layer."""
     return {"flash_fwd": 2 * n, "flash_fwd_wgmma": 2 * n,
             "flash_bwd_dq": n, "flash_bwd_dkv": n,
-            "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n}
+            "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n,
+            "flash_bwd_delta": n}
 
 
-def _moe_slice():
+def _moe_slice(n_layers: int | None = None):
     """Phase H's model (the JAX package's ``moe_8e_top2_ragged`` row: the
     Llama-small backbone, 8 experts top-2 ragged, remat "dots", bf16
-    compute, f32 params) at 1024 tokens a row, and its kernel launches a
-    step by kernel-line name. Under remat "dots" the gmm outputs are
-    saved, not recomputed: 3 forward products and 3 input gradients a
-    layer, 3 weight gradients, all bf16 on the wgmma route; the flash
-    forward runs again in the recompute."""
+    compute, f32 params) at 1024 tokens a row, at ``n_layers`` (default:
+    the backbone's 12), and its kernel launches a step by kernel-line
+    name. Under remat "dots" the gmm outputs are saved, not recomputed: 3
+    forward products and 3 input gradients a layer, 3 weight gradients,
+    all bf16 on the wgmma route; the flash forward runs again in the
+    recompute."""
     from k8s_distributed_deeplearning_torch.models import llama, moe
 
     seq = 1024
-    cfg = llama.config_tiny(**MOE_BACKBONE, max_seq_len=seq,
+    depth = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = llama.config_tiny(**{**MOE_BACKBONE, **depth}, max_seq_len=seq,
                             dtype=torch.bfloat16, param_dtype=torch.float32,
                             remat=True, remat_policy="dots")
     mcfg = moe.MoEConfig(num_experts=8, top_k=2, dispatch="ragged")
@@ -4797,7 +4900,8 @@ def _moe_slice():
                 "tgmm_wgmma": 3 * n, "flash_fwd": 2 * n,
                 "flash_fwd_wgmma": 2 * n,
                 "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n}
+                "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n,
+                "flash_bwd_delta": n}
     return cfg, mcfg, seq, per_step
 
 
@@ -4815,13 +4919,10 @@ def phase_h(dev):
         per_step=per_step, moe_cfg=mcfg)
 
 
-def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
-    """One path of phases F and I: ``steps`` AdamW steps in f32 from the
-    seeded weights. Returns the losses, and on ``keep_on`` the initial
-    weights, the first step's gradients, and the parameters and Adam
-    moments after the steps."""
-    _, optimizer, state, step_fn = _train_setup(cfg, dev, lr=lr,
-                                                moe_cfg=moe_cfg)
+def _recorded_steps(optimizer, state, step_fn, batch_at, steps, keep_on):
+    """``steps`` AdamW steps on ``batch_at(i)``. Returns the losses, and on
+    ``keep_on`` the initial weights, the first step's gradients, and the
+    parameters and Adam moments after the steps (phases F, I and V4)."""
     init = {n: p.detach().to(keep_on, copy=True)
             for n, p in state.params.items()}
     first_grads, apply = {}, optimizer.apply
@@ -4835,13 +4936,22 @@ def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
     optimizer.apply = keep_first
     losses = []
     for i in range(steps):
-        state, loss, _ = step_fn(state, batcher.batch_at(i), i)
+        state, loss, _ = step_fn(state, batch_at(i), i)
         losses.append(float(loss))
     return {"losses": losses, "init": init, "grads": first_grads,
             "params": {n: p.detach().to(keep_on)
                        for n, p in state.params.items()},
             **{k: {n: t.to(keep_on) for n, t in state.opt_state[k].items()}
                for k in ("mu", "nu")}}
+
+
+def _agreement_run(cfg, dev, lr, batcher, steps, keep_on, moe_cfg=None):
+    """One path of phases F and I: ``steps`` AdamW steps in f32 from the
+    seeded weights (:func:`_recorded_steps`)."""
+    _, optimizer, state, step_fn = _train_setup(cfg, dev, lr=lr,
+                                                moe_cfg=moe_cfg)
+    return _recorded_steps(optimizer, state, step_fn, batcher.batch_at,
+                           steps, keep_on)
 
 
 def _check_f32_flash(phase, launches, backward) -> None:
@@ -5086,7 +5196,7 @@ def phase_q(dev):
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, do, lse, delta, segq, segk, True, hd ** -0.5)
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                causal=True)
+                                                causal=True, delta=delta)
         dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
         torch.cuda.synchronize()
@@ -5114,14 +5224,16 @@ T_STEPS = 12               # T1 and T2: steps through fit
 T_LOG_EVERY = 4
 T_PROFILE = (4, 3)         # T1's StepProfiler: start step, steps traced
 # T2: rank 1's data_wait stall at steps 3 and 4. Step 4 also holds a save
-# of the small preset's state (1.5 GB: snapshot, write, MD5), whose time
-# differs between the two ranks' runs by up to 0.92 s (80-922 ms in three
-# runs on the card): a stall must exceed that to be the step's culprit.
+# of the small preset's state (1.5 GB at 12 layers, 0.75 GB at T2's 2:
+# snapshot, write, MD5), whose time differed between the two ranks' runs
+# by up to 0.92 s at 12 layers (80-922 ms in three runs on the card): a
+# stall must exceed that to be the step's culprit.
 T_STALL_S = 2.0
 T_STRAGGLER_MS = 50.0      # T2: a straggler lags the median by more
 T_CKPT_EVERY = 4           # T2: saves at 4, 8 and 12
 T_HB_STOP = 10             # T2: rank 1's heartbeat silent from step 10
 T_CLI_STEPS = 16           # T4: the CLI's profile window is steps 10-14
+T2_LAYERS = 2              # T2: the small preset at 2 of its 12 layers
 T_SERVE_NEW = 16           # T3: new tokens a request
 
 
@@ -5398,6 +5510,7 @@ def _t2(dev, tmp: Path, shards: Path) -> dict:
         MetricsLogger)
 
     cfg = llama.config_tiny(**{**cli.PRESETS["small"],
+                               "n_layers": T2_LAYERS,
                                "dtype": torch.bfloat16,
                                "param_dtype": torch.float32,
                                "max_seq_len": 1024})
@@ -5481,7 +5594,8 @@ def _t2(dev, tmp: Path, shards: Path) -> dict:
             if e["ph"] == "X" and e["name"] == "step"
             and e["args"].get("step") == 0}
     result = {
-        "phase": "T2", "model": "train --preset small --seq-len 1024",
+        "phase": "T2",
+        "model": f"train --preset small --seq-len 1024, {T2_LAYERS} layers",
         "dtype": "bfloat16", "batch": batch, "seq_len": seq,
         "steps": T_STEPS, "stall_s": T_STALL_S, "ranks": ranks,
         "losses_bitwise_equal": losses_equal, "heartbeats": beats,
@@ -5629,8 +5743,11 @@ MNIST_MIN_ACCURACY = 0.95
 # The repeat rule: when two unkilled runs already differ, a resumed run
 # is held to that distance, per tensor (max |a - b|), times this factor.
 REPEAT_FACTOR = 4.0
-# Phase O: k steps, save, restore into a fresh model, k more.
+# Phase O: k steps, save, restore into a fresh model, k more; phase H's
+# model at 2 of its 12 layers (1.5 GB a save against 6.25 GB: O took
+# 96-126 s at 12 layers, 84 s of 107 in saves and restores).
 RESUME_K = 3
+O_LAYERS = 2
 BUCKET_BYTES = 64 << 20      # Horovod's fusion-buffer default
 
 
@@ -5851,10 +5968,10 @@ def phase_n(dev, tmp: Path):
 
 
 def phase_o(dev, tmp: Path):
-    """Checkpoint and resume on the kernels: phase H's model, unkilled for
-    2k steps, then k steps, a save, a fresh model from another seed
-    restored from disk and k more; then two steps with fused gradient
-    buckets against two without."""
+    """Checkpoint and resume on the kernels: phase H's model at
+    ``O_LAYERS`` layers, unkilled for 2k steps, then k steps, a save, a
+    fresh model from another seed restored from disk and k more; then two
+    steps with fused gradient buckets against two without."""
     from k8s_distributed_deeplearning_torch.parallel import (
         data_parallel as dp)
     from k8s_distributed_deeplearning_torch.train import data as data_lib
@@ -5862,7 +5979,7 @@ def phase_o(dev, tmp: Path):
     from k8s_distributed_deeplearning_torch.train.checkpoint import (
         Checkpointer)
 
-    cfg, mcfg, seq, per_step = _moe_slice()
+    cfg, mcfg, seq, per_step = _moe_slice(O_LAYERS)
     k = RESUME_K
     tokens = data_lib.synthetic_tokens(1 << 17, vocab_size=cfg.vocab_size,
                                        seed=0)
@@ -5939,7 +6056,8 @@ def phase_o(dev, tmp: Path):
     disk = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
     gb = save["bytes"] / 1e9
     result = {
-        "phase": "O", "model": "llama-small MoE 8e top-2 ragged", "k": k,
+        "phase": "O", "model": "llama-small MoE 8e top-2 ragged",
+        "layers": cfg.n_layers, "k": k,
         "params": sum(t.numel() for t in state.params.values()),
         "state_bytes": save["bytes"], "disk_bytes": disk,
         "save": save, "save_gb_per_s": gb / (save["save_ms"] / 1e3),
@@ -6159,14 +6277,17 @@ def _paged_entries(fp_cases, b_result, c_result, int8_cases, j_result,
     return out
 
 
-def _flash_entries(rows, e_result, f_result, q_result):
+def _flash_entries(rows, e_result, f_result, q_result, v_result):
     """Kernel-line entries of the flash kernels: the representative case
     is the training path's causal one, in bf16 (f32 for the tf32x3 lines;
     phase Q's shape for the small lines). The launches are those of the
     path that runs each kernel: phase E's bf16 step for the wgmma kernels,
     phase F's f32 kernel path for the tf32x3 kernels and the mma forward,
     phase Q's bf16 tiny preset (head dim 16) for the small kernels and the
-    mma backward; each by route (the mma kernels: 0, forced only)."""
+    mma backward; each by route (the mma kernels: 0, forced only). The
+    zoo's paths under ``"flash"`` add ``launches_zoo``: V2's and V3's timed
+    windows on the wgmma lines, V4's f32 kernel paths on the tf32x3
+    lines."""
     out = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6178,7 +6299,7 @@ def _flash_entries(rows, e_result, f_result, q_result):
             "q_tiny_causal" if route == "small" else "causal")
             and c["dtype"] == ("float32" if route == "tf32x3"
                                else "bfloat16"))
-        if route == "wgmma":
+        if route == "wgmma" or name == "flash_bwd_delta":
             where, counts = "E", e_result["launches"]
         elif route == "tf32x3" or (wrapper == "flash_fwd"
                                    and route == "mma"):
@@ -6186,15 +6307,24 @@ def _flash_entries(rows, e_result, f_result, q_result):
         else:
             where = "Q (bf16, head_dim 16)"
             counts = q_result["bfloat16"]["launches"]
-        if route != "mma":
+        if route != "mma" or name == "flash_bwd_delta":
             launched = counts.get(name, 0)
         else:       # the counts hold nonzero entries alone
             launched = _mma_launches(counts, name) if name in counts else 0
+        zoo = {}
+        if route == "wgmma" or name == "flash_bwd_delta":
+            zoo = {p: round(v_result[p]["runs"]["flash"][
+                "launches_per_step"].get(name, 0) * V_TIMED)
+                for p in ("V2", "V3")}
+        elif route == "tf32x3":
+            zoo = {f"V4 {case}": r["kernel_path_launches"].get(name, 0)
+                   for case, r in v_result["V4"].items()}
         out.append({
             "name": name, "route": "cuda",
             "source": "k8s_distributed_deeplearning_torch/csrc/" + source,
             "replaces": FLASH_REPLACES[wrapper],
             "launches": launched, "launches_in": where,
+            **({"launches_zoo": zoo} if zoo else {}),
             **{k: rep[k] for k in keys},
             **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
                if "bound_ms_f32_cores" in rep else {}),
@@ -6222,6 +6352,586 @@ def _entry_name(mangled: str) -> str:
                 args = re.match(r"(I\w*?)EvP", mangled[end:])
                 return name + (args.group(1) if args else "")
     return mangled
+
+
+# ------------------------------------------------------------- phase V
+
+V_FIXED_STEPS = 8          # steps on one fixed batch, as E's
+V_WARM, V_TIMED = 2, 6     # steps before the timed window, and in it
+V_LR = 1e-3                # AdamW, global-norm clip 1.0
+V_F32_TOL = 1e-4           # V1: f32 card against CPU, relative L2
+V_IMAGES = 256             # V1's synthetic images (V3 takes 128)
+V_F32_STEPS = 3            # V4's AdamW steps, as F's
+V_EXAMPLE_STEPS = 4        # V5: each small preset through main(argv)
+V_RESUME_STEPS = 40        # V5: the subprocess run, killed and re-run
+V_KILL_AFTER = 20          # V5: SIGKILL after the first log at or past it
+EXAMPLE_ZOO = REPO / "examples" / "train_zoo_torch.py"
+
+
+def _v_free() -> None:
+    """Return the card's cached blocks after the caller dropped a model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _v_fixed(phase, step_fn, state, batch):
+    """Eight steps on one batch must bring the loss below the margin."""
+    losses = []
+    for i in range(V_FIXED_STEPS):
+        state, loss, _ = step_fn(state, batch, i)
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss on the fixed "
+          f"batch: {losses}")
+    check(losses[-1] < FIXED_BATCH_MARGIN * losses[0],
+          f"{phase}: {V_FIXED_STEPS} steps on one fixed batch: loss "
+          f"{losses[0]} -> {losses[-1]}, not below {FIXED_BATCH_MARGIN} x "
+          f"the first")
+    return state, losses
+
+
+def _v_window(phase, step_fn, state, batches, *, examples, flops_example,
+              per_step):
+    """A timed window through ``fit`` after a warm-up, every kernel's
+    launches set to 0 before it and held to ``per_step`` x steps after it
+    (by kernel-line name), then one profiled step. ``batches`` is
+    ``start_step -> iterator``; ``examples`` a step's images or tokens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_distributed_deeplearning_torch.train import loop
+
+    state = loop.fit(step_fn, state, batches, state.step + V_WARM, rng=1,
+                     log_every=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    state = loop.fit(step_fn, state, batches, state.step + V_TIMED, rng=1,
+                     log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {n: per_step.get(n, 0) * V_TIMED for n in launches}
+    check(launches == want, f"{phase}: kernel launches {launches} != {want} "
+          f"over {V_TIMED} steps")
+    rate = V_TIMED * examples / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = next(batches(state.step))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, loss, _ = step_fn(state, batch, state.step)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), f"{phase}: non-finite loss in the "
+          f"profiled step")
+    kernels = _device_ms_by_kernel(prof, 1)
+    device_ms = sum(k[2] for k in kernels)
+    step_ms = wall / V_TIMED * 1e3
+    return state, {
+        "timed_steps": V_TIMED, "step_ms": step_ms, "per_s": rate,
+        "model_flops_share": flops_example * rate
+        / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_gb": peak_gb,
+        "launches_per_step": {n: v / V_TIMED for n, v in launches.items()
+                              if v},
+        "profiled_step": {
+            "device_ms": device_ms, "device_busy_share": device_ms / step_ms,
+            "device_ms_by_class": _by_class(kernels),
+            "top_kernels": [{"name": n[:90], "launches": c, "ms": ms}
+                            for n, c, ms in kernels[:8]]}}
+
+
+def _v_stats_step(model):
+    """AdamW over a ResNet's parameters and the stats-carrying step."""
+    from k8s_distributed_deeplearning_torch.models import resnet
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import optim
+
+    optimizer = optim.make_optimizer("adamw", V_LR, grad_clip=1.0)
+    state = dp.init_stats_state(dict(model.named_parameters()),
+                                dict(model.named_buffers()), optimizer)
+    return state, dp.make_stats_train_step(
+        lambda b, g: resnet.loss_fn(model, b, g), optimizer)
+
+
+def _rel_l2_of(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+def _v1(dev) -> dict:
+    """ResNet-50 at 224², batch 64, 1000 classes, bf16 compute and f32
+    params, BatchNorm and the conv7 stem; one step each with ghost
+    statistics (32 of 64), GroupNorm and the s2d stem; then f32 on the card
+    (TF32 off) against the port's CPU forward of the same weights."""
+    from k8s_distributed_deeplearning_torch.models import resnet
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    batch, size = 64, 224
+    x, y = data_lib.synthetic_images(V_IMAGES, size=size, num_classes=1000,
+                                     seed=0)
+    batcher = data_lib.ShardedBatcher(x, y, batch, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet.resnet50(device=dev, seed=0)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+    state, step_fn = _v_stats_step(model)
+    state, losses = _v_fixed("V1", step_fn, state, batcher.batch_at(0))
+    moved = [float((v - stats0[k]).abs().max())
+             for k, v in state.batch_stats.items()]
+    check(all(bool(torch.isfinite(v).all())
+              for v in state.batch_stats.values()) and min(moved) > 0,
+          f"V1: running statistics not finite or not moved ({min(moved)})")
+    state, window = _v_window(
+        "V1", step_fn, state, batcher.iter_from, examples=batch,
+        flops_example=resnet.flops_per_example(size), per_step={})
+    result = {"phase": "V1", "model": "resnet50", "image_size": size,
+              "batch": batch, "dtype": "bfloat16", "norm": "batch",
+              "stem": "conv7", "lr": V_LR, "fixed_batch_losses": losses,
+              "stats_min_moved": min(moved), "images_per_s": window["per_s"],
+              **window}
+    del model, state, step_fn
+    _v_free()
+    variants = {}
+    for name, kw in (("ghost_32_of_64", dict(norm="ghost",
+                                              stats_examples=32)),
+                     ("group", dict(norm="group")), ("s2d", dict(stem="s2d"))):
+        model = resnet.resnet50(device=dev, seed=0, **kw)
+        state, step_fn = _v_stats_step(model)
+        state, loss, _ = step_fn(state, batcher.batch_at(0), 0)
+        variants[name] = float(loss)
+        check(np.isfinite(variants[name]), f"V1 {name}: loss {loss}")
+        del model, state, step_fn
+        _v_free()
+    result["variant_losses"] = variants
+
+    # f32 on the card against the CPU: logits and the new running
+    # statistics of a training forward, batch 8, bn3 scales from the seed.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = resnet.resnet50(dtype=torch.float32, device=dev, seed=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    with torch.no_grad():
+        for block in card.blocks.values():
+            block.bn3.scale.normal_(0.0, 0.2, generator=gen)
+    cpu = resnet.resnet50(dtype=torch.float32, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    images = torch.from_numpy(x[:8])
+    outs = {}
+    for where, m, xs in (("card", card, images.to(dev)),
+                         ("cpu", cpu, images)):
+        stats: dict = {}
+        with torch.no_grad():
+            logits = m(xs, train=True, batch_stats=stats)
+        outs[where] = (logits.cpu(), {k: v.cpu() for k, v in stats.items()})
+    logit_rel = _rel_l2_of(outs["card"][0], outs["cpu"][0])
+    stat_rel = {k: _rel_l2_of(v, outs["cpu"][1][k])
+                for k, v in outs["card"][1].items()}
+    worst = max(stat_rel, key=stat_rel.get)
+    result["f32_card_vs_cpu"] = {
+        "batch": 8, "logits_rel_l2": logit_rel,
+        "stats_rel_l2_worst": stat_rel[worst], "stats_worst": worst,
+        "stats_count": len(stat_rel), "tol": V_F32_TOL}
+    log(result)
+    n_bn = sum(isinstance(m, resnet.BatchNorm) for m in card.modules())
+    check(len(stat_rel) == 2 * n_bn and logit_rel <= V_F32_TOL
+          and stat_rel[worst] <= V_F32_TOL,
+          f"V1 f32: card against CPU, {len(stat_rel)} statistics, logits "
+          f"{logit_rel}, worst statistic {worst} {stat_rel[worst]} > "
+          f"{V_F32_TOL}")
+    del card, cpu
+    _v_free()
+    return result
+
+
+def _v_masked(tokens, vocab, seed):
+    """BERT's masked batch from a host token-window batch ([B, S + 1]):
+    the first S tokens masked by ``mask_tokens`` from a seeded CPU
+    generator, ``mask_id`` the last id (the JAX script's choice)."""
+    from k8s_distributed_deeplearning_torch.models import bert
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    inputs, targets, weights = bert.mask_tokens(
+        torch.from_numpy(tokens[:, :-1]).long(), gen, vocab_size=vocab,
+        mask_id=vocab - 1)
+    return {"inputs": inputs, "targets": targets, "weights": weights}
+
+
+def _v_flash_per_step(layers: int, route: str) -> dict:
+    """Flash launches a step of an encoder without remat: one forward, one
+    dQ and one dK/dV a layer, all on ``route``, and the bf16 backward's
+    delta kernel once a layer."""
+    out = {"flash_bwd_delta": layers}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        out[name] = out[f"{name}_{route}"] = layers
+    return out
+
+
+def _v_grads(build, loss_of, batch, dev, dtype, impl):
+    """One batch's loss and every parameter's gradient, from the seeded
+    weights ``build(dtype, impl)`` gives."""
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+
+    model = build(dtype, impl)
+    params = dict(model.named_parameters())
+    loss, _ = loss_of(model)(dp.to_device(batch, dev), None)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    return float(loss.detach()), grads
+
+
+def _v_encoder(phase, dev, build, loss_of, fixed, batches, *, examples,
+               flops_example, layers, grad_build):
+    """V2 and V3: the encoder through ``attention_impl="auto"`` (the einsum
+    path at these lengths, as JAX picks) and ``"flash"``: the fixed-batch
+    loss falls, a timed window with the launches exact by route (auto:
+    none; flash: a forward, dQ and dK/dV a layer, all wgmma), then phase
+    F_bf16's rule on one step's gradients (``grad_build``: the same
+    weights with a random head where the model's is zero)."""
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import optim
+
+    runs = {}
+    for impl in ("auto", "flash"):
+        torch.cuda.reset_peak_memory_stats()
+        model = build(torch.bfloat16, impl)
+        optimizer = optim.make_optimizer("adamw", V_LR, grad_clip=1.0)
+        state = dp.init_state(dict(model.named_parameters()), optimizer)
+        step_fn = dp.make_train_step(loss_of(model), optimizer)
+        state, losses = _v_fixed(f"{phase} {impl}", step_fn, state, fixed)
+        per_step = ({} if impl == "auto"
+                    else _v_flash_per_step(layers, "wgmma"))
+        state, window = _v_window(f"{phase} {impl}", step_fn, state, batches,
+                                  examples=examples,
+                                  flops_example=flops_example,
+                                  per_step=per_step)
+        runs[impl] = {"fixed_batch_losses": losses, **window}
+        del model, state, step_fn, optimizer
+        _v_free()
+
+    # F_bf16's rule: each tensor's relative L2 distance from the f32 einsum
+    # path, the flash path's at most 1.25 x the bf16 einsum path's + 2^-10.
+    loss_ref, ref = _v_grads(grad_build, loss_of, fixed, dev,
+                             torch.float32, "xla")
+    errs, grad_losses, launches = {}, {"f32_xla": loss_ref}, {}
+    for impl in ("xla", "flash"):
+        _zero_launches()
+        grad_losses[impl], g = _v_grads(grad_build, loss_of, fixed, dev,
+                                        torch.bfloat16, impl)
+        launches[impl] = {n: c for n, c in _launch_counts().items() if c}
+        errs[impl] = {n: _rel_l2_of(g[n], ref[n]) for n in ref}
+        del g
+    share = {n: errs["flash"][n] / (BF16_STEP_RATIO * errs["xla"][n]
+                                    + BF16_STEP_FLOOR) for n in ref}
+    name = max(share, key=share.get)
+    rule = {"losses": grad_losses, "launches": launches,
+            "worst_share": share[name], "worst_param": name,
+            "flash_rel_l2": errs["flash"][name],
+            "xla_rel_l2": errs["xla"][name], "ratio": BF16_STEP_RATIO,
+            "floor": BF16_STEP_FLOOR}
+    del ref
+    _v_free()
+    check(launches["flash"] == _v_flash_per_step(layers, "wgmma")
+          and not launches["xla"],
+          f"{phase} gradient step launches by route: {launches}")
+    check(share[name] <= 1.0,
+          f"{phase}: {name}'s bf16 flash gradient is further from the f32 "
+          f"einsum path than {BF16_STEP_RATIO} x the bf16 einsum path's + "
+          f"{BF16_STEP_FLOOR}: {errs['flash'][name]} against "
+          f"{errs['xla'][name]}")
+    return runs, rule
+
+
+def _v2(dev) -> dict:
+    """BERT-base MLM at its published width and depth, seq 512, batch 16
+    (8,192 tokens a step), masked by ``mask_tokens``."""
+    from k8s_distributed_deeplearning_torch.models import bert, transformer
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    batch, seq = 16, 512
+    cfg = bert.config_bert_base()
+    tokens = data_lib.synthetic_tokens(1 << 17, vocab_size=cfg.vocab_size,
+                                       seed=0)
+    batcher = data_lib.TokenBatcher(tokens, batch, seq, seed=0)
+    masked = [_v_masked(batcher.batch_at(i)["tokens"], cfg.vocab_size, i)
+              for i in range(V_WARM + V_TIMED + 2)]
+
+    def batches(start):
+        return (masked[(start + i) % len(masked)] for i in range(1 << 30))
+
+    def build(dtype, impl):
+        return bert.BertMLM(bert.config_bert_base(
+            dtype=dtype, param_dtype=torch.float32, attention_impl=impl),
+            device=dev, seed=0)
+
+    def loss_of(model):
+        return lambda b, g: bert.loss_fn(model, b, g)
+
+    runs, rule = _v_encoder(
+        "V2", dev, build, loss_of, masked[0], batches,
+        examples=batch * seq,
+        flops_example=transformer.flops_per_token(cfg, seq_len=seq),
+        layers=cfg.n_layers, grad_build=build)
+    result = {"phase": "V2", "model": "bert-base", "layers": cfg.n_layers,
+              "batch": batch, "seq_len": seq, "dtype": "bfloat16",
+              "lr": V_LR, "tokens_per_step": batch * seq,
+              "masked_per_step": float(masked[0]["weights"].sum()),
+              "runs": {k: {**v, "tokens_per_s": v["per_s"]}
+                       for k, v in runs.items()},
+              "bf16_grad_rule": rule}
+    log(result)
+    return result
+
+
+def _v_vit(dev, dtype, impl, layers=None, random_head=False):
+    """ViT-L/16 at 224² (1000 classes) from seed 0; ``random_head`` draws
+    the head from the seed (its zero init leaves every encoder gradient
+    exactly 0 at the first step)."""
+    from k8s_distributed_deeplearning_torch.models import vit
+
+    over = {} if layers is None else {"n_layers": layers}
+    model = vit.ViT(vit.config_vit_l16(dtype=dtype,
+                                       param_dtype=torch.float32,
+                                       attention_impl=impl, **over),
+                    patch_size=16, num_classes=1000, image_size=224,
+                    device=dev, seed=0)
+    if random_head:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        with torch.no_grad():
+            model.head.weight.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def _v3(dev) -> dict:
+    """ViT-L/16 at its published width and depth, 224² (197 tokens:
+    no flash tile divides it), batch 32."""
+    from k8s_distributed_deeplearning_torch.models import vit
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    batch = 32
+    x, y = data_lib.synthetic_images(128, size=224, num_classes=1000, seed=1)
+    batcher = data_lib.ShardedBatcher(x, y, batch, seed=0)
+
+    def loss_of(model):
+        return lambda b, g: vit.loss_fn(model, b, g)
+
+    cfg = vit.config_vit_l16()
+    shape = types.SimpleNamespace(cfg=cfg, patch_size=16, num_classes=1000)
+    runs, rule = _v_encoder(
+        "V3", dev, lambda dt, impl: _v_vit(dev, dt, impl), loss_of,
+        batcher.batch_at(0), batcher.iter_from, examples=batch,
+        flops_example=vit.flops_per_image(shape, image_size=224),
+        layers=cfg.n_layers,
+        grad_build=lambda dt, impl: _v_vit(dev, dt, impl, random_head=True))
+    result = {"phase": "V3", "model": "vit-l16", "layers": cfg.n_layers,
+              "image_size": 224, "tokens": 197, "batch": batch,
+              "dtype": "bfloat16", "lr": V_LR,
+              "runs": {k: {**v, "images_per_s": v["per_s"]}
+                       for k, v in runs.items()},
+              "bf16_grad_rule": rule}
+    log(result)
+    return result
+
+
+def _v4_run(build, loss_of, batches, keep_on) -> dict:
+    """One path of V4: phase F's record (:func:`_recorded_steps`) of
+    ``V_F32_STEPS`` AdamW steps in f32 from the seeded weights."""
+    from k8s_distributed_deeplearning_torch.parallel import (
+        data_parallel as dp)
+    from k8s_distributed_deeplearning_torch.train import optim
+
+    model = build()
+    optimizer = optim.make_optimizer("adamw", 1e-4, grad_clip=1.0)
+    state = dp.init_state(dict(model.named_parameters()), optimizer)
+    out = _recorded_steps(optimizer, state,
+                          dp.make_train_step(loss_of(model), optimizer),
+                          batches.__getitem__, V_F32_STEPS, keep_on)
+    del model, state, optimizer
+    _v_free()
+    return out
+
+
+def _v4(dev) -> dict:
+    """f32 on the card (TF32 off): BERT-base and ViT-L widths at 2 layers,
+    three AdamW steps through ``"flash"`` (the tf32x3 kernels) and through
+    the einsum path from the same weights, held by phase F's rule."""
+    from k8s_distributed_deeplearning_torch.models import bert, vit
+    from k8s_distributed_deeplearning_torch.train import data as data_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers = 2
+    bcfg = bert.config_bert_base()
+    tokens = data_lib.synthetic_tokens(1 << 15, vocab_size=bcfg.vocab_size,
+                                       seed=3)
+    tb = data_lib.TokenBatcher(tokens, 4, 512, seed=3)
+    x, y = data_lib.synthetic_images(24, size=224, num_classes=1000, seed=3)
+    cases = {
+        "bert_base_2_layers": (
+            lambda impl: bert.BertMLM(bert.config_bert_base(
+                n_layers=layers, dtype=torch.float32,
+                param_dtype=torch.float32, attention_impl=impl),
+                device=dev, seed=0),
+            lambda m: (lambda b, g: bert.loss_fn(m, b, g)),
+            [_v_masked(tb.batch_at(i)["tokens"], bcfg.vocab_size, i)
+             for i in range(V_F32_STEPS)], "B 4 x S 512"),
+        "vit_l16_2_layers": (
+            lambda impl: _v_vit(dev, torch.float32, impl, layers=layers,
+                                random_head=True),
+            lambda m: (lambda b, g: vit.loss_fn(m, b, g)),
+            [{"image": x[8 * i:8 * i + 8], "label": y[8 * i:8 * i + 8]}
+             for i in range(V_F32_STEPS)], "B 8 at 224², S 197")}
+    out = {}
+    for name, (build, loss_of, batches, shape) in cases.items():
+        _zero_launches()
+        ka = _v4_run(lambda: build("flash"), loss_of, batches,
+                     torch.device("cpu"))
+        launches = _launch_counts()
+        _check_f32_flash(f"V4 {name}", launches, layers * V_F32_STEPS)
+        kx = _v4_run(lambda: build("xla"), loss_of, batches, dev)
+        res = _agreement(f"V4 {name}", {
+            "model": name, "shape": shape, "steps": V_F32_STEPS, "lr": 1e-4,
+            "kernel_path_launches": {n: c for n, c in launches.items()
+                                     if c}}, ka, kx, dev)
+        out[name] = {k: res[k] for k in (
+            "loss_max_rel_diff", "grad_rel_diff_worst",
+            "grad_rel_diff_worst_param", "param_rel_diff_worst",
+            "param_rel_diff_worst_param", "kernel_path_launches")}
+    log({"phase": "V4", **out})
+    return out
+
+
+def _v5_state(ckdir, step) -> dict:
+    """Params and running statistics of the example's checkpoint."""
+    state = torch.load(Path(ckdir) / str(step) / "state.pt",
+                       weights_only=True)
+    return ({f"params/{n}": t for n, t in state["params"].items()}
+            | {f"stats/{n}": t for n, t in state["batch_stats"].items()})
+
+
+def _v5(dev, tmp: Path) -> dict:
+    """The example: each small preset through ``main(argv)`` on the card;
+    then ``--model resnet18`` as its own process, SIGKILLed past step 20
+    and run again (restore at the newest step on disk), against an
+    unkilled process by phase N's rule (cuDNN held to deterministic
+    algorithms in each)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from k8s_distributed_deeplearning_torch.utils import ckpt as ckpt_paths
+
+    spec = importlib.util.spec_from_file_location("train_zoo_torch",
+                                                  EXAMPLE_ZOO)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    presets = {}
+    for model in ("resnet18", "vit", "bert", "moe"):
+        buf = io.StringIO()
+        _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            final = example.main([
+                "--model", model, "--num-steps", str(V_EXAMPLE_STEPS),
+                "--batch-size", "32", "--log-every", "1",
+                "--checkpoint-dir", str(tmp / f"v5_{model}")])
+        events = [json.loads(line) for line in buf.getvalue().splitlines()
+                  if line.startswith("{")]
+        steps = [e for e in events if e["event"] == "train_step"]
+        start = next(e for e in events if e["event"] == "start")
+        presets[model] = {
+            "s": time.perf_counter() - t0, "final": final,
+            "device": start["device"], "losses": [e["loss"] for e in steps],
+            "launches": {n: c for n, c in _launch_counts().items() if c}}
+        check(final["num_steps"] == V_EXAMPLE_STEPS
+              and len(steps) == V_EXAMPLE_STEPS
+              and start["device"].startswith("cuda")
+              and all(np.isfinite(e["loss"]) for e in steps),
+              f"V5 {model}: {presets[model]}")
+
+    args = ["--model", "resnet18", "--num-steps", str(V_RESUME_STEPS),
+            "--batch-size", "32", "--checkpoint-every", "10",
+            "--log-every", "5", "--prefetch", "0"]
+    code = ("import runpy, sys, torch; "
+            "torch.backends.cudnn.deterministic = True; "
+            "torch.backends.cudnn.benchmark = False; "
+            f"runpy.run_path({str(EXAMPLE_ZOO)!r}, run_name='__main__')")
+    env = {**os.environ, "PYTHONPATH": str(REPO),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+    def proc_run(ckdir, kill_after=None):
+        cmd = [sys.executable, "-c", code, *args, "--checkpoint-dir",
+               str(ckdir)]
+        events = []
+        with open(tmp / "v5_stderr.log", "a") as err:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                                    text=True, cwd=REPO, env=env)
+            try:
+                for line in proc.stdout:
+                    if not line.startswith("{"):
+                        continue
+                    events.append(json.loads(line))
+                    ev = events[-1]
+                    if kill_after is not None \
+                            and ev["event"] == "train_step" \
+                            and ev["step"] >= kill_after:
+                        proc.kill()
+                        kill_after = None
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return proc.returncode, events
+
+    def unkilled(ckdir):
+        # A process of its own, as the killed run: this one's TF32 and
+        # cuDNN settings are not the example's defaults.
+        rc, _ = proc_run(ckdir)
+        check(rc == 0, f"V5: an unkilled run exited {rc}")
+        return _v5_state(ckdir, V_RESUME_STEPS)
+
+    t0 = time.perf_counter()
+    rc1, first = proc_run(tmp / "v5_killed", kill_after=V_KILL_AFTER)
+    killed_s = time.perf_counter() - t0
+    on_disk = [s for s in ckpt_paths.steps_on_disk(str(tmp / "v5_killed"))
+               if ckpt_paths.verify_manifest(str(tmp / "v5_killed"), s)
+               is None]
+    check(rc1 != 0 and on_disk and max(on_disk) < V_RESUME_STEPS,
+          f"V5: the killed run exited {rc1} with steps {on_disk} on disk")
+    rc2, second = proc_run(tmp / "v5_killed")
+    restores = [e["step"] for e in second if e["event"] == "restore"]
+    check(rc2 == 0 and restores == [max(on_disk)],
+          f"V5: the re-run exited {rc2}, restored {restores}, newest good "
+          f"step {max(on_disk)}")
+    want = unkilled(tmp / "v5_whole")
+    resume = _repeat_rule("V5", want, _v5_state(tmp / "v5_killed",
+                                                V_RESUME_STEPS),
+                          lambda: unkilled(tmp / "v5_again"))
+    result = {"phase": "V5", "presets": presets, "resume": {
+        "steps": V_RESUME_STEPS, "killed_after_step": max(
+            e["step"] for e in first if e["event"] == "train_step"),
+        "killed_run_s": killed_s, "steps_on_disk": on_disk,
+        "restored_at": restores[0], **resume}}
+    log(result)
+    return result
+
+
+def phase_v(dev, tmp: Path) -> dict:
+    """The model zoo at its published widths (V1 ResNet-50, V2 BERT-base,
+    V3 ViT-L/16; V4 f32 at 2 layers; V5 the example)."""
+    out = {}
+    for name, fn in (("V1", _v1), ("V2", _v2), ("V3", _v3), ("V4", _v4)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        log({"phase_part_done": name, "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out["V5"] = _v5(dev, tmp)
+    log({"phase_part_done": "V5", "s": time.perf_counter() - t0})
+    return out
 
 
 # ------------------------------------------------------------- phase U
@@ -6315,7 +7025,7 @@ def _u1(dev, b_logits, started):
     from k8s_distributed_deeplearning_torch.utils.metrics import (
         ServingStats)
 
-    cfg = llama.config_llama3_8b(max_seq_len=2048)
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     model = llama.LlamaLM(cfg, device=dev, seed=0)
@@ -6960,13 +7670,15 @@ def main() -> int:
             timed("O", phase_o, dev, Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             timed("T", phase_t, dev, Path(tmp), e)
+        with tempfile.TemporaryDirectory() as tmp:
+            v = timed("V", phase_v, dev, Path(tmp))
     finally:
         distributed.shutdown()
     with tempfile.TemporaryDirectory() as tmp:
         timed("U", phase_u, dev, b_logits, started, Path(tmp))
     log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,
                                    verify, r)
-         + _flash_entries(flash_rows, e, f, q)
+         + _flash_entries(flash_rows, e, f, q, v)
          + _gmm_entries(gmm_rows, h, i, m)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -193,13 +193,16 @@ def generate(model, prompt, *, max_new_tokens: int,
     ``generator`` (a ``torch.Generator`` on the model's device, required).
     Rows that emitted ``eos_id`` emit ``pad_id`` from the next token on.
     Prompt + new tokens must fit the model's ``max_seq_len``; the cache
-    holds :func:`cache_window` columns.
+    holds :func:`cache_window` columns, or all ``max_seq_len`` for a
+    learned-position model (JAX keeps its full window).
 
     ``prompt_mask`` ([B, S], 0 = padding) batches prompts of unequal
     lengths: pad each at the FRONT, so every row's last real token sits at
     column S-1, where the first token samples. Pads stay out of attention
     and RoPE positions count real tokens only, so each row decodes as it
-    would alone."""
+    would alone. A learned-position model gets explicit positions (the
+    prefill ``0..S-1``, decode step t at ``S + t``; left-padded: real
+    tokens counted per row), as the dense decode requires them."""
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling requires rng (pass "
                          "generator=, a torch.Generator on the model's "
@@ -235,11 +238,14 @@ def generate(model, prompt, *, max_new_tokens: int,
                 "last column all-real (each row's final token is where "
                 "decoding starts)")
         prompt_mask = prompt_mask.to(dev)
+    learned = model.cfg.position == "learned"
     return _generate(
         model, prompt.to(dev), temperature, generator, prompt_mask,
         greedy=temperature <= 0.0, max_new_tokens=max_new_tokens,
         eos_id=eos_id, pad_id=pad_id, top_k=top_k, top_p=top_p,
-        window=cache_window(max_seq, prompt.shape[1], max_new_tokens))
+        window=(max_seq if learned else
+                cache_window(max_seq, prompt.shape[1], max_new_tokens)),
+        learned=learned)
 
 
 def left_padded_inputs(prompt_mask: torch.Tensor) -> dict:
@@ -258,11 +264,13 @@ def _generate(model, prompt: torch.Tensor, temperature: float,
               prompt_mask: torch.Tensor | None, *, greedy: bool,
               max_new_tokens: int, eos_id: int | None, pad_id: int,
               top_k: int | None, top_p: float | None,
-              window: int) -> torch.Tensor:
-    b = prompt.shape[0]
+              window: int, learned: bool = False) -> torch.Tensor:
+    b, s = prompt.shape
     dev = prompt.device
     kw: dict = {}
     lens = None
+    if learned:
+        kw = dict(positions=torch.arange(s, device=dev)[None])
     if prompt_mask is not None:
         kw = left_padded_inputs(prompt_mask)
         lens = kw["segment_ids"].sum(-1, dtype=torch.int32)     # [B]
@@ -295,6 +303,10 @@ def _generate(model, prompt: torch.Tensor, temperature: float,
         if lens is not None:
             step_kw = dict(positions=(lens + t)[:, None],
                            segment_ids=step_seg)
+        elif learned:
+            step_kw = dict(positions=torch.full((b, 1), s + t,
+                                                dtype=torch.int32,
+                                                device=dev))
         token = sample(decode_step(model, cache, token, **step_kw))
         if alive is not None:
             token = torch.where(alive, token, pad_id)

@@ -95,7 +95,7 @@ def loss_fn(model: LlamaLM, batch: dict, rng=None, *, chunked: bool = False,
     Position i predicts token i+1; packed rows attend within their
     document, RoPE restarts per document, and cross-document pairs stay out
     of the loss. ``rng`` is the per-replica generator of the train step;
-    no layer draws from it yet (dropout is not ported).
+    the forward runs deterministic (no dropout), as JAX's loss does.
 
     ``chunked=True`` runs :func:`ops.chunked_ce.chunked_softmax_cross_entropy`
     on the final hidden states, so the ``[B, S, V]`` logits never exist.

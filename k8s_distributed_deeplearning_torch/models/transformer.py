@@ -1,9 +1,15 @@
-"""Decoder transformer core, the Llama-family path.
+"""Transformer core, shared by the Llama family, MoE, BERT and ViT.
 
 Port of ``k8s_distributed_deeplearning_tpu/models/transformer.py``: the
 same architecture and the same rounding points, as ``nn.Module``s. Weight
 names follow the flax modules (``q_proj``, ``attn_norm``, ``tok_embed``
 …) so :mod:`models.convert` maps one tree onto the other leaf for leaf.
+The config picks the Llama recipe (RMSNorm, SwiGLU, RoPE) or the BERT/ViT
+one (flax-semantics :class:`LayerNorm`, the tanh-GELU :class:`MLP` with
+biases, learned positions or none); :class:`Transformer` also takes
+embeddings in place of tokens (ViT's patches), and applies dropout after
+attention and after the MLP when ``deterministic=False``, each layer's
+masks drawn from a generator of its own.
 Weights are stored at ``param_dtype`` and cast to the compute dtype
 ``dtype`` at every use, as flax does; norm scales stay f32, as flax
 multiplies by them in f32. Training keeps f32 params (``param_dtype=
@@ -106,8 +112,14 @@ def _remat_context(saved: tuple):
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture knobs, as in the JAX package (scan, dropout and
-    serving TP are not here)."""
+    """Architecture knobs, as in the JAX package (layer scan and serving
+    TP are not here: the layers are a ``ModuleList``). ``activation``
+    ``"swiglu"`` (Llama) or ``"gelu"`` (BERT/ViT: tanh-approximate GELU,
+    MLP biases); ``norm`` ``"rmsnorm"`` or ``"layernorm"`` (flax's: epsilon
+    1e-6, f32 statistics); ``position`` ``"rope"``, ``"learned"`` (a
+    ``pos_embed`` table of ``max_seq_len`` rows) or ``"none"``;
+    ``dropout_rate`` after attention and after the MLP, active only when
+    the forward is called with ``deterministic=False``."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -118,9 +130,9 @@ class TransformerConfig:
     mlp_dim: int | None = None          # default 4*dim
     max_seq_len: int = 2048
     causal: bool = True
-    activation: str = "swiglu"
-    norm: str = "rmsnorm"
-    position: str = "rope"              # "rope" | "none"
+    activation: str = "swiglu"          # "swiglu" | "gelu"
+    norm: str = "rmsnorm"               # "rmsnorm" | "layernorm"
+    position: str = "rope"              # "rope" | "learned" | "none"
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
@@ -138,6 +150,7 @@ class TransformerConfig:
                                         # (ops.attention.default_impl)
     remat: bool = False                 # checkpoint each block
     remat_policy: str = "dots"          # "dots" | "dots_attn" | "nothing"
+    dropout_rate: float = 0.0
     kv_quant: str | None = None         # "int8": the paged pools hold int8
                                         # K/V plus per-token-per-head f32
                                         # scales, quantized on write and
@@ -145,16 +158,12 @@ class TransformerConfig:
                                         # of the compute dtype
 
     def __post_init__(self):
-        if self.activation != "swiglu":
-            raise NotImplementedError(
-                f"activation={self.activation!r}: the port has the SwiGLU "
-                "MLP only so far")
-        if self.norm != "rmsnorm":
-            raise NotImplementedError(
-                f"norm={self.norm!r}: the port has RMSNorm only so far")
-        if self.position not in ("rope", "none"):
-            raise NotImplementedError(
-                f"position={self.position!r}: the port has RoPE or none")
+        for field, allowed in (("activation", ("swiglu", "gelu")),
+                               ("norm", ("rmsnorm", "layernorm")),
+                               ("position", ("rope", "learned", "none"))):
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"{field} must be one of {allowed}, got "
+                                 f"{getattr(self, field)!r}")
         if self.attention_impl not in ("auto", "xla", "flash"):
             raise ValueError(
                 f"attention_impl must be 'auto', 'xla' or 'flash', got "
@@ -202,10 +211,54 @@ class RMSNorm(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm``: mean and variance over the last axis in f32
+    (the variance as E[x^2] - E[x]^2, clipped at 0), epsilon 1e-6, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 with the f32
+    ``scale`` and ``bias``, cast to the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(
+            torch.zeros(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf.square().mean(-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+def make_norm(cfg: TransformerConfig, device=None) -> nn.Module:
+    """The config's norm over ``cfg.dim`` (JAX ``make_norm``)."""
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+    return LayerNorm(cfg.dim, dtype=cfg.dtype, device=device)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability ``1 -
+    rate``, drawn from ``generator`` (never the global generator), and
+    scale what is kept by ``1 / (1 - rate)`` in x's dtype."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Dense(nn.Linear):
-    """Bias-free ``nn.Linear`` whose weight is stored at ``param_dtype``
-    and cast, with the input, to the compute ``dtype`` at every use (flax
-    ``Dense(dtype=..., param_dtype=...)``).
+    """``nn.Linear`` whose weight is stored at ``param_dtype`` and cast,
+    with the input, to the compute ``dtype`` at every use (flax
+    ``Dense(dtype=..., param_dtype=...)``). With ``bias=True`` the bias is
+    cast to the compute dtype and added after the product, as flax adds
+    it.
 
     After :meth:`set_int8` the weight is int8 and ``weight_scale`` holds
     ``c`` f32 scales, ``c`` dividing ``out_features``: row ``r`` uses
@@ -214,8 +267,9 @@ class Dense(nn.Linear):
     dequantizing its params."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 dtype: torch.dtype, param_dtype: torch.dtype, device=None):
-        super().__init__(in_features, out_features, bias=False,
+                 dtype: torch.dtype, param_dtype: torch.dtype, device=None,
+                 bias: bool = False):
+        super().__init__(in_features, out_features, bias=bias,
                          device=device, dtype=param_dtype)
         self.compute_dtype = dtype
         self.register_buffer("weight_scale", None)
@@ -238,8 +292,12 @@ class Dense(nn.Linear):
                               device=w.device)
             torch.mul(w.view(g, s.shape[0], -1), s[None, :, None], out=deq)
             w = deq.view(w.shape)
-        return F.linear(x if x.dtype == dt else x.to(dt),
-                        w if w.dtype == dt else w.to(dt))
+        y = F.linear(x if x.dtype == dt else x.to(dt),
+                     w if w.dtype == dt else w.to(dt))
+        if self.bias is None:
+            return y
+        b = self.bias
+        return y + (b if b.dtype == dt else b.to(dt))
 
 
 class Embed(nn.Embedding):
@@ -553,49 +611,83 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward."""
+    """Feed-forward: SwiGLU (Llama; no biases) or GELU (BERT/ViT: ``up_proj``
+    and ``down_proj`` with biases, no ``gate_proj``, flax's default
+    tanh-approximate ``nn.gelu``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         kw = dict(device=device, dtype=cfg.dtype,
                   param_dtype=cfg.resolved_param_dtype)
         m = cfg.resolved_mlp_dim
-        self.gate_proj = Dense(cfg.dim, m, **kw)
-        self.up_proj = Dense(cfg.dim, m, **kw)
-        self.down_proj = Dense(m, cfg.dim, **kw)
+        self.gelu = cfg.activation == "gelu"
+        if not self.gelu:
+            self.gate_proj = Dense(cfg.dim, m, **kw)
+        self.up_proj = Dense(cfg.dim, m, bias=self.gelu, **kw)
+        self.down_proj = Dense(m, cfg.dim, bias=self.gelu, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gelu:
+            return self.down_proj(F.gelu(self.up_proj(x),
+                                         approximate="tanh"))
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)).
+    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)), each branch
+    through dropout first when ``dropout_seed`` is given (training with
+    ``deterministic=False``).
 
     ``mlp_factory(cfg, device=...)`` swaps the feed-forward module (the MoE
     layer) while the norms and residuals stay shared. Its module is called
     with ``decode`` and ``aux`` (the caller's collector of per-layer
-    auxiliary losses, or None); the plain :class:`MLP` takes neither."""
+    auxiliary losses, or None); the plain :class:`MLP` takes neither.
+
+    The block's two dropout masks come from one generator seeded with
+    ``dropout_seed`` inside the forward, so the recompute of a remat block
+    draws the same masks."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  mlp_factory=None):
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        self.rate = cfg.dropout_rate
+        self.attn_norm = make_norm(cfg, device=device)
         self.attn = Attention(cfg, device=device)
-        self.mlp_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        self.mlp_norm = make_norm(cfg, device=device)
         self.custom_mlp = mlp_factory is not None
         self.mlp = (mlp_factory(cfg, device=device) if self.custom_mlp
                     else MLP(cfg, device=device))
 
-    def forward(self, x, *, decode: bool = False, aux=None, **attn_kw):
-        x = x + self.attn(self.attn_norm(x), **attn_kw)
+    def forward(self, x, *, decode: bool = False, aux=None,
+                dropout_seed: int | None = None, **attn_kw):
+        gen = None
+        if dropout_seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(dropout_seed)
+        h = self.attn(self.attn_norm(x), **attn_kw)
+        if gen is not None:
+            h = dropout(h, self.rate, gen)
+        x = x + h
         h = self.mlp_norm(x)
         if self.custom_mlp:
-            return x + self.mlp(h, decode=decode, aux=aux)
-        return x + self.mlp(h)
+            h = self.mlp(h, decode=decode, aux=aux)
+        else:
+            h = self.mlp(h)
+        if gen is not None:
+            h = dropout(h, self.rate, gen)
+        return x + h
 
 
 class Transformer(nn.Module):
-    """Tokens in, final-normed hidden states out.
+    """Tokens (or embeddings) in, final-normed hidden states out.
+
+    An integer input ``[B, S]`` goes through ``tok_embed``; a float input
+    ``[B, S, dim]`` is taken as the embeddings (cast to the compute dtype),
+    as ViT feeds its patches. ``token_embed=False`` builds no
+    ``tok_embed`` at all (ViT's encoder has none). Learned positions
+    (``cfg.position == "learned"``) add ``pos_embed`` rows at
+    ``positions`` (default ``0..S-1``; slot decode: ``cache_positions``;
+    dense decode needs them explicit, as in JAX).
 
     ``decode=True`` with ``block_tables`` ([B, n_blocks] int32) and
     ``cache`` (one ``(pool_k, pool_v)`` pair per layer, written in place)
@@ -607,19 +699,27 @@ class Transformer(nn.Module):
     ``cache_positions`` is given, else the shared cursor, which advances
     by S; ``segment_ids`` there are the chunk's document ids (0 = pad).
     ``mlp_factory`` reaches every block; ``aux`` is handed to each block's
-    factory MLP."""
+    factory MLP.
+
+    ``deterministic=False`` with ``cfg.dropout_rate > 0`` turns dropout on:
+    ``generator`` (a ``torch.Generator`` on the model's device, required)
+    gives one seed a layer, and each layer draws its masks from a generator
+    of its own seeded with it. The global generator is never used."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 mlp_factory=None):
+                 mlp_factory=None, token_embed: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.tok_embed = Embed(cfg.vocab_size, cfg.dim, device=device,
-                               dtype=cfg.dtype,
-                               param_dtype=cfg.resolved_param_dtype)
+        emb = dict(device=device, dtype=cfg.dtype,
+                   param_dtype=cfg.resolved_param_dtype)
+        self.tok_embed = (Embed(cfg.vocab_size, cfg.dim, **emb)
+                          if token_embed else None)
+        if cfg.position == "learned":
+            self.pos_embed = Embed(cfg.max_seq_len, cfg.dim, **emb)
         self.blocks = nn.ModuleList(
             [Block(cfg, device=device, mlp_factory=mlp_factory)
              for _ in range(cfg.n_layers)])
-        self.final_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
+        self.final_norm = make_norm(cfg, device=device)
         if cfg.position == "rope":
             cos, sin = rope_frequencies(cfg.resolved_head_dim,
                                         cfg.max_seq_len, cfg.rope_theta,
@@ -635,9 +735,16 @@ class Transformer(nn.Module):
                 cache: list | None = None,
                 cache_positions: torch.Tensor | None = None,
                 block_tables: torch.Tensor | None = None,
-                aux=None) -> torch.Tensor:
+                aux=None, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
-        b, s = tokens.shape
+        b, s = tokens.shape[:2]
+        if cfg.position == "learned" and decode and positions is None:
+            if cache_positions is None:
+                raise NotImplementedError(
+                    "decode with position='learned' requires explicit "
+                    "positions — pass positions=cache_cursor + arange(S)")
+            positions = cache_positions.long()[:, None]
         paged = dense = None
         if decode and block_tables is None:
             if mask is not None:
@@ -684,7 +791,25 @@ class Transformer(nn.Module):
         rope = None
         if cfg.position == "rope":
             rope = _rope_at(self.rope_cos, self.rope_sin, positions, s)
-        x = self.tok_embed(tokens)
+        if tokens.is_floating_point():
+            x = tokens.to(cfg.dtype)
+        elif self.tok_embed is None:
+            raise ValueError("this transformer has no tok_embed: pass "
+                             "embeddings [B, S, dim], not token ids")
+        else:
+            x = self.tok_embed(tokens)
+        if cfg.position == "learned":
+            pos = (positions if positions is not None
+                   else torch.arange(s, device=x.device))
+            x = x + self.pos_embed(pos.long())
+        seeds = [None] * cfg.n_layers
+        if cfg.dropout_rate and not deterministic:
+            if generator is None:
+                raise ValueError("dropout (deterministic=False) needs a "
+                                 "generator on the model's device")
+            seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,),
+                                  generator=generator,
+                                  device=generator.device).tolist()
         remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             layer_cache = None
@@ -694,7 +819,7 @@ class Transformer(nn.Module):
                 layer_cache = (cache.keys[i], cache.values[i])
             kw = dict(rope=rope, mask=mask, segment_ids=segment_ids,
                       cache=layer_cache, paged=paged, dense=dense,
-                      decode=decode, aux=aux)
+                      decode=decode, aux=aux, dropout_seed=seeds[i])
             if remat:
                 saved = REMAT_POLICIES[cfg.remat_policy]
                 if saved:
@@ -765,15 +890,20 @@ def glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, with the JAX package's families:
-    Glorot-uniform projections, N(0, 0.02) embeddings, unit norm scales.
-    A module with a ``reset_from(generator)`` method (the MoE layer) draws
-    its own."""
+    Glorot-uniform projections with zero biases, N(0, 0.02) embeddings,
+    unit norm scales and zero norm biases. A module with a
+    ``reset_from(generator)`` method (the MoE layer, the zoo's convolutions
+    and heads) draws its own."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             glorot_uniform_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(m, RMSNorm):
+        elif isinstance(m, (RMSNorm, LayerNorm)):
             m.scale.fill_(1.0)
+            if isinstance(m, LayerNorm):
+                m.bias.zero_()
         elif hasattr(m, "reset_from"):
             m.reset_from(generator)

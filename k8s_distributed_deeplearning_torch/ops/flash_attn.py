@@ -9,10 +9,15 @@ restricting attention to equal ids.
 
 - :func:`flash_attention` is a ``torch.autograd.Function``. On CUDA tensors
   its forward launches the forward kernel of the route :func:`_fwd_route`
-  names, and its backward computes ``delta = rowsum(dO * O)`` with a
-  PyTorch reduction, as the JAX wrapper does outside its kernels, then
-  launches the dQ kernel and the dK/dV kernel of the route
-  :func:`_bwd_route` names for each of the two kernels. Both rules give
+  names, and its backward computes delta, then launches the dQ kernel
+  and the dK/dV kernel of the route :func:`_bwd_route` names for each of
+  the two kernels. In f32 delta is ``rowsum(dO * O)``, a PyTorch
+  reduction, as the JAX wrapper computes it outside its kernels; in bf16
+  it comes from the kernel :func:`flash_bwd_delta`
+  (``csrc/flash_delta.cu``): the sum over keys of P·dP, the softmax
+  backward's own term, where rowsum(dO·O) of the bf16 output is ~2^-9 of
+  |dO||O| off, which dominates dQ where a row's values are nearly equal.
+  Both rules give
   ``"wgmma"`` (tensor cores through wgmma: ``csrc/flash_fwd.cu``,
   ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128, ``"small"``
   (``csrc/flash_small.cu``: mma.sync with ldmatrix fragments, P and dS in
@@ -25,10 +30,11 @@ restricting attention to equal ids.
   tensors the same function takes the plain versions. A CUDA tensor the
   kernels cannot take raises; there is no fallback from one kernel to
   another or to the plain version.
-- :func:`flash_attention_reference` (``o`` and the log-sum-exp) and
+- :func:`flash_attention_reference` (``o`` and the log-sum-exp),
+  :func:`flash_delta_reference` (delta) and
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
-  the Pallas kernels' arithmetic.
+  the Pallas kernels' arithmetic but for bf16's delta.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
   kernel wrappers; each adds one to its ``launches`` where it launches, and
   also to ``launches_<route>`` on every route but ``"mma"``
@@ -124,25 +130,56 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     return o.reshape(b, sq, h, d).to(q.dtype), lse.reshape(b, h, sq)
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
-                                  softmax_scale: float | None = None,
-                                  q_segment_ids=None, kv_segment_ids=None):
-    """Plain version of the two backward kernels: P recomputed as
-    exp(s − lse) (0 where s ≤ NEG_INF/2), delta = rowsum(dO·O) in f32,
-    dS = P·(dP − delta)·scale cast to k's dtype, P cast to dO's dtype for
-    dV; dK and dV summed over each KV head's query group. Returns
-    ``dq, dk, dv`` in q's, k's and v's dtypes."""
-    b, sq, sk, h, hkv, d = _shapes(q, k, v, q_segment_ids, kv_segment_ids)
+def _p_dp(q, k, v, lse, do, scale, causal, segq, segk):
+    """P = exp(s − lse) (0 where s ≤ NEG_INF/2) and dP = dO·V^T in f32,
+    ``[B, Hkv, group, Sq, Sk]``."""
+    b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
     g = h // hkv
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    s = _scores(q, k, scale, causal, q_segment_ids, kv_segment_ids)
+    s = _scores(q, k, scale, causal, segq, segk)
     p = torch.exp(s - lse.reshape(b, hkv, g, sq)[..., None])
     p = p.masked_fill(s <= NEG_INF / 2, 0.0)
     dof = do.reshape(b, sq, hkv, g, d).float()
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
-    delta = (dof * o.reshape(b, sq, hkv, g, d).float()).sum(-1)
-    ds = (p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale).to(
-        k.dtype).float()
+    return p, dp
+
+
+def flash_delta_reference(q, k, v, lse, do, *, causal: bool = False,
+                          softmax_scale: float | None = None,
+                          q_segment_ids=None, kv_segment_ids=None):
+    """Plain version of :func:`flash_bwd_delta`: delta = sum over keys of
+    P·dP in f32, ``[B, H, Sq]`` (0 for a row that sees no key)."""
+    b, sq, sk, h, hkv, d = _shapes(q, k, v, q_segment_ids, kv_segment_ids)
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    p, dp = _p_dp(q, k, v, lse, do, scale, causal, q_segment_ids,
+                  kv_segment_ids)
+    return (p * dp).sum(-1).reshape(b, h, sq)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
+                                  softmax_scale: float | None = None,
+                                  q_segment_ids=None, kv_segment_ids=None,
+                                  delta=None):
+    """Plain version of the two backward kernels: P recomputed as
+    exp(s − lse) (0 where s ≤ NEG_INF/2), delta in f32 (``[B, H, Sq]``;
+    when not given, f32: rowsum(dO·O), as the JAX wrapper; bf16: the sum
+    over keys of P·dP, as :func:`flash_bwd_delta`), dS = P·(dP −
+    delta)·scale cast to k's dtype, P cast to dO's dtype for dV; dK and dV
+    summed over each KV head's query group. Returns ``dq, dk, dv`` in q's,
+    k's and v's dtypes."""
+    b, sq, sk, h, hkv, d = _shapes(q, k, v, q_segment_ids, kv_segment_ids)
+    g = h // hkv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    p, dp = _p_dp(q, k, v, lse, do, scale, causal, q_segment_ids,
+                  kv_segment_ids)
+    dof = do.reshape(b, sq, hkv, g, d).float()
+    if delta is not None:
+        delta = delta.float().reshape(b, hkv, g, sq)
+    elif q.dtype == torch.float32:
+        delta = (dof * o.reshape(b, sq, hkv, g, d).float()).sum(-1).permute(
+            0, 2, 3, 1)
+    else:
+        delta = (p * dp).sum(-1)
+    ds = (p * (dp - delta[..., None]) * scale).to(k.dtype).float()
     qf = q.reshape(b, sq, hkv, g, d).float()
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
@@ -391,6 +428,32 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
     return dk, dv
 
 
+def flash_bwd_delta(q, k, v, do, lse, segq, segk, causal: bool,
+                    scale: float):
+    """delta ``[B, H, Sq]`` f32 for the bf16 backward on the card:
+    ``flash_delta_kernel`` (``csrc/flash_delta.cu``), the sum over keys of
+    P·dP with P and dP as the dQ and dK/dV kernels recompute them. Adds
+    one to ``flash_bwd_delta.launches``. bf16 CUDA tensors at a head dim
+    in ``HEAD_DIMS`` only; anything else raises."""
+    b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash delta kernel for device {q.device}")
+    _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse}, segq, segk)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the delta kernel takes bfloat16, got {q.dtype}")
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _delta_library().flash_bwd_delta(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), _ptr(segq), _ptr(segk), delta.data_ptr(), b, sq,
+            sk, h, hkv, d, int(causal), _DTYPE_CODE[q.dtype], scale,
+            _stream(q.device))
+    if rc:
+        raise RuntimeError(f"flash delta launch failed: CUDA error {rc}")
+    flash_bwd_delta.launches += 1
+    return delta
+
+
 def _count(wrapper, route: str) -> None:
     """One launch of a wrapper on ``route``: ``launches``, and
     ``launches_<route>`` for every route but ``"mma"``."""
@@ -412,6 +475,7 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_wgmma = 0
 flash_bwd_dkv.launches_tf32x3 = 0
 flash_bwd_dkv.launches_small = 0
+flash_bwd_delta.launches = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
@@ -425,15 +489,18 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
                    scale: float):
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
-    delta = rowsum(dO·O) (a PyTorch reduction), then the dQ kernel, then
-    the dK/dV kernel, each on :func:`_bwd_route`'s route for it (float32:
-    ``"tf32x3"``; bf16 at head_dim 16 or 32: ``"small"``; at 64 or 128:
-    ``"wgmma"``)."""
+    delta (bf16: :func:`flash_bwd_delta`; f32: rowsum(dO·O), a PyTorch
+    reduction), then the dQ kernel, then the dK/dV kernel, each on
+    :func:`_bwd_route`'s route for it (float32: ``"tf32x3"``; bf16 at
+    head_dim 16 or 32: ``"small"``; at 64 or 128: ``"wgmma"``)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, softmax_scale=scale,
             q_segment_ids=segq, kv_segment_ids=segk)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    if q.dtype == torch.float32:
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    else:
+        delta = flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, segq, segk, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal,
                            scale)
@@ -535,6 +602,16 @@ def _fwd_tf32x3_library():
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attn_fwd_tf32x3.restype = ctypes.c_int
+    return lib
+
+
+def _delta_library():
+    lib = _build.load("flash_delta")
+    if lib.flash_bwd_delta.argtypes is None:
+        lib.flash_bwd_delta.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_bwd_delta.restype = ctypes.c_int
     return lib
 
 

@@ -207,6 +207,71 @@ def make_train_step(loss_fn: LossFn, optimizer, group=None,
     return step
 
 
+class StatsTrainState(NamedTuple):
+    """A :class:`TrainState` that also carries a model's running
+    statistics (BatchNorm's ``mean`` and ``var`` buffers, by buffer name):
+    JAX ``examples/train_zoo.py`` ``ResNetState``. The step writes the
+    buffers in place, so a checkpoint restore (``copy_``) reaches them."""
+
+    params: dict
+    batch_stats: dict
+    opt_state: Any
+    step: int
+
+
+def init_stats_state(params: dict, batch_stats: dict,
+                     optimizer) -> StatsTrainState:
+    """The initial state over ``params`` and the model's running-statistic
+    buffers ``batch_stats`` (both updated in place by the step)."""
+    return StatsTrainState(params=params, batch_stats=batch_stats,
+                           opt_state=optimizer.init(params), step=0)
+
+
+def make_stats_train_step(loss_fn: LossFn, optimizer, group=None):
+    """The data-parallel step of a model with running statistics, ``step(
+    state, batch, seed) -> (state, loss, aux)`` over a
+    :class:`StatsTrainState` (JAX ``make_resnet_step``). ``loss_fn``
+    returns ``aux["batch_stats"]``, the new running statistics by buffer
+    name ({} for a model without them); the step averages the gradients,
+    those statistics, the loss and the scalar aux across replicas (pmean,
+    as JAX's step does every step, so every replica keeps the same
+    statistics), applies the optimizer, and writes the statistics into
+    ``state.batch_stats``."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_stats_train_step needs a torch.distributed process group: "
+            "call parallel.distributed.initialize_from_env() or "
+            "initialize_single() first")
+
+    def step(state: StatsTrainState, batch: dict, seed: int):
+        params = state.params
+        device = next(iter(params.values())).device
+        batch = to_device(batch, device)
+        for p in params.values():
+            p.grad = None
+        gen = _generator(fold_in(seed, dist.get_rank(group)), device)
+        loss, aux = loss_fn(batch, gen)
+        loss.backward()
+        stats = {k: v.detach() for k, v in aux.pop("batch_stats").items()}
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        collectives.tree_pmean(grads, group)
+        collectives.tree_pmean(stats, group)
+        loss, aux = _pmean_scalars(loss.detach(),
+                                   {k: v.detach() for k, v in aux.items()},
+                                   group)
+        opt_state = optimizer.apply(params, grads, state.opt_state)
+        for p in params.values():
+            p.grad = None
+        with torch.no_grad():
+            for name, value in stats.items():
+                state.batch_stats[name].copy_(value)
+        return state._replace(opt_state=opt_state,
+                              step=state.step + 1), loss, aux
+
+    return step
+
+
 @torch.no_grad()
 def broadcast_params(params: dict, group=None, root: int = 0) -> dict:
     """One-time root broadcast of the initial parameters, in place (parity

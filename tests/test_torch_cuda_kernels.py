@@ -1154,7 +1154,7 @@ def _flash_bwd_case(dev, shape, seed, dtype=torch.bfloat16):
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     want = fa.flash_attention_bwd_reference(
         q, k, v, o, lse, do, causal=causal, q_segment_ids=segq,
-        kv_segment_ids=segk)
+        kv_segment_ids=segk, delta=delta)
     return (q, k, v, do, lse, delta, segq, segk, causal, scale), want
 
 
@@ -1643,7 +1643,7 @@ def test_flash_small_matches_reference(hopper, shape):
         args = (q, k, v, do, lse, delta, segq, segk, causal, scale)
         want = fa.flash_attention_bwd_reference(
             q, k, v, ref_o, lse, do, causal=causal, q_segment_ids=segq,
-            kv_segment_ids=segk)
+            kv_segment_ids=segk, delta=delta)
     before = _small_counts()
     o, got_lse = fa.flash_fwd(q, k, v, segq, segk, causal, scale)
     dq = fa.flash_bwd_dq(*args)
@@ -2248,3 +2248,44 @@ def test_checkpoint_resume_round_trip_on_the_card(hopper, tmp_path):
         distributed.shutdown()
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+
+
+# ---- the bf16 flash backward's delta kernel (csrc/flash_delta.cu): the
+# sum over keys of P dP, against flash_delta_reference at the f32 limit
+# (both sum f32 products, in different orders), over FLASH_SHAPES (head
+# dims 16-128, ragged lengths, causal or not, segment ids).
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_delta_matches_reference(hopper, shape):
+    q, k, v, do, segq, segk, causal = _flash_inputs(hopper, torch.bfloat16,
+                                                    shape, 31)
+    scale = q.shape[-1] ** -0.5
+    _, lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    before = fa.flash_bwd_delta.launches
+    got = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale)
+    again = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_delta_reference(q, k, v, lse, do, causal=causal,
+                                    q_segment_ids=segq,
+                                    kv_segment_ids=segk)
+    assert fa.flash_bwd_delta.launches == before + 2
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got[..., None], want[..., None], (1e-4, 1e-4), "delta")
+    assert torch.equal(got, again)
+    blind = lse <= -1e29
+    assert torch.equal(got[blind], torch.zeros_like(got[blind]))
+
+
+def test_flash_delta_refuses_what_it_does_not_take(hopper):
+    q, k, v, do, _, _, _ = _flash_inputs(
+        hopper, torch.float32, (1, 64, 64, 2, 2, 64, False, False), 1)
+    _, lse = fa.flash_attention_reference(q, k, v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125)
+    q, k, v, do, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 2, 2, 80, False, False), 1)
+    _, lse = fa.flash_attention_reference(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125)

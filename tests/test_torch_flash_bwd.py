@@ -201,19 +201,25 @@ def test_kernel_model_matches_pallas_backward(shape):
                        for x in (q, k, v, do))
     to = _t(np.asarray(o.astype(jnp.float32))).to(torch.bfloat16)
     tlse = _t(np.asarray(lse)).reshape(shape[0], shape[3], shape[1])
+    # Pallas's delta (rowsum(dO·O)) against Pallas, the port's bf16 delta
+    # (the sum of P·dP, flash_bwd_delta's) against the plain version.
     delta = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
-    got = kernel_model(tq, tk, tv, tdo, tlse, delta, causal=causal,
-                       scale=scale, segq=_t(segq), segk=_t(segk))
+    kw = dict(causal=causal, scale=scale, segq=_t(segq), segk=_t(segk))
+    got = kernel_model(tq, tk, tv, tdo, tlse, delta, **kw)
+    got_port = kernel_model(
+        tq, tk, tv, tdo, tlse, fa.flash_delta_reference(
+            tq, tk, tv, tlse, tdo, causal=causal, softmax_scale=scale,
+            q_segment_ids=_t(segq), kv_segment_ids=_t(segk)), **kw)
     plain = fa.flash_attention_bwd_reference(
         tq, tk, tv, to, tlse, tdo, causal=causal, softmax_scale=scale,
         q_segment_ids=_t(segq), kv_segment_ids=_t(segk))
-    for name, mine, ref, ref_plain in zip(("dq", "dk", "dv"), got, want,
-                                          plain):
+    for name, mine, port, ref, ref_plain in zip(("dq", "dk", "dv"), got,
+                                                got_port, want, plain):
         ref = _t(np.asarray(ref.astype(jnp.float32)))
         assert mine.shape == ref.shape and mine.dtype == torch.bfloat16
         assert torch.isfinite(mine.float()).all(), name
         _close(mine, ref, BF16_TOL, f"{name} vs Pallas")
-        _close(mine, ref_plain, BF16_TOL, f"{name} vs the plain version")
+        _close(port, ref_plain, BF16_TOL, f"{name} vs the plain version")
     if segq is not None:                 # rows that see no key: exactly 0
         assert torch.all(got[0][0, 5:9] == 0)
 

@@ -387,7 +387,7 @@ def test_dkv_model_matches_pallas_backward(shape):
     delta = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
     plain = fa.flash_attention_bwd_reference(
         tq, tk, tv, to, tlse, tdo, causal=causal, softmax_scale=scale,
-        q_segment_ids=_t(segq), kv_segment_ids=_t(segk))[1:]
+        q_segment_ids=_t(segq), kv_segment_ids=_t(segk), delta=delta)[1:]
     splits = fa._dkv_small_splits(b, hkv, sq, sk, h // hkv, causal, 132)
     for n in sorted({splits, 1}):
         got = dkv_model(tq, tk, tv, tdo, tlse, delta, causal=causal,
@@ -423,7 +423,7 @@ def test_dq_model_matches_pallas_backward(shape):
     delta = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
     plain = fa.flash_attention_bwd_reference(
         tq, tk, tv, to, tlse, tdo, causal=causal, softmax_scale=scale,
-        q_segment_ids=_t(segq), kv_segment_ids=_t(segk))[0]
+        q_segment_ids=_t(segq), kv_segment_ids=_t(segk), delta=delta)[0]
     got = dq_model(tq, tk, tv, tdo, tlse, delta, causal=causal,
                    scale=scale, segq=_t(segq), segk=_t(segk))
     assert got.shape == want.shape and got.dtype == torch.bfloat16

@@ -214,7 +214,8 @@ def _port_files():
         "*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "kernel_breakdown.py",
                     REPO / "examples" / "generate_llama_torch.py",
-                    REPO / "examples" / "train_mnist_torch.py"]
+                    REPO / "examples" / "train_mnist_torch.py",
+                    REPO / "examples" / "train_zoo_torch.py"]
 
 
 def test_import_scan_covers_every_subpackage():
@@ -222,7 +223,8 @@ def test_import_scan_covers_every_subpackage():
     (faults, telemetry, the serving fleet modules), the wire half's
     (transport, retry, the registry, exporter, heartbeat, tracer, events,
     bridge and profiling modules), graftscope's readers (timeline and
-    its CLI), the fleet controller, the launch layer and the examples."""
+    its CLI), the fleet controller, the launch layer, the model zoo and
+    the examples."""
     files = _port_files()
     dirs = {p.parent.name for p in files}
     assert {"models", "ops", "serve", "utils", "train", "parallel",
@@ -234,7 +236,8 @@ def test_import_scan_covers_every_subpackage():
             "events.py", "bridge.py", "profiling.py", "timeline.py",
             "graftscope.py", "generate_llama_torch.py", "autoscale.py",
             "render.py", "validate.py", "watch.py", "elastic.py",
-            "local_executor.py", "train_mnist_torch.py"} <= names
+            "local_executor.py", "train_mnist_torch.py",
+            "train_zoo_torch.py", "bert.py", "vit.py", "resnet.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,6 +1,6 @@
 """Rank worker for the port's multi-process tests
 (tests/test_torch_data_parallel.py, test_torch_fusion.py,
-test_torch_checkpoint.py).
+test_torch_checkpoint.py, test_torch_train_zoo.py).
 
 Imports torch and the port only, so the spawned rank processes never
 import JAX. Each rank joins a gloo group on localhost, reads its inputs
@@ -105,6 +105,40 @@ def _step(rank, data):
     return out
 
 
+def _zoo(rank, data):
+    """``examples/train_zoo_torch.py --model resnet18`` on this rank for
+    ``steps`` steps (each rank its own shard of the batch); the BN buffers
+    and the parameters its state holds after them."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "train_zoo_torch.py")
+    spec = importlib.util.spec_from_file_location("train_zoo_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    captured = {}
+    fit = example.loop.fit
+
+    def capture(*args, **kw):
+        captured["state"] = fit(*args, **kw)
+        return captured["state"]
+
+    example.loop.fit = capture
+    try:
+        example.main(["--model", "resnet18", "--device", "cpu",
+                      "--num-steps", str(int(data["steps"])),
+                      "--batch-size", "4", "--log-every", "0",
+                      "--prefetch", "0",
+                      "--checkpoint-dir", str(data["ckdir"])])
+    finally:
+        example.loop.fit = fit
+    state = captured["state"]
+    return {**{f"stats/{k}": v.numpy() for k, v in state.batch_stats.items()},
+            **{f"params/{k}": v.detach().numpy()
+               for k, v in state.params.items()}}
+
+
 def run_rank(rank: int, world: int, port: int, directory: str,
              mode: str) -> None:
     torch.set_num_threads(1)
@@ -113,7 +147,7 @@ def run_rank(rank: int, world: int, port: int, directory: str,
     try:
         data = dict(np.load(f"{directory}/in.npz"))
         out = {"reduce": _reduce, "step": _step, "bucketed": _bucketed,
-               "agree": _agree}[mode](rank, data)
+               "agree": _agree, "zoo": _zoo}[mode](rank, data)
         np.savez(f"{directory}/out_{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
