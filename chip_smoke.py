@@ -77,9 +77,12 @@ D. The flash-attention kernels against their plain PyTorch versions on
    16, causal) and at its head_dim-32 twin with three documents, and at
    the zoo's encoders, non-causal at head_dim 64: BERT-base (B 16, S 512,
    12/12 heads) and ViT-L/16 (B 32, S 197, 16/16 heads). In bf16 also the
-   backward's delta kernel (``csrc/flash_delta.cu``: the sum of P dP over
-   the keys) against its plain version at the f32 limit, twice bitwise,
-   and 0 on rows that see no key. The
+   backward's delta (``csrc/flash_delta.cu``: the sum of P dP over the
+   keys) on each route: the wgmma kernel at head_dim 64/128 beside the
+   small one forced on the same inputs, the small one at 16/32; each
+   against its plain version at the f32 limit, twice bitwise, and 0 on
+   rows that see no key, timed beside rowsum(dO * O), JAX's delta (a
+   different function). The
    forward and the backward on every route: in bf16 the tensor-core
    kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
    (``"wgmma"``, head_dim 64/128) or of ``csrc/flash_small.cu``
@@ -113,8 +116,8 @@ E. Training at Llama-3 8B width, 4 layers (``config_llama3_8b(n_layers=4,
    batch bring the loss down by the stated margin; then a timed window of
    steps gives tokens/s, step ms, peak memory and the model-FLOPs share,
    the kernel launches per step are checked exactly (forward 2 x layers
-   with the remat recompute, dQ and dK/dV once per layer, all on the
-   wgmma route), and one profiled step gives device time by class and the
+   with the remat recompute, dQ, dK/dV and delta once per layer, all on
+   the wgmma route), and one profiled step gives device time by class and the
    busy share.
 F. Three AdamW steps in f32 (TF32 off: cuBLAS and cuDNN hold f32; the
    flash backward's three-pass TF32 split is f32-accurate and is not the
@@ -165,8 +168,8 @@ H. Dropless MoE training at the slice's configuration: the Llama-small
    batch's loss falls by phase E's margin in 8 steps; a timed window gives
    tokens/s, step ms, peak memory and the model-FLOPs share
    (``moe.flops_per_token``); the launches a step are checked exactly (gmm
-   6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ and dK/dV
-   once a layer, all five on the wgmma route); one profiled step gives
+   6 x layers, tgmm 3 x layers, flash forward 2 x layers, dQ, dK/dV and
+   delta once a layer, all six on the wgmma route); one profiled step gives
    device time by class.
 I. The same model at 2 layers in f32 (TF32 off), B 2, S 1024: 3 AdamW
    steps from the same weights through the kernels (``dispatch="ragged"``,
@@ -280,7 +283,8 @@ Q. The train CLI's tiny preset at 1,024 tokens (dim 64, 4/2 heads,
    AdamW steps on one fixed batch through ``make_train_step``: the loss
    falls by phase E's margin, each flash backward kernel launches once a
    layer a step, and the forward at least as often, on its dtype's route
-   (bf16 at head_dim 16: small; f32: tf32x3) and on no other; at the
+   (bf16 at head_dim 16: small; f32: tf32x3) and on no other, and bf16's
+   delta kernel once a layer a step on the small route; at the
    path's attention shape that route's backward is within phase D's limit
    of the plain version.
 
@@ -344,7 +348,7 @@ T. The training loop's hooks and graftscope's readers (run after O).
    ``fit`` with every hook on: a ``Tracer`` into a JSONL file, a
    ``HeartbeatWriter``, a ``TrainTelemetry``, a ``StepProfiler`` over
    steps 4-6 and the ``quant_calib`` dump. Flash launches exactly E's a
-   step by route; the profiler's trace holds the three wgmma flash
+   step by route; the profiler's trace holds the four wgmma flash
    kernels; ``train_steps_total`` renders 12; the heartbeat reads step
    12; graftscope's readers find 12 steps, each with ``data_wait`` and
    ``step``. Reports the losses, the step ms against E's, the critical
@@ -427,8 +431,8 @@ V. The rest of the model zoo (``models/resnet.py``, ``bert.py``,
    ``attention_impl="auto"`` (the einsum path at these lengths, as JAX's
    rule picks) and ``"flash"``: the fixed-batch loss falls, tokens/s or
    images/s, step ms, the model-FLOPs share, peak memory, launches exact
-   (auto: none; flash: a forward, a dQ and a dK/dV a layer, all on wgmma,
-   none on mma); then phase F_bf16's rule on one step's gradients from the
+   (auto: none; flash: a forward, a dQ, a dK/dV and a delta a layer, all
+   on wgmma, none on mma or small); then phase F_bf16's rule on one step's gradients from the
    same weights (ViT's head drawn from the seed): each tensor's relative
    L2 distance from the f32 einsum path, the bf16 flash path's at most
    1.25 x the bf16 einsum path's + 2^-10. V4: BERT-base and ViT-L widths
@@ -1290,6 +1294,7 @@ def _kernel_class(name: str) -> str:
                      ("flash_dkv_wgmma", "flash_dkv_wgmma"),
                      ("flash_dq_tf32x3", "flash_dq_tf32x3"),
                      ("flash_dkv_tf32x3", "flash_dkv_tf32x3"),
+                     ("flash_delta_wgmma", "flash_delta_wgmma"),
                      ("flash_delta", "flash_delta"),
                      ("gmm_kernel", "gmm"),         # gmm_ and tgmm_kernel
                      ("gmm_wgmma", "gmm_wgmma"),    # gmm_ and tgmm_wgmma
@@ -3954,7 +3959,8 @@ FLASH_KERNELS = {
     "flash_fwd_small": ("flash_small.cu", "flash_fwd"),
     "flash_bwd_dq_small": ("flash_small.cu", "flash_bwd_dq"),
     "flash_bwd_dkv_small": ("flash_small.cu", "flash_bwd_dkv"),
-    "flash_bwd_delta": ("flash_delta.cu", "flash_bwd_delta"),
+    "flash_bwd_delta_wgmma": ("flash_delta.cu", "flash_bwd_delta"),
+    "flash_bwd_delta_small": ("flash_delta.cu", "flash_bwd_delta"),
 }
 # Routes other than "mma", whose launches a wrapper counts apart
 # (``launches_<route>``) and whose kernel lines carry ``_<route>``.
@@ -4119,8 +4125,9 @@ def _blind_rows(dev):
     key carries) and keys no row sees (a key segment id no query carries),
     in bf16 and f32 at 8B's head_dim and in bf16 at head_dim 16 (the small
     kernels): every backward route gives exactly the plain version's dQ, dK
-    and dV there (0), and every forward route but mma (wgmma, tf32x3,
-    small) O = 0 and the plain lse. Returns the routes checked."""
+    and dV there (0), every forward route but mma (wgmma, tf32x3, small)
+    O = 0 and the plain lse, and the bf16 delta on each of its routes 0.
+    Returns the routes checked."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     checked = []
@@ -4160,12 +4167,14 @@ def _blind_rows(dev):
                       f"version")
                 checked.append(f"{which}:{route}/{dname}")
         if dtype == torch.bfloat16:
-            got_delta = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk,
-                                           True, hd ** -0.5)
-            torch.cuda.synchronize()
-            check(bool((got_delta[lse <= -1e29] == 0).all()),
-                  f"delta, {dname}: rows that see no key are not 0")
-            checked.append(f"delta/{dname}")
+            for route in sorted({"small", fa._delta_route(hd)}):
+                got_delta = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk,
+                                               True, hd ** -0.5, route=route)
+                torch.cuda.synchronize()
+                check(bool((got_delta[lse <= -1e29] == 0).all()),
+                      f"{route} delta, {dname}: rows that see no key are "
+                      f"not 0")
+                checked.append(f"delta:{route}/{dname}")
         route = fa._fwd_route(dtype, hd)
         if route != "mma":
             o2, lse2 = fa.flash_fwd(q, k, v, segq, segk, True, hd ** -0.5)
@@ -4184,10 +4193,14 @@ def phase_d(dev, flush):
     have (bf16 at head_dim 64/128: the wgmma kernels; bf16 at 16/32: the
     small kernels; f32: the tf32x3 kernels; each beside flash_attn.cu's
     mma kernels forced) on the same inputs, and each default route launched
-    twice for bitwise equality; in bf16 also the backward's delta kernel
-    (``csrc/flash_delta.cu``) against its plain version at the f32 limit,
-    twice bitwise; then rows that see no key on every backward route, on
-    every forward route but mma and on the delta kernel."""
+    twice for bitwise equality; in bf16 also the backward's delta
+    (``csrc/flash_delta.cu``) on each route its head dim has (64/128: the
+    wgmma kernel, and the small one forced on the same inputs; 16/32: the
+    small one) against its plain version at the f32 limit, each twice
+    bitwise and 0 on rows that see no key, timed beside rowsum(dO * O)
+    (JAX's delta, a different function); then rows that see no key on
+    every backward route, on every forward route but mma and on both delta
+    routes."""
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
 
     rows = {name: [] for name in FLASH_KERNELS}
@@ -4253,24 +4266,32 @@ def phase_d(dev, flush):
                 errs[name] = _flash_err({"dk": (dk, want[1]),
                                          "dv": (dv, want[2])}, tol)
             if dtype == torch.bfloat16:
-                # The bf16 backward's delta (the sum of P dP) against its
-                # plain version, held to the f32 limit: both sum f32
-                # products, in different orders.
+                # The bf16 backward's delta (the sum of P dP) on each route
+                # its head dim has against its plain version, held to the
+                # f32 limit: both sum f32 products, in different orders.
                 want_delta = fa.flash_delta_reference(
                     q, k, v, ref_lse, do, causal=causal,
                     q_segment_ids=segq, kv_segment_ids=segk)
-                got_delta = fa.flash_bwd_delta(q, k, v, do, ref_lse, segq,
-                                               segk, causal, scale)
-                torch.cuda.synchronize()
-                errs["flash_bwd_delta"] = _flash_err(
-                    {"delta": (got_delta[..., None], want_delta[..., None])},
-                    FLASH_TOL[torch.float32])
-                check(torch.equal(got_delta, fa.flash_bwd_delta(
-                    q, k, v, do, ref_lse, segq, segk, causal, scale)),
-                      f"{case}/{dname}: two delta launches differ")
-                del got_delta
+                for route in sorted({"small", fa._delta_route(hd)}):
+                    name = f"flash_bwd_delta_{route}"
+                    got_delta, again = (fa.flash_bwd_delta(
+                        q, k, v, do, ref_lse, segq, segk, causal, scale,
+                        route=route) for _ in range(2))
+                    torch.cuda.synchronize()
+                    errs[name] = _flash_err(
+                        {"delta": (got_delta[..., None],
+                                   want_delta[..., None])},
+                        FLASH_TOL[torch.float32])
+                    check(torch.equal(got_delta, again),
+                          f"{case}/{dname}: two {route} delta launches "
+                          f"differ")
+                    check(bool((got_delta[~seen] == 0).all()),
+                          f"{name} {case}/{dname}: rows that see no key "
+                          f"are not 0")
+                    del got_delta, again
             for name, e in errs.items():
-                lim = FLASH_TOL[torch.float32 if name == "flash_bwd_delta"
+                lim = FLASH_TOL[torch.float32
+                                if name.startswith("flash_bwd_delta")
                                 else dtype]
                 check(e["tol_share"] <= 1.0,
                       f"{name} {case}/{dname}: {e} exceeds |kernel - plain| "
@@ -4332,22 +4353,34 @@ def phase_d(dev, flush):
                     *bwd_args, route=route), flush, 10, host_ahead=True),
                     plain_bwd_ms, lib_fwd_bwd - lib_fwd)
             if dtype == torch.bfloat16:
-                # No single PyTorch call computes the sum of P dP.
-                times["flash_bwd_delta"] = (time_ms(
-                    lambda: fa.flash_bwd_delta(q, k, v, do, ref_lse, segq,
-                                               segk, causal, scale),
-                    flush, 10, host_ahead=True), time_ms(
+                # No single PyTorch call computes the sum of P dP. Beside
+                # each route, rowsum(dO * O) over the same dO and the
+                # forward's O, as the JAX wrapper computes delta: a
+                # different function, the one the sum of P dP replaced.
+                plain_delta_ms = time_ms(
                     lambda: fa.flash_delta_reference(
                         q, k, v, ref_lse, do, causal=causal,
                         q_segment_ids=segq, kv_segment_ids=segk),
-                    flush, 10), None)
+                    flush, 10)
+                rowsum_ms = time_ms(
+                    lambda: (do.float() * ref_o.float()).sum(-1).transpose(
+                        1, 2).contiguous(), flush, 10, host_ahead=True)
+                for route in sorted({"small", fa._delta_route(hd)}):
+                    name = f"flash_bwd_delta_{route}"
+                    times[name] = (time_ms(
+                        lambda: fa.flash_bwd_delta(
+                            q, k, v, do, ref_lse, segq, segk, causal, scale,
+                            route=route),
+                        flush, 10, host_ahead=True), plain_delta_ms, None)
+                    errs[name]["rowsum_do_o_ms"] = rowsum_ms
             b, sq, sk, h, kv, _, _, seg_lens = shape
             for name, (ms, plain_ms, lib_ms) in times.items():
                 bound, by, parts = _flash_bound(name, dtype, shape, pairs)
                 if name.endswith("_tf32x3"):       # the mma line's bound
                     errs[name]["bound_ms_f32_cores"] = _flash_bound(
                         name.removesuffix("_tf32x3"), dtype, shape, pairs)[0]
-                lim = FLASH_TOL[torch.float32 if name == "flash_bwd_delta"
+                lim = FLASH_TOL[torch.float32
+                                if name.startswith("flash_bwd_delta")
                                 else dtype]
                 rows[name].append({
                     "case": case, "dtype": dname, "shape": {
@@ -4870,12 +4903,12 @@ def phase_e(dev):
 def _e_per_step(n: int) -> dict:
     """Phase E's flash launches a step at ``n`` layers. Forward 2 x
     layers: remat "dots" recomputes the flash forward. bf16 at head_dim
-    128 takes the wgmma route throughout; the bf16 backward's delta kernel
-    once a layer."""
+    128 takes the wgmma route throughout, the bf16 backward's delta kernel
+    included, once a layer."""
     return {"flash_fwd": 2 * n, "flash_fwd_wgmma": 2 * n,
             "flash_bwd_dq": n, "flash_bwd_dkv": n,
             "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n,
-            "flash_bwd_delta": n}
+            "flash_bwd_delta": n, "flash_bwd_delta_wgmma": n}
 
 
 def _moe_slice(n_layers: int | None = None):
@@ -4901,7 +4934,7 @@ def _moe_slice(n_layers: int | None = None):
                 "flash_fwd_wgmma": 2 * n,
                 "flash_bwd_dq": n, "flash_bwd_dkv": n,
                 "flash_bwd_dq_wgmma": n, "flash_bwd_dkv_wgmma": n,
-                "flash_bwd_delta": n}
+                "flash_bwd_delta": n, "flash_bwd_delta_wgmma": n}
     return cfg, mcfg, seq, per_step
 
 
@@ -5006,8 +5039,9 @@ def phase_f(dev):
 def phase_f_bf16(dev):
     """Phase F's model and first batch in bf16 compute (f32 params): one
     step's gradients through the flash kernels on the wgmma route and on
-    the mma route (forced), each held per parameter tensor to the f32
-    plain path's (``attention_impl="xla"``), from the same weights."""
+    the mma route (forced for dQ and dK/dV; delta on its wgmma kernel in
+    both), each held per parameter tensor to the f32 plain path's
+    (``attention_impl="xla"``), from the same weights."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
     from k8s_distributed_deeplearning_torch.parallel import (
@@ -5068,7 +5102,9 @@ def phase_f_bf16(dev):
     check(launches["wgmma"].get("flash_bwd_dq_wgmma") == 2
           and launches["wgmma"].get("flash_bwd_dkv_wgmma") == 2
           and "flash_bwd_dq_wgmma" not in launches["mma"]
-          and launches["mma"].get("flash_bwd_dq") == 2,
+          and launches["mma"].get("flash_bwd_dq") == 2
+          and all(launches[r].get("flash_bwd_delta_wgmma") == 2
+                  for r in launches),
           f"bf16 step launches by route: {launches}")
     name = result["worst_param"]
     check(max(worst.values()) <= 1.0,
@@ -5145,7 +5181,8 @@ def phase_q(dev):
     below phase E's margin; each flash backward kernel launches once a
     layer a step on its route (bf16 at head_dim 16: small; f32: tf32x3) and
     on no other, the forward at least as often on the same route and on no
-    other; then, at the path's attention shape, the backward kernels of
+    other, bf16's delta kernel once a layer a step on the small route;
+    then, at the path's attention shape, the backward kernels of
     those routes against the plain version within phase D's limit."""
     from k8s_distributed_deeplearning_torch.models import llama
     from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
@@ -5189,6 +5226,16 @@ def phase_q(dev):
               f"tiny preset, {dname}: flash launches {launches}, want {n} "
               f"of each backward and at least {n} forward, each on its "
               f"route {route} alone")
+        # bf16's delta kernel once a layer a step, on the small route (head
+        # dim 16); f32 computes rowsum(dO * O) in PyTorch.
+        want_delta = n if dtype == torch.bfloat16 else 0
+        delta_route = fa._delta_route(hd)
+        check(launches["flash_bwd_delta"] == want_delta
+              and launches[f"flash_bwd_delta_{delta_route}"] == want_delta,
+              f"tiny preset, {dname}: delta launches {launches}, want "
+              f"{want_delta} on the {delta_route} route alone")
+        if dtype == torch.bfloat16:
+            route["flash_bwd_delta"] = delta_route
         shape = (batch_size, seq, seq, cfg.n_heads, cfg.n_kv_heads, hd, True,
                  None)
         q, k, v, do, segq, segk = _flash_case(dev, dtype, shape, 7)
@@ -5361,8 +5408,9 @@ def _t1(dev, tmp: Path, shards: Path, e_result: dict):
           f"T1 losses {loss_f}")
     traced = _trace_kernels(prof_dir / "trace.json")
     check(all(traced.get(k, 0) > 0 for k in
-              ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")),
-          f"T1 profiler trace kernels {traced}: want the three wgmma "
+              ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
+               "flash_delta_wgmma")),
+          f"T1 profiler trace kernels {traced}: want the four wgmma "
           "flash kernels")
     found = re.search(r"^train_steps_total (\S+)$", registry.render(), re.M)
     check(found is not None and float(found.group(1)) == T_STEPS,
@@ -6299,7 +6347,7 @@ def _flash_entries(rows, e_result, f_result, q_result, v_result):
             "q_tiny_causal" if route == "small" else "causal")
             and c["dtype"] == ("float32" if route == "tf32x3"
                                else "bfloat16"))
-        if route == "wgmma" or name == "flash_bwd_delta":
+        if route == "wgmma":
             where, counts = "E", e_result["launches"]
         elif route == "tf32x3" or (wrapper == "flash_fwd"
                                    and route == "mma"):
@@ -6307,12 +6355,12 @@ def _flash_entries(rows, e_result, f_result, q_result, v_result):
         else:
             where = "Q (bf16, head_dim 16)"
             counts = q_result["bfloat16"]["launches"]
-        if route != "mma" or name == "flash_bwd_delta":
+        if route != "mma":
             launched = counts.get(name, 0)
         else:       # the counts hold nonzero entries alone
             launched = _mma_launches(counts, name) if name in counts else 0
         zoo = {}
-        if route == "wgmma" or name == "flash_bwd_delta":
+        if route == "wgmma":
             zoo = {p: round(v_result[p]["runs"]["flash"][
                 "launches_per_step"].get(name, 0) * V_TIMED)
                 for p in ("V2", "V3")}
@@ -6326,12 +6374,13 @@ def _flash_entries(rows, e_result, f_result, q_result, v_result):
             "launches": launched, "launches_in": where,
             **({"launches_zoo": zoo} if zoo else {}),
             **{k: rep[k] for k in keys},
-            **({"bound_ms_f32_cores": rep["bound_ms_f32_cores"]}
-               if "bound_ms_f32_cores" in rep else {}),
+            **{k: rep[k] for k in ("bound_ms_f32_cores", "rowsum_do_o_ms")
+               if k in rep},
             "bound_parts_ms": rep["bound_parts_ms"],
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err",
                                           "tol_share", *keys[1:],
-                                          "library_backend")}
+                                          "library_backend",
+                                          "rowsum_do_o_ms") if k in c}
                       for c in cases]})
     return out
 
@@ -6559,10 +6608,11 @@ def _v_masked(tokens, vocab, seed):
 
 def _v_flash_per_step(layers: int, route: str) -> dict:
     """Flash launches a step of an encoder without remat: one forward, one
-    dQ and one dK/dV a layer, all on ``route``, and the bf16 backward's
-    delta kernel once a layer."""
-    out = {"flash_bwd_delta": layers}
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    dQ, one dK/dV and the bf16 backward's delta a layer, all on
+    ``route``."""
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_delta"):
         out[name] = out[f"{name}_{route}"] = layers
     return out
 

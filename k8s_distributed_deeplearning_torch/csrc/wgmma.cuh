@@ -1,5 +1,6 @@
 // Helpers shared by the port's tensor-core kernels (paged_prefill.cu,
-// paged_decode.cu, flash_bwd.cu, flash_fwd.cu, gmm_wgmma.cu): the
+// paged_decode.cu, flash_bwd.cu, flash_fwd.cu, flash_delta.cu,
+// gmm_wgmma.cu): the
 // 128-byte swizzled tile layout and its wgmma descriptors, cp.async
 // copies, the wgmma fences, commits and waits, the m64n64k16 and
 // m64n128k16 bf16 products, the m64n256k16 one from shared memory with
@@ -183,11 +184,14 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-// d (m64n64, f32) += A (64 x 16, registers) . B (16 x 64, shared memory,
-// N-major: trans-b = 1).
+// d (m64n64, f32) = A (64 x 16, registers) . B (16 x 64, shared memory),
+// + d when `accumulate` is nonzero (the default). TRANS_B = 1 (the
+// default) reads B N-major, 0 K-major.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -195,7 +199,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -205,7 +209,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TRANS_B));
 }
 
 // d (m64n128, f32) += A (64 x 16, registers) . B (16 x 128, shared memory,

@@ -14,19 +14,22 @@ restricting attention to equal ids.
   the two kernels. In f32 delta is ``rowsum(dO * O)``, a PyTorch
   reduction, as the JAX wrapper computes it outside its kernels; in bf16
   it comes from the kernel :func:`flash_bwd_delta`
-  (``csrc/flash_delta.cu``): the sum over keys of P·dP, the softmax
-  backward's own term, where rowsum(dO·O) of the bf16 output is ~2^-9 of
-  |dO||O| off, which dominates dQ where a row's values are nearly equal.
-  Both rules give
+  (``csrc/flash_delta.cu``) of the route :func:`_delta_route` names:
+  the sum over keys of P·dP, the softmax backward's own term, where
+  rowsum(dO·O) of the bf16 output is ~2^-9 of |dO||O| off, which
+  dominates dQ where a row's values are nearly equal. The rules give
   ``"wgmma"`` (tensor cores through wgmma: ``csrc/flash_fwd.cu``,
-  ``csrc/flash_bwd.cu``) for bf16 at head_dim 64 or 128, ``"small"``
-  (``csrc/flash_small.cu``: mma.sync with ldmatrix fragments, P and dS in
-  registers) for bf16 at head_dim 16 or 32, and ``"tf32x3"``
+  ``csrc/flash_bwd.cu``, ``flash_delta_wgmma``) for bf16 at head_dim 64
+  or 128, ``"small"`` (``csrc/flash_small.cu``, ``flash_delta_kernel``:
+  mma.sync with ldmatrix fragments, P and dS in registers) for bf16 at
+  head_dim 16 or 32, and ``"tf32x3"``
   (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``: tensor cores
   through mma.sync, each f32 product a three-pass TF32 split,
   f32-accurate) for f32 at every head dim. The first kernels, of
   ``csrc/flash_attn.cu`` (mma.sync in bf16, the CUDA cores in f32), are
-  the ``"mma"`` route, which only a caller that names it takes. On CPU
+  the ``"mma"`` route, which only a caller that names it takes (delta
+  has no mma route: its ``"small"`` kernel, ``flash_delta_kernel``,
+  takes every head dim, and a caller may name it at 64 or 128). On CPU
   tensors the same function takes the plain versions. A CUDA tensor the
   kernels cannot take raises; there is no fallback from one kernel to
   another or to the plain version.
@@ -35,10 +38,11 @@ restricting attention to equal ids.
   :func:`flash_attention_bwd_reference` (``dq, dk, dv`` from the forward's
   ``o`` and ``lse``, P recomputed from the LSE) are the plain versions, in
   the Pallas kernels' arithmetic but for bf16's delta.
-- :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the
-  kernel wrappers; each adds one to its ``launches`` where it launches, and
-  also to ``launches_<route>`` on every route but ``"mma"``
-  (``launches_wgmma``, ``launches_tf32x3``, ``launches_small``).
+- :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` and
+  :func:`flash_bwd_delta` are the kernel wrappers; each adds one to its
+  ``launches`` where it launches, and also to ``launches_<route>`` on
+  every route but ``"mma"`` (``launches_wgmma``, ``launches_tf32x3``,
+  ``launches_small``).
 
 The log-sum-exp is ``[B, H, Sq]`` float32: the Pallas ``[B·Hkv, group,
 Sq]`` array, reshaped. The forward is also registered as the operator
@@ -428,29 +432,50 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq, segk, causal: bool,
     return dk, dv
 
 
+def _delta_route(head_dim: int) -> str:
+    """Which delta kernel takes a bf16 CUDA call: ``"wgmma"``
+    (``flash_delta_wgmma`` of ``csrc/flash_delta.cu``, tensor cores) at
+    head_dim 64 or 128; ``"small"`` (``flash_delta_kernel``, mma.sync with
+    ldmatrix, which takes every head dim) otherwise. A caller may name
+    ``"small"`` at 64 or 128, to time it on the same inputs."""
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "small"
+
+
 def flash_bwd_delta(q, k, v, do, lse, segq, segk, causal: bool,
-                    scale: float):
-    """delta ``[B, H, Sq]`` f32 for the bf16 backward on the card:
-    ``flash_delta_kernel`` (``csrc/flash_delta.cu``), the sum over keys of
-    P·dP with P and dP as the dQ and dK/dV kernels recompute them. Adds
-    one to ``flash_bwd_delta.launches``. bf16 CUDA tensors at a head dim
-    in ``HEAD_DIMS`` only; anything else raises."""
+                    scale: float, *, route: str | None = None):
+    """delta ``[B, H, Sq]`` f32 for the bf16 backward on the card, the sum
+    over keys of P·dP with P and dP as the dQ and dK/dV kernels recompute
+    them: ``flash_delta_wgmma`` on the ``"wgmma"`` route,
+    ``flash_delta_kernel`` on ``"small"`` (default: :func:`_delta_route`'s
+    choice). Adds one to ``flash_bwd_delta.launches`` and to
+    ``.launches_<route>``. bf16 CUDA tensors at a head dim the route takes
+    only; anything else raises before any launch."""
     b, sq, sk, h, hkv, d = _shapes(q, k, v, segq, segk)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the delta kernel takes bfloat16, got {q.dtype}")
+    route = _delta_route(d) if route is None else route
+    if route == "wgmma":
+        if d not in WGMMA_HEAD_DIMS:
+            raise TypeError(f"the wgmma delta route takes head_dim "
+                            f"{WGMMA_HEAD_DIMS}, got {d}")
+    elif route != "small":
+        raise ValueError(f"route must be 'wgmma' or 'small', got {route!r}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash delta kernel for device {q.device}")
     _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse}, segq, segk)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the delta kernel takes bfloat16, got {q.dtype}")
+    lib = _delta_library()
+    fn = lib.flash_bwd_delta_wgmma if route == "wgmma" else \
+        lib.flash_bwd_delta
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _delta_library().flash_bwd_delta(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), _ptr(segq), _ptr(segk), delta.data_ptr(), b, sq,
-            sk, h, hkv, d, int(causal), _DTYPE_CODE[q.dtype], scale,
-            _stream(q.device))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), _ptr(segq), _ptr(segk), delta.data_ptr(), b,
+                sq, sk, h, hkv, d, int(causal), _DTYPE_CODE[q.dtype], scale,
+                _stream(q.device))
     if rc:
-        raise RuntimeError(f"flash delta launch failed: CUDA error {rc}")
-    flash_bwd_delta.launches += 1
+        raise RuntimeError(f"flash delta ({route} route) launch failed: "
+                           f"CUDA error {rc}")
+    _count(flash_bwd_delta, route)
     return delta
 
 
@@ -476,6 +501,8 @@ flash_bwd_dkv.launches_wgmma = 0
 flash_bwd_dkv.launches_tf32x3 = 0
 flash_bwd_dkv.launches_small = 0
 flash_bwd_delta.launches = 0
+flash_bwd_delta.launches_wgmma = 0
+flash_bwd_delta.launches_small = 0
 
 
 @torch.library.custom_op("k8s_ddl_torch::flash_fwd", mutates_args=())
@@ -489,8 +516,9 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_backward(q, k, v, o, lse, do, segq, segk, causal: bool,
                    scale: float):
     """``dq, dk, dv``: the plain version on CPU tensors; on CUDA tensors
-    delta (bf16: :func:`flash_bwd_delta`; f32: rowsum(dO·O), a PyTorch
-    reduction), then the dQ kernel, then the dK/dV kernel, each on
+    delta (bf16: :func:`flash_bwd_delta` on :func:`_delta_route`'s route;
+    f32: rowsum(dO·O), a PyTorch reduction), then the dQ kernel, then the
+    dK/dV kernel, each on
     :func:`_bwd_route`'s route for it (float32: ``"tf32x3"``; bf16 at
     head_dim 16 or 32: ``"small"``; at 64 or 128: ``"wgmma"``)."""
     if q.device.type == "cpu":
@@ -608,10 +636,10 @@ def _fwd_tf32x3_library():
 def _delta_library():
     lib = _build.load("flash_delta")
     if lib.flash_bwd_delta.argtypes is None:
-        lib.flash_bwd_delta.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_bwd_delta.restype = ctypes.c_int
+        for fn in (lib.flash_bwd_delta, lib.flash_bwd_delta_wgmma):
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -14,6 +14,7 @@
     python3 kernel_breakdown.py paged_small_f32  # paged_attn_f32.cu, hd 16
     python3 kernel_breakdown.py flash_small  # csrc/flash_small.cu
     python3 kernel_breakdown.py flash_fwd_f32  # csrc/flash_fwd_f32.cu
+    python3 kernel_breakdown.py flash_delta  # csrc/flash_delta.cu
     python3 kernel_breakdown.py flash_bwd --against OTHER_CHECKOUT
 
 Needs one NVIDIA Hopper GPU and nvcc. Builds the kernel's source as it is
@@ -156,6 +157,27 @@ the accumulator by integer XORs), ``no_exp`` (p = the exponent, no ex2),
 ``no_loads`` (no copies after the first tile), ``skeleton`` (none of
 these: the tile loop's waits, barriers, fragment loads, masks and
 bookkeeping).
+
+``flash_delta``: the bf16 backward's delta on both routes (the wgmma
+kernel ``flash_delta_wgmma`` and the small route's ``flash_delta_kernel``,
+forced at these head dims) at phase D's causal bf16 case (B 2, S 2048,
+32/8 heads, head_dim 128) and at BERT-base's attention (B 16, S 512,
+12/12 heads, head_dim 64, bidirectional). Variants: ``no_exp`` (p = the
+exponent, no ex2), ``no_products`` (no S or dP products: wgmma's
+accumulators get 1 added, mma.sync's fragments are folded into one
+accumulator element by integer XORs), ``no_loads`` (no copies after the
+first ring's worth: the wgmma kernel's producer still completes each
+slot's barrier), ``loads_only`` (``no_products`` and ``no_exp``: the
+loads, waits, barriers, masks and FMAs of the tile loop), ``skeleton``
+(``loads_only`` without the copies), ``no_tiles`` (no tile: the launch,
+the Q and dO loads and the epilogue), and, not stages, the wgmma
+kernel's design points ``ss`` (Q and dO read by wgmma from shared
+memory at every head dim), ``rs_one_cta`` (from registers at every head
+dim, one CTA an SM), ``five_slots`` (a five-slot ring), ``tiles_first``
+(without a causal mask too, the launch order by row tile, heaviest
+first, then head), ``heads_first`` (with one too, by head, then row
+tile) and ``two_buffers`` (two buffers of S and dP: tile t + 1's products
+issued before tile t's exponentials; one CTA an SM).
 """
 from __future__ import annotations
 
@@ -438,6 +460,95 @@ FLASH_FWD_F32_VARIANTS["skeleton"] = [
     sub for name in ("no_split", "no_products", "no_exp", "no_loads")
     for sub in FLASH_FWD_F32_VARIANTS[name]]
 
+# flash_delta.cu holds both routes' kernels: a variant leaves its stage
+# out of both.
+FLASH_DELTA_VARIANTS = {
+    "base": [],
+    "no_exp": [
+        ("float p = ex2(fmaf(s[i], sl, -lse2[h]));",
+         "float p = fmaf(s[i], sl, -lse2[h]);", 1),
+        ("acc[h] = fmaf(ex2(fmaf(s[n][e], sl, -lse2[h])), dp[n][e], acc[h]);",
+         "acc[h] = fmaf(fmaf(s[n][e], sl, -lse2[h]), dp[n][e], acc[h]);", 1)],
+    "no_products": [
+        ("    if constexpr (P::A_IN_REGS) {\n#pragma unroll\n",
+         "    for (int i = 0; i < 32; ++i) s[i] += 1.f, dp[i] += 1.f;\n"
+         "    if constexpr (false) {\n#pragma unroll\n", 1),
+        ("    } else {\n      wgmma_ss_rows<HD>(s, q_addr",
+         "    } else if constexpr (false) {\n      wgmma_ss_rows<HD>(s, q_addr",
+         1),
+        *_xor_mma("s", "qa[kk]", "kb", 1), *_xor_mma("dp", "da[kk]", "vb", 1)],
+    # The producer still completes every slot's barrier, with no bytes.
+    "no_loads": [
+        ("mbar_expect(bar, P::STAGE);",
+         "mbar_expect(bar, u < W_STAGES ? P::STAGE : 0);", 1),
+        ("for (int c = 0; c < HD / 64; ++c) {\n          tma_load(",
+         "for (int c = 0; c < (u < W_STAGES ? HD / 64 : 0); ++c) {\n"
+         "          tma_load(", 1),
+        ("    if (t + DIST < n_tiles) fetch(t + DIST, (t + DIST) % STAGES);\n",
+         "", 1)],
+    "no_tiles": [("kend > 0 ? (kend + KT - 1) / KT : 0", "0 * kend", 2)],
+    # Design points beside the wgmma kernel's own: Q and dO read by wgmma
+    # from shared memory at every head dim; from registers at every head
+    # dim (one CTA an SM); a five-slot ring; the causal launch order
+    # always; the other launch order always; two buffers of S and dP, tile
+    # t + 1's products issued before tile t's exponentials and waited for
+    # after them (one CTA an SM, Q and dO from shared memory).
+    "ss": [("static constexpr bool A_IN_REGS = CTAS_PER_SM == 1;",
+            "static constexpr bool A_IN_REGS = false;", 1)],
+    "rs_one_cta": [("static constexpr int CTAS_PER_SM = HD == 128 ? 1 : 2;",
+                    "static constexpr int CTAS_PER_SM = 1;", 1)],
+    "five_slots": [("constexpr int W_STAGES = 4;",
+                    "constexpr int W_STAGES = 5;", 1)],
+    "tiles_first": [("  return !g.causal && g.n_kv * g.batch <= 65535;",
+                     "  return false;", 1)],
+    "heads_first": [("  return !g.causal && g.n_kv * g.batch <= 65535;",
+                     "  return g.n_kv * g.batch <= 65535;", 1)],
+    "two_buffers": [
+        ("static constexpr int CTAS_PER_SM = HD == 128 ? 1 : 2;",
+         "static constexpr int CTAS_PER_SM = 1;", 1),
+        ("static constexpr bool A_IN_REGS = CTAS_PER_SM == 1;",
+         "static constexpr bool A_IN_REGS = false;", 1),
+        ("""#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    products(t, s0, d0);
+    land(s0, d0);
+    accumulate(t, s0, d0);
+  }
+""", """  float s1[32], d1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s1[i] = d1[i] = 0.f;
+  auto step = [&](int t, float (&sc)[32], float (&dc)[32],
+                  float (&sn)[32], float (&dn)[32]) {
+    products(t + 1, sn, dn);
+    fence_regs(sc);
+    fence_regs(dc);
+    accumulate(t, sc, dc);
+    fence_regs(acc);
+    land(sn, dn);
+  };
+  if (n_tiles > 0) {
+    products(0, s0, d0);
+    land(s0, d0);
+    int t = 0;
+#pragma unroll 1
+    for (; t + 2 < n_tiles; t += 2) {
+      step(t, s0, d0, s1, d1);
+      step(t + 1, s1, d1, s0, d0);
+    }
+    if (t + 1 < n_tiles) {
+      step(t, s0, d0, s1, d1);
+      accumulate(t + 1, s1, d1);
+    } else {
+      accumulate(t, s0, d0);
+    }
+  }
+""", 1)],
+}
+FLASH_DELTA_VARIANTS["loads_only"] = [*FLASH_DELTA_VARIANTS["no_products"],
+                                      *FLASH_DELTA_VARIANTS["no_exp"]]
+FLASH_DELTA_VARIANTS["skeleton"] = [*FLASH_DELTA_VARIANTS["loads_only"],
+                                    *FLASH_DELTA_VARIANTS["no_loads"]]
+
 GMM_VARIANTS = {
     "base": [],
     "no_mma": [("      wgmma_ss_n256<TA, TB>(acc, a_desc(st, kk), "
@@ -510,6 +621,13 @@ def bind_flash_fwd_f32(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attn_fwd_tf32x3.restype = ctypes.c_int
+
+
+def bind_flash_delta(lib: ctypes.CDLL) -> None:
+    for fn in (lib.flash_bwd_delta, lib.flash_bwd_delta_wgmma):
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
 def bind_gmm(lib: ctypes.CDLL) -> None:
@@ -774,6 +892,37 @@ def flash_fwd_f32_case(dev: torch.device, stream: int) -> Launches:
                    hd ** -0.5, stream])
         out[label] = (lambda lib, args=args, keep=(q, k, v):    # pointers
                       lib.flash_attn_fwd_tf32x3(*args), (o, lse))
+    return out
+
+
+# name -> (B, S, H, KV, head_dim, causal), bf16.
+FLASH_DELTA_LAUNCHES = {"d_causal": (2, 2048, 32, 8, 128, True),
+                        "bert_base": (16, 512, 12, 12, 64, False)}
+
+
+def flash_delta_case(dev: torch.device, stream: int) -> Launches:
+    """delta on the wgmma and the small route at phase D's causal case
+    (head_dim 128) and at BERT-base's attention (64)."""
+    from k8s_distributed_deeplearning_torch.ops import flash_attn as fa
+
+    out = {}
+    for label, (b, s, h, kv, hd, causal) in FLASH_DELTA_LAUNCHES.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, do = (torch.randn(b, s, h, hd, device=dev,
+                             generator=gen).bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, s, kv, hd, device=dev,
+                            generator=gen).bfloat16() for _ in range(2))
+        _, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+        delta = torch.empty(b, h, s, device=dev)
+        args = ([x.data_ptr() for x in (q, k, v, do, lse)] + [None, None]
+                + [delta.data_ptr(), b, s, s, h, kv, hd, int(causal), 1,
+                   hd ** -0.5, stream])
+        keep = (q, k, v, do, lse)            # the launches hold raw pointers
+        for route, fn in (("wgmma", "flash_bwd_delta_wgmma"),
+                          ("small", "flash_bwd_delta")):
+            out[f"{label}_{route}"] = (
+                lambda lib, args=args, fn=fn, keep=keep:
+                getattr(lib, fn)(*args), (delta,))
     return out
 
 
@@ -1064,6 +1213,8 @@ KERNELS = {
                           bind_flash_small, flash_small_case),
     "flash_fwd_f32": Kernel("flash_fwd_f32.cu", FLASH_FWD_F32_VARIANTS,
                             bind_flash_fwd_f32, flash_fwd_f32_case),
+    "flash_delta": Kernel("flash_delta.cu", FLASH_DELTA_VARIANTS,
+                          bind_flash_delta, flash_delta_case),
 }
 
 

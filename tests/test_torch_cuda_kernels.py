@@ -2278,6 +2278,46 @@ def test_flash_delta_matches_reference(hopper, shape):
     assert torch.equal(got[blind], torch.zeros_like(got[blind]))
 
 
+# The wgmma delta (flash_delta_wgmma, route "wgmma", head_dim 64/128):
+# FLASH_SHAPES' head dims 64 and 128 (a query tile past the keys, rows
+# that see no key, segment ids, 8B's heads), then ViT-L/16's 197 rows
+# (no tile divides them) and a group of 3 (the MoE slice's 12/4 heads).
+WGMMA_DELTA_SHAPES = [s for s in FLASH_SHAPES if s[5] in (64, 128)] + [
+    (2, 197, 197, 16, 16, 64, False, False),
+    (2, 300, 300, 12, 4, 64, True, False),
+]
+
+
+@pytest.mark.parametrize("shape", WGMMA_DELTA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_delta_wgmma_matches_reference(hopper, shape):
+    q, k, v, do, segq, segk, causal = _flash_inputs(hopper, torch.bfloat16,
+                                                    shape, 37)
+    scale = q.shape[-1] ** -0.5
+    _, lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=segq, kv_segment_ids=segk)
+    before = (fa.flash_bwd_delta.launches, fa.flash_bwd_delta.launches_wgmma,
+              fa.flash_bwd_delta.launches_small)
+    got = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale,
+                             route="wgmma")
+    again = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale)
+    small = fa.flash_bwd_delta(q, k, v, do, lse, segq, segk, causal, scale,
+                               route="small")
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_delta.launches, fa.flash_bwd_delta.launches_wgmma,
+            fa.flash_bwd_delta.launches_small) == (
+        before[0] + 3, before[1] + 2, before[2] + 1)
+    want = fa.flash_delta_reference(q, k, v, lse, do, causal=causal,
+                                    q_segment_ids=segq,
+                                    kv_segment_ids=segk)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got[..., None], want[..., None], (1e-4, 1e-4), "wgmma delta")
+    _close(small[..., None], want[..., None], (1e-4, 1e-4), "small delta")
+    assert torch.equal(got, again)
+    blind = lse <= -1e29
+    assert torch.equal(got[blind], torch.zeros_like(got[blind]))
+
+
 def test_flash_delta_refuses_what_it_does_not_take(hopper):
     q, k, v, do, _, _, _ = _flash_inputs(
         hopper, torch.float32, (1, 64, 64, 2, 2, 64, False, False), 1)
@@ -2289,3 +2329,11 @@ def test_flash_delta_refuses_what_it_does_not_take(hopper):
     _, lse = fa.flash_attention_reference(q, k, v)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125)
+    q, k, v, do, _, _, _ = _flash_inputs(
+        hopper, torch.bfloat16, (1, 64, 64, 2, 2, 32, False, False), 1)
+    _, lse = fa.flash_attention_reference(q, k, v)
+    before = fa.flash_bwd_delta.launches
+    with pytest.raises(TypeError, match="wgmma"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125,
+                           route="wgmma")
+    assert fa.flash_bwd_delta.launches == before

@@ -11,8 +11,10 @@ term that dominates dQ wherever the values a row attends are nearly equal
 the f64 sum of P·dP; the bf16 backward's dQ with it to an f64 evaluation
 about as closely as the einsum path's bf16 autograd, where rowsum(dO · O)
 misses by several times that; the CPU backward taking the new delta in
-bf16 and rowsum(dO · O) in f32; the kernel wrapper refusing CPU tensors,
-f32 and head dims it does not take, with no launch counted. Tolerances:
+bf16 and rowsum(dO · O) in f32; the kernel wrapper's route rule (the
+wgmma kernel at head_dim 64/128, the small one at 16/32) and its refusing
+CPU tensors, f32 and a wgmma route forced at 16/32, with no launch
+counted on any route. Tolerances:
 delta 1e-5 of the f64 (f32 sums); dQ distances are relative L2 against
 f64, compared between the paths.
 """
@@ -40,10 +42,11 @@ def _inputs(seed, b=1, s=256, h=2, hkv=1, d=64, shared=0.0, spread=1.0):
     return q, k, v, do
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal,segments", [(False, False), (True, False),
                                              (True, True)])
-def test_plain_delta_is_the_sum_of_p_dp(causal, segments):
-    q, k, v, do = (x.to(torch.bfloat16) for x in _inputs(0))
+def test_plain_delta_is_the_sum_of_p_dp(causal, segments, d):
+    q, k, v, do = (x.to(torch.bfloat16) for x in _inputs(0, d=d))
     seg = None
     if segments:
         seg = torch.ones(1, 256, dtype=torch.int32)
@@ -56,7 +59,7 @@ def test_plain_delta_is_the_sum_of_p_dp(causal, segments):
     # f64 from the same bf16 values and the same lse.
     qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qd, kd.expand(-1, -1, 2, -1)) \
-        * 64 ** -0.5
+        * d ** -0.5
     allow = torch.ones(256, 256, dtype=torch.bool)
     if causal:
         allow = torch.tril(allow)
@@ -125,10 +128,48 @@ def test_cpu_backward_takes_the_new_delta_in_bf16_only():
             assert torch.equal(g, w)
 
 
+def _counts():
+    w = fa.flash_bwd_delta
+    return w.launches, w.launches_wgmma, w.launches_small
+
+
 def test_delta_wrapper_refuses_and_counts_nothing_on_cpu():
     q, k, v, do = (x.to(torch.bfloat16) for x in _inputs(3))
     _, lse = fa.flash_attention_reference(q, k, v)
-    before = fa.flash_bwd_delta.launches
+    before = _counts()
     with pytest.raises(ValueError, match="device"):
         fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125)
-    assert fa.flash_bwd_delta.launches == before
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("d,route", [(16, "small"), (32, "small"),
+                                     (64, "wgmma"), (128, "wgmma")])
+def test_delta_route_by_head_dim(d, route):
+    assert fa._delta_route(d) == route
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_delta_wgmma_route_refuses_small_head_dims(d):
+    """A wgmma route forced at head_dim 16 or 32 raises before any launch,
+    whatever the device, as the other wrappers' forced routes do."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in _inputs(4, d=d))
+    _, lse = fa.flash_attention_reference(q, k, v)
+    before = _counts()
+    with pytest.raises(TypeError, match="wgmma"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, d ** -0.5,
+                           route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, d ** -0.5,
+                           route="mma")
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("route", [None, "wgmma", "small"])
+def test_delta_wrapper_refuses_f32(route):
+    q, k, v, do = _inputs(5)
+    _, lse = fa.flash_attention_reference(q, k, v)
+    before = _counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_bwd_delta(q, k, v, do, lse, None, None, False, 0.125,
+                           route=route)
+    assert _counts() == before
