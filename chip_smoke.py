@@ -444,6 +444,35 @@ V. The rest of the model zoo (``models/resnet.py``, ``bert.py``,
    40, run again: it restores the newest good step on disk and its final
    params and BatchNorm statistics equal an unkilled run's by phase N's
    rule.
+W. Tensor-parallel serving (``serve/tp.py``) on the one card, after U:
+   tp=2 is two processes on ``cuda:0`` over gloo (NCCL refuses two ranks
+   on one device), this one rank 0 and a follower it spawns; every W
+   line names the backend, and its speeds are gloo through the host on
+   one card, not a TP speed. W1: B's workload at 8B width and
+   ``W_LAYERS`` layers in bf16 through a tp=0 and a tp=2 engine: each
+   rank's paged launches equal the tp=0 engine's route by route (decode
+   layers x iterations, prefill layers x chunks, split 0); each rank's
+   decode and prefill kernels held once to their plain versions on its
+   own pool shard under phase A's limits; first-token logits by phase C's
+   rule against tp=0; the ranks' last logits bit-equal (an all-reduced
+   hash); decode tokens/s, a decode iteration's host and device ms (a
+   profile), each process's peak memory and the greedy streams are
+   readings. W2: 8B width, ``W_LAYERS`` layers, f32, tp=2 against tp=0:
+   JAX's ``_mixed_reqs`` at page scale (greedy and sampled, prefix hits,
+   chunked prefill), spec_k 4 with a 2-layer draft, a gateway drain that
+   migrates mid-decode between two engines, and int8 KV with int8
+   weights; every launch of every rank on tf32x3 (QUANT-tf32x3 under
+   int8), split 0; streams equal, or, where a greedy token differs, equal
+   before it and tp=0's top-2 margin there under twice the largest logit
+   difference (the positions the rule decided are reported). W3: tp=1, a
+   world of one: first-token logits and streams bitwise W1's tp=0 run's,
+   decode iteration ms beside it. W4: ``python -m
+   k8s_distributed_deeplearning_torch.serve --preset small --tp 2``
+   serves a few requests, the follower joins, both processes exit 0,
+   both ranks launch the same kernels, and rank 0's peak device memory
+   is within ``W4_PEAK_RATIO`` of rank 1's (the CLI keeps the whole
+   model on the host). W2's drain migration runs twice, fp and under
+   int8 KV, whose import header needs two broadcasts.
 
 The build also compiles ``csrc/fusion.cc`` (the fusion planner) and logs
 whether it loads. Prints the card's name and power limit, the build time,
@@ -1395,7 +1424,7 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
     (:func:`_profile` over ``steps`` iterations)."""
     from k8s_distributed_deeplearning_torch.serve import Request
 
-    vocab = eng.model.cfg.vocab_size
+    vocab = eng.cfg.vocab_size
     rng = np.random.default_rng(2)
     for i in range(eng.num_slots):
         # Enough tokens for the host window and every profiled window
@@ -1417,6 +1446,7 @@ def decode_profile(phase, eng, n_layers, steps: int = 16):
           f"{n_layers} of the decode kernel and none of the split kernel")
     log({"phase": phase, "case": "decode_profile", "slots": eng.num_slots,
          **prof, "launches_per_layer": prof["launches"] / n_layers})
+    return prof
 
 
 def _table(eng, n_tokens: int):
@@ -1437,7 +1467,7 @@ def prefill_profile(phase, eng, n_layers, offset: int = 1024,
     after of the route."""
     from k8s_distributed_deeplearning_torch.ops import paged_attn
 
-    vocab = eng.model.cfg.vocab_size
+    vocab = eng.cfg.vocab_size
     prompt = np.random.default_rng(3).integers(
         0, vocab, offset + chunk).astype(np.int32)
     pages, table = _table(eng, offset + chunk)
@@ -1920,7 +1950,7 @@ def _verify_profile(eng, spec_k, reps: int = 8):
     from k8s_distributed_deeplearning_torch.ops import paged_attn
     from k8s_distributed_deeplearning_torch.serve import Request
 
-    vocab = eng.model.cfg.vocab_size
+    vocab = eng.cfg.vocab_size
     rng = np.random.default_rng(2)
     for i in range(eng.num_slots):
         eng.submit(Request(prompt=rng.integers(0, vocab, 512).astype(
@@ -1935,7 +1965,7 @@ def _verify_profile(eng, spec_k, reps: int = 8):
     check(paged_attn._route(spec_k + 1, H // KV, HD, torch.bfloat16,
                             False) == "decode",
           f"a verify window of {spec_k + 1} is not on the decode route")
-    layers = eng.model.cfg.n_layers
+    layers = eng.cfg.n_layers
     want = {"paged_decode": layers, "paged_attn": 0, "paged_attn_combine": 0}
     got = {cls: prof["launches_by_class"].get(cls, 0) for cls in want}
     check(got == want,
@@ -5557,7 +5587,9 @@ def _t2(dev, tmp: Path, shards: Path) -> dict:
     from k8s_distributed_deeplearning_torch.utils.metrics import (
         MetricsLogger)
 
-    cfg = llama.config_tiny(**{**cli.PRESETS["small"],
+    small = {k: v for k, v in cli.PRESETS["small"].items()
+             if k != "scan_layers"}          # a layout, not an architecture
+    cfg = llama.config_tiny(**{**small,
                                "n_layers": T2_LAYERS,
                                "dtype": torch.bfloat16,
                                "param_dtype": torch.float32,
@@ -7651,6 +7683,501 @@ def phase_u(dev, b_logits, started, tmp: Path):
             "u5": _u5(started, tmp)}
 
 
+# ---------------------------------------------------------------- phase W
+# Tensor-parallel serving (serve/tp.py) on the one card: tp=2 is two
+# processes on cuda:0 over gloo, this one rank 0 and a follower it
+# spawns. Every number of W is gloo through the host on one card, a
+# reading of the seam, not a TP speed.
+
+W_LAYERS = 4
+W_TIMEOUT_S = 300.0          # every collective of the tp world
+W2_CHUNK = 64                # W2's prefill chunk (pages of 32 tokens)
+W2_SPEC_K = 4
+W2_DRAFT_LAYERS = 2
+W4_REQUESTS = 4
+# Rank 0 of the CLI holds its shard, its pool and the sampling state;
+# the whole model beside them (the small preset's is about 1.4x a
+# shard's bytes at tp=2) would put it past this share of rank 1's peak.
+W4_PEAK_RATIO = 1.25
+# Phase W1's kernel checks on each rank's own pool shard (phase A's
+# decode and prefill512 limits: atol, no rtol).
+W_CHECK_CASES = {"decode": ([1000, 1200, 1400, 1500], 1),
+                 "prefill512": ([1024 + 512], 512)}
+
+
+def _w_routes(stats: dict, rank: int) -> dict:
+    """One rank's paged launches by branch and route, from
+    ``TpWorld.stats()`` (split: the launches no other route took)."""
+    out = {}
+    for branch, sfx in (("fp", ""), ("int8", "_int8")):
+        routes = {r: int(stats[f"launches_{r}{sfx}"][rank])
+                  for r in ("decode", "prefill", "tf32x3")}
+        routes["split"] = int(stats[f"launches{sfx}"][rank]) - sum(
+            routes.values())
+        out[branch] = routes
+    return out
+
+
+def _w_rank_routes(world, stats, tp: int) -> list:
+    return [_w_routes(stats, r) for r in range(world.size if tp else 1)]
+
+
+def _w_check_shards(eng) -> dict:
+    """Every rank's paged kernels held once to their plain versions on
+    that rank's own pool shard (its layer 0, after the run: pages that
+    hold the run's K/V), at W_CHECK_CASES, under phase A's limits."""
+    out = {}
+    for name, (lens, sq) in W_CHECK_CASES.items():
+        nb = -(-max(lens) // PAGE)
+        tables = np.zeros((len(lens), eng.max_blocks), np.int32)
+        for i in range(len(lens)):
+            tables[i, :nb] = 1 + (np.arange(nb) + i * nb) % (
+                eng.pool.num_pages - 1)
+        positions = np.stack([np.arange(n - sq, n) for n in lens])
+        rows = eng.tp_kernel_check(tables, positions,
+                                   atol=TOL[torch.bfloat16], seed=7)
+        for rank, (err, share) in enumerate(rows):
+            check(np.isfinite(err) and share <= 1.0,
+                  f"W1 {name}: rank {rank}'s kernel error {err} uses "
+                  f"{share} of phase A's limit on its own pool shard")
+        out[name] = {"max_abs_err": [r[0] for r in rows],
+                     "tol_share": [r[1] for r in rows]}
+    return out
+
+
+def _w_serve(model, dev, world, tp: int) -> dict:
+    """B's workload through a ``tp`` engine on ``model``: the streams,
+    the first-token logits, each rank's launches by route (counted from
+    0), the timed programs and each rank's peak memory."""
+    from k8s_distributed_deeplearning_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    world.stats(reset=True)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, num_slots=4, prefill_chunk_tokens=512,
+                      device=dev, tp=tp)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    store = {}
+    _first_logits(eng, store)
+    acc = {"_prefill": 0.0, "_decode_step": 0.0}
+    for name in acc:
+        _timed(eng, name, acc)
+    outs = eng.run(_requests(cfg.vocab_size, 32, sampled=True))
+    stats = world.stats()
+    check(len(outs) == 8 and all(
+        o.finish_reason == "length" and len(o.tokens) == 32
+        and all(0 <= t < cfg.vocab_size for t in o.tokens)
+        for o in outs), f"W tp={tp}: a request did not finish")
+    summ = eng.stats.summary()
+    chunks = sum(o.prefill_chunks for o in outs)
+    want = {"fp": {"decode": cfg.n_layers * summ["decode_steps"],
+                   "prefill": cfg.n_layers * chunks, "tf32x3": 0,
+                   "split": 0},
+            "int8": {"decode": 0, "prefill": 0, "tf32x3": 0, "split": 0}}
+    ranks = _w_rank_routes(world, stats, tp)
+    check(all(r == want for r in ranks),
+          f"W tp={tp}: launches by rank {ranks}, want each {want}")
+    return {"engine": eng, "logits": store,
+            "streams": {o.request_id: list(o.tokens) for o in outs},
+            "reading": {
+                "tp": tp, "setup_s": setup_s, "route_launches": ranks,
+                "decode_iterations": summ["decode_steps"],
+                "prefill_chunks": chunks,
+                "decode_tokens_per_s": (eng.stats.decode_tokens
+                                        / acc["_decode_step"]),
+                "decode_iteration_ms": (acc["_decode_step"]
+                                        / summ["decode_steps"] * 1e3),
+                "prefill_chunk_ms": acc["_prefill"] / chunks * 1e3,
+                "peak_memory_gb_by_rank": [
+                    b / 2 ** 30 for b in stats["peak_bytes"][:max(tp, 1)]]}}
+
+
+def _w1(model, dev, world) -> tuple[dict, dict]:
+    """B's workload at 8B width and W_LAYERS layers in bf16, tp=0 and
+    tp=2: each rank's launches equal the tp=0 engine's route by route,
+    first-token logits by phase C's rule, kernels held on each rank's
+    shard; streams, tokens/s, decode ms and peak memory are readings.
+    Returns the result and the tp=0 run (phase W3's reference)."""
+    runs = {tp: _w_serve(model, dev, world, tp) for tp in (0, 2)}
+    eng = runs[2]["engine"]
+    check(eng.tp_consistency_check(),
+          "W1: the ranks' last logits are not bit-equal")
+    runs[2]["reading"]["kernel_checks"] = _w_check_shards(eng)
+    world.stats(reset=True)
+    runs[2]["reading"]["decode_profile"] = decode_profile("W1 tp=2", eng,
+                                                          W_LAYERS)
+    eng.close()
+    for run in runs.values():
+        del run["engine"]
+    gc.collect()
+    # B's requests only: the decode profile's own admissions were kept too.
+    logits = {tp: torch.stack([runs[tp]["logits"][k][0]
+                               for k in sorted(runs[tp]["streams"])])
+              for tp in runs}
+    streams = {tp: runs[tp]["streams"] for tp in runs}
+    kern, ref = logits[2], logits[0]
+    rel = ((kern - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+    decided, same = _first_token_rule(kern, ref)
+    check(all(np.isfinite(rel)) and max(rel) <= BF16_LOGIT_RTOL,
+          f"W1: first-token logits relative L2 {max(rel)} > "
+          f"{BF16_LOGIT_RTOL}")
+    check(bool(same[decided].all()),
+          "W1: a first greedy token differs where tp=0's top-2 margin "
+          "exceeds twice the largest logit difference")
+    result = {"phase": "W1", "model": "llama3-8b width", "layers": W_LAYERS,
+              "dtype": "bfloat16", "backend": world.backend,
+              "note": "tp=2 is two processes on one card, gloo through "
+                      "the host: a reading of the seam, not a TP speed; "
+                      "rank 0's peak memory includes this script's whole "
+                      "model, which the tp=0 reference runs",
+              "runs": {tp: runs[tp]["reading"] for tp in runs},
+              "first_token_logit_rel_l2": rel,
+              "first_token_decided": decided.tolist(),
+              "first_token_equal": same.tolist(),
+              "streams_equal": sum(streams[0][k] == streams[2][k]
+                                   for k in streams[0]),
+              "streams": len(streams[0])}
+    log(result)
+    return result, runs[0]
+
+
+def _w_mixed_reqs(vocab, tag="r", greedy=False):
+    """JAX's ``_mixed_reqs`` at page scale: greedy and sampled
+    alternating, two sharing a 64-token prefix (two whole pages for the
+    trie), tails that cross W2_CHUNK."""
+    from k8s_distributed_deeplearning_torch.serve import (Request,
+                                                          SamplingParams)
+
+    rng = np.random.default_rng(5)
+    shared = rng.integers(1, vocab, size=64).astype(np.int32)
+    reqs = []
+    for i, n in enumerate((7, 90, 134, 40)):
+        tail = rng.integers(1, vocab, size=n).astype(np.int32)
+        prompt = np.concatenate([shared, tail]) if i >= 2 else tail
+        sp = (SamplingParams() if i % 2 == 0 or greedy else
+              SamplingParams(temperature=0.8, top_k=20, top_p=0.9))
+        reqs.append(Request(prompt=prompt, max_new_tokens=12, sampling=sp,
+                            seed=i + 1, request_id=f"{tag}{i}"))
+    return reqs
+
+
+def _w_logits_at(eng, prompt) -> torch.Tensor:
+    """The logits ``eng`` samples the token after ``prompt`` from."""
+    from k8s_distributed_deeplearning_torch.serve import Request
+
+    store = {}
+    _first_logits(eng, store)
+    try:
+        eng.run([Request(prompt=np.asarray(prompt, np.int32),
+                         max_new_tokens=1, request_id="w_rule")])
+    finally:
+        eng.__dict__.pop("_prefill", None)
+        eng.__dict__.pop("_finish_admission", None)
+    return store["w_rule"][0]
+
+
+def _w_rule(what, ref_eng, tp_eng, reqs, ref, got) -> int:
+    """Streams equal; where a greedy token differs, the streams agree
+    before it and tp=0's top-2 margin there is under twice the largest
+    logit difference (phase C's rule). Returns the positions it
+    decided."""
+    decided = 0
+    prompts = {r.request_id: (r.prompt, r.sampling.temperature)
+               for r in reqs}
+    check(set(ref) == set(got), f"{what}: requests {set(ref) ^ set(got)}")
+    for rid in sorted(ref):
+        a, b = ref[rid], got[rid]
+        if a == b:
+            continue
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        prompt, temp = prompts[rid]
+        check(temp <= 0.0 and p < min(len(a), len(b)),
+              f"{what}: stream {rid} differs at {p} (sampled or cut)")
+        ctx = np.concatenate([prompt, np.asarray(a[:p], np.int32)])
+        lr, lt = _w_logits_at(ref_eng, ctx), _w_logits_at(tp_eng, ctx)
+        top2 = lr.topk(2).values
+        margin = float(top2[0] - top2[1])
+        diff = float((lt - lr).abs().max())
+        check(margin < 2 * diff, f"{what}: {rid} differs at {p} where "
+              f"tp=0's margin {margin} >= 2 x the logit difference {diff}")
+        decided += 1
+    return decided
+
+
+def _w2_routes_ok(what, world, stats, tp, quant) -> list:
+    ranks = _w_rank_routes(world, stats, tp)
+    on, off = ("int8", "fp") if quant else ("fp", "int8")
+    for r, got in enumerate(ranks):
+        check(got[on]["tf32x3"] > 0 and got[on]["decode"] == 0
+              and got[on]["prefill"] == 0 and got[on]["split"] == 0
+              and not any(got[off].values()),
+              f"{what}: rank {r}'s launches {got}: want every one on the "
+              f"{'QUANT-' if quant else ''}tf32x3 route, split 0")
+    return ranks
+
+
+def _w2(dev, world) -> dict:
+    """8B width, W_LAYERS layers, f32, tp=2 against tp=0: the mixed
+    workload (greedy and sampled, prefix hits, chunked prefill), spec_k
+    4 with a W2_DRAFT_LAYERS-layer draft, a gateway drain that migrates
+    mid-decode between two engines (fp, then under int8 KV), and int8 KV
+    with int8 weights."""
+    from k8s_distributed_deeplearning_torch.models import llama
+    from k8s_distributed_deeplearning_torch.serve import Request, ServeEngine
+    from k8s_distributed_deeplearning_torch.serve.gateway import ServeGateway
+    from k8s_distributed_deeplearning_torch.utils.metrics import ServingStats
+
+    cfg = llama.config_llama3_8b(max_seq_len=2048, n_layers=W_LAYERS,
+                                 dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=dev, seed=0)
+    dcfg = llama.config_llama3_8b(max_seq_len=2048,
+                                  n_layers=W2_DRAFT_LAYERS,
+                                  dtype=torch.float32)
+    draft = llama.LlamaLM(dcfg, device=dev, seed=1)
+    vocab = cfg.vocab_size
+    result = {"phase": "W2", "model": "llama3-8b width", "layers": W_LAYERS,
+              "dtype": "float32", "backend": world.backend,
+              "route_launches": {}, "decided": {}}
+
+    def serve(what, tp, make, reqs_of, passes=1):
+        world.stats(reset=True)
+        eng = make(tp)
+        toks = {}
+        for i in range(passes):
+            toks.update({o.request_id: list(o.tokens) for o in eng.run(
+                reqs_of("rs"[i]))})
+        return eng, toks, world.stats()
+
+    def both(name, make, reqs_of, passes, quant):
+        # tp=2 first: the tp=0 int8 engine quantizes the model in place.
+        engs, toks = {}, {}
+        for tp in (2, 0):
+            engs[tp], toks[tp], stats = serve(name, tp, make, reqs_of,
+                                              passes)
+            result["route_launches"][f"{name} tp={tp}"] = _w2_routes_ok(
+                f"W2 {name} tp={tp}", world, stats, tp, quant)
+        check(engs[2].tp_consistency_check(),
+              f"W2 {name}: the ranks' last logits are not bit-equal")
+        if name == "mixed":
+            check(engs[2].stats.summary()["prefix_cache_hits"] >= 1,
+                  "W2 mixed: no prefix hit")
+        if name == "spec":
+            check(engs[2].stats.spec_steps > 0, "W2 spec: no spec step")
+        reqs = reqs_of("r") + (reqs_of("s") if passes == 2 else [])
+        result["decided"][name] = _w_rule(f"W2 {name}", engs[0], engs[2],
+                                          reqs, toks[0], toks[2])
+        engs[2].close()
+
+    cases = {
+        "mixed": (lambda tp: ServeEngine(
+            model, num_slots=4, min_bucket=32, prefill_chunk_tokens=W2_CHUNK,
+            prefix_cache_mb=256, device=dev, tp=tp),
+                  lambda tag: _w_mixed_reqs(vocab, tag), 2, False),
+        "spec": (lambda tp: ServeEngine(
+            model, num_slots=4, min_bucket=32, draft_model=draft,
+            spec_k=W2_SPEC_K, device=dev, tp=tp),
+                 lambda tag: _w_mixed_reqs(vocab, tag), 1, False),
+        "int8": (lambda tp: ServeEngine(
+            model, num_slots=4, min_bucket=32, prefill_chunk_tokens=W2_CHUNK,
+            kv_quant="int8", weight_quant="int8", device=dev, tp=tp),
+                 lambda tag: _w_mixed_reqs(vocab, tag), 1, True)}
+    for name in ("mixed", "spec"):
+        both(name, *cases[name])
+        gc.collect()
+    # The drain migration between two engines of each mode, fp and then
+    # under int8 KV (4 pool tensors a layer: an import whose header
+    # needs a second broadcast at W_LAYERS).
+    rng = np.random.default_rng(3)
+    mreqs = [Request(prompt=rng.integers(1, vocab, size=40 + 30 * i).astype(
+                 np.int32), max_new_tokens=10 + i, request_id=f"m{i}")
+             for i in range(4)]
+    for name, kv_quant in (("migration", None), ("migration_int8", "int8")):
+        mig, fleets = {}, {}
+        for tp in (2, 0):
+            world.stats(reset=True)
+            stats = ServingStats()
+            engines = [ServeEngine(model, num_slots=2, eos_id=None,
+                                   min_bucket=32, stats=stats,
+                                   replica_id=f"r{i}", kv_quant=kv_quant,
+                                   device=dev, tp=tp)
+                       for i in range(2)]
+            gw = ServeGateway(engines, stats=stats)
+            for r in mreqs:
+                gw.submit(Request(prompt=r.prompt,
+                                  max_new_tokens=r.max_new_tokens,
+                                  request_id=r.request_id))
+            outs = []
+            for _ in range(3):
+                outs.extend(gw.step())
+            gw.drain_replica("r0")
+            for _ in range(600):
+                if not gw.busy():
+                    break
+                outs.extend(gw.step())
+            check(not gw.busy() and stats.gateway_migrations >= 1,
+                  f"W2 {name} tp={tp}: busy {gw.busy()}, migrations "
+                  f"{stats.gateway_migrations}")
+            result["route_launches"][f"{name} tp={tp}"] = _w2_routes_ok(
+                f"W2 {name} tp={tp}", world, world.stats(), tp,
+                kv_quant is not None)
+            mig[tp] = {o.request_id: list(o.tokens) for o in outs}
+            fleets[tp] = engines
+        result["decided"][name] = _w_rule(
+            f"W2 {name}", fleets[0][1], fleets[2][1], mreqs, mig[0], mig[2])
+        for e in fleets[2]:
+            e.close()
+        del fleets
+        gc.collect()
+    # Last: the tp=0 int8 engine quantizes the model in place (and every
+    # engine on it from the int8 migration on takes int8 KV).
+    both("int8", *cases["int8"])
+    result["positions_decided_by_rule"] = sum(result["decided"].values())
+    log(result)
+    return result
+
+
+def _w3(model, dev, world, ref) -> dict:
+    """A world of one through the seam on W1's model: first-token logits
+    and streams bitwise equal to W1's tp=0 run (``ref``); decode
+    iteration ms of both, a reading."""
+    run = _w_serve(model, dev, world, 1)
+    run["engine"].close()
+    del run["engine"]
+    check(run["streams"] == ref["streams"],
+          "W3: tp=1 streams differ from tp=0's")
+    check(sorted(run["logits"]) == sorted(ref["logits"])
+          and all(torch.equal(run["logits"][k], ref["logits"][k])
+                  for k in ref["logits"]),
+          "W3: tp=1 first-token logits are not bitwise tp=0's")
+    check(run["reading"]["route_launches"]
+          == ref["reading"]["route_launches"],
+          f"W3: launches {run['reading']['route_launches']} != tp=0's")
+    result = {"phase": "W3", "model": "llama3-8b width", "layers": W_LAYERS,
+              "dtype": "bfloat16", "backend": world.backend,
+              "logits_bitwise": True, "streams_equal": True,
+              "route_launches": {
+                  f"tp={r['reading']['tp']}": r["reading"]["route_launches"]
+                  for r in (ref, run)},
+              "decode_iteration_ms": {
+                  f"tp={r['reading']['tp']}": r["reading"][
+                      "decode_iteration_ms"] for r in (ref, run)}}
+    log(result)
+    return result
+
+
+def _w4_start():
+    """The serve CLI at ``--preset small --tp 2`` as a process of its own
+    (rank 0 spawns its follower): :func:`_w4` reads it."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "k8s_distributed_deeplearning_torch.serve",
+         "--preset", "small", "--tp", "2", "--requests", str(W4_REQUESTS),
+         "--slots", "4", "--out-len", "8", "16"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _w4(started) -> dict:
+    """W4: the CLI served W4_REQUESTS requests, the follower joined, both
+    processes exited 0, both ranks launched the same kernels, and rank
+    0's peak device memory is within W4_PEAK_RATIO of rank 1's."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0,
+          f"W4: the CLI exited {proc.returncode}: {err[-3000:]}")
+    events = [json.loads(line) for line in out.splitlines()
+              if line.startswith("{")]
+    summ = events[-1]
+    check(summ["event"] == "serve_summary"
+          and summ["requests_completed"] == W4_REQUESTS
+          and summ["tp"] == 2, f"W4: summary {summ}")
+    check("tp world: rank 1 of 2" in err, "W4: no follower joined the world")
+    ranks = summ["tp_ranks"]        # the readings that are not all 0
+    stats = {k: ranks.get(k, [0, 0]) for k in
+             ("launches", "launches_int8", *(
+                 f"launches_{r}{m}" for r in ("decode", "prefill", "tf32x3")
+                 for m in ("", "_int8")))}
+    routes = [_w_routes(stats, r) for r in range(2)]
+    check(routes[0] == routes[1] and routes[0]["fp"]["split"] == 0
+          and routes[0]["fp"]["decode"] > 0,
+          f"W4: launches by rank {routes}")
+    # The CLI keeps the whole model on the host: rank 0's card holds its
+    # shard as rank 1's does, not the whole model beside it.
+    peaks = ranks.get("peak_bytes", [0, 0])
+    check(0 < peaks[0] <= W4_PEAK_RATIO * peaks[1],
+          f"W4: peak device bytes by rank {peaks}: rank 0's over "
+          f"{W4_PEAK_RATIO} x rank 1's")
+    result = {"phase": "W4", "preset": "small", "tp": 2,
+              "backend": summ["tp_backend"], "wall_s":
+              time.perf_counter() - t0, "route_launches": routes,
+              "peak_memory_gb_by_rank": [b / 2 ** 30 for b in
+                                         ranks.get("peak_bytes", [0, 0])],
+              "tokens_per_sec": summ["tokens_per_sec"],
+              "note": "ran beside W2 on the same card"}
+    log(result)
+    return result
+
+
+def phase_w(dev) -> dict:
+    """W1-W3 in the tp worlds this process leads; W4 in a CLI process
+    beside W2."""
+    from k8s_distributed_deeplearning_torch.serve import tp as tp_lib
+
+    from k8s_distributed_deeplearning_torch.models import llama
+
+    out = {}
+    model = llama.LlamaLM(llama.config_llama3_8b(
+        max_seq_len=2048, n_layers=W_LAYERS), device=dev, seed=0)
+    world = tp_lib.launch(2, "cuda", timeout_s=W_TIMEOUT_S)
+    log({"phase": "W", "world": 2, "backend": world.backend})
+    w4 = None
+    try:
+        out["w1"], tp0 = _w1(model, dev, world)
+        # W2 takes no speed reading: the CLI of W4 runs beside it.
+        w4 = _w4_start()
+        out["w2"] = _w2(dev, world)
+        out["w4"] = _w4(w4)
+    finally:
+        if w4 is not None and w4[1].poll() is None:
+            w4[1].kill()
+            w4[1].wait()
+        tp_lib.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = tp_lib.launch(1, "cuda", timeout_s=W_TIMEOUT_S)
+    log({"phase": "W", "world": 1, "backend": world.backend})
+    try:
+        out["w3"] = _w3(model, dev, world, tp0)
+    finally:
+        tp_lib.shutdown()
+    del model
+    return out
+
+
+PAGED_ROUTES = {"paged_decode": "decode", "paged_prefill_attention": "prefill",
+                "paged_attn_tf32x3": "tf32x3", "paged_attn_split": "split"}
+
+
+def _w_launches(w_result, route: str, int8: bool) -> dict:
+    """Phase W's launches of one route and branch, by sub-run and rank
+    (each sub-run's counts set to 0 just before it and read just
+    after)."""
+    branch = "int8" if int8 else "fp"
+    runs = {f"W1 tp={tp}": v["route_launches"]
+            for tp, v in w_result["w1"]["runs"].items()}
+    runs.update({f"W2 {k}": v for k, v in
+                 w_result["w2"]["route_launches"].items()})
+    runs.update({f"W3 {k}": v for k, v in
+                 w_result["w3"]["route_launches"].items()})
+    runs["W4 cli"] = w_result["w4"]["route_launches"]
+    return {k: [rank[branch][route] for rank in v] for k, v in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7726,9 +8253,16 @@ def main() -> int:
         distributed.shutdown()
     with tempfile.TemporaryDirectory() as tmp:
         timed("U", phase_u, dev, b_logits, started, Path(tmp))
-    log({"kernels": _paged_entries(cases, b, c, int8_cases, j, k, p,
-                                   verify, r)
-         + _flash_entries(flash_rows, e, f, q, v)
+    w = timed("W", phase_w, dev)
+    paged = _paged_entries(cases, b, c, int8_cases, j, k, p, verify, r)
+    for entry in paged:
+        if not entry["name"].startswith(("paged_decode_small",
+                                         "paged_attn_tf32x3_small")):
+            route = PAGED_ROUTES[entry["name"].removesuffix("_int8")]
+            entry["launches_w"] = _w_launches(
+                w, route, entry["name"].endswith("_int8"))
+            entry["launches_in"] += "; W by sub-run and rank in launches_w"
+    log({"kernels": paged + _flash_entries(flash_rows, e, f, q, v)
          + _gmm_entries(gmm_rows, h, i, m)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

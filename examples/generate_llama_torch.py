@@ -45,12 +45,17 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
+    ap.add_argument("--remat", action="store_true",
+                    help="accepted for the JAX script's command lines; "
+                         "decode keeps no activations, so it has no "
+                         "effect here")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     # Decode reads the KV cache through the einsum attention; the
-    # training-time attention choice and remat do not apply here.
+    # training-time attention choice and remat (--remat parses, as in the
+    # JAX script) do not apply here.
     args.attention = "xla"
     args.remat = False
     device = resolve_device(args.device)

@@ -136,8 +136,8 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument(
             "--serve-tp", type=int, default=d.serve_tp,
             help="tensor-parallel width per serving replica: each replica "
-                 "pod would request this many cards; the port's serve CLI "
-                 "refuses --tp (ROADMAP.md), so validate reports it")
+                 "pod requests this many cards and its serve CLI runs "
+                 "--tp, one process a card (serve/tp.py)")
         p.add_argument(
             "--kv-quant", default=d.kv_quant, choices=["int8"],
             help="quantize the serving replicas' paged KV pool "

@@ -203,10 +203,9 @@ def _serving_probes(cfg: JobConfig) -> dict:
 def _serving_chips(cfg: JobConfig) -> int:
     # Each serving replica is its own pod: it claims gpus_per_worker cards
     # (no num_workers split — that divisor belongs to the training gang,
-    # not the serving fleet). A tensor-parallel replica (serve_tp) would
-    # claim exactly its mesh width; validate.py reports any serve_tp,
-    # 1 included, because the port's serve CLI refuses --tp at every
-    # value.
+    # not the serving fleet). A tensor-parallel replica (serve_tp) claims
+    # exactly its tp width: its serve process is rank 0 and starts one
+    # follower process a further card (serve/tp.py).
     if cfg.serve_tp is not None:
         return cfg.serve_tp
     return cfg.gpus_per_worker

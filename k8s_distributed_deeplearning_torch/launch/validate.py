@@ -17,10 +17,9 @@ This module gives the rendered manifests three tiers of checking:
 3. :mod:`launch.local_executor` — actually *runs* the manifest's pod
    template locally, the strongest no-cluster check.
 
-Two differences from the JAX package: a fault plan's sites are checked
+One difference from the JAX package: a fault plan's sites are checked
 against this package's own hooks (:func:`fault_sites_in_tree`, a small
-AST scan), and ``$TPUJOB_SERVE_TP`` is reported, since the port's serve
-CLI refuses ``--tp``.
+AST scan).
 """
 from __future__ import annotations
 
@@ -304,10 +303,7 @@ def _check_tp(errors, where: str, c: dict) -> None:
     tp an integer >= 1; the pod's ``nvidia.com/gpu`` limit exactly tp;
     the preset's attention geometry divisible by tp for both the target
     and any draft preset; and the per-shard KV pool bytes within the
-    container memory limit (the JAX package's checks). On top of them:
-    the port's serve CLI refuses ``--tp`` (tensor-parallel serving is not
-    ported, ROADMAP.md), so any tp is itself an error here — the replica
-    pod would crash-loop on the flag."""
+    container memory limit (the JAX package's checks)."""
     env = {e.get("name"): e for e in c.get("env", [])}
     tp_env = env.get("TPUJOB_SERVE_TP")
     if tp_env is None:
@@ -318,16 +314,12 @@ def _check_tp(errors, where: str, c: dict) -> None:
              f"TPUJOB_SERVE_TP {raw!r} must be an integer >= 1")
         return
     tp = int(raw)
-    _err(errors, where,
-         f"TPUJOB_SERVE_TP ({tp}): tensor-parallel serving is not ported "
-         "to PyTorch yet (ROADMAP.md) — the port's serve CLI refuses "
-         "--tp, so the replica pod would crash-loop")
     chips = (c.get("resources", {}).get("limits") or {}).get("nvidia.com/gpu")
     if chips is not None and str(chips).isdigit() and int(chips) != tp:
         _err(errors, where,
              f"TPUJOB_SERVE_TP ({tp}) != nvidia.com/gpu limit ({chips}) — "
-             "the tp mesh spans exactly tp cards; extra cards idle, fewer "
-             "fail the engine's device_count >= tp check at boot")
+             "the tp world runs one process a card; extra cards idle, "
+             "fewer make ranks share a card through the host")
     cmd = " ".join(str(x) for x in
                    (c.get("command") or []) + (c.get("args") or []))
     m = re.search(r"--preset\s+(\S+)", cmd)

@@ -66,9 +66,11 @@ from torch.nn import functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from k8s_distributed_deeplearning_torch.ops import attention as attention_ops
+from k8s_distributed_deeplearning_torch.ops import collectives
 from k8s_distributed_deeplearning_torch.ops import flash_attn  # noqa: F401
 from k8s_distributed_deeplearning_torch.ops import gmm  # noqa: F401
 from k8s_distributed_deeplearning_torch.ops import paged_attn
+from k8s_distributed_deeplearning_torch.parallel import mesh as mesh_lib
 
 
 @torch.library.custom_op("k8s_ddl_torch::attn_out", mutates_args=())
@@ -112,14 +114,19 @@ def _remat_context(saved: tuple):
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Architecture knobs, as in the JAX package (layer scan and serving
-    TP are not here: the layers are a ``ModuleList``). ``activation``
+    """Architecture knobs, as in the JAX package (the layer scan is not
+    here: the layers are a ``ModuleList``). ``activation``
     ``"swiglu"`` (Llama) or ``"gelu"`` (BERT/ViT: tanh-approximate GELU,
     MLP biases); ``norm`` ``"rmsnorm"`` or ``"layernorm"`` (flax's: epsilon
     1e-6, f32 statistics); ``position`` ``"rope"``, ``"learned"`` (a
     ``pos_embed`` table of ``max_seq_len`` rows) or ``"none"``;
     ``dropout_rate`` after attention and after the MLP, active only when
-    the forward is called with ``deterministic=False``."""
+    the forward is called with ``deterministic=False``. ``tp_axis``
+    (serving tensor parallelism, ``serve/engine.py``) makes the module
+    ONE RANK'S SHARD over that mesh axis (``parallel/mesh.py``
+    ``axis_group``): ``n_heads``/``n_kv_heads``/``mlp_dim`` are the local
+    counts, and the row-parallel o_proj and down_proj outputs are
+    all-reduced over the axis's group."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -156,6 +163,8 @@ class TransformerConfig:
                                         # scales, quantized on write and
                                         # dequantized on read. None: pools
                                         # of the compute dtype
+    tp_axis: str | None = None          # serving TP: this module is one
+                                        # rank's shard (see the docstring)
 
     def __post_init__(self):
         for field, allowed in (("activation", ("swiglu", "gelu")),
@@ -511,6 +520,13 @@ class DenseWrite:
         return cls((slice(None), slice(cur, cur + sq)), mask), positions
 
 
+def _tp_psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Complete a row-parallel projection's partial sum over mesh axis
+    ``axis`` (Megatron's g operator), in place."""
+    return collectives.tree_psum({"out": x},
+                                 group=mesh_lib.axis_group(axis))["out"]
+
+
 class Attention(nn.Module):
     """Multi-head / grouped-query attention with RoPE. Projection weights
     are ``nn.Linear`` ``[out, in]``: flax's ``[D, H, hd]`` q/k/v kernels
@@ -549,7 +565,12 @@ class Attention(nn.Module):
                 segment_ids=segment_ids, impl=cfg.attention_impl)
             if cfg.remat and cfg.remat_policy == "dots_attn":
                 out = attn_out(out)
-        return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+        out = self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+        if cfg.tp_axis is not None:
+            # Row-parallel output projection: each rank holds n_heads/tp
+            # heads, so o_proj emits a partial sum over the hidden dim.
+            out = _tp_psum(out, cfg.tp_axis)
+        return out
 
     def _dense(self, q, k, v, cache, dense: DenseWrite) -> torch.Tensor:
         """Write the chunk's K/V into this layer's dense cache at the
@@ -621,6 +642,14 @@ class MLP(nn.Module):
                   param_dtype=cfg.resolved_param_dtype)
         m = cfg.resolved_mlp_dim
         self.gelu = cfg.activation == "gelu"
+        if cfg.tp_axis is not None and self.gelu:
+            # The GELU path's down_proj carries a bias: the all-reduce
+            # after it would add the (whole) bias tp times.
+            raise NotImplementedError(
+                "tp_axis requires a bias-free down projection "
+                "(activation='swiglu'); got activation="
+                f"{cfg.activation!r}")
+        self.tp_axis = cfg.tp_axis
         if not self.gelu:
             self.gate_proj = Dense(cfg.dim, m, **kw)
         self.up_proj = Dense(cfg.dim, m, bias=self.gelu, **kw)
@@ -630,7 +659,12 @@ class MLP(nn.Module):
         if self.gelu:
             return self.down_proj(F.gelu(self.up_proj(x),
                                          approximate="tanh"))
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp_axis is not None:
+            # Row-parallel down projection: a partial sum over the split
+            # mlp dim, the block's second reduction.
+            out = _tp_psum(out, self.tp_axis)
+        return out
 
 
 class Block(nn.Module):
@@ -655,6 +689,12 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = make_norm(cfg, device=device)
         self.custom_mlp = mlp_factory is not None
+        if self.custom_mlp and cfg.tp_axis is not None:
+            # Factory MLPs (MoE) know nothing of the all-reduce contract:
+            # under tp_axis they would return partial sums as complete.
+            raise NotImplementedError(
+                "tp_axis (serving tensor parallelism) supports only the "
+                "dense MLP; got a custom mlp_factory")
         self.mlp = (mlp_factory(cfg, device=device) if self.custom_mlp
                     else MLP(cfg, device=device))
 

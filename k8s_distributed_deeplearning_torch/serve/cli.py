@@ -57,25 +57,19 @@ or with ``--autoscale-k8s-job`` a patch of the replica Job's parallelism
 through kubectl (``--autoscale-endpoint-template`` names a new pod's
 endpoint). An ``autoscale_summary`` line follows ``serve_summary``.
 
-Not ported yet, and raising: tensor parallelism (``--tp``).
+Tensor parallelism: ``--tp k`` shards every local engine over k
+processes (``serve/tp.py``). This process is rank 0 and spawns the k-1
+followers itself, one a card (on fewer cards ranks share one), so a pod
+with ``nvidia.com/gpu: k`` runs the command unchanged; a ``start`` line
+(``role="tp_world"``) names the backend, and ``serve_summary`` gains
+``tp``, ``tp_backend`` and ``tp_ranks`` (each rank's paged-attention
+launches and peak device memory).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
-
-_UNPORTED = (
-    ("tp", "--tp", "tensor-parallel serving"),
-)
-
-
-def _unported(args) -> None:
-    """Raise for a JAX CLI flag whose subsystem the port lacks yet."""
-    for attr, flag, what in _UNPORTED:
-        if getattr(args, attr) not in (None, False, 0):
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported to PyTorch yet "
-                "(ROADMAP.md)")
 
 
 def _drain_status(engines) -> dict:
@@ -91,6 +85,12 @@ def _drain_status(engines) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
+    # The cleanup stack stops a tp world's followers however the run ends.
+    with contextlib.ExitStack() as cleanup:
+        return _main(argv, cleanup)
+
+
+def _main(argv: list[str] | None, cleanup: contextlib.ExitStack) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m k8s_distributed_deeplearning_torch.serve",
         description="Continuous-batching serving demo on the PyTorch port")
@@ -178,8 +178,13 @@ def main(argv: list[str] | None = None) -> int:
                          "from heartbeat files carrying metrics_addr "
                          "(written by replica servers started with "
                          "--heartbeat-dir DIR)")
-    ap.add_argument("--tp", type=int, default=None,
-                    help="not ported yet: raises when given")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel width: shard each local engine's "
+                         "attention/MLP weights and paged KV pool along the "
+                         "head dimension over N processes, this one rank 0 "
+                         "and N-1 followers it spawns, one a card "
+                         "(serve/tp.py; 0 = single-device, 1 = a world of "
+                         "one through the same seam)")
     ap.add_argument("--autoscale", action="store_true",
                     help="run the SLO-driven fleet controller "
                          "(serve/autoscale.py) over the gateway: scale "
@@ -296,7 +301,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    _unported(args)
+    if args.tp < 0:
+        ap.error(f"--tp must be >= 0 (0 = single-device), got {args.tp}")
     p_lo, p_hi = args.prompt_len
     o_lo, o_hi = args.out_len
     if args.prefix_cache_mb < 0:
@@ -462,9 +468,12 @@ def main(argv: list[str] | None = None) -> int:
         cfg = llama.config_tiny(max_seq_len=args.max_seq_len,
                                 dtype=torch.float32)
     # One model, its weights held once, for every engine of the fleet (a
-    # remote gateway builds none).
+    # remote gateway builds none). Under --tp it lives on the host: each
+    # engine reads it into the ranks' shards, so the card holds only
+    # rank 0's shard.
+    build_on = "cpu" if args.tp else args.device
     model = (None if remote
-             else llama.LlamaLM(cfg, device=args.device, seed=args.seed))
+             else llama.LlamaLM(cfg, device=build_on, seed=args.seed))
     draft = None
     if args.draft_model is not None:
         # Draft presets take the target's vocab, max_seq_len and dtype:
@@ -479,8 +488,24 @@ def main(argv: list[str] | None = None) -> int:
             dcfg = llama.config_tiny(
                 vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
                 dtype=cfg.dtype)
-        draft = llama.LlamaLM(dcfg, device=args.device, seed=args.seed + 1)
+        draft = llama.LlamaLM(dcfg, device=build_on, seed=args.seed + 1)
     logger = MetricsLogger(job="serve", path=args.metrics_path)
+    world = None
+    if args.tp and not remote:
+        from k8s_distributed_deeplearning_torch.serve import tp as tp_lib
+        from k8s_distributed_deeplearning_torch.serve.engine import (
+            _validate_tp_cfg)
+        # Refuse an indivisible preset before any follower starts.
+        try:
+            _validate_tp_cfg(cfg, args.tp, "target model")
+            if draft is not None:
+                _validate_tp_cfg(dcfg, args.tp, "draft model")
+        except ValueError as e:
+            ap.error(f"--tp {args.tp}: {e}")
+        world = tp_lib.launch(args.tp, args.device)
+        cleanup.callback(tp_lib.shutdown)
+        logger.emit("start", role="tp_world", tp=args.tp,
+                    backend=world.backend, device=str(world.device))
     flight = None
     if args.flight_ring:
         from k8s_distributed_deeplearning_torch.telemetry.flight import (
@@ -510,7 +535,8 @@ def main(argv: list[str] | None = None) -> int:
             kv_pool_pages=args.kv_pool_pages or None, tenants=tenant_cfgs,
             stats=stats, device=args.device, kv_quant=args.kv_quant,
             weight_quant=args.weight_quant, flight=flight,
-            request_log=logger, tracer=tracer, **kw)
+            request_log=logger, tracer=tracer,
+            tp=0 if world is None else args.tp, **kw)
 
     engines = [] if remote else [
         make_engine(draft_model=draft, spec_k=args.spec_k,
@@ -741,6 +767,10 @@ def main(argv: list[str] | None = None) -> int:
             MetricsRegistry)
         registry = MetricsRegistry()
         bridge.serving_collector(registry, stats)
+        if engines:
+            # Remote mode has no local engines; replica servers export
+            # their own serve_tp.
+            bridge.tp_collector(registry, engines)
         if gateway is not None:
             bridge.gateway_collector(registry, gateway)
             if controller is not None:
@@ -860,11 +890,17 @@ def main(argv: list[str] | None = None) -> int:
                     weight_quant=args.weight_quant,
                     kv_quant_bytes_saved=summ["kv_quant_bytes_saved"],
                     weight_quant_bytes_saved=summ["weight_quant_bytes_saved"])
+    tp_fields = {}
+    if world is not None:
+        # Each rank's paged-attention launches and peak device bytes.
+        tp_fields = {"tp": args.tp, "tp_backend": world.backend,
+                     "tp_ranks": {k: [int(v) for v in vals] for k, vals
+                                  in world.stats().items() if any(vals)}}
     logger.emit("serve_summary", num_slots=args.slots, preset=args.preset,
                 replicas=len(clients) if clients is not None
                 else args.replicas,
                 device=str(engine.device) if engine is not None
-                else "remote", **summ)
+                else "remote", **summ, **tp_fields)
     if controller is not None:
         logger.emit("autoscale_summary", **controller.snapshot())
         reap = getattr(autoscale_backend, "reap_all", None)

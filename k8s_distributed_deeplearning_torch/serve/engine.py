@@ -68,8 +68,16 @@ JAX engine runs its compiled programs.
   ``request_trace`` event a finished request for that share of request
   ids, chosen by a hash of the id (the JAX engine's rule, so the same
   requests are traced by either package).
-
-Not ported yet: tensor parallelism.
+- Tensor parallelism (``tp=k``, ``serve/tp.py``): one process a shard,
+  this engine on rank 0 of a tp world of k ranks. Every device program
+  goes through one seam (:meth:`_program`): rank 0 broadcasts the
+  program's header and operands and every rank runs the same model call
+  on its shard (Megatron column/row splits, ``parallel/sharding.py``;
+  one all-reduce closes each sublayer), on a pool each rank allocates
+  sharded on the KV heads. Every host structure above the seam (tables,
+  cursors, refcounts, the trie, the scheduler, the samplers) lives on
+  rank 0 and is blind to the mode; tp=0 runs the same programs on the
+  whole model with no collective.
 """
 from __future__ import annotations
 
@@ -85,6 +93,7 @@ import torch
 from k8s_distributed_deeplearning_torch import faults as _faults
 from k8s_distributed_deeplearning_torch.models import generate
 from k8s_distributed_deeplearning_torch.serve import quant as quant_lib
+from k8s_distributed_deeplearning_torch.serve import tp as tp_lib
 from k8s_distributed_deeplearning_torch.serve.page_pool import PagePool
 from k8s_distributed_deeplearning_torch.serve.prefix_cache import PrefixCache
 from k8s_distributed_deeplearning_torch.serve.request import (
@@ -124,6 +133,38 @@ def _sample_slots(logits: torch.Tensor, temps: np.ndarray,
         toks[i] = torch.multinomial(torch.softmax(row, -1), 1,
                                     generator=gens[i])[0]
     return toks
+
+
+def _validate_tp_cfg(cfg, tp: int, what: str) -> None:
+    """The shardability check of a model under ``tp``, raised at the
+    engine's constructor (and mirrored in ``launch/validate.py`` against
+    rendered manifests)."""
+    heads = getattr(cfg, "n_heads", None)
+    if heads is None:
+        raise ValueError(
+            f"tp={tp} requires a TransformerConfig-style model config "
+            f"(n_heads/n_kv_heads/mlp_dim); {what} has cfg={cfg!r}")
+    kv = cfg.resolved_kv_heads
+    mlp = cfg.resolved_mlp_dim
+    if heads % tp:
+        raise ValueError(
+            f"{what}: n_heads ({heads}) is not divisible by tp ({tp}) — "
+            "every shard must own whole attention heads")
+    if kv % tp:
+        raise ValueError(
+            f"{what}: num_kv_heads ({kv}) is not divisible by tp ({tp}) — "
+            "the paged pool shards along the KV head dim, so every shard "
+            f"must hold kv_heads/tp whole heads (try tp in "
+            f"{[d for d in (1, 2, 4, 8) if d <= kv and kv % d == 0]})")
+    if mlp % tp:
+        raise ValueError(
+            f"{what}: mlp_dim ({mlp}) is not divisible by tp ({tp}) — "
+            "the column-parallel gate/up projections split the hidden dim")
+    if cfg.activation != "swiglu":
+        raise ValueError(
+            f"{what}: serving TP needs a bias-free down projection "
+            f"(activation='swiglu'), got activation={cfg.activation!r} — "
+            "a whole down_proj bias would be all-reduced tp times")
 
 
 class _InFlight:
@@ -235,6 +276,20 @@ class ServeEngine:
     :class:`telemetry.trace.Tracer` for the engine's spans (None = off);
     ``request_trace_sample`` in [0, 1] is the share of request ids whose
     finish emits a ``request_trace`` event (0 = none).
+
+    ``tp`` (0 = the whole model on one device) shards the model and the
+    pool over a tp world of exactly ``tp`` ranks that this process leads
+    as rank 0 (``serve/tp.py`` ``launch``; the serve CLI's ``--tp``
+    starts one); ``tp=1`` is a world of one through the same seam. The
+    model and any draft must shard (heads, KV heads and mlp_dim divisible
+    by tp, a bias-free SwiGLU MLP). The models may live on rank 0's
+    device or on the host: the engine reads their weights one tensor at
+    a time into the shards, keeps only their configs (:attr:`cfg`) and
+    leaves them as they are, so a caller that drops its models holds
+    only rank 0's shard on the card. Under ``weight_quant="int8"`` each
+    rank holds fp weights at the int8 grid points (dequantized at load,
+    as the JAX engine under tp), so the bytes saved read 0; the pool
+    each rank allocates is its ``kv/tp`` heads' lanes.
     """
 
     def __init__(self, model, *, num_slots: int = 8, max_queue: int = 256,
@@ -254,7 +309,8 @@ class ServeEngine:
                  prefill_only: bool = False,
                  flight=None, request_log=None,
                  tracer: Tracer | None = None,
-                 request_trace_sample: float = 0.0):
+                 request_trace_sample: float = 0.0,
+                 tp: int = 0):
         dev = resolve_device(device)
         if num_slots < 2:
             raise ValueError(f"num_slots must be >= 2, got {num_slots}")
@@ -271,6 +327,8 @@ class ServeEngine:
             if m is None:
                 continue
             param_dev = next(m.parameters()).device
+            if tp and param_dev.type == "cpu":      # read into the shards
+                continue
             if param_dev.type != dev.type or (
                     dev.index is not None and param_dev.index != dev.index):
                 raise ValueError(
@@ -313,6 +371,40 @@ class ServeEngine:
                     f"max_seq_len ({cfg.max_seq_len}) — the draft cache "
                     "shares the target's block tables and must cover every "
                     "position")
+        self.tp = int(tp)
+        world = None
+        if self.tp < 0:
+            raise ValueError(f"tp must be >= 0 (0 = single-device), got {tp}")
+        if self.tp:
+            _validate_tp_cfg(cfg, self.tp, "target model")
+            if draft_model is not None:
+                _validate_tp_cfg(draft_model.cfg, self.tp, "draft model")
+            world = tp_lib.current()
+            if world is None or world.size != self.tp:
+                have = ("none is running" if world is None
+                        else f"this process's has {world.size}")
+                raise ValueError(
+                    f"tp={self.tp} needs a tp world of {self.tp} ranks, "
+                    f"but {have} — start one with serve.tp.launch("
+                    f"{self.tp}) in this process (the serve CLI's --tp "
+                    "does), or lower tp")
+            if world.rank != 0:
+                raise ValueError(
+                    f"a tp engine lives on rank 0 of its world, not rank "
+                    f"{world.rank}: followers run serve.tp.follow")
+            if dev.type != world.device.type or (
+                    dev.index is not None and dev != world.device):
+                raise ValueError(
+                    f"engine asked for {dev}, but rank 0 of the tp world "
+                    f"runs on {world.device}")
+            for what, m in (("model", model), ("draft_model", draft_model)):
+                where = None if m is None else next(m.parameters()).device
+                if where is not None and where not in (
+                        world.device, torch.device("cpu")):
+                    raise ValueError(
+                        f"{what} lives on {where}, but rank 0 of the tp "
+                        f"world runs on {world.device}: build it there or "
+                        "on the host")
         for what, m in (("model", model), ("draft_model", draft_model)):
             if m is None:
                 continue
@@ -326,10 +418,13 @@ class ServeEngine:
                     f"{what}'s weights are int8 (an engine on the same "
                     "model quantized them): engines sharing a model share "
                     "its weight_quant")
-        self.model = model
-        self.draft_model = draft_model
+        # Under tp the engine keeps no model, only the configs: the
+        # weights live in the shards.
+        self.model = None if world is not None else model
+        self.draft_model = None if world is not None else draft_model
         self.spec_k = int(spec_k)
-        self.device = next(model.parameters()).device
+        self.device = (world.device if world is not None
+                       else next(model.parameters()).device)
         self.num_slots = num_slots
         self.max_seq_len = int(cfg.max_seq_len)
         self.eos_id = eos_id
@@ -377,24 +472,40 @@ class ServeEngine:
                 f"kv_pool_pages must be >= 1, got {kv_pool_pages}")
         # +1: page 0 is the scratch page.
         self.pool = PagePool(usable + 1, self.page_tokens)
-        # The arguments hold: now change the models for the modes.
-        models = [model] + ([draft_model] if draft_model is not None
-                            and draft_model is not model else [])
-        if kv_quant is not None:
-            for m in models:
-                if m.cfg.kv_quant != kv_quant:
-                    _set_cfg(m, dataclasses.replace(m.cfg,
-                                                    kv_quant=kv_quant))
+        self._tp_world = world
+        self._tp_id = 0
         weight_saved = 0
-        if weight_quant == "int8":
-            fp_nbytes = quant_lib.fp_nbytes(model)
-            for m in models:
-                if not quant_lib.is_quantized(m):   # shared, done already
-                    quant_lib.quantize_model(m)
-            weight_saved = fp_nbytes - quant_lib.quantized_nbytes(model)
-        self._cache = self._init_pool(model.cfg)
-        self._draft_cache = (self._init_pool(draft_model.cfg)
-                             if draft_model is not None else None)
+        if world is not None:
+            # Each rank's shard is built from the models' weights (the
+            # int8 grid under weight_quant), one tensor at a time; the
+            # models stay as they are.
+            self._tp_id, self._shard = tp_lib.create_shard(
+                world, (model, draft_model), num_pages=self.pool.num_pages,
+                page_tokens=self.page_tokens, kv_quant=kv_quant,
+                weight_quant=weight_quant)
+        else:
+            # The arguments hold: now change the models for the modes.
+            models = [model] + ([draft_model] if draft_model is not None
+                                and draft_model is not model else [])
+            if kv_quant is not None:
+                for m in models:
+                    if m.cfg.kv_quant != kv_quant:
+                        _set_cfg(m, dataclasses.replace(m.cfg,
+                                                        kv_quant=kv_quant))
+            if weight_quant == "int8":
+                fp_nbytes = quant_lib.fp_nbytes(model)
+                for m in models:
+                    if not quant_lib.is_quantized(m):   # shared, done
+                        quant_lib.quantize_model(m)
+                weight_saved = fp_nbytes - quant_lib.quantized_nbytes(model)
+            self._shard = tp_lib.Shard(
+                (model, draft_model),
+                (self._init_pool(model.cfg),
+                 self._init_pool(draft_model.cfg)
+                 if draft_model is not None else None))
+        self._cache, self._draft_cache = self._shard.caches
+        # The target's config (under kv_quant, as the engine set it).
+        self.cfg = cfg if world is not None else model.cfg
         # Host register file; kv_lens doubles as the next write position,
         # table rows default to all-scratch (page 0).
         self._tokens = np.full(num_slots, pad_id, np.int32)
@@ -420,38 +531,26 @@ class ServeEngine:
                                 weight_bytes_saved=weight_saved)
 
     def _init_pool(self, cfg) -> list[tuple]:
-        """One layer's pool tensors for every layer of ``cfg``: ``(pool_k,
-        pool_v)`` at the compute dtype, or under int8 KV ``(pool_k,
-        pool_v, k_scale, v_scale)``."""
-        kv = cfg.resolved_kv_heads
-        shape = (self.pool.num_pages, self.page_tokens,
-                 kv * cfg.resolved_head_dim)
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
-        if self.kv_quant == "int8":
-            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                     zeros(shape[:2] + (kv,), torch.float32),
-                     zeros(shape[:2] + (kv,), torch.float32))
-                    for _ in range(cfg.n_layers)]
-        return [(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype))
-                for _ in range(cfg.n_layers)]
+        """The whole pool of ``cfg`` (tp=0; see ``serve/tp.py``
+        ``paged_pool``)."""
+        return tp_lib.paged_pool(cfg, self.pool.num_pages, self.page_tokens,
+                                 self.kv_quant, self.device)
 
     def _kv_bytes_saved(self) -> int:
         """Device bytes the int8 pools (target and draft) save against the
         fp pools they replace (the JAX formula): each int8 lane would have
-        cost the compute dtype's itemsize, less the f32 scales."""
+        cost the compute dtype's itemsize, less the f32 scales. Under tp
+        the whole world's: each rank holds 1/tp of every tensor."""
         if self.kv_quant != "int8":
             return 0
-        fp_item = torch.finfo(self.model.cfg.dtype).bits // 8
+        fp_item = torch.finfo(self.cfg.dtype).bits // 8
         saved = 0
         for arena in (self._cache, self._draft_cache):
             for layer in arena or ():
                 for t in layer:
                     saved += (-4 * t.numel() if t.dtype == torch.float32
                               else (fp_item - 1) * t.numel())
-        return max(0, saved)
+        return max(0, saved * max(self.tp, 1))
 
     def _block_nbytes(self, block_tokens: int, *,
                       kv_quant: str | None = "unset") -> int:
@@ -459,7 +558,7 @@ class ServeEngine:
         target, K and V: under int8 one byte per lane plus a 4-byte scale
         per KV head, else the compute dtype's itemsize per lane
         (``kv_quant`` overrides the engine's mode)."""
-        cfg = self.model.cfg
+        cfg = self.cfg
         mode = self.kv_quant if kv_quant == "unset" else kv_quant
         hd = cfg.resolved_head_dim
         lanes = cfg.resolved_kv_heads * hd
@@ -635,12 +734,11 @@ class ServeEngine:
         nb = -(-kv_len // self.page_tokens)
         idx = self._host_to_device(self._tables[slot, :nb].astype(np.int64))
         staged, dtypes = [], []
-        for t in self._pool_tensors():
-            rows = t.index_select(0, idx)
+        for rows in self._program(tp_lib.EXPORT, (), idx):
+            dtypes.append(str(rows.dtype).removeprefix("torch."))
             if rows.dtype == torch.bfloat16:
                 rows = rows.view(torch.int16)
             staged.append(rows.cpu().numpy())
-            dtypes.append(str(t.dtype).removeprefix("torch."))
         gen = self._gens[slot]
         blob = {
             "request_id": req.request_id,
@@ -683,8 +781,9 @@ class ServeEngine:
         return blob
 
     def _pool_tensors(self) -> list[torch.Tensor]:
-        """The target arena's tensors in blob order."""
-        return [t for layer in self._cache for t in layer]
+        """The target arena's tensors in blob order (under tp, rank 0's
+        shard of each)."""
+        return self._shard.pool_tensors()
 
     def _free_slot(self) -> int | None:
         for slot in range(self.num_slots):
@@ -808,7 +907,9 @@ class ServeEngine:
         try:
             vals = []
             for t, arr, name in zip(tensors, staged, blob["page_dtypes"]):
-                want = (nb,) + tuple(t.shape[1:])
+                # Blobs carry full-width pages, under tp too.
+                want = (nb,) + tuple(t.shape[1:-1]) + (
+                    t.shape[-1] * max(self.tp, 1),)
                 if tuple(arr.shape) != want or name != str(
                         t.dtype).removeprefix("torch."):
                     raise ValueError(
@@ -816,11 +917,11 @@ class ServeEngine:
                         f"this pool's {t.dtype} {want} — different model "
                         "geometry or dtype")
                 v = torch.from_numpy(np.ascontiguousarray(arr))
-                vals.append(v.view(t.dtype) if t.dtype == torch.bfloat16
-                            else v)
-            idx = self._host_to_device(np.asarray(pages, np.int64))
-            for t, v in zip(tensors, vals):
-                t.index_copy_(0, idx, v.to(self.device))
+                vals.append((v.view(t.dtype) if t.dtype == torch.bfloat16
+                             else v).to(self.device))
+            self._program(tp_lib.IMPORT, (),
+                          self._host_to_device(np.asarray(pages, np.int64)),
+                          *vals)
         except Exception:
             # Roll the allocation back before raising: a rejected import
             # leaves the pool as it was and the engine serving.
@@ -1070,11 +1171,49 @@ class ServeEngine:
     def _host_to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _program(self, prog: int, args: tuple, *operands):
+        """The seam every device program goes through (``serve/tp.py``):
+        under tp, broadcast the program and its operands to the
+        followers; then run it on this rank's shard."""
+        if self._tp_world is not None:
+            self._tp_world.send(prog, self._tp_id, args, operands)
+        return self._shard.run(prog, args, operands)
+
+    def tp_consistency_check(self) -> bool:
+        """Under tp: True when every rank's last logits are bit-equal (so
+        their activations, and the K/V each rank writes, agree); one
+        all-reduced hash. True at tp=0."""
+        if self._tp_world is None:
+            return True
+        return self._program(tp_lib.HASH, ())
+
+    def tp_kernel_check(self, tables: np.ndarray, positions: np.ndarray,
+                        *, atol: float, rtol: float = 0.0,
+                        seed: int = 0) -> list[list[float]]:
+        """Under tp: every rank's paged-attention kernel held to its plain
+        version on that rank's own pool shard (the target's layer 0) at
+        ``positions`` ``[B, sq]`` through ``tables``, random queries;
+        ``[[max abs error, share of atol + rtol x |plain|], ...]`` by
+        rank."""
+        if self._tp_world is None:
+            raise ValueError("tp_kernel_check needs a tp engine")
+        return self._program(
+            tp_lib.CHECK, (seed, round(atol * 1e9), round(rtol * 1e9)),
+            self._host_to_device(tables.astype(np.int32)),
+            self._host_to_device(positions.astype(np.int32)))
+
+    def close(self) -> None:
+        """Under tp: the followers drop this engine's shards (its pools
+        and weights). The engine is unusable afterwards."""
+        if self._tp_world is not None and tp_lib.current() is self._tp_world:
+            self._tp_world.send(tp_lib.CLOSE, self._tp_id)
+        self._tp_world = None
+
     def _decode_step(self) -> np.ndarray:
         """Every slot advances one token through its block table; returns
         the sampled tokens [num_slots] (the iteration's one host sync)."""
-        logits = generate.slot_decode_step(
-            self.model, self._cache, self._host_to_device(self._tokens),
+        logits = self._program(
+            tp_lib.DECODE, (0,), self._host_to_device(self._tokens),
             self._host_to_device(self._kv_lens),
             self._host_to_device(self._tables))
         nxt = _sample_slots(logits, self._temps, self._top_ks, self._top_ps,
@@ -1094,14 +1233,11 @@ class ServeEngine:
         tables = self._host_to_device(self._tables)
         cols = [tok]
         for i in range(self.spec_k):
-            logits = generate.slot_decode_step(
-                self.draft_model, self._draft_cache, cols[-1], kv + i,
-                tables)
+            logits = self._program(tp_lib.DECODE, (1,), cols[-1], kv + i,
+                                   tables)
             cols.append(logits.argmax(-1).to(torch.int32))
-        generate.prefill_chunk(
-            self.draft_model, self._draft_cache, cols[-1][:, None],
-            positions=(kv + self.spec_k)[:, None], block_tables=tables,
-            logits_index=None)
+        self._program(tp_lib.FORWARD, (1, -1), cols[-1][:, None],
+                      (kv + self.spec_k)[:, None], tables)
         return torch.stack(cols, 1)
 
     def _spec_verify_step(self, window: torch.Tensor):
@@ -1110,9 +1246,8 @@ class ServeEngine:
         slot's sampling rule, in window order. Returns ``(sel [B, W],
         states)``: ``states[i]`` is slot i's generator state after each
         position's draw (empty for a greedy slot)."""
-        logits = generate.slot_verify_step(
-            self.model, self._cache, window,
-            self._host_to_device(self._kv_lens),
+        logits = self._program(
+            tp_lib.VERIFY, (), window, self._host_to_device(self._kv_lens),
             self._host_to_device(self._tables))
         states: list[list] = [[] for _ in range(self.num_slots)]
         sampled = np.flatnonzero(self._temps > 0.0)
@@ -1134,12 +1269,11 @@ class ServeEngine:
         return the logits ``logits_index`` picks."""
         positions = (start + torch.arange(chunk.shape[1], dtype=torch.int32,
                                           device=self.device))[None]
-        model, cache = ((self.draft_model, self._draft_cache) if draft
-                        else (self.model, self._cache))
-        return generate.prefill_chunk(
-            model, cache, self._host_to_device(chunk),
-            positions=positions, block_tables=self._host_to_device(table),
-            logits_index=logits_index)
+        return self._program(
+            tp_lib.FORWARD, (int(draft),
+                             -1 if logits_index is None else logits_index),
+            self._host_to_device(chunk), positions,
+            self._host_to_device(table))
 
     def _prefill_both(self, chunk: np.ndarray, table: np.ndarray,
                       start: int, logits_index: int | None):

@@ -64,10 +64,11 @@ def _channels(name: str, m: Dense, head_dim: int) -> int:
 
 @torch.no_grad()
 def _group_absmax(model: nn.Module, scan_layers: bool
-                  ) -> dict[str, tuple[list[Dense], int, torch.Tensor]]:
-    """Per JAX leaf path: the :class:`Dense` modules sharing that leaf,
-    its channel count and the f32 absmax over every axis of the flax
-    kernel but its last (see the module docstring)."""
+                  ) -> dict[str, tuple[list[tuple[str, Dense]], int,
+                                       torch.Tensor]]:
+    """Per JAX leaf path: the (name, :class:`Dense`) pairs sharing that
+    leaf, its channel count and the f32 absmax over every axis of the
+    flax kernel but its last (see the module docstring)."""
     head_dim = model.cfg.resolved_head_dim
     groups: dict[str, list[tuple[str, Dense]]] = {}
     for name, m in _quantizable(model):
@@ -83,7 +84,7 @@ def _group_absmax(model: nn.Module, scan_layers: bool
             # abs and max are exact in any float dtype: no f32 copy here.
             a = m.weight.abs().amax(1).float().view(-1, c).amax(0)
             absmax = a if absmax is None else torch.maximum(absmax, a)
-        out[path] = ([m for _, m in members], c, absmax)
+        out[path] = (members, c, absmax)
     return out
 
 
@@ -94,6 +95,36 @@ def calibration_absmax(model: nn.Module, *, scan_layers: bool = True
     ``dump_quant_calibration`` writes for the same weights."""
     return {path: absmax.cpu().tolist() for path, (_, _, absmax)
             in _group_absmax(model, scan_layers).items()}
+
+
+def _quantize(w: torch.Tensor, c: int, scale: torch.Tensor) -> torch.Tensor:
+    """``w`` on the int8 grid of per-channel ``scale`` (``c`` channels):
+    ``clip(round(w / where(scale > 0, scale, 1)), ±127)``, as int8."""
+    div = torch.where(scale > 0.0, scale, 1.0)[None, :, None]
+    q = w.to(torch.float32, copy=True).view(-1, c, w.shape[1])
+    q = q.div_(div).round_().clamp_(-127, 127)
+    return q.to(torch.int8).view(w.shape)
+
+
+def _scales(model: nn.Module, calibration: dict | None, scan_layers: bool):
+    """Yield ``(name, module, channels, scale)`` for every matmul weight
+    (see :func:`quantize_model`)."""
+    calib = (calibration or {}).get("weights", {})
+    for path, (members, c, absmax) in _group_absmax(
+            model, scan_layers).items():
+        cal = calib.get(path)
+        if cal is not None:
+            absmax = torch.minimum(absmax, torch.as_tensor(
+                cal, dtype=torch.float32, device=absmax.device).reshape(c))
+        scale = absmax / 127.0
+        for name, m in members:
+            yield name, m, c, scale
+
+
+def _dequantized(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``f32(int8) * scale`` per channel: the int8 grid point."""
+    return (q.view(-1, scale.shape[0], q.shape[1]).float()
+            * scale[None, :, None]).view(q.shape)
 
 
 @torch.no_grad()
@@ -107,20 +138,38 @@ def quantize_model(model: nn.Module, calibration: dict | None = None, *,
     weight becomes ``clip(round(w / where(scale > 0, scale, 1)), ±127)``,
     round half to even, with the scale tensor shared by the group. A
     layer's fp weight is released as soon as its int8 copy exists."""
-    calib = (calibration or {}).get("weights", {})
-    for path, (members, c, absmax) in _group_absmax(
-            model, scan_layers).items():
-        cal = calib.get(path)
-        if cal is not None:
-            absmax = torch.minimum(absmax, torch.as_tensor(
-                cal, dtype=torch.float32, device=absmax.device).reshape(c))
-        scale = absmax / 127.0
-        div = torch.where(scale > 0.0, scale, 1.0)[None, :, None]
-        for m in members:
-            w = m.weight
-            q = w.to(torch.float32, copy=True).view(-1, c, w.shape[1])
-            q = q.div_(div).round_().clamp_(-127, 127)
-            m.set_int8(q.to(torch.int8).view(w.shape), scale)
+    for _, m, c, scale in _scales(model, calibration, scan_layers):
+        m.set_int8(_quantize(m.weight, c, scale), scale)
+
+
+def dequantizer(model: nn.Module, *, scan_layers: bool = True):
+    """A function of a parameter name of ``model``: for a matmul weight,
+    the f32 weight at its int8 grid point, else None; ``model`` left as
+    it is. Its int8 weights where :func:`quantize_model` made them
+    already, else the quantization :func:`quantize_model` would make.
+    Only the scales are made up front; each weight is made when asked
+    for, so a caller that takes them one at a time holds one f32 copy at
+    a time. Serving TP stores these (dequantize at load, as the JAX
+    engine under tp): the numerics of dequantize-at-use, not its
+    bytes."""
+    if is_quantized(model):
+        mods = {f"{name}.weight": (m, None, None)
+                for name, m in _quantizable(model)}
+    else:
+        with torch.no_grad():
+            mods = {f"{name}.weight": (m, c, scale) for name, m, c, scale
+                    in _scales(model, None, scan_layers)}
+
+    @torch.no_grad()
+    def weight(name: str) -> torch.Tensor | None:
+        if name not in mods:
+            return None
+        m, c, scale = mods[name]
+        if c is None:
+            return _dequantized(m.weight, m.weight_scale)
+        return _dequantized(_quantize(m.weight, c, scale), scale)
+
+    return weight
 
 
 @torch.no_grad()
@@ -129,11 +178,9 @@ def dequantize_model(model: nn.Module) -> None:
     ``f32(int8) * scale``, the int8 grid points, as float32 (the JAX
     ``dequantize_params`` leaves are float32 too)."""
     for _, m in _quantizable(model):
-        w, s = m.weight, m.weight_scale
-        if w.dtype != torch.int8:
+        if m.weight.dtype != torch.int8:
             continue
-        deq = w.view(-1, s.shape[0], w.shape[1]).float() * s[None, :, None]
-        m.weight = nn.Parameter(deq.view(w.shape))
+        m.weight = nn.Parameter(_dequantized(m.weight, m.weight_scale))
         m.weight_scale = None
 
 

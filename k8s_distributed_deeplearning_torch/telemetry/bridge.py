@@ -12,8 +12,8 @@ names and numbers; this module owns the *semantics*: how
 host/device resource probes (RSS from ``/proc``, device memory from
 ``torch.cuda.memory_stats``). Everything here degrades to a no-op off
 Linux / without a CUDA device — a scrape must never crash the workload.
-The fleet controller's gauges come from ``autoscale_collector``;
-``tp_collector`` waits for tensor-parallel serving (ROADMAP.md).
+The fleet controller's gauges come from ``autoscale_collector``, each
+replica's tensor-parallel width from ``tp_collector``.
 """
 from __future__ import annotations
 
@@ -342,6 +342,27 @@ def storm_collector(registry: MetricsRegistry, monitor,
         g_sub.set(float(monitor.submitted_total()))
         g_fired.set(float(len(injector.fired) if injector is not None
                           else 0))
+
+    registry.register_collector(collect)
+
+
+def tp_collector(registry: MetricsRegistry, engines) -> None:
+    """Register a collector exporting each local engine's tensor-parallel
+    width: the ``serve_tp`` gauge reports the tp world's size per replica
+    (1 = a single-device engine). Engines never change width after
+    construction, so the gauge is a config surface, exported at pull time
+    like everything else here."""
+    g = registry.gauge(
+        "serve_tp",
+        "tensor-parallel width per serving replica (shard_map mesh size; "
+        "1 = single-device)",
+        labelnames=("replica",))
+
+    def collect() -> None:
+        for i, eng in enumerate(engines):
+            rid = getattr(eng, "replica_id", None) or f"r{i}"
+            g.labels(replica=str(rid)).set(float(getattr(eng, "tp", 0)
+                                                 or 1))
 
     registry.register_collector(collect)
 

@@ -24,8 +24,13 @@ streams a directory of token shards (``train/data.py``
 shard's tail is the held-out eval set); ``--profile-dir DIR`` traces steps
 10-14 on the primary into ``DIR/trace.json`` (``utils/profiling.py``
 ``StepProfiler``). Sharded, expert-parallel and pipelined training
-(``--fsdp``, ``--tp``, ``--sp``, ``--ep``, ``--pp``) are not ported yet
-and raise.
+(``--fsdp``, ``--tp``, ``--sp``, ``--ep``, ``--pp`` and its
+``--pp-microbatches``/``--pp-schedule``/``--pp-virtual``, ``--attention
+ring|ulysses``) are not ported yet and raise. ``--scan-layers`` /
+``--no-scan-layers`` pick the flax layout the optimizer's per-leaf
+arithmetic sees (``models/convert.py`` ``flax_layout``: one leaf a block
+parameter stacked over the layers, or one a layer), as the JAX script's
+layer scan does; the ``small`` preset is unrolled, the others scanned.
 """
 from __future__ import annotations
 
@@ -55,8 +60,11 @@ PRESETS = {
     # name: overrides on llama.config_tiny / config_llama3_8b
     "tiny": dict(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
                  mlp_dim=128, max_seq_len=512),
+    # small is unrolled, as the JAX preset (its measured-fastest layout):
+    # adafactor factors each layer's leaf on its own.
     "small": dict(vocab_size=32000, dim=768, n_layers=12, n_heads=12,
-                  n_kv_heads=4, mlp_dim=2048, max_seq_len=2048, remat=True),
+                  n_kv_heads=4, mlp_dim=2048, max_seq_len=2048, remat=True,
+                  scan_layers=False),
     "1b": dict(vocab_size=32000, dim=2048, n_layers=16, n_heads=32,
                n_kv_heads=8, mlp_dim=8192, max_seq_len=4096, remat=True),
     "8b": dict(),          # the true Llama-3 8B architecture numbers
@@ -67,6 +75,7 @@ def build_config(args) -> llama.TransformerConfig:
     """The preset with the CLI's overrides. Parameters are kept in f32 and
     cast to ``--dtype`` at each use, as the JAX model keeps them."""
     overrides = dict(PRESETS[args.preset])
+    overrides.pop("scan_layers", None)      # a layout, not an architecture
     base = llama.config_llama3_8b if args.preset == "8b" else llama.config_tiny
     if args.seq_len:
         overrides["max_seq_len"] = max(args.seq_len,
@@ -80,6 +89,15 @@ def build_config(args) -> llama.TransformerConfig:
     return base(**overrides)
 
 
+def scan_layers(args) -> bool:
+    """The flax layout the optimizer sees: ``--scan-layers`` /
+    ``--no-scan-layers`` when given, else the preset's (``small``
+    unrolled, the others scanned), as the JAX script decides."""
+    if getattr(args, "scan_layers", None) is not None:
+        return args.scan_layers
+    return PRESETS[args.preset].get("scan_layers", True)
+
+
 def _unported(args) -> None:
     for flag, value in (("--fsdp", args.fsdp), ("--tp", args.tp),
                         ("--sp", args.sp), ("--pp", args.pp),
@@ -89,6 +107,17 @@ def _unported(args) -> None:
                 f"{flag} {value}: sharded, context-parallel, "
                 "expert-parallel and pipelined training are not ported to "
                 "PyTorch yet (ROADMAP.md)")
+    for flag, value in (("--pp-microbatches", args.pp_microbatches),
+                        ("--pp-schedule", args.pp_schedule),
+                        ("--pp-virtual", args.pp_virtual)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{flag} {value}: pipelined training is not ported to "
+                "PyTorch yet (ROADMAP.md)")
+    if args.attention in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"--attention {args.attention}: context-parallel attention is "
+            "not ported to PyTorch yet (ROADMAP.md)")
 
 
 def parse_args(argv: list[str] | None) -> argparse.Namespace:
@@ -104,6 +133,14 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--sp", type=int, default=1)
     parser.add_argument("--pp", type=int, default=1)
+    parser.add_argument("--pp-microbatches", type=int, default=None,
+                        help="pipeline microbatches: not ported yet, raises")
+    parser.add_argument("--pp-schedule", default=None,
+                        choices=["gpipe", "1f1b", "interleaved"],
+                        help="pipeline schedule: not ported yet, raises")
+    parser.add_argument("--pp-virtual", type=int, default=None,
+                        help="virtual pipeline stages: not ported yet, "
+                        "raises")
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="swap every MLP for a mixture-of-experts layer "
                         "with N experts (models/moe.py MoELM; 0 = dense)")
@@ -118,12 +155,22 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     parser.add_argument("--ep", type=int, default=1,
                         help="expert parallelism: not ported yet, raises "
                         "above 1")
-    parser.add_argument("--attention", choices=["auto", "xla", "flash"],
+    parser.add_argument("--attention",
+                        choices=["auto", "xla", "flash", "ring", "ulysses"],
                         default="auto",
                         help="auto = the flash kernels on the card at "
-                        "S >= 1024, the einsum path otherwise")
+                        "S >= 1024, the einsum path otherwise; ring and "
+                        "ulysses (context parallelism) raise")
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint each block")
+    parser.add_argument("--scan-layers", dest="scan_layers",
+                        action="store_true", default=None,
+                        help="the optimizer sees the scanned flax layout "
+                        "(one leaf a block parameter, stacked over the "
+                        "layers); default: the preset's choice")
+    parser.add_argument("--no-scan-layers", dest="scan_layers",
+                        action="store_false",
+                        help="the unrolled layout (one leaf a layer)")
     parser.add_argument("--data-path", type=str, default=None,
                         help="byte-level corpus file, or a directory of "
                         "token shards to stream; default synthetic tokens")
@@ -198,7 +245,8 @@ def _train(args, conf, device) -> dict:
         optim.make_schedule(args.schedule, conf.lr, conf.num_steps,
                             args.warmup_steps),
         grad_clip=args.grad_clip or None, moment_dtype=args.moment_dtype,
-        layout=convert.flax_layout(model_cfg))
+        layout=convert.flax_layout(model_cfg,
+                                   scan_layers=scan_layers(args)))
 
     def loss(batch, gen):
         if moe_cfg is not None:
@@ -290,7 +338,8 @@ def _train(args, conf, device) -> dict:
     metrics.emit("start", world_size=world, num_steps=conf.num_steps,
                  preset=args.preset, params=n_params, seq_len=seq_len,
                  attention=args.attention, chunked_ce=chunked,
-                 device=str(device), dtype=args.dtype, **extra)
+                 scan_layers=scan_layers(args), device=str(device),
+                 dtype=args.dtype, **extra)
     ckpt = Checkpointer(conf.checkpoint_dir,
                         max_to_keep=conf.max_checkpoints_to_keep,
                         keep_best_metric="loss" if conf.keep_best else None,

@@ -510,15 +510,11 @@ def test_cli_fleet_flags(fleet, tmp_path):
     ["--autoscale-endpoint-template", "h-{i}:1"]],
     ids=lambda f: f[0])
 def test_cli_unported_fleet_flags_raise(flags):
-    """The serve CLI's flag still without a subsystem, tensor parallelism,
-    raises by name. The autoscaler's flags are ported
-    (``tests/test_torch_autoscale.py``): each passes that gate and meets
+    """The fleet flags are all ported now: tensor parallelism
+    (``tests/test_torch_tp_serve.py``) and the autoscaler's flags
+    (``tests/test_torch_autoscale.py``). Each passes the parser and meets
     the JAX CLI's own checks, here ``--replicas 0`` (or the flag's own
     refusal), refused with the JAX CLI's message."""
-    if flags[0] == "--tp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_cli.main(["--device", "cpu"] + flags)
-        return
     from k8s_distributed_deeplearning_tpu.serve import cli as j_cli
     said = []
     for main, argv in ((t_cli.main, ["--device", "cpu"]), (j_cli.main, [])):

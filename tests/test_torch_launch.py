@@ -9,9 +9,8 @@ the TPU node selector becomes ``cloud.google.com/gke-accelerator``, and the
 image, the script, the ``framework`` label and the serving pods' ``-m``
 module become the port's); nothing else may differ. Validation: the
 port's ``validate`` returns JAX's error list on every seeded fault of
-JAX's ``tests/test_render.py`` and ``tests/test_deploy_smoke.py``, plus
-one error naming ROADMAP.md wherever ``$TPUJOB_SERVE_TP`` is set (the
-port's serve CLI refuses ``--tp``). Watch: on JAX's scripted kubectl
+JAX's ``tests/test_render.py`` and ``tests/test_deploy_smoke.py``, a
+``$TPUJOB_SERVE_TP`` manifest included. Watch: on JAX's scripted kubectl
 (``tests/test_watch.py``) both packages give the same results, retries and
 calls. Elastic and the executor: a 2-worker gloo gang of
 ``examples/train_mnist_torch.py`` on the scikit-learn digits fixture,
@@ -198,18 +197,12 @@ def test_render_all_equals_jax_after_the_gpu_mapping(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_validate_of_each_rendering_equals_jax(name):
-    """Clean renderings validate clean in both packages; with serve_tp the
-    port adds exactly one error a serving container, naming ROADMAP.md."""
+    """Clean renderings validate clean in both packages, serve_tp included
+    (tensor-parallel serving is ported: no error names ROADMAP.md)."""
     jcfg, tcfg = _pair(name)
     j_errs = j_validate.validate(j_render.render_all(jcfg))
     t_errs = t_validate.validate(t_render.render_all(tcfg))
-    roadmap = [e for e in t_errs if "ROADMAP.md" in e]
-    assert [e for e in t_errs if "ROADMAP.md" not in e] == j_errs == []
-    if tcfg.serve_tp:
-        assert len(roadmap) == 2          # the replica pods and the gateway
-        assert all("TPUJOB_SERVE_TP (2)" in e for e in roadmap)
-    else:
-        assert roadmap == []
+    assert t_errs == j_errs == []
 
 
 # ---------------------------------------------------- JAX's render cases
@@ -581,11 +574,12 @@ def test_render_cli_prints_gpu_manifests(capsys):
 
 
 def test_validate_cli_reports_tp_naming_roadmap(capsys):
+    """A tp manifest validates clean from the CLI now that the serve CLI
+    runs ``--tp``: exit 0, and no error names ROADMAP.md."""
     assert t_main.main(["validate", "--serve-replicas", "1",
-                        "--serve-tp", "2"]) == 1
-    err = capsys.readouterr().err
-    assert "TPUJOB_SERVE_TP (2): tensor-parallel serving is not ported" in err
-    assert "ROADMAP.md" in err
+                        "--serve-tp", "2"]) == 0
+    captured = capsys.readouterr()
+    assert "ROADMAP.md" not in captured.err + captured.out
 
 
 @pytest.mark.skipif(shutil.which("kubectl") is None,

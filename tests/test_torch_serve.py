@@ -215,7 +215,8 @@ def _port_files():
     return files + [REPO / "chip_smoke.py", REPO / "kernel_breakdown.py",
                     REPO / "examples" / "generate_llama_torch.py",
                     REPO / "examples" / "train_mnist_torch.py",
-                    REPO / "examples" / "train_zoo_torch.py"]
+                    REPO / "examples" / "train_zoo_torch.py",
+                    REPO / "tests" / "torch_tp_worker.py"]
 
 
 def test_import_scan_covers_every_subpackage():
@@ -223,8 +224,9 @@ def test_import_scan_covers_every_subpackage():
     (faults, telemetry, the serving fleet modules), the wire half's
     (transport, retry, the registry, exporter, heartbeat, tracer, events,
     bridge and profiling modules), graftscope's readers (timeline and
-    its CLI), the fleet controller, the launch layer, the model zoo and
-    the examples."""
+    its CLI), the fleet controller, the launch layer, the model zoo, the
+    examples, and tensor-parallel serving (the runtime, the mesh, the
+    rule table and the tp rank worker)."""
     files = _port_files()
     dirs = {p.parent.name for p in files}
     assert {"models", "ops", "serve", "utils", "train", "parallel",
@@ -237,7 +239,8 @@ def test_import_scan_covers_every_subpackage():
             "graftscope.py", "generate_llama_torch.py", "autoscale.py",
             "render.py", "validate.py", "watch.py", "elastic.py",
             "local_executor.py", "train_mnist_torch.py",
-            "train_zoo_torch.py", "bert.py", "vit.py", "resnet.py"} <= names
+            "train_zoo_torch.py", "bert.py", "vit.py", "resnet.py",
+            "tp.py", "mesh.py", "sharding.py", "torch_tp_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
